@@ -20,8 +20,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``solve_conjunction`` on the card with ``probe_backend="device"``; the
    kernels' launch counts are zeroed just before and read just after, and the
    keep/prune rule against the stored JAX verdicts must show 0 disagreements;
-   then every kernel call the main path made is replayed, timed with CUDA
-   events beside its plain version, and given its bound;
+   then every kernel call the main path made is replayed and timed with
+   CUDA events: the kernel's launches alone (``ms``), the whole wrapper call
+   (``wrapper_ms``) and its plain version, beside the call's bound;
 6. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -32,7 +33,6 @@ from __future__ import annotations
 
 import collections
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -41,26 +41,42 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "testdata" / "torch_probe_queries.json"
 
-# H100 SXM peaks (NVIDIA data sheet; Hopper white paper for the INT32 units):
-# 3.35 TB/s of HBM3; 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock for
-# integer instructions, the type both kernels run on.
+# H100 SXM peaks at its 1.98 GHz boost clock (NVIDIA data sheet: 132 SMs,
+# 3.35 TB/s of HBM3).  Integer instructions, the type both kernels run on:
+# - ALU_OPS_PER_S: LOP3 (any three-input logic) and shifts, funnel shifts
+#   included, issue only on the integer ALU pipe, 16 lanes per scheduler:
+#   64 results per SM per clock (CUDA C++ Programming Guide, arithmetic
+#   instruction throughput, compute capability 9.0);
+# - ISSUE_OPS_PER_S: adds, multiplies and compares may also go to the FMA
+#   pipe as IMAD forms, so for them only the issue rate binds: one warp
+#   instruction per scheduler per clock, 4 x 32 per SM per clock.
 MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 
-# 32-bit integer instructions per keccak-f[1600] of one state: per round,
-# theta 40 + 20 + 50, rho+pi 48 (two funnel shifts per 64-bit rotation),
-# chi 50 (one LOP3 per 32-bit half), iota 2 -> 210; 24 rounds.
-KECCAK_OPS = 24 * 210
+# 32-bit integer instructions (all LOP3 or funnel shifts) per keccak-f[1600]
+# of one state, per round: theta 80 (column parity C[x], five lanes, 2 LOP3
+# per half: 20; rot(C[x+1], 1): 10 shifts; a ^= C[x-1] ^ rot(C[x+1], 1) as
+# one LOP3 per half: 50), rho+pi 48 (two funnel shifts per rotated lane, 24
+# lanes), chi 50 (one LOP3 per half), iota 2 -> 180; 24 rounds.  Packing the
+# 16-bit limbs into lanes and back is layout, not counted.
+KECCAK_OPS = 24 * 180
 
 # 32-bit integer instructions one candidate spends on one tape step of each
 # op code (csrc/bitvec.cuh on four 64-bit words), before the 8 of the width
 # mask.  Division and exponentiation depend on the data: per dividend bit
 # (UDIV..SREM) or per exponent multiply (EXP), counted from this run's values.
+# A keccak step's permutation counts at the ALU rate, the rest at the issue
+# rate (see tape_work).
 STEP_OPS = {
     "ADD": 16, "SUB": 16, "MUL": 80, "AND": 8, "OR": 8, "XOR": 8,
     "SHL": 24, "LSHR": 24, "ASHR": 32, "EQ": 8, "ULT": 8, "ITE": 10,
-    "KECCAK32": KECCAK_OPS + 60, "KECCAK64": KECCAK_OPS + 100,
+    "KECCAK32": 60, "KECCAK64": 100,
 }
+
+# Cycles of torch.cuda._sleep queued before a timed launch (about 0.5 ms),
+# so the start event fires after the host has enqueued the launch.
+SLEEP_CYCLES = 1_000_000
 DIV_BIT_OPS = 40
 EXP_MUL_OPS = 80
 SELECT_ROW_OPS = 10
@@ -81,7 +97,8 @@ def phase(name: str) -> float:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back runs, by CUDA
+    events: the wrapper's host work included."""
     import torch
 
     fn()
@@ -95,8 +112,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
+class LaunchTimer:
+    """Device time of single kernel launches: a CUDA event pair right around
+    each launch, with the stream held busy (``torch.cuda._sleep``) before the
+    start event so that the host's enqueue of the launch stays outside the
+    pair."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs = torch, []
+
+    def __call__(self, launch) -> None:
+        cuda = self.torch.cuda
+        cuda._sleep(SLEEP_CYCLES)
+        start, end = cuda.Event(enable_timing=True), cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        self.pairs.append((start, end))
+
+    def total_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def bound(n_bytes: float, alu_ops: float, other_ops: float = 0.0):
+    """Least time (ms) and what bounds it: bytes at the memory rate, or the
+    integer work (``alu_ops`` only at the ALU rate, all of it at the issue
+    rate)."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = max(alu_ops / ALU_OPS_PER_S, (alu_ops + other_ops) / ISSUE_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -256,36 +300,46 @@ def _word_ints(regs_np, row: int):
     return [int.from_bytes(limbs[:, b].tobytes(), "little") for b in range(limbs.shape[1])]
 
 
-def tape_work(tape, n_steps: int, K: int, regs_np) -> float:
+def tape_work(tape, n_steps: int, K: int, regs_np):
     """32-bit integer instructions the tape's steps need over every candidate
-    of the batch, with division and exponentiation counted from the values
-    this run computed (``regs_np``: the kernel's register file)."""
+    of the batch -> (keccak permutations' LOP3 and shifts, the rest), with
+    division and exponentiation counted from the values this run computed
+    (``regs_np``: the kernel's register file)."""
     from mythril_tpu_torch.ops import tape_vm
 
     names = {getattr(tape_vm, n): n[3:] for n in dir(tape_vm) if n.startswith("OP_")}
     B = regs_np.shape[2]
-    ops = 0.0
+    alu = other = 0.0
     for t in range(n_steps):
         name = names[int(tape["op"][t])]
-        ops += 8 * B
+        other += 8 * B
         if name in STEP_OPS:
-            ops += STEP_OPS[name] * B
+            other += STEP_OPS[name] * B
+            if name.startswith("KECCAK"):
+                alu += KECCAK_OPS * B
         elif name == "SELECT":
-            ops += SELECT_ROW_OPS * K * B
+            other += SELECT_ROW_OPS * K * B
         elif name in ("UDIV", "UREM", "SDIV", "SREM"):
             for v in _word_ints(regs_np, int(tape["a0"][t])):
                 if name in ("SDIV", "SREM") and v >> 255:
                     v = (1 << 256) - v
-                ops += DIV_BIT_OPS * v.bit_length() + (40 if name[0] == "S" else 8)
+                other += DIV_BIT_OPS * v.bit_length() + (40 if name[0] == "S" else 8)
         elif name == "EXP":
             for e in _word_ints(regs_np, int(tape["a1"][t])):
-                ops += EXP_MUL_OPS * (bin(e).count("1") + max(e.bit_length() - 1, 0))
-    return ops
+                other += EXP_MUL_OPS * (bin(e).count("1") + max(e.bit_length() - 1, 0))
+    return alu, other
 
 
-def time_tape(torch, calls):
-    from mythril_tpu_torch.ops import tape_vm
+def time_tape(torch, calls, reps: int = 20):
+    """Per main-path call: ``ms``, the device time of the call's tape_vm
+    segment launches alone (the keccak launches between segments excluded);
+    ``wrapper_ms``, the whole ``run_tape`` call; ``plain_ms``, the plain
+    version; the bound of the call's work."""
+    import ctypes
 
+    from mythril_tpu_torch.ops import _build, keccak_cuda, tape_vm
+
+    lib = _build.load()
     rows = []
     for a, kw in calls:
         T, V, A, K, R, n = kw["T"], kw["V"], kw["A"], kw["K"], kw["R"], kw["n_steps"]
@@ -296,7 +350,17 @@ def time_tape(torch, calls):
                                                      return_regs=True)
         err = max(int((got.long() - want.long()).abs().max()),
                   int((regs[: V + n].permute(0, 2, 1).long() - want_regs[: V + n]).abs().max()))
-        ms = cuda_ms(lambda: tape_vm.run_tape(*a, **kw), 20)
+        timer = LaunchTimer(torch)
+
+        def segment(targs):
+            stream = torch.cuda.current_stream().cuda_stream
+            timer(lambda: _build.check(lib.mk_tape_vm_segment(ctypes.byref(targs), stream),
+                                       "tape_vm"))
+
+        for _ in range(reps):
+            tape_vm.run_segments(*a, **kw, segment=segment, permute=keccak_cuda.keccak_f1600)
+        ms = timer.total_ms() / reps
+        wrapper = cuda_ms(lambda: tape_vm.run_tape(*a, **kw), reps)
         plain = cuda_ms(lambda: tape_vm.run_tape_reference(*a, T=T, V=V, A=A, K=K, R=R,
                                                            n_steps=n), 2)
         tape = kw["host_tape"]
@@ -304,25 +368,35 @@ def time_tape(torch, calls):
         # them), the truth table written once
         tables = a[1:5] if tape_vm.OP_SELECT in tape["op"][:n] else ()
         n_bytes = sum(x.numel() * x.element_size() for x in (a[0], *tables, *a[5:])) + B * R
-        b_ms, b_by = bound(n_bytes, tape_work(tape, n, K, regs.cpu().numpy()))
-        rows.append({"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                     "err": err, "shape": f"B={B} T={T} steps={n} profile={tape['profile']}"})
+        b_ms, b_by = bound(n_bytes, *tape_work(tape, n, K, regs.cpu().numpy()))
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err,
+                     "shape": f"B={B} T={T} steps={n} profile={tape['profile']}"})
     return rows
 
 
-def time_keccak(torch, states):
-    from mythril_tpu_torch.ops import keccak_cuda, keccak_torch
+def time_keccak(torch, states, reps: int = 50):
+    """Per main-path call: ``ms``, the device time of the launch alone;
+    ``wrapper_ms``, the whole ``keccak_f1600`` call; ``plain_ms``; the bound."""
+    from mythril_tpu_torch.ops import _build, keccak_cuda, keccak_torch
 
+    lib = _build.load()
     rows = []
     for st in states:
         n = st.shape[0]
         err = int((keccak_cuda.keccak_f1600(st).long()
                    - keccak_torch.keccak_f1600_reference(st).long()).abs().max())
-        ms = cuda_ms(lambda: keccak_cuda.keccak_f1600(st), 50)
+        out, timer = torch.empty_like(st), LaunchTimer(torch)
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            timer(lambda: _build.check(
+                lib.mk_keccak_f1600(st.data_ptr(), out.data_ptr(), n, stream), "keccak_f1600"))
+        ms = timer.total_ms() / reps
+        wrapper = cuda_ms(lambda: keccak_cuda.keccak_f1600(st), reps)
         plain = cuda_ms(lambda: keccak_torch.keccak_f1600_reference(st), 5)
         b_ms, b_by = bound(800 * n, KECCAK_OPS * n)
-        rows.append({"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                     "err": err, "shape": f"N={n}"})
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err, "shape": f"N={n}"})
     return rows
 
 
@@ -343,8 +417,8 @@ def at_scale(torch):
     out = {"keccak_f1600": time_keccak(torch, [st])[0], "tape_vm": time_tape(torch, [(args, kw)])[0]}
     for name, r in out.items():
         check(r["err"] == 0, f"{name} at scale differs from its plain version")
-        print(f"  {name} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']})")
+        print(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']})")
     return out
 
 
@@ -357,16 +431,20 @@ def summarize(name, rows, launches, card, **fixed):
         "ms": mid["ms"], "plain_ms": mid["plain_ms"], "bound_ms": mid["bound_ms"],
         "bound_by": mid["bound_by"], "library_ms": None, "parity_ok": True,
         "shape": mid["shape"], "calls": len(rows),
+        "wrapper_ms": mid["wrapper_ms"],
         "total_ms": sum(r["ms"] for r in rows),
+        "total_wrapper_ms": sum(r["wrapper_ms"] for r in rows),
         "total_plain_ms": sum(r["plain_ms"] for r in rows),
         "total_bound_ms": sum(r["bound_ms"] for r in rows),
         "shapes": dict(collections.Counter(r["shape"].split(" steps")[0] for r in rows)),
         "card": card,
     }
     check(entry["max_abs_err"] == 0, f"{name}: kernel differs from its plain version")
-    print(f"  {name}: median call {mid['shape']}: {mid['ms']:.4f} ms (plain {mid['plain_ms']:.3f} ms, "
-          f"bound {mid['bound_ms']:.6f} ms by {mid['bound_by']}); {len(rows)} calls, "
-          f"median of per-call ms {statistics.median(r['ms'] for r in rows):.4f}")
+    print(f"  {name}: median call {mid['shape']}: kernel {mid['ms']:.5f} ms (wrapper "
+          f"{mid['wrapper_ms']:.4f} ms, plain {mid['plain_ms']:.3f} ms, bound "
+          f"{mid['bound_ms']:.6f} ms by {mid['bound_by']}); {len(rows)} calls: kernel "
+          f"{entry['total_ms']:.4f} ms, wrapper {entry['total_wrapper_ms']:.4f} ms, plain "
+          f"{entry['total_plain_ms']:.1f} ms, bound {entry['total_bound_ms']:.6f} ms in all")
     return entry
 
 
@@ -402,7 +480,8 @@ def main() -> int:
         ]
         phase("kernel times at scale (CUDA events)")
         for entry, row in zip(kernels, at_scale(torch).values()):
-            entry["at_scale"] = {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+            entry["at_scale"] = {k: row[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                                    "bound_by")}
         from mythril_tpu_torch.smt import ULT, Solver, symbol_factory
 
         x = symbol_factory.BitVecSym("smoke_x", 256)

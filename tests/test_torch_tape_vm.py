@@ -140,6 +140,74 @@ def test_byte_built_keccak_preimage(shape):
         assert list(got[b]) == [bool(vals[c]) for c in pconj]
 
 
+def _word_row_chain(shape):
+    """A 512-bit keccak preimage as a concat chain that the port's tape
+    assembles word by word (``TapeProgram._word_row``)."""
+    from mythril_tpu_torch.smt import terms as T
+
+    def v(name, w):
+        return T.var(f"pwr_{shape}_{name}", w)
+
+    def byte_parts(x):
+        return [T.extract(255 - 8 * i, 248 - 8 * i, x) for i in range(32)]
+
+    if shape == "edges":  # parts end exactly at bits 8, 256 and 504
+        parts = [v("a", 8), v("b", 248), v("c", 248), v("d", 8)]
+    elif shape == "const_in_high_word":  # a constant and a shifted variable
+        hi = [v("x", 128), T.const(0xABC, 128)]
+        return T.concat2(hi[0], T.concat2(hi[1], T.concat2(v("y", 128), v("z", 128))))
+    elif shape == "high_word_constant":
+        parts = [T.const(b, 8) for b in range(1, 33)] + byte_parts(v("x", 256))
+    elif shape == "high_word_zero":
+        parts = [T.const(0, 8)] * 32 + byte_parts(v("x", 256))
+    elif shape == "low_word_constant":
+        parts = byte_parts(v("x", 256)) + [T.const(b, 8) for b in range(7, 39)]
+    elif shape == "spans_both_words":  # bits 248..264 in one part: refused
+        parts = [v("a", 248), v("b", 16), v("c", 248)]
+    else:
+        raise ValueError(shape)
+    return T.concat(*parts)
+
+
+@pytest.mark.parametrize("shape", ["edges", "const_in_high_word", "high_word_constant",
+                                   "high_word_zero", "low_word_constant"])
+def test_word_row_assembles_both_words(shape):
+    # the words on the tape and the digest equal the oracle's values of the
+    # preimage's halves and of the keccak term, candidate by candidate
+    from mythril_tpu_torch.ops import bitvec as pbv
+    from mythril_tpu_torch.smt import terms as T
+
+    chain = _word_row_chain(shape)
+    assert chain.op == "concat" and chain.width == 512
+    assert not all(a.width == 256 for a in chain.args)  # not the two-word path
+    k = T.keccak(chain)
+    conj = [T.ult(k, T.const(1 << 255, 256))]
+    pc = ptape.compile_tape(conj)
+    tape = pc.tensors
+    (step,) = [t for t in range(pc.n_steps) if tape["op"][t] == ptape.OP_KECCAK64]
+    V = tape["shape"][1]
+    asgs = cases.random_assignments(T, pce, sorted(T.free_vars([chain]), key=lambda t: t.tid), [], 5, 24)
+    args, (Tn, V, A, K, R) = pc.pack_args(asgs, "cpu")
+    truth, regs = ptape.run_tape_reference(*args, T=Tn, V=V, A=A, K=K, R=R,
+                                           n_steps=pc.n_steps, return_regs=True)
+    lo = pbv.to_ints(regs[int(tape["a0"][step])], 256)
+    hi = pbv.to_ints(regs[int(tape["a1"][step])], 256)
+    digest = pbv.to_ints(regs[V + step], 256)
+    for b, asg in enumerate(asgs):
+        vals = pce.evaluate([chain, k, *conj], asg)
+        assert (lo[b], hi[b]) == (vals[chain] & ((1 << 256) - 1), vals[chain] >> 256), b
+        assert digest[b] == vals[k], b
+        assert bool(truth[b, 0]) == bool(vals[conj[0]]), b
+
+
+def test_word_row_refuses_a_part_across_the_word_boundary():
+    from mythril_tpu_torch.smt import terms as T
+
+    chain = _word_row_chain("spans_both_words")
+    with pytest.raises(ptape.TapeUnsupported, match="spans both words"):
+        ptape.compile_tape([T.ult(T.keccak(chain), T.const(1 << 255, 256))])
+
+
 def test_apply_raises_unsupported():
     from mythril_tpu_torch.smt import terms
 
