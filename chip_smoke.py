@@ -7,13 +7,18 @@ Phases, in order; any failure exits nonzero and prints no result:
 
 1. the card (``nvidia-smi`` name and power limit) and torch's CUDA version;
 2. the kernel build from ``mythril_tpu_torch/csrc`` (``ops/_build.py``), timed,
-   with ptxas's register and spill report;
-3. keccak: the ``keccak_f1600`` kernel against ``keccak_f1600_reference``,
-   both on the card, at N in {1, 3, 130, 4096, 65536} random states, bit-equal;
-   then ``keccak256`` of known vectors against the host ``keccak256_py``;
+   with ptxas's register and spill report, and the LOP3 and SHF instructions
+   per keccak round in the SASS (``cuobjdump -sass``);
+3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
+   state) against ``keccak_f1600_reference``, both on the card, at N in
+   {1, 3, 64, 130, 4096, 65536} random states, bit-equal; then ``keccak256``
+   of known vectors against the host ``keccak256_py``;
 4. tape: ``run_tape`` (the ``tape_vm`` kernel) against ``run_tape_reference``,
-   both on the card, bit-equal: one tape per op family (all 20) at both
-   profiles and both batch buckets, and one batch of 8192 on the large profile;
+   both on the card, bit-equal in truth and in every register: one tape per
+   op family (all 20) at both profiles and both batch buckets, one batch of
+   8192 on the large profile, and the slot cases of
+   ``tests/_torch_tape_cases.py`` (more than 200 slots, values spilled across
+   both keccak steps, roots on leaves and roots final early) at both buckets;
 5. the main path: the recorded probe traffic of
    ``tests/testdata/torch_probe_queries.json`` (JAX term dumps, loaded with
    ``from_jax_dump``) replayed through ``check_satisfiable_batch`` and
@@ -22,7 +27,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    keep/prune rule against the stored JAX verdicts must show 0 disagreements;
    then every kernel call the main path made is replayed and timed with
    CUDA events: the kernel's launches alone (``ms``), the whole wrapper call
-   (``wrapper_ms``) and its plain version, beside the call's bound;
+   (``wrapper_ms``) and its plain version, beside the call's bound; keccak in
+   both layouts at every N of phase 3, for the layout crossover; the main
+   path replayed once more under ``torch.profiler`` for the card's idle share;
 6. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +84,7 @@ STEP_OPS = {
 # Cycles of torch.cuda._sleep queued before a timed launch (about 0.5 ms),
 # so the start event fires after the host has enqueued the launch.
 SLEEP_CYCLES = 1_000_000
+KECCAK_NS = (1, 3, 64, 130, 4096, 65536)
 DIV_BIT_OPS = 40
 EXP_MUL_OPS = 80
 SELECT_ROW_OPS = 10
@@ -158,16 +166,71 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
+    "keccak_f1600_warp_kernel": "keccak_f1600/warp", "keccak_f1600_kernel": "keccak_f1600/thread",
+    "tape_vm_kernel": "tape_vm",
+}
+
+
+def _kernel_key(mangled: str):
+    return next((v for k, v in KERNEL_NAMES.items() if k in mangled), None)
+
+
 def build_kernels():
+    """Build; -> {kernel key: {"regs_per_thread", "static_smem_bytes"}} from ptxas."""
+    import re
+
     from mythril_tpu_torch.ops import _build
 
     t0 = phase("build")
     path = _build.build()
     _build.load()
     print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
+    attrs, key = {}, None
+    for line in _build.build_log().splitlines():
         if any(k in line for k in ("==", "Function properties", "registers", "spill")):
             print("  " + line.strip())
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = _kernel_key(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            smem = re.search(r"(\d+) bytes smem", line)
+            attrs[key] = {"regs_per_thread": int(m.group(1)),
+                          "static_smem_bytes": int(smem.group(1)) if smem else 0}
+    check(set(attrs) == set(KERNEL_NAMES.values()), f"ptxas report incomplete: {sorted(attrs)}")
+    return attrs
+
+
+def sass_per_round():
+    """LOP3, SHF and SHFL instructions per keccak round (over 24) in each
+    layout's SASS, by ``cuobjdump -sass`` of the built library."""
+    import re
+
+    from mythril_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, key = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = _kernel_key(m.group(1))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and key and key.startswith("keccak"):
+            ops = counts.setdefault(key, collections.Counter())
+            ops[m.group(1)] += 1
+            ops["all"] += 1
+    per_round = {k.split("/")[1]: {op: round(c[op] / 24, 2) for op in ("LOP3", "SHF", "SHFL", "all")}
+                 for k, c in counts.items()}
+    check(set(per_round) == {"thread", "warp"}, "keccak kernels missing from the SASS")
+    for name, c in per_round.items():
+        print(f"  keccak {name} per round: {c['LOP3']} LOP3 + {c['SHF']} SHF "
+              f"(+ {c['SHFL']} SHFL; {c['all']} instructions in all, load and store included)")
+    return per_round
 
 
 def keccak_parity(torch):
@@ -176,14 +239,15 @@ def keccak_parity(torch):
 
     phase("keccak parity")
     g = torch.Generator(device="cuda").manual_seed(1600)
-    for n in (1, 3, 130, 4096, 65536):
+    for n in KECCAK_NS:
         st = torch.randint(0, 1 << 16, (n, 25, 4), dtype=torch.int32, device="cuda", generator=g)
-        got = keccak_cuda.keccak_f1600(st)
         want = keccak_torch.keccak_f1600_reference(st)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        print(f"  N={n}: max_abs_err {err}")
-        check(err == 0, f"keccak kernel differs from its plain version at N={n}")
+        for variant in keccak_cuda.VARIANTS:
+            got = keccak_cuda.keccak_f1600(st, variant)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            print(f"  N={n} {variant}: max_abs_err {err}")
+            check(err == 0, f"keccak kernel ({variant}) differs from its plain version at N={n}")
     for msg in (b"", bytes(32), bytes(range(64))):
         width = 8 * len(msg)
         data = bitvec.from_ints([int.from_bytes(msg, "big")], width, "cuda")
@@ -201,10 +265,11 @@ def tape_both(torch, args, kw):
     V, T, n = kw["V"], kw["T"], kw["n_steps"]
     regs = torch.empty((V + T, 16, args[0].shape[0]), dtype=torch.int32, device="cuda")
     got = tape_vm.run_tape(*args, regs=regs, **kw)
+    plain_path = tape_vm.run_tape(*args, **kw)  # as the main path calls it: no regs
     want, want_regs = tape_vm.run_tape_reference(
         *args, T=T, V=V, A=kw["A"], K=kw["K"], R=kw["R"], n_steps=n, return_regs=True)
     torch.cuda.synchronize()
-    equal = torch.equal(got, want) and torch.equal(
+    equal = torch.equal(got, want) and torch.equal(plain_path, want) and torch.equal(
         regs[: V + n].permute(0, 2, 1).long(), want_regs[: V + n])
     return got, equal
 
@@ -218,23 +283,30 @@ def tape_parity(torch):
     runs = 0
     jobs = [(f, large, n) for f in cases.FAMILIES for large in (False, True) for n in (40, 200)]
     jobs.append(("keccak64", True, 8192))
+    jobs += [(c, False, n) for c in cases.SLOT_CASES for n in (40, 200)]
     for seed, (family, large, n) in enumerate(jobs):
         conj, bv_vars, arrays = cases.build(terms, family, large)
         asgs = cases.random_assignments(terms, concrete_eval, bv_vars, arrays, seed, n)
         compiled = tape_vm.compile_tape(conj)
         args, (T, V, A, K, R) = compiled.pack_args(asgs, "cuda")
         got, regs_equal = tape_both(torch, args, dict(
-            T=T, V=V, A=A, K=K, R=R, n_steps=compiled.n_steps, host_tape=compiled.tensors))
+            T=T, V=V, A=A, K=K, R=R, n_steps=compiled.n_steps, plan=compiled.plan))
         check(regs_equal,
               f"tape kernel differs from its plain version: {family} "
-              f"{compiled.tensors['profile']} B={args[0].shape[0]}")
+              f"{compiled.tensors['profile']} B={args[0].shape[0]} slots={compiled.plan.S}")
         if n == 40:  # and the host oracle on the real rows
             for b, asg in enumerate(asgs):
                 vals = concrete_eval.evaluate(conj, asg)
                 check(got[b, : len(conj)].tolist() == [bool(vals[c]) for c in conj],
                       f"tape kernel differs from concrete_eval: {family} candidate {b}")
+        if family in cases.SLOT_CASES and n == 40:
+            print(f"  {family}: {compiled.n_steps} steps, {compiled.plan.S} slots, "
+                  f"{compiled.plan.n_spill} spilled at most, {len(compiled.plan.segments)} segments")
         runs += 1
-    print(f"  {runs} tapes bit-equal (20 op families x 2 profiles x 2 buckets + 8192 wide)")
+    check(tape_vm.compile_tape(cases.build(terms, "wide_live")[0]).plan.S > 200,
+          "wide_live no longer needs more than 200 slots")
+    print(f"  {runs} tapes bit-equal (20 op families x 2 profiles x 2 buckets + 8192 wide "
+          f"+ {len(cases.SLOT_CASES)} slot cases x 2 buckets)")
 
 
 def main_path(torch):
@@ -264,6 +336,7 @@ def main_path(torch):
     args.probe_backend = "device"
     P.SolverStatistics().reset()
     keccak_cuda.launches = tape_vm.launches = 0
+    keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
     try:
         verdicts, bad = collections.Counter(), []
         for contract in data["contracts"]:
@@ -282,12 +355,49 @@ def main_path(torch):
     n_queries = sum(len(c["queries"]) for c in data["contracts"])
     print(f"  {n_queries} queries in {time.perf_counter() - t0:.1f} s; verdicts {dict(verdicts)}")
     print(f"  disagreements with the JAX verdicts: {len(bad)} {bad[:5]}")
-    print(f"  launches {launches}; tape_unsupported {stats['tape_unsupported']}; "
+    print(f"  launches {launches} (keccak layouts {keccak_cuda.variant_launches}); "
+          f"tape_unsupported {stats['tape_unsupported']}; "
           f"device_dispatches {stats['device_dispatches']}")
     check(not bad, f"{len(bad)} keep/prune disagreements with the JAX verdicts")
     for name, n in launches.items():
         check(n > 0, f"the main path launched {name} no time")
     return launches, tape_calls, keccak_calls
+
+
+def idle_share(torch):
+    """The main path replayed once more under ``torch.profiler``: the
+    device time of every CUDA kernel and copy over the host wall time ->
+    the card's idle share, or None with the reason when the profiler shows
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mythril_tpu_torch.smt import solver as P
+    from mythril_tpu_torch.smt.serialize import from_jax_dump
+    from tests.test_torch_fixture import load_fixture, replay
+
+    phase("idle share: the main path under torch.profiler")
+    data, roots = load_fixture(from_jax_dump)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for contract in data["contracts"]:
+                replay(contract["queries"], roots, P)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    except Exception as e:  # a measurement only: the path itself ran above
+        print(f"  not measured: {type(e).__name__}: {e}")
+        return None
+    if not device:
+        print("  not measured: the profiler recorded no device time")
+        return None
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"  wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.4f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.6f}; by kernel: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}" for e in top))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -333,8 +443,9 @@ def tape_work(tape, n_steps: int, K: int, regs_np):
 def time_tape(torch, calls, reps: int = 20):
     """Per main-path call: ``ms``, the device time of the call's tape_vm
     segment launches alone (the keccak launches between segments excluded);
-    ``wrapper_ms``, the whole ``run_tape`` call; ``plain_ms``, the plain
-    version; the bound of the call's work."""
+    ``wrapper_ms``, the whole ``run_tape`` call as the main path makes it;
+    ``plain_ms``, the plain version; the bound of the call's work; the
+    slots, candidates per block and dynamic shared memory of its launches."""
     import ctypes
 
     from mythril_tpu_torch.ops import _build, keccak_cuda, tape_vm
@@ -342,83 +453,128 @@ def time_tape(torch, calls, reps: int = 20):
     lib = _build.load()
     rows = []
     for a, kw in calls:
-        T, V, A, K, R, n = kw["T"], kw["V"], kw["A"], kw["K"], kw["R"], kw["n_steps"]
+        T, V, A, K, R, n, plan = (kw[k] for k in ("T", "V", "A", "K", "R", "n_steps", "plan"))
         B = a[0].shape[0]
         regs = torch.empty((V + T, 16, B), dtype=torch.int32, device="cuda")
         got = tape_vm.run_tape(*a, regs=regs, **kw)
         want, want_regs = tape_vm.run_tape_reference(*a, T=T, V=V, A=A, K=K, R=R, n_steps=n,
                                                      return_regs=True)
         err = max(int((got.long() - want.long()).abs().max()),
+                  int((tape_vm.run_tape(*a, **kw).long() - want.long()).abs().max()),
                   int((regs[: V + n].permute(0, 2, 1).long() - want_regs[: V + n]).abs().max()))
-        timer = LaunchTimer(torch)
+        timer, shape = LaunchTimer(torch), {}
 
         def segment(targs):
+            if "block" not in shape:
+                block, smem = ctypes.c_int(), ctypes.c_longlong()
+                lib.mk_tape_vm_shape(ctypes.byref(targs), ctypes.byref(block), ctypes.byref(smem))
+                shape["block"], shape["smem_bytes"] = block.value, smem.value
             stream = torch.cuda.current_stream().cuda_stream
             timer(lambda: _build.check(lib.mk_tape_vm_segment(ctypes.byref(targs), stream),
                                        "tape_vm"))
 
         for _ in range(reps):
-            tape_vm.run_segments(*a, **kw, segment=segment, permute=keccak_cuda.keccak_f1600)
+            tape_vm.run_segments(*a, T=T, V=V, A=A, K=K, R=R, plan=plan, segment=segment,
+                                 permute=keccak_cuda.keccak_f1600)
         ms = timer.total_ms() / reps
         wrapper = cuda_ms(lambda: tape_vm.run_tape(*a, **kw), reps)
         plain = cuda_ms(lambda: tape_vm.run_tape_reference(*a, T=T, V=V, A=A, K=K, R=R,
                                                            n_steps=n), 2)
-        tape = kw["host_tape"]
+        tape = {k: x.cpu().numpy() for k, x in zip(("op", "a0", "a1"), a[5:8])}
         # inputs read once (the array tables only when a SELECT step reads
         # them), the truth table written once
         tables = a[1:5] if tape_vm.OP_SELECT in tape["op"][:n] else ()
         n_bytes = sum(x.numel() * x.element_size() for x in (a[0], *tables, *a[5:])) + B * R
         b_ms, b_by = bound(n_bytes, *tape_work(tape, n, K, regs.cpu().numpy()))
+        profile = next(p[0] for p in tape_vm._PROFILES if p[1] == T)
         rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "err": err,
-                     "shape": f"B={B} T={T} steps={n} profile={tape['profile']}"})
+                     "bound_by": b_by, "err": err, "slots": plan.S, **shape,
+                     "shape": f"B={B} T={T} steps={n} profile={profile}"})
     return rows
 
 
 def time_keccak(torch, states, reps: int = 50):
-    """Per main-path call: ``ms``, the device time of the launch alone;
-    ``wrapper_ms``, the whole ``keccak_f1600`` call; ``plain_ms``; the bound."""
+    """Per call: ``ms``, the device time of the launch alone, and
+    ``wrapper_ms``, the whole ``keccak_f1600`` call, in the layout the
+    wrapper picks for this N, and both in each layout (``variants``);
+    ``plain_ms``; the bound."""
     from mythril_tpu_torch.ops import _build, keccak_cuda, keccak_torch
 
     lib = _build.load()
     rows = []
     for st in states:
         n = st.shape[0]
-        err = int((keccak_cuda.keccak_f1600(st).long()
-                   - keccak_torch.keccak_f1600_reference(st).long()).abs().max())
-        out, timer = torch.empty_like(st), LaunchTimer(torch)
+        want = keccak_torch.keccak_f1600_reference(st)
         stream = torch.cuda.current_stream().cuda_stream
-        for _ in range(reps):
-            timer(lambda: _build.check(
-                lib.mk_keccak_f1600(st.data_ptr(), out.data_ptr(), n, stream), "keccak_f1600"))
-        ms = timer.total_ms() / reps
-        wrapper = cuda_ms(lambda: keccak_cuda.keccak_f1600(st), reps)
+        per = {}
+        for variant, entry_name in keccak_cuda.VARIANTS.items():
+            entry = getattr(lib, entry_name)
+            got = keccak_cuda.keccak_f1600(st, variant)
+            out, timer = torch.empty_like(st), LaunchTimer(torch)
+            for _ in range(reps):
+                timer(lambda: _build.check(entry(st.data_ptr(), out.data_ptr(), n, stream),
+                                           "keccak_f1600"))
+            per[variant] = {
+                "ms": timer.total_ms() / reps,
+                "wrapper_ms": cuda_ms(lambda: keccak_cuda.keccak_f1600(st, variant), reps),
+                "err": int((got.long() - want.long()).abs().max()),
+            }
+        path = keccak_cuda.pick_variant(n)
         plain = cuda_ms(lambda: keccak_torch.keccak_f1600_reference(st), 5)
         b_ms, b_by = bound(800 * n, KECCAK_OPS * n)
-        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "err": err, "shape": f"N={n}"})
+        rows.append({"ms": per[path]["ms"], "wrapper_ms": per[path]["wrapper_ms"],
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "err": max(v["err"] for v in per.values()), "shape": f"N={n}",
+                     "variant": path,
+                     "variants": {v: {k: r[k] for k in ("ms", "wrapper_ms")} for v, r in per.items()}})
     return rows
 
 
+def keccak_crossover(torch):
+    """Both layouts at every N of the parity phase and around the wrapper's
+    switch, launches alone."""
+    from mythril_tpu_torch.ops import keccak_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(1601)
+    ns = sorted(set(KECCAK_NS) | {512, 1024, 2048, 8192, 16384, 32768})
+    rows = time_keccak(torch, [torch.randint(0, 1 << 16, (n, 25, 4), dtype=torch.int32,
+                                             device="cuda", generator=g) for n in ns], reps=20)
+    for r in rows:
+        check(r["err"] == 0, f"keccak differs from its plain version at {r['shape']}")
+        v = r["variants"]
+        print(f"  {r['shape']}: thread {v['thread']['ms']:.5f} ms, warp {v['warp']['ms']:.5f} ms; "
+              f"bound {r['bound_ms']:.6f} ms; wrapper takes {keccak_cuda.pick_variant(int(r['shape'][2:]))}")
+    return [{"shape": r["shape"], "bound_ms": r["bound_ms"],
+             **{v: r["variants"][v]["ms"] for v in keccak_cuda.VARIANTS}} for r in rows]
+
+
 def at_scale(torch):
-    """One wide call of each kernel, beyond the main path's shapes: keccak at
-    65536 states, the tape at B=8192 on the large profile."""
+    """Wide calls beyond the main path's shapes: keccak at 65536 states, the
+    tape at B=8192 on the large profile (keccak64), and at B=4096 with more
+    than 200 slots (wide_live, 16 candidates per block)."""
     from mythril_tpu_torch.ops import tape_vm
     from mythril_tpu_torch.smt import concrete_eval, terms
     from tests import _torch_tape_cases as cases
 
     g = torch.Generator(device="cuda").manual_seed(65536)
     st = torch.randint(0, 1 << 16, (65536, 25, 4), dtype=torch.int32, device="cuda", generator=g)
-    conj, bv_vars, arrays = cases.build(terms, "keccak64", True)
-    compiled = tape_vm.compile_tape(conj)
-    asgs = cases.random_assignments(terms, concrete_eval, bv_vars, arrays, 8192, 8192)
-    args, (T, V, A, K, R) = compiled.pack_args(asgs, "cuda")
-    kw = dict(T=T, V=V, A=A, K=K, R=R, n_steps=compiled.n_steps, host_tape=compiled.tensors)
-    out = {"keccak_f1600": time_keccak(torch, [st])[0], "tape_vm": time_tape(torch, [(args, kw)])[0]}
-    for name, r in out.items():
-        check(r["err"] == 0, f"{name} at scale differs from its plain version")
-        print(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']})")
+    tapes = []
+    for family, large, n in (("keccak64", True, 8192), ("wide_live", False, 4096)):
+        conj, bv_vars, arrays = cases.build(terms, family, large)
+        compiled = tape_vm.compile_tape(conj)
+        asgs = cases.random_assignments(terms, concrete_eval, bv_vars, arrays, n, n)
+        args, (T, V, A, K, R) = compiled.pack_args(asgs, "cuda")
+        tapes.append((args, dict(T=T, V=V, A=A, K=K, R=R, n_steps=compiled.n_steps,
+                                 plan=compiled.plan)))
+    rows = time_tape(torch, tapes, reps=10)
+    out = {"keccak_f1600": [time_keccak(torch, [st])[0]], "tape_vm": rows}
+    for name, rs in out.items():
+        for r in rs:
+            check(r["err"] == 0, f"{name} at scale differs from its plain version")
+            print(f"  {name} {r['shape']}: kernel {r['ms']:.5f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']})"
+                  + (f"; {r['slots']} slots, {r['block']} per block, {r['smem_bytes']} B smem"
+                     if "slots" in r else f"; layouts {r['variants']}"))
     return out
 
 
@@ -438,6 +594,8 @@ def summarize(name, rows, launches, card, **fixed):
         "total_bound_ms": sum(r["bound_ms"] for r in rows),
         "shapes": dict(collections.Counter(r["shape"].split(" steps")[0] for r in rows)),
         "card": card,
+        # the median call's launch shape (tape) or layouts (keccak)
+        **{k: mid[k] for k in ("slots", "block", "smem_bytes", "variant", "variants") if k in mid},
     }
     check(entry["max_abs_err"] == 0, f"{name}: kernel differs from its plain version")
     print(f"  {name}: median call {mid['shape']}: kernel {mid['ms']:.5f} ms (wrapper "
@@ -465,23 +623,37 @@ def main() -> int:
         print(card)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-        build_kernels()
+        attrs = build_kernels()
+        sass = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
         launches, tape_calls, keccak_calls = main_path(torch)
         phase("kernel times at the main path's shapes (CUDA events)")
-        kernels = [
-            summarize("keccak_f1600", time_keccak(torch, keccak_calls), launches["keccak_f1600"],
-                      card, route="cuda", source="mythril_tpu_torch/csrc/keccak_f1600.cu",
-                      replaces="mythril_tpu/ops/keccak_pallas.py:149"),
-            summarize("tape_vm", time_tape(torch, tape_calls), launches["tape_vm"], card,
-                      route="cuda", source="mythril_tpu_torch/csrc/tape_vm.cu",
-                      replaces="mythril_tpu/ops/tape_vm.py:360"),
-        ]
+        keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
+                           launches["keccak_f1600"], card, route="cuda",
+                           source="mythril_tpu_torch/csrc/keccak_f1600.cu",
+                           replaces="mythril_tpu/ops/keccak_pallas.py:149")
+        for variant, timing in keccak["variants"].items():
+            timing.update(attrs[f"keccak_f1600/{variant}"], sass_per_round=sass[variant])
+        keccak.update(regs_per_thread=attrs[f"keccak_f1600/{keccak['variant']}"]["regs_per_thread"],
+                      smem_bytes=attrs[f"keccak_f1600/{keccak['variant']}"]["static_smem_bytes"])
+        tape = summarize("tape_vm", time_tape(torch, tape_calls), launches["tape_vm"], card,
+                         route="cuda", source="mythril_tpu_torch/csrc/tape_vm.cu",
+                         replaces="mythril_tpu/ops/tape_vm.py:360")
+        tape["regs_per_thread"] = attrs["tape_vm"]["regs_per_thread"]
+        tape["smem_bytes"] += attrs["tape_vm"]["static_smem_bytes"]
+        kernels = [keccak, tape]
+        phase("keccak layouts by N (CUDA events, launches alone)")
+        keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")
-        for entry, row in zip(kernels, at_scale(torch).values()):
-            entry["at_scale"] = {k: row[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                                                    "bound_by")}
+        for entry, rows in zip(kernels, at_scale(torch).values()):
+            entry["at_scale"] = [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "slots", "block",
+                                                    "smem_bytes", "variants") if k in r}
+                                 for r in rows]
+        idle = idle_share(torch)
+        if idle is not None:
+            tape["main_path_idle_share"] = idle
         from mythril_tpu_torch.smt import ULT, Solver, symbol_factory
 
         x = symbol_factory.BitVecSym("smoke_x", 256)

@@ -152,26 +152,36 @@ __host__ __device__ __forceinline__ unsigned shift_amount(const u256& s) {
   return s.w[0] > 256 ? 256u : (unsigned)s.w[0];
 }
 
+// Word j of a (0 outside [0, 4)) for a j known only at run time, by selects:
+// indexing a.w with it would put the word in local memory.
+__host__ __device__ __forceinline__ uint64_t word_at(const u256& a, int j) {
+  const uint64_t lo = j == 0 ? a.w[0] : a.w[1];
+  const uint64_t hi = j == 2 ? a.w[2] : a.w[3];
+  return (unsigned)j > 3u ? 0 : (j < 2 ? lo : hi);
+}
+
 __host__ __device__ __forceinline__ u256 shl(const u256& a, unsigned n) {
   if (n >= 256) return u256_zero();
-  u256 r = u256_zero();
-  const unsigned q = n / 64, s = n % 64;
-  for (int i = 3; i >= (int)q; --i) {
-    uint64_t v = a.w[i - q] << s;
-    if (s && i - (int)q - 1 >= 0) v |= a.w[i - q - 1] >> (64 - s);
-    r.w[i] = v;
+  const int q = n / 64;
+  const unsigned s = n % 64;
+  u256 r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t hi = word_at(a, i - q), lo = word_at(a, i - q - 1);
+    r.w[i] = (hi << s) | (s ? lo >> (64 - s) : 0);
   }
   return r;
 }
 
 __host__ __device__ __forceinline__ u256 lshr(const u256& a, unsigned n) {
   if (n >= 256) return u256_zero();
-  u256 r = u256_zero();
-  const unsigned q = n / 64, s = n % 64;
-  for (int i = 0; i + (int)q < 4; ++i) {
-    uint64_t v = a.w[i + q] >> s;
-    if (s && i + (int)q + 1 < 4) v |= a.w[i + q + 1] << (64 - s);
-    r.w[i] = v;
+  const int q = n / 64;
+  const unsigned s = n % 64;
+  u256 r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t lo = word_at(a, i + q), hi = word_at(a, i + q + 1);
+    r.w[i] = (lo >> s) | (s ? hi << (64 - s) : 0);
   }
   return r;
 }
@@ -182,38 +192,53 @@ __host__ __device__ __forceinline__ u256 ashr(const u256& a, unsigned n) {
   return lshr(a, n);
 }
 
-__host__ __device__ __forceinline__ bool bit_at(const u256& a, int i) {
-  return (a.w[i >> 6] >> (i & 63)) & 1;
+// Index of the highest set bit of a nonzero word.
+__host__ __device__ __forceinline__ int top_bit64(uint64_t x) {
+#if defined(__CUDA_ARCH__)
+  return 63 - __clzll((long long)x);
+#else
+  return 63 - __builtin_clzll(x);
+#endif
 }
 
 __host__ __device__ __forceinline__ int highest_bit(const u256& a) {
-  for (int i = 3; i >= 0; --i) {
-    if (a.w[i]) {
-      int b = 63;
-      while (!((a.w[i] >> b) & 1)) --b;
-      return i * 64 + b;
-    }
-  }
+#pragma unroll
+  for (int i = 3; i >= 0; --i)
+    if (a.w[i]) return i * 64 + top_bit64(a.w[i]);
   return -1;
 }
 
 // Restoring shift-subtract division over the dividend's bits, most
 // significant first (bitvec.py:_udivmod); x / 0 == 0 and x % 0 == 0.
 // Leading zero bits of the dividend leave quotient and remainder at zero,
-// so the loop starts at its highest set bit.
+// so the loop starts at its highest set bit.  The words are walked in an
+// unrolled loop, so that no word is indexed at run time.
 __host__ __device__ __forceinline__ void udivmod(const u256& a, const u256& b,
                                                  u256* q, u256* r) {
   *q = u256_zero();
   *r = u256_zero();
   if (is_zero(b)) return;
-  for (int i = highest_bit(a); i >= 0; --i) {
-    u256 rem = shl(*r, 1);
-    rem.w[0] |= (uint64_t)bit_at(a, i);
-    if (!ult(rem, b)) {
-      rem = sub(rem, b);
-      q->w[i >> 6] |= 1ULL << (i & 63);
+  bool started = false;
+#pragma unroll
+  for (int w = 3; w >= 0; --w) {
+    const uint64_t aw = a.w[w];
+    int top = 63;
+    if (!started) {
+      if (!aw) continue;  // a leading zero word
+      top = top_bit64(aw);
+      started = true;
     }
-    *r = rem;
+    uint64_t qw = 0;
+    for (int i = top; i >= 0; --i) {
+      u256 rem = shl(*r, 1);
+      rem.w[0] |= (aw >> i) & 1;
+      if (!ult(rem, b)) {
+        rem = sub(rem, b);
+        qw |= 1ULL << i;
+      }
+      *r = rem;
+    }
+    q->w[w] = qw;
   }
 }
 
@@ -240,9 +265,15 @@ __host__ __device__ __forceinline__ u256 srem(const u256& a, const u256& b) {
 __host__ __device__ __forceinline__ u256 bvexp(const u256& a, const u256& e) {
   u256 result = u256_small(1), base = a;
   const int top = highest_bit(e);
-  for (int i = 0; i <= top; ++i) {
-    if (bit_at(e, i)) result = mul(result, base);
-    if (i < top) base = mul(base, base);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int last = top - 64 * w;
+    if (last < 0) break;
+    const uint64_t ew = e.w[w];
+    for (int j = 0; j <= (last < 63 ? last : 63); ++j) {
+      if ((ew >> j) & 1) result = mul(result, base);
+      if (64 * w + j < top) base = mul(base, base);
+    }
   }
   return result;
 }

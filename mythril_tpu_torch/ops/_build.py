@@ -32,8 +32,6 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# what the last build printed (ptxas register/shared-memory report)
-build_log = ""
 
 
 class KernelBuildError(RuntimeError):
@@ -67,9 +65,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmythril_kernels_{_digest()}.so"
 
 
+def build_log() -> str:
+    """What nvcc printed when it built the current library (ptxas's register
+    and shared-memory report), kept beside it; empty before the build."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build() -> Path:
     """Compile every source in parallel and link; a no-op when up to date."""
-    global build_log
     lib = library_path()
     if lib.exists():
         return lib
@@ -101,8 +105,8 @@ def build() -> Path:
         )
         if link.returncode != 0:
             raise KernelBuildError(f"link failed:\n{link.stdout}")
+        lib.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_lib, lib)
-    build_log = "\n".join(logs)
     return lib
 
 
@@ -110,11 +114,11 @@ class TapeArgs(ctypes.Structure):
     """Mirror of ``mk::TapeArgs`` in ``csrc/tape_vm.cuh`` (same field order)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "op", "a0", "a1", "a2", "aux", "wmask", "regs", "tab_idx", "tab_val",
-        "tab_valid", "tab_default", "kstate", "root_rows", "root_valid", "truth",
+        "rec", "root_order", "pre", "leaves", "tables", "leaf_vals", "tab_idx", "tab_val",
+        "tab_valid", "tab_default", "kstate", "spill", "live_in", "live_out", "truth", "regs",
     )] + [(name, ctypes.c_int) for name in (
-        "V", "T", "A", "K", "R", "B", "t_begin", "t_end", "squeeze_step",
-        "absorb_step",
+        "V", "T", "A", "K", "R", "B", "S", "n_leaf", "n_table", "zero_slot", "n_pre",
+        "t_begin", "t_end", "squeeze_step", "absorb_step", "n_live_in", "n_live_out",
     )]
 
 
@@ -124,12 +128,16 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.mk_keccak_f1600.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ]
-            lib.mk_keccak_f1600.restype = ctypes.c_int
+            for fn in (lib.mk_keccak_f1600, lib.mk_keccak_f1600_warp):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.mk_tape_vm_segment.argtypes = [ctypes.POINTER(TapeArgs), ctypes.c_void_p]
             lib.mk_tape_vm_segment.restype = ctypes.c_int
+            lib.mk_tape_vm_shape.argtypes = [
+                ctypes.POINTER(TapeArgs), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_longlong),
+            ]
+            lib.mk_tape_vm_shape.restype = None
             _lib = lib
         return _lib
 

@@ -23,7 +23,8 @@ the kernels are built once by ``ops/_build.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+import heapq
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -483,13 +484,13 @@ def run_tape_reference(
 
 
 def _check_cuda_args(tensors: dict, B: int, T: int, V: int, A: int, K: int, R: int):
+    """The tensors the kernel reads: on one CUDA device, their shape and
+    type, contiguous and 16-byte aligned.  (The tape itself reaches the
+    kernel through its ``TapePlan``.)"""
     want = {
         "leaf_vals": ((B, V, L), torch.int32), "tab_idx": ((B, A, K, L), torch.int32),
         "tab_val": ((B, A, K, L), torch.int32), "tab_valid": ((B, A, K), torch.uint8),
-        "tab_default": ((B, A, L), torch.int32), "op": ((T,), torch.int32),
-        "a0": ((T,), torch.int32), "a1": ((T,), torch.int32), "a2": ((T,), torch.int32),
-        "aux": ((T,), torch.int32), "wmask": ((T, L), torch.int32),
-        "root_rows": ((R,), torch.int32), "root_valid": ((R,), torch.uint8),
+        "tab_default": ((B, A, L), torch.int32),
     }
     dev = tensors["leaf_vals"].device
     for name, (shape, dtype) in want.items():
@@ -498,8 +499,8 @@ def _check_cuda_args(tensors: dict, B: int, T: int, V: int, A: int, K: int, R: i
             raise ValueError(f"{name} must be on {dev}, got {x.device}")
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def _check_tape(host: Dict[str, np.ndarray], n: int, V: int, T: int, A: int, R: int) -> None:
@@ -517,54 +518,251 @@ def _check_tape(host: Dict[str, np.ndarray], n: int, V: int, T: int, A: int, R: 
         raise ValueError(f"root row out of range [0, {rows})")
 
 
+# operands each op reads (0: a0, 1: a1, 2: a2); the others are not read
+_OPERANDS = {OP_ITE: (0, 1, 2), OP_SELECT: (0,), OP_KECCAK32: (0,)}
+
+# TapePlan.rec columns: op, the three operands' slots, aux (select slot), the
+# result's slot (-1: nothing reads it), roots [root_lo, root_hi) of
+# root_order that this step's result decides, then the width mask as four
+# uint64_t (eight int32)
+REC_INTS = 16
+# a root decided before any step (TapePlan.pre): a slot, or constant 0 / 1
+PRE_ZERO, PRE_ONE = -1, -2
+
+
+class Segment(NamedTuple):
+    """One kernel launch of a tape: plain steps [t_begin, t_end), the keccak
+    step squeezed first and the one absorbed last (-1: none), and the
+    spilled slots reloaded first and stored last, the leaves and the
+    tables loaded first, each as (offset, count) into ``TapePlan.live`` /
+    ``.leaves`` / ``.tables``."""
+
+    t_begin: int
+    t_end: int
+    squeeze: int
+    absorb: int
+    live_in: Tuple[int, int]
+    live_out: Tuple[int, int]
+    leaves: Tuple[int, int]
+    tables: Tuple[int, int]
+
+
+def _pad4(a: np.ndarray) -> np.ndarray:
+    return np.concatenate([a.ravel(), np.zeros(-a.size % 4, np.int32)]).astype(np.int32)
+
+
+class TapePlan:
+    """Port-only: how the kernel runs a tape's first ``n`` steps with its
+    values in an on-chip slot file (``csrc/tape_vm.cu``).
+
+    Built from ``TapeProgram.finalize``'s tensors, which it leaves as they
+    are.  Slots ``[0, S)`` of a candidate: first the step results that a
+    later step reads, a slot reused only after its value's last read; then
+    the leaves the tape reads, from ``leaf_base``, each loaded at the start
+    of every segment that reads it; then, for each array a SELECT step reads,
+    K + 1 slots: its table's K index words and the mask of its valid rows,
+    loaded like the leaves (a SELECT's z operand names the first of them);
+    then, if an operand names a row not yet written (which reads as zero), a
+    slot holding zero.  An operand the op does not read names slot 0.  A
+    root's truth is written as soon as its row is final, so a value that
+    only roots read needs no slot; roots no step decides (invalid, on a
+    leaf, or on a row past ``n``) are ``pre``.  Keccak
+    steps split the tape into segments (one kernel launch each); the slots
+    live across a keccak step are spilled to device memory at the segment's
+    end and reloaded at the next one's start.
+
+    Arrays (int32): ``rec`` [n, REC_INTS]; ``root_order`` [R]; ``pre``
+    [n_pre, 2], (root, leaf slot or PRE_*); ``leaves`` [., 2], (slot, leaf
+    row) pairs, and ``tables`` [., 2], (first slot, array) pairs, each
+    segment's list padded to an even length; ``live``, the spilled slots of
+    every keccak boundary, concatenated.  ``segments``: ``Segment`` tuples,
+    the lists as ``(offset, count)`` into ``leaves`` and ``tables`` (in
+    pairs) and ``live``."""
+
+    def __init__(self, tape: Dict[str, np.ndarray], n: int, V: int, T: int, A: int, K: int,
+                 R: int):
+        _check_tape(tape, n, V, T, A, R)
+        op = [int(o) for o in tape["op"][:n]]
+        srcs = [[int(tape[k][t]) for k in ("a0", "a1", "a2")] for t in range(n)]
+        reads = []  # per step: the rows it reads, None for an operand it ignores
+        for t in range(n):
+            used = _OPERANDS.get(op[t], (0, 1))
+            reads.append([srcs[t][j] if j in used else None for j in range(3)])
+        last_read: Dict[int, int] = {}
+        for t in range(n):
+            for row in reads[t]:
+                if row is not None and V <= row < V + t:
+                    last_read[row] = t
+
+        slot = [-1] * n
+        free: List[int] = []
+        S = 0
+        for t in range(n):
+            for row in set(reads[t]):  # operands are read before the result is written
+                if row is not None and last_read.get(row) == t:
+                    heapq.heappush(free, slot[row - V])
+            if V + t in last_read:
+                if free:
+                    slot[t] = heapq.heappop(free)
+                else:
+                    slot[t], S = S, S + 1
+
+        pre_roots, roots = [], [[] for _ in range(n)]
+        for r in range(R):
+            row = int(tape["root_rows"][r])
+            if bool(tape["root_valid"][r]) and V <= row < V + n:
+                roots[row - V].append(r)
+            else:
+                pre_roots.append((r, row if tape["root_valid"][r] else None))
+        leaves = sorted({row for rs in reads for row in rs if row is not None and row < V}
+                        | {row for _, row in pre_roots if row is not None and row < V})
+        self.leaf_base = S
+        leaf_slot = {row: S + i for i, row in enumerate(leaves)}
+        S += len(leaves)
+        arrays = sorted({int(tape["aux"][t]) for t in range(n) if op[t] == OP_SELECT})
+        table_slot = {a: S + i * (K + 1) for i, a in enumerate(arrays)}
+        S += len(arrays) * (K + 1)
+        needs_zero = any(row is not None and row >= V + t
+                         for t, rs in enumerate(reads) for row in rs)
+        self.zero_slot = S if needs_zero else -1
+        S += needs_zero
+        self.n, self.S, self.slot = n, S, slot
+
+        def src(row, t):
+            if row is None:  # not read
+                return 0
+            if row < V:
+                return leaf_slot[row]
+            return self.zero_slot if row >= V + t else slot[row - V]
+
+        pre = [(r, PRE_ONE if row is None else leaf_slot[row] if row < V else PRE_ZERO)
+               for r, row in pre_roots]
+        self.pre = np.asarray(pre, np.int32).reshape(-1, 2)
+        order = [r for r, _ in pre_roots]
+        rec = np.zeros((n, REC_INTS), np.int32)
+        limbs = tape["wmask"][:n].astype(np.uint32).reshape(n, 8, 2)
+        rec[:, 8:] = (limbs[..., 0] | (limbs[..., 1] << 16)).view(np.int32)
+        for t in range(n):
+            lo = len(order)
+            order += roots[t]
+            rec[t, :8] = (op[t], *(src(row, t) for row in reads[t]), int(tape["aux"][t]),
+                          slot[t], lo, len(order))
+            if op[t] == OP_SELECT:  # z names the array's table
+                rec[t, 3] = table_slot[int(tape["aux"][t])]
+        self.rec = rec
+        self.root_order = np.asarray(order, np.int32)
+
+        keccak = [t for t in range(n) if op[t] in _KECCAK_OPS]
+        live: List[int] = []
+        bounds = []
+        for k in keccak:
+            spilled = sorted(slot[row - V] for row, last in last_read.items()
+                             if row < V + k and last > k)
+            bounds.append((len(live), len(spilled)))
+            live += spilled
+        self.live = np.asarray(live, np.int32)
+        self.n_spill = max((c for _, c in bounds), default=0)
+        spans, begin = [], 0
+        for k in keccak:
+            spans.append((begin, k))
+            begin = k + 1
+        spans.append((begin, n))
+        lists: Dict[str, List[Tuple[int, int]]] = {"leaves": [], "tables": []}
+
+        def add(name, pairs):  # -> (offset, count); each list from a 16-byte boundary
+            out = lists[name]
+            span = (len(out), len(pairs))
+            out += pairs + [(0, 0)] * (len(pairs) % 2)
+            return span
+
+        self.segments = []
+        for j, (begin, end) in enumerate(spans):
+            absorb = keccak[j] if j < len(keccak) else -1
+            rows = {row for t in range(begin, max(end, absorb + 1)) for row in reads[t]
+                    if row is not None and row < V}
+            if j == 0:
+                rows |= {row for _, row in pre_roots if row is not None and row < V}
+            used = sorted({int(tape["aux"][t]) for t in range(begin, end) if op[t] == OP_SELECT})
+            self.segments.append(Segment(
+                begin, end, keccak[j - 1] if j else -1, absorb,
+                bounds[j - 1] if j else (0, 0), bounds[j] if j < len(keccak) else (0, 0),
+                add("leaves", [(leaf_slot[row], row) for row in sorted(rows)]),
+                add("tables", [(table_slot[a], a) for a in used])))
+        self.leaves = np.asarray(lists["leaves"], np.int32).reshape(-1, 2)
+        self.tables = np.asarray(lists["tables"], np.int32).reshape(-1, 2)
+        self._device: Dict[str, Tuple[torch.Tensor, Dict[str, int]]] = {}
+
+    def device_arrays(self, device) -> Tuple[torch.Tensor, Dict[str, int]]:
+        """``rec``, ``root_order``, ``pre``, ``leaves``, ``tables`` and
+        ``live`` in one int32 tensor on ``device`` (each part from a 16-byte
+        boundary), uploaded once, and each part's byte offset."""
+        key = str(torch.device(device))
+        if key not in self._device:
+            parts = {"rec": self.rec, "root_order": self.root_order, "pre": self.pre,
+                     "leaves": self.leaves, "tables": self.tables, "live": self.live}
+            offsets, at = {}, 0
+            for name, a in parts.items():
+                offsets[name] = 4 * at
+                at += _pad4(a).size
+            host = np.concatenate([_pad4(a) for a in parts.values()])
+            self._device[key] = (torch.from_numpy(host).to(device), offsets)
+        return self._device[key]
+
+
 def run_segments(
     leaf_vals, tab_idx, tab_val, tab_valid, tab_default,
     op, a0, a1, a2, aux, wmask, root_rows, root_valid,
-    *, T: int, V: int, A: int, K: int, R: int, n_steps: int,
-    host_tape: Dict[str, np.ndarray], segment, permute,
+    *, T: int, V: int, A: int, K: int, R: int, plan: TapePlan, segment, permute,
     regs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Drive the tape as the kernel runs it: one segment per run of plain
-    steps, split at keccak steps.  ``segment(TapeArgs)`` runs one segment
-    (``mk_tape_vm_segment``); ``permute(kstate)`` is keccak-f[1600] on the
-    absorbed [B, 25, 4] states.  ``regs``: the [V+T, 16, B] int32 register
-    file scratch, allocated here unless the caller passes one to read every
-    step's value afterwards.  Returns truth [B, R] uint8."""
+    steps, split at keccak steps.  The tape itself comes from ``plan``; of
+    the tape tensors only the leaves and the tables are read here.
+    ``segment(TapeArgs)`` runs one segment (``mk_tape_vm_segment``);
+    ``permute(kstate)`` is keccak-f[1600] on the absorbed [B, 25, 4] states.
+    ``regs``: a [V+T, 16, B] int32 tensor that receives every leaf and every
+    step's value, for checks; the kernel itself keeps none.  Returns truth
+    [B, R] bool."""
     from mythril_tpu_torch.ops import _build
 
-    _check_tape(host_tape, n_steps, V, T, A, R)
     B = leaf_vals.shape[0]
     dev = leaf_vals.device
-    if regs is None:
-        regs = torch.empty((V + T, L, B), dtype=torch.int32, device=dev)
-    if tuple(regs.shape) != (V + T, L, B) or regs.dtype != torch.int32 or not regs.is_contiguous():
-        raise ValueError(f"regs: expected contiguous {(V + T, L, B)} int32")
-    regs[:V] = leaf_vals.permute(1, 2, 0)
-    truth = torch.empty((B, R), dtype=torch.uint8, device=dev)
-    keccak_steps = [t for t in range(n_steps) if int(host_tape["op"][t]) in _KECCAK_OPS]
-    kstate = torch.empty((B, 25, 4), dtype=torch.int32, device=dev) if keccak_steps else None
-
-    def run(t_begin, t_end, squeeze, absorb, last):
-        segment(_build.TapeArgs(
-            *(x.data_ptr() for x in (op, a0, a1, a2, aux, wmask, regs, tab_idx,
-                                     tab_val, tab_valid, tab_default)),
-            kstate.data_ptr() if kstate is not None else None,
-            root_rows.data_ptr(), root_valid.data_ptr(),
-            truth.data_ptr() if last else None,
-            V, T, A, K, R, B, t_begin, t_end, squeeze, absorb,
-        ))
-
-    begin, squeeze = 0, -1
-    for k in keccak_steps:
-        run(begin, k, squeeze, k, False)
-        kstate = permute(kstate)
-        begin, squeeze = k + 1, k
-    run(begin, n_steps, squeeze, -1, True)
+    if regs is not None:
+        if tuple(regs.shape) != (V + T, L, B) or regs.dtype != torch.int32 or not regs.is_contiguous():
+            raise ValueError(f"regs: expected contiguous {(V + T, L, B)} int32")
+        regs[:V] = leaf_vals.permute(1, 2, 0)
+    truth = torch.empty((B, R), dtype=torch.bool, device=dev)
+    arr, off = plan.device_arrays(dev)
+    base = arr.data_ptr()
+    keccak = len(plan.segments) > 1
+    kstate = torch.empty((B, 25, 4), dtype=torch.int32, device=dev) if keccak else None
+    spill = (torch.empty((plan.n_spill, 4, B), dtype=torch.int64, device=dev)
+             if plan.n_spill else None)
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    targs = _build.TapeArgs(
+        base + off["rec"], base + off["root_order"], base + off["pre"], None, None,
+        ptr(leaf_vals), ptr(tab_idx), ptr(tab_val), ptr(tab_valid), ptr(tab_default),
+        ptr(kstate), ptr(spill), None, None, ptr(truth), ptr(regs),
+        V, T, A, K, R, B, plan.S, 0, 0, plan.zero_slot, len(plan.pre),
+    )
+    live, leaves, tables = base + off["live"], base + off["leaves"], base + off["tables"]
+    for seg in plan.segments:
+        targs.t_begin, targs.t_end = seg.t_begin, seg.t_end
+        targs.squeeze_step, targs.absorb_step = seg.squeeze, seg.absorb
+        targs.leaves, targs.n_leaf = leaves + 8 * seg.leaves[0], seg.leaves[1]
+        targs.tables, targs.n_table = tables + 8 * seg.tables[0], seg.tables[1]
+        targs.live_in, targs.n_live_in = live + 4 * seg.live_in[0], seg.live_in[1]
+        targs.live_out, targs.n_live_out = live + 4 * seg.live_out[0], seg.live_out[1]
+        segment(targs)
+        targs.n_pre = 0  # the first segment decides the roots no step decides
+        if seg.absorb >= 0:
+            kstate = permute(kstate)
+            targs.kstate = kstate.data_ptr()
     return truth
 
 
 def _run_tape_cuda(*args, T: int, V: int, A: int, K: int, R: int, n_steps: int,
-                   host_tape: Optional[Dict[str, np.ndarray]] = None,
+                   plan: Optional[TapePlan] = None,
                    regs: Optional[torch.Tensor] = None) -> torch.Tensor:
     from mythril_tpu_torch.ops import _build, keccak_cuda
 
@@ -572,8 +770,10 @@ def _run_tape_cuda(*args, T: int, V: int, A: int, K: int, R: int, n_steps: int,
              "a0", "a1", "a2", "aux", "wmask", "root_rows", "root_valid")
     tensors = dict(zip(names, args))
     _check_cuda_args(tensors, args[0].shape[0], T, V, A, K, R)
-    if host_tape is None:
-        host_tape = {k: tensors[k].cpu().numpy() for k in ("op", "a0", "a1", "a2", "aux", "root_rows")}
+    if plan is None:
+        plan = TapePlan({k: tensors[k].cpu().numpy() for k in names[5:]}, n_steps, V, T, A, K, R)
+    elif plan.n != n_steps:
+        raise ValueError(f"plan covers {plan.n} steps, not {n_steps}")
     dev = args[0].device
     lib = _build.load()
 
@@ -584,27 +784,26 @@ def _run_tape_cuda(*args, T: int, V: int, A: int, K: int, R: int, n_steps: int,
         launches += 1
 
     with torch.cuda.device(dev):
-        truth = run_segments(*args, T=T, V=V, A=A, K=K, R=R, n_steps=n_steps,
-                             host_tape=host_tape, segment=segment,
-                             permute=keccak_cuda.keccak_f1600, regs=regs)
-    return truth.bool()
+        return run_segments(*args, T=T, V=V, A=A, K=K, R=R, plan=plan, segment=segment,
+                            permute=keccak_cuda.keccak_f1600, regs=regs)
 
 
 def run_tape(*args, T: int, V: int, A: int, K: int, R: int,
              n_steps: Optional[int] = None,
-             host_tape: Optional[Dict[str, np.ndarray]] = None,
+             plan: Optional[TapePlan] = None,
              regs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Evaluate the tape over a candidate batch -> truth [B, R] bool.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
-    version.  Arguments are ``TapeCompiled.pack_args``'s tuple; ``regs``
-    (CUDA only) is the kernel's register-file scratch, see ``run_segments``."""
+    version.  Arguments are ``TapeCompiled.pack_args``'s tuple.  CUDA only:
+    ``plan``, the tape's ``TapePlan`` over ``n_steps`` (``TapeCompiled.plan``;
+    else built here from the tape tensors); ``regs``, a register file to
+    receive every step's value, see ``run_segments``."""
     n = T if n_steps is None else n_steps
     if args[0].is_cuda:
-        return _run_tape_cuda(*args, T=T, V=V, A=A, K=K, R=R, n_steps=n,
-                              host_tape=host_tape, regs=regs)
+        return _run_tape_cuda(*args, T=T, V=V, A=A, K=K, R=R, n_steps=n, plan=plan, regs=regs)
     if regs is not None:
-        raise ValueError("regs is the CUDA kernel's scratch; the plain version keeps none")
+        raise ValueError("regs receives the CUDA kernel's values; the plain version keeps its own")
     return run_tape_reference(*args, T=T, V=V, A=A, K=K, R=R, n_steps=n)
 
 
@@ -623,15 +822,24 @@ class TapeCompiled:
         self.bv_vars = program.bv_vars
         self.bool_vars = program.bool_vars
         self.array_vars = program.array_vars
+        self._plan: Optional[TapePlan] = None
 
     @property
     def n_steps(self) -> int:
         return len(self.program.ops)
 
+    @property
+    def plan(self) -> TapePlan:
+        """The kernel's slot plan of this tape, built at first use."""
+        if self._plan is None:
+            T, V, A, K, R = self.tensors["shape"]
+            self._plan = TapePlan(self.tensors, self.n_steps, V, T, A, K, R)
+        return self._plan
+
     def evaluate_batch(self, assignments, device) -> np.ndarray:
         args, (T, V, A, K, R) = self.pack_args(assignments, device)
-        truth = run_tape(*args, T=T, V=V, A=A, K=K, R=R, n_steps=self.n_steps,
-                         host_tape=self.tensors)
+        plan = self.plan if args[0].is_cuda else None
+        truth = run_tape(*args, T=T, V=V, A=A, K=K, R=R, n_steps=self.n_steps, plan=plan)
         return truth.cpu().numpy()[: len(assignments), : len(self.conjuncts)]
 
     def pack_host(self, assignments) -> Tuple[tuple, tuple]:

@@ -164,6 +164,58 @@ FAMILIES: Dict[str, Callable] = {
 # the tape op code each family exists to run (tape_vm.OP_* order)
 FAMILY_OP = {name: i for i, name in enumerate(FAMILIES)}
 
+WIDE_LIVE = 220  # values generated before any is read by the reduction
+
+
+def case_wide_live(T):
+    """``WIDE_LIVE`` values all live at once, then folded by ULT/ITE pairs
+    (large profile): the port's slot file needs more than 200 slots, past
+    what a block of 32 candidates holds in shared memory."""
+    x, y, _z = _vars(T, "wide")
+    vals = [x]
+    for _ in range(WIDE_LIVE):
+        vals.append(T.add(vals[-1], y))
+    # a left fold from the last value: every reduction step depends on the
+    # whole chain, so in any order of the tape all values are live at once
+    acc, rest = vals[-1], vals[-2::-1]
+    while len(rest) >= 3:
+        a, b, c, *rest = rest
+        acc = T.ite(T.ult(acc, a), b, c)
+    for v in rest:
+        acc = T.bxor(acc, v)
+    return [T.ult(acc, _c(T, 1 << 255))], [x, y], []
+
+
+def case_keccak_live(T):
+    """Values defined before the first keccak step and read after the second,
+    so the port's kernel spills them across both."""
+    x, y, z = _vars(T, "klive")
+    a, b = T.add(x, y), T.mul(x, _c(T, 3))
+    h1 = T.keccak(a)
+    c = T.add(h1, b)
+    h2 = T.keccak(T.concat2(c, a))
+    return [T.ult(T.add(h2, a), b), T.eq(T.sub(b, a), T.add(h1, c)),
+            T.ult(T.add(z, _c(T, 1, 64)), T.extract(63, 0, h2))], [x, y, z], []
+
+
+def case_leaf_roots(T):
+    """Roots on leaf rows (a boolean variable, the constant true) and roots
+    whose row is final at the tape's first steps, ahead of a long chain."""
+    x, y, z = _vars(T, "lroot")
+    p = T.bool_var("tc_lroot_p")
+    acc = x
+    for k in range(30):
+        acc = T.add(T.mul(acc, y), _c(T, k + 1))
+    return [p, T.true(), T.ult(x, y), T.eq(T.band(x, _c(T, 1)), _c(T, 0)),
+            T.ult(acc, y), T.lnot(p)], [x, y, z, p], []
+
+
+# cases for the port's slot plan (ops/tape_vm.py TapePlan) beyond the op families
+SLOT_CASES: Dict[str, Callable] = {
+    "wide_live": case_wide_live, "keccak_live": case_keccak_live,
+    "leaf_roots": case_leaf_roots,
+}
+
 
 def widen(T, conjuncts, bv_vars):
     """Append a 120-step add/mul chain so the tape needs the large profile."""
@@ -175,7 +227,7 @@ def widen(T, conjuncts, bv_vars):
 
 
 def build(T, family: str, large: bool = False):
-    conj, bv_vars, arrays = FAMILIES[family](T)
+    conj, bv_vars, arrays = {**FAMILIES, **SLOT_CASES}[family](T)
     if large:
         conj = widen(T, conj, bv_vars)
     return conj, bv_vars, arrays
