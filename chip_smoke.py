@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's solver probe on one NVIDIA card, end to end.
+"""Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
+probe and the device frontier segment.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
 Phases, in order; any failure exits nonzero and prints no result:
 
 1. the card (``nvidia-smi`` name and power limit) and torch's CUDA version;
-2. the kernel build from ``mythril_tpu_torch/csrc`` (``ops/_build.py``), timed,
-   with ptxas's register and spill report, and the LOP3 and SHF instructions
-   per keccak round in the SASS (``cuobjdump -sass``);
+2. the kernel build from ``mythril_tpu_torch/csrc`` (``ops/_build.py``, one
+   nvcc per source, all at once), timed, with ptxas's register and spill
+   report, and the LOP3 and SHF instructions per keccak round in the SASS
+   (``cuobjdump -sass``);
 3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
    state) against ``keccak_f1600_reference``, both on the card, at N in
    {1, 3, 64, 130, 4096, 65536} random states, bit-equal; then ``keccak256``
@@ -17,20 +19,32 @@ Phases, in order; any failure exits nonzero and prints no result:
    both on the card, bit-equal in truth and in every register: one tape per
    op family (all 20) at both profiles and both batch buckets, one batch of
    8192 on the large profile, and the slot cases of
-   ``tests/_torch_tape_cases.py`` (more than 200 slots, values spilled across
-   both keccak steps, roots on leaves and roots final early) at both buckets;
-5. the main path: the recorded probe traffic of
-   ``tests/testdata/torch_probe_queries.json`` (JAX term dumps, loaded with
-   ``from_jax_dump``) replayed through ``check_satisfiable_batch`` and
-   ``solve_conjunction`` on the card with ``probe_backend="device"``; the
-   kernels' launch counts are zeroed just before and read just after, and the
-   keep/prune rule against the stored JAX verdicts must show 0 disagreements;
-   then every kernel call the main path made is replayed and timed with
-   CUDA events: the kernel's launches alone (``ms``), the whole wrapper call
-   (``wrapper_ms``) and its plain version, beside the call's bound; keccak in
-   both layouts at every N of phase 3, for the layout crossover; the main
-   path replayed once more under ``torch.profiler`` for the card's idle share;
-6. one ``{"kernels": [...]}`` line, and as the last line
+   ``tests/_torch_tape_cases.py`` at both buckets;
+5. frontier parity: the ``frontier_segment`` kernel against ``segment_torch``,
+   both on the card, bit-equal in every output array, on every case of
+   ``tests/_torch_frontier_cases.py`` (the 33 families on concrete and
+   symbolic operands, each binary and comparison fold, the caps and parity
+   hazards, all five grant modes under slot scarcity, random batches);
+6. the probe main path: the recorded probe traffic of
+   ``tests/testdata/torch_probe_queries.json`` replayed through
+   ``check_satisfiable_batch`` and ``solve_conjunction`` on the card with
+   ``probe_backend="device"``; every launch count zeroed just before and read
+   just after; 0 keep/prune disagreements with the stored JAX verdicts;
+7. the frontier main path: every dispatch of
+   ``tests/testdata/torch_frontier_dispatches.npz`` (the JAX engine's real
+   segments at widths 1024 and 256) through ``push_state`` -> ``segment`` (the
+   kernel, through ``cached_segment`` with no device: the card) ->
+   ``pull_harvest`` -> ``HostArena.pull_from_device``, counts zeroed before
+   and read after; 0 mismatches against the stored JAX digests; then the
+   kernel against ``segment_torch`` on the card, on every dispatch but the
+   largecode run's tail;
+8. times with CUDA events: each kernel's launches alone (``ms``), the whole
+   wrapper call (``wrapper_ms``) and its plain version, beside the call's
+   bound, at the main paths' shapes; keccak in both layouts at every N of
+   phase 3; the frontier segment per dispatch with path-steps per second and
+   the ``push_state`` and ``pull_harvest`` times; the probe main path once
+   more under ``torch.profiler`` for the card's idle share;
+9. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -40,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -168,7 +183,7 @@ def card_line() -> str:
 
 KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "keccak_f1600_warp_kernel": "keccak_f1600/warp", "keccak_f1600_kernel": "keccak_f1600/thread",
-    "tape_vm_kernel": "tape_vm",
+    "tape_vm_kernel": "tape_vm", "frontier_segment_kernel": "frontier_segment",
 }
 
 
@@ -335,8 +350,7 @@ def main_path(torch):
     tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = record_tape, record_keccak
     args.probe_backend = "device"
     P.SolverStatistics().reset()
-    keccak_cuda.launches = tape_vm.launches = 0
-    keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
+    zero_launches()
     try:
         verdicts, bad = collections.Counter(), []
         for contract in data["contracts"]:
@@ -350,7 +364,7 @@ def main_path(torch):
         torch.cuda.synchronize()
     finally:
         tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = run_tape_cuda, keccak_kernel
-    launches = {"tape_vm": tape_vm.launches, "keccak_f1600": keccak_cuda.launches}
+    launches = read_launches()
     stats = P.SolverStatistics().as_dict()
     n_queries = sum(len(c["queries"]) for c in data["contracts"])
     print(f"  {n_queries} queries in {time.perf_counter() - t0:.1f} s; verdicts {dict(verdicts)}")
@@ -359,9 +373,25 @@ def main_path(torch):
           f"tape_unsupported {stats['tape_unsupported']}; "
           f"device_dispatches {stats['device_dispatches']}")
     check(not bad, f"{len(bad)} keep/prune disagreements with the JAX verdicts")
-    for name, n in launches.items():
-        check(n > 0, f"the main path launched {name} no time")
+    for name in ("tape_vm", "keccak_f1600"):
+        check(launches[name] > 0, f"the main path launched {name} no time")
     return launches, tape_calls, keccak_calls
+
+
+def zero_launches() -> None:
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.ops import keccak_cuda, tape_vm
+
+    keccak_cuda.launches = tape_vm.launches = fstep.launches = 0
+    keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
+
+
+def read_launches() -> dict:
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.ops import keccak_cuda, tape_vm
+
+    return {"tape_vm": tape_vm.launches, "keccak_f1600": keccak_cuda.launches,
+            "frontier_segment": fstep.launches}
 
 
 def idle_share(torch):
@@ -578,6 +608,197 @@ def at_scale(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the frontier segment
+# ---------------------------------------------------------------------------
+
+LARGECODE = "largecode_contract_2400"
+LARGECODE_COMPARED = 8  # of its 352 dispatches: the first 8 and the paged one
+# 32-bit integer instructions a live path's step costs the kernel (decode
+# and pops about 60, a 256-bit fold up to 100, the handler and the tail
+# about 120, rows and event about 120): an estimate from the source, the
+# operations side of the bound, at the issue rate.
+FRONTIER_STEP_OPS = 400
+
+
+def frontier_bytes(caps, n_loops: int, n_exec: int, forks: int) -> int:
+    """Bytes one segment must move for this run's work: per live path-step
+    its scalars read (15) and written (12), 8 stack words, one code-table
+    row (7 int32 and 3 bool columns), the popped rows' 7 const flags and two
+    values, R new rows and one event; per granted fork the parent's state
+    row read and the child's written, the child's event buffer reset and the
+    E_FORK event."""
+    step = 4 * (15 + 12) + 4 * 8 + (7 * 4 + 3) + 7 + 2 * 64 + caps.R * (5 * 4 + 64 + 1) + 13 * 4
+    row = 4 * (15 + caps.STK + 2 * caps.MEM + 2 * caps.STO + 16 + caps.CON + n_loops)
+    return n_exec * step + forks * (2 * row + 4 * caps.EVT * 13 + 13 * 4)
+
+
+def frontier_err(got, want) -> int:
+    """Largest |difference| over every output array of two segments'
+    ``outputs_to_numpy`` (a shape mismatch counts as 2^31)."""
+    import numpy as np
+
+    err = max(abs(a - b) for a, b in zip(got[2:5], want[2:5]))
+    for g, w in zip([*got[0].values(), *got[1].values(), got[5]],
+                    [*want[0].values(), *want[1].values(), want[5]]):
+        if g.shape != w.shape:
+            return 1 << 31
+        if g.size:
+            err = max(err, int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()))
+    return err
+
+
+def frontier_parity(torch):
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fc
+
+    phase("frontier parity: the segment kernel against its plain version on the card")
+    named = [(f"family {f} {'concrete' if c else 'symbolic'}", fc.family_case(f, c))
+             for f in sorted(fc.FAMILY_OPS) for c in (True, False)]
+    named += [(f"binops {c} {i}", x) for c in (True, False) for i, x in enumerate(fc.binop_case(c))]
+    named += sorted(fc.special_cases().items())
+    named += [(f"random {s}", fc.random_case(s)) for s in range(12)]
+    named.append(("odd shapes", fc.odd_shapes_case()))
+    segment = fstep.cached_segment(fc.CAPS, *fc.BUCKET, device="cuda")
+    n_exec = 0
+    for name, case in named:
+        inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                           case["visited"], case["code"], case["cfg"], "cuda")
+        got = interop.outputs_to_numpy(segment(*inputs))
+        want = interop.outputs_to_numpy(fstep.segment_torch(*inputs, fc.CAPS))
+        err = frontier_err(got, want)
+        check(err == 0, f"frontier_segment differs from its plain version on {name} (max |err| {err})")
+        n_exec += want[3]
+    print(f"  {len(named)} cases bit-equal ({len(fc.FAMILY_OPS)} families x concrete/symbolic, "
+          f"binary folds, {len(fc.special_cases()) + 1} hazard cases, 12 random batches); "
+          f"{n_exec} path-steps")
+
+
+def frontier_main_path(torch):
+    """Every recorded dispatch through the engine's device interface on the
+    card.  -> (launches, dispatches kept for the comparison and the times,
+    transfer times)"""
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.frontier.arena import HostArena
+    from tests.test_torch_frontier_fixture import iter_dispatches, mismatches
+
+    t0 = phase("frontier main path: recorded dispatches through push_state -> segment -> "
+               "pull_harvest -> HostArena.pull_from_device on the card")
+    kept, bad, per_run = [], [], collections.defaultdict(lambda: collections.Counter())
+    push_ms, pull_ms, arena_ms = [], [], []
+    zero_launches()
+    for name, i, d in iter_dispatches():
+        caps = d["caps"]
+        host = HostArena(caps.ARENA)
+        for col, src in zip(host.device_arrays(), d["arena"]):
+            col[:] = src
+        host.length = d["arena_len"]
+        dev_arena = interop.arena_to_torch(d["arena"], "cuda")
+        visited = interop.visited_to_torch(d["visited"], "cuda")
+        code = interop.code_to_torch(d["code"], "cuda")
+        segment = fstep.cached_segment(caps, *d["bucket"])  # no device: the card
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st_dev = fstep.push_state(d["state"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = segment(st_dev, dev_arena, d["arena_len"], visited, code, fstep.CfgScalars(*d["cfg"]))
+        st_host, new_len, n_exec, max_live = fstep.pull_harvest(out[0], out[2], out[3], out[4])
+        t3 = time.perf_counter()
+        host.pull_from_device(out[1], new_len)
+        t4 = time.perf_counter()
+        push_ms.append((t2 - t1) * 1e3)
+        pull_ms.append((t3 - t2) * 1e3)
+        arena_ms.append((t4 - t3) * 1e3)
+        miss = mismatches(interop.output_digests((st_host, host, new_len, n_exec, max_live, out[5])),
+                          d["digests"])
+        if miss:
+            bad.append((name, i, miss[:4]))
+        r = per_run[name]
+        r["dispatches"] += 1
+        r["path_steps"] += n_exec
+        r["max_live"] = max(r["max_live"], max_live)
+        r["live_in"] = max(r["live_in"], int(((d["state"].halt == 0) & (d["state"].seed >= 0)).sum()))
+        r["rows_in"] += d["arena_len"]
+        r["rows_out"] += new_len
+        r["width"] = caps.B
+        if name != LARGECODE or i < LARGECODE_COMPARED or int(d["code"][10].max()) > 0:
+            kept.append((name, i, d))
+    launches = read_launches()
+    n = sum(r["dispatches"] for r in per_run.values())
+    print(f"  {n} dispatches in {time.perf_counter() - t0:.1f} s; mismatches with the JAX digests: "
+          f"{len(bad)} {bad[:3]}")
+    for name, r in per_run.items():
+        print(f"  {name}: {dict(r)}")
+    print(f"  launches {launches}; push_state {statistics.median(push_ms):.3f} ms median "
+          f"({sum(push_ms):.1f} in all), segment + pull_harvest {statistics.median(pull_ms):.3f} ms "
+          f"median, arena pull {statistics.median(arena_ms):.3f} ms median (host clock)")
+    check(not bad, f"{len(bad)} frontier dispatches differ from the JAX digests")
+    check(launches["frontier_segment"] == n, "the frontier main path did not launch the kernel "
+          "once per dispatch")
+    transfers = {"dispatches": n, "per_run": {k: dict(v) for k, v in per_run.items()},
+                 "push_state_ms_median": statistics.median(push_ms),
+                 "segment_and_pull_harvest_ms_median": statistics.median(pull_ms),
+                 "arena_pull_ms_median": statistics.median(arena_ms),
+                 "push_state_ms_total": sum(push_ms), "arena_pull_ms_total": sum(arena_ms)}
+    return launches, kept, transfers
+
+
+def time_frontier(torch, kept, reps: int = 5):
+    """Per kept dispatch: the kernel against the plain version on the card
+    (bit-equal), ``ms`` (the kernel's launch alone, fresh copies of the
+    inputs made outside the event pair), ``wrapper_ms`` (the whole
+    ``segment_cuda`` call: copies of the inputs, scratch, launch),
+    ``plain_ms`` (one ``segment_torch`` call), ``pull_ms`` (``pull_harvest``),
+    the bound and path-steps per second."""
+    import ctypes
+
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rows = []
+    for name, i, d in kept:
+        caps = d["caps"]
+        inputs = interop.inputs_from_numpy(d["state"], d["arena"], d["arena_len"], d["visited"],
+                                           d["code"], d["cfg"], "cuda")
+        out = fstep.segment_cuda(*inputs, caps)
+        got = interop.outputs_to_numpy(out)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = fstep.segment_torch(*inputs, caps)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = frontier_err(got, interop.outputs_to_numpy(plain))
+        timer, stream = LaunchTimer(torch), torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            args, _outs, _keep = fstep.kernel_args(*inputs, caps)
+            timer(lambda: _build.check(lib.mk_frontier_segment(ctypes.byref(args), stream),
+                                       "frontier_segment"))
+        ms = timer.total_ms() / reps
+        wrapper = cuda_ms(lambda: fstep.segment_cuda(*inputs, caps), reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fstep.pull_harvest(out[0], out[2], out[3], out[4])
+        pull = (time.perf_counter() - t0) * 1e3
+        n_exec = got[3]
+        forks = int(((d["state"].seed < 0) & (got[0]["seed"] >= 0)).sum())
+        b_ms, b_by = bound(frontier_bytes(caps, d["state"].loops.shape[1], n_exec, forks), 0,
+                           FRONTIER_STEP_OPS * n_exec)
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err, "pull_harvest_ms": pull, "forks": forks,
+                     "n_exec": n_exec, "path_steps_per_s": n_exec / (ms / 1e3),
+                     "shape": f"{name}#{i} B={caps.B} n_exec={n_exec}"})
+        print(f"  {rows[-1]['shape']}: kernel {ms:.4f} ms ({rows[-1]['path_steps_per_s']:.3g} "
+              f"path-steps/s), wrapper {wrapper:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.6f} ms by {b_by}, pull_harvest {pull:.3f} ms, {forks} forks")
+    return rows
+
+
 def summarize(name, rows, launches, card, **fixed):
     """The median call (by kernel time) stands for the kernel; totals beside."""
     mid = sorted(rows, key=lambda r: r["ms"])[len(rows) // 2]
@@ -627,7 +848,9 @@ def main() -> int:
         sass = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
+        frontier_parity(torch)
         launches, tape_calls, keccak_calls = main_path(torch)
+        f_launches, f_kept, transfers = frontier_main_path(torch)
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
                            launches["keccak_f1600"], card, route="cuda",
@@ -642,11 +865,23 @@ def main() -> int:
                          replaces="mythril_tpu/ops/tape_vm.py:360")
         tape["regs_per_thread"] = attrs["tape_vm"]["regs_per_thread"]
         tape["smem_bytes"] += attrs["tape_vm"]["static_smem_bytes"]
-        kernels = [keccak, tape]
+        phase("frontier segment times per dispatch (CUDA events)")
+        f_rows = time_frontier(torch, f_kept)
+        frontier = summarize("frontier_segment", f_rows, f_launches["frontier_segment"], card,
+                             route="cuda", source="mythril_tpu_torch/csrc/frontier_segment.cu",
+                             replaces="mythril_tpu/frontier/step.py:141")
+        frontier.update(regs_per_thread=attrs["frontier_segment"]["regs_per_thread"],
+                        main_path=transfers, path_steps_per_s_timed=sum(r["n_exec"] for r in f_rows)
+                        / (sum(r["ms"] for r in f_rows) / 1e3),
+                        per_dispatch=[{k: r[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "pull_harvest_ms",
+                                                         "path_steps_per_s", "forks")}
+                                      for r in f_rows])
+        kernels = [keccak, tape, frontier]
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")
-        for entry, rows in zip(kernels, at_scale(torch).values()):
+        for entry, rows in zip(kernels[:2], at_scale(torch).values()):
             entry["at_scale"] = [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
                                                     "bound_ms", "bound_by", "slots", "block",
                                                     "smem_bytes", "variants") if k in r}

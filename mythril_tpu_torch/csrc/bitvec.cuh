@@ -1,8 +1,9 @@
 // 256-bit EVM word arithmetic for the tape VM, one word per thread.
 //
 // Ports the limb algebra of mythril_tpu/ops/bitvec.py (add, sub, mul,
-// _udivmod, sdiv, srem, bvexp, shl, lshr, ashr, eq, ult, mux) at the tape's
-// width of 256 bits.  The JAX package keeps 16 limbs of 16 bits because a
+// _udivmod, sdiv, srem, bvexp, shl, lshr, ashr, eq, ult, slt, mux) at the
+// width of 256 bits, the tape's and the frontier segment's (every fold of
+// frontier/step.py is 256-bit).  The JAX package keeps 16 limbs of 16 bits because a
 // TPU has no 64-bit integers; Hopper has them, so a word is four uint64_t
 // and a limb product is one 64x64->128 multiply.  The tape's I/O layout
 // stays 16-bit limbs (load/store below).
@@ -244,6 +245,11 @@ __host__ __device__ __forceinline__ void udivmod(const u256& a, const u256& b,
 
 __host__ __device__ __forceinline__ bool sign_bit(const u256& a) {
   return a.w[3] >> 63;
+}
+
+// Signed a < b: the sign bits decide when they differ, else the unsigned order.
+__host__ __device__ __forceinline__ bool slt(const u256& a, const u256& b) {
+  return sign_bit(a) != sign_bit(b) ? sign_bit(a) : ult(a, b);
 }
 
 __host__ __device__ __forceinline__ u256 sdiv(const u256& a, const u256& b) {

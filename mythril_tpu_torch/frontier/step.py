@@ -1,0 +1,1086 @@
+"""The device segment: K lockstep instruction steps over the batch.
+
+The port of ``mythril_tpu/frontier/step.py``: one call executes up to
+``caps.K`` EVM instructions for every live path of the frontier.  Each step
+has two phases, as in the JAX program:
+
+  1. per path: decode against the page window, pop up to 7 operands,
+     dispatch one of the 33 handler families (``ops.F_*``), fold constants
+     with the 256-bit limb algebra, write up to R new arena rows, record an
+     event, ask for a fork;
+  2. over the batch: coverage planes, arena row reservation by live rank,
+     the row scatter, the fork grant into free slots (a stable rank by the
+     ``SEL_*`` score), the child copy, the branch updates and E_FORK events.
+
+The loop stops after ``min(cfg.k_limit, caps.K)`` steps, when no path is
+live, or when the arena has no room for ``n_live * R`` more rows.
+
+Two implementations compute the same outputs bit for bit:
+
+* ``segment_torch``, the plain PyTorch version: the JAX program's dataflow
+  written out over a batch dimension (every handler computed for every path,
+  then selected by family, with the same clamps and drops).  The CPU tests
+  hold it against the JAX segment, and ``chip_smoke.py`` holds the kernel
+  against it on the card.
+* ``segment_cuda``, the CUDA kernel ``csrc/frontier_segment.cu``: one
+  cooperative launch runs the whole loop on the card (``frontier_segment.cuh``).
+
+``cached_segment(..., device=None)`` returns a ``segment`` with the JAX
+signature; it runs the kernel on CUDA tensors and the plain version only on
+CPU tensors, which the caller asks for with ``device="cpu"``.  The synchronous transfers
+(``push_state``, ``pull_harvest``, ``pull_arena_rows``, ``push_arena_rows``)
+are plain torch.  Indexing follows XLA's rules, which the code spells out:
+a gather clamps its index into bounds (a negative index wraps once first),
+and a ``mode="drop"`` scatter drops an index outside the bounds.  int32
+arithmetic wraps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mythril_tpu_torch import device as _device
+from mythril_tpu_torch.frontier import ops as O
+from mythril_tpu_torch.frontier.code import CTX_ADDRESS, CTX_BALANCES, CTX_SEED, CTX_STORAGE
+from mythril_tpu_torch.frontier.state import Caps, FrontierState
+from mythril_tpu_torch.ops import bitvec as bv
+
+I32 = torch.int32
+INT32_MAX = (1 << 31) - 1
+
+
+class ArenaDev(NamedTuple):
+    op: torch.Tensor  # [T] int32
+    a: torch.Tensor  # [T] int32
+    b: torch.Tensor  # [T] int32
+    c: torch.Tensor  # [T] int32
+    width: torch.Tensor  # [T] int32
+    val: torch.Tensor  # [T, 16] int32 holding 16-bit limbs (JAX: uint32)
+    isconst: torch.Tensor  # [T] bool
+
+
+class NewRows(NamedTuple):
+    """R rows a path may write this step ([B, R], val [B, R, 16])."""
+
+    op: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    width: torch.Tensor
+    val: torch.Tensor
+    isconst: torch.Tensor
+
+
+class Fork(NamedTuple):
+    want: torch.Tensor  # [B] bool
+    target: torch.Tensor  # instruction index of the taken branch
+    dest_row: torch.Tensor
+    word_row: torch.Tensor
+    cond_row: torch.Tensor  # bool row for the taken constraint
+    ncond_row: torch.Tensor  # bool row for the fall-through constraint
+
+
+class CodeDev(NamedTuple):
+    """Per-instruction dispatch tables with a leading [C] code axis (see the
+    JAX package's ``CodeDev``); every path indexes them by its code id."""
+
+    fam: torch.Tensor  # [C, N] int32
+    aux: torch.Tensor  # [C, N] int32
+    arity: torch.Tensor  # [C, N] int32
+    gmin: torch.Tensor  # [C, N] int32
+    gmax: torch.Tensor  # [C, N] int32
+    event: torch.Tensor  # [C, N] bool
+    jumpmap: torch.Tensor  # [C, ADDR_CAP] int32
+    loopid: torch.Tensor  # [C, N] int32
+    concskip: torch.Tensor  # [C, N] bool
+    valgate: torch.Tensor  # [C, N] bool
+    pbase: torch.Tensor  # [C] int32 resident-window start per code
+
+
+class CfgScalars(NamedTuple):
+    """Run-config scalars (plain ints: no rebuild on change)."""
+
+    max_depth: int
+    loop_bound: int  # 0 disables the bound
+    row_zero: int  # arena row of const 0
+    row_one: int  # arena row of const 1
+    sel_mode: int  # fork-grant priority under slot scarcity (SEL_*)
+    k_limit: int = 1 << 30  # per-segment step limit (<= caps.K)
+
+
+# fork-grant selection modes (cfg.sel_mode)
+SEL_NONE = 0  # slot order
+SEL_DEEP = 1  # deepest parents first
+SEL_SHALLOW = 2  # shallowest parents first
+SEL_COVERAGE = 3  # forks targeting not-yet-visited code first
+SEL_BEAM = 4  # highest beam score first
+
+
+# ---------------------------------------------------------------------------
+# XLA's indexing and int32 rules, in torch
+# ---------------------------------------------------------------------------
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap."""
+    return (((x.long() + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(I32)
+
+
+def _gidx(i: torch.Tensor, n: int) -> torch.Tensor:
+    """A gather index as XLA takes it: a negative index wraps once, then the
+    index is clamped into [0, n)."""
+    i = i.long()
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
+def _sidx(i: torch.Tensor, n: int):
+    """A scatter index as XLA takes it: (wrapped index, in-bounds mask)."""
+    i = i.long()
+    i = torch.where(i < 0, i + n, i)
+    return i, (i >= 0) & (i < n)
+
+
+def _floordiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _sel(m: torch.Tensor, a, b):
+    """where(m, a, b) with a [B] mask broadcast over trailing dims."""
+    a = torch.as_tensor(a, device=m.device)
+    b = torch.as_tensor(b, device=m.device)
+    nd = max(a.dim(), b.dim())
+    return torch.where(m.reshape(m.shape + (1,) * (nd - 1)), a, b)
+
+
+def _memgas(size: torch.Tensor) -> torch.Tensor:
+    w = _floordiv(size, 32)
+    return 3 * w + _floordiv(_wrap32(w.long() * w.long()), 512)
+
+
+# ---------------------------------------------------------------------------
+# the plain segment
+# ---------------------------------------------------------------------------
+
+_BIN_FOLDS = {
+    O.A_ADD: lambda x, y: bv.add(x, y, 256),
+    O.A_SUB: lambda x, y: bv.sub(x, y, 256),
+    O.A_MUL: lambda x, y: bv.mul(x, y, 256),
+    O.A_AND: lambda x, y: bv.and_(x, y, 256),
+    O.A_OR: lambda x, y: bv.or_(x, y, 256),
+    O.A_XOR: lambda x, y: bv.xor(x, y, 256),
+    O.A_SHL: lambda x, y: bv.shl(x, y, 256),
+    O.A_LSHR: lambda x, y: bv.lshr(x, y, 256),
+    O.A_ASHR: lambda x, y: bv.ashr(x, y, 256),
+}
+
+_MUTABLE = ("pc", "halt", "stack", "stack_len", "mem_addr", "mem_val", "mem_len", "mem_size",
+            "sto_key", "sto_val", "sto_len", "ctx", "cons", "cons_len", "gas_min", "gas_max",
+            "depth", "loops")
+
+
+def _path_step(st: FrontierState, ids, arena: ArenaDev, code: CodeDev, cfg: CfgScalars,
+               caps: Caps):
+    """One step of every path (the JAX ``path_step`` under ``vmap``).
+    -> (new state, rows [B, R], fork)."""
+    R, STK, MEM, STO, CON, EVT = caps.R, caps.STK, caps.MEM, caps.STO, caps.CON, caps.EVT
+    dev = st.pc.device
+    B = st.pc.shape[0]
+    C, N = code.fam.shape
+    T = arena.op.shape[0]
+    A = code.jumpmap.shape[1]
+    NL = st.loops.shape[1]
+    ar = torch.arange(B, device=dev)
+    i32 = lambda v: torch.full((B,), v, dtype=I32, device=dev)  # noqa: E731
+
+    cid = st.code_id.clamp(0, C - 1).long()
+    rel = st.pc - code.pbase[cid]
+    infault = (rel < 0) | (rel >= N)
+    pc = rel.clamp(0, N - 1).long()
+    fam = torch.where(infault, i32(O.F_PAGEFAULT), code.fam[cid, pc])
+    aux = code.aux[cid, pc]
+    arity = torch.where(infault, i32(0), code.arity[cid, pc])
+    running = (st.halt == O.H_RUNNING) & (st.seed >= 0)
+    row_zero, row_one = i32(cfg.row_zero), i32(cfg.row_one)
+
+    pops = torch.stack([
+        torch.where(j < arity, st.stack[ar, (st.stack_len - 1 - j).clamp(0, STK - 1).long()], i32(-1))
+        for j in range(7)
+    ], 1)  # [B, 7]
+    underflow = st.stack_len < arity
+    pop_c = torch.where(pops >= 0, arena.isconst[pops.clamp(0, T - 1).long()],
+                        torch.zeros_like(pops, dtype=torch.bool))
+    pop_v = arena.val[pops.clamp(0, T - 1).long()].long()  # [B, 7, 16] limbs
+
+    def conc_from(c, v):
+        small = c & (v[:, 2:].amax(1) == 0) & (v[:, 1] < 16)
+        return small, _wrap32(v[:, 0] | (v[:, 1] << 16))
+
+    ok_addr0, addr0 = conc_from(pop_c[:, 0], pop_v[:, 0])
+    ok_addr1, addr1 = conc_from(pop_c[:, 1], pop_v[:, 1])
+    jidx0 = code.jumpmap[cid, addr0.clamp(0, A - 1).long()]
+    valid0 = (addr0 < A) & (jidx0 >= 0)
+    lid_pc = code.loopid[cid, pc]
+
+    def zrows(fill_abc=-1):
+        z = torch.zeros((B, R), dtype=I32, device=dev)
+        return NewRows(op=z, a=z + fill_abc, b=z + fill_abc, c=z + fill_abc, width=z,
+                       val=torch.zeros((B, R, 16), dtype=torch.long, device=dev),
+                       isconst=torch.zeros((B, R), dtype=torch.bool, device=dev))
+
+    rows0 = zrows()
+    no_fork = Fork(want=torch.zeros(B, dtype=torch.bool, device=dev), target=i32(0),
+                   dest_row=i32(-1), word_row=i32(-1), cond_row=i32(-1), ncond_row=i32(-1))
+
+    def set_row(rows, k, op, a=-1, b=-1, c=-1, width=256, val=None, isconst=False):
+        cols = {}
+        for name, v in (("op", op), ("a", a), ("b", b), ("c", c), ("width", width),
+                        ("isconst", isconst)):
+            col = getattr(rows, name).clone()
+            col[:, k] = torch.as_tensor(v, device=dev).to(col.dtype)
+            cols[name] = col
+        vals = rows.val
+        if val is not None:
+            vals = vals.clone()
+            vals[:, k] = val
+        return NewRows(val=vals, **cols)
+
+    def sel_tree(m, a, b):
+        return type(a)(*[_sel(m, x, y) for x, y in zip(a, b)])
+
+    # an Out is (state fields dict, rows, fork, res); fields absent from the
+    # dict are the incoming state's
+    def out(fields=None, rows=rows0, fork=no_fork, res=None):
+        return (dict(fields or {}), rows, fork, i32(-1) if res is None else res)
+
+    def halted(kind):
+        return out({"halt": i32(kind)})
+
+    def guard(good, o, kind=O.H_PARK):
+        """where(good, o, halted(kind)) over the whole Out."""
+        fields, rows, fork, res = o
+        g = {k: _sel(good, v, getattr(st, k)) for k, v in fields.items()}
+        g["halt"] = _sel(good, fields.get("halt", st.halt), i32(kind))
+        return (g, sel_tree(good, rows, rows0), sel_tree(good, fork, no_fork),
+                _sel(good, res, i32(-1)))
+
+    def push1(stack, length, row):
+        ok = length < STK
+        i = length.clamp(0, STK - 1).long()
+        stack = stack.clone()
+        stack[ar, i] = torch.where(ok, row, stack[ar, i])
+        return stack, length + 1, ok
+
+    def pushed(rows, row, res=None):
+        stack, length, ok = push1(st.stack, st.stack_len - arity, row)
+        return out({"stack": stack, "stack_len": length}, rows=rows,
+                   res=row if res is None else res), ok
+
+    def set_at(x, idx, v, mask=None):
+        x = x.clone()
+        if mask is None:
+            x[ar, idx.long()] = v
+        else:
+            x[ar, idx.long()] = torch.where(mask, v, x[ar, idx.long()])
+        return x
+
+    def ctx_at(k):
+        return st.ctx[ar, _gidx(torch.as_tensor(k, device=dev).expand(B), st.ctx.shape[1])]
+
+    live_mem = torch.arange(MEM, device=dev)[None, :] < st.mem_len[:, None]
+
+    def mem_lookup(addr):
+        hit = (st.mem_addr == addr[:, None]) & live_mem
+        return hit.any(1), st.mem_val[ar, hit.int().argmax(1)]
+
+    def mem_overlap_miss(addr):
+        d = st.mem_addr - addr[:, None]
+        near = (torch.abs(d) < 32) & live_mem
+        exact = (st.mem_addr == addr[:, None]) & live_mem
+        return (near & ~exact).any(1)
+
+    def mem_gas(fields, addr, size):
+        size0 = fields.get("mem_size", st.mem_size)
+        new_size = torch.maximum(size0, _floordiv(addr + size + 31, 32) * 32)
+        cost = _memgas(new_size) - _memgas(size0)
+        f = dict(fields)
+        f.update(mem_size=new_size, gas_min=fields.get("gas_min", st.gas_min) + cost,
+                 gas_max=fields.get("gas_max", st.gas_max) + cost)
+        return f
+
+    limb0 = lambda x: torch.nn.functional.pad(x.long()[:, None], (0, 15))  # noqa: E731
+
+    # ----- handlers ------------------------------------------------------
+
+    def h_park():
+        return halted(O.H_PARK)
+
+    def h_page_fault():
+        return halted(O.H_PAGE_FAULT)
+
+    def h_stop():
+        return halted(O.H_STOP)
+
+    def h_push_checked():
+        o, ok = pushed(rows0, aux)
+        return guard(ok, o)
+
+    def h_dup():
+        row = st.stack[ar, (st.stack_len - aux).clamp(0, STK - 1).long()]
+        stack, length, ok = push1(st.stack, st.stack_len, row)
+        return guard(ok, out({"stack": stack, "stack_len": length}, res=row))
+
+    def h_swap():
+        i = (st.stack_len - 1).clamp(0, STK - 1).long()
+        j = (st.stack_len - 1 - aux).clamp(0, STK - 1).long()
+        a, b = st.stack[ar, i], st.stack[ar, j]
+        stack = st.stack.clone()
+        stack[ar, i] = b
+        stack[ar, j] = a
+        return out({"stack": stack})
+
+    def h_pop():
+        return out({"stack_len": st.stack_len - 1})
+
+    def h_binop():
+        opc = aux & 0xFF
+        swap = (aux & 256) != 0
+        p0, p1 = pops[:, 0], pops[:, 1]
+        left, right = torch.where(swap, p1, p0), torch.where(swap, p0, p1)
+        foldable = torch.zeros(B, dtype=torch.bool, device=dev)
+        for k in _BIN_FOLDS:
+            foldable = foldable | (opc == k)
+        both_const = pop_c[:, 0] & pop_c[:, 1] & foldable
+        lv = _sel(swap, pop_v[:, 1], pop_v[:, 0])
+        rv = _sel(swap, pop_v[:, 0], pop_v[:, 1])
+        folded = torch.zeros((B, 16), dtype=torch.long, device=dev)
+        for k, fn in _BIN_FOLDS.items():
+            folded = _sel(opc == k, fn(lv, rv), folded)
+        rows_c = set_row(rows0, 0, O.A_CONST, val=folded, isconst=True)
+        rows_s = set_row(rows0, 0, opc, a=left, b=right)
+        o, ok = pushed(sel_tree(both_const, rows_c, rows_s), ids[:, 0])
+        return guard(ok, o)
+
+    def h_cmp():
+        p0, p1 = pops[:, 0], pops[:, 1]
+        both_const = pop_c[:, 0] & pop_c[:, 1]
+        lv, rv = pop_v[:, 0], pop_v[:, 1]
+        t = torch.zeros(B, dtype=torch.bool, device=dev)
+        for k, fn in (
+            (O.A_ULT, lambda: bv.ult(lv, rv)),
+            (O.A_UGT, lambda: bv.ult(rv, lv)),
+            (O.A_SLT, lambda: bv.slt(lv, rv, 256)),
+            (O.A_SGT, lambda: bv.slt(rv, lv, 256)),
+            (O.A_EQ, lambda: bv.eq(lv, rv)),
+        ):
+            t = torch.where(aux == k, fn(), t)
+        const_row = torch.where(t, row_one, row_zero)
+        rows_s = set_row(rows0, 0, aux, a=p0, b=p1, width=0)
+        rows_s = set_row(rows_s, 1, O.A_ITEW, a=ids[:, 0], b=row_one, c=row_zero)
+        res_row = torch.where(both_const, const_row, ids[:, 1])
+        o, ok = pushed(sel_tree(both_const, rows0, rows_s), res_row)
+        return guard(ok, o)
+
+    def h_iszero():
+        is_c = pop_c[:, 0]
+        const_row = torch.where(bv.is_zero(pop_v[:, 0]), row_one, row_zero)
+        rows_s = set_row(rows0, 0, O.A_EQZ, a=pops[:, 0], width=0)
+        rows_s = set_row(rows_s, 1, O.A_ITEW, a=ids[:, 0], b=row_one, c=row_zero)
+        res_row = torch.where(is_c, const_row, ids[:, 1])
+        o, ok = pushed(sel_tree(is_c, rows0, rows_s), res_row)
+        return guard(ok, o)
+
+    def h_not():
+        is_c = pop_c[:, 0]
+        rows_c = set_row(rows0, 0, O.A_CONST, val=bv.not_(pop_v[:, 0], 256), isconst=True)
+        rows_s = set_row(rows0, 0, O.A_NOT, a=pops[:, 0])
+        o, ok = pushed(sel_tree(is_c, rows_c, rows_s), ids[:, 0])
+        return guard(ok, o)
+
+    def h_envpush():
+        o, ok = pushed(rows0, ctx_at(aux))
+        return guard(ok, o)
+
+    def h_calldataload():
+        rows = set_row(rows0, 0, O.A_CDLOAD, a=pops[:, 0], b=ctx_at(CTX_SEED))
+        o, ok = pushed(rows, ids[:, 0])
+        return guard(ok, o)
+
+    def h_balance():
+        rows = set_row(rows0, 0, O.A_SELECT, a=ctx_at(CTX_BALANCES), b=pops[:, 0])
+        o, ok = pushed(rows, ids[:, 0])
+        return guard(ok, o)
+
+    def h_selfbalance():
+        rows = set_row(rows0, 0, O.A_SELECT, a=ctx_at(CTX_BALANCES), b=ctx_at(CTX_ADDRESS))
+        o, ok = pushed(rows, ids[:, 0])
+        return guard(ok, o)
+
+    def h_gaspush():
+        rows = set_row(rows0, 0, O.A_VARF, a=pc)
+        o, ok = pushed(rows, ids[:, 0])
+        return guard(ok, o)
+
+    def h_msize():
+        size = st.mem_size.long() & 0xFFFFFFFF
+        val = torch.zeros((B, 16), dtype=torch.long, device=dev)
+        val[:, 0], val[:, 1] = size & 0xFFFF, size >> 16
+        o, ok = pushed(set_row(rows0, 0, O.A_CONST, val=val, isconst=True), ids[:, 0])
+        return guard(ok, o)
+
+    def h_mload():
+        any_hit, val_row = mem_lookup(addr0)
+        row = torch.where(any_hit, val_row, row_zero)
+        f = mem_gas({}, addr0, 32)
+        stack, length, ok = push1(st.stack, st.stack_len - 1, row)
+        f.update(stack=stack, stack_len=length)
+        good = ok_addr0 & ok & ~mem_overlap_miss(addr0)
+        return guard(good, out(f, res=row))
+
+    def h_mstore():
+        exact = (st.mem_addr == addr0[:, None]) & live_mem
+        overlap = mem_overlap_miss(addr0)
+        any_exact = exact.any(1)
+        idx = torch.where(any_exact, exact.int().argmax(1).to(I32), st.mem_len)
+        ok_cap = idx < MEM
+        ic = idx.clamp(0, MEM - 1)
+        f = {"mem_addr": set_at(st.mem_addr, ic, addr0), "mem_val": set_at(st.mem_val, ic, pops[:, 1]),
+             "mem_len": torch.where(any_exact, st.mem_len, st.mem_len + 1),
+             "stack_len": st.stack_len - 2}
+        f = mem_gas(f, addr0, 32)
+        return guard(ok_addr0 & ~overlap & ok_cap, out(f))
+
+    def h_sha3():
+        off, ln = addr0, addr1
+        words = _floordiv(ln + 31, 32)
+        good = ok_addr0 & ok_addr1 & (ln > 0) & (torch.remainder(ln, 32) == 0) & (words <= 4)
+        w_rows = []
+        for w in range(4):
+            hit, vr = mem_lookup(off + 32 * w)
+            w_rows.append(torch.where(hit, vr, row_zero))
+            good = good & torch.where(words > w, ~mem_overlap_miss(off + 32 * w),
+                                      torch.ones_like(good))
+        rows, cur, cur_w = rows0, w_rows[0], i32(256)
+        for w in range(1, 4):
+            need = words > w
+            rows = sel_tree(need, set_row(rows, w - 1, O.A_CONCAT, a=cur, b=w_rows[w],
+                                          width=cur_w + 256), rows)
+            cur = torch.where(need, ids[:, w - 1], cur)
+            cur_w = torch.where(need, cur_w + 256, cur_w)
+        rows = set_row(rows, 3, O.A_KECCAK, a=cur, width=256)
+        sha_gas = 30 + 6 * words
+        f = mem_gas({"gas_min": st.gas_min + sha_gas, "gas_max": st.gas_max + sha_gas}, off, ln)
+        stack, length, ok = push1(st.stack, st.stack_len - 2, ids[:, 3])
+        f.update(stack=stack, stack_len=length)
+        return guard(good & ok, out(f, rows=rows, res=ids[:, 3]))
+
+    live_sto = torch.arange(STO, device=dev)[None, :] < st.sto_len[:, None]
+
+    def h_sload():
+        key = pops[:, 0]
+        hit = (st.sto_key == key[:, None]) & live_sto
+        any_hit = hit.any(1)
+        hit_val = st.sto_val[ar, hit.int().argmax(1)]
+        rows = set_row(rows0, 0, O.A_SELECT, a=ctx_at(CTX_STORAGE), b=key)
+        res = torch.where(any_hit, hit_val, ids[:, 0])
+        idx = st.sto_len
+        ok_cap = any_hit | (idx < STO)
+        ic = idx.clamp(0, STO - 1)
+        f = {"sto_key": set_at(st.sto_key, ic, key, ~any_hit),
+             "sto_val": set_at(st.sto_val, ic, ids[:, 0], ~any_hit),
+             "sto_len": torch.where(any_hit, st.sto_len, st.sto_len + 1)}
+        stack, length, ok = push1(st.stack, st.stack_len - 1, res)
+        f.update(stack=stack, stack_len=length)
+        return guard(ok_cap & ok, out(f, rows=sel_tree(any_hit, rows0, rows), res=res))
+
+    def h_sstore():
+        key, val = pops[:, 0], pops[:, 1]
+        rows = set_row(rows0, 0, O.A_STORE, a=ctx_at(CTX_STORAGE), b=key, c=val, width=0)
+        hit = (st.sto_key == key[:, None]) & live_sto
+        any_hit = hit.any(1)
+        idx = torch.where(any_hit, hit.int().argmax(1).to(I32), st.sto_len)
+        ic = idx.clamp(0, STO - 1)
+        f = {"sto_key": set_at(st.sto_key, ic, key), "sto_val": set_at(st.sto_val, ic, val),
+             "sto_len": torch.where(any_hit, st.sto_len, st.sto_len + 1),
+             "ctx": set_at(st.ctx, torch.full((B,), CTX_STORAGE, device=dev), ids[:, 0]),
+             "stack_len": st.stack_len - 2}
+        return guard(idx < STO, out(f, rows=rows))
+
+    def h_jump():
+        f = {"pc": jidx0, "depth": st.depth + 1, "stack_len": st.stack_len - 1}
+        return guard(ok_addr0 & valid0, out(f), O.H_INVALID)
+
+    def h_jumpi():
+        dest_row, word_row = pops[:, 0], pops[:, 1]
+        word_const = pop_c[:, 1]
+        truth = ~bv.is_zero(pop_v[:, 1])
+        can_take = ok_addr0 & valid0
+        rows = set_row(rows0, 0, O.A_NE, a=word_row, b=row_zero, width=0)
+        rows = set_row(rows, 1, O.A_BNOT, a=ids[:, 0], width=0)
+        cond_row, ncond_row = ids[:, 0], ids[:, 1]
+        cl = st.cons_len.clamp(0, CON - 1)
+        ok_cons = st.cons_len < CON
+        park = i32(O.H_PARK)
+
+        # concrete condition: one branch, no fork
+        take = truth & can_take
+        dead = truth & ~can_take
+        ok = ok_cons | dead
+        c_f = {
+            "pc": torch.where(take, jidx0, st.pc + 1), "depth": st.depth + 1,
+            "stack_len": st.stack_len - 2,
+            "cons": _sel(dead, st.cons, set_at(st.cons, cl, torch.where(take, cond_row, ncond_row))),
+            "cons_len": torch.where(dead, st.cons_len, st.cons_len + 1),
+            "halt": torch.where(dead, i32(O.H_INVALID), st.halt),
+        }
+        c_f = {k: _sel(ok, v, park if k == "halt" else getattr(st, k)) for k, v in c_f.items()}
+
+        # symbolic condition: pristine state when the taken side is viable
+        fall = {"pc": st.pc + 1, "depth": st.depth + 1, "stack_len": st.stack_len - 2,
+                "cons": set_at(st.cons, cl, ncond_row), "cons_len": st.cons_len + 1,
+                "halt": st.halt}
+        fall = {k: _sel(ok_cons, v, park if k == "halt" else getattr(st, k)) for k, v in fall.items()}
+        s_f = {k: _sel(can_take, torch.where(ok_cons, st.halt, park) if k == "halt" else getattr(st, k), v)
+               for k, v in fall.items()}
+        fork = Fork(want=can_take & ok_cons, target=jidx0, dest_row=dest_row, word_row=word_row,
+                    cond_row=cond_row, ncond_row=ncond_row)
+        f = {k: _sel(word_const, c_f[k], s_f[k]) for k in c_f}
+        return (f, rows, sel_tree(word_const, no_fork, fork), i32(-1))
+
+    def h_jumpdest():
+        tracked = lid_pc >= 0
+        slot = lid_pc.clamp(min=0)
+        count = st.loops[ar, _gidx(slot, NL)] + 1
+        si, inb = _sidx(slot, NL)
+        loops = st.loops.clone()
+        m = tracked & inb
+        loops[ar[m], si[m]] = count[m]
+        over = tracked & (cfg.loop_bound > 0) & (count > cfg.loop_bound)
+        return out({"loops": loops, "halt": torch.where(over, i32(O.H_LOOP), st.halt)})
+
+    def h_log():
+        return out({"stack_len": st.stack_len - arity})
+
+    def h_return():
+        return out({"halt": torch.where(aux == 1, i32(O.H_REVERT), i32(O.H_RETURN)),
+                    "stack_len": st.stack_len - 2})
+
+    def h_selfdestruct():
+        return out({"halt": i32(O.H_SELFDESTRUCT), "stack_len": st.stack_len - 1})
+
+    def h_invalid():
+        return halted(O.H_INVALID)
+
+    def h_signextend():
+        b_c, x_c = pop_c[:, 0], pop_c[:, 1]
+        bval, x = pop_v[:, 0], pop_v[:, 1]
+        b_small = (bval[:, 1:].amax(1) == 0) & (bval[:, 0] < 31)
+        bits = (8 * (bval[:, 0] + 1)) & 0xFFFFFFFF
+        one = limb0(torch.ones(B, dtype=torch.long, device=dev))
+        mask_m1 = bv.sub(bv.shl(one, limb0(bits), 256), one, 256)
+        low = bv.and_(x, mask_m1, 256)
+        sign_word = bv.lshr(x, limb0((bits - 1) & 0xFFFFFFFF), 256)
+        neg = (sign_word[:, 0] & 1) == 1
+        folded = _sel(neg, bv.or_(low, bv.not_(mask_m1, 256), 256), low)
+        folded = _sel(b_small, folded, x)
+        rows_c = set_row(rows0, 0, O.A_CONST, val=folded, isconst=True)
+        rows_m = set_row(rows0, 0, O.A_SIGNEXT, a=pops[:, 0], b=pops[:, 1])
+        o, ok = pushed(sel_tree(b_c & x_c, rows_c, rows_m), ids[:, 0])
+        return guard(ok, o)
+
+    def h_byte():
+        both = pop_c[:, 0] & pop_c[:, 1]
+        iv = pop_v[:, 0]
+        small = (iv[:, 1:].amax(1) == 0) & (iv[:, 0] < 32)
+        lo_bit = 8 * (31 - iv[:, 0].clamp(0, 31))
+        shifted = bv.lshr(pop_v[:, 1], limb0(lo_bit), 256)
+        folded = limb0(shifted[:, 0] & 0xFF)
+        folded = _sel(small, folded, torch.zeros_like(folded))
+        rows_c = set_row(rows0, 0, O.A_CONST, val=folded, isconst=True)
+        rows_m = set_row(rows0, 0, O.A_BYTE, a=pops[:, 0], b=pops[:, 1])
+        o, ok = pushed(sel_tree(both, rows_c, rows_m), ids[:, 0])
+        return guard(ok, o)
+
+    def h_addmod():
+        rows = set_row(rows0, 0, aux, a=pops[:, 0], b=pops[:, 1], c=pops[:, 2])
+        o, ok = pushed(rows, ids[:, 0])
+        return guard(ok, o)
+
+    handlers = [
+        h_park, h_stop, h_push_checked, h_dup, h_swap, h_pop, h_binop, h_cmp, h_iszero,
+        h_not, h_envpush, h_calldataload, h_balance, h_selfbalance, h_sha3, h_mload,
+        h_mstore, h_sload, h_sstore, h_jump, h_jumpi, h_jumpdest, h_log, h_return,
+        h_selfdestruct, h_invalid, h_gaspush, h_msize, h_signextend, h_byte, h_addmod,
+        h_park, h_page_fault,
+    ]
+    famc = fam.clamp(0, len(handlers) - 1)
+
+    # the switch: every handler for every path, selected by family
+    fields = {k: getattr(st, k) for k in _MUTABLE}
+    rows, fork, res = rows0, no_fork, i32(-1)
+    for h_index, h in enumerate(handlers):
+        m = famc == h_index
+        if not bool(m.any()):
+            continue
+        f_h, rows_h, fork_h, res_h = h()
+        for k, v in f_h.items():
+            fields[k] = _sel(m, v, fields[k])
+        rows, fork = sel_tree(m, rows_h, rows), sel_tree(m, fork_h, fork)
+        res = _sel(m, res_h, res)
+
+    # STATICCALL write protection, then underflow: base_out(halt=INVALID)
+    write_viol = (st.static != 0) & ((fam == O.F_SSTORE) | (fam == O.F_LOG)
+                                     | (fam == O.F_SELFDESTRUCT))
+    for m in (write_viol, underflow):
+        fields = {k: _sel(m, i32(O.H_INVALID) if k == "halt" else getattr(st, k), v)
+                  for k, v in fields.items()}
+        rows, fork, res = sel_tree(m, rows0, rows), sel_tree(m, no_fork, fork), _sel(m, i32(-1), res)
+
+    s2 = fields
+    pending = fork.want
+    terminalish = s2["halt"] != O.H_RUNNING
+    s2["pc"] = torch.where(pending | terminalish | (s2["pc"] != st.pc), s2["pc"], s2["pc"] + 1)
+    skip_gas = terminalish | pending
+    s2["gas_min"] = torch.where(skip_gas, s2["gas_min"], s2["gas_min"] + code.gmin[cid, pc])
+    s2["gas_max"] = torch.where(skip_gas, s2["gas_max"], s2["gas_max"] + code.gmax[cid, pc])
+    s2["halt"] = torch.where((s2["depth"] > cfg.max_depth) & (s2["halt"] == O.H_RUNNING),
+                             i32(O.H_DEPTH), s2["halt"])
+
+    # event emission
+    halt2 = s2["halt"]
+    is_jumpi = fam == O.F_JUMPI
+    terminal_halt = ((halt2 == O.H_STOP) | (halt2 == O.H_RETURN) | (halt2 == O.H_REVERT)
+                     | (halt2 == O.H_SELFDESTRUCT) | (halt2 == O.H_INVALID))
+    kind = torch.where(is_jumpi, i32(O.E_FORK),
+                       torch.where(terminal_halt, i32(O.E_TERMINAL), i32(O.E_HOOK)))
+    all_conc = torch.ones(B, dtype=torch.bool, device=dev)
+    for j in range(7):
+        all_conc = all_conc & ((arity <= j) | pop_c[:, j])
+    nonpanic = ~(pop_c[:, 1] & (pop_v[:, 1, 14] == 0x7B71) & (pop_v[:, 1, 15] == 0x4E48))
+    emit = (code.event[cid, pc] & ~infault & ~pending & ~underflow
+            & ~(code.concskip[cid, pc] & all_conc) & ~(code.valgate[cid, pc] & nonpanic)
+            & (halt2 != O.H_PARK) & (halt2 != O.H_PAGE_FAULT) & (halt2 != O.H_DEPTH)
+            & (halt2 != O.H_LOOP))
+    died = halt2 == O.H_INVALID
+    last_cons = s2["cons"][ar, (s2["cons_len"] - 1).clamp(0, CON - 1).long()]
+    ev_ops = pops.clone()
+    ev_ops[:, 2] = torch.where(is_jumpi & ~died, last_cons, pops[:, 2])
+    res_slot = torch.where(is_jumpi, s2["pc"], res)
+    extra_slot = torch.where(is_jumpi & died, i32(-3), i32(-1))
+    payload = torch.cat([torch.stack([kind, st.pc, st.gas_min, st.gas_max], 1), ev_ops,
+                         torch.stack([res_slot, extra_slot], 1)], 1).to(I32)
+    ev_ok = st.ev_len < EVT
+    el = st.ev_len.clamp(0, EVT - 1).long()
+    w = emit & ev_ok
+    events = st.events.clone()
+    events[ar[w], el[w]] = payload[w]
+    s2["events"] = events
+    s2["ev_len"] = torch.where(w, st.ev_len + 1, st.ev_len)
+    s2["halt"] = torch.where(emit & ~ev_ok & (halt2 == O.H_RUNNING), i32(O.H_PARK), halt2)
+
+    # freeze non-running paths entirely
+    final = FrontierState(**{
+        k: _sel(running, s2[k], getattr(st, k)) if k in s2 else getattr(st, k)
+        for k in FrontierState._fields
+    })
+    rows_out = sel_tree(running, rows, zrows(0))
+    fork_out = Fork(*[torch.where(running, f, torch.zeros_like(f)) for f in fork])
+    return final, rows_out, fork_out
+
+
+def _batch_step(state: FrontierState, arena: ArenaDev, arena_len, n_exec, max_live, visited,
+                code: CodeDev, cfg: CfgScalars, caps: Caps):
+    """One lockstep step of the whole batch (the JAX ``batch_step``)."""
+    R, CON, EVT = caps.R, caps.CON, caps.EVT
+    dev = state.pc.device
+    B = state.pc.shape[0]
+    C, N = code.fam.shape
+    Cv, Iv = visited.shape[1], visited.shape[2]
+    T = arena.op.shape[0]
+    ar = torch.arange(B, device=dev)
+    i32 = lambda v: torch.full((B,), v, dtype=I32, device=dev)  # noqa: E731
+
+    running = (state.halt == O.H_RUNNING) & (state.seed >= 0)
+    n_live = int(running.sum())
+    n_exec = _wrap32(torch.tensor(n_exec + n_live)).item()
+    max_live = max(max_live, n_live)
+    state = state._replace(steps=state.steps + running.to(I32))
+    cid_live = state.code_id.clamp(0, Cv - 1).long()
+    pc_or_oob = state.pc.clamp(0, Iv - 1).long()
+    visited = visited.clone()
+    visited[0, cid_live[running], pc_or_oob[running]] = True
+    live_rank = torch.cumsum(running.to(I32), 0).to(I32) - 1
+    bases = _wrap32(arena_len + live_rank.long() * R)
+    ids = torch.where(running[:, None], _wrap32(bases[:, None].long() + torch.arange(R, device=dev)),
+                      torch.full((B, R), caps.ARENA, dtype=I32, device=dev))
+    new_state, rows, fork = _path_step(state, ids, arena, code, cfg, caps)
+
+    # edge coverage, inline-resolved JUMPIs
+    cidc = cid_live.clamp(max=C - 1)
+    fam_here = code.fam[cidc, (state.pc - code.pbase[cidc]).clamp(0, N - 1).long()]
+    inline_jumpi = (running & (fam_here == O.F_JUMPI) & ~fork.want
+                    & (new_state.halt == O.H_RUNNING))
+    nf_plane = torch.where(new_state.pc == state.pc + 1, 2, 1).long()
+    m = inline_jumpi
+    visited[nf_plane[m], cid_live[m], pc_or_oob[m]] = True
+
+    # arena scatter (fresh disjoint rows; out-of-range ids drop)
+    flat, inb = _sidx(ids.reshape(-1), T)
+    arena = ArenaDev(*[
+        x.index_put((flat[inb],), v.reshape((B * R,) + v.shape[2:])[inb].to(x.dtype))
+        for x, v in zip(arena, rows)
+    ])
+    arena_len = _wrap32(torch.tensor(arena_len + n_live * R)).item()
+
+    # fork grants
+    buf_ok = new_state.ev_len < EVT
+    want = fork.want & buf_ok
+    free = new_state.seed < 0
+    n_free = int(free.sum())
+    target_pc = fork.target.clamp(0, Iv - 1).long()
+    uncovered = ~visited[0, cid_live, target_pc]
+    sel = cfg.sel_mode
+    if sel == SEL_DEEP:
+        score = state.depth
+    elif sel == SEL_SHALLOW:
+        score = -state.depth
+    elif sel == SEL_COVERAGE:
+        score = uncovered.to(I32) * (1 << 20) + state.depth
+    elif sel == SEL_BEAM:
+        score = state.score
+    else:
+        score = i32(0)
+    sort_key = torch.where(want, -score, i32(INT32_MAX))
+    order = torch.argsort(sort_key, stable=True)
+    rank = torch.empty(B, dtype=torch.long, device=dev)
+    rank[order] = ar
+    granted = want & (rank < n_free)
+    free_list = torch.argsort((~free).to(torch.uint8), stable=True)
+    child_slot = torch.where(granted, free_list[rank.clamp(0, B - 1)], torch.full_like(rank, B))
+
+    g = granted
+    src = ar.clone()
+    src[child_slot[g]] = ar[g]
+    forked_into = torch.zeros(B, dtype=torch.bool, device=dev)
+    forked_into[child_slot[g]] = True
+    taken_pc = torch.zeros(B, dtype=I32, device=dev)
+    taken_pc[child_slot[g]] = fork.target[g]
+    cond_of_child = torch.zeros(B, dtype=I32, device=dev)
+    cond_of_child[child_slot[g]] = fork.cond_row[g]
+
+    s2 = {k: _sel(forked_into, v[src], v) for k, v in new_state._asdict().items()}
+    touched = granted | forked_into
+    jumpi_true = torch.where(forked_into, state.pc[src], state.pc)
+    cid2 = s2["code_id"].clamp(0, C - 1).long()
+    jumpi_pc = jumpi_true.clamp(0, Iv - 1).long()
+    jumpi_rel = (jumpi_true - code.pbase[cid2]).clamp(0, N - 1).long()
+    branch_pc = torch.where(forked_into, taken_pc, jumpi_true + 1)
+    branch_row = torch.where(forked_into, cond_of_child, fork.ncond_row)
+    edge_plane = torch.where(forked_into, 1, 2).long()
+    m = touched & (cid2 < Cv)
+    visited[edge_plane[m], cid2[m], jumpi_pc[m]] = True
+    cl = s2["cons_len"].clamp(0, CON - 1).long()
+    cons_set = s2["cons"].clone()
+    cons_set[ar, cl] = branch_row
+    s2.update(
+        pc=torch.where(touched, branch_pc, s2["pc"]),
+        depth=torch.where(touched, s2["depth"] + 1, s2["depth"]),
+        stack_len=torch.where(touched, s2["stack_len"] - 2, s2["stack_len"]),
+        gas_min=torch.where(touched, s2["gas_min"] + code.gmin[cid2, jumpi_rel], s2["gas_min"]),
+        gas_max=torch.where(touched, s2["gas_max"] + code.gmax[cid2, jumpi_rel], s2["gas_max"]),
+        cons=_sel(touched, cons_set, s2["cons"]),
+        cons_len=torch.where(touched, s2["cons_len"] + 1, s2["cons_len"]),
+        events=_sel(forked_into, torch.full_like(s2["events"], -1), s2["events"]),
+        ev_len=torch.where(forked_into, i32(0), s2["ev_len"]),
+        steps=torch.where(forked_into, i32(0), s2["steps"]),
+        halt=torch.where(forked_into, i32(O.H_RUNNING), s2["halt"]),
+    )
+    denied = want & ~granted
+    s2["halt"] = torch.where((fork.want & ~buf_ok) | denied, i32(O.H_PENDING_FORK), s2["halt"])
+    payload = torch.stack([
+        i32(O.E_FORK), state.pc, state.gas_min, state.gas_max, fork.dest_row, fork.word_row,
+        fork.cond_row, fork.ncond_row, fork.target, i32(-1), i32(-1), i32(-1),
+        torch.where(granted, child_slot.to(I32), i32(-1)),
+    ], 1)
+    el = s2["ev_len"].clamp(0, EVT - 1).long()
+    ev_ok = s2["ev_len"] < EVT
+    w = granted & ev_ok
+    events = s2["events"].clone()
+    events[ar[w], el[w]] = payload[w]
+    s2.update(events=events, ev_len=torch.where(w, s2["ev_len"] + 1, s2["ev_len"]),
+              halt=torch.where(granted & ~ev_ok, i32(O.H_PARK), s2["halt"]))
+    return FrontierState(**s2), arena, arena_len, n_exec, max_live, visited
+
+
+def segment_torch(state: FrontierState, arena: ArenaDev, arena_len, visited,
+                  code: CodeDev, cfg: CfgScalars, caps: Caps):
+    """The plain PyTorch segment; inputs are not modified.
+    -> (state, arena, arena_len, n_exec, max_live, visited), the scalars as
+    0-d int32 tensors."""
+    _check_inputs(state, arena, visited, code, caps)
+    dev = state.pc.device
+    arena_len, n_exec, max_live, t = int(arena_len), 0, 0, 0
+    k = min(int(cfg.k_limit), caps.K)
+    while True:
+        running = (state.halt == O.H_RUNNING) & (state.seed >= 0)
+        n_live = int(running.sum())
+        room = _wrap32(torch.tensor(arena_len + n_live * caps.R)).item() < caps.ARENA
+        if not (t < k and n_live > 0 and room):
+            break
+        state, arena, arena_len, n_exec, max_live, visited = _batch_step(
+            state, arena, arena_len, n_exec, max_live, visited, code, cfg, caps)
+        t += 1
+    scalar = lambda v: torch.tensor(v, dtype=I32, device=dev)  # noqa: E731
+    return state, arena, scalar(arena_len), scalar(n_exec), scalar(max_live), visited
+
+
+def _check_inputs(state, arena, visited, code, caps: Caps) -> None:
+    B = caps.B
+    if state.pc.shape != (B,) or state.stack.shape != (B, caps.STK) or \
+            state.events.shape != (B, caps.EVT, O.EV_W) or state.cons.shape != (B, caps.CON):
+        raise ValueError("state does not match caps")
+    if caps.R < 4:
+        raise ValueError("the segment needs caps.R >= 4 (SHA3 writes four rows)")
+    if any(f.dtype != I32 for f in state):
+        raise ValueError("state fields must be int32")
+    if arena.val.shape != (arena.op.shape[0], 16) or arena.val.dtype != I32:
+        raise ValueError("arena val must be [T, 16] int32")
+    if visited.dim() != 3 or visited.shape[0] != 3 or visited.dtype != torch.bool:
+        raise ValueError("visited must be [3, C, I] bool")
+    if code.fam.dim() != 2 or code.pbase.shape != (code.fam.shape[0],):
+        raise ValueError("code tables must be [C, N] with a [C] pbase")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_SCRATCH = ("live_rank", "free_rank", "free_list", "want", "key", "child", "src_of", "f_want",
+            "f_target", "f_dest", "f_word", "f_cond", "f_ncond", "pre_pc", "pre_gmin", "pre_gmax",
+            "blk_live", "blk_free", "out")
+_DIMS = ("B", "STK", "MEM", "STO", "CON", "EVT", "R", "K", "ARENA", "NL", "T", "C", "N", "A",
+         "Cv", "Iv", "arena_len0", "max_depth", "loop_bound", "row_zero", "row_one", "sel_mode",
+         "k_limit")
+
+
+class FrontierArgs(ctypes.Structure):
+    """Mirror of ``mk::SegArgs`` in ``csrc/frontier_segment.cuh`` (same order)."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        *FrontierState._fields, *("a_" + n for n in ArenaDev._fields), "visited",
+        *CodeDev._fields, *_SCRATCH,
+    )] + [(n, ctypes.c_int) for n in _DIMS]
+
+
+launches = 0  # launches of the CUDA segment kernel (one per segment call)
+
+
+def kernel_args(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
+                cfg: CfgScalars, caps: Caps):
+    """The kernel's arguments over COPIES of the inputs, which it updates in
+    place: -> (FrontierArgs, (state, arena, visited, out scalars), keepalive).
+    Used by ``segment_cuda`` and by the host build of the kernel body."""
+    _check_inputs(state, arena, visited, code, caps)
+    if caps.B <= 0 or state.ctx.shape[1] != 16:
+        raise ValueError("the kernel takes B >= 1 paths with a [B, 16] ctx")
+    state = FrontierState(*[f.clone() for f in state])
+    arena = ArenaDev(*[x.clone() for x in arena])
+    visited = visited.clone()
+    code = CodeDev(*[x.contiguous() for x in code])
+    B, dev = caps.B, state.pc.device
+    scratch = {n: torch.zeros(B if n != "out" else 3, dtype=I32, device=dev) for n in _SCRATCH}
+    args = FrontierArgs(
+        *[f.data_ptr() for f in state], *[x.data_ptr() for x in arena], visited.data_ptr(),
+        *[x.data_ptr() for x in code], *[scratch[n].data_ptr() for n in _SCRATCH],
+        B, caps.STK, caps.MEM, caps.STO, caps.CON, caps.EVT, caps.R, caps.K, caps.ARENA,
+        state.loops.shape[1], arena.op.shape[0], code.fam.shape[0], code.fam.shape[1],
+        code.jumpmap.shape[1], visited.shape[1], visited.shape[2], int(arena_len),
+        cfg.max_depth, cfg.loop_bound, cfg.row_zero, cfg.row_one, cfg.sel_mode,
+        min(int(cfg.k_limit), INT32_MAX),
+    )
+    return args, (state, arena, visited, scratch["out"]), (code, scratch)
+
+
+def segment_cuda(state: FrontierState, arena: ArenaDev, arena_len, visited,
+                 code: CodeDev, cfg: CfgScalars, caps: Caps):
+    """The segment as one launch of ``csrc/frontier_segment.cu``; inputs on
+    a CUDA device, not modified.  Same outputs as ``segment_torch``, the
+    scalars as 0-d int32 tensors on the card (no host synchronisation)."""
+    global launches
+    if not state.pc.is_cuda:
+        raise ValueError("segment_cuda takes CUDA tensors")
+    from mythril_tpu_torch.ops import _build
+
+    args, (state, arena, visited, out), keep = kernel_args(state, arena, arena_len, visited,
+                                                           code, cfg, caps)
+    lib = _build.load()
+    with torch.cuda.device(state.pc.device):
+        stream = torch.cuda.current_stream(state.pc.device).cuda_stream
+        rc = lib.mk_frontier_segment(ctypes.byref(args), stream)
+        if rc == 720:  # cudaErrorCooperativeLaunchTooLarge
+            raise RuntimeError(
+                f"frontier_segment: B={caps.B} paths need more resident blocks than the card "
+                f"holds ({_shape(lib, args)}); use a smaller frontier width")
+        _build.check(rc, "frontier_segment")
+    launches += 1
+    del keep
+    return state, arena, out[0], out[1], out[2], visited
+
+
+def _shape(lib, args) -> str:
+    block, grid, max_grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.mk_frontier_segment_shape(ctypes.byref(args), ctypes.byref(block), ctypes.byref(grid),
+                                  ctypes.byref(max_grid))
+    return f"{grid.value} blocks of {block.value}, at most {max_grid.value} resident"
+
+
+@lru_cache(maxsize=16)
+def _cached(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int, loops_cap: int):
+    def segment(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
+                cfg: CfgScalars):
+        impl = segment_cuda if state.pc.is_cuda else segment_torch
+        return impl(state, arena, arena_len, visited, code, cfg, caps)
+
+    return segment
+
+
+def cached_segment(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int,
+                   loops_cap: int, device=None):
+    """The segment for (caps, size bucket), with the JAX signature
+    ``segment(state, arena, arena_len, visited, code, cfg) -> (state, arena,
+    arena_len, n_exec, max_live, visited)``: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  ``device=None`` means the CUDA card and
+    raises ``NoCudaDevice`` without one; pass ``device="cpu"`` to run the
+    plain version here."""
+    _device.resolve(device)
+    return _cached(caps, code_cap, instr_cap, addr_cap, loops_cap)
+
+
+# ---------------------------------------------------------------------------
+# Synchronous transfers (the engine's device interface): one packed copy of
+# the state's non-event fields each way, the events pulled in a size bucket
+# covering max(ev_len), arena rows in fixed chunks.  The JAX package packs
+# to save link round trips and XLA compiles; here the packing saves copies.
+# ---------------------------------------------------------------------------
+
+ARENA_CHUNK = 8192  # rows per packed arena pull (22 int32 words per row)
+REINJECT_CHUNK = 256  # rows per arena push
+# events ([B, EVT, EV_W], the largest field) are drained every harvest: the
+# push rebuilds them empty, the pull takes [B, cap, EV_W] for the smallest
+# bucket covering max(ev_len), the whole buffer as the last resort
+_EVENT_BUCKETS = (8, 32, 128)
+_NON_EVENT = tuple(n for n in FrontierState._fields if n != "events")
+
+
+def events_cap(max_ev: int, evt: int) -> int:
+    return next((b for b in _EVENT_BUCKETS if max_ev <= b <= evt), evt)
+
+
+def _pack_events(state: FrontierState, cap: int) -> torch.Tensor:
+    return state.events[:, :cap, :].reshape(-1)
+
+
+def push_state(state: FrontierState, device=None) -> FrontierState:
+    """Host numpy state -> tensors on ``device`` (the card unless "cpu"):
+    one packed copy of the non-event fields; the event buffers are made
+    empty on the device (the harvest drains them every segment)."""
+    dev = _device.resolve(device)
+    if any(np.asarray(f).dtype != np.int32 for f in state):
+        raise ValueError("packed state transfer assumes uniform int32 fields")
+    flat = [np.asarray(getattr(state, n)).reshape(-1) for n in _NON_EVENT]
+    buf = torch.from_numpy(np.concatenate(flat)).to(dev)
+    fields, off = {}, 0
+    for n, x in zip(_NON_EVENT, flat):
+        fields[n] = buf[off: off + x.size].view(np.asarray(getattr(state, n)).shape)
+        off += x.size
+    fields["events"] = torch.full(np.asarray(state.events).shape, -1, dtype=I32, device=dev)
+    fields["ev_len"] = torch.zeros(np.asarray(state.ev_len).shape, dtype=I32, device=dev)
+    return FrontierState(**fields)
+
+
+def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None, shards: int = 1):
+    """Device -> host harvest: one packed copy of every non-event field and
+    the three scalars, then the events in a bucket covering max(ev_len).
+    -> (numpy FrontierState, arena_len, n_exec, max_live).  The delta pull
+    (``prev``) belongs to the pipelined frontier, not ported yet."""
+    return _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev, shards=shards)
+
+
+def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None,
+                       shards: int = 1):
+    if prev is not None or shards != 1:
+        raise NotImplementedError("delta and sharded pulls come with the pipelined frontier")
+    if any(f.dtype != I32 for f in state):
+        raise ValueError("packed state transfer assumes uniform int32 fields")
+    dev = state.pc.device
+    scalars = torch.stack([torch.as_tensor(x, dtype=I32, device=dev).reshape(())
+                           for x in (arena_len, n_exec, max_live)])
+    buf = torch.cat([getattr(state, n).reshape(-1) for n in _NON_EVENT] + [scalars]).cpu().numpy()
+    fields, off = {}, 0
+    for n in _NON_EVENT:
+        shape = tuple(getattr(state, n).shape)
+        size = int(np.prod(shape))
+        fields[n] = buf[off: off + size].reshape(shape).copy()
+        off += size
+    B, EVT, EVW = state.events.shape
+    max_ev = int(fields["ev_len"].max()) if B else 0
+    events = np.full((B, EVT, EVW), -1, np.int32)
+    if max_ev > 0:
+        cap = events_cap(max_ev, EVT)
+        events[:, :cap, :] = _pack_events(state, cap).cpu().numpy().reshape(B, cap, EVW)
+    fields["events"] = events
+    return FrontierState(**fields), int(buf[off]), int(buf[off + 1]), int(buf[off + 2])
+
+
+def _pack_arena_chunk(arena: ArenaDev, lo: int, chunk: int) -> torch.Tensor:
+    sl = slice(lo, lo + chunk)
+    return torch.cat([arena.op[sl], arena.a[sl], arena.b[sl], arena.c[sl], arena.width[sl],
+                      arena.isconst[sl].to(I32), arena.val[sl].reshape(-1)])
+
+
+def pull_arena_rows(dev_arena: ArenaDev, lo: int, hi: int):
+    """Rows [lo, hi) as host numpy columns, one packed copy per chunk of
+    ``ARENA_CHUNK`` rows.  -> (op, a, b, c, width, isconst as int32, val as
+    [n, 16] uint32), as the JAX package returns them."""
+    cols = [[] for _ in range(7)]
+    cap = int(dev_arena.op.shape[0])
+    C = min(ARENA_CHUNK, cap)
+    pos = lo
+    while pos < hi:
+        eff = min(pos, max(0, cap - C))
+        skip = pos - eff
+        take = min(hi - pos, C - skip)
+        buf = _pack_arena_chunk(dev_arena, eff, C).cpu().numpy()
+        parts = [buf[k * C:(k + 1) * C] for k in range(6)]
+        parts.append(buf[6 * C:].view(np.uint32).reshape(C, 16))
+        for out, part in zip(cols, parts):
+            out.append(part[skip: skip + take])
+        pos += take
+    return [np.concatenate(c) if len(c) > 1 else c[0] for c in cols]
+
+
+def push_arena_rows(dev_arena: ArenaDev, host_arena, lo: int, hi: int) -> ArenaDev:
+    """Write host arena rows [lo, hi) into the device arena, in chunks of
+    ``REINJECT_CHUNK`` rows taken from the host mirror (rows below ``lo`` in
+    a clamped chunk get their own mirror values, rows past ``hi`` the
+    mirror's fill: both are what decoding already sees).  Unlike the JAX
+    package, which returns new arrays, this writes into ``dev_arena``'s
+    tensors and returns it."""
+    cap = int(dev_arena.op.shape[0])
+    C = min(REINJECT_CHUNK, cap)
+    dev = dev_arena.op.device
+    pos = lo
+    while pos < hi:
+        eff = min(pos, max(0, cap - C))
+        sl = slice(eff, eff + C)
+        for dst, src in zip(dev_arena, host_arena.device_arrays()):
+            src = np.asarray(src[sl])
+            if src.dtype == np.uint32:
+                src = src.view(np.int32)
+            dst[sl] = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
+        pos = eff + C
+    return dev_arena

@@ -138,6 +138,13 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_longlong),
             ]
             lib.mk_tape_vm_shape.restype = None
+            from mythril_tpu_torch.frontier.step import FrontierArgs
+
+            lib.mk_frontier_segment.argtypes = [ctypes.POINTER(FrontierArgs), ctypes.c_void_p]
+            lib.mk_frontier_segment.restype = ctypes.c_int
+            lib.mk_frontier_segment_shape.argtypes = [ctypes.POINTER(FrontierArgs)] + [
+                ctypes.POINTER(ctypes.c_int)] * 3
+            lib.mk_frontier_segment_shape.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -1,0 +1,410 @@
+"""Inputs for the frontier segment's parity tests, made with numpy from a seed.
+
+One caps and one code bucket serve every case (the JAX segment compiles
+once per (caps, bucket)): B=8 paths, K=16 steps, small stack, memory,
+storage, constraint and event caps, an arena of 4096 rows, and two codes
+(C=2) in a bucket of 512 instructions.  Code 0, ``CATALOG``, holds every
+opcode class the device runs; code 1, ``PAGED``, is 640 instructions long
+and is given the resident window [64, 576), so paths outside it fault
+(``F_PAGEFAULT``).
+
+A case is a dict of numpy inputs in the JAX layout: ``state`` (a
+``FrontierState``), ``arena`` (the 7 columns, ``val`` uint32), ``arena_len``,
+``visited``, ``code`` (the 11 stacked tables) and ``cfg`` (6 ints).
+``special_cases()`` names the targeted ones; ``random_case(seed)`` draws a whole
+batch at random, operands from a pool of concrete, symbolic and out-of-range
+rows.  Both ``tests/test_torch_frontier_segment.py`` (JAX against the plain
+version) and ``tests/test_torch_frontier_host.py`` (the kernel body built
+by g++ against the plain version) run them.
+"""
+
+from __future__ import annotations
+
+from collections import namedtuple
+
+import numpy as np
+
+from mythril_tpu_torch.frontier import ops as O
+from mythril_tpu_torch.frontier.arena import HostArena
+from mythril_tpu_torch.frontier.code import CodeTables, stacked_device_tables
+from mythril_tpu_torch.frontier.state import Caps, empty_state
+from mythril_tpu_torch.smt import terms as T
+
+Ins = namedtuple("Ins", "opcode address arg_int")
+
+CAPS = Caps(B=8, STK=16, MEM=8, STO=8, CON=16, EVT=12, R=4, K=16, ARENA=4096)
+BUCKET = (2, 512, 1024, 8)  # code_cap, instr_cap, addr_cap, loops_cap
+VISIT_I = 1024
+PAGE_BASES = [0, 64]
+HOOKED = ("ADD", "SUB", "MUL", "MSTORE", "JUMP", "CALLER", "SLOAD", "LOG2", "SHA3", "BALANCE")
+CONC_NOP = ("ADD", "SUB", "MUL", "JUMP")
+VALUE_GATE = ("MSTORE",)
+
+_CATALOG_OPS = [
+    "JUMPDEST", "PUSH1", "DUP1", "DUP3", "SWAP1", "SWAP3", "POP",
+    "ADD", "SUB", "MUL", "DIV", "SDIV", "MOD", "SMOD", "AND", "OR", "XOR", "EXP",
+    "SHL", "SHR", "SAR", "LT", "GT", "SLT", "SGT", "EQ", "ISZERO", "NOT",
+    "CALLER", "CALLVALUE", "CALLDATASIZE", "CALLDATALOAD", "BALANCE", "SELFBALANCE",
+    "SHA3", "MLOAD", "MSTORE", "SLOAD", "SSTORE", "JUMP", "JUMPI", "JUMPDEST",
+    "LOG0", "LOG2", "RETURN", "REVERT", "SELFDESTRUCT", "INVALID", "ASSERT_FAIL",
+    "GAS", "MSIZE", "SIGNEXTEND", "BYTE", "ADDMOD", "MULMOD", "MSTORE8", "CALL", "PC",
+    "STOP", "JUMPDEST", "PUSH2", "JUMPDEST", "TIMESTAMP", "ORIGIN",
+]
+
+
+def _program(ops, arg=0x40):
+    out, addr = [], 0
+    for name in ops:
+        out.append(Ins(name, addr, arg if name.startswith("PUSH") else None))
+        addr += 1 + (int(name[4:]) if name.startswith("PUSH") and name != "PUSH0" else 0)
+    return out
+
+
+CATALOG = _program(_CATALOG_OPS)
+# 640 instructions: JUMPDESTs every 16th (more than the loops cap), the rest
+# a mix of stack, arithmetic and control-flow ops
+_PAGED_OPS = ["JUMPDEST" if i % 16 == 0 else
+              ("PUSH1", "ADD", "DUP1", "POP", "JUMPI", "MSTORE", "ISZERO", "SWAP1", "JUMP")[i % 9]
+              for i in range(640)]
+PAGED = _program(_PAGED_OPS, arg=0x20)
+
+# the opcode that stands for each family in CATALOG.  CodeTables never
+# emits F_MSTORE8 (MSTORE8 classifies as F_PARK), so its case patches the
+# table; F_PAGEFAULT comes from code 1's window.
+FAMILY_OPS = {
+    O.F_PARK: "CALL", O.F_STOP: "STOP", O.F_PUSH: "PUSH1", O.F_DUP: "DUP3", O.F_SWAP: "SWAP3",
+    O.F_POP: "POP", O.F_BINOP: "ADD", O.F_CMP: "SLT", O.F_ISZERO: "ISZERO",
+    O.F_NOTOP: "NOT", O.F_ENVPUSH: "CALLER", O.F_CALLDATALOAD: "CALLDATALOAD",
+    O.F_BALANCE: "BALANCE", O.F_SELFBALANCE: "SELFBALANCE", O.F_SHA3: "SHA3",
+    O.F_MLOAD: "MLOAD", O.F_MSTORE: "MSTORE", O.F_SLOAD: "SLOAD", O.F_SSTORE: "SSTORE",
+    O.F_JUMP: "JUMP", O.F_JUMPI: "JUMPI", O.F_JUMPDEST: "JUMPDEST", O.F_LOG: "LOG2",
+    O.F_RETURN: "REVERT", O.F_SELFDESTRUCT: "SELFDESTRUCT", O.F_INVALID: "INVALID",
+    O.F_GASPUSH: "GAS", O.F_MSIZE: "MSIZE", O.F_SIGNEXTEND: "SIGNEXTEND",
+    O.F_BYTEOP: "BYTE", O.F_ADDMODOP: "MULMOD", O.F_MSTORE8: "MSTORE8",
+    O.F_PAGEFAULT: "PUSH1",  # code 1 below its window
+}
+# binary and comparison opcodes: each one's own fold
+BINOPS = ("ADD", "SUB", "MUL", "DIV", "SDIV", "MOD", "SMOD", "AND", "OR", "XOR", "EXP",
+          "SHL", "SHR", "SAR", "LT", "GT", "SLT", "SGT", "EQ")
+
+PANIC = 0x4E487B71 << 224
+
+
+def assert_same(got, want):
+    """Two segments' ``interop.outputs_to_numpy``: every array equal."""
+    for name in want[0]:
+        np.testing.assert_array_equal(got[0][name], want[0][name], err_msg=f"state.{name}")
+    for name in want[1]:
+        np.testing.assert_array_equal(got[1][name], want[1][name], err_msg=f"arena.{name}")
+    assert got[2:5] == want[2:5], "arena_len, n_exec, max_live"
+    np.testing.assert_array_equal(got[5], want[5], err_msg="visited")
+
+
+def pc_of(name: str, program=CATALOG) -> int:
+    return next(i for i, ins in enumerate(program) if ins.opcode == name)
+
+
+class Pool:
+    """Arena rows to draw operands from."""
+
+    def __init__(self, arena: HostArena, rng):
+        self.arena, self.rng = arena, rng
+        small = [0, 1, 2, 3, 7, 31, 32, 33, 0x40, 0x60, 0x80, 255, 256, 1 << 19, 1 << 20]
+        big = [1 << 255, (1 << 256) - 1, PANIC, PANIC | 0x1234, (1 << 255) - 1, 0xFF << 248,
+               int.from_bytes(rng.bytes(32), "big"), int.from_bytes(rng.bytes(32), "big")]
+        self.dests = [ins.address for ins in CATALOG if ins.opcode == "JUMPDEST"]
+        self.const = [arena.const_row(v) for v in small + big + self.dests]
+        self.addr = [arena.const_row(v) for v in (0, 0x20, 0x40, 0x60, 0x50, 0x44)]
+        self.lens = [arena.const_row(v) for v in (0, 32, 64, 96, 128, 160, 33)]
+        self.sym = [arena.var_row(T.var(f"v{i}", 256)) for i in range(6)]
+        for k in range(4):  # device-shaped symbolic rows
+            a, b = self.sym[k], self.sym[k + 1]
+            self.sym.append(arena._append(O.A_ADD if k % 2 else O.A_ULT, a=a, b=b,
+                                          width=256 if k % 2 else 0))
+        self.wild = [-1, CAPS.ARENA + 3, CAPS.ARENA - 1]
+
+    def pick(self, kind=None):
+        kind = kind or self.rng.choice(["const", "sym", "addr", "wild"], p=[0.45, 0.35, 0.15, 0.05])
+        return int(self.rng.choice(getattr(self, kind)))
+
+
+def _tables(arena: HostArena):
+    cat = CodeTables(CATALOG, arena, hooked_opcodes=HOOKED, conc_nop_opcodes=CONC_NOP,
+                     value_gate_opcodes=VALUE_GATE)
+    paged = CodeTables(PAGED, arena, hooked_opcodes=HOOKED, conc_nop_opcodes=CONC_NOP,
+                       value_gate_opcodes=VALUE_GATE)
+    return cat, paged, stacked_device_tables([cat, paged], BUCKET, page_bases=PAGE_BASES)
+
+
+def base(seed: int):
+    """Empty batch, the arena with the pool, tables, cfg; -> (case, pool)."""
+    rng = np.random.default_rng(seed)
+    arena = HostArena(CAPS.ARENA)
+    row_zero, row_one = arena.const_row(0), arena.const_row(1)
+    pool = Pool(arena, rng)
+    _cat, _paged, code = _tables(arena)
+    st = empty_state(CAPS, BUCKET[3])
+    case = {
+        "state": st, "arena": arena, "arena_len": None, "code": code,
+        "visited": np.zeros((3, BUCKET[0], VISIT_I), bool),
+        "cfg": [64, 0, row_zero, row_one, 0, CAPS.K],
+        "rng": rng,
+    }
+    return case, pool
+
+
+def occupy(case, pool, slot, pc, stack=(), code_id=0, **fields):
+    """Make ``slot`` a running path at ``pc`` with ``stack`` (top last)."""
+    st = case["state"]
+    st.seed[slot], st.halt[slot], st.pc[slot], st.code_id[slot] = 0, O.H_RUNNING, pc, code_id
+    st.stack[slot, :len(stack)] = stack
+    st.stack_len[slot] = len(stack)
+    for i in range(16):
+        st.ctx[slot, i] = pool.const[0] if i == 15 else pool.sym[i % len(pool.sym)]
+    for k, v in fields.items():
+        getattr(st, k)[slot] = v
+
+
+def finish(case):
+    """-> the numpy inputs (arena columns copied, arena_len filled in)."""
+    arena = case["arena"]
+    out = dict(case)
+    out["arena"] = [np.array(x) for x in arena.device_arrays()]
+    if out["arena_len"] is None:
+        out["arena_len"] = arena.length
+    out.pop("rng")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# random batches
+# ---------------------------------------------------------------------------
+
+
+def random_case(seed: int, k_steps=None):
+    case, pool = base(seed)
+    rng, st = case["rng"], case["state"]
+    B = CAPS.B
+    for b in range(B):
+        r = rng.random()
+        if r < 0.15:
+            continue  # free slot
+        code_id = int(rng.choice([0, 1, 1, 2, -1], p=[0.6, 0.2, 0.1, 0.05, 0.05]))
+        n = len(CATALOG) if code_id != 1 else len(PAGED)
+        pc = int(rng.integers(0, n + 1))
+        depth = int(rng.integers(0, 70))
+        stack_len = int(rng.choice([0, 1, 2, 3, 5, 8, CAPS.STK - 1, CAPS.STK], p=[.04, .06, .2, .2, .2, .2, .05, .05]))
+        stack = [pool.pick() for _ in range(stack_len)]
+        occupy(case, pool, b, pc, stack, code_id=code_id, depth=depth)
+        st.halt[b] = O.H_RUNNING if rng.random() < 0.85 else int(rng.integers(1, 11))
+        st.seed[b] = int(rng.integers(0, 3))
+        n_mem = int(rng.integers(0, CAPS.MEM + 1))
+        st.mem_len[b] = n_mem
+        st.mem_addr[b, :n_mem] = rng.choice([0, 0x20, 0x40, 0x60, 0x80, 0x50, 1 << 19], n_mem)
+        st.mem_val[b, :n_mem] = [pool.pick() for _ in range(n_mem)]
+        st.mem_size[b] = 32 * int(rng.integers(0, 8))
+        n_sto = int(rng.integers(0, CAPS.STO + 1))
+        st.sto_len[b] = n_sto
+        st.sto_key[b, :n_sto] = [pool.pick() for _ in range(n_sto)]
+        st.sto_val[b, :n_sto] = [pool.pick() for _ in range(n_sto)]
+        st.ctx[b] = [pool.pick() for _ in range(16)]
+        st.cons_len[b] = int(rng.choice([0, 3, CAPS.CON - 1, CAPS.CON]))
+        st.cons[b, :st.cons_len[b]] = [pool.pick("sym") for _ in range(st.cons_len[b])]
+        st.ev_len[b] = int(rng.choice([0, 0, 0, CAPS.EVT - 1, CAPS.EVT]))
+        st.gas_min[b] = int(rng.integers(0, 1000))
+        st.gas_max[b] = st.gas_min[b] + int(rng.integers(0, 1000))
+        st.loops[b] = rng.integers(0, 4, BUCKET[3])
+        st.static[b] = int(rng.random() < 0.1)
+        st.score[b] = int(rng.integers(-5, 50))
+        st.steps[b] = int(rng.integers(0, 5))
+    case["visited"] = rng.random(case["visited"].shape) < 0.05
+    case["cfg"] = [int(rng.integers(8, 70)), int(rng.choice([0, 2, 3])), case["cfg"][2],
+                   case["cfg"][3], int(rng.integers(0, 5)),
+                   int(k_steps or rng.integers(1, CAPS.K + 3))]
+    return finish(case)
+
+
+# ---------------------------------------------------------------------------
+# targeted cases
+# ---------------------------------------------------------------------------
+
+
+def family_case(fam: int, concrete: bool):
+    """Every slot runs the family's opcode from CATALOG, on concrete or on
+    symbolic operands (the taken-branch JUMPI with a symbolic word forks)."""
+    case, pool = base(1000 + 2 * fam + concrete)
+    rng = case["rng"]
+    name = FAMILY_OPS[fam]
+    for b in range(CAPS.B - 2):  # two free slots for forks
+        if name in ("MLOAD", "MSTORE", "SHA3"):
+            stack = [pool.pick("lens" if concrete else "sym"), pool.pick("addr" if concrete else "sym")]
+            if name == "MSTORE":
+                stack = [pool.pick("const" if concrete else "sym"), pool.pick("addr")]
+            if name == "SHA3":
+                stack = [pool.pick("lens"), pool.pick("addr")] if concrete else \
+                    [pool.pick("sym"), pool.pick("addr")]
+        elif name in ("JUMP", "JUMPI"):
+            dest = pool.arena.const_row(int(rng.choice(pool.dests)))
+            word = pool.pick("const" if concrete else "sym")
+            stack = [word, dest] if name == "JUMPI" else [dest]
+        else:
+            kind = "const" if concrete else "sym"
+            stack = [pool.pick(kind) for _ in range(3 + (b % 3))]
+        if fam == O.F_PAGEFAULT:
+            occupy(case, pool, b, pc_of(name, PAGED) + 9 * b, stack, code_id=1, depth=b)
+        else:
+            occupy(case, pool, b, pc_of(name), stack, depth=b)
+        st = case["state"]
+        st.mem_len[b] = 3
+        st.mem_addr[b, :3] = [0x40, 0x60, 0x20 if b % 2 else 0x90]
+        st.mem_val[b, :3] = [pool.pick("const" if concrete else "sym") for _ in range(3)]
+        st.sto_len[b] = 2
+        st.sto_key[b, :2] = [stack[-1], pool.pick()]
+        st.sto_val[b, :2] = [pool.pick(), pool.pick()]
+    if fam == O.F_MSTORE8:
+        case["code"][0][0, pc_of(name)] = O.F_MSTORE8
+    case["cfg"][5] = 1
+    return finish(case)
+
+
+def binop_case(concrete: bool):
+    """One slot per binary/comparison opcode (BINOPS), 8 at a time."""
+    out = []
+    for start in range(0, len(BINOPS), CAPS.B):
+        case, pool = base(2000 + start + concrete)
+        for b, name in enumerate(BINOPS[start:start + CAPS.B]):
+            kind = "const" if concrete else "sym"
+            occupy(case, pool, b, pc_of(name), [pool.pick(kind), pool.pick(kind)])
+        case["cfg"][5] = 1
+        out.append(finish(case))
+    return out
+
+
+def _jumpi_batch(seed, n_forking, depths=None, scores=None, sel=0, ev_len=None):
+    case, pool = base(seed)
+    dests = [pool.arena.const_row(d) for d in pool.dests]
+    for b in range(n_forking):
+        occupy(case, pool, b, pc_of("JUMPI"), [pool.sym[b % len(pool.sym)], dests[b % len(dests)]],
+               depth=(depths or [0] * 8)[b], score=(scores or [0] * 8)[b])
+        if ev_len is not None:
+            case["state"].ev_len[b] = ev_len[b]
+    case["cfg"][4] = sel
+    return case, pool
+
+
+def special_cases():
+    """name -> case, the parity hazards and caps one by one."""
+    cases = {}
+    cat_n = len(CATALOG)
+
+    case, pool = base(11)  # underflow: fewer operands than the arity
+    for b, name in enumerate(("ADD", "SHA3", "JUMPI", "SSTORE", "ADDMOD", "SWAP3", "DUP3", "LOG2")):
+        occupy(case, pool, b, pc_of(name), [pool.pick("const")])
+    cases["underflow"] = finish(case)
+
+    case, pool = base(12)  # stack cap: a full stack pushes
+    for b, name in enumerate(("PUSH1", "DUP1", "CALLER", "MSIZE", "GAS", "SLOAD", "ISZERO", "POP")):
+        occupy(case, pool, b, pc_of(name), [pool.pick("const") for _ in range(CAPS.STK)])
+    cases["stack_cap"] = finish(case)
+
+    case, pool = _jumpi_batch(13, 4, ev_len=[CAPS.EVT, CAPS.EVT - 1, CAPS.EVT, 0])
+    for b, name in ((4, "SSTORE"), (5, "STOP"), (6, "ADD")):  # evented ops on a full buffer
+        occupy(case, pool, b, pc_of(name), [pool.sym[0], pool.sym[1]], ev_len=CAPS.EVT)
+    cases["event_full"] = finish(case)
+
+    case, pool = base(14)  # depth cap and loop bound
+    dest = pool.arena.const_row(CATALOG[pc_of("JUMPDEST")].address)
+    for b in range(4):
+        occupy(case, pool, b, pc_of("JUMP"), [dest], depth=62 + b)
+    for b in range(4, 8):
+        occupy(case, pool, b, 0, [], loops=np.arange(BUCKET[3]) % 4 + (b - 4))
+    case["cfg"][0], case["cfg"][1], case["cfg"][5] = 63, 3, 4
+    cases["depth_and_loop"] = finish(case)
+
+    case, pool = base(15)  # static frame write violation
+    for b, name in enumerate(("SSTORE", "LOG0", "LOG2", "SELFDESTRUCT", "MSTORE", "SLOAD", "SSTORE", "ADD")):
+        occupy(case, pool, b, pc_of(name), [pool.pick("const") for _ in range(4)], static=int(b < 6))
+    cases["static_write"] = finish(case)
+
+    case, pool = base(16)  # MSTORE panic gate: concrete panic word, other words, symbolic
+    words = [PANIC, PANIC | 77, 1, (1 << 256) - 1]
+    for b in range(8):
+        w = pool.arena.const_row(words[b % 4]) if b < 6 else pool.sym[b]
+        occupy(case, pool, b, pc_of("MSTORE"), [w, pool.addr[b % 4]])
+    cases["mstore_gate"] = finish(case)
+
+    case, pool = base(17)  # paging: code 1's window is [64, 576)
+    for b, pc in enumerate((0, 63, 64, 65, 575, 576, 639, 640)):
+        occupy(case, pool, b, pc, [pool.pick("const") for _ in range(3)], code_id=1)
+    case["cfg"][5] = 3
+    cases["paging"] = finish(case)
+
+    for sel in range(5):  # slot scarcity: 6 forks, 2 free slots
+        case, pool = _jumpi_batch(20 + sel, 6, depths=[5, 9, 1, 9, 3, 7], scores=[3, 7, 50, 7, -2, 0],
+                                  sel=sel)
+        case["visited"][0, 0, CATALOG.index(next(i for i in CATALOG if i.opcode == "JUMPDEST"))] = True
+        case["cfg"][5] = 2
+        cases[f"sel_mode_{sel}"] = finish(case)
+
+    case, pool = _jumpi_batch(30, 8)  # full batch: every fork pends
+    cases["full_batch"] = finish(case)
+
+    case, pool = base(31)  # arena exhaustion: the exit is by room
+    for b in range(6):
+        occupy(case, pool, b, pc_of("ADD"), [pool.sym[b], pool.sym[b + 1]] * 3)
+    case["arena_len"] = CAPS.ARENA - 6 * CAPS.R * 2 - 3
+    cases["arena_full"] = finish(case)
+
+    case, pool = base(32)  # multi-code batch
+    for b in range(8):
+        code_id = b % 2
+        pc = pc_of("ADD") if code_id == 0 else 64 + 8 * b
+        occupy(case, pool, b, pc, [pool.pick("const") for _ in range(4)], code_id=code_id)
+    case["cfg"][5] = 8
+    cases["multi_code"] = finish(case)
+    case, pool = base(33)  # gathers that clamp, scatters that drop
+    code = case["code"]
+    for b, (name, aux) in enumerate((("CALLER", -3), ("ORIGIN", 99), ("DUP3", 40), ("SWAP3", -7))):
+        code[1][0, pc_of(name)] = aux  # the aux column: a ctx index, a DUP/SWAP depth
+        occupy(case, pool, b, pc_of(name), [pool.pick("const") for _ in range(6)])
+    first_dest = pc_of("JUMPDEST")
+    code[7][0, first_dest] = BUCKET[3] + 3  # a loop id past the loops axis
+    occupy(case, pool, 4, first_dest, [])
+    occupy(case, pool, 5, pc_of("JUMP"), [pool.arena.const_row(BUCKET[2] + 5)])  # past jumpmap
+    occupy(case, pool, 6, pc_of("ADD"), [CAPS.ARENA + 9, -1])  # rows past the arena
+    occupy(case, pool, 7, pc_of("CALLER"), [], code_id=5)  # code id past the tables
+    case["cfg"][5] = 2
+    cases["gather_clamps"] = finish(case)
+
+    case, pool = base(34)  # int32 wraps and floor division
+    big = (1 << 31) - 40
+    occupy(case, pool, 0, pc_of("ADD"), [pool.sym[0], pool.sym[1]], gas_min=big, gas_max=big)
+    occupy(case, pool, 1, pc_of("MLOAD"), [pool.addr[2]], mem_size=(1 << 31) - 64)
+    occupy(case, pool, 2, pc_of("MSTORE"), [pool.sym[0], pool.addr[3]], mem_size=-100)
+    occupy(case, pool, 3, pc_of("SHA3"), [pool.lens[2], pool.addr[1]], gas_min=big, gas_max=-big)
+    occupy(case, pool, 4, pc_of("JUMP"), [pool.arena.const_row(pool.dests[1])], depth=(1 << 31) - 1)
+    occupy(case, pool, 5, pc_of("MSIZE"), [], mem_size=-64)
+    occupy(case, pool, 6, pc_of("PUSH1"), [], steps=(1 << 31) - 1)
+    occupy(case, pool, 7, pc_of("JUMPI"), [pool.sym[2], pool.arena.const_row(pool.dests[2])],
+           score=-(1 << 31), depth=-(1 << 31))
+    case["cfg"][0], case["cfg"][4] = (1 << 31) - 1, 2  # SEL_SHALLOW: -depth wraps
+    cases["int32_wraps"] = finish(case)
+    assert all(len(c["state"].pc) == CAPS.B for c in cases.values()) and cat_n > 0
+    return cases
+
+
+def odd_shapes_case():
+    """An arena larger than caps.ARENA (dead slots' rows land at row
+    caps.ARENA), coverage planes for one code of two (code 1's marks drop)
+    and shorter than code 1's pcs (they clamp)."""
+    case, pool = base(40)
+    for b in range(6):
+        occupy(case, pool, b, pc_of("JUMPI") if b < 3 else 64 + 7 * b,
+               [pool.sym[b], pool.arena.const_row(pool.dests[b % 4])], code_id=int(b >= 3))
+    out = finish(case)
+    extra = 64
+    fills = (0, -1, -1, -1, 0, 0, False)
+    out["arena"] = [np.concatenate([x, np.full((extra,) + x.shape[1:], f, x.dtype)])
+                    for x, f in zip(out["arena"], fills)]
+    out["visited"] = np.zeros((3, 1, 600), bool)
+    return out

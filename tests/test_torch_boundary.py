@@ -3,9 +3,12 @@ the JAX package.
 
 A fresh interpreter with ``sys.modules["jax"] = None`` (so any ``import
 jax`` raises) imports the port, replays one batch group and one single
-query of the probe fixture on the CPU, and reports which modules it
-loaded.  The same process shows that, without a card, an entry point called
-without ``device="cpu"`` raises instead of moving to the CPU.
+query of the probe fixture on the CPU, imports the frontier modules
+(``frontier/{ops,arena,code,state,step}``, ``support/opcodes``) and runs one
+small plain segment on the CPU, and reports which modules it loaded.  The
+same process shows that, without a card, entry points called without
+``device="cpu"`` (the solver, ``cached_segment``) raise instead of moving
+to the CPU.
 """
 
 import json
@@ -43,7 +46,26 @@ if not torch.cuda.is_available():
         raised = True
     else:
         raised = False
-print(json.dumps({"keep": keep, "status": status, "raised": raised,
+
+from mythril_tpu_torch.frontier import arena, code, interop, ops, state, step
+from mythril_tpu_torch.support import opcodes
+from tests import _torch_frontier_cases as cases
+
+case = cases.family_case(ops.F_JUMPI, False)
+segment = step.cached_segment(cases.CAPS, *cases.BUCKET, device="cpu")
+out = segment(*interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                         case["visited"], case["code"], case["cfg"], "cpu"))
+n_exec = int(out[3])
+seg_raised = None
+if not torch.cuda.is_available():
+    try:
+        step.cached_segment(cases.CAPS, *cases.BUCKET)
+    except NoCudaDevice:
+        seg_raised = True
+    else:
+        seg_raised = False
+print(json.dumps({"keep": keep, "status": status, "raised": raised, "n_exec": n_exec,
+                  "seg_raised": seg_raised, "opcodes": len(opcodes.OPCODES),
                   "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
@@ -61,6 +83,11 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["keep"] and all(isinstance(k, bool) for k in got["keep"])
     assert got["status"] in ("sat", "unsat", "unknown")
     assert got["raised"] in (True, None)  # None: a card is visible
+    assert got["n_exec"] > 0 and got["opcodes"] > 100
+    assert got["seg_raised"] in (True, None)
+    for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
+                "frontier.step", "support.opcodes"):
+        assert f"mythril_tpu_torch.{mod}" in got["modules"]
 
 
 def test_port_sources_name_no_jax_package():

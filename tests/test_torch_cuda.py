@@ -94,3 +94,57 @@ def test_fixture_contract_on_card(card):
         results = replay(entry["queries"], roots, P)  # device=None: the card
         assert tape_vm.launches > before
     assert disagreements(entry["queries"], entry["jax_verdicts"], results, evaluate) == []
+
+
+# ---------------------------------------------------------------------------
+# the frontier segment kernel
+# ---------------------------------------------------------------------------
+
+
+def _frontier_case_outputs(case, device):
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fcases
+
+    segment = fstep.cached_segment(fcases.CAPS, *fcases.BUCKET, device=device)
+    inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                       case["visited"], case["code"], case["cfg"], device)
+    return interop.outputs_to_numpy(segment(*inputs))
+
+
+def test_frontier_kernel_matches_plain_on_every_case(card):
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fcases
+
+    named = [(f"family {f} {c}", fcases.family_case(f, c)) for f in sorted(fcases.FAMILY_OPS)
+             for c in (True, False)]
+    named += sorted(fcases.special_cases().items())
+    named += [(f"random {s}", fcases.random_case(s)) for s in range(16)]
+    named.append(("odd shapes", fcases.odd_shapes_case()))
+    before = fstep.launches
+    for name, case in named:
+        try:
+            fcases.assert_same(_frontier_case_outputs(case, "cuda"),
+                               _frontier_case_outputs(case, "cpu"))
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+    assert fstep.launches == before + len(named)
+
+
+def test_frontier_kernel_replays_the_wide_dispatch(card):
+    from tests.test_torch_frontier_fixture import iter_dispatches, mismatches, replay
+
+    for name, i, d in iter_dispatches(keep=lambda name, i, data: name == "wide_contract_10"):
+        assert mismatches(replay(d, "cuda"), d["digests"]) == []
+
+
+def test_frontier_wrapper_refuses_cpu_tensors(card):
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fcases
+
+    case = fcases.random_case(0)
+    inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                       case["visited"], case["code"], case["cfg"], "cpu")
+    with pytest.raises(ValueError):
+        fstep.segment_cuda(*inputs, fcases.CAPS)
