@@ -8,8 +8,9 @@ Phases, in order; any failure exits nonzero and prints no result:
 
 1. the card (``nvidia-smi`` name and power limit) and torch's CUDA version;
 2. the kernel build from ``mythril_tpu_torch/csrc`` (``ops/_build.py``, one
-   nvcc per source, all at once), timed, with ptxas's register and spill
-   report, and the LOP3 and SHF instructions per keccak round in the SASS
+   nvcc per source, all at once), timed, with ptxas's register, stack
+   frame and spill report, the LOP3 and SHF instructions per keccak round
+   and each frontier kernel's local loads and stores (LDL, STL) in the SASS
    (``cuobjdump -sass``);
 3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
    state) against ``keccak_f1600_reference``, both on the card, at N in
@@ -24,7 +25,12 @@ Phases, in order; any failure exits nonzero and prints no result:
    both on the card, bit-equal in every output array, on every case of
    ``tests/_torch_frontier_cases.py`` (the 33 families on concrete and
    symbolic operands, each binary and comparison fold, the caps and parity
-   hazards, all five grant modes under slot scarcity, random batches);
+   hazards, the fork phases' cases, all five grant modes under slot
+   scarcity, random batches) and on a forking batch at each width of
+   ``FRONTIER_WIDTHS``, which covers every launch shape (one block, one
+   cluster, a cooperative grid), and in each shape on children's event
+   buffers that start off a 16-byte boundary; per width the shape, ptxas's
+   registers, stack frame and spills and the LDL/STL count of its kernel;
 6. the probe main path: the recorded probe traffic of
    ``tests/testdata/torch_probe_queries.json`` replayed through
    ``check_satisfiable_batch`` and ``solve_conjunction`` on the card with
@@ -183,7 +189,9 @@ def card_line() -> str:
 
 KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "keccak_f1600_warp_kernel": "keccak_f1600/warp", "keccak_f1600_kernel": "keccak_f1600/thread",
-    "tape_vm_kernel": "tape_vm", "frontier_segment_kernel": "frontier_segment",
+    "tape_vm_kernel": "tape_vm", "frontier_segment_block": "frontier_segment/block",
+    "frontier_segment_cluster": "frontier_segment/cluster",
+    "frontier_segment_grid": "frontier_segment/grid",
 }
 
 
@@ -192,7 +200,8 @@ def _kernel_key(mangled: str):
 
 
 def build_kernels():
-    """Build; -> {kernel key: {"regs_per_thread", "static_smem_bytes"}} from ptxas."""
+    """Build; -> {kernel key: {"regs_per_thread", "static_smem_bytes",
+    "stack_frame_bytes", "spill_bytes"}} from ptxas."""
     import re
 
     from mythril_tpu_torch.ops import _build
@@ -201,25 +210,31 @@ def build_kernels():
     path = _build.build()
     _build.load()
     print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    attrs, key = {}, None
+    attrs, key, frame = {}, None, {}
     for line in _build.build_log().splitlines():
         if any(k in line for k in ("==", "Function properties", "registers", "spill")):
             print("  " + line.strip())
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             key = _kernel_key(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            frame = {"stack_frame_bytes": int(m.group(1)),
+                     "spill_bytes": int(m.group(2)) + int(m.group(3))}
         m = re.search(r"Used (\d+) registers", line)
         if m and key:
             smem = re.search(r"(\d+) bytes smem", line)
             attrs[key] = {"regs_per_thread": int(m.group(1)),
-                          "static_smem_bytes": int(smem.group(1)) if smem else 0}
+                          "static_smem_bytes": int(smem.group(1)) if smem else 0, **frame}
     check(set(attrs) == set(KERNEL_NAMES.values()), f"ptxas report incomplete: {sorted(attrs)}")
     return attrs
 
 
 def sass_per_round():
     """LOP3, SHF and SHFL instructions per keccak round (over 24) in each
-    layout's SASS, by ``cuobjdump -sass`` of the built library."""
+    layout's SASS, by ``cuobjdump -sass`` of the built library; and the
+    local-memory loads and stores (LDL, STL) of each frontier kernel."""
     import re
 
     from mythril_tpu_torch.ops import _build
@@ -235,17 +250,22 @@ def sass_per_round():
             key = _kernel_key(m.group(1))
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and key and key.startswith("keccak"):
+        if m and key and (key.startswith("keccak") or key.startswith("frontier")):
             ops = counts.setdefault(key, collections.Counter())
             ops[m.group(1)] += 1
             ops["all"] += 1
     per_round = {k.split("/")[1]: {op: round(c[op] / 24, 2) for op in ("LOP3", "SHF", "SHFL", "all")}
-                 for k, c in counts.items()}
+                 for k, c in counts.items() if k.startswith("keccak")}
+    local = {k: {"LDL": c["LDL"], "STL": c["STL"], "sass_instructions": c["all"]}
+             for k, c in counts.items() if k.startswith("frontier")}
+    check(len(local) == 3, f"frontier kernels missing from the SASS: {sorted(local)}")
+    for k, c in sorted(local.items()):
+        print(f"  {k}: {c['LDL']} LDL + {c['STL']} STL of {c['sass_instructions']} instructions")
     check(set(per_round) == {"thread", "warp"}, "keccak kernels missing from the SASS")
     for name, c in per_round.items():
         print(f"  keccak {name} per round: {c['LOP3']} LOP3 + {c['SHF']} SHF "
               f"(+ {c['SHFL']} SHFL; {c['all']} instructions in all, load and store included)")
-    return per_round
+    return per_round, local
 
 
 def keccak_parity(torch):
@@ -648,9 +668,21 @@ def frontier_err(got, want) -> int:
     return err
 
 
-def frontier_parity(torch):
+# every launch shape of the segment kernel and its edges: one block (B <=
+# 128), one cluster (B <= 1024), a cooperative grid
+FRONTIER_WIDTHS = (1, 127, 129, 256, 1024, 1025, 4096)
+
+
+def frontier_parity(torch, attrs, local):
+    """The kernel against segment_torch, both on the card, bit-equal: every
+    case of tests/_torch_frontier_cases.py at B=8, then width_case at each
+    of FRONTIER_WIDTHS (two seeds at the grid's widths) and, with event
+    buffers off a 16-byte boundary, at each of ODD_EVT_WIDTHS.  -> {B: the
+    launch shape, with ptxas's registers, stack frame and spills and the
+    SASS's LDL/STL count of its kernel}"""
     from mythril_tpu_torch.frontier import interop
     from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.ops import _build
     from tests import _torch_frontier_cases as fc
 
     phase("frontier parity: the segment kernel against its plain version on the card")
@@ -660,19 +692,37 @@ def frontier_parity(torch):
     named += sorted(fc.special_cases().items())
     named += [(f"random {s}", fc.random_case(s)) for s in range(12)]
     named.append(("odd shapes", fc.odd_shapes_case()))
-    segment = fstep.cached_segment(fc.CAPS, *fc.BUCKET, device="cuda")
-    n_exec = 0
+    n_small = len(named)
+    named += [(f"width {B} seed {s}", fc.width_case(B, s)) for B in FRONTIER_WIDTHS
+              for s in range(2 if B > 1024 else 1)]
+    # children's event buffers off a 16-byte boundary, in each launch shape
+    named += [(f"width {B} EVT {fc.ODD_EVT}", fc.width_case(B, 0, evt=fc.ODD_EVT))
+              for B in fc.ODD_EVT_WIDTHS]
+    lib, n_exec, shapes = _build.load(), 0, {}
     for name, case in named:
+        caps = case.get("caps", fc.CAPS)
         inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
                                            case["visited"], case["code"], case["cfg"], "cuda")
-        got = interop.outputs_to_numpy(segment(*inputs))
-        want = interop.outputs_to_numpy(fstep.segment_torch(*inputs, fc.CAPS))
+        got = interop.outputs_to_numpy(fstep.cached_segment(caps, *fc.BUCKET, device="cuda")(*inputs))
+        want = interop.outputs_to_numpy(fstep.segment_torch(*inputs, caps))
         err = frontier_err(got, want)
         check(err == 0, f"frontier_segment differs from its plain version on {name} (max |err| {err})")
         n_exec += want[3]
-    print(f"  {len(named)} cases bit-equal ({len(fc.FAMILY_OPS)} families x concrete/symbolic, "
-          f"binary folds, {len(fc.special_cases()) + 1} hazard cases, 12 random batches); "
-          f"{n_exec} path-steps")
+        args, _outs, _keep = fstep.kernel_args(*inputs, caps)
+        shape = fstep.launch_shape(lib, args)
+        kind = "block" if shape["blocks"] == 1 else ("cluster" if shape["cluster"] else "grid")
+        key = f"frontier_segment/{kind}"
+        shapes.setdefault(f"B={caps.B}", {"kernel": kind, **shape, **attrs[key], **local[key],
+                                          "cases": 0})["cases"] += 1
+    print(f"  {len(named)} cases bit-equal ({n_small} at B=8: {len(fc.FAMILY_OPS)} families x "
+          f"concrete/symbolic, binary folds, {len(fc.special_cases()) + 1} hazard cases, 12 random "
+          f"batches; {len(named) - n_small} at the widths {FRONTIER_WIDTHS}, and at "
+          f"{fc.ODD_EVT_WIDTHS} with EVT={fc.ODD_EVT}); {n_exec} path-steps")
+    for width, info in shapes.items():
+        print(f"  {width}: {info}")
+    check({v["kernel"] for v in shapes.values()} == {"block", "cluster", "grid"},
+          "a launch shape of the segment kernel was not held against the plain version")
+    return shapes
 
 
 def frontier_main_path(torch):
@@ -845,10 +895,10 @@ def main() -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         attrs = build_kernels()
-        sass = sass_per_round()
+        sass, local = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
-        frontier_parity(torch)
+        f_shapes = frontier_parity(torch, attrs, local)
         launches, tape_calls, keccak_calls = main_path(torch)
         f_launches, f_kept, transfers = frontier_main_path(torch)
         phase("kernel times at the main path's shapes (CUDA events)")
@@ -870,8 +920,7 @@ def main() -> int:
         frontier = summarize("frontier_segment", f_rows, f_launches["frontier_segment"], card,
                              route="cuda", source="mythril_tpu_torch/csrc/frontier_segment.cu",
                              replaces="mythril_tpu/frontier/step.py:141")
-        frontier.update(regs_per_thread=attrs["frontier_segment"]["regs_per_thread"],
-                        main_path=transfers, path_steps_per_s_timed=sum(r["n_exec"] for r in f_rows)
+        frontier.update(shapes=f_shapes, main_path=transfers, path_steps_per_s_timed=sum(r["n_exec"] for r in f_rows)
                         / (sum(r["ms"] for r in f_rows) / 1e3),
                         per_dispatch=[{k: r[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "pull_harvest_ms",

@@ -1,36 +1,45 @@
 // The frontier segment kernel: up to caps.K lockstep EVM steps of B paths
-// in one cooperative launch.
+// in one launch.
 //
 // Replaces mythril_tpu/frontier/step.py build_segment -> segment (the
-// jitted lax.while_loop over batch_step), bit for bit; the step's body is
-// frontier_segment.cuh.  One thread owns one path (blocks of 128 threads,
-// ceil(B / 128) blocks, all resident at once: the launch refuses a grid the
-// card cannot hold, and the wrapper raises).  Every step runs five phases
-// with a grid barrier between them, and the loop, its exit test and the
-// fork grant stay on the card:
+// jitted lax.while_loop over batch_step), bit for bit; the step, the fork
+// phases and the loop are frontier_segment.cuh (run_segment), written once
+// for this kernel and for the host check.  One thread owns one path, in
+// blocks of 128 threads; the whole batch is resident, and the launch shape
+// is chosen by B alone:
 //
-//   0. flags: each block counts its running and its free paths (warp
-//      ballots), so that every thread knows its live rank (its arena rows)
-//      and free rank, and all threads take the same exit decision;
-//   1. the path's step (phase_step): decode, handler, tail, rows, event;
-//   2. the grant's sort key (reads the coverage plane the step marked);
-//   3. each wanting path counts the keys before its own (the stable
-//      argsort's rank) and takes the free slot of that rank;
-//   4. each granted child slot copies its parent's row and takes the branch;
-//   5. each granted parent takes the fall-through and records E_FORK;
-//      denied forks pend.  Then the next step's flags.
+//   B <= 128         one block; the barrier is __syncthreads();
+//   B <= 1024        one cluster of ceil(B / 128) blocks (cudaLaunchKernelEx
+//                    with a cluster dimension); the barrier is
+//                    barrier.cluster.arrive.release + wait.acquire, and the
+//                    warp counts and the grant list live in shared memory,
+//                    written to every block of the cluster through
+//                    distributed shared memory before the barrier (and
+//                    only after a first barrier at entry, when every block
+//                    of the cluster is known to run);
+//   B > 1024         a cooperative grid of ceil(B / 128) blocks; the barrier
+//                    is grid.sync(), counts and list in global memory.
+//
+// A shape that cannot be resident is refused, never replaced by another:
+// the wrapper raises.
+//
+// Per step: one barrier when no path wants a fork (each lane publishes its
+// post-step flags in the step, in count words double-buffered by step
+// parity), five when one does (key, grant, child copy, parent).  Within a
+// step, a path's chain is short: what it decodes was read before the
+// barrier (code row, stack top, popped rows), its scalars stay in
+// registers, and nothing goes through local memory (chip_smoke.py prints
+// ptxas's stack frame and the LDL/STL count).
 //
 // Bound: per live path and step the function reads its state slice (the
 // scalars, the popped stack words, the memory and storage entries it
 // scans), one code-table row, the popped arena rows and writes R = 4 rows
-// and at most one event; a fork copies a whole state row.  That is a few
-// hundred bytes a path-step, microseconds for a whole segment at 3.35 TB/s,
-// and the integer work is as small.  What sets the time is latency: on an
-// H100 a step costs about 11 us with one live path (the barriers and the
-// flag scan) and about twice that with every path live
-// (scripts/torch_frontier_probe.py), more on steps that fork (a child copies
-// its parent's row and resets its event buffer in one thread).  chip_smoke.py
-// reports each dispatch's time beside its bound (PERF.md).
+// and at most one event; a fork copies a whole state row and resets the
+// child's event buffer.  That is a few hundred bytes a path-step, and the
+// integer work is as small: what sets the time is latency (the barriers
+// and one path's dependent chain), measured per part by
+// scripts/torch_frontier_probe.py; chip_smoke.py reports each dispatch's
+// time beside its bound (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,96 +51,289 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBlock = 128;
+using mk::I2;
+using mk::I4;
+using mk::kBlock;
+using mk::kWarpsPerBlock;
+using mk::Lane;
+using mk::SegArgs;
 
-// Phase 0: in-block ranks of running and free paths, block totals.
-__device__ void scan_flags(const mk::SegArgs& s, int32_t b, int32_t* warp_live,
-                           int32_t* warp_free) {
-  bool run = false, fr = false;
-  if (b < s.B) mk::path_flags(s, b, &run, &fr);
-  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned m_live = __ballot_sync(0xFFFFFFFFu, run), m_free = __ballot_sync(0xFFFFFFFFu, fr);
-  const unsigned below = (1u << lane) - 1;
-  if (lane == 0) warp_live[warp] = __popc(m_live), warp_free[warp] = __popc(m_free);
-  __syncthreads();
-  int32_t live = __popc(m_live & below), free = __popc(m_free & below), tl = 0, tf = 0;
-  for (unsigned w = 0; w < kBlock / 32; ++w) {
-    if (w < warp) live += warp_live[w], free += warp_free[w];
-    tl += warp_live[w], tf += warp_free[w];
-  }
-  if (b < s.B) s.live_rank[b] = live, s.free_rank[b] = free;
-  if (threadIdx.x == 0) s.blk_live[blockIdx.x] = tl, s.blk_free[blockIdx.x] = tf;
-  __syncthreads();
+enum Shape { BLOCK, CLUSTER, GRID };
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// mk_frontier_segment's refusals: the cooperative grid does not fit
+// resident, or no cluster of the size B needs can be scheduled
+static_assert(cudaErrorCooperativeLaunchTooLarge == 720, "refusal code");
+static_assert(mk::kRecTile * mk::GRANT_W <= 2 * mk::kTile, "records fit the list's buffer");
+constexpr int kClusterRefused = -1;
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kBlock) frontier_segment_kernel(mk::SegArgs s) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int32_t warp_live[kBlock / 32], warp_free[kBlock / 32];
-  const int32_t b = blockIdx.x * kBlock + threadIdx.x;
-  const bool mine = b < s.B;
-  scan_flags(s, b, warp_live, warp_free);
-  grid.sync();
-  int32_t arena_len = s.arena_len0, n_exec = 0, max_live = 0;
-  const int32_t k = s.k_limit < s.K ? s.k_limit : s.K;
-  for (int32_t t = 0;; ++t) {
-    int32_t n_live = 0, n_free = 0, live_before = 0, free_before = 0;
-    for (int32_t i = 0; i < (int32_t)gridDim.x; ++i) {
-      const int32_t l = __ldcg(s.blk_live + i), f = __ldcg(s.blk_free + i);
-      n_live += l, n_free += f;
-      if (i < (int32_t)blockIdx.x) live_before += l, free_before += f;
+__device__ __forceinline__ I4 ld_shared4(const int32_t* p) {
+  const int4 q = *reinterpret_cast<const int4*>(p);
+  return I4{q.x, q.y, q.z, q.w};
+}
+
+// run_segment's executor on the card: this thread's lane.  In one block or
+// one cluster, every block keeps every block's warp words and the whole
+// grant list in its own shared memory: a writer stores to each block of
+// the cluster (distributed shared memory) before the barrier, whose
+// release/acquire orders those stores, and every read after it is local.
+// The grid keeps both in global memory; one warp per block reads the words.
+template <int SHAPE>
+struct Dev {
+  const SegArgs& s;
+  Lane l;
+  int32_t* cnt_s;      // [2][kMaxCluster][4] the warp words by parity and block
+  I2* list_s;          // [kTile] the grant list (the grid: a staged tile of it), then
+                       // the staged grant records
+  mk::Tally* tally_s;  // the grid: the block's tally of the last counts
+  mk::RowMap* map_s;   // the state row's wide fields, for the child copies
+  int lane, warp;
+
+  __device__ __forceinline__ void begin() {
+    // distributed shared memory may be written only once every block of the
+    // cluster has started: the first publish stores to the other blocks
+    if constexpr (SHAPE == CLUSTER) cluster_barrier();
+    if (threadIdx.x == 0) mk::row_map(s, *map_s);  // read after the first barrier
+    mk::lane_begin(s, l);
+  }
+  __device__ __forceinline__ void step(int32_t arena_len, const mk::Window& w) {
+    mk::step(s, l, arena_len, w);
+  }
+  __device__ __forceinline__ void keys() {
+    if (l.fwant) put_key(l.fwant_rank, mk::fork_key(s, l));
+  }
+  __device__ __forceinline__ void parent() { mk::fork_parent(s, l); }
+  __device__ __forceinline__ const Lane& lane0() const { return l; }
+
+  __device__ __forceinline__ void sync() {
+    if constexpr (SHAPE == BLOCK)
+      __syncthreads();
+    else if constexpr (SHAPE == CLUSTER)
+      cluster_barrier();
+    else
+      cg::this_grid().sync();
+  }
+
+  __device__ __forceinline__ int32_t* words(int par) { return cnt_s + par * kMaxCluster * kWarpsPerBlock; }
+
+  __device__ __forceinline__ void publish(int par) {
+    const uint32_t ml = __ballot_sync(0xFFFFFFFFu, l.run), mf = __ballot_sync(0xFFFFFFFFu, l.free);
+    const uint32_t mw = __ballot_sync(0xFFFFFFFFu, l.fwant);
+    mk::warp_ranks(l, lane, ml, mf, mw);
+    const int32_t word = mk::pack_counts(ml, mf, mw);
+    if constexpr (SHAPE == GRID) {
+      if (lane == 0) s.cnt[(par * gridDim.x + blockIdx.x) * kWarpsPerBlock + warp] = word;
+    } else if constexpr (SHAPE == CLUSTER) {
+      if (lane < (int)gridDim.x)  // lane r stores to block r
+        *cg::this_cluster().map_shared_rank(words(par) + blockIdx.x * kWarpsPerBlock + warp, lane) =
+            word;
+    } else {
+      if (lane == 0) words(par)[warp] = word;
     }
-    // the same decision in every thread: no thread leaves a barrier behind
-    if (!(t < k && n_live > 0 && mk::wadd(arena_len, mk::wmul(n_live, s.R)) < s.ARENA)) break;
-    n_exec = mk::wadd(n_exec, n_live);
-    max_live = max_live > n_live ? max_live : n_live;
-    if (mine) mk::phase_step(s, b, arena_len, live_before + s.live_rank[b], free_before + s.free_rank[b]);
-    grid.sync();
-    if (mine) mk::phase_key(s, b);
-    grid.sync();
-    if (mine) mk::phase_grant(s, b, n_free);
-    grid.sync();
-    if (mine) mk::phase_child(s, b);
-    grid.sync();
-    if (mine) mk::phase_parent(s, b);
-    arena_len = mk::wadd(arena_len, mk::wmul(n_live, s.R));
-    scan_flags(s, b, warp_live, warp_free);
-    grid.sync();
   }
-  if (b == 0) s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+
+  __device__ __forceinline__ void counts(int par) {
+    if constexpr (SHAPE != GRID) {
+      const int32_t* w = words(par);
+      const auto blk = [&](int i) { return ld_shared4(w + i * kWarpsPerBlock); };
+      mk::lane_counts(l, mk::tally(blk, gridDim.x, blockIdx.x), blk(blockIdx.x), warp);
+    } else {
+      // one warp reads every block's words at once (lanes split the
+      // blocks), adds them up with shuffles, and leaves the tally in
+      // shared memory
+      const int4* w = reinterpret_cast<const int4*>(s.cnt) + par * gridDim.x;
+      if (warp == 0) {
+        mk::Tally t = mk::tally([&](int i) {
+          const int4 q = __ldcg(w + i);
+          return I4{q.x, q.y, q.z, q.w};
+        }, gridDim.x, blockIdx.x, lane, mk::kWarp);
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+#pragma unroll
+          for (int d = 16; d > 0; d >>= 1) {
+            t.n[f] += __shfl_xor_sync(0xFFFFFFFFu, t.n[f], d);
+            t.before[f] += __shfl_xor_sync(0xFFFFFFFFu, t.before[f], d);
+          }
+        if (lane == 0) *tally_s = t;
+      }
+      __syncthreads();
+      const int4 q = __ldcg(w + blockIdx.x);
+      mk::lane_counts(l, *tally_s, I4{q.x, q.y, q.z, q.w}, warp);
+    }
+  }
+
+  __device__ __forceinline__ void put_key(int32_t r, I2 e) {
+    if constexpr (SHAPE == GRID) {
+      s.fkeys[2 * r] = e.x, s.fkeys[2 * r + 1] = e.y;
+    } else if constexpr (SHAPE == CLUSTER) {
+      cg::cluster_group cluster = cg::this_cluster();
+      for (unsigned b = 0; b < gridDim.x; ++b) *cluster.map_shared_rank(list_s + r, b) = e;
+    } else {
+      list_s[r] = e;
+    }
+  }
+
+  // Every wanting lane counts over the list: in place in one block or
+  // cluster; the grid stages it a tile at a time, every thread of the block
+  // loading.
+  __device__ __forceinline__ void grant() {
+    const int32_t n = l.n_fwant;
+    const bool counting = l.fwant && l.want;
+    int32_t lt = 0, wb = 0;
+    if constexpr (SHAPE == GRID) {
+      for (int32_t base = 0; base < n; base += mk::kTile) {
+        const int32_t m = n - base < mk::kTile ? n - base : mk::kTile;
+        for (int32_t i = threadIdx.x; i < m; i += kBlock) {
+          const I2 e = mk::ld_cg2(s.fkeys + 2 * (base + i));
+          list_s[i] = e;
+        }
+        __syncthreads();
+        if (counting) mk::grant_count(list_s, m, l, lt, wb);
+        __syncthreads();
+      }
+    } else if (counting) {
+      mk::grant_count(list_s, n, l, lt, wb);
+    }
+    if (counting) mk::grant_take(s, l, lt, wb);
+  }
+
+  // The copies of the first n granted children: their records staged in
+  // shared memory a tile at a time, then the units over every warp of the
+  // launch.
+  __device__ __forceinline__ void child_items(int32_t n) {
+    I4* rec = reinterpret_cast<I4*>(list_s);  // the list is done with
+    const int32_t per = mk::child_units(*map_s);
+    const int32_t nw = gridDim.x * kWarpsPerBlock, first = blockIdx.x * kWarpsPerBlock + warp;
+    for (int32_t g0 = 0; g0 < n; g0 += mk::kRecTile) {
+      const int32_t m = n - g0 < mk::kRecTile ? n - g0 : mk::kRecTile;
+      for (int32_t i = threadIdx.x; i < 2 * m; i += kBlock)
+        rec[i] = mk::ld_cg4(s.grants + (int64_t)mk::GRANT_W * g0 + 4 * i);
+      __syncthreads();
+      for (int32_t it = first; it < m * per; it += nw)
+        mk::child_unit(s, *map_s, rec + 2 * (it / per), it % per, lane);
+      __syncthreads();
+    }
+  }
+
+  __device__ __forceinline__ void finish(int32_t arena_len, int32_t n_exec, int32_t max_live) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+    if constexpr (SHAPE == CLUSTER) cluster_barrier();  // no block leaves while another writes its shared memory
+  }
+};
+
+template <int SHAPE>
+__device__ __forceinline__ void segment_body(const SegArgs& s) {
+  __shared__ __align__(16) int32_t cnt_s[2 * kMaxCluster * kWarpsPerBlock];
+  __shared__ __align__(16) I2 list_s[mk::kTile];
+  __shared__ mk::Tally tally_s;
+  __shared__ mk::RowMap map_s;
+  Dev<SHAPE> x{s, Lane{}, cnt_s, list_s, &tally_s, &map_s, (int)(threadIdx.x & 31),
+               (int)(threadIdx.x >> 5)};
+  x.l.b = blockIdx.x * kBlock + threadIdx.x;
+  mk::run_segment(x, s);
 }
 
-// Blocks of the launch, and the most that can be resident at once.
-cudaError_t launch_shape(const mk::SegArgs& s, int* grid, int* max_grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frontier_segment_kernel, kBlock, 0);
-  *grid = (s.B + kBlock - 1) / kBlock;
-  *max_grid = per_sm * sms;
-  return e;
+__global__ void __launch_bounds__(kBlock, 1) frontier_segment_block(const __grid_constant__ SegArgs s) {
+  segment_body<BLOCK>(s);
 }
+__global__ void __launch_bounds__(kBlock, 1) frontier_segment_cluster(const __grid_constant__ SegArgs s) {
+  segment_body<CLUSTER>(s);
+}
+__global__ void __launch_bounds__(kBlock, 1) frontier_segment_grid(const __grid_constant__ SegArgs s) {
+  segment_body<GRID>(s);
+}
+
+// What the card can hold, queried once per device: blocks of the grid
+// kernel resident at once, and clusters of each size of the cluster kernel.
+struct Fit {
+  bool known;
+  int max_grid;
+  int max_clusters[kMaxCluster + 1];
+};
+constexpr int kMaxDevices = 64;
+Fit g_fit[kMaxDevices];
+
+cudaError_t fit_of(Fit** out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Fit& f = g_fit[dev];
+  if (!f.known) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frontier_segment_grid, kBlock, 0);
+    for (int n = 2; n <= kMaxCluster && e == cudaSuccess; ++n) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = n, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(n), cfg.blockDim = dim3(kBlock), cfg.attrs = attr, cfg.numAttrs = 1;
+      e = cudaOccupancyMaxActiveClusters(&f.max_clusters[n], frontier_segment_cluster, &cfg);
+    }
+    if (e != cudaSuccess) return e;
+    f.max_grid = per_sm * sms;
+    f.known = true;
+  }
+  *out = &f;
+  return cudaSuccess;
+}
+
+int blocks_of(const SegArgs& s) { return (s.B + kBlock - 1) / kBlock; }
 
 }  // namespace
 
-// One segment.  Returns the launch's cudaGetLastError(), or
-// cudaErrorCooperativeLaunchTooLarge when B paths do not fit resident.
-extern "C" int mk_frontier_segment(const mk::SegArgs* args, void* stream) {
-  mk::SegArgs s = *args;
-  int grid = 0, max_grid = 0;
-  cudaError_t e = launch_shape(s, &grid, &max_grid);
+// One segment.  Returns the launch's CUDA error; cudaErrorCooperativeLaunchTooLarge
+// when B > 1024 paths do not fit resident, kClusterRefused (-1) when the
+// card cannot schedule the cluster that 128 < B <= 1024 paths need.
+extern "C" int mk_frontier_segment(const SegArgs* args, void* stream) {
+  const SegArgs& s = *args;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = blocks_of(s);
+  if (blocks <= 1) {
+    frontier_segment_block<<<1, kBlock, 0, st>>>(s);
+    return (int)cudaGetLastError();
+  }
+  Fit* fit = nullptr;
+  cudaError_t e = fit_of(&fit);
   if (e != cudaSuccess) return (int)e;
-  if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&s};
-  e = cudaLaunchCooperativeKernel((const void*)frontier_segment_kernel, grid, kBlock, params, 0,
-                                  (cudaStream_t)stream);
+  if (blocks <= kMaxCluster) {
+    if (fit->max_clusters[blocks] < 1) return kClusterRefused;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks), cfg.blockDim = dim3(kBlock), cfg.stream = st;
+    cfg.attrs = attr, cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, frontier_segment_cluster, s);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
+  if (blocks > fit->max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  SegArgs copy = s;
+  void* params[] = {&copy};
+  e = cudaLaunchCooperativeKernel((const void*)frontier_segment_grid, blocks, kBlock, params, 0, st);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // The launch shape mk_frontier_segment takes, for reports and errors:
-// threads per block, blocks, and the most blocks that fit resident.
-extern "C" int mk_frontier_segment_shape(const mk::SegArgs* args, int* block, int* grid,
-                                         int* max_grid) {
-  *block = kBlock;
-  return (int)launch_shape(*args, grid, max_grid);
+// threads per block, blocks, the cluster size (0 without a cluster), and
+// how many such launches the card holds resident (clusters of that size,
+// or blocks for the grid; 1 for one block).
+extern "C" int mk_frontier_segment_shape(const SegArgs* args, int* block, int* grid, int* cluster,
+                                         int* resident) {
+  const int blocks = blocks_of(*args);
+  *block = kBlock, *grid = blocks, *cluster = 0, *resident = 1;
+  if (blocks <= 1) return 0;
+  Fit* fit = nullptr;
+  const cudaError_t e = fit_of(&fit);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks <= kMaxCluster)
+    *cluster = blocks, *resident = fit->max_clusters[blocks];
+  else
+    *resident = fit->max_grid;
+  return 0;
 }

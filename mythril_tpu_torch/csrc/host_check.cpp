@@ -74,31 +74,100 @@ extern "C" int mk_tape_vm_segment_host(const mk::TapeArgs* args) {
   return 0;
 }
 
-// The frontier segment: the kernel's loop with each grid barrier replaced by
-// finishing the phase for every path before the next phase starts.  The
-// ranks come from a sequential count where the kernel adds block totals.
-extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
-  const mk::SegArgs& s = *args;
-  int32_t arena_len = s.arena_len0, n_exec = 0, max_live = 0;
-  const int32_t k = s.k_limit < s.K ? s.k_limit : s.K;
-  for (int32_t t = 0;; ++t) {
-    int32_t n_live = 0, n_free = 0;
-    for (int32_t b = 0; b < s.B; ++b) {
-      bool run, fr;
-      mk::path_flags(s, b, &run, &fr);
-      s.live_rank[b] = n_live, s.free_rank[b] = n_free;
-      n_live += run, n_free += fr;
-    }
-    if (!(t < k && n_live > 0 && mk::wadd(arena_len, mk::wmul(n_live, s.R)) < s.ARENA)) break;
-    n_exec = mk::wadd(n_exec, n_live);
-    max_live = max_live > n_live ? max_live : n_live;
-    for (int32_t b = 0; b < s.B; ++b) mk::phase_step(s, b, arena_len, s.live_rank[b], s.free_rank[b]);
-    for (int32_t b = 0; b < s.B; ++b) mk::phase_key(s, b);
-    for (int32_t b = 0; b < s.B; ++b) mk::phase_grant(s, b, n_free);
-    for (int32_t b = 0; b < s.B; ++b) mk::phase_child(s, b);
-    for (int32_t b = 0; b < s.B; ++b) mk::phase_parent(s, b);
-    arena_len = mk::wadd(arena_len, mk::wmul(n_live, s.R));
+// The frontier segment: run_segment (frontier_segment.cuh), the kernel's
+// loop itself, with an executor that owns every lane.  Each phase runs for
+// every lane before the next (the barrier), lanes are grouped into warps of
+// 32 and blocks of 128 as on the card, the warp counts go to the same
+// double-buffered words (cnt) as the grid launch's, the grant list is staged
+// in tiles, and the child copies run as units over the warps with the
+// lanes of each unit one after another.
+struct HostExec {
+  const mk::SegArgs& s;
+  int nblocks, nwarps;
+  std::vector<mk::Lane> lanes;
+  std::vector<mk::I2> tile;
+
+  explicit HostExec(const mk::SegArgs& a)
+      : s(a), nblocks((a.B + mk::kBlock - 1) / mk::kBlock), nwarps(nblocks * mk::kWarpsPerBlock),
+        lanes(nblocks * mk::kBlock), tile(mk::kTile) {
+    for (size_t i = 0; i < lanes.size(); ++i) lanes[i].b = (int32_t)i;
   }
-  s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+
+  void begin() {
+    for (auto& l : lanes) mk::lane_begin(s, l);
+  }
+  void step(int32_t arena_len, const mk::Window& w) {
+    for (auto& l : lanes) mk::step(s, l, arena_len, w);
+  }
+  void keys() {
+    for (auto& l : lanes)
+      if (l.fwant) put_key(l.fwant_rank, mk::fork_key(s, l));
+  }
+  void parent() {
+    for (auto& l : lanes) mk::fork_parent(s, l);
+  }
+  const mk::Lane& lane0() const { return lanes[0]; }
+  void sync() {}
+
+  void publish(int par) {
+    for (int w = 0; w < nwarps; ++w) {
+      uint32_t ml = 0, mf = 0, mw = 0;
+      for (int i = 0; i < mk::kWarp; ++i) {
+        const mk::Lane& l = lanes[w * mk::kWarp + i];
+        ml |= (uint32_t)l.run << i, mf |= (uint32_t)l.free << i, mw |= (uint32_t)l.fwant << i;
+      }
+      for (int i = 0; i < mk::kWarp; ++i) mk::warp_ranks(lanes[w * mk::kWarp + i], i, ml, mf, mw);
+      s.cnt[par * nwarps + w] = mk::pack_counts(ml, mf, mw);
+    }
+  }
+
+  void counts(int par) {
+    const int32_t* c = s.cnt + par * nwarps;
+    auto blk = [&](int i) { return mk::I4{c[4 * i], c[4 * i + 1], c[4 * i + 2], c[4 * i + 3]}; };
+    for (int block = 0; block < nblocks; ++block) {
+      const mk::Tally t = mk::tally(blk, nblocks, block);
+      for (int i = block * mk::kBlock; i < (block + 1) * mk::kBlock; ++i)
+        mk::lane_counts(lanes[i], t, blk(block), (i / mk::kWarp) % mk::kWarpsPerBlock);
+    }
+  }
+
+  void put_key(int32_t r, mk::I2 e) { s.fkeys[2 * r] = e.x, s.fkeys[2 * r + 1] = e.y; }
+
+  void grant() {
+    const int32_t n = lanes[0].n_fwant;
+    std::vector<int32_t> lt(lanes.size()), wb(lanes.size());
+    for (int32_t base = 0; base < n; base += mk::kTile) {
+      const int32_t m = n - base < mk::kTile ? n - base : mk::kTile;
+      for (int32_t i = 0; i < m; ++i) tile[i] = mk::I2{s.fkeys[2 * (base + i)], s.fkeys[2 * (base + i) + 1]};
+      for (auto& l : lanes)
+        if (l.fwant && l.want) mk::grant_count(tile.data(), m, l, lt[l.b], wb[l.b]);
+    }
+    for (auto& l : lanes)
+      if (l.fwant && l.want) mk::grant_take(s, l, lt[l.b], wb[l.b]);
+  }
+
+  void child_items(int32_t n) {
+    mk::RowMap map;
+    mk::row_map(s, map);
+    const int32_t per = mk::child_units(map);
+    std::vector<mk::I4> rec(2 * mk::kRecTile);
+    for (int32_t g0 = 0; g0 < n; g0 += mk::kRecTile) {
+      const int32_t m = n - g0 < mk::kRecTile ? n - g0 : mk::kRecTile;
+      for (int32_t i = 0; i < 2 * m; ++i) rec[i] = mk::ld_cg4(s.grants + (int64_t)mk::GRANT_W * g0 + 4 * i);
+      for (int w = 0; w < nwarps; ++w)
+        for (int32_t it = w; it < m * per; it += nwarps)
+          for (int lane = 0; lane < mk::kWarp; ++lane)
+            mk::child_unit(s, map, rec.data() + 2 * (it / per), it % per, lane);
+    }
+  }
+
+  void finish(int32_t arena_len, int32_t n_exec, int32_t max_live) {
+    s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+  }
+};
+
+extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
+  HostExec x(*args);
+  mk::run_segment(x, *args);
   return 0;
 }

@@ -859,12 +859,17 @@ def _check_inputs(state, arena, visited, code, caps: Caps) -> None:
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-_SCRATCH = ("live_rank", "free_rank", "free_list", "want", "key", "child", "src_of", "f_want",
-            "f_target", "f_dest", "f_word", "f_cond", "f_ncond", "pre_pc", "pre_gmin", "pre_gmax",
-            "blk_live", "blk_free", "out")
+_SCRATCH = ("free_list", "fkeys", "grants", "cnt", "out")
+GRANT_W = 8  # int32 words of a grant record (mk::GRANT_W)
 _DIMS = ("B", "STK", "MEM", "STO", "CON", "EVT", "R", "K", "ARENA", "NL", "T", "C", "N", "A",
          "Cv", "Iv", "arena_len0", "max_depth", "loop_bound", "row_zero", "row_one", "sel_mode",
          "k_limit")
+BLOCK = 128  # threads per block of the kernel, one path each
+# mk_frontier_segment's refusals: a cooperative grid (B > 1024) that the card
+# cannot hold resident (cudaErrorCooperativeLaunchTooLarge), and a cluster
+# (128 < B <= 1024) that it cannot schedule
+GRID_TOO_LARGE = 720
+CLUSTER_REFUSED = -1
 
 
 class FrontierArgs(ctypes.Structure):
@@ -872,11 +877,21 @@ class FrontierArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         *FrontierState._fields, *("a_" + n for n in ArenaDev._fields), "visited",
-        *CodeDev._fields, *_SCRATCH,
+        *CodeDev._fields, "code_rows", *_SCRATCH,
     )] + [(n, ctypes.c_int) for n in _DIMS]
 
 
 launches = 0  # launches of the CUDA segment kernel (one per segment call)
+
+
+def code_rows(code: CodeDev) -> torch.Tensor:
+    """The kernel's packed code row per instruction, [C, N, 8] int32: fam,
+    aux, arity, gmin, gmax, loopid, flags (event | concskip << 1 | valgate
+    << 2), 0 -- one 32-byte read decodes an instruction.  Derived from
+    ``code``, which stays as the JAX package has it."""
+    flags = code.event.to(I32) | code.concskip.to(I32) << 1 | code.valgate.to(I32) << 2
+    return torch.stack([code.fam, code.aux, code.arity, code.gmin, code.gmax, code.loopid, flags,
+                        torch.zeros_like(code.fam)], -1).contiguous()
 
 
 def kernel_args(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
@@ -891,25 +906,30 @@ def kernel_args(state: FrontierState, arena: ArenaDev, arena_len, visited, code:
     arena = ArenaDev(*[x.clone() for x in arena])
     visited = visited.clone()
     code = CodeDev(*[x.contiguous() for x in code])
+    rows = code_rows(code)
     B, dev = caps.B, state.pc.device
-    scratch = {n: torch.zeros(B if n != "out" else 3, dtype=I32, device=dev) for n in _SCRATCH}
+    blocks = -(-B // BLOCK)
+    size = {"fkeys": 2 * B, "grants": GRANT_W * B, "cnt": 2 * 4 * blocks, "out": 3}
+    scratch = {n: torch.zeros(size.get(n, B), dtype=I32, device=dev) for n in _SCRATCH}
+    scratch["grants"].fill_(-1)
     args = FrontierArgs(
         *[f.data_ptr() for f in state], *[x.data_ptr() for x in arena], visited.data_ptr(),
-        *[x.data_ptr() for x in code], *[scratch[n].data_ptr() for n in _SCRATCH],
+        *[x.data_ptr() for x in code], rows.data_ptr(), *[scratch[n].data_ptr() for n in _SCRATCH],
         B, caps.STK, caps.MEM, caps.STO, caps.CON, caps.EVT, caps.R, caps.K, caps.ARENA,
         state.loops.shape[1], arena.op.shape[0], code.fam.shape[0], code.fam.shape[1],
         code.jumpmap.shape[1], visited.shape[1], visited.shape[2], int(arena_len),
         cfg.max_depth, cfg.loop_bound, cfg.row_zero, cfg.row_one, cfg.sel_mode,
         min(int(cfg.k_limit), INT32_MAX),
     )
-    return args, (state, arena, visited, scratch["out"]), (code, scratch)
+    return args, (state, arena, visited, scratch["out"]), (code, rows, scratch)
 
 
 def segment_cuda(state: FrontierState, arena: ArenaDev, arena_len, visited,
                  code: CodeDev, cfg: CfgScalars, caps: Caps):
     """The segment as one launch of ``csrc/frontier_segment.cu``; inputs on
     a CUDA device, not modified.  Same outputs as ``segment_torch``, the
-    scalars as 0-d int32 tensors on the card (no host synchronisation)."""
+    scalars as 0-d int32 tensors on the card (no host synchronisation).
+    Raises when the card cannot hold the launch shape B needs."""
     global launches
     if not state.pc.is_cuda:
         raise ValueError("segment_cuda takes CUDA tensors")
@@ -921,21 +941,25 @@ def segment_cuda(state: FrontierState, arena: ArenaDev, arena_len, visited,
     with torch.cuda.device(state.pc.device):
         stream = torch.cuda.current_stream(state.pc.device).cuda_stream
         rc = lib.mk_frontier_segment(ctypes.byref(args), stream)
-        if rc == 720:  # cudaErrorCooperativeLaunchTooLarge
+        if rc in (GRID_TOO_LARGE, CLUSTER_REFUSED):
             raise RuntimeError(
-                f"frontier_segment: B={caps.B} paths need more resident blocks than the card "
-                f"holds ({_shape(lib, args)}); use a smaller frontier width")
+                f"frontier_segment: the card cannot hold the launch B={caps.B} paths need "
+                f"({launch_shape(lib, args)}); use a smaller frontier width")
         _build.check(rc, "frontier_segment")
     launches += 1
     del keep
     return state, arena, out[0], out[1], out[2], visited
 
 
-def _shape(lib, args) -> str:
-    block, grid, max_grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    lib.mk_frontier_segment_shape(ctypes.byref(args), ctypes.byref(block), ctypes.byref(grid),
-                                  ctypes.byref(max_grid))
-    return f"{grid.value} blocks of {block.value}, at most {max_grid.value} resident"
+def launch_shape(lib, args) -> dict:
+    """The kernel's launch shape for these arguments: threads per block,
+    blocks, cluster size (0 without a cluster) and how many such launches
+    the card holds resident."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = lib.mk_frontier_segment_shape(ctypes.byref(args), *map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"frontier_segment: CUDA error {rc} querying the launch shape")
+    return dict(zip(("block", "blocks", "cluster", "resident"), (v.value for v in vals)))
 
 
 @lru_cache(maxsize=16)

@@ -5,7 +5,8 @@ process per source, all started together, and linked into one shared
 library with a plain C interface that ``ctypes`` loads.  The library goes
 to ``mythril_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of the sources and flags: it is built at first use and rebuilt whenever a
-source changes.  Nothing here runs at import time.
+source changes.  Nothing here runs at import time.  ``build`` also takes
+other sources (a measurement script's kernel) into a library of their own.
 
 Pointers and the CUDA stream are passed as ``c_void_p``; each C entry
 returns ``cudaGetLastError()`` of its launch and the Python wrapper raises
@@ -42,9 +43,9 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    for p in sorted(srcs) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -61,8 +62,9 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libmythril_kernels_{_digest()}.so"
+def library_path(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> Path:
+    srcs = sources() if srcs is None else srcs
+    return BUILD_DIR / f"lib{name}_{_digest(srcs)}.so"
 
 
 def build_log() -> str:
@@ -72,16 +74,18 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build() -> Path:
-    """Compile every source in parallel and link; a no-op when up to date."""
-    lib = library_path()
+def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> Path:
+    """Compile every source (default: the package's) in parallel and link;
+    a no-op when up to date."""
+    srcs = sources() if srcs is None else srcs
+    lib = library_path(srcs, name)
     if lib.exists():
         return lib
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
-        for src in sources():
+        for src in srcs:
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             procs.append(subprocess.Popen(
@@ -89,7 +93,7 @@ def build() -> Path:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         logs, failed = [], []
-        for src, proc in zip(sources(), procs):
+        for src, proc in zip(srcs, procs):
             out, _ = proc.communicate()
             logs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
@@ -143,7 +147,7 @@ def load() -> ctypes.CDLL:
             lib.mk_frontier_segment.argtypes = [ctypes.POINTER(FrontierArgs), ctypes.c_void_p]
             lib.mk_frontier_segment.restype = ctypes.c_int
             lib.mk_frontier_segment_shape.argtypes = [ctypes.POINTER(FrontierArgs)] + [
-                ctypes.POINTER(ctypes.c_int)] * 3
+                ctypes.POINTER(ctypes.c_int)] * 4
             lib.mk_frontier_segment_shape.restype = ctypes.c_int
             _lib = lib
         return _lib

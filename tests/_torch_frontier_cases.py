@@ -13,7 +13,10 @@ A case is a dict of numpy inputs in the JAX layout: ``state`` (a
 ``visited``, ``code`` (the 11 stacked tables) and ``cfg`` (6 ints).
 ``special_cases()`` names the targeted ones; ``random_case(seed)`` draws a whole
 batch at random, operands from a pool of concrete, symbolic and out-of-range
-rows.  Both ``tests/test_torch_frontier_segment.py`` (JAX against the plain
+rows.  ``width_case(B, seed)`` is a batch of B slots (its own caps, under
+``case["caps"]``) in which one path forks round after round (``FORKS``)
+until the slots run out, beside random paths, with junk in the free slots'
+event buffers (a child's buffer must come out reset).  Both ``tests/test_torch_frontier_segment.py`` (JAX against the plain
 version) and ``tests/test_torch_frontier_host.py`` (the kernel body built
 by g++ against the plain version) run them.
 """
@@ -68,6 +71,23 @@ _PAGED_OPS = ["JUMPDEST" if i % 16 == 0 else
               for i in range(640)]
 PAGED = _program(_PAGED_OPS, arg=0x20)
 
+
+def _fork_rounds(rounds: int):
+    """Rounds of PUSH1 0; CALLDATALOAD; PUSH1 d; JUMPI; JUMPDEST (d: the
+    JUMPDEST): a symbolic JUMPI whose branches meet, so every live path
+    forks every fifth step."""
+    out, addr = [], 0
+    for _ in range(rounds):
+        for name, arg in (("PUSH1", 0), ("CALLDATALOAD", None), ("PUSH1", addr + 6),
+                          ("JUMPI", None), ("JUMPDEST", None)):
+            out.append(Ins(name, addr, arg))
+            addr += 2 if name == "PUSH1" else 1
+    out.append(Ins("STOP", addr, None))
+    return out
+
+
+FORKS = _fork_rounds(12)
+
 # the opcode that stands for each family in CATALOG.  CodeTables never
 # emits F_MSTORE8 (MSTORE8 classifies as F_PARK), so its case patches the
 # table; F_PAGEFAULT comes from code 1's window.
@@ -107,7 +127,7 @@ def pc_of(name: str, program=CATALOG) -> int:
 class Pool:
     """Arena rows to draw operands from."""
 
-    def __init__(self, arena: HostArena, rng):
+    def __init__(self, arena: HostArena, rng, caps=CAPS):
         self.arena, self.rng = arena, rng
         small = [0, 1, 2, 3, 7, 31, 32, 33, 0x40, 0x60, 0x80, 255, 256, 1 << 19, 1 << 20]
         big = [1 << 255, (1 << 256) - 1, PANIC, PANIC | 0x1234, (1 << 255) - 1, 0xFF << 248,
@@ -121,35 +141,38 @@ class Pool:
             a, b = self.sym[k], self.sym[k + 1]
             self.sym.append(arena._append(O.A_ADD if k % 2 else O.A_ULT, a=a, b=b,
                                           width=256 if k % 2 else 0))
-        self.wild = [-1, CAPS.ARENA + 3, CAPS.ARENA - 1]
+        self.wild = [-1, caps.ARENA + 3, caps.ARENA - 1]
 
     def pick(self, kind=None):
         kind = kind or self.rng.choice(["const", "sym", "addr", "wild"], p=[0.45, 0.35, 0.15, 0.05])
         return int(self.rng.choice(getattr(self, kind)))
 
 
-def _tables(arena: HostArena):
-    cat = CodeTables(CATALOG, arena, hooked_opcodes=HOOKED, conc_nop_opcodes=CONC_NOP,
-                     value_gate_opcodes=VALUE_GATE)
-    paged = CodeTables(PAGED, arena, hooked_opcodes=HOOKED, conc_nop_opcodes=CONC_NOP,
-                       value_gate_opcodes=VALUE_GATE)
-    return cat, paged, stacked_device_tables([cat, paged], BUCKET, page_bases=PAGE_BASES)
+def _tables(arena: HostArena, forks: bool = False):
+    """Code 0 CATALOG and code 1 PAGED (its window at 64); with ``forks``,
+    code 0 FORKS and code 1 CATALOG, both resident."""
+    progs = (FORKS, CATALOG) if forks else (CATALOG, PAGED)
+    tables = [CodeTables(prog, arena, hooked_opcodes=HOOKED, conc_nop_opcodes=CONC_NOP,
+                         value_gate_opcodes=VALUE_GATE) for prog in progs]
+    return stacked_device_tables(tables, BUCKET, page_bases=[0, 0] if forks else PAGE_BASES)
 
 
-def base(seed: int):
+def base(seed: int, caps=CAPS, forks: bool = False):
     """Empty batch, the arena with the pool, tables, cfg; -> (case, pool)."""
     rng = np.random.default_rng(seed)
-    arena = HostArena(CAPS.ARENA)
+    arena = HostArena(caps.ARENA)
     row_zero, row_one = arena.const_row(0), arena.const_row(1)
-    pool = Pool(arena, rng)
-    _cat, _paged, code = _tables(arena)
-    st = empty_state(CAPS, BUCKET[3])
+    pool = Pool(arena, rng, caps)
+    code = _tables(arena, forks)
+    st = empty_state(caps, BUCKET[3])
     case = {
         "state": st, "arena": arena, "arena_len": None, "code": code,
         "visited": np.zeros((3, BUCKET[0], VISIT_I), bool),
-        "cfg": [64, 0, row_zero, row_one, 0, CAPS.K],
+        "cfg": [64, 0, row_zero, row_one, 0, caps.K],
         "rng": rng,
     }
+    if caps != CAPS:
+        case["caps"] = caps
     return case, pool
 
 
@@ -183,17 +206,31 @@ def finish(case):
 
 def random_case(seed: int, k_steps=None):
     case, pool = base(seed)
+    _random_paths(case, pool, range(CAPS.B), 0.15)
+    rng = case["rng"]
+    case["visited"] = rng.random(case["visited"].shape) < 0.05
+    case["cfg"] = [int(rng.integers(8, 70)), int(rng.choice([0, 2, 3])), case["cfg"][2],
+                   case["cfg"][3], int(rng.integers(0, 5)),
+                   int(k_steps or rng.integers(1, CAPS.K + 3))]
+    return finish(case)
+
+
+def _random_paths(case, pool, slots, p_free, code_ids=(0, 1, 1, 2, -1), programs=None):
+    """Random paths in ``slots`` (a share ``p_free`` of them left free); a
+    path's code id is drawn from ``code_ids``, its pc from the length of
+    ``programs[code id]`` (CATALOG and PAGED by default)."""
     rng, st = case["rng"], case["state"]
-    B = CAPS.B
-    for b in range(B):
+    programs = programs or {1: PAGED}
+    for b in slots:
         r = rng.random()
-        if r < 0.15:
+        if r < p_free:
             continue  # free slot
-        code_id = int(rng.choice([0, 1, 1, 2, -1], p=[0.6, 0.2, 0.1, 0.05, 0.05]))
-        n = len(CATALOG) if code_id != 1 else len(PAGED)
+        code_id = int(rng.choice(code_ids, p=[0.6, 0.2, 0.1, 0.05, 0.05]))
+        n = len(programs.get(code_id, CATALOG))
         pc = int(rng.integers(0, n + 1))
         depth = int(rng.integers(0, 70))
-        stack_len = int(rng.choice([0, 1, 2, 3, 5, 8, CAPS.STK - 1, CAPS.STK], p=[.04, .06, .2, .2, .2, .2, .05, .05]))
+        STK = st.stack.shape[1]
+        stack_len = int(rng.choice([0, 1, 2, 3, 5, 8, STK - 1, STK], p=[.04, .06, .2, .2, .2, .2, .05, .05]))
         stack = [pool.pick() for _ in range(stack_len)]
         occupy(case, pool, b, pc, stack, code_id=code_id, depth=depth)
         st.halt[b] = O.H_RUNNING if rng.random() < 0.85 else int(rng.integers(1, 11))
@@ -210,17 +247,41 @@ def random_case(seed: int, k_steps=None):
         st.ctx[b] = [pool.pick() for _ in range(16)]
         st.cons_len[b] = int(rng.choice([0, 3, CAPS.CON - 1, CAPS.CON]))
         st.cons[b, :st.cons_len[b]] = [pool.pick("sym") for _ in range(st.cons_len[b])]
-        st.ev_len[b] = int(rng.choice([0, 0, 0, CAPS.EVT - 1, CAPS.EVT]))
+        evt = st.events.shape[1]
+        st.ev_len[b] = int(rng.choice([0, 0, 0, evt - 1, evt]))
         st.gas_min[b] = int(rng.integers(0, 1000))
         st.gas_max[b] = st.gas_min[b] + int(rng.integers(0, 1000))
         st.loops[b] = rng.integers(0, 4, BUCKET[3])
         st.static[b] = int(rng.random() < 0.1)
         st.score[b] = int(rng.integers(-5, 50))
         st.steps[b] = int(rng.integers(0, 5))
+
+
+# widths on both sides of one block (128 paths), one cluster (1024) and
+# more: every launch shape of the kernel
+WIDTHS = (1, 127, 129, 1024, 1025)
+# an event buffer of 5 x 13 words: most children's buffers start off a
+# 16-byte boundary and end in a part of one, in each launch shape
+ODD_EVT, ODD_EVT_WIDTHS = 5, (127, 129, 1025)
+
+
+def width_case(B: int, seed: int, evt: int = 12):
+    """B slots: slot 0 runs FORKS from its start (forks at steps 3, 8, 13,
+    ... until the slots run out, then pends), an eighth of the rest random
+    CATALOG paths, the others free with junk in their event buffers; each
+    path has room for ``evt`` events."""
+    caps = Caps(B=B, STK=16, MEM=8, STO=8, CON=16, EVT=evt, R=4, K=64, ARENA=1 << 15)
+    case, pool = base(5000 + B + seed, caps, forks=True)
+    rng, st = case["rng"], case["state"]
+    occupy(case, pool, 0, 0, [])
+    _random_paths(case, pool, range(1, B), 7 / 8, code_ids=(1, 1, 1, 1, -1),
+                  programs={1: CATALOG})
+    free = st.seed < 0
+    st.events[free] = rng.integers(-5, 100, st.events[free].shape)
+    st.ev_len[0] = 0
     case["visited"] = rng.random(case["visited"].shape) < 0.05
-    case["cfg"] = [int(rng.integers(8, 70)), int(rng.choice([0, 2, 3])), case["cfg"][2],
-                   case["cfg"][3], int(rng.integers(0, 5)),
-                   int(k_steps or rng.integers(1, CAPS.K + 3))]
+    case["cfg"] = [int(rng.integers(60, 200)), 0, case["cfg"][2], case["cfg"][3],
+                   int(rng.integers(0, 5)), int(rng.integers(40, caps.K + 1))]
     return finish(case)
 
 
@@ -389,6 +450,40 @@ def special_cases():
            score=-(1 << 31), depth=-(1 << 31))
     case["cfg"][0], case["cfg"][4] = (1 << 31) - 1, 2  # SEL_SHALLOW: -depth wraps
     cases["int32_wraps"] = finish(case)
+
+    # steps that fork and steps that do not, one after another: FORKS from
+    # one path (forks at steps 3, 8 and 13; the third round finds one free
+    # slot for four forks) beside CATALOG paths (code 1) that never fork
+    case, pool = base(35, forks=True)
+    occupy(case, pool, 0, 0, [])
+    for b, name in ((1, "ADD"), (2, "MSTORE"), (3, "SLOAD")):
+        occupy(case, pool, b, pc_of(name), [pool.sym[b], pool.addr[b]] * 2, code_id=1)
+    case["cfg"][5] = CAPS.K
+    cases["fork_alternate"] = finish(case)
+
+    case, pool = base(36)  # the step's only fork wants a slot but has no event room
+    dest = pool.arena.const_row(pool.dests[1])
+    occupy(case, pool, 0, pc_of("JUMPI"), [pool.sym[0], dest], ev_len=CAPS.EVT)
+    for b, name in ((1, "ADD"), (2, "PUSH1"), (3, "ISZERO")):
+        occupy(case, pool, b, pc_of(name), [pool.sym[b], pool.sym[b + 1]])
+    case["cfg"][5] = 2
+    cases["fork_no_room"] = finish(case)
+
+    case, pool = base(37)  # the step's only fork finds no free slot
+    occupy(case, pool, 0, pc_of("JUMPI"), [pool.sym[0], dest])
+    for b in range(1, CAPS.B):
+        occupy(case, pool, b, pc_of("ADD"), [pool.sym[b % 6], pool.sym[(b + 1) % 6]])
+    case["cfg"][5] = 2
+    cases["fork_no_slot"] = finish(case)
+
+    # SEL_BEAM with a score of -(2^31 - 1): the wanting path's key is
+    # INT32_MAX, so the non-wanting slot below it ranks before it and it
+    # takes the second free slot
+    case, pool = base(38)
+    occupy(case, pool, 0, pc_of("ADD"), [pool.sym[0], pool.sym[1]])
+    occupy(case, pool, 1, pc_of("JUMPI"), [pool.sym[2], dest], score=-(1 << 31) + 1)
+    case["cfg"][4], case["cfg"][5] = 4, 2
+    cases["beam_key_max"] = finish(case)
     assert all(len(c["state"].pc) == CAPS.B for c in cases.values()) and cat_n > 0
     return cases
 

@@ -131,6 +131,36 @@ def test_frontier_kernel_matches_plain_on_every_case(card):
     assert fstep.launches == before + len(named)
 
 
+@pytest.mark.parametrize("B", [1, 127, 129, 1024, 1025, 4096])
+def test_frontier_kernel_at_every_launch_width(card, B):
+    """One block, one cluster and a cooperative grid, against the plain
+    version on the card."""
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fcases
+
+    case = fcases.width_case(B, 1)
+    inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                       case["visited"], case["code"], case["cfg"], "cuda")
+    fcases.assert_same(interop.outputs_to_numpy(fstep.segment_cuda(*inputs, case["caps"])),
+                       interop.outputs_to_numpy(fstep.segment_torch(*inputs, case["caps"])))
+
+
+@pytest.mark.parametrize("B", [127, 129, 1025])
+def test_frontier_kernel_resets_unaligned_event_buffers(card, B):
+    """Children's event buffers off a 16-byte boundary (EVT = 5) in each
+    launch shape, against the plain version on the card."""
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests import _torch_frontier_cases as fcases
+
+    case = fcases.width_case(B, 1, evt=fcases.ODD_EVT)
+    inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                       case["visited"], case["code"], case["cfg"], "cuda")
+    fcases.assert_same(interop.outputs_to_numpy(fstep.segment_cuda(*inputs, case["caps"])),
+                       interop.outputs_to_numpy(fstep.segment_torch(*inputs, case["caps"])))
+
+
 def test_frontier_kernel_replays_the_wide_dispatch(card):
     from tests.test_torch_frontier_fixture import iter_dispatches, mismatches, replay
 

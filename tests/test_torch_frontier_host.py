@@ -1,15 +1,18 @@
 """The frontier segment kernel's body, built for the host, against the plain
 version, bit for bit.
 
-``csrc/frontier_segment.cuh`` is ``__host__ __device__``;
-``csrc/host_check.cpp``'s ``mk_frontier_segment_host`` runs the kernel's
-loop with each grid barrier replaced by finishing the phase for every path
-first.  A host C++ compiler builds it into a shared library in the test's
+``csrc/frontier_segment.cuh`` is ``__host__ __device__``, the loop
+(``run_segment``) included; ``csrc/host_check.cpp``'s
+``mk_frontier_segment_host`` runs that loop with an executor that owns
+every lane: each barrier is the phase finished for every path, the warp
+counts go to the same parity buffers, the grant list is staged in tiles,
+and the child copies run as (child, segment) items over the warps.  A host C++ compiler builds it into a shared library in the test's
 temporary directory, and ``step.kernel_args`` packs the same arguments the
 CUDA wrapper packs, over CPU tensors.  Every case of
 ``tests/_torch_frontier_cases.py`` (the 33 families on concrete and
-symbolic operands, the caps and parity hazards, random batches) must give
-the plain segment's outputs exactly, and the recorded dispatches of the
+symbolic operands, the caps and parity hazards, the fork phases' cases,
+random batches, and one batch at each launch width) must give the plain
+segment's outputs exactly, and the recorded dispatches of the
 small runs (``tests/testdata/torch_frontier_dispatches.npz``) the JAX
 digests.  The launch itself runs only on a card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 
 from mythril_tpu_torch.frontier import interop
+from mythril_tpu_torch.frontier import ops as PO
 from mythril_tpu_torch.frontier import step as PS
 from mythril_tpu_torch.ops import _build
 from tests import _torch_frontier_cases as cases
@@ -51,7 +55,7 @@ def host_lib(tmp_path_factory):
 def run_host(lib, case):
     inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
                                        case["visited"], case["code"], case["cfg"], "cpu")
-    args, (state, arena, visited, out), _keep = PS.kernel_args(*inputs, cases.CAPS)
+    args, (state, arena, visited, out), _keep = PS.kernel_args(*inputs, case.get("caps", cases.CAPS))
     assert lib.mk_frontier_segment_host(ctypes.byref(args)) == 0
     return interop.outputs_to_numpy((state, arena, out[0], out[1], out[2], visited))
 
@@ -59,7 +63,7 @@ def run_host(lib, case):
 def run_plain(case):
     inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
                                        case["visited"], case["code"], case["cfg"], "cpu")
-    return interop.outputs_to_numpy(PS.segment_torch(*inputs, cases.CAPS))
+    return interop.outputs_to_numpy(PS.segment_torch(*inputs, case.get("caps", cases.CAPS)))
 
 
 def all_cases():
@@ -84,6 +88,28 @@ def test_kernel_body_on_every_case(host_lib):
 def test_kernel_body_random_batches(host_lib, seed):
     case = cases.random_case(seed)
     assert_same(run_host(host_lib, case), run_plain(case))
+
+
+@pytest.mark.parametrize("B", cases.WIDTHS)
+def test_kernel_body_at_every_launch_width(host_lib, B):
+    """One block, one cluster and a grid, and their edges: warp words,
+    block tallies, the grant list's tiles and the child copies across
+    blocks."""
+    case = cases.width_case(B, 0)
+    got, want = run_host(host_lib, case), run_plain(case)
+    assert_same(got, want)
+    if B > 1:  # the fork rounds filled every slot, and a child's junk events were reset
+        assert (want[0]["seed"] >= 0).all() and (want[0]["halt"] == PO.H_PENDING_FORK).any()
+
+
+@pytest.mark.parametrize("B", cases.ODD_EVT_WIDTHS)
+def test_kernel_body_resets_unaligned_event_buffers(host_lib, B):
+    """A child's event buffer that starts and ends off a 16-byte boundary:
+    the reset's leading words, 16-byte stores and trailing words."""
+    case = cases.width_case(B, 0, evt=cases.ODD_EVT)
+    got, want = run_host(host_lib, case), run_plain(case)
+    assert_same(got, want)
+    assert (want[0]["seed"] >= 0).all()
 
 
 def test_kernel_body_leaves_inputs_alone(host_lib):

@@ -87,12 +87,16 @@ def test_special(name):
         "underflow": PO.H_INVALID, "stack_cap": PO.H_PARK, "event_full": PO.H_PENDING_FORK,
         "depth_and_loop": PO.H_DEPTH, "static_write": PO.H_INVALID, "paging": PO.H_PAGE_FAULT,
         "full_batch": PO.H_PENDING_FORK, "sel_mode_0": PO.H_PENDING_FORK,
+        "fork_alternate": PO.H_PENDING_FORK, "fork_no_room": PO.H_PENDING_FORK,
+        "fork_no_slot": PO.H_PENDING_FORK,
     }.get(name)
     assert expect is None or expect in halts, (name, halts)
     if name == "depth_and_loop":
         assert PO.H_LOOP in halts
     if name == "arena_full":
         assert want[2] + 6 * cases.CAPS.R >= cases.CAPS.ARENA  # stopped by room
+    if name == "beam_key_max":  # granted the second free slot (rank 1: slot 0 sorts first)
+        assert want[0]["seed"][3] >= 0 and want[0]["seed"][2] < 0
     if name == "mstore_gate":
         # the concrete words with the Panic selector on top: slots 0, 1, 4, 5
         assert (want[0]["ev_len"] > 0).tolist() == [True, True, False, False, True, True, False, False]
