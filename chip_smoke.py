@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
-probe and the device frontier segment.
+probe, the device frontier segment and the whole analysis around them.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -44,13 +44,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    and read after; 0 mismatches against the stored JAX digests; then the
    kernel against ``segment_torch`` on the card, on every dispatch but the
    largecode run's tail;
-8. times with CUDA events: each kernel's launches alone (``ms``), the whole
+8. the engine: the port's analysis (``SymExecWrapper`` + ``fire_lasers``,
+   no device argument: the card) on every run of
+   ``tests/testdata/torch_engine_runs.json``, recorded from the JAX package:
+   ``bench_contracts``' ``etherstore_like`` and ``rubixi_like`` at width
+   256 with 2 transactions and ``bectoken_like`` with 1, ``bench``'s wide
+   (1024) and largecode (256) contracts with 1, ``kill_simple`` with 2, each with
+   the frontier forced and the smaller ones with the host engine too; counts
+   zeroed before each run and read after; each run's issue keys, step
+   counts and fixed selectors equal the recorded ones, every frontier
+   dispatch's input and output digests too, one segment launch per
+   dispatch, no replay or commit error, one tape evaluation on the card per
+   solver device dispatch; per run the wall seconds and their split
+   (segment kernel by CUDA events, the segment call, ``push_state``,
+   ``pull_harvest``, the arena pull, the walker's replay and commit, the
+   solver, the rest of the host) and path-steps per second; then the
+   ``bectoken_like`` frontier run once more under ``torch.profiler`` for
+   the card's idle share;
+9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
    phase 3; the frontier segment per dispatch with path-steps per second and
    the ``push_state`` and ``pull_harvest`` times; the probe main path once
    more under ``torch.profiler`` for the card's idle share;
-9. one ``{"kernels": [...]}`` line, and as the last line
+10. one ``{"kernels": [...]}`` line (with each kernel's launches on every
+   main path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -60,6 +78,7 @@ from __future__ import annotations
 
 import collections
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -849,6 +868,205 @@ def time_frontier(torch, kept, reps: int = 5):
     return rows
 
 
+class EngineSplit:
+    """Where one analysis' wall time goes: wrappers installed around the
+    frontier engine's device interface and the walker for the duration of
+    a run.  ``kernel_ms``: CUDA events around each launch of the segment
+    kernel; ``segment_s``: the whole segment call (input copies, scratch,
+    launch) up to the kernel's completion; ``push_s``, ``pull_s``,
+    ``arena_s``: ``push_state``, ``pull_harvest`` and
+    ``HostArena.pull_from_device``; ``replay_s``: the walker's replay and
+    commit, which includes the issue confirmations solved inside the replay
+    (``solver_in_replay_s``); ``tape_calls``: tape VM evaluations on the
+    card.  Host clocks except ``kernel_ms``."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.t = collections.Counter()
+        self.events, self.tape_calls = [], 0
+
+    def __enter__(self):
+        from mythril_tpu_torch.frontier import engine as E
+        from mythril_tpu_torch.frontier.arena import HostArena
+        from mythril_tpu_torch.frontier.walker import Walker
+        from mythril_tpu_torch.ops import _build, tape_vm
+        from mythril_tpu_torch.smt.solver import SolverStatistics
+
+        torch, t = self.torch, self.t
+        lib = _build.load()
+        self._saved = [(E, "push_state", E.push_state), (E, "pull_harvest", E.pull_harvest),
+                       (E, "cached_segment", E.cached_segment),
+                       (HostArena, "pull_from_device", HostArena.pull_from_device),
+                       (Walker, "replay", Walker.replay), (Walker, "commit", Walker.commit),
+                       (tape_vm, "_run_tape_cuda", tape_vm._run_tape_cuda),
+                       (lib, "mk_frontier_segment", lib.mk_frontier_segment)]
+        saved = {(id(o), n): f for o, n, f in self._saved}
+
+        def timed(obj, name, key, sync=False):
+            fn = saved[(id(obj), name)]
+
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                t[key] += time.perf_counter() - t0
+                return out
+
+            return wrapper
+
+        def cached_segment(*a, **kw):
+            segment = saved[(id(E), "cached_segment")](*a, **kw)
+
+            def timed_segment(*args):
+                t0 = time.perf_counter()
+                out = segment(*args)
+                torch.cuda.synchronize()
+                t["segment_s"] += time.perf_counter() - t0
+                return out
+
+            return timed_segment
+
+        def launch(*a):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = saved[(id(lib), "mk_frontier_segment")](*a)
+            end.record()
+            self.events.append((start, end))
+            return rc
+
+        def replay(walker, rec):
+            stats = SolverStatistics()
+            s0, t0 = stats.solver_time, time.perf_counter()
+            try:
+                return saved[(id(Walker), "replay")](walker, rec)
+            finally:
+                t["replay_s"] += time.perf_counter() - t0
+                t["solver_in_replay_s"] += stats.solver_time - s0
+
+        def tape(*a, **kw):
+            self.tape_calls += 1
+            return saved[(id(tape_vm), "_run_tape_cuda")](*a, **kw)
+
+        E.push_state = timed(E, "push_state", "push_s", sync=True)
+        E.pull_harvest = timed(E, "pull_harvest", "pull_s")
+        E.cached_segment = cached_segment
+        HostArena.pull_from_device = timed(HostArena, "pull_from_device", "arena_s")
+        Walker.replay = replay
+        Walker.commit = timed(Walker, "commit", "replay_s")
+        tape_vm._run_tape_cuda = tape
+        lib.mk_frontier_segment = launch
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+        return False
+
+    def kernel_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def engine_runs(torch):
+    """The port's analysis (``SymExecWrapper`` + ``fire_lasers``, no device
+    argument: the card) on every run of ``tests/testdata/torch_engine_runs.json``,
+    each held against the JAX package's recorded run: issue keys, step
+    counts, fixed selectors; for the frontier every dispatch's input and
+    output digests, one segment launch per dispatch, no replay or commit
+    error; the tape VM evaluated on the card once per solver device
+    dispatch.  Counts zeroed before each run and read after.  -> (summed
+    launches, per-run rows)"""
+    from mythril_tpu_torch.smt.solver import SolverStatistics
+    from tests.test_torch_engine_fixture import check_run, load_runs, run_port
+
+    phase("engine: the port's analysis on the card against the recorded JAX runs")
+    total, rows = collections.Counter(), []
+    for run in load_runs():
+        label = f"{run['name']} ({'frontier' if run['frontier'] else 'host engine'})"
+        zero_launches()
+        with EngineSplit(torch) as split:
+            got = run_port(run, None)  # no device: the card
+            torch.cuda.synchronize()
+        launches = read_launches()
+        total.update(launches)
+        bad = check_run(run, got)
+        stats = SolverStatistics().as_dict()
+        wall, f = got["seconds"], got["frontier"]
+        t = split.t
+        solver_out = stats["solver_time"] - t["solver_in_replay_s"]
+        row = {
+            "run": label, "wall_s": wall, "jax_cpu_s": run["jax_cpu_seconds"],
+            "issues": len(got["summary"]), "dispatches": len(got["dispatches"]),
+            "path_steps": f["device_instructions"], "launches": launches,
+            "tape_calls": split.tape_calls, "device_dispatches": stats["device_dispatches"],
+            "kernel_ms": split.kernel_ms(), "segment_s": t["segment_s"], "push_s": t["push_s"],
+            "pull_s": t["pull_s"], "arena_s": t["arena_s"], "replay_s": t["replay_s"],
+            "solver_s": stats["solver_time"], "solver_in_replay_s": t["solver_in_replay_s"],
+            "parks": f["parks_by_reason"],
+        }
+        row["rest_s"] = wall - (t["segment_s"] + t["push_s"] + t["pull_s"] + t["arena_s"]
+                                + t["replay_s"] + solver_out)
+        if f["device_instructions"]:
+            row["path_steps_per_s"] = f["device_instructions"] / wall
+            row["path_steps_per_kernel_s"] = f["device_instructions"] / max(row["kernel_ms"] / 1e3, 1e-9)
+        rows.append(row)
+        print(f"  {label}: {wall:.2f} s (JAX on the CPU {run['jax_cpu_seconds']:.1f} s); "
+              f"{row['issues']} issues; {row['dispatches']} dispatches, "
+              f"{row['path_steps']} path-steps; launches {launches}; tape calls "
+              f"{split.tape_calls} for {stats['device_dispatches']} solver device dispatches")
+        print(f"    split: kernel {row['kernel_ms']:.3f} ms, segment call {t['segment_s']:.4f} s, "
+              f"push_state {t['push_s']:.4f} s, pull_harvest {t['pull_s']:.4f} s, arena pull "
+              f"{t['arena_s']:.4f} s, walker replay + commit {t['replay_s']:.3f} s (solver inside "
+              f"{t['solver_in_replay_s']:.3f} s), solver {stats['solver_time']:.3f} s, rest of "
+              f"the host {row['rest_s']:.3f} s"
+              + (f"; {row['path_steps_per_s']:.4g} path-steps/s of wall, "
+                 f"{row['path_steps_per_kernel_s']:.4g} of kernel" if f["device_instructions"] else ""))
+        print(f"    JAX default tiers {run['default_tiers_keys']}; port "
+              f"{[r[:5] for r in got['summary']]}")
+        check(not bad, f"{label}: differs from the recorded JAX run: {bad[:3]}")
+        if run["frontier"]:
+            check(launches["frontier_segment"] == len(got["dispatches"]),
+                  f"{label}: {launches['frontier_segment']} segment launches for "
+                  f"{len(got['dispatches'])} dispatches")
+        check(split.tape_calls == stats["device_dispatches"],
+              f"{label}: {split.tape_calls} tape evaluations on the card for "
+              f"{stats['device_dispatches']} solver device dispatches")
+        check(launches["tape_vm"] >= split.tape_calls, f"{label}: tape calls without a launch")
+    return dict(total), rows
+
+
+def engine_idle_share(torch, name: str = "bectoken_like"):
+    """One frontier run of the engine phase again under ``torch.profiler``:
+    the card's busy time over the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tests.test_torch_engine_fixture import load_runs, run_port
+
+    phase(f"engine idle share: {name} (frontier) under torch.profiler")
+    run = next(r for r in load_runs() if r["name"] == name and r["frontier"])
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = run_port(run, None, record=False)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    except Exception as e:  # a measurement only: the run itself was checked above
+        print(f"  not measured: {type(e).__name__}: {e}")
+        return None
+    if not device:
+        print("  not measured: the profiler recorded no device time")
+        return None
+    wall_ms = got["seconds"] * 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"  wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.6f}; by kernel: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    return {"run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms}
+
+
 def summarize(name, rows, launches, card, **fixed):
     """The median call (by kernel time) stands for the kernel; totals beside."""
     mid = sorted(rows, key=lambda r: r["ms"])[len(rows) // 2]
@@ -887,6 +1105,9 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # every analysis of the engine phase loads the same plugins into the
+    # loader's registry again; its notice says so once per plugin and run
+    logging.getLogger("mythril_tpu_torch.plugins.loader").setLevel(logging.ERROR)
     t_start = time.perf_counter()
     try:
         phase("card")
@@ -901,6 +1122,10 @@ def main() -> int:
         f_shapes = frontier_parity(torch, attrs, local)
         launches, tape_calls, keccak_calls = main_path(torch)
         f_launches, f_kept, transfers = frontier_main_path(torch)
+        e_launches, e_rows = engine_runs(torch)
+        for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
+            check(e_launches[name] > 0, f"the engine's runs launched {name} no time")
+        e_idle = engine_idle_share(torch)
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
                            launches["keccak_f1600"], card, route="cuda",
@@ -927,6 +1152,11 @@ def main() -> int:
                                                          "path_steps_per_s", "forks")}
                                       for r in f_rows])
         kernels = [keccak, tape, frontier]
+        for entry in kernels:
+            entry["launches_by_path"] = {
+                "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
+                "engine": e_launches[entry["name"]]}
+        frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

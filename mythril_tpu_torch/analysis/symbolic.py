@@ -1,0 +1,232 @@
+"""SymExecWrapper: end-to-end orchestration of one contract's analysis.
+
+Reference parity: mythril/analysis/symbolic.py:39-312 — strategy selection,
+engine construction, bounded-loops wrapping, default plugin loading, detection
+module hook registration, CREATOR/ATTACKER world-state seeding, creation vs
+runtime execution, and post-hoc Call-op extraction from the statespace.
+
+The port's wrapper resolves the analysis' device once (``device``: None is
+the CUDA card and raises ``NoCudaDevice`` without one; ``"cpu"`` runs the
+plain PyTorch kernels), carries it on the ``LaserEVM`` to the frontier
+engine, and sets it as ``args.device`` for the solver calls made during the
+run, restoring the previous value after.  The kernels build at first use;
+a build or launch error raises.  Not carried yet: the static pass (the
+wrapper behaves as the JAX package's ``--no-staticpass``), checkpoints, the
+benchmark plugin and deferred (cooperative) execution.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import List, Optional
+
+from mythril_tpu_torch.analysis.module.base import EntryPoint
+from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+from mythril_tpu_torch.analysis.module.util import get_detection_module_hooks
+from mythril_tpu_torch.analysis.ops import Call, Variable, VarType, get_variable
+from mythril_tpu_torch.core.state.world_state import WorldState
+from mythril_tpu_torch.core.strategy.basic import (
+    BasicSearchStrategy,
+    BeamSearch,
+    BreadthFirstSearchStrategy,
+    DepthFirstSearchStrategy,
+    ReturnRandomNaivelyStrategy,
+    ReturnWeightedRandomStrategy,
+)
+from mythril_tpu_torch.core.strategy.extensions.bounded_loops import BoundedLoopsStrategy
+from mythril_tpu_torch.core.svm import LaserEVM
+from mythril_tpu_torch.core.transaction.symbolic import ACTORS
+from mythril_tpu_torch.device import DeviceLike, resolve
+from mythril_tpu_torch.plugins.loader import LaserPluginLoader
+from mythril_tpu_torch.plugins.plugins.call_depth_limiter import CallDepthLimitBuilder
+from mythril_tpu_torch.plugins.plugins.coverage import CoveragePluginBuilder
+from mythril_tpu_torch.plugins.plugins.dependency_pruner import DependencyPrunerBuilder
+from mythril_tpu_torch.plugins.plugins.instruction_profiler import InstructionProfilerBuilder
+from mythril_tpu_torch.plugins.plugins.mutation_pruner import MutationPrunerBuilder
+from mythril_tpu_torch.support.support_args import args
+
+log = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def analysis_device(device):
+    """``args.device`` set to ``device`` for the body, restored after."""
+    saved = args.device
+    args.device = device
+    try:
+        yield
+    finally:
+        args.device = saved
+
+
+class SymExecWrapper:
+    def __init__(
+        self,
+        contract,
+        address,
+        strategy: str = "dfs",
+        dynloader=None,
+        max_depth: int = 128,
+        execution_timeout: Optional[int] = None,
+        loop_bound: int = 3,
+        create_timeout: Optional[int] = None,
+        transaction_count: int = 2,
+        modules: Optional[List[str]] = None,
+        compulsory_statespace: bool = True,
+        disable_dependency_pruning: bool = False,
+        run_analysis_modules: bool = True,
+        enable_coverage_strategy: bool = False,
+        custom_modules_directory: str = "",
+        device: DeviceLike = None,
+    ):
+        self.device = resolve(device)
+        with analysis_device(self.device):
+            if isinstance(address, str):
+                address = int(address, 16)
+            self.address = address
+
+            strategy_cls = {
+                "dfs": DepthFirstSearchStrategy,
+                "bfs": BreadthFirstSearchStrategy,
+                "naive-random": ReturnRandomNaivelyStrategy,
+                "weighted-random": ReturnWeightedRandomStrategy,
+                "beam-search": BeamSearch,
+                "pending": DepthFirstSearchStrategy,
+            }.get(strategy)
+            if strategy_cls is None:
+                raise ValueError(f"invalid search strategy: {strategy}")
+
+            requires_statespace = compulsory_statespace or run_analysis_modules
+
+            # seed world state with the actor accounts (reference symbolic.py:100-117)
+            world_state = WorldState()
+            world_state.accounts_exist_or_load(ACTORS.creator.value, dynloader)
+            attacker_acct = world_state.accounts_exist_or_load(ACTORS.attacker.value, dynloader)
+
+            self.laser = LaserEVM(
+                dynamic_loader=dynloader,
+                max_depth=max_depth,
+                execution_timeout=execution_timeout,
+                create_timeout=create_timeout,
+                strategy=strategy_cls,
+                transaction_count=transaction_count,
+                requires_statespace=requires_statespace,
+                device=self.device,
+            )
+
+            if loop_bound is not None:
+                self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound=loop_bound)
+
+            plugin_loader = LaserPluginLoader()
+            plugin_loader.load(CoveragePluginBuilder())
+            plugin_loader.load(MutationPrunerBuilder())
+            plugin_loader.load(CallDepthLimitBuilder())
+            if args.enable_iprof:
+                plugin_loader.load(InstructionProfilerBuilder())
+            plugin_loader.add_args("call-depth-limit", call_depth_limit=args.call_depth_limit)
+            if not disable_dependency_pruning:
+                plugin_loader.load(DependencyPrunerBuilder())
+            plugin_loader.instrument_virtual_machine(self.laser)
+
+            if enable_coverage_strategy:
+                from mythril_tpu_torch.plugins.plugins.coverage import (
+                    CoverageStrategy,
+                    InstructionCoverage,
+                )
+
+                coverage_plugin = InstructionCoverage()
+                coverage_plugin.initialize(self.laser)
+                self.laser.strategy = CoverageStrategy(self.laser.strategy, coverage_plugin)
+
+            if custom_modules_directory:
+                ModuleLoader().load_custom_modules(custom_modules_directory)
+
+            if run_analysis_modules:
+                analysis_modules = ModuleLoader().get_detection_modules(
+                    EntryPoint.CALLBACK, white_list=modules
+                )
+                self.laser.register_hooks(
+                    hook_type="pre",
+                    hook_dict=get_detection_module_hooks(analysis_modules, "pre"),
+                )
+                self.laser.register_hooks(
+                    hook_type="post",
+                    hook_dict=get_detection_module_hooks(analysis_modules, "post"),
+                )
+
+            # execute (creation vs runtime, reference symbolic.py:168-220)
+            if isinstance(contract, (bytes, bytearray)):
+                # raw runtime bytecode
+                from mythril_tpu_torch.frontend.disassembler import Disassembly
+
+                acct = world_state.create_account(
+                    balance=0, address=address, concrete_storage=False
+                )
+                acct.code = Disassembly(bytes(contract))
+                self.laser.sym_exec(
+                    world_state=world_state, target_address=address
+                )
+            elif getattr(contract, "creation_code", None):
+                self._exec_creation(contract, world_state)
+            else:
+                acct = world_state.create_account(
+                    balance=0, address=address, concrete_storage=False
+                )
+                acct.code = contract.disassembly
+                acct.contract_name = getattr(contract, "name", "Unknown")
+                self.laser.sym_exec(
+                    world_state=world_state, target_address=address
+                )
+
+            if not requires_statespace:
+                return
+
+            self.nodes = self.laser.nodes
+            self.edges = self.laser.edges
+            self._parse_calls()
+
+    def _exec_creation(self, contract, world_state: WorldState) -> None:
+        from mythril_tpu_torch.core.transaction import symbolic as sym_tx
+
+        self.laser._fire("start_sym_exec")
+        from mythril_tpu_torch.support.time_handler import time_handler
+
+        time_handler.start_execution(self.laser.execution_timeout)
+        created = sym_tx.execute_contract_creation(
+            self.laser,
+            contract.creation_code,
+            getattr(contract, "name", "MAIN"),
+            world_state=world_state,
+        )
+        if created is not None and created.address.value is not None:
+            self.laser._execute_transactions(created.address.value)
+        self.laser._fire("stop_sym_exec")
+
+    # -- statespace post-processing (reference symbolic.py:228-308) ---------
+
+    def _parse_calls(self) -> None:
+        self.calls: List[Call] = []
+        for key in self.nodes:
+            for state in self.nodes[key].states:
+                instruction = state.get_current_instruction()
+                op = instruction["opcode"]
+                if op in ("CALL", "CALLCODE", "DELEGATECALL", "STATICCALL"):
+                    stack = state.mstate.stack
+                    required = 7 if op in ("CALL", "CALLCODE") else 6
+                    if len(stack) < required:
+                        continue
+                    if op in ("CALL", "CALLCODE"):
+                        gas, to, value = (
+                            get_variable(stack[-1]),
+                            get_variable(stack[-2]),
+                            get_variable(stack[-3]),
+                        )
+                        self.calls.append(
+                            Call(self.nodes[key], state, None, op, to, gas, value)
+                        )
+                    else:
+                        gas, to = get_variable(stack[-1]), get_variable(stack[-2])
+                        self.calls.append(
+                            Call(self.nodes[key], state, None, op, to, gas)
+                        )

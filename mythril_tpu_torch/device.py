@@ -14,7 +14,13 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
-class NoCudaDevice(RuntimeError):
+class DeviceError(RuntimeError):
+    """The device failed the run: no card, or a kernel that did not build or
+    launch.  Never the fault of one analysed path, so the engine lets it
+    propagate where it drops a path whose replay raised."""
+
+
+class NoCudaDevice(DeviceError):
     """CUDA was needed (no explicit ``device="cpu"``) but no card is visible."""
 
 

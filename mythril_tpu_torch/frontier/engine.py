@@ -1,0 +1,1194 @@
+"""FrontierEngine: orchestrates device segments against the host engine.
+
+Replaces the host work-list loop (reference mythril/laser/ethereum/
+svm.py:261-304) for message-call transactions: eligible seed states are
+packed into the device batch, the segment executes up to ``caps.K``
+instructions per dispatch for the whole batch, and each harvest
+
+  1. pulls the state mirror + new arena rows,
+  2. threads new fork children into the host-side path records,
+  3. replays completed paths' events through host GlobalStates (walker) —
+     firing detector hooks, archiving open world states, and pushing parked
+     paths onto ``laser.work_list`` for the host engine to continue,
+  4. recycles freed slots for queued seeds / pending forks.
+
+Multi-code batching: the dispatch tables are stacked per code identity and
+every path carries a ``code_id``, so seeds from different contracts (a
+corpus sweep driven by ``drain_lasers``, or several codes on one work list)
+share a single wide segment.
+
+Anything the device cannot run (CALL family, creation txs, symbolic memory
+addressing, cap overflows) degrades gracefully: the path is parked with its
+exact machine state and the ordinary host engine picks it up — the frontier
+is a fast path, never a semantics fork.
+
+The port runs the JAX package's synchronous loop on one device: the
+segment is the CUDA kernel (``csrc/frontier_segment.cu``) when the laser's
+device is the card and its plain PyTorch version when the caller asked for
+the CPU.  The code tables, the arena and the coverage planes are copied to
+the device once per run (the tables again only at a page-fault repack); an
+error in a transfer, the kernel or the engine propagates to the caller.
+Not carried yet: the pipelined runner, the mesh, the static pass, the
+adaptive controller, the link calibration (the gates use the JAX package's
+uncalibrated constants) and the microbenchmark.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mythril_tpu_torch.device import DeviceError
+from mythril_tpu_torch.frontier import harvest as _harvest
+from mythril_tpu_torch.frontier import interop
+from mythril_tpu_torch.frontier import ops as O
+from mythril_tpu_torch.frontier import taint
+from mythril_tpu_torch.frontier.arena import HostArena
+from mythril_tpu_torch.frontier.code import (
+    CTX_ADDRESS,
+    CTX_BALANCES,
+    CTX_BASEFEE,
+    CTX_CALLER,
+    CTX_CALLVALUE,
+    CTX_CDSIZE,
+    CTX_CHAINID,
+    CTX_COINBASE,
+    CTX_DIFFICULTY,
+    CTX_GASLIMIT,
+    CTX_GASPRICE,
+    CTX_NUMBER,
+    CTX_ORIGIN,
+    CTX_SEED,
+    CTX_STORAGE,
+    CTX_TIMESTAMP,
+    CodeTables,
+    bucket_classes,
+    multi_size_bucket,
+    stacked_device_tables,
+    visited_instr_cap,
+)
+from mythril_tpu_torch.frontier.records import PathRecord, snapshot_slot
+from mythril_tpu_torch.frontier.state import Caps, FrontierState, clear_slot, empty_state
+from mythril_tpu_torch.frontier.stats import FrontierStatistics
+from mythril_tpu_torch.frontier.step import (
+    SEL_BEAM,
+    SEL_COVERAGE,
+    SEL_DEEP,
+    SEL_NONE,
+    SEL_SHALLOW,
+    CfgScalars,
+    cached_segment,
+    pull_harvest,
+    push_state,
+)
+from mythril_tpu_torch.frontier.walker import Walker
+from mythril_tpu_torch.support.support_args import args
+from mythril_tpu_torch.support.time_handler import time_handler
+
+log = logging.getLogger(__name__)
+
+# codes a frontier run proved dynamically NARROW (max live paths stayed
+# under caps.MIN_LIVE): later narrow drains skip the device for them a
+# priori.  A WIDE seed set still admits them — their width comes from many
+# seeds, not fanout, and lanes amortize the dispatch regardless.
+_NARROW_CODES: set = set()
+
+# codes the throughput bail proved SLOWER THAN THE HOST at whatever width
+# they actually reached: unlike the narrow verdict, a wide re-drain of the
+# same code just re-pays the proven loss, so this memo outranks the width
+# bypass (mixed batches with any unmarked code still go)
+_SLOW_CODES: set = set()
+
+# mid-run throughput bail: consecutive post-warmup segments whose
+# (device instructions / segment-only wall — dispatch + transfers, not
+# harvest, which is replay/confirmation work the host path pays too) fall
+# below the bail threshold hand the run to the host engine.  The baseline
+# is the host's measured stepping rate on this workload
+# (laser.host_step_rate), compared at a 0.7 safety factor; before enough
+# host samples exist the floor below applies.
+_SLOW_BAIL_FLOOR = 100.0
+_SLOW_BAIL_HOST_FACTOR = 0.7
+_SLOW_BAIL_SEGMENTS = 2
+# a DECISIVE loss (segment rate under half the bail rate) bails after one
+# warm segment
+_SLOW_BAIL_DECISIVE = 0.5
+
+# slow-segment counters persist ACROSS runs per code (short explorations
+# split into several 1-2 segment runs, so a per-run counter never reaches
+# the bail threshold); a fast segment resets its codes.  Process-lifetime
+# state, like the two verdict memos above.
+_SLOW_SEGMENTS: Dict[object, int] = {}
+
+# (caps, bucket) programs already dispatched once this process: a run's
+# first segment counts toward the throughput bail only when its program is
+# in here
+_WARM_PROGRAMS: set = set()
+
+# static width hint: below this many JUMPIs across the seed codes a narrow
+# seed set cannot fan out wide enough to amortize segment dispatches
+_MIN_STATIC_JUMPIS = 8
+
+# observed-width admission gate: a seed set narrower than this stays
+# host-side even when statically branchy (genuinely wide workloads prove
+# their width on the host within milliseconds, by fork doubling)
+_MIN_SEED_WIDTH = 8
+
+_jumpi_count_cache: Dict[object, int] = {}
+
+
+def _code_key(code):
+    bytecode = getattr(code, "bytecode", None)
+    return hash(bytecode) if bytecode else id(code)
+
+
+def _jumpi_count(code) -> int:
+    # keyed by bytecode hash (NOT id(code): a freed Disassembly's id can be
+    # recycled for a different contract), bounded against unbounded growth
+    key = _code_key(code)
+    got = _jumpi_count_cache.get(key)
+    if got is None:
+        got = sum(
+            1 for ins in code.instruction_list if ins.opcode == "JUMPI"
+        )
+        if len(_jumpi_count_cache) >= 4096:
+            _jumpi_count_cache.clear()
+        _jumpi_count_cache[key] = got
+    return got
+
+
+def _strategy_chain(laser):
+    """The active strategy and every strategy it wraps (extensions nest via
+    ``super_strategy``), outermost first."""
+    strategy = laser.strategy
+    while strategy is not None:
+        yield strategy
+        strategy = getattr(strategy, "super_strategy", None)
+
+
+def _sel_mode(laser) -> int:
+    """Map the active host search strategy onto the device fork-grant
+    priority (step.SEL_*).  Strategies with host-only scores (beam's
+    annotation importance, random) keep slot order; their ordering applies
+    when parked/spilled paths re-enter the host work list."""
+    from mythril_tpu_torch.core.strategy.basic import (
+        BeamSearch,
+        BreadthFirstSearchStrategy,
+        DepthFirstSearchStrategy,
+    )
+    from mythril_tpu_torch.plugins.plugins.coverage import CoverageStrategy
+
+    for strategy in _strategy_chain(laser):
+        if isinstance(strategy, CoverageStrategy):
+            return SEL_COVERAGE
+        if isinstance(strategy, BeamSearch):
+            return SEL_BEAM
+        if isinstance(strategy, DepthFirstSearchStrategy):
+            return SEL_DEEP
+        if isinstance(strategy, BreadthFirstSearchStrategy):
+            return SEL_SHALLOW
+    return SEL_NONE
+
+
+def _beam_importance(gs) -> int:
+    """The host beam score (strategy/basic.py BeamSearch.beam_priority):
+    annotations are SHARED across a seed's fork tree, so this is exact for
+    every device descendant of ``gs`` at segment time."""
+    try:
+        return int(sum(a.search_importance for a in gs._annotations))
+    except Exception:
+        return 0
+
+
+def _frame_ok(gs) -> bool:
+    from mythril_tpu_torch.core.transaction.transaction_models import (
+        MessageCallTransaction,
+    )
+
+    return (
+        isinstance(gs.current_transaction, MessageCallTransaction)
+        and gs.environment.code is not None
+        and len(gs.environment.code.instruction_list) > 0
+        # static (STATICCALL) frames are eligible: the per-path static flag
+        # halts state-mutating ops as terminals whose replay raises the
+        # host WriteProtection
+    )
+
+
+def _is_fresh(gs) -> bool:
+    return gs.mstate.pc == 0 and not gs.mstate.stack
+
+
+# leave headroom below the device caps: an injected state that starts near a
+# cap would park within a few instructions and bounce host<->device
+_MID_STACK_MAX = Caps.STK - 12
+_MID_MEM_MAX = Caps.MEM - 12
+
+
+def _mid_eligible(gs) -> bool:
+    """Mid-frame states the device can RE-ENTER: pc > 0 with a bounded
+    stack and concretely-addressed memory — resumed callers after inner
+    calls, batch-full spills, timeout/arena bulk parks."""
+    if len(gs.mstate.stack) > _MID_STACK_MAX:
+        return False
+    if gs.mstate.pc >= len(gs.environment.code.instruction_list):
+        return False
+    if len(gs.mstate.memory) > _MID_MEM_MAX * 32:
+        return False
+    # memoized per (pc, #writes): a state is immutable while it waits on
+    # the work list, and drains rescan the list every few instructions
+    memo_key = (gs.mstate.pc, len(gs.mstate.memory))
+    cached = getattr(gs, "_frontier_mem_ok", None)
+    if cached is not None and cached[0] == memo_key:
+        return cached[1]
+    addrs = gs.mstate.memory.concrete_addresses()
+    ok = addrs is not None
+    gs._frontier_mem_ok = (memo_key, ok)
+    if not ok:
+        # symbolic memory addressing blocks the device AT this pc: stamp so
+        # the cheap top-level guard skips this state until the host engine
+        # has advanced it (fresh copies drop the stamp)
+        gs._frontier_park_pc = gs.mstate.pc
+    return ok
+
+
+def _eligible(gs) -> bool:
+    """Seed states the device can take: fresh message-call frames (pc 0,
+    empty stack), inner call frames included, plus re-entrant mid-frame
+    states (see ``_mid_eligible``).  States the device parked for a
+    semantic reason carry ``_frontier_park_pc``; while still at that pc
+    they would re-park on the first device step."""
+    try:
+        if getattr(gs, "_frontier_park_pc", None) == gs.mstate.pc:
+            return False
+        if not _frame_ok(gs):
+            return False
+        return _is_fresh(gs) or _mid_eligible(gs)
+    except Exception:
+        return False
+
+
+def drain_lasers(
+    lasers: List,
+    caps: Optional[Caps] = None,
+    bucket_floor: Optional[tuple] = None,
+) -> int:
+    """Run eligible seeds from EVERY laser's work list as one multi-code
+    frontier batch.  Parked paths land back on their own laser's work list.
+    Returns #instructions executed.
+
+    Lasers must share search configuration (max_depth / strategy family)
+    and device; heterogeneous groups run as separate batches.
+    ``bucket_floor`` pins a minimum (code_cap, instr_cap, addr_cap,
+    loops_cap) — or a list of per-class floors — so every round of a sweep
+    keeps one bucket shape as the live code set shrinks."""
+    groups: Dict[tuple, List[Tuple]] = {}
+    for laser in lasers:
+        seeds = [s for s in laser.work_list if _eligible(s)]
+        if not seeds:
+            continue
+        key = (laser.max_depth, _sel_mode(laser), laser.device)
+        groups.setdefault(key, []).extend((laser, s) for s in seeds)
+    # a single corpus-wide floor covers the whole corpus: applied to a
+    # small group of a heterogeneous corpus it would pad that group's
+    # tables to the full code axis; per-class floors survive any grouping
+    if len(groups) > 1 and not isinstance(bucket_floor, list):
+        bucket_floor = None
+    executed = 0
+    for pairs in groups.values():
+        engine = FrontierEngine(pairs[0][0], caps)
+        executed += engine._drain_pairs(pairs, bucket_floor=bucket_floor)
+    return executed
+
+
+class FrontierEngine:
+    def __init__(self, laser, caps: Optional[Caps] = None):
+        self.laser = laser
+        self.device = laser.device
+        self.caps = caps or Caps(B=args.frontier_width)
+
+    # ------------------------------------------------------------------
+
+    def drain_work_list(self) -> int:
+        """Run every eligible work-list state on the device; parked paths
+        land back on ``laser.work_list``.  Returns #states executed."""
+        laser = self.laser
+        seeds = [s for s in laser.work_list if _eligible(s)]
+        if not seeds:
+            return 0
+        return self._drain_pairs([(laser, s) for s in seeds])
+
+    def _drain_pairs(self, pairs: List[Tuple],
+                     bucket_floor: Optional[tuple] = None) -> int:
+        """Run (laser, seed) pairs as one batch; seeds are removed from
+        their work lists and handed back before an error propagates."""
+        if not self._device_worthwhile(pairs):
+            return 0
+        for laser, s in pairs:
+            laser.work_list.remove(s)
+        try:
+            return self._run(pairs, bucket_floor=bucket_floor)
+        except Exception:
+            for laser, s in pairs:
+                laser.work_list.append(s)
+            raise
+
+    def _device_worthwhile(self, pairs: List[Tuple]) -> bool:
+        """A-priori narrow bail: segment dispatches only amortize over wide
+        frontiers, so a seed set that cannot fan out stays host-side.  The
+        admission evidence is OBSERVED width (_MIN_SEED_WIDTH); a
+        statically-branchy seed set that has already fanned out to half the
+        gate is admitted early."""
+        if args.frontier_force:
+            return True
+        codes = {id(s.environment.code): s.environment.code for _, s in pairs}
+        # the slow verdict outranks the width bypass (see _SLOW_CODES)
+        if all(_code_key(c) in _SLOW_CODES for c in codes.values()):
+            return False
+        width_gate = max(self.caps.MIN_LIVE, _MIN_SEED_WIDTH)
+        if len(pairs) >= width_gate:
+            return True
+        if all(
+            _code_key(c) in _NARROW_CODES or _code_key(c) in _SLOW_CODES
+            for c in codes.values()
+        ):
+            return False
+        return (
+            sum(_jumpi_count(c) for c in codes.values()) >= _MIN_STATIC_JUMPIS
+            and len(pairs) >= max(2, width_gate // 2)
+        )
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _hook_info(laser) -> Tuple[set, set, set]:
+        """(hooked, concrete-nop, value-gated) opcode sets for this laser.
+
+        An opcode is concrete-nop when EVERY hook on it (pre and post) is a
+        bound method of a module that declares it in ``concrete_nop_hooks``
+        — the device may then suppress its events for all-concrete operands
+        (the hook provably does nothing there).
+
+        An opcode is dropped from the hooked set ENTIRELY when every hook
+        on it is a declared taint source (module ``taint_source_hooks``):
+        its only effect — annotating the pushed value — is reproduced by
+        the seeded taint bit on the source's env row plus the walker's
+        row-graph closure (frontier/taint.py), so device executions need
+        no event at all.
+
+        The value-gated set (module ``value_gated_hooks``) marks opcodes
+        whose events the device ships only when the value operand is
+        CONCRETE with the solc panic selector in its top 32 bits (the
+        MSTORE gate; the hook no-ops on symbolic values too)."""
+        # defaultdict access creates empty entries; only real hooks count
+        hooked = {
+            op
+            for reg in (laser._pre_hooks, laser._post_hooks)
+            for op, funcs in reg.items()
+            if op and funcs
+        }
+
+        def hooks(op):
+            return [h for reg in (laser._pre_hooks, laser._post_hooks)
+                    for h in reg.get(op, [])]
+
+        def declared(hook, attr):
+            return getattr(getattr(hook, "__self__", None), attr, ())
+
+        def declared_bit(hook, op):
+            decl = declared(hook, "taint_source_hooks") or {}
+            return decl.get(op) if hasattr(decl, "get") else None
+
+        conc_nop = {
+            op for op in hooked
+            if all(op in declared(h, "concrete_nop_hooks") for h in hooks(op))
+        }
+        # drop only when every hook declares the op AND the declared bit is
+        # actually seeded + registered (taint.suppressible) — an undeclared
+        # or unseedable bit would silently disable the detector on device
+        taint_src = {
+            op for op in hooked
+            if all(
+                (bit := declared_bit(h, op)) is not None and taint.suppressible(bit)
+                for h in hooks(op)
+            )
+        }
+        val_gate = {
+            op for op in hooked
+            if all(op in declared(h, "value_gated_hooks") for h in hooks(op))
+        }
+        return hooked - taint_src, conc_nop, val_gate
+
+    def _seed_ctx(self, arena: HostArena, gs, seed_idx: int) -> np.ndarray:
+        from mythril_tpu_torch.smt import symbol_factory
+        from mythril_tpu_torch.smt import terms as _T
+
+        env = gs.environment
+        ctx = np.full(16, -1, np.int32)
+        ctx[CTX_CALLER] = arena.var_row(env.sender.raw)
+        ctx[CTX_CALLVALUE] = arena.var_row(env.callvalue.raw)
+        ctx[CTX_ADDRESS] = arena.var_row(env.address.raw)
+        ctx[CTX_CDSIZE] = arena.var_row(env.calldata.calldatasize.raw)
+        ctx[CTX_BALANCES] = arena.encode(gs.world_state.balances.raw)
+        ctx[CTX_STORAGE] = arena.encode(
+            env.active_account.storage._array.raw
+        )
+        ctx[CTX_GASPRICE] = arena.var_row(env.gasprice.raw)
+        ctx[CTX_DIFFICULTY] = arena.var_row(
+            gs.new_bitvec("block_difficulty", 256).raw
+        )
+        # taint-source slots use DEDICATED rows (arena.fresh_var_row): host
+        # taint is per-USE, and origin aliases the sender term / gaslimit is
+        # a constant a program literal could equal — tainting an interned
+        # row would leak the bit to non-source uses of the same term.
+        # no_fold: a device constant fold emits a REF-LESS row, which would
+        # cut the tainted gaslimit constant out of the walker's closure
+        ctx[CTX_GASLIMIT] = arena.fresh_var_row(
+            _T.const(gs.mstate.gas_limit, 256), no_fold=True
+        )
+        ctx[CTX_ORIGIN] = arena.fresh_var_row(env.origin.raw)
+        ctx[CTX_TIMESTAMP] = arena.fresh_var_row(
+            symbol_factory.BitVecSym("timestamp", 256).raw
+        )
+        ctx[CTX_NUMBER] = arena.fresh_var_row(env.block_number.raw)
+        ctx[CTX_COINBASE] = arena.fresh_var_row(
+            gs.new_bitvec("coinbase", 256).raw
+        )
+        ctx[CTX_CHAINID] = arena.var_row(env.chainid.raw)
+        ctx[CTX_BASEFEE] = arena.var_row(env.basefee.raw)
+        ctx[CTX_SEED] = seed_idx
+        # taint-source seeding: any row whose closure reaches one of these
+        # source rows carries the bit.  ENV_SOURCE_SLOTS is the same table
+        # taint.suppressible consults, so a suppressible bit is always
+        # seeded here.
+        for bit, slot in taint.ENV_SOURCE_SLOTS.items():
+            arena.add_taint(ctx[slot], bit)
+        return ctx
+
+    def _inject(self, st: FrontierState, slot: int, seed_idx: int,
+                ctx: np.ndarray, code_idx: int, score: int = 0,
+                static: int = 0) -> None:
+        clear_slot(st, slot)
+        st.seed[slot] = seed_idx
+        st.halt[slot] = O.H_RUNNING
+        st.ctx[slot] = ctx
+        st.code_id[slot] = code_idx
+        st.score[slot] = score
+        st.static[slot] = static
+
+    def _encode_mid(self, arena: HostArena, gs) -> Optional[dict]:
+        """Pack a mid-frame host state for device re-entry, or None.
+
+        Stack words (symbolic included) become arena rows; concretely
+        addressed memory is regrouped into the device's disjoint 32-byte
+        word entries.  Loop counters start at zero — a re-entered path may
+        re-run up to loop_bound extra iterations before the device bound
+        trips.  Gas starts at zero on device: the walker reports
+        seed-relative totals via its per-seed gas_base."""
+        I32_MAX = (1 << 31) - 1
+        if arena.length > self.caps.ARENA * 9 // 10:
+            # near-capacity: an encode raising halfway would strand its
+            # already-appended rows (the arena has no rollback)
+            return None
+        try:
+            # validate memory FIRST: stack encoding appends arena rows, and
+            # rows for a seed bounced afterwards would leak into the arena
+            addrs = gs.mstate.memory.concrete_addresses()
+            if addrs is None:
+                return None
+            windows = []
+            i, n = 0, len(addrs)
+            while i < n:
+                start = addrs[i]
+                if i + 32 > n or addrs[i : i + 32] != list(
+                    range(start, start + 32)
+                ):
+                    return None  # partial word: the entry model can't hold it
+                if start + 32 > I32_MAX:
+                    return None  # device addresses are i32
+                windows.append(start)
+                i += 32
+            if len(windows) > _MID_MEM_MAX:
+                return None
+            pc = int(gs.mstate.pc)
+            mem_size = int(getattr(gs.mstate, "memory_size", 0) or 0)
+            depth = int(getattr(gs.mstate, "depth", 0) or 0)
+            if max(pc, mem_size, depth) > I32_MAX:
+                return None
+
+            # host-installed taint annotations must survive re-entry as row
+            # bits (frontier/taint.py); a tainted wrapper gets a DEDICATED
+            # opaque row so the bit cannot leak to other uses of the term
+            def enc(wrapper) -> int:
+                mask = taint.mask_for_annotations(
+                    getattr(wrapper, "annotations", ())
+                )
+                if not mask:
+                    return arena.encode(wrapper.raw)
+                return arena.tainted_row(wrapper.raw, mask)
+
+            mem_pairs = [
+                (a, enc(gs.mstate.memory.get_word_at(a))) for a in windows
+            ]
+            stack_rows = [enc(v) for v in gs.mstate.stack]
+            return {
+                "pc": pc,
+                "stack": stack_rows,
+                "mem": mem_pairs,
+                "mem_size": mem_size,
+                "depth": depth,
+            }
+        except Exception as e:
+            log.debug("mid-frame encode failed: %s", e)
+            return None
+
+    @staticmethod
+    def _apply_mid(st: FrontierState, slot: int, enc: dict) -> None:
+        st.pc[slot] = enc["pc"]
+        for k, row in enumerate(enc["stack"]):
+            st.stack[slot, k] = row
+        st.stack_len[slot] = len(enc["stack"])
+        for k, (addr, row) in enumerate(enc["mem"]):
+            st.mem_addr[slot, k] = addr
+            st.mem_val[slot, k] = row
+        st.mem_len[slot] = len(enc["mem"])
+        st.mem_size[slot] = enc["mem_size"]
+        st.depth[slot] = enc["depth"]
+
+    # ------------------------------------------------------------------
+    # large-code frontier: per-class floors + packed-code paging
+    # ------------------------------------------------------------------
+
+    # faults per code before the engine stops repacking for it and pins
+    # further faulting paths host-side (semantic park) — a window that
+    # keeps missing is a code the host engine runs better
+    _PAGE_FAULT_LIMIT = 8
+
+    @staticmethod
+    def _pick_floor(floors: List[tuple],
+                    natural: tuple) -> Optional[tuple]:
+        """Smallest per-class floor that covers ``natural`` in every
+        dimension, or None (a partial cover would make a third bucket
+        shape that neither the floored nor the natural program matches)."""
+        best = None
+        for f in floors:
+            if len(f) != len(natural):
+                continue
+            if all(fv >= nv for fv, nv in zip(f, natural)):
+                if best is None or f[0] * f[1] < best[0] * best[1]:
+                    best = f
+        return best
+
+    def _note_page_fault(self, code_idx: int, pc: int) -> bool:
+        """Record a device page fault (harvest calls this).  Returns True
+        when the window will be repacked to cover ``pc`` at the next sync
+        point — the faulting path should then re-inject as an ordinary
+        park carrier.  Returns False once the code exceeded the fault
+        budget: the caller pins the path host-side instead."""
+        FrontierStatistics().page_faults += 1
+        counts = getattr(self, "_page_fault_counts", None)
+        if counts is None or not getattr(self, "_page_tables", None):
+            return False
+        tables = self._page_tables
+        if not (0 <= code_idx < len(tables)):
+            return False
+        counts[code_idx] = counts.get(code_idx, 0) + 1
+        if counts[code_idx] > self._PAGE_FAULT_LIMIT:
+            return False
+        axis = self._page_bucket[1]
+        full = tables[code_idx].fam.shape[0]
+        if full <= axis:
+            # not actually paged (stale pc past the code end): no repack
+            return False
+        # window start: a quarter-axis of context before the fault pc so
+        # backward jumps inside the new span stay resident, clamped to
+        # keep the window inside the code
+        base = min(max(0, int(pc) - axis // 4), full - axis)
+        self._page_pending[code_idx] = base
+        return True
+
+    def _maybe_repack(self):
+        """Rebuild the device tables with pending window moves folded in
+        (sync points only).  Same bucket, same shapes; only the table
+        content is copied again.  Returns the fresh CodeDev, or None when
+        nothing is pending."""
+        pending = getattr(self, "_page_pending", None)
+        if not pending:
+            return None
+        for ci, base in pending.items():
+            self._page_bases[ci] = base
+        pending.clear()
+        FrontierStatistics().page_repacks += 1
+        return self._code_dev(self._page_tables, self._page_bucket)
+
+    def _code_dev(self, tables, bucket):
+        """The stacked dispatch tables for ``bucket`` on the run's device."""
+        return interop.code_to_torch(
+            stacked_device_tables(tables, bucket, page_bases=self._page_bases),
+            self.device,
+        )
+
+    # ------------------------------------------------------------------
+
+    def _run(self, pairs: List[Tuple],
+             bucket_floor: Optional[tuple] = None) -> int:
+        caps = self.caps
+        t_start = time.perf_counter()
+
+        seed_lasers = [laser for laser, _ in pairs]
+        seeds = [gs for _, gs in pairs]
+        lasers: List = []
+        for laser in seed_lasers:
+            if laser not in lasers:
+                lasers.append(laser)
+
+        arena = HostArena(caps.ARENA)
+        arena.seeds = seeds
+        row_zero = arena.const_row(0, 256)
+        row_one = arena.const_row(1, 256)
+
+        # one stacked table entry per (laser, code) identity: hooks differ
+        # per laser, so the same bytecode under two lasers gets two entries
+        tables: List[CodeTables] = []
+        table_laser: List = []
+        table_code: List = []
+        table_idx: Dict[tuple, int] = {}
+        seed_code_idx: List[int] = []
+        for laser, gs in pairs:
+            code = gs.environment.code
+            key = (id(laser), id(code))
+            ci = table_idx.get(key)
+            if ci is None:
+                ci = len(tables)
+                table_idx[key] = ci
+                hooked, conc_nop, val_gate = self._hook_info(laser)
+                tables.append(
+                    CodeTables(
+                        code.instruction_list,
+                        arena,
+                        hooked_opcodes=hooked,
+                        code_size=len(getattr(code, "bytecode", b"") or b"")
+                        or None,
+                        conc_nop_opcodes=conc_nop,
+                        value_gate_opcodes=val_gate,
+                    )
+                )
+                table_laser.append(laser)
+                table_code.append(code)
+            seed_code_idx.append(ci)
+
+        # per-code bucket isolation (large-code frontier): cluster the
+        # codes by their own size bucket and dispatch one batch per class,
+        # so an outlier pays for its own padded axes.  ``bucket_floor`` may
+        # be a list of per-class floors — each class picks the smallest
+        # floor that covers it.  code_paging=False keeps the single
+        # corpus-wide bucket.
+        floors: List[tuple] = []
+        if isinstance(bucket_floor, list):
+            floors = [tuple(f) for f in bucket_floor]
+        elif bucket_floor is not None:
+            floors = [tuple(bucket_floor)]
+        if args.code_paging:
+            classes = bucket_classes(tables)
+        else:
+            classes = [(multi_size_bucket(tables), list(range(len(tables))))]
+        if len(classes) > 1:
+            total = 0
+            for _cls_bucket, members in classes:
+                member_set = set(members)
+                sub_pairs = [
+                    p for p, ci in zip(pairs, seed_code_idx)
+                    if ci in member_set
+                ]
+                total += self._run(sub_pairs, bucket_floor=floors or None)
+            return total
+
+        natural_bucket = multi_size_bucket(tables)
+        bucket = natural_bucket
+        floor = self._pick_floor(floors, natural_bucket)
+        if floor is not None:
+            bucket = tuple(max(b, f) for b, f in zip(bucket, floor))
+        code_cap, instr_cap, addr_cap, loops_cap = bucket
+        # coverage planes are indexed by TRUE pc, so their axis covers the
+        # whole code even when paged dispatch tables hold only a window
+        visit_cap = max(instr_cap, visited_instr_cap(tables))
+        # packed-code paging state: per-table resident-window starts plus
+        # pending faults the next sync-point repack folds in
+        self._page_tables = tables
+        self._page_bucket = bucket
+        self._page_bases = [0] * len(tables)
+        self._page_pending = {}
+        self._page_fault_counts = {}
+        program_key = (caps, bucket, visit_cap)
+        program_warm = program_key in _WARM_PROGRAMS
+        segment = cached_segment(caps, *bucket, device=self.device)
+
+        # the tables are copied to the device once and reused per segment;
+        # a page-fault repack rebuilds them at the next sync point with
+        # identical shapes
+        code_dev = self._code_dev(tables, bucket)
+        laser0 = lasers[0]
+        cfg = CfgScalars(
+            max_depth=int(laser0.max_depth),
+            loop_bound=int(args.loop_bound or 0),
+            row_zero=int(row_zero),
+            row_one=int(row_one),
+            sel_mode=_sel_mode(laser0),
+            k_limit=caps.K,
+        )
+
+        # seed contexts (also fills the arena with env rows)
+        ctxs = [self._seed_ctx(arena, gs, i) for i, gs in enumerate(seeds)]
+
+        # mid-frame seeds (resumed callers, earlier spills) are encoded up
+        # front; any the encoder rejects bounce straight back to their host
+        # work list (eligibility is a cheap pre-filter, the encoder decides)
+        mid_enc: List[Optional[dict]] = []
+        bounced = set()
+        for i, gs in enumerate(seeds):
+            if _is_fresh(gs):
+                mid_enc.append(None)
+                continue
+            enc = self._encode_mid(arena, gs)
+            mid_enc.append(enc)
+            if enc is None:
+                FrontierStatistics().mid_encode_failures += 1
+                # stamp so _mid_eligible stops re-offering this state at
+                # every drain while it sits at the same pc.  The work-list
+                # re-append happens at the END of the run: _drain_pairs'
+                # exception handler re-appends every pair, so appending here
+                # would duplicate the state if the run later failed.
+                gs._frontier_park_pc = gs.mstate.pc
+                bounced.add(i)
+
+        walker = Walker(seed_lasers, arena,
+                        [tables[ci] for ci in seed_code_idx], seeds)
+        st = empty_state(caps, loops_cap)
+        records: Dict[int, Optional[PathRecord]] = {i: None for i in range(caps.B)}
+        seed_queue = [i for i in range(len(seeds)) if i not in bounced]
+        ev_seen = np.zeros(caps.B, np.int64)
+
+        beam = _sel_mode(laser0) == SEL_BEAM
+
+        statics = [
+            1 if getattr(gs.environment, "static", False) else 0
+            for gs in seeds
+        ]
+
+        def refill(slot: int) -> None:
+            si = seed_queue.pop(0)
+            self._inject(st, slot, si, ctxs[si], seed_code_idx[si],
+                         _beam_importance(seeds[si]) if beam else 0,
+                         static=statics[si])
+            if mid_enc[si] is not None:
+                self._apply_mid(st, slot, mid_enc[si])
+                FrontierStatistics().mid_injections += 1
+            records[slot] = PathRecord(seed_idx=si)
+            ev_seen[slot] = 0
+
+        # initial fill, in seed order
+        for slot in range(caps.B):
+            if not seed_queue:
+                break
+            refill(slot)
+
+        # the arena stays device-resident across segments; the host pulls
+        # only the newly appended row slices at each harvest
+        dev_arena = interop.arena_to_torch(arena.device_arrays(), self.device)
+        arena_len = arena.length
+        # [3, C, I] coverage planes: instruction / taken-edge / fall-edge.
+        # The instruction axis is the FULL cap (true-pc indexed)
+        visited = torch.zeros((3, code_cap, visit_cap), dtype=torch.bool,
+                              device=self.device)
+
+        executed = 0
+        exec_timeout = min(
+            laser.execution_timeout or args.execution_timeout
+            for laser in lasers
+        )
+        deadline = t_start + exec_timeout
+        narrow_harvests = 0
+        max_live = 0
+        run_segments = 0
+        slow_bailed = False
+        width_verdict_valid = True  # False when the run was cut short
+        skip_loop = False
+
+        # a floored bucket shares one program across a sweep, but its
+        # first dispatch runs at the program's natural bucket, is
+        # harvested, and only then does the floored loop start (the order
+        # decides what each dispatch holds)
+        if bucket != natural_bucket and not program_warm:
+            nat_cc, _nat_ic, _nat_ac, nat_lc = natural_bucket
+            stats = FrontierStatistics()
+            nat_segment = cached_segment(caps, *natural_bucket, device=self.device)
+            nat_code_dev = self._code_dev(tables, natural_bucket)
+            # full-cap coverage axis (true-pc indexed), same as the floored
+            # planes — the corner copy below is then a straight slice
+            nat_visited = torch.zeros((3, nat_cc, visit_cap), dtype=torch.bool,
+                                      device=self.device)
+            cfg0 = cfg._replace(k_limit=min(caps.K, 96 << min(stats.segments, 4)))
+            st_nat = st._replace(loops=st.loops[:, :nat_lc])
+            t_seg = time.perf_counter()
+            out_state, dev_arena, out_len, n_exec, seg_ml, nat_visited = (
+                nat_segment(push_state(st_nat, device=self.device), dev_arena,
+                            arena_len, nat_visited, nat_code_dev, cfg0)
+            )
+            st_p, arena_len, n_exec_host, seg_ml_host = pull_harvest(
+                out_state, out_len, n_exec, seg_ml
+            )
+            max_live = max(max_live, seg_ml_host)
+            arena.pull_from_device(dev_arena, arena_len)
+            executed += n_exec_host
+            stats.device_instructions += n_exec_host
+            stats.segments += 1
+            stats.segment_s += time.perf_counter() - t_seg
+            _WARM_PROGRAMS.add((caps, natural_bucket, visit_cap))
+            st = st_p._replace(loops=np.ascontiguousarray(np.pad(
+                st_p.loops, ((0, 0), (0, loops_cap - nat_lc))
+            )))
+            t_har = time.perf_counter()
+            self._harvest(st, records, walker, ev_seen)
+            ev_seen.fill(0)
+            stats.harvest_s += time.perf_counter() - t_har
+            # the opening coverage lives in the natural bucket's corner of
+            # the floored bitmap (same code order, smaller caps)
+            visited[:, :nat_cc, :].copy_(nat_visited)
+            live = int(((st.halt == O.H_RUNNING) & (st.seed >= 0)).sum())
+            max_live = max(max_live, live)
+            if live == 0 and not seed_queue:
+                skip_loop = True  # nothing left for the floored program
+
+        while not skip_loop:
+            if time.perf_counter() > deadline or time_handler.time_remaining() <= 0:
+                log.info("frontier: execution timeout; parking live paths")
+                self._park_all(st, records, walker, reason="timeout")
+                width_verdict_valid = False
+                break
+
+            stats = FrontierStatistics()
+            t_seg = time.perf_counter()
+            # step-limit ramp: early segments stay short so the first
+            # terminals harvest quickly; later segments run long.  Keyed on
+            # the analysis-wide segment counter, not a per-drain counter
+            cfg = cfg._replace(k_limit=min(caps.K, 96 << min(stats.segments, 4)))
+            out_state, dev_arena, out_len, n_exec, seg_max_live, visited = (
+                segment(push_state(st, device=self.device), dev_arena,
+                        arena_len, visited, code_dev, cfg)
+            )
+            # pull state to host mirrors (writable: harvest mutates slots):
+            # one packed meta transfer (scalars ride along) + one
+            # bucket-capped events pull
+            st, arena_len_new, n_exec_host, seg_ml_host = pull_harvest(
+                out_state, out_len, n_exec, seg_max_live
+            )
+            max_live = max(max_live, seg_ml_host)
+            arena.pull_from_device(dev_arena, arena_len_new)
+            arena_len = arena_len_new
+            executed += n_exec_host
+            stats.device_instructions += n_exec_host
+            stats.segments += 1
+            seg_only = time.perf_counter() - t_seg
+            stats.segment_s += seg_only
+            _WARM_PROGRAMS.add(program_key)  # a segment really dispatched
+
+            t_har = time.perf_counter()
+            self._harvest(st, records, walker, ev_seen)
+            # events were fully drained into the path records, and the next
+            # segment starts with EMPTY device buffers (push_state rebuilds
+            # them) — restart the per-slot seen counters to match
+            ev_seen.fill(0)
+            # page-fault repack: the synchronous loop is all sync points —
+            # fold pending window moves into fresh tables before the next
+            # dispatch
+            new_code_dev = self._maybe_repack()
+            if new_code_dev is not None:
+                code_dev = new_code_dev
+            stats.harvest_s += time.perf_counter() - t_har
+
+            # mid-run throughput accounting, before the exit checks below so
+            # a run's final segment still counts; a run's first segment
+            # counts only when its program already ran once
+            bail_now = False
+            if (run_segments > 0 or program_warm) and not args.frontier_force:
+                host_rates = [
+                    r for r in (
+                        getattr(laser, "host_step_rate", lambda: None)()
+                        for laser in lasers
+                    ) if r
+                ]
+                # min over lasers: bail only when the device underruns even
+                # the slowest host alternative
+                bail_rate = (
+                    _SLOW_BAIL_HOST_FACTOR * min(host_rates)
+                    if host_rates else _SLOW_BAIL_FLOOR
+                )
+                code_keys = [_code_key(c) for c in table_code]
+                seg_rate = n_exec_host / max(seg_only, 1e-6)
+                if seg_rate < bail_rate:
+                    counts = [_SLOW_SEGMENTS.get(k, 0) + 1 for k in code_keys]
+                    for k, c in zip(code_keys, counts):
+                        _SLOW_SEGMENTS[k] = c
+                    if (
+                        max(counts) >= _SLOW_BAIL_SEGMENTS
+                        or seg_rate < _SLOW_BAIL_DECISIVE * bail_rate
+                    ):
+                        log.info(
+                            "frontier: %d instructions in %.2fs (below "
+                            "%.0f/s); host engine takes over",
+                            n_exec_host, seg_only, bail_rate,
+                        )
+                        bail_now = True
+                else:
+                    for k in code_keys:
+                        _SLOW_SEGMENTS.pop(k, None)
+            run_segments += 1
+            if bail_now:
+                # before the refill below: injecting queued seeds just to
+                # park them straight back out would be a pure round trip
+                slow_bailed = True
+                width_verdict_valid = False
+                self._park_all(st, records, walker, reason="slow-bail")
+                break
+
+            # refill free slots with queued seeds; under beam search also
+            # refresh live slots' scores (a seed's shared annotation may
+            # have gained importance from sibling replays)
+            for slot in range(caps.B):
+                rec = records[slot]
+                if rec is None and seed_queue:
+                    refill(slot)
+                elif beam and rec is not None:
+                    st.score[slot] = _beam_importance(seeds[rec.seed_idx])
+
+            live = int(((st.halt == O.H_RUNNING) & (st.seed >= 0)).sum())
+            max_live = max(max_live, live)
+            if live == 0 and not seed_queue:
+                break
+            if arena_len + max(live, 1) * caps.R * 2 >= caps.ARENA:
+                log.warning("frontier: arena nearly full; parking live paths")
+                self._park_all(st, records, walker, reason="arena-full")
+                width_verdict_valid = False
+                break
+            # adaptive bail-out: the device pays off only on wide frontiers;
+            # a run that stays narrow hands its paths to the host engine
+            if live < caps.MIN_LIVE:
+                narrow_harvests += 1
+                if narrow_harvests >= caps.NARROW_BAIL:
+                    log.info(
+                        "frontier: only %d live paths after %d segments; "
+                        "host engine takes over", live, narrow_harvests,
+                    )
+                    self._park_all(st, records, walker, reason="narrow-bail")
+                    break
+            else:
+                narrow_harvests = 0
+
+        if slow_bailed:
+            # slow: only codes whose OWN slow-segment count reached the bail
+            # threshold are marked (a mixed batch bails on its worst member)
+            for code in table_code:
+                key = _code_key(code)
+                if _SLOW_SEGMENTS.get(key, 0) >= _SLOW_BAIL_SEGMENTS:
+                    _SLOW_CODES.add(key)
+        elif max_live < caps.MIN_LIVE and width_verdict_valid:
+            # narrow: stayed under MIN_LIVE.  A run cut short by
+            # timeout/arena pressure proves nothing and marks nothing.
+            for code in table_code:
+                _NARROW_CODES.add(_code_key(code))
+
+        visited_host = visited.cpu().numpy()
+        for ci, (laser, code) in enumerate(zip(table_laser, table_code)):
+            self._merge_coverage(visited_host[:, ci], tables[ci], code, laser)
+        for i in bounced:
+            seed_lasers[i].work_list.append(seeds[i])
+        # seeds still queued when a break path ended the loop (slow-bail,
+        # timeout, arena pressure) never occupied a slot: hand them back to
+        # their host work lists or their paths would silently vanish
+        for si in seed_queue:
+            seed_lasers[si].work_list.append(seeds[si])
+        return executed
+
+    @staticmethod
+    def _merge_coverage(visited: np.ndarray, tables, code, laser) -> None:
+        """Device-executed instruction coverage ``visited[0]`` into the
+        coverage plugin's bitmap (the walker only replays hook events, so
+        plugin-side coverage alone would underreport frontier runs)."""
+        bytecode = getattr(code, "bytecode", None)
+        cov = getattr(laser, "coverage_plugin", None)
+        if not bytecode or cov is None:
+            return
+        cov.record_visited(
+            bytecode.hex(), tables.n, np.nonzero(visited[0, : tables.n])[0],
+        )
+
+    # ------------------------------------------------------------------
+
+    def _harvest(self, st: FrontierState, records, walker: Walker,
+                 ev_seen: np.ndarray) -> None:
+        """Ingest, prune, replay and commit one pulled segment
+        (frontier/harvest.py)."""
+        _harvest.harvest(self, st, records, walker, ev_seen)
+
+    def _lineage_constraint_rows(self, rec) -> List[int]:
+        """Arena rows of the branch conditions appended along this path
+        (parent prefixes up to each fork, then the record's own stream).
+        Event decoding is shared with the walker (walker.fork_branch_row)."""
+        from mythril_tpu_torch.frontier.walker import fork_branch_row
+
+        rows: List[int] = []
+        chain = []
+        node, upto = rec, len(rec.events)
+        while node is not None:
+            chain.append((node, upto))
+            upto = node.fork_event_idx
+            node = node.parent
+        for level, (node, limit) in enumerate(reversed(chain)):
+            for k in range(limit):
+                ev = node.events[k]
+                if int(ev[O.EV_KIND]) != O.E_FORK:
+                    continue
+                # this path continued past the event (fell through a granted
+                # fork, or took the single decided branch)
+                row = fork_branch_row(ev, taken=False)
+                if row >= 0:
+                    rows.append(row)
+            # entering the next level means this node granted a fork the
+            # child took: the child's side appended the taken condition
+            if node is not rec:
+                child = chain[len(chain) - 2 - level][0]
+                row = fork_branch_row(
+                    node.events[child.fork_event_idx], taken=True
+                )
+                if row >= 0:
+                    rows.append(row)
+        return rows
+
+    def _lineage_mutated(self, rec, walker: Walker) -> bool:
+        from mythril_tpu_torch.plugins.plugins.mutation_pruner import MUTATOR_OPCODES
+
+        mutators = frozenset(MUTATOR_OPCODES)
+        names = walker.tables_for(rec).opcode_names
+        node, upto = rec, len(rec.events)
+        while node is not None:
+            for k in range(upto):
+                ev = node.events[k]
+                if int(ev[O.EV_KIND]) != O.E_HOOK:
+                    continue
+                pc = int(ev[O.EV_PC])
+                if pc < len(names) and names[pc] in mutators:
+                    return True
+            upto = node.fork_event_idx
+            node = node.parent
+        return False
+
+    def _prefetch_mutation_checks(self, st: FrontierState, records,
+                                  walker: Walker) -> None:
+        from mythril_tpu_torch.plugins.plugins.mutation_pruner import (
+            MUTATION_PROBE_CONFIG,
+        )
+        from mythril_tpu_torch.smt import UGT, symbol_factory
+        from mythril_tpu_torch.smt.solver import ProbeConfig, check_satisfiable_batch
+
+        terminal = (O.H_STOP, O.H_RETURN, O.H_SELFDESTRUCT)
+        queries, seen = [], set()
+        for slot in range(self.caps.B):
+            rec = records[slot]
+            if rec is None or int(st.halt[slot]) not in terminal:
+                continue
+            if self._lineage_mutated(rec, walker):
+                continue
+            seed = walker.seeds[rec.seed_idx]
+            value = seed.current_transaction.call_value
+            try:
+                raws = list(seed.world_state.constraints.get_all_raw())
+                raws += [
+                    walker.decode_wrapped(r, rec.seed_idx).raw
+                    for r in self._lineage_constraint_rows(rec)
+                ]
+            except Exception as e:
+                log.debug("mutation prefetch decode failed: %s", e)
+                continue
+            raws.append(
+                UGT(value, symbol_factory.BitVecVal(0, 256)).raw
+            )
+            key = frozenset(t.tid for t in raws)
+            if key not in seen:
+                seen.add(key)
+                queries.append(raws)
+        if len(queries) >= 2:
+            # the hook's exact budget (imported, so they cannot diverge); the
+            # call's side effect is the solver memo the hook will hit
+            check_satisfiable_batch(
+                queries, ProbeConfig(**MUTATION_PROBE_CONFIG), device=self.device
+            )
+
+    def _prune_running(self, st: FrontierState, records, walker: Walker,
+                       ev_seen: np.ndarray) -> None:
+        from mythril_tpu_torch.smt.solver import check_satisfiable_batch
+
+        todo = []
+        for slot in range(self.caps.B):
+            rec = records[slot]
+            if rec is None or int(st.halt[slot]) != O.H_RUNNING:
+                continue
+            n_cons = int(st.cons_len[slot])
+            if n_cons <= rec._pruned_at:
+                continue
+            seed = walker.seeds[rec.seed_idx]
+            raws = list(seed.world_state.constraints.get_all_raw())
+            try:
+                raws += [
+                    walker.decode_wrapped(int(r), rec.seed_idx).raw
+                    for r in st.cons[slot, :n_cons]
+                ]
+            except Exception as e:
+                # cannot prune this slot: treat as satisfiable (sound — the
+                # path just keeps running) and don't re-decode every segment
+                log.warning("prune decode failed on slot %d: %s", slot, e)
+                rec._pruned_at = n_cons
+                continue
+            todo.append((slot, rec, n_cons, raws))
+        if not todo:
+            return
+        flags = check_satisfiable_batch(
+            [raws for _, _, _, raws in todo], device=self.device
+        )
+        for (slot, rec, n_cons, _), ok in zip(todo, flags):
+            if ok:
+                rec._pruned_at = n_cons
+            else:
+                records[slot] = None
+                clear_slot(st, slot)
+                ev_seen[slot] = 0
+
+    def _park_all(self, st: FrontierState, records, walker: Walker,
+                  reason: str = "bulk") -> None:
+        """Timeout/overflow: hand every live path back to the host engine.
+        A path whose replay raises is dropped, as in the JAX package, and
+        counted in ``replay_errors``; a ``DeviceError`` propagates."""
+        stats = FrontierStatistics()
+        for slot in range(self.caps.B):
+            rec = records[slot]
+            if rec is None:
+                continue
+            if int(st.halt[slot]) == O.H_RUNNING:
+                st.halt[slot] = O.H_PARK
+            rec.final = snapshot_slot(st, slot)
+            if rec.final["halt"] in (O.H_PENDING_FORK, O.H_PAGE_FAULT):
+                rec.final["halt"] = O.H_PARK
+            stats.device_paths += 1
+            stats.record_bulk_park(reason)
+            try:
+                walker.finish(rec)
+            except DeviceError:
+                raise
+            except Exception as e:
+                stats.replay_errors += 1
+                log.warning("frontier park failed: %s", e, exc_info=True)
+            records[slot] = None
+            clear_slot(st, slot)
+

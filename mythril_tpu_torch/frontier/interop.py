@@ -9,6 +9,8 @@ kernel packs rows into 64-bit words itself).  ``*_to_torch`` carries the
 numpy arrays across, ``outputs_to_numpy`` brings a segment's outputs back in
 the JAX layout, and ``output_digests`` hashes them, so that a run on the
 card can be held against recorded JAX outputs without JAX.
+``input_digests`` hashes a dispatch's inputs the same way, so a recorded
+sequence of dispatches pins down what the engine handed the segment.
 """
 
 from __future__ import annotations
@@ -104,4 +106,30 @@ def output_digests(outputs) -> Dict[str, object]:
         out[f"arena.{n}"] = _sha(x.astype(np.uint8) if n == "isconst" else x)
     out["visited"] = _sha(visited.astype(np.uint8))
     out.update(arena_len=arena_len, n_exec=n_exec, max_live=max_live)
+    return out
+
+
+def input_digests(state, arena, arena_len, visited, code, cfg) -> Dict[str, object]:
+    """sha256 of a segment dispatch's inputs in the JAX layout, the port's
+    tensors or the JAX package's arrays alike: the state's non-event fields
+    as int32 (the engine pushes empty event buffers), each arena column's
+    rows ``[0, arena_len)`` (``val`` as uint32, ``isconst`` as uint8),
+    ``visited`` as uint8, each code table (the boolean ones as uint8), and
+    ``arena_len`` and the cfg scalars as ints."""
+    n = int(_np(arena_len))
+    out: Dict[str, object] = {
+        f"state.{f}": _sha(_np(getattr(state, f)).astype(np.int32))
+        for f in FrontierState._fields if f not in ("events", "ev_len")
+    }
+    for name in ARENA_COLUMNS:
+        x = _np(getattr(arena, name)[:n])
+        x = (x.astype(np.int32).view(np.uint32) if name == "val"
+             else x.astype(np.uint8) if name == "isconst" else x.astype(np.int32))
+        out[f"arena.{name}"] = _sha(x)
+    out["visited"] = _sha(_np(visited).astype(np.uint8))
+    for name, x in zip(CodeDev._fields, code):
+        x = _np(x)
+        out[f"code.{name}"] = _sha(x.astype(np.uint8) if x.dtype == bool else x.astype(np.int32))
+    out["arena_len"] = n
+    out["cfg"] = [int(_np(v)) for v in cfg]
     return out

@@ -942,7 +942,7 @@ def segment_cuda(state: FrontierState, arena: ArenaDev, arena_len, visited,
         stream = torch.cuda.current_stream(state.pc.device).cuda_stream
         rc = lib.mk_frontier_segment(ctypes.byref(args), stream)
         if rc in (GRID_TOO_LARGE, CLUSTER_REFUSED):
-            raise RuntimeError(
+            raise _build.KernelLaunchError(
                 f"frontier_segment: the card cannot hold the launch B={caps.B} paths need "
                 f"({launch_shape(lib, args)}); use a smaller frontier width")
         _build.check(rc, "frontier_segment")
@@ -955,10 +955,13 @@ def launch_shape(lib, args) -> dict:
     """The kernel's launch shape for these arguments: threads per block,
     blocks, cluster size (0 without a cluster) and how many such launches
     the card holds resident."""
+    from mythril_tpu_torch.ops import _build
+
     vals = [ctypes.c_int() for _ in range(4)]
     rc = lib.mk_frontier_segment_shape(ctypes.byref(args), *map(ctypes.byref, vals))
     if rc != 0:
-        raise RuntimeError(f"frontier_segment: CUDA error {rc} querying the launch shape")
+        raise _build.KernelLaunchError(
+            f"frontier_segment: CUDA error {rc} querying the launch shape")
     return dict(zip(("block", "blocks", "cluster", "resident"), (v.value for v in vals)))
 
 

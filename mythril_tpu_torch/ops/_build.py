@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+from mythril_tpu_torch.device import DeviceError
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -35,8 +37,13 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-class KernelBuildError(RuntimeError):
+class KernelBuildError(DeviceError):
     """nvcc is missing or refused a source."""
+
+
+class KernelLaunchError(DeviceError):
+    """A kernel's C entry reported a CUDA error, or the card cannot hold the
+    launch shape."""
 
 
 def sources() -> List[Path]:
@@ -156,4 +163,4 @@ def load() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} at launch")

@@ -1,17 +1,27 @@
-"""Global analysis flags the port's solver slice reads.
+"""Global analysis flags the port reads.
 
 The subset of ``mythril_tpu/support/support_args.py``'s ``Args`` that the
-port consults: the probe solver's flags, and the packed-code paging flags
-that ``frontier/code.py`` reads (JAX defaults).  ``probe_backend``: ``"device"`` evaluates candidate
-batches with the tape VM (the CUDA kernel on the card, its plain PyTorch
-version on the CPU) and plays the role of the JAX package's forced
-``"jax"`` backend; ``"host"`` never dispatches and evaluates candidates with
-the exact host evaluator only.
+port consults, with the JAX package's defaults: the engine's limits and
+switches, the probe solver's flags, the device frontier's, and the
+packed-code paging flags that ``frontier/code.py`` reads.
+``probe_backend``: ``"device"`` evaluates candidate batches with the tape VM
+(the CUDA kernel on the card, its plain PyTorch version on the CPU) and
+plays the role of the JAX package's forced ``"jax"`` backend; ``"host"``
+never dispatches and evaluates candidates with the exact host evaluator
+only.
+
+``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
+once and sets it for the run (restoring it after), and the solver calls
+that have no laser at hand (path-condition checks, the pruner plugins,
+issue confirmation) pass it on.  None outside an analysis: the CUDA card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
+import torch
 
 PROBE_BACKENDS = ("device", "host")
 
@@ -19,13 +29,35 @@ PROBE_BACKENDS = ("device", "host")
 @dataclass
 class Args:
     solver_timeout: int = 10000  # ms, per query
+    execution_timeout: int = 86400  # s, whole run
+    create_timeout: int = 10  # s, creation tx
+    call_depth_limit: int = 3
+    loop_bound: int = 3
+    unconstrained_storage: bool = False
+    sparse_pruning: bool = False
+    solver_log: Optional[str] = None
+    use_integer_module: bool = True
+    enable_iprof: bool = False
+    # deterministic replay only: GAS pushes the exact remaining gas instead
+    # of a fresh symbol (never symbolic runs)
+    concrete_gas: bool = False
+    # one seed per function-table entry plus a complement seed per
+    # symbolic transaction (core/transaction/symbolic.seed_message_call)
+    multi_selector_seeding: bool = False
     probe_candidates: int = 48
     probe_rounds: int = 4
     probe_backend: str = "device"  # device | host
+    # the synchronous device frontier (frontier/engine.py): message-call
+    # transactions run as segments of frontier_width paths
+    frontier: bool = False
+    frontier_width: int = 64
+    # bypass the a-priori narrow gate (engine._device_worthwhile)
+    frontier_force: bool = False
     # packed-code paging (frontier/code.py page_budget): a code whose
     # instruction axis exceeds the budget keeps only a resident window
     code_paging: bool = True
     code_page_budget: int = 2048
+    device: Optional[torch.device] = None
 
 
 args = Args()

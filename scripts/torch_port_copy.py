@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Copy the JAX package's host modules into the port, imports renamed.
+
+Most of the analysis engine is host Python that touches no device: the
+state classes, the detection modules, the plugins.  The port keeps its own
+copies of them under the same relative paths (it imports nothing of
+``mythril_tpu``).  ``COPIED`` lists the modules whose copy differs from the
+original only by the package name (``mythril_tpu`` -> ``mythril_tpu_torch``
+in imports, comments and strings); every other port module of the engine
+is edited by hand.
+
+    python3 scripts/torch_port_copy.py            # (re)write the copies
+    python3 scripts/torch_port_copy.py --check    # exit 1 if a copy drifted
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "mythril_tpu"
+DST = ROOT / "mythril_tpu_torch"
+
+COPIED = (
+    "support/support_utils.py",
+    "support/time_handler.py",
+    "core/__init__.py",
+    "core/util.py",
+    "core/evm_exceptions.py",
+    "core/instruction_data.py",
+    "core/cfg.py",
+    "core/natives.py",
+    "core/call.py",
+    "core/instructions.py",
+    "core/state/__init__.py",
+    "core/state/annotation.py",
+    "core/state/account.py",
+    "core/state/calldata.py",
+    "core/state/environment.py",
+    "core/state/machine_state.py",
+    "core/state/memory.py",
+    "core/state/world_state.py",
+    "core/state/global_state.py",
+    "core/transaction/__init__.py",
+    "core/transaction/transaction_models.py",
+    "core/transaction/symbolic.py",
+    "core/strategy/__init__.py",
+    "core/strategy/basic.py",
+    "core/strategy/extensions/__init__.py",
+    "core/strategy/extensions/bounded_loops.py",
+    "frontend/__init__.py",
+    "frontend/disassembler.py",
+    "plugins/__init__.py",
+    "plugins/signals.py",
+    "plugins/interface.py",
+    "plugins/loader.py",
+    "plugins/plugin_annotations.py",
+    "plugins/plugins/__init__.py",
+    "plugins/plugins/call_depth_limiter.py",
+    "analysis/__init__.py",
+    "analysis/swc_data.py",
+    "analysis/issue_annotation.py",
+    "analysis/ops.py",
+    "analysis/module/__init__.py",
+    "analysis/module/util.py",
+    "analysis/module/modules/__init__.py",
+    "analysis/module/modules/arbitrary_jump.py",
+    "analysis/module/modules/arbitrary_write.py",
+    "analysis/module/modules/delegatecall.py",
+    "analysis/module/modules/dependence_on_origin.py",
+    "analysis/module/modules/dependence_on_predictable_vars.py",
+    "analysis/module/modules/ether_thief.py",
+    "analysis/module/modules/exceptions.py",
+    "analysis/module/modules/external_calls.py",
+    "analysis/module/modules/integer.py",
+    "analysis/module/modules/multiple_sends.py",
+    "analysis/module/modules/state_change_external_calls.py",
+    "analysis/module/modules/suicide.py",
+    "analysis/module/modules/unchecked_retval.py",
+    "analysis/module/modules/user_assertions.py",
+    "frontier/records.py",
+    "frontier/taint.py",
+    "frontier/walker.py",
+)
+
+_NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")
+
+
+def ported(rel: str) -> str:
+    """The port's text of one JAX module: the package name renamed."""
+    return _NAME.sub("mythril_tpu_torch", (SRC / rel).read_text())
+
+
+def main(argv) -> int:
+    check = "--check" in argv
+    drifted = []
+    for rel in COPIED:
+        text, dst = ported(rel), DST / rel
+        if check:
+            if not dst.is_file() or dst.read_text() != text:
+                drifted.append(rel)
+            continue
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text(text)
+    if drifted:
+        print("drifted from the JAX package:", *drifted, sep="\n  ")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -75,3 +75,194 @@ def port_device_backend():
     finally:
         args.probe_backend = saved
         clear_model_cache()
+
+
+# ---------------------------------------------------------------------------
+# whole analyses: the JAX package and the port on the same contract
+# ---------------------------------------------------------------------------
+
+# the JAX package's flags that the port's engine has no counterpart for,
+# set to the values the port behaves as
+JAX_ENGINE_ARGS = dict(
+    pipeline=False, frontier_mesh=False, adaptive=False, staticpass=False,
+    staticpass_interproc=False, harvest_workers=0,
+)
+
+
+@contextlib.contextmanager
+def jax_engine_config():
+    """The JAX package held to the port's configuration: the port's solver
+    tiers (``jax_same_tiers``) and ``JAX_ENGINE_ARGS``, saved and restored."""
+    from mythril_tpu.support.support_args import args
+
+    saved = {k: getattr(args, k) for k in JAX_ENGINE_ARGS}
+    with jax_same_tiers():
+        for k, v in JAX_ENGINE_ARGS.items():
+            setattr(args, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(args, k, v)
+
+
+def issue_key(issue) -> tuple:
+    return (issue.swc_id, issue.address, issue.function, issue.severity, issue.title)
+
+
+def issue_summary(issues) -> list:
+    """Per issue, sorted by key: [key..., number of transaction steps, the
+    last step's 4-byte selector (None without calldata)]."""
+    out = []
+    for i in issues:
+        steps = (i.transaction_sequence or {}).get("steps", [])
+        data = steps[-1]["input"] if steps else "0x"
+        out.append([*issue_key(i), len(steps), data[:10] if len(data) >= 10 else None])
+    return sorted(out, key=lambda r: tuple(str(x) for x in r))
+
+
+def _reset(base: str) -> None:
+    """Clear every cache that carries state from one analysis to the next."""
+    import importlib
+
+    security = importlib.import_module(f"{base}.analysis.security")
+    loader = importlib.import_module(f"{base}.analysis.module.loader")
+    solver = importlib.import_module(f"{base}.smt.solver")
+    model = importlib.import_module(f"{base}.support.model")
+    stats = importlib.import_module(f"{base}.frontier.stats")
+    engine = importlib.import_module(f"{base}.frontier.engine")
+
+    security.reset_callback_modules()
+    for m in loader.ModuleLoader().get_detection_modules():
+        if hasattr(m, "cache"):
+            m.cache.clear()
+    solver.clear_model_cache()
+    model._model_memo.clear()
+    solver.SolverStatistics().reset()
+    stats.FrontierStatistics().reset()
+    for memo in ("_NARROW_CODES", "_SLOW_CODES", "_SLOW_SEGMENTS", "_WARM_PROGRAMS"):
+        getattr(engine, memo).clear()
+
+
+@contextlib.contextmanager
+def recording_dispatches(base: str, into: list):
+    """Append ``{"in": input digests, "out": output digests, "seconds":
+    the time the two digests took}`` to ``into`` for every segment dispatch
+    of ``base``'s frontier engine, by wrapping
+    the module attribute ``<base>.frontier.engine.cached_segment`` (the
+    engine calls it by that name).  Calls off the recording thread (the
+    JAX engine's floored-bucket precompile) are not dispatches."""
+    import importlib
+    import threading
+    import time
+
+    engine = importlib.import_module(f"{base}.frontier.engine")
+    from mythril_tpu_torch.frontier import interop
+
+    orig, owner = engine.cached_segment, threading.current_thread()
+
+    def cached_segment(caps, *bucket, **kw):
+        segment = orig(caps, *bucket, **kw)
+
+        def recorded(state, arena, arena_len, visited, code, cfg):
+            if threading.current_thread() is not owner:
+                return segment(state, arena, arena_len, visited, code, cfg)
+            t0 = time.perf_counter()
+            digest_in = interop.input_digests(state, arena, arena_len, visited, code, cfg)
+            t1 = time.perf_counter()
+            out = segment(state, arena, arena_len, visited, code, cfg)
+            t2 = time.perf_counter()
+            digest_out = interop.output_digests(out)
+            into.append({"in": digest_in, "out": digest_out,
+                         "seconds": t1 - t0 + time.perf_counter() - t2})
+            return out
+
+        return recorded
+
+    engine.cached_segment = cached_segment
+    try:
+        yield into
+    finally:
+        engine.cached_segment = orig
+
+
+def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "dfs",
+                 frontier: bool = False, force: bool = False, width: int = 64,
+                 modules=None, timeout: int = 60, device="cpu", record: bool = True) -> dict:
+    """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
+    ("mythril_tpu" under ``jax_engine_config``, or "mythril_tpu_torch" on
+    ``device``) with every cache cleared first.  -> {"issues", "summary",
+    "dispatches" (digests, in order), "frontier" (the frontier's counters),
+    "seconds" (wall, the digests' time excluded)}"""
+    import importlib
+    import time
+
+    args = importlib.import_module(f"{base}.support.support_args").args
+    symbolic = importlib.import_module(f"{base}.analysis.symbolic")
+    security = importlib.import_module(f"{base}.analysis.security")
+    stats = importlib.import_module(f"{base}.frontier.stats")
+
+    _reset(base)
+    saved = (args.frontier, args.frontier_force, args.frontier_width)
+    args.frontier, args.frontier_force, args.frontier_width = frontier, force, width
+    kw = {"device": device} if base == "mythril_tpu_torch" else {}
+    dispatches: list = []
+    try:
+        with (recording_dispatches(base, dispatches) if record else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            sym = symbolic.SymExecWrapper(
+                bytes(code), address=0x0901D12E, strategy=strategy,
+                transaction_count=tx_count, execution_timeout=timeout, modules=modules, **kw)
+            issues = security.fire_lasers(sym, white_list=modules)
+            seconds = time.perf_counter() - t0 - sum(d["seconds"] for d in dispatches)
+    finally:
+        args.frontier, args.frontier_force, args.frontier_width = saved
+    fstats = stats.FrontierStatistics()
+    return {
+        "issues": issues,
+        "summary": issue_summary(issues),
+        "dispatches": dispatches,
+        "frontier": {
+            "segments": fstats.segments,
+            "device_instructions": fstats.device_instructions,
+            "device_paths": fstats.device_paths,
+            "parks_by_reason": dict(fstats.parks_by_reason),
+            "parks_by_opcode": dict(fstats.parks_by_opcode),
+            "replay_errors": getattr(fstats, "replay_errors", 0),
+            "commit_errors": getattr(fstats, "commit_errors", 0),
+        },
+        "seconds": seconds,
+    }
+
+
+# the contracts of tests/frontier/test_frontier_engine.py and
+# kill_simple.bin-runtime: name -> (runtime hex, transactions, modules)
+_DISPATCH = "60003560e01c6341c0e1b5146014576000" + "6000fd" + "5b"
+_K0 = "290decd9548b62a8d60345a988386fc84ba6bc95484008f6362f93160ef3e563"
+
+
+def engine_contracts() -> dict:
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(repo))
+    import bench
+
+    kill_simple = (repo / "tests" / "testdata" / "inputs" / "kill_simple.bin-runtime").read_text()
+    return {
+        "selfdestruct": (_DISPATCH + "33ff", 1, ["AccidentallyKillable"]),
+        "clean": ("602a60005500", 1, None),
+        "invalid": (_DISPATCH + "fe", 1, ["Exceptions"]),
+        "tx_origin": (_DISPATCH + "323314601b5700" "5b00", 1, ["TxOrigin"]),
+        "overflow": (_DISPATCH + "600435" "6001" "01" "6000" "55" "00", 1, ["IntegerArithmetics"]),
+        "timestamp": (_DISPATCH + "426064" "11" "601c57" "00" "5b00", 1, ["PredictableVariables"]),
+        "killbilly_2tx": (bench.KILLBILLY, 2, ["AccidentallyKillable"]),
+        "parked_call": (_DISPATCH + "6000" "6000" "6000" "6000" "6064" "33" "61ffff" "f1" "00",
+                        1, None),
+        "mload_straddle": (_DISPATCH + "600035" "600052" "601051" "602257" "00" "5b33ff", 1,
+                           ["AccidentallyKillable"]),
+        "sha3_straddle": (_DISPATCH + "600035" "600052" "6020601020" "7f" + _K0
+                          + "14" "15" "604757" "00" "5b33ff", 1, ["AccidentallyKillable"]),
+        "kill_simple": (kill_simple.strip(), 2, None),
+    }

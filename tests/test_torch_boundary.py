@@ -5,10 +5,12 @@ A fresh interpreter with ``sys.modules["jax"] = None`` (so any ``import
 jax`` raises) imports the port, replays one batch group and one single
 query of the probe fixture on the CPU, imports the frontier modules
 (``frontier/{ops,arena,code,state,step}``, ``support/opcodes``) and runs one
-small plain segment on the CPU, and reports which modules it loaded.  The
-same process shows that, without a card, entry points called without
-``device="cpu"`` (the solver, ``cached_segment``) raise instead of moving
-to the CPU.
+small plain segment on the CPU, imports every module of the port, runs one
+whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
+``fire_lasers`` on the CPU, with the host engine and with the frontier
+forced), and reports which modules it loaded.  The same process shows that,
+without a card, entry points called without ``device="cpu"`` (the solver,
+``cached_segment``, ``SymExecWrapper``) raise instead of moving to the CPU.
 """
 
 import json
@@ -64,16 +66,45 @@ if not torch.cuda.is_available():
         seg_raised = True
     else:
         seg_raised = False
+import importlib, pkgutil
+import mythril_tpu_torch
+for m in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
+    importlib.import_module(m.name)
+from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+from mythril_tpu_torch.analysis.security import fire_lasers
+from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+from mythril_tpu_torch.frontier.stats import FrontierStatistics
+code = bytes.fromhex(open(sys.argv[3]).read().strip())
+found = {}
+for frontier in (False, True):
+    args.frontier = args.frontier_force = frontier
+    FrontierStatistics().reset()
+    for m in ModuleLoader().get_detection_modules():
+        m.cache.clear()
+    sym = SymExecWrapper(code, address=0x0901D12E, transaction_count=1, execution_timeout=60,
+                         modules=["AccidentallyKillable"], device="cpu")
+    found[str(frontier)] = [[i.swc_id, FrontierStatistics().segments]
+                            for i in fire_lasers(sym, white_list=["AccidentallyKillable"])]
+sym_raised = None
+if not torch.cuda.is_available():
+    try:
+        SymExecWrapper(code, address=0x0901D12E, transaction_count=1)
+    except NoCudaDevice:
+        sym_raised = True
+    else:
+        sym_raised = False
 print(json.dumps({"keep": keep, "status": status, "raised": raised, "n_exec": n_exec,
                   "seg_raised": seg_raised, "opcodes": len(opcodes.OPCODES),
+                  "found": found, "sym_raised": sym_raised,
                   "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
 
 def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     fixture = REPO / "tests" / "testdata" / "torch_probe_queries.json"
+    kill_simple = REPO / "tests" / "testdata" / "inputs" / "kill_simple.bin-runtime"
     out = subprocess.run(
-        [sys.executable, "-c", _CHILD, str(REPO), str(fixture)],
+        [sys.executable, "-c", _CHILD, str(REPO), str(fixture), str(kill_simple)],
         capture_output=True, text=True, timeout=300, cwd=str(REPO.parent),
     )
     assert out.returncode == 0, out.stderr[-4000:]
@@ -86,8 +117,15 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["n_exec"] > 0 and got["opcodes"] > 100
     assert got["seg_raised"] in (True, None)
     for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
-                "frontier.step", "support.opcodes"):
+                "frontier.step", "support.opcodes", "frontier.engine", "frontier.walker",
+                "frontier.harvest", "core.svm", "analysis.symbolic", "analysis.security",
+                "analysis.module.modules.suicide", "plugins.plugins.dependency_pruner"):
         assert f"mythril_tpu_torch.{mod}" in got["modules"]
+    # the host engine finds the issue without the device; the forced
+    # frontier finds it through at least one segment
+    assert got["found"]["False"] == [["106", 0]]
+    assert got["found"]["True"][0][0] == "106" and got["found"]["True"][0][1] > 0
+    assert got["sym_raised"] in (True, None)
 
 
 def test_port_sources_name_no_jax_package():
@@ -98,3 +136,16 @@ def test_port_sources_name_no_jax_package():
     assert offenders == []
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not pattern.search(smoke)
+
+
+def test_copied_modules_differ_from_the_jax_package_only_by_name():
+    """The port's host modules listed in ``scripts/torch_port_copy.py`` are
+    the JAX package's with the package name renamed, nothing else."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_copy", REPO / "scripts" / "torch_port_copy.py")
+    copy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy)
+    assert copy.main(["--check"]) == 0
+    assert len(copy.COPIED) > 50

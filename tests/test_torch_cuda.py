@@ -7,7 +7,8 @@ machine need not have):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+``chip_smoke.py`` runs the same comparisons at the main path's shapes, and
+the whole analysis on every recorded engine run.
 """
 
 import numpy as np
@@ -178,3 +179,17 @@ def test_frontier_wrapper_refuses_cpu_tensors(card):
                                        case["visited"], case["code"], case["cfg"], "cpu")
     with pytest.raises(ValueError):
         fstep.segment_cuda(*inputs, fcases.CAPS)
+
+
+def test_engine_runs_kill_simple_through_the_frontier_on_card(card):
+    """The whole analysis on the card (no device argument), frontier forced:
+    the recorded JAX run's issues and dispatch digests, one kernel launch
+    per dispatch, no replay error."""
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_engine_fixture import check_run, load_runs, run_port
+
+    run = next(r for r in load_runs() if r["name"] == "kill_simple" and r["frontier"])
+    before = step.launches
+    got = run_port(run, None)
+    assert check_run(run, got) == []
+    assert step.launches - before == len(got["dispatches"]) > 0
