@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
-probe, the device frontier segment and the whole analysis around them.
+probe, the device frontier segment and the whole analysis around them,
+without and with the native CDCL tier.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -11,7 +12,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    nvcc per source, all at once), timed, with ptxas's register, stack
    frame and spill report, the LOP3 and SHF instructions per keccak round
    and each frontier kernel's local loads and stores (LDL, STL) in the SASS
-   (``cuobjdump -sass``);
+   (``cuobjdump -sass``); then the native CDCL library (``native/build.py``,
+   g++), which must build and load;
 3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
    state) against ``keccak_f1600_reference``, both on the card, at N in
    {1, 3, 64, 130, 4096, 65536} random states, bit-equal; then ``keccak256``
@@ -34,7 +36,8 @@ Phases, in order; any failure exits nonzero and prints no result:
 6. the probe main path: the recorded probe traffic of
    ``tests/testdata/torch_probe_queries.json`` replayed through
    ``check_satisfiable_batch`` and ``solve_conjunction`` on the card with
-   ``probe_backend="device"``; every launch count zeroed just before and read
+   ``probe_backend="device"`` and the port's native CDCL off, as the JAX
+   package ran when the traffic was recorded; every launch count zeroed just before and read
    just after; 0 keep/prune disagreements with the stored JAX verdicts;
 7. the frontier main path: every dispatch of
    ``tests/testdata/torch_frontier_dispatches.npz`` (the JAX engine's real
@@ -45,7 +48,7 @@ Phases, in order; any failure exits nonzero and prints no result:
    kernel against ``segment_torch`` on the card, on every dispatch but the
    largecode run's tail;
 8. the engine: the port's analysis (``SymExecWrapper`` + ``fire_lasers``,
-   no device argument: the card) on every run of
+   no device argument: the card, native CDCL off) on every run of
    ``tests/testdata/torch_engine_runs.json``, recorded from the JAX package:
    ``bench_contracts``' ``etherstore_like`` and ``rubixi_like`` at width
    256 with 2 transactions and ``bectoken_like`` with 1, ``bench``'s wide
@@ -61,6 +64,15 @@ Phases, in order; any failure exits nonzero and prints no result:
    solver, the rest of the host) and path-steps per second; then the
    ``bectoken_like`` frontier run once more under ``torch.profiler`` for
    the card's idle share;
+8b. the engine under native CDCL: the same on every run of
+   ``tests/testdata/torch_engine_runs_cdcl.json``, recorded from the JAX
+   package with CDCL on, the port's CDCL on; besides, the issue keys of
+   ``bectoken_like``, ``etherstore_like`` and ``rubixi_like`` equal the JAX
+   package's default-tier keys; per run also the CDCL calls, solves,
+   seconds and timeouts.  A run whose JAX recording has CDCL answers cut by
+   their wall-clock budget (``timeouts``) cannot be held exactly: a
+   difference there is reported, not failed, and its keys must still equal
+   the default-tier keys.  Then ``bectoken_like`` under ``torch.profiler``;
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -369,6 +381,7 @@ def main_path(torch):
     from mythril_tpu_torch.smt.concrete_eval import evaluate
     from mythril_tpu_torch.smt.serialize import from_jax_dump
     from mythril_tpu_torch.support.support_args import args
+    from tests._torch_parity import port_no_cdcl
     from tests.test_torch_fixture import disagreements, load_fixture, replay
 
     t0 = phase("main path: recorded probe traffic through the solver on the card")
@@ -393,7 +406,8 @@ def main_path(torch):
     try:
         verdicts, bad = collections.Counter(), []
         for contract in data["contracts"]:
-            results = replay(contract["queries"], roots, P)  # device=None: the card
+            with port_no_cdcl():  # recorded under the tiers without native CDCL
+                results = replay(contract["queries"], roots, P)  # device=None: the card
             bad += disagreements(contract["queries"], contract["jax_verdicts"], results, evaluate)
             for q, r in zip(contract["queries"], results):
                 if q["kind"] == "batch":
@@ -443,12 +457,14 @@ def idle_share(torch):
 
     from mythril_tpu_torch.smt import solver as P
     from mythril_tpu_torch.smt.serialize import from_jax_dump
+    from tests._torch_parity import port_no_cdcl
     from tests.test_torch_fixture import load_fixture, replay
 
     phase("idle share: the main path under torch.profiler")
     data, roots = load_fixture(from_jax_dump)
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with port_no_cdcl(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for contract in data["contracts"]:
                 replay(contract["queries"], roots, P)
@@ -876,25 +892,33 @@ class EngineSplit:
     launch) up to the kernel's completion; ``push_s``, ``pull_s``,
     ``arena_s``: ``push_state``, ``pull_harvest`` and
     ``HostArena.pull_from_device``; ``replay_s``: the walker's replay and
-    commit, which includes the issue confirmations solved inside the replay
-    (``solver_in_replay_s``); ``tape_calls``: tape VM evaluations on the
-    card.  Host clocks except ``kernel_ms``."""
+    commit, which includes the issue confirmations solved inside the replay;
+    ``solver_s``: ``SolverStatistics.solver_time`` plus the time of the
+    issue confirmations' ``Optimize.check`` calls (their CDCL sessions) and
+    of the transaction-end CDCL gate (``potential_issues._gate_issues``)
+    that it does not already count, and ``solver_in_replay_s`` the part of
+    it inside the replay;
+    ``tape_calls``: tape VM evaluations on the card.  Host clocks except
+    ``kernel_ms``."""
 
     def __init__(self, torch):
         self.torch = torch
         self.t = collections.Counter()
         self.events, self.tape_calls = [], 0
+        self.in_replay = False
 
     def __enter__(self):
+        from mythril_tpu_torch.analysis import potential_issues as PI
         from mythril_tpu_torch.frontier import engine as E
         from mythril_tpu_torch.frontier.arena import HostArena
         from mythril_tpu_torch.frontier.walker import Walker
         from mythril_tpu_torch.ops import _build, tape_vm
-        from mythril_tpu_torch.smt.solver import SolverStatistics
+        from mythril_tpu_torch.smt.solver import Optimize, SolverStatistics
 
         torch, t = self.torch, self.t
         lib = _build.load()
-        self._saved = [(E, "push_state", E.push_state), (E, "pull_harvest", E.pull_harvest),
+        self._saved = [(PI, "_gate_issues", PI._gate_issues), (Optimize, "check", Optimize.check),
+                       (E, "push_state", E.push_state), (E, "pull_harvest", E.pull_harvest),
                        (E, "cached_segment", E.cached_segment),
                        (HostArena, "pull_from_device", HostArena.pull_from_device),
                        (Walker, "replay", Walker.replay), (Walker, "commit", Walker.commit),
@@ -937,17 +961,37 @@ class EngineSplit:
 
         def replay(walker, rec):
             stats = SolverStatistics()
-            s0, t0 = stats.solver_time, time.perf_counter()
+            s0, t0, self.in_replay = stats.solver_time, time.perf_counter(), True
             try:
                 return saved[(id(Walker), "replay")](walker, rec)
             finally:
+                self.in_replay = False
                 t["replay_s"] += time.perf_counter() - t0
                 t["solver_in_replay_s"] += stats.solver_time - s0
+
+        def outside_solver_time(obj, name):
+            # the call's time less the solver_time it already adds
+            fn = saved[(id(obj), name)]
+
+            def wrapper(*a, **kw):
+                stats = SolverStatistics()
+                s0, t0 = stats.solver_time, time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    extra = time.perf_counter() - t0 - (stats.solver_time - s0)
+                    t["confirm_extra_s"] += extra
+                    if self.in_replay:
+                        t["solver_in_replay_s"] += extra
+
+            return wrapper
 
         def tape(*a, **kw):
             self.tape_calls += 1
             return saved[(id(tape_vm), "_run_tape_cuda")](*a, **kw)
 
+        PI._gate_issues = outside_solver_time(PI, "_gate_issues")
+        Optimize.check = outside_solver_time(Optimize, "check")
         E.push_state = timed(E, "push_state", "push_s", sync=True)
         E.pull_harvest = timed(E, "pull_harvest", "pull_s")
         E.cached_segment = cached_segment
@@ -968,25 +1012,33 @@ class EngineSplit:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def engine_runs(torch):
+def engine_runs(torch, cdcl: bool = False):
     """The port's analysis (``SymExecWrapper`` + ``fire_lasers``, no device
-    argument: the card) on every run of ``tests/testdata/torch_engine_runs.json``,
-    each held against the JAX package's recorded run: issue keys, step
-    counts, fixed selectors; for the frontier every dispatch's input and
-    output digests, one segment launch per dispatch, no replay or commit
-    error; the tape VM evaluated on the card once per solver device
-    dispatch.  Counts zeroed before each run and read after.  -> (summed
-    launches, per-run rows)"""
+    argument: the card) on every run of ``tests/testdata/torch_engine_runs.json``
+    with the port's native CDCL off, or of ``torch_engine_runs_cdcl.json``
+    with it on (``cdcl``), each held against the JAX package's recorded run:
+    issue keys, step counts, fixed selectors; for the frontier every
+    dispatch's input and output digests, one segment launch per dispatch, no
+    replay or commit error; the tape VM evaluated on the card once per
+    solver device dispatch; under CDCL the bench contracts' keys equal to
+    the JAX package's default-tier keys.  Counts zeroed before each run and
+    read after.  -> (summed launches, per-run rows)"""
     from mythril_tpu_torch.smt.solver import SolverStatistics
-    from tests.test_torch_engine_fixture import check_run, load_runs, run_port
+    from tests import test_torch_engine_cdcl, test_torch_engine_fixture
+    from tests.test_torch_engine_fixture import check_run
 
-    phase("engine: the port's analysis on the card against the recorded JAX runs")
+    fixture = test_torch_engine_cdcl if cdcl else test_torch_engine_fixture
+    if cdcl:
+        phase("engine under native CDCL: the port's analysis on the card against the "
+              "recorded JAX runs with CDCL on")
+    else:
+        phase("engine: the port's analysis on the card against the recorded JAX runs")
     total, rows = collections.Counter(), []
-    for run in load_runs():
+    for run in fixture.load_runs():
         label = f"{run['name']} ({'frontier' if run['frontier'] else 'host engine'})"
         zero_launches()
         with EngineSplit(torch) as split:
-            got = run_port(run, None)  # no device: the card
+            got = fixture.run_port(run, None)  # no device: the card
             torch.cuda.synchronize()
         launches = read_launches()
         total.update(launches)
@@ -994,7 +1046,8 @@ def engine_runs(torch):
         stats = SolverStatistics().as_dict()
         wall, f = got["seconds"], got["frontier"]
         t = split.t
-        solver_out = stats["solver_time"] - t["solver_in_replay_s"]
+        solver_s = stats["solver_time"] + t["confirm_extra_s"]
+        solver_out = solver_s - t["solver_in_replay_s"]
         row = {
             "run": label, "wall_s": wall, "jax_cpu_s": run["jax_cpu_seconds"],
             "issues": len(got["summary"]), "dispatches": len(got["dispatches"]),
@@ -1002,8 +1055,8 @@ def engine_runs(torch):
             "tape_calls": split.tape_calls, "device_dispatches": stats["device_dispatches"],
             "kernel_ms": split.kernel_ms(), "segment_s": t["segment_s"], "push_s": t["push_s"],
             "pull_s": t["pull_s"], "arena_s": t["arena_s"], "replay_s": t["replay_s"],
-            "solver_s": stats["solver_time"], "solver_in_replay_s": t["solver_in_replay_s"],
-            "parks": f["parks_by_reason"],
+            "solver_s": solver_s, "solver_in_replay_s": t["solver_in_replay_s"],
+            "cdcl": got["cdcl"], "held_exactly": not bad, "parks": f["parks_by_reason"],
         }
         row["rest_s"] = wall - (t["segment_s"] + t["push_s"] + t["pull_s"] + t["arena_s"]
                                 + t["replay_s"] + solver_out)
@@ -1018,13 +1071,27 @@ def engine_runs(torch):
         print(f"    split: kernel {row['kernel_ms']:.3f} ms, segment call {t['segment_s']:.4f} s, "
               f"push_state {t['push_s']:.4f} s, pull_harvest {t['pull_s']:.4f} s, arena pull "
               f"{t['arena_s']:.4f} s, walker replay + commit {t['replay_s']:.3f} s (solver inside "
-              f"{t['solver_in_replay_s']:.3f} s), solver {stats['solver_time']:.3f} s, rest of "
-              f"the host {row['rest_s']:.3f} s"
+              f"{t['solver_in_replay_s']:.3f} s), solver {solver_s:.3f} s (outside "
+              f"the replay {solver_out:.3f} s), rest of the host {row['rest_s']:.3f} s"
               + (f"; {row['path_steps_per_s']:.4g} path-steps/s of wall, "
                  f"{row['path_steps_per_kernel_s']:.4g} of kernel" if f["device_instructions"] else ""))
+        if cdcl:
+            print(f"    native CDCL: cdcl_calls {got['cdcl']['cdcl_calls']} (JAX "
+                  f"{run['cdcl']['cdcl_calls']}), {got['cdcl']['calls']} solves in "
+                  f"{got['cdcl']['seconds']:.3f} s, {got['cdcl']['timeouts']} timeouts (JAX "
+                  f"{run['cdcl']['timeouts']})")
         print(f"    JAX default tiers {run['default_tiers_keys']}; port "
               f"{[r[:5] for r in got['summary']]}")
-        check(not bad, f"{label}: differs from the recorded JAX run: {bad[:3]}")
+        # a run whose JAX recording had CDCL answers cut by their wall-clock
+        # budget cannot be held exactly: this host may answer them
+        timeouts = run["cdcl"]["timeouts"] if cdcl else 0
+        if timeouts and bad:
+            print(f"    not held exactly ({timeouts} CDCL timeouts in the JAX recording): {bad[:3]}")
+        else:
+            check(not bad, f"{label}: differs from the recorded JAX run: {bad[:3]}")
+        if cdcl and run["name"] in test_torch_engine_cdcl.BENCH:
+            check(test_torch_engine_cdcl.default_keys_match(run, got["summary"]),
+                  f"{label}: the issue keys differ from the JAX package's default tiers")
         if run["frontier"]:
             check(launches["frontier_segment"] == len(got["dispatches"]),
                   f"{label}: {launches['frontier_segment']} segment launches for "
@@ -1036,19 +1103,21 @@ def engine_runs(torch):
     return dict(total), rows
 
 
-def engine_idle_share(torch, name: str = "bectoken_like"):
-    """One frontier run of the engine phase again under ``torch.profiler``:
+def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False):
+    """One frontier run of an engine phase again under ``torch.profiler``:
     the card's busy time over the run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tests.test_torch_engine_fixture import load_runs, run_port
+    from tests import test_torch_engine_cdcl, test_torch_engine_fixture
 
-    phase(f"engine idle share: {name} (frontier) under torch.profiler")
-    run = next(r for r in load_runs() if r["name"] == name and r["frontier"])
+    fixture = test_torch_engine_cdcl if cdcl else test_torch_engine_fixture
+    phase(f"engine idle share{' under native CDCL' if cdcl else ''}: {name} (frontier) under "
+          "torch.profiler")
+    run = next(r for r in fixture.load_runs() if r["name"] == name and r["frontier"])
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            got = run_port(run, None, record=False)
+            got = fixture.run_port(run, None, record=False)
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
@@ -1065,6 +1134,17 @@ def engine_idle_share(torch, name: str = "bectoken_like"):
           + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
     return {"run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms}
+
+
+def native_library():
+    """Build the port's native CDCL library (g++) and load it; the CDCL
+    phase fails without it rather than run without the exact tier."""
+    from mythril_tpu_torch.native import bitblast, build
+
+    t0 = phase("native CDCL library (g++)")
+    path = build.library_path()
+    check(bitblast.available(), f"the native CDCL library did not build or load ({path})")
+    print(f"  {path} in {time.perf_counter() - t0:.1f} s")
 
 
 def summarize(name, rows, launches, card, **fixed):
@@ -1116,6 +1196,7 @@ def main() -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         attrs = build_kernels()
+        native_library()
         sass, local = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
@@ -1126,6 +1207,10 @@ def main() -> int:
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
             check(e_launches[name] > 0, f"the engine's runs launched {name} no time")
         e_idle = engine_idle_share(torch)
+        c_launches, c_rows = engine_runs(torch, cdcl=True)
+        for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
+            check(c_launches[name] > 0, f"the engine's CDCL runs launched {name} no time")
+        c_idle = engine_idle_share(torch, cdcl=True)
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
                            launches["keccak_f1600"], card, route="cuda",
@@ -1155,8 +1240,9 @@ def main() -> int:
         for entry in kernels:
             entry["launches_by_path"] = {
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
-                "engine": e_launches[entry["name"]]}
+                "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
+        frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

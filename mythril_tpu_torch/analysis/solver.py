@@ -29,10 +29,20 @@ log = logging.getLogger(__name__)
 def get_transaction_sequence(
     global_state: GlobalState,
     constraints: Constraints,
+    session=None,
+    session_enable=(),
 ) -> Dict:
     """Generate concrete transaction sequence satisfying ``constraints``.
 
     Raises UnsatError if no model exists/was found.
+
+    ``session``/``session_enable``: the tx-end issue gate's live CDCL
+    session (analysis/potential_issues.py), blasted once over the shared
+    path prefix + sanity bounds + these same minimization objectives, with
+    this issue's constraints behind the enable literal — the confirmation
+    solve then answers everything under assumptions instead of re-blasting
+    (the reference pays exactly one z3.Optimize per issue,
+    mythril/analysis/solver.py:51-101; this matches that solve count).
     """
     transaction_sequence = global_state.world_state.transaction_sequence
     concrete_transactions = []
@@ -40,7 +50,12 @@ def get_transaction_sequence(
     tx_constraints, minimize = _set_minimisation_constraints(
         transaction_sequence, constraints.copy(), [], 5000, global_state.world_state
     )
-    model = get_model(tx_constraints, minimize=minimize)
+    model = get_model(
+        tx_constraints,
+        minimize=minimize,
+        session=session,
+        session_enable=session_enable,
+    )
 
     # keccak terms evaluate concretely under the model — no sha replacement
     # pass needed (reference needed _replace_with_actual_sha, solver.py:128-164)

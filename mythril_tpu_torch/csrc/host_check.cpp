@@ -4,9 +4,8 @@
 // tests/test_torch_frontier_host.py).  Each entry runs the body a CUDA
 // thread runs, once per state, candidate or path.
 #include <stdint.h>
+#include <ucontext.h>
 
-#include <barrier>
-#include <thread>
 #include <vector>
 
 #include "frontier_segment.cuh"
@@ -25,36 +24,65 @@ extern "C" void mk_keccak_f1600_host(const int32_t* in, int32_t* out, long long 
   }
 }
 
-// The warp-per-state body, with 25 host threads in the warp's place: an
-// exchange publishes each thread's value, waits for all 25, reads its
-// source's and waits again, as __shfl_sync does in one instruction.
+// The warp-per-state body with the 25 lanes as coroutines of the caller's
+// thread, run phase by phase: every lane runs to its next exchange before
+// any goes on.  An exchange publishes the lane's value and yields; once all
+// 25 have published, each reads its source's and yields again, as
+// __shfl_sync does in one instruction.  One thread, so a loaded host slows
+// it down no more than any other single-threaded check.
+struct HostWarp {
+  ucontext_t main, ctx[25];
+  uint64_t buf[25];
+  const int32_t* in;
+  int32_t* out;
+  int done;
+  std::vector<char> stacks;
+};
+
+thread_local HostWarp* host_warp;
+
 struct HostExchange {
-  std::barrier<>* bar;
-  uint64_t* buf;
+  HostWarp* w;
   int lane;
   uint64_t operator()(uint64_t v, int src) {
-    buf[lane] = v;
-    bar->arrive_and_wait();
-    const uint64_t r = buf[src];
-    bar->arrive_and_wait();
+    w->buf[lane] = v;
+    swapcontext(&w->ctx[lane], &w->main);
+    const uint64_t r = w->buf[src];
+    swapcontext(&w->ctx[lane], &w->main);
     return r;
   }
 };
 
+static void host_warp_lane(int l) {
+  HostWarp* w = host_warp;
+  HostExchange ex{w, l};
+  const int32_t* s = w->in + 4 * l;
+  const uint64_t a = mk::keccak_f1600_lane(mk::lane_from_limbs(s[0], s[1], s[2], s[3]), l, ex);
+  for (int j = 0; j < 4; ++j) w->out[4 * l + j] = mk::lane_limb(a, j);
+  ++w->done;
+}
+
 extern "C" void mk_keccak_f1600_warp_host(const int32_t* in, int32_t* out, long long n) {
+  constexpr size_t kStack = 64 * 1024;
+  HostWarp w;
+  w.stacks.resize(25 * kStack);
+  host_warp = &w;
   for (long long i = 0; i < n; ++i) {
-    std::barrier<> bar(25);
-    uint64_t buf[25];
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 25; ++l)
-      lanes.emplace_back([&, l] {
-        HostExchange ex{&bar, buf, l};
-        const int32_t* s = in + i * 100 + 4 * l;
-        const uint64_t a = mk::keccak_f1600_lane(mk::lane_from_limbs(s[0], s[1], s[2], s[3]), l, ex);
-        for (int j = 0; j < 4; ++j) out[i * 100 + 4 * l + j] = mk::lane_limb(a, j);
-      });
-    for (auto& th : lanes) th.join();
+    w.in = in + i * 100;
+    w.out = out + i * 100;
+    w.done = 0;
+    for (int l = 0; l < 25; ++l) {
+      getcontext(&w.ctx[l]);
+      w.ctx[l].uc_stack.ss_sp = w.stacks.data() + l * kStack;
+      w.ctx[l].uc_stack.ss_size = kStack;
+      w.ctx[l].uc_link = &w.main;
+      makecontext(&w.ctx[l], (void (*)())host_warp_lane, 1, l);
+    }
+    // one pass per phase: each lane runs to its next yield (or its end)
+    while (w.done < 25)
+      for (int l = 0; l < 25; ++l) swapcontext(&w.main, &w.ctx[l]);
   }
+  host_warp = nullptr;
 }
 
 // One segment, candidate after candidate.  Each candidate's slot file is a

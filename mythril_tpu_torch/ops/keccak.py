@@ -1,10 +1,11 @@
 """Keccak-256 — host implementation for the PyTorch port.
 
-Pure-Python copy of ``mythril_tpu/ops/keccak.py`` (FIPS-202 family with the
-original Keccak padding 0x01, as Ethereum uses it), without the native
-library dispatch.  It is the oracle for the device hash
-(``ops/keccak_torch.py`` and the CUDA kernel) and the hash that
-``smt/concrete_eval.py`` and constant folding use.
+Copy of ``mythril_tpu/ops/keccak.py`` (FIPS-202 family with the original
+Keccak padding 0x01, as Ethereum uses it): ``keccak256`` hashes with the
+native C++ library when it is built (``native/keccak.py``), else in Python.
+``keccak256_py`` is the oracle for both and for the device hash
+(``ops/keccak_torch.py`` and the CUDA kernel); ``keccak256`` is the hash
+that ``smt/concrete_eval.py`` and constant folding use.
 """
 
 from __future__ import annotations
@@ -63,7 +64,17 @@ def keccak_f1600(lanes):
 
 
 def keccak256(data: bytes) -> bytes:
-    """Ethereum's keccak256 (rate 1088, capacity 512, pad 0x01)."""
+    """Ethereum's keccak256 (rate 1088, capacity 512, pad 0x01).
+
+    Dispatches to the native C++ implementation when built
+    (mythril_tpu_torch/native/keccak.py); ``keccak256_py`` is the portable
+    fallback and the differential oracle for both accelerated paths."""
+    from mythril_tpu_torch.native import keccak as native_keccak
+
+    if native_keccak.available():
+        digest = native_keccak.keccak256(data)
+        if digest is not None:
+            return digest
     return keccak256_py(data)
 
 

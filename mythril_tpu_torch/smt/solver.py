@@ -13,17 +13,25 @@ this slice runs:
             the same candidates as the JAX package) feeds one batched
             evaluation of the conjunction on the tape VM (the CUDA kernel
             on the card), then the exact host evaluator validates the hit;
-            local repair mutates the best candidate.
+            local repair mutates the best candidate.  When the exact tier
+            is cheap (native CDCL present, a DAG under 1500 nodes) the
+            probe gets one round and a shorter repair;
+  tier 2    native C++ bit-blasting CDCL (``native/bitblast.py``) for exact
+            UNSAT verdicts and models the probe missed, validated by
+            ``concrete_eval`` like every other model.
 
-``check_satisfiable_batch`` merges the residue of many constraint sets into
-one tape and one dispatch (``_batch_probe_device``).  A SAT answer always
-carries a model that ``concrete_eval`` validated.
+``probe_backend="cdcl"`` skips the heuristic tiers and answers with tier 2
+alone.  ``Optimize`` refines its objectives by bound queries on one
+incremental CDCL session (or a live one passed in by the transaction-end
+issue gate).  ``check_satisfiable_batch`` merges the residue of many
+constraint sets into one tape and one dispatch (``_batch_probe_device``).
+A SAT answer always carries a model that ``concrete_eval`` validated.
 
-Not in this slice: the cross-run query cache, the abstract pre-filter, the
-device bit-blast tier and native CDCL (an UNKNOWN stays UNKNOWN).  A kernel
-error raises; there is no host fallback that would hide the card.  A
-conjunction the tape cannot express (``TapeUnsupported``) is evaluated on
-the host candidate stream and counted as ``tape_unsupported``.
+Not in this slice: the cross-run query cache, the abstract pre-filter and
+the device bit-blast tier.  A kernel error raises; there is no host
+fallback that would hide the card.  A conjunction the tape cannot express
+(``TapeUnsupported``) is evaluated on the host candidate stream and counted
+as ``tape_unsupported``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from mythril_tpu_torch.device import DeviceLike, resolve
 from mythril_tpu_torch.exceptions import UnsatError
+from mythril_tpu_torch.native import bitblast
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.concrete_eval import ArrayValue, Assignment, evaluate
 from mythril_tpu_torch.smt.terms import Term, mask
@@ -57,13 +66,15 @@ UNKNOWN = "unknown"
 class SolverStatistics:
     """Process-wide solver counters (singleton).
 
+    ``cdcl_calls`` counts native CDCL solves (tier 2, the forced exact
+    mode, each Optimize session query, each issue-gate query);
     ``tape_unsupported`` counts conjunctions the tape VM could not express,
     whose candidates were evaluated on the host instead;
     ``device_dispatches`` counts tape evaluations of candidate batches."""
 
     _instance = None
     _fields = (
-        "query_count", "solver_time", "probe_hits", "unknown_as_unsat",
+        "query_count", "solver_time", "probe_hits", "cdcl_calls", "unknown_as_unsat",
         "tape_unsupported", "device_dispatches",
     )
 
@@ -1042,7 +1053,7 @@ def _device_backend_requested() -> bool:
     """Whether candidate batches are evaluated on the tape VM.
 
     ``args.probe_backend``: "device" always (the JAX package's forced "jax"
-    backend), "host" never."""
+    backend), "host" and "cdcl" (the forced exact mode) never."""
     backend = global_args.probe_backend
     if backend not in PROBE_BACKENDS:
         raise ValueError(f"probe_backend must be one of {PROBE_BACKENDS}, got {backend!r}")
@@ -1273,6 +1284,18 @@ class _ModelCache:
 _model_cache = _ModelCache()
 
 
+def remember_model(conjuncts: Sequence[Term], assignment: Assignment) -> None:
+    """Install an externally-found VALIDATED model into the cache/replay
+    tiers (the issue-confirmation gate's session models), so the next
+    solve of the same — or an extended — conjunction hits the cheap
+    replay tier instead of re-solving.  The caller owns validation."""
+    folded = terms.land(*conjuncts)
+    if folded.op == "const":
+        return
+    conj = list(folded.args) if folded.op == "and" else [folded]
+    _model_cache.remember(frozenset(c.tid for c in conj), SAT, assignment)
+
+
 def clear_model_cache() -> None:
     with _cache_lock:
         _model_cache.models = []
@@ -1320,7 +1343,8 @@ def _solve_conjunction_impl(
     # tier 0.55 (sat-biased queries only): a few directed candidates before
     # any exact-UNSAT machinery — pruning sweeps are almost always SAT, and
     # the seeder's repair passes hit in 1-3 candidates
-    if config.sat_biased:
+    if config.sat_biased and global_args.probe_backend != "cdcl":
+        # (forced-exact mode skips every heuristic tier, this one included)
         gen = CandidateGenerator(conjuncts, config)
         for asg in gen.generate(8, deadline=t0 + config.timeout_ms / 2000.0):
             vals = evaluate(conjuncts, asg)
@@ -1387,6 +1411,27 @@ def _solve_conjunction_impl(
         log.warning("independence-split merge produced an invalid model; "
                     "falling back to the joint probe")
 
+    # forced-exact mode (recall differential testing): skip the heuristic
+    # probe entirely; only exact verdicts come back
+    if global_args.probe_backend == "cdcl":
+        result: Tuple[str, Optional[Assignment]] = (UNKNOWN, None)
+        if bitblast.available():
+            stats.inc("cdcl_calls")
+            status, asg = bitblast.solve(
+                conjuncts,
+                max(1.0, t0 + config.timeout_ms / 1000.0 - time.perf_counter()),
+            )
+            if status == SAT and asg is not None:
+                vals = evaluate(conjuncts, asg)
+                if all(vals[c] for c in conjuncts):
+                    _model_cache.remember(cache_key, SAT, asg)
+                    result = (SAT, asg)
+            elif status == UNSAT:
+                _model_cache.remember(cache_key, UNSAT, None)
+                result = (UNSAT, None)
+        stats.inc("solver_time", time.perf_counter() - t0)
+        return result
+
     if gen is None:
         gen = CandidateGenerator(conjuncts, config)
     scalar_vars = gen.scalar_vars
@@ -1402,6 +1447,18 @@ def _solve_conjunction_impl(
     if extra_seeds:
         candidates.extend(extra_seeds)
     total = config.max_rounds * config.candidates_per_round
+    # when the exact tier is cheap (native CDCL present, small blast), cap
+    # the heuristic budget at one round: for UNSAT-leaning queries the full
+    # candidate stream plus the 64-mutation repair costs more than the
+    # exact answer
+    cheap_exact = False
+    if total > config.candidates_per_round:
+        cheap_exact = (
+            bitblast.available()
+            and len(terms.topo_order(list(conjuncts))) < 1500
+        )
+        if cheap_exact:
+            total = config.candidates_per_round
 
     # batched evaluation only when the deadline still has room
     compiled = (
@@ -1463,7 +1520,7 @@ def _solve_conjunction_impl(
 
     # local repair: mutate the best candidate on vars feeding failed conjuncts
     if best_asg is not None and scalar_vars:
-        for _ in range(64):
+        for _ in range(16 if cheap_exact else 64):
             if time.perf_counter() > deadline:
                 break
             asg = Assignment(
@@ -1493,6 +1550,29 @@ def _solve_conjunction_impl(
                 return SAT, asg
             if score >= best_score:
                 best_score, best_asg = score, asg
+
+    # tier 2: exact bit-blasting CDCL if the native library is available
+    if bitblast.available():
+        stats.inc("cdcl_calls")
+        budget = deadline - time.perf_counter()
+        if compiled is not None or config.prune_critical:
+            # device-path queries may have burned the deadline on the probe,
+            # and prune-critical queries kill paths on this verdict —
+            # guarantee the exact tier a minimal slice instead of silently
+            # disabling it with a nonpositive timeout.  Other host-only
+            # queries keep strict wall-clock discipline.
+            budget = max(1.0, budget)
+        status, asg = bitblast.solve(conjuncts, budget)
+        if status == SAT and asg is not None and check_asg(asg):
+            stats.inc("solver_time", time.perf_counter() - t0)
+            _model_cache.remember(cache_key, SAT, asg)
+            return SAT, asg
+        if status == UNSAT:
+            # exact verdict: safe to memoize (UNKNOWN never is — a larger
+            # budget on a later identical query may still find a model)
+            stats.inc("solver_time", time.perf_counter() - t0)
+            _model_cache.remember(cache_key, UNSAT, None)
+            return UNSAT, None
 
     stats.inc("solver_time", time.perf_counter() - t0)
     return UNKNOWN, None
@@ -1554,23 +1634,43 @@ class Solver:
 
 
 class Optimize(Solver):
-    """Objective optimization by bound search over the probe stack.
+    """Exact objective optimization via CDCL-backed bound search.
 
-    Each objective is refined lexicographically: from any model, assert
-    ``obj <= mid`` (or ``>=``) by binary search tightened by each new
-    model's value; an UNSAT bound proves the optimum, which is pinned before
-    the next objective.  Without an exact tier in this slice, a bound query
-    that comes back UNKNOWN keeps the best model found so far — never worse
-    than a plain check.
+    Each objective is refined lexicographically: starting from any model,
+    repeatedly assert ``obj <= mid`` (binary search tightened by each new
+    model's actual value) until the CDCL tier proves the bound
+    unsatisfiable — that bound is then the exact optimum and is pinned
+    (``obj == opt``) before refining the next objective.  If a bound query
+    comes back UNKNOWN (probe exhausted, no native CDCL) the best model
+    found so far is kept — never worse than a single plain check.
     """
 
+    # per-objective refinement budget: enough for calldata-size-style
+    # objectives (optima near 0 converge in a handful of steps) while
+    # bounding pathological 256-bit searches
     MAX_BOUND_STEPS = 48
 
-    def __init__(self, config: Optional[ProbeConfig] = None, device: DeviceLike = None):
+    def __init__(
+        self,
+        config: Optional[ProbeConfig] = None,
+        device: DeviceLike = None,
+        session=None,
+        session_enable: Sequence[int] = (),
+    ):
+        """``session``/``session_enable``: an externally-owned live native
+        OptimizeSession (the transaction-end issue gate's, which has
+        already blasted the shared path prefix with per-issue enable
+        literals and THESE objectives in THIS order) answers every query
+        under assumptions instead of paying a fresh blast.  The caller
+        keeps ownership: check() never closes an external session."""
         super().__init__(config, device)
         self._minimize: List = []
         self._maximize: List = []
-        # True after check() iff EVERY objective was refined to a PROVEN optimum
+        self._ext_session = session
+        self._ext_enable = tuple(session_enable)
+        # True after check() iff EVERY objective was refined to a PROVEN
+        # optimum (callers use this to decide whether the model is safe to
+        # memoize budget-independently; a truncated refinement is not)
         self.proven_optimal = True
 
     def minimize(self, expr) -> None:
@@ -1579,13 +1679,23 @@ class Optimize(Solver):
     def maximize(self, expr) -> None:
         self._maximize.append(expr.raw if hasattr(expr, "raw") else expr)
 
-    def _refine(self, conj, obj, asg, deadline: float, want_min: bool):
-        """Tighten one objective to its proven optimum (or best effort)."""
+    def _refine(self, conj, obj, asg, deadline: float, want_min: bool,
+                session=None, obj_idx: int = 0, pins=()):
+        """Tighten one objective to its proven optimum (or best effort).
+
+        With an incremental CDCL ``session`` (native OptimizeSession), each
+        bound query is answered under assumptions against the ONCE-blasted
+        formula — learned clauses persist, so the whole binary search costs
+        about one solver call.  Session SAT models are validated exactly;
+        an invalid one (keccak abstraction) falls back to the probe stack
+        for that query.  ``pins`` are the bounds already fixed for earlier
+        objectives (lexicographic ordering)."""
         width = obj.width
         top = (1 << width) - 1
 
         def cfg_step() -> ProbeConfig:
-            # clamp each step to the remaining overall budget
+            # clamp each step to the remaining overall budget so check()
+            # cannot overrun its single deadline by a step's full slice
             remaining_ms = max(1, int((deadline - time.perf_counter()) * 1000))
             return ProbeConfig(
                 max_rounds=self.config.max_rounds,
@@ -1600,6 +1710,24 @@ class Optimize(Solver):
         def ask_op(op: str, v: int):
             c = terms.const(v, width)
             bt = {"le": terms.ule, "ge": terms.uge}.get(op, terms.eq)(obj, c)
+            if session is not None:
+                SolverStatistics().inc("cdcl_calls")
+                budget = max(0.05, min(
+                    self.config.timeout_ms / 4000.0, deadline - time.perf_counter()
+                ))
+                st, a2 = session.solve(
+                    list(pins) + [(obj_idx, op, v)], budget,
+                    enable=self._ext_enable if session is self._ext_session
+                    else (),
+                )
+                if st == UNSAT:
+                    return UNSAT, None
+                if st == SAT and a2 is not None:
+                    vals = evaluate(conj + [bt], a2)
+                    if all(vals[c] for c in conj) and vals[bt]:
+                        return SAT, a2
+                    # abstraction artifact: exact validation failed — the
+                    # probe stack owns this query (a true model may exist)
             return solve_conjunction(conj + [bt], cfg_step(), device=self.device)
 
         best = value(asg)
@@ -1610,12 +1738,17 @@ class Optimize(Solver):
             if status == SAT and a2 is not None:
                 return a2, True
         steps = 0
-        max_steps = self.MAX_BOUND_STEPS
+        # value bisection over a w-bit range needs up to w steps to converge
+        # exactly; with an incremental session each step is ~a propagation,
+        # so the budget is the width (the probe path keeps the tight cap)
+        max_steps = (width + 16) if session is not None else self.MAX_BOUND_STEPS
+
         if want_min:
             lo, hi = 0, best
         else:
             # exponential-up first: doubling from the current model reaches
-            # the optimum's magnitude in log2(opt) SAT steps
+            # the optimum's magnitude in log2(opt) SAT steps and one UNSAT
+            # caps the range
             lo, hi = best, top
             while lo < hi and steps < max_steps and time.perf_counter() < deadline:
                 steps += 1
@@ -1646,7 +1779,7 @@ class Optimize(Solver):
                     hi = best
                 else:
                     lo = best
-            elif status == UNSAT:
+            elif status == UNSAT:  # exact verdict from the CDCL tier
                 if want_min:
                     lo = mid + 1
                 else:
@@ -1661,26 +1794,89 @@ class Optimize(Solver):
             c.raw if hasattr(c, "raw") else c for c in extra
         ]
         # ONE timeout budget covers the initial solve AND all refinement
+        # (support/model.py sizes it against the remaining execution time)
         deadline = time.perf_counter() + self.config.timeout_ms / 1000.0
         objectives = [(m, True) for m in self._minimize] + [
             (m, False) for m in self._maximize
         ]
-        status, asg = solve_conjunction(conj, self.config, device=self.device)
+        # initial solve: cheap tiers (fold/memo/replay) first — only a query
+        # they cannot answer pays for blasting an incremental CDCL session,
+        # which then serves the initial solve AND every bound query of every
+        # objective against the once-blasted formula (pins carry earlier
+        # objectives' achieved bounds as assumptions); unsupported structure
+        # degrades to the per-query probe/CDCL stack
+        status, asg = UNKNOWN, None
+        resolved, folded_conj, cache_key = _fast_path(conj)
+        if resolved is not None:
+            status, asg = resolved
+            if status != SAT or asg is None:
+                # cheap-tier UNSAT: no session was ever built, nothing to pay
+                self._model = None
+                return status
+        session = None
+        owns_session = True
+        if status != UNSAT and objectives:
+            if self._ext_session is not None:
+                # the caller's live session (issue gate) already blasted
+                # this formula family — reuse it, learned clauses and all
+                session = self._ext_session
+                owns_session = False
+            elif bitblast.available():
+                try:
+                    session = bitblast.OptimizeSession(
+                        conj, [obj for obj, _ in objectives]
+                    )
+                except Exception as e:
+                    log.debug("optimize session unavailable: %s", e)
+                    session = None
+        if status == UNKNOWN and session is not None:
+            SolverStatistics().inc("cdcl_calls")
+            st, a = session.solve(
+                [], max(0.05, min(self.config.timeout_ms / 2000.0,
+                                  deadline - time.perf_counter())),
+                enable=self._ext_enable if not owns_session else (),
+            )
+            if st == UNSAT:
+                _model_cache.remember(cache_key, UNSAT, None)
+                status = UNSAT
+            elif st == SAT and a is not None:
+                vals = evaluate(folded_conj, a)
+                if all(vals[c] for c in folded_conj):
+                    _model_cache.remember(cache_key, SAT, a)
+                    status, asg = SAT, a
+        if status == UNKNOWN:
+            status, asg = solve_conjunction(conj, self.config, device=self.device)
         if status != SAT or asg is None:
             self._model = None
+            if session is not None and owns_session:
+                session.close()
             return status
+        pins: List = []
         self.proven_optimal = True
-        # lexicographic: each objective's achievement is pinned before the
-        # next — exactly (==) when proven optimal, else as a bound
-        for obj, want_min in objectives:
-            asg, proven = self._refine(conj, obj, asg, deadline, want_min)
-            self.proven_optimal = self.proven_optimal and proven
-            achieved = terms.const(evaluate([obj], asg)[obj], obj.width)
-            if proven:
-                conj = conj + [terms.eq(obj, achieved)]
-            elif want_min:
-                conj = conj + [terms.ule(obj, achieved)]
-            else:
-                conj = conj + [terms.uge(obj, achieved)]
+        try:
+            # lexicographic: each objective's achievement is pinned before
+            # the next — exactly (==) when proven optimal, as a bound
+            # (<=/>=) when refinement gave up, so later objectives can
+            # never regress it
+            for i, (obj, want_min) in enumerate(objectives):
+                asg, proven = self._refine(
+                    conj, obj, asg, deadline, want_min,
+                    session=session, obj_idx=i, pins=pins,
+                )
+                self.proven_optimal = self.proven_optimal and proven
+                achieved_val = evaluate([obj], asg)[obj]
+                achieved = terms.const(achieved_val, obj.width)
+                if proven:
+                    conj = conj + [terms.eq(obj, achieved)]
+                    pins.append((i, "eq", achieved_val))
+                elif want_min:
+                    conj = conj + [terms.ule(obj, achieved)]
+                    pins.append((i, "le", achieved_val))
+                else:
+                    conj = conj + [terms.uge(obj, achieved)]
+                    pins.append((i, "ge", achieved_val))
+        finally:
+            if session is not None and owns_session:
+                session.close()
         self._model = Model(asg)
         return SAT

@@ -2,7 +2,7 @@
 
 Reference parity: mythril/support/model.py:15-63 — memoized over the constraint
 tuple, applies the solver timeout clamped by remaining execution time, raises
-UnsatError on unsat/unknown.  Here the query routes to the port's probe
+UnsatError on unsat/unknown.  Here the query routes to the port's probe/CDCL
 stack (mythril_tpu_torch/smt/solver.py) on the analysis' device
 (``args.device``, set by the entry for the run).
 """
@@ -10,7 +10,7 @@ stack (mythril_tpu_torch/smt/solver.py) on the analysis' device
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 from mythril_tpu_torch.exceptions import UnsatError
 from mythril_tpu_torch.smt.solver import Model, Optimize, ProbeConfig, SAT, UNSAT
@@ -24,8 +24,15 @@ def get_model(
     maximize=(),
     enforce_execution_time: bool = True,
     solver_timeout: Optional[int] = None,
+    session=None,
+    session_enable: Sequence[int] = (),
 ) -> Model:
-    """Solve ``constraints``; return a Model or raise UnsatError."""
+    """Solve ``constraints``; return a Model or raise UnsatError.
+
+    ``session``/``session_enable``: an externally-owned live CDCL session
+    (the tx-end issue gate's) that has already blasted this formula family —
+    the Optimize answers its initial solve and every bound query under
+    assumptions against it instead of re-blasting (caller keeps ownership)."""
     timeout = solver_timeout if solver_timeout is not None else args.solver_timeout
     if enforce_execution_time:
         timeout = min(timeout, int(max(time_handler.time_remaining(), 0) * 1000) // 2 + 1)
@@ -43,7 +50,9 @@ def get_model(
     hit = _model_memo.get(key)
     if hit is not None:
         return hit
-    model, proven = _get_model_cached(raws, min_raws, max_raws, timeout)
+    model, proven = _get_model_cached(
+        raws, min_raws, max_raws, timeout, session, session_enable
+    )
     if proven:
         # only PROVEN-optimal (or objective-free) models memoize: a
         # budget-truncated refinement must re-solve under a later, larger
@@ -62,6 +71,8 @@ def _get_model_cached(
     min_raws: tuple,
     max_raws: tuple,
     timeout: int,
+    session=None,
+    session_enable: Sequence[int] = (),
 ) -> Tuple[Model, bool]:
     # (kept as a separate function so the memo layer above stays readable;
     # ``cache_clear`` mirrors the old lru_cache surface for bench/tests)
@@ -72,6 +83,8 @@ def _get_model_cached(
             timeout_ms=timeout,
         ),
         device=args.device,
+        session=session,
+        session_enable=session_enable,
     )
     opt.add(*raws)
     for m in min_raws:

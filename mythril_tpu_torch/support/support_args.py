@@ -8,7 +8,8 @@ packed-code paging flags that ``frontier/code.py`` reads.
 (the CUDA kernel on the card, its plain PyTorch version on the CPU) and
 plays the role of the JAX package's forced ``"jax"`` backend; ``"host"``
 never dispatches and evaluates candidates with the exact host evaluator
-only.
+only; ``"cdcl"`` is the forced exact mode: every query that the cheap tiers
+leave open goes to the native CDCL solver alone.
 
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-PROBE_BACKENDS = ("device", "host")
+PROBE_BACKENDS = ("device", "host", "cdcl")
 
 
 @dataclass
@@ -46,7 +47,7 @@ class Args:
     multi_selector_seeding: bool = False
     probe_candidates: int = 48
     probe_rounds: int = 4
-    probe_backend: str = "device"  # device | host
+    probe_backend: str = "device"  # device | host | cdcl
     # the synchronous device frontier (frontier/engine.py): message-call
     # transactions run as segments of frontier_width paths
     frontier: bool = False

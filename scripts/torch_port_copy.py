@@ -6,8 +6,9 @@ state classes, the detection modules, the plugins.  The port keeps its own
 copies of them under the same relative paths (it imports nothing of
 ``mythril_tpu``).  ``COPIED`` lists the modules whose copy differs from the
 original only by the package name (``mythril_tpu`` -> ``mythril_tpu_torch``
-in imports, comments and strings); every other port module of the engine
-is edited by hand.
+in imports, comments and strings), and the C++ sources of ``native/src/``,
+which are copied byte for byte; every other port module of the engine is
+edited by hand.
 
     python3 scripts/torch_port_copy.py            # (re)write the copies
     python3 scripts/torch_port_copy.py --check    # exit 1 if a copy drifted
@@ -80,17 +81,24 @@ COPIED = (
     "analysis/module/modules/suicide.py",
     "analysis/module/modules/unchecked_retval.py",
     "analysis/module/modules/user_assertions.py",
+    "analysis/potential_issues.py",
     "frontier/records.py",
     "frontier/taint.py",
     "frontier/walker.py",
+    "native/keccak.py",
+    "native/bitblast.py",
+    "native/src/bitblast.cpp",
+    "native/src/keccak.cpp",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")
 
 
 def ported(rel: str) -> str:
-    """The port's text of one JAX module: the package name renamed."""
-    return _NAME.sub("mythril_tpu_torch", (SRC / rel).read_text())
+    """The port's text of one JAX module: the package name renamed in
+    Python, the C++ sources unchanged."""
+    text = (SRC / rel).read_text()
+    return _NAME.sub("mythril_tpu_torch", text) if rel.endswith(".py") else text
 
 
 def main(argv) -> int:

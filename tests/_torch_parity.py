@@ -3,9 +3,12 @@
 The two packages have separate term interners, so terms cross between them
 the way the port's ``serialize.from_jax_dump`` documents: dump on the JAX
 side, rebuild on the port side.  Candidate assignments are rebuilt the same
-way.  ``jax_same_tiers`` configures the JAX solver to run exactly the tiers
-the port carries (tape-VM probe forced on, no query cache, no pre-filter, no
-device bit-blast tier, no native CDCL).
+way.  ``jax_same_tiers`` configures the JAX solver to run the probe tiers the
+port carried before its native CDCL (tape-VM probe forced on, no query
+cache, no pre-filter, no device bit-blast tier, no native CDCL), and
+``port_no_cdcl`` switches the port's CDCL off the same way, so the records
+made under it still hold; ``jax_cdcl_tiers`` is the same with native CDCL
+left on, the tier set the port carries now.
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ def to_port_assignment(asg, jax_to_port: dict):
 
 
 @contextlib.contextmanager
-def jax_same_tiers():
-    """The JAX solver restricted to the port's tiers, caches cleared."""
+def _jax_tiers(cdcl: bool):
     from mythril_tpu.native import bitblast
     from mythril_tpu.querycache import configure, get_query_cache
     from mythril_tpu.smt.solver import clear_model_cache
@@ -50,7 +52,8 @@ def jax_same_tiers():
         "jax", False, False, False,
     )
     configure(enabled=False)
-    bitblast.available = lambda: False
+    if not cdcl:
+        bitblast.available = lambda: False
     clear_model_cache()
     try:
         yield
@@ -61,9 +64,35 @@ def jax_same_tiers():
         clear_model_cache()
 
 
+def jax_same_tiers():
+    """The JAX solver restricted to the port's probe tiers without native
+    CDCL, caches cleared."""
+    return _jax_tiers(cdcl=False)
+
+
+def jax_cdcl_tiers():
+    """``jax_same_tiers`` with the JAX package's native CDCL left on."""
+    return _jax_tiers(cdcl=True)
+
+
 @contextlib.contextmanager
-def port_device_backend():
-    """The port's solver with the device probe on and its caches cleared."""
+def port_no_cdcl():
+    """The port's native CDCL switched off (``bitblast.available`` returns
+    False), as ``jax_same_tiers`` does on the JAX side."""
+    from mythril_tpu_torch.native import bitblast
+
+    saved = bitblast.available
+    bitblast.available = lambda: False
+    try:
+        yield
+    finally:
+        bitblast.available = saved
+
+
+@contextlib.contextmanager
+def port_device_backend(cdcl: bool = False):
+    """The port's solver with the device probe on and its caches cleared;
+    its native CDCL off unless ``cdcl``."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
     from mythril_tpu_torch.support.support_args import args
 
@@ -71,7 +100,8 @@ def port_device_backend():
     args.probe_backend = "device"
     clear_model_cache()
     try:
-        yield
+        with contextlib.nullcontext() if cdcl else port_no_cdcl():
+            yield
     finally:
         args.probe_backend = saved
         clear_model_cache()
@@ -90,13 +120,11 @@ JAX_ENGINE_ARGS = dict(
 
 
 @contextlib.contextmanager
-def jax_engine_config():
-    """The JAX package held to the port's configuration: the port's solver
-    tiers (``jax_same_tiers``) and ``JAX_ENGINE_ARGS``, saved and restored."""
+def _jax_engine(cdcl: bool):
     from mythril_tpu.support.support_args import args
 
     saved = {k: getattr(args, k) for k in JAX_ENGINE_ARGS}
-    with jax_same_tiers():
+    with _jax_tiers(cdcl):
         for k, v in JAX_ENGINE_ARGS.items():
             setattr(args, k, v)
         try:
@@ -104,6 +132,18 @@ def jax_engine_config():
         finally:
             for k, v in saved.items():
                 setattr(args, k, v)
+
+
+def jax_engine_config():
+    """The JAX package held to the port's configuration without native
+    CDCL: ``jax_same_tiers`` and ``JAX_ENGINE_ARGS``, saved and restored."""
+    return _jax_engine(cdcl=False)
+
+
+def jax_engine_config_cdcl():
+    """``jax_engine_config`` with the JAX package's native CDCL left on
+    (``jax_cdcl_tiers``)."""
+    return _jax_engine(cdcl=True)
 
 
 def issue_key(issue) -> tuple:
@@ -186,14 +226,53 @@ def recording_dispatches(base: str, into: list):
         engine.cached_segment = orig
 
 
+@contextlib.contextmanager
+def counting_cdcl(base: str, into: dict):
+    """Count into ``into`` what ``base``'s native CDCL answered: ``calls``
+    (each ``bitblast.solve`` and ``OptimizeSession.solve``), ``seconds``
+    spent in them, and ``timeouts``, the calls that came back UNKNOWN with
+    their whole budget spent (the answer a slower or faster host can flip)."""
+    import importlib
+    import time
+
+    bitblast = importlib.import_module(f"{base}.native.bitblast")
+    into.update(calls=0, timeouts=0, seconds=0.0)
+
+    def counted(fn, budget_of):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
+            into["calls"] += 1
+            into["seconds"] += dt
+            if out[0] == bitblast.UNKNOWN and dt >= budget_of(*a, **kw):
+                into["timeouts"] += 1
+            return out
+
+        return wrapper
+
+    solve, session_solve = bitblast.solve, bitblast.OptimizeSession.solve
+    bitblast.solve = counted(solve, lambda conjuncts, timeout_s: timeout_s)
+    bitblast.OptimizeSession.solve = counted(
+        session_solve, lambda self, bounds, timeout_s, enable=(): timeout_s)
+    try:
+        yield into
+    finally:
+        bitblast.solve, bitblast.OptimizeSession.solve = solve, session_solve
+
+
 def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "dfs",
                  frontier: bool = False, force: bool = False, width: int = 64,
-                 modules=None, timeout: int = 60, device="cpu", record: bool = True) -> dict:
+                 modules=None, timeout: int = 60, device="cpu", record: bool = True,
+                 cdcl: bool = False) -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
-    ("mythril_tpu" under ``jax_engine_config``, or "mythril_tpu_torch" on
-    ``device``) with every cache cleared first.  -> {"issues", "summary",
+    ("mythril_tpu" under ``jax_engine_config`` or ``jax_engine_config_cdcl``,
+    or "mythril_tpu_torch" on ``device``, its native CDCL on only when
+    ``cdcl``) with every cache cleared first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
-    "seconds" (wall, the digests' time excluded)}"""
+    "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
+    ``counting_cdcl``'s counts), "seconds" (wall, the digests' time
+    excluded)}"""
     import importlib
     import time
 
@@ -201,14 +280,22 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
     symbolic = importlib.import_module(f"{base}.analysis.symbolic")
     security = importlib.import_module(f"{base}.analysis.security")
     stats = importlib.import_module(f"{base}.frontier.stats")
+    solver = importlib.import_module(f"{base}.smt.solver")
 
     _reset(base)
     saved = (args.frontier, args.frontier_force, args.frontier_width)
     args.frontier, args.frontier_force, args.frontier_width = frontier, force, width
-    kw = {"device": device} if base == "mythril_tpu_torch" else {}
+    port = base == "mythril_tpu_torch"
+    kw = {"device": device} if port else {}
     dispatches: list = []
+    native: dict = {}
     try:
-        with (recording_dispatches(base, dispatches) if record else contextlib.nullcontext()):
+        with contextlib.ExitStack() as stack:
+            if record:
+                stack.enter_context(recording_dispatches(base, dispatches))
+            if port and not cdcl:
+                stack.enter_context(port_no_cdcl())
+            stack.enter_context(counting_cdcl(base, native))
             t0 = time.perf_counter()
             sym = symbolic.SymExecWrapper(
                 bytes(code), address=0x0901D12E, strategy=strategy,
@@ -231,6 +318,7 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
             "replay_errors": getattr(fstats, "replay_errors", 0),
             "commit_errors": getattr(fstats, "commit_errors", 0),
         },
+        "cdcl": {"cdcl_calls": solver.SolverStatistics().cdcl_calls, **native},
         "seconds": seconds,
     }
 

@@ -5,7 +5,9 @@ A fresh interpreter with ``sys.modules["jax"] = None`` (so any ``import
 jax`` raises) imports the port, replays one batch group and one single
 query of the probe fixture on the CPU, imports the frontier modules
 (``frontier/{ops,arena,code,state,step}``, ``support/opcodes``) and runs one
-small plain segment on the CPU, imports every module of the port, runs one
+small plain segment on the CPU, builds and loads the port's native library
+(``native/bitblast``, g++ into ``mythril_tpu_torch/_build/``) and has its
+CDCL refute one formula, imports every module of the port, runs one
 whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 ``fire_lasers`` on the CPU, with the host engine and with the frontier
 forced), and reports which modules it loaded.  The same process shows that,
@@ -15,6 +17,7 @@ without a card, entry points called without ``device="cpu"`` (the solver,
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -66,6 +69,13 @@ if not torch.cuda.is_available():
         seg_raised = True
     else:
         seg_raised = False
+from mythril_tpu_torch.native import bitblast, build
+from mythril_tpu_torch.smt import terms
+native = {"available": bitblast.available(), "library": str(build.library_path())}
+if native["available"]:
+    x = terms.var("boundary_x", 32)
+    native["status"] = bitblast.solve(
+        [terms.ult(x, terms.const(5, 32)), terms.ult(terms.const(10, 32), x)], 10.0)[0]
 import importlib, pkgutil
 import mythril_tpu_torch
 for m in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
@@ -95,7 +105,7 @@ if not torch.cuda.is_available():
         sym_raised = False
 print(json.dumps({"keep": keep, "status": status, "raised": raised, "n_exec": n_exec,
                   "seg_raised": seg_raised, "opcodes": len(opcodes.OPCODES),
-                  "found": found, "sym_raised": sym_raised,
+                  "found": found, "sym_raised": sym_raised, "native": native,
                   "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
@@ -126,6 +136,10 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["found"]["False"] == [["106", 0]]
     assert got["found"]["True"][0][0] == "106" and got["found"]["True"][0][1] > 0
     assert got["sym_raised"] in (True, None)
+    # the native CDCL builds from the port's own sources wherever g++ is
+    if shutil.which("g++") or shutil.which("c++"):
+        assert got["native"]["available"] and got["native"]["status"] == "unsat"
+        assert Path(got["native"]["library"]).parent == PKG / "_build"
 
 
 def test_port_sources_name_no_jax_package():

@@ -5,7 +5,8 @@ PyTorch versions, bit for bit.
 ``__host__ __device__``; ``csrc/host_check.cpp`` wraps the body one CUDA
 thread runs (one state, one candidate) in a host loop, with the tape's slot
 file as a host array poisoned at every segment's start, and runs the
-warp-per-state keccak body on 25 host threads.  A host C++ compiler builds
+warp-per-state keccak body with its 25 lanes as coroutines of one host
+thread, phase by phase.  A host C++ compiler builds
 it into a shared library in the test's temporary directory, and
 ``tape_vm.run_segments`` drives it exactly as ``run_tape`` drives the
 kernels: the tape's slot plan, segments split at keccak steps, the spill and

@@ -8,7 +8,8 @@ machine need not have):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes, and
-the whole analysis on every recorded engine run.
+the whole analysis on every recorded engine run, without and with native
+CDCL.
 """
 
 import numpy as np
@@ -193,3 +194,19 @@ def test_engine_runs_kill_simple_through_the_frontier_on_card(card):
     got = run_port(run, None)
     assert check_run(run, got) == []
     assert step.launches - before == len(got["dispatches"]) > 0
+
+
+@pytest.mark.parametrize("frontier", [True, False], ids=["frontier", "host-engine"])
+def test_cdcl_engine_runs_rubixi_on_card(card, frontier):
+    """The whole analysis on the card with the port's native CDCL on: the
+    JAX package's recorded CDCL run (issues, dispatch digests) and its
+    default-tier issue keys."""
+    from mythril_tpu_torch.native import bitblast
+    from tests.test_torch_engine_cdcl import default_keys_match, load_runs, run_port
+    from tests.test_torch_engine_fixture import check_run
+
+    assert bitblast.available()
+    run = next(r for r in load_runs() if r["name"] == "rubixi_like" and r["frontier"] == frontier)
+    got = run_port(run, None)
+    assert check_run(run, got) == []
+    assert default_keys_match(run, got["summary"])

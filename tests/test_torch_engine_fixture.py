@@ -33,6 +33,7 @@ reproduces the smallest runs exactly.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -95,21 +96,18 @@ def compact(dispatches) -> list:
             for d in dispatches]
 
 
-def _analyze(name: str, width: int, tx: int, frontier: bool, same_tiers: bool) -> dict:
-    """One JAX analysis for the fixture: under ``jax_engine_config`` when
-    ``same_tiers``, else under the JAX package's defaults."""
-    import contextlib
+@contextlib.contextmanager
+def bounded_xla_programs():
+    """Drop the JAX package's compiled programs every 8 device evaluations.
 
+    A long analysis compiles a program per conjunction the tape cannot
+    express, and XLA maps memory for each; dropping them keeps the process
+    under its memory-map limit (it only costs recompiles)."""
     import jax
 
     from mythril_tpu.ops import lowering
     from mythril_tpu.smt import solver
-    from tests._torch_parity import issue_key, jax_engine_config, run_analysis
 
-    # a long analysis compiles a program per conjunction the tape cannot
-    # express, and XLA maps memory for each; dropping the compiled programs
-    # every few device evaluations keeps the process under its memory-map
-    # limit (it only costs recompiles)
     evaluate, calls = solver._evaluate_candidates_device, [0]
 
     def bounded(*a, **kw):
@@ -120,7 +118,19 @@ def _analyze(name: str, width: int, tx: int, frontier: bool, same_tiers: bool) -
         return evaluate(*a, **kw)
 
     solver._evaluate_candidates_device = bounded
-    with jax_engine_config() if same_tiers else contextlib.nullcontext():
+    try:
+        yield
+    finally:
+        solver._evaluate_candidates_device = evaluate
+
+
+def _analyze(name: str, width: int, tx: int, frontier: bool, same_tiers: bool) -> dict:
+    """One JAX analysis for the fixture: under ``jax_engine_config`` when
+    ``same_tiers``, else under the JAX package's defaults."""
+    from tests._torch_parity import issue_key, jax_engine_config, run_analysis
+
+    with bounded_xla_programs(), (
+            jax_engine_config() if same_tiers else contextlib.nullcontext()):
         run = run_analysis("mythril_tpu", code_of(name), tx_count=tx, strategy=STRATEGY,
                            frontier=frontier, force=frontier, width=width, timeout=TIMEOUT,
                            record=same_tiers)
