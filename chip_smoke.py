@@ -73,6 +73,20 @@ Phases, in order; any failure exits nonzero and prints no result:
    their wall-clock budget (``timeouts``) cannot be held exactly: a
    difference there is reported, not failed, and its keys must still equal
    the default-tier keys.  Then ``bectoken_like`` under ``torch.profiler``;
+8c. the command line: ``interfaces.cli.main`` in process, with no
+   ``--device`` (the card), on the recorded command lines of
+   ``tests/testdata/torch_cli_runs.json`` for ``etherstore_like``,
+   ``rubixi_like`` and ``kill_simple`` (2 transactions, forced frontier of
+   256 paths, native CDCL on); each jsonv2 report equal to the JAX CLI's
+   (``tests/test_torch_cli.py`` ``differences``), counts zeroed before each
+   run and read after, one segment launch per frontier segment, one tape
+   evaluation on the card per solver device dispatch; per run the CLI's
+   wall beside ``SymExecWrapper`` + ``fire_lasers`` alone on the same
+   contract and parameters, in turns (CLI, wrapper, wrapper, CLI), and
+   beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
+   on ``kill_simple`` in a process of its own, which must exit 0 with the
+   ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
+   limit, which must be refused before any launch;
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -1136,6 +1150,123 @@ def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False):
             "idle_share": 1 - busy_ms / wall_ms}
 
 
+def wrapper_seconds(torch, argv) -> float:
+    """``SymExecWrapper`` + ``fire_lasers`` alone on a command line's contract
+    with its parameters (the CLI's address, strategy, transactions and
+    frontier), on the card, caches cleared first as for the CLI: the same
+    analysis without the CLI and the facade."""
+    from mythril_tpu_torch.analysis.security import fire_lasers
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.core import cfg
+    from mythril_tpu_torch.frontend.evmcontract import EVMContract
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+    from tests._torch_parity import _reset
+
+    p = cli.create_parser().parse_args(argv)
+    saved = (args.frontier, args.frontier_force, args.frontier_width)
+    args.frontier, args.frontier_force, args.frontier_width = (p.frontier, p.frontier_force,
+                                                                p.frontier_width)
+    _reset("mythril_tpu_torch")
+    cfg.gbl_next_uid[0] = 0
+    try:
+        t0 = time.perf_counter()
+        sym = SymExecWrapper(EVMContract(code=p.code.replace("0x", ""), name="MAIN"),
+                             "0x" + "0" * 38 + "06", strategy=p.strategy,
+                             transaction_count=p.transaction_count)
+        fire_lasers(sym)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    finally:
+        args.frontier, args.frontier_force, args.frontier_width = saved
+
+
+def cli_runs(torch, card: str, engine_rows: list):
+    """Phase 8c (see the module docstring) -> (summed launches, per-run rows)."""
+    import os
+    import tempfile
+
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.frontier.stats import FrontierStatistics
+    from mythril_tpu_torch.smt.solver import SolverStatistics
+    from tests import test_torch_cli as T
+
+    phase("command line: the port's CLI on the card against the recorded JAX CLI")
+    os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
+    walls = {r["run"]: r["wall_s"] for r in engine_rows}
+    runs = T.load_runs()
+    total, rows = collections.Counter(), []
+    for name in T.BENCH:
+        run = runs[name]
+        zero_launches()
+        with EngineSplit(torch) as split:
+            t0 = time.perf_counter()
+            rc, out = T.run_port(run["argv"], device=None)  # no --device: the card
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        total.update(launches)
+        stats, segments = SolverStatistics(), FrontierStatistics().segments
+        tape_calls, dispatches = split.tape_calls, stats.device_dispatches
+        check(rc == 0, f"{name}: the CLI exited {rc}")
+        diffs = T.differences("jsonv2", run["stdout"], out)
+        check(not diffs, f"{name}: the port's report differs from the JAX CLI's: {diffs[:3]}")
+        check(launches["frontier_segment"] == segments > 0,
+              f"{name}: {launches['frontier_segment']} segment launches for {segments} segments")
+        check(tape_calls == dispatches,
+              f"{name}: {tape_calls} tape evaluations on the card for {dispatches} solver "
+              "device dispatches")
+        check(launches["tape_vm"] >= tape_calls, f"{name}: tape calls without a launch")
+        # the same analysis with and without the CLI and facade, in turns
+        w1 = wrapper_seconds(torch, run["argv"])
+        w2 = wrapper_seconds(torch, run["argv"])
+        t0 = time.perf_counter()
+        T.run_port(run["argv"], device=None)
+        torch.cuda.synchronize()
+        cli2 = time.perf_counter() - t0
+        engine = walls.get(f"{name.split('/')[0]} (frontier)")
+        row = {"run": name, "cli_wall_s": [wall, cli2], "wrapper_wall_s": [w1, w2],
+               "overhead_s": (wall + cli2 - w1 - w2) / 2, "engine_phase_wall_s": engine,
+               "jax_cli_cpu_s": run["jax_cpu_seconds"], "launches": launches,
+               "segments": segments, "tape_calls": tape_calls, "device_dispatches": dispatches,
+               "kernel_ms": split.kernel_ms(), "card": card}
+        rows.append(row)
+        print(f"  {name}: CLI {wall:.3f} s (checked) and {cli2:.3f} s, SymExecWrapper + "
+              f"fire_lasers alone {w1:.3f} and {w2:.3f} s (in turns: CLI, wrapper, wrapper, "
+              f"CLI), overhead {row['overhead_s']:+.4f} s; engine phase's run of the contract "
+              + (f"{engine:.3f} s" if engine is not None else "none") + f" ({card}); JAX CLI "
+              f"on the CPU {run['jax_cpu_seconds']:.1f} s; launches {launches}, {segments} "
+              f"segments, tape calls {tape_calls} for {dispatches} solver device dispatches, "
+              f"kernel {row['kernel_ms']:.3f} ms")
+
+    argv = ["analyze", "-f", "tests/testdata/inputs/kill_simple.bin-runtime", "--bin-runtime",
+            "-t", "1", "-m", "AccidentallyKillable", "-o", "jsonv2", "--frontier"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", *argv], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"  python -m mythril_tpu_torch {' '.join(argv)}: exit {proc.returncode} in {wall:.2f} s "
+          f"(the process, its imports and the kernel library's load included)")
+    check(proc.returncode == 0, f"python -m mythril_tpu_torch failed: {proc.stderr[-2000:]}")
+    issues = T._last_json_line(proc.stdout)[0]["issues"]
+    steps = issues[0]["extra"]["testCases"][0]["steps"] if issues else []
+    check(len(issues) == 1 and steps[-1]["input"].startswith("0x41c0e1b5"),
+          f"python -m mythril_tpu_torch: no kill() exploit in {proc.stdout[-1000:]}")
+    rows.append({"run": "python -m mythril_tpu_torch (kill_simple, 1 tx, --frontier)",
+                 "cli_wall_s": wall, "card": card})
+
+    limit = fstep.max_paths(torch.device("cuda"))
+    zero_launches()
+    rc, _ = T.run_port(argv[:-3] + ["-o", "json", "--frontier", "--frontier-force",
+                                    "--frontier-width", str(limit + fstep.BLOCK)], device=None)
+    launches = read_launches()
+    print(f"  --frontier-width {limit + fstep.BLOCK} (the card holds {limit} paths, "
+          f"{limit // fstep.BLOCK} blocks): exit {rc}, launches {launches}")
+    check(rc == 2 and not any(launches.values()),
+          "a frontier width over the card's limit was not refused before any launch")
+    return dict(total), rows
+
+
 def native_library():
     """Build the port's native CDCL library (g++) and load it; the CDCL
     phase fails without it rather than run without the exact tier."""
@@ -1211,6 +1342,9 @@ def main() -> int:
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
             check(c_launches[name] > 0, f"the engine's CDCL runs launched {name} no time")
         c_idle = engine_idle_share(torch, cdcl=True)
+        cli_launches, cli_rows = cli_runs(torch, card, c_rows)
+        for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
+            check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
                            launches["keccak_f1600"], card, route="cuda",
@@ -1240,9 +1374,11 @@ def main() -> int:
         for entry in kernels:
             entry["launches_by_path"] = {
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
-                "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]]}
+                "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
+                "cli": cli_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
+        frontier["cli"] = {"runs": cli_rows}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

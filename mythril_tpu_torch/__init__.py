@@ -11,3 +11,5 @@ g++ builds into ``_build/`` at first use.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.py``).
 """
+
+__version__ = "0.1.0"

@@ -3,7 +3,10 @@
 Reference parity: mythril/laser/execution_info.py:4-11 — engines expose
 ``ExecutionInfo`` objects whose ``as_dict`` payloads are merged into the
 jsonv2 report meta (mythril/analysis/report.py:319-320).  This build ships
-two concrete infos: engine totals and solver statistics.
+engine totals, solver statistics and the frontier's counters, each in the
+JAX package's report shape (its keys and its rounding), so that the two
+packages' reports compare field by field.  The port has no
+``CalibrationInfo``: it has no ``auto`` probe backend to calibrate.
 """
 
 from __future__ import annotations
@@ -38,7 +41,15 @@ class SolverStatsInfo(ExecutionInfo):
     def as_dict(self) -> Dict:
         from mythril_tpu_torch.smt.solver import SolverStatistics
 
-        return SolverStatistics().as_dict()
+        stats = SolverStatistics()
+        return {
+            "solver_query_count": stats.query_count,
+            "solver_time_s": round(stats.solver_time, 3),
+            "probe_hits": stats.probe_hits,
+            "cdcl_calls": stats.cdcl_calls,
+            # completeness boundary: prune decisions taken on UNKNOWN
+            "unknown_as_unsat": stats.unknown_as_unsat,
+        }
 
 
 class FrontierStatsInfo(ExecutionInfo):
@@ -48,4 +59,9 @@ class FrontierStatsInfo(ExecutionInfo):
     def as_dict(self) -> Dict:
         from mythril_tpu_torch.frontier.stats import FrontierStatistics
 
-        return {"frontier": FrontierStatistics().as_dict()}
+        stats = FrontierStatistics().as_dict()
+        keys = ("device_instructions", "device_paths", "segments", "segment_s", "harvest_s",
+                "mid_injections", "mid_encode_failures", "semantic_parks", "parks_by_opcode",
+                "parks_by_reason")
+        # one card, no mesh: no segment ran path-sharded
+        return {"frontier": {**{k: stats[k] for k in keys}, "mesh_devices": 0}}

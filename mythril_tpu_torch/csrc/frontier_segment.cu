@@ -337,3 +337,18 @@ extern "C" int mk_frontier_segment_shape(const SegArgs* args, int* block, int* g
     *resident = fit->max_grid;
   return 0;
 }
+
+// The widest segment mk_frontier_segment launches on the current device:
+// paths up to the first cluster size the card cannot schedule, or, when it
+// schedules every cluster size, the cooperative grid's resident blocks
+// (fit_of's max_grid) times kBlock.  A wider B is refused at launch.
+extern "C" int mk_frontier_max_paths(int* paths) {
+  Fit* fit = nullptr;
+  const cudaError_t e = fit_of(&fit);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 1;
+  while (blocks < kMaxCluster && fit->max_clusters[blocks + 1] >= 1) ++blocks;
+  if (blocks == kMaxCluster && fit->max_grid > kMaxCluster) blocks = fit->max_grid;
+  *paths = blocks * kBlock;
+  return 0;
+}

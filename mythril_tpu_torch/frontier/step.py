@@ -965,6 +965,23 @@ def launch_shape(lib, args) -> dict:
     return dict(zip(("block", "blocks", "cluster", "resident"), (v.value for v in vals)))
 
 
+def max_paths(device) -> int:
+    """The widest segment (paths, B) that ``segment_cuda`` can launch on the
+    CUDA ``device``: the card's own limit (``mk_frontier_max_paths``, from the
+    cooperative grid's resident blocks), queried once per device by the
+    library.  Builds the kernels if needed."""
+    from mythril_tpu_torch.ops import _build
+
+    lib = _build.load()
+    paths = ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = lib.mk_frontier_max_paths(ctypes.byref(paths))
+    if rc != 0:
+        raise _build.KernelLaunchError(
+            f"frontier_segment: CUDA error {rc} querying the widest launch")
+    return paths.value
+
+
 @lru_cache(maxsize=16)
 def _cached(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int, loops_cap: int):
     def segment(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,

@@ -1,0 +1,674 @@
+"""The port's command line: ``python -m mythril_tpu_torch analyze ...``.
+
+Reference parity: mythril/interfaces/cli.py:236-935, by way of the JAX
+package's ``interfaces/cli.py``, whose option names, defaults and choices
+the port keeps for every option it has.  Subcommands: analyze (a),
+disassemble (d), safe-functions, list-detectors, read-storage,
+function-to-hash, hash-to-address, version, help.
+
+What differs from the JAX command line:
+
+* ``--device {cuda,cpu}`` (default ``cuda``) picks the analysis' device,
+  the port's counterpart of ``JAX_PLATFORMS``.  Without a card ``analyze``
+  fails with ``NoCudaDevice`` unless ``--device cpu`` is given; nothing
+  moves to the CPU on its own.
+* ``--probe-backend`` has the port's backends: ``device`` (the default, the
+  role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
+* The switches that turn a default-on JAX tier off (``--no-staticpass``,
+  ``--no-pipeline``, ...) are accepted: the port runs without those tiers
+  until they are ported, and ``analyze`` names them on one stderr line.
+* Every other JAX option or subcommand the port lacks is refused with exit
+  code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
+  worker counts, the devsolver's budgets and the heartbeat period are
+  accepted at their JAX defaults only.
+* With ``--frontier`` on the card, a ``--frontier-width`` wider than the
+  card's resident cooperative grid is refused before the analysis starts.
+
+``main(argv)`` takes the argument list, so tests and scripts drive it in
+process; it restores the process-wide flags it wrote when it returns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+from typing import List, Optional, Sequence
+
+from mythril_tpu_torch import __version__
+from mythril_tpu_torch.device import DeviceError
+from mythril_tpu_torch.exceptions import CriticalError, MythrilBaseException
+from mythril_tpu_torch.support.support_args import PROBE_BACKENDS
+
+log = logging.getLogger(__name__)
+
+PROG = "myth-tpu-torch"
+COMMAND_ALIASES = {"a": "analyze", "d": "disassemble"}
+ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
+
+# What the JAX command line has and the port does not yet: option or
+# subcommand -> the ROADMAP Queue A item that ports it.
+NOT_YET_PORTED = {
+    "--benchmark": 13,
+    "--checkpoint-file": 13,
+    "--resume-from": 13,
+    "--query-cache-dir": 9,
+    "--devsolver-bit-budget": 7,
+    "--devsolver-iters": 7,
+    "--coverage-target": 5,
+    "--solver-workers": 11,
+    "--harvest-workers": 11,
+    "--compile-cache-dir": 13,
+    "--cache-root": 13,
+    "--staticpass-report": 3,
+    "--trace-out": 13,
+    "--metrics-out": 13,
+    "--coverage-out": 5,
+    "--heartbeat-out": 13,
+    "--heartbeat-interval": 13,
+    "--flight-recorder": 13,
+    "--watchdog-deadline": 13,
+    "--history-dir": 13,
+    "--probe-backend auto": 10,
+    "static": 3,
+    "concolic": 4,
+    "c": 4,
+    "serve": 13,
+    "submit": 13,
+    "top": 13,
+    "health": 13,
+    "history": 13,
+    "drift": 13,
+}
+# refused options that the port accepts at their JAX default, and runs as
+# that default: option -> (type, default)
+AT_DEFAULT_ONLY = {
+    "--solver-workers": (int, 2),
+    "--harvest-workers": (int, 4),
+    "--devsolver-bit-budget": (int, 64),
+    "--devsolver-iters": (int, 2048),
+    "--heartbeat-interval": (float, 0.5),
+}
+# the JAX switches that turn a default-on tier off: dest -> (the tier, item)
+RUNS_WITHOUT = {
+    "no_staticpass": ("the static pass", 3),
+    "no_staticpass_interproc": ("the interprocedural static pass", 3),
+    "pipeline": ("the pipelined frontier", 11),
+    "prefilter": ("the known-bits prefilter", 6),
+    "devsolver": ("the devsolver", 7),
+    "no_query_cache": ("the query cache", 9),
+    "frontier_mesh": ("the device mesh", 12),
+    "adaptive": ("the adaptive controller", 5),
+}
+
+
+class Refused(Exception):
+    """An option or subcommand the port does not have yet, or a frontier
+    width the card cannot hold; the CLI exits with code 2."""
+
+
+def refusal(what: str, item: int) -> Refused:
+    return Refused(f"{what} is not ported yet (ROADMAP Queue A item {item}); "
+                   "the port refuses it rather than ignore it")
+
+
+def exit_with_error(format_: str, message: str) -> int:
+    if format_ in ("text", "markdown"):
+        log.error(message)
+    else:
+        result = {"success": False, "error": str(message), "issues": []}
+        print(json.dumps(result))
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# parser construction
+# ---------------------------------------------------------------------------
+
+
+def _add_verbosity(parser) -> None:
+    parser.add_argument(
+        "-v", type=int, default=2, metavar="LOG_LEVEL", help="log level (0-5)"
+    )
+
+
+def _add_device(parser) -> None:
+    parser.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="device of the analysis: the CUDA card (default; fails without "
+        "one) or the CPU, which runs the kernels' plain PyTorch versions",
+    )
+
+
+def _add_rpc_options(parser) -> None:
+    group = parser.add_argument_group("RPC options")
+    group.add_argument("--rpc", help="custom RPC settings (host:port, ganache, infura-<net>)")
+    group.add_argument("--rpctls", type=bool, default=False, help="RPC connection over TLS")
+    group.add_argument("--infura-id", help="infura project id")
+
+
+def _add_input_options(parser) -> None:
+    parser.add_argument("solidity_files", nargs="*", help="solidity smart contract files")
+    parser.add_argument("-c", "--code", metavar="BYTECODE", help="hex-encoded creation bytecode")
+    parser.add_argument(
+        "-f", "--codefile", metavar="BYTECODEFILE", help="file containing hex-encoded bytecode"
+    )
+    parser.add_argument("-a", "--address", metavar="ADDRESS", help="contract address on chain")
+    parser.add_argument("--bin-runtime", action="store_true", help="input is runtime (deployed) code")
+    parser.add_argument("--solc-json", help="solc standard-json settings file")
+    parser.add_argument("--solv", metavar="SOLC_VERSION", help="solc version to use")
+
+
+def _runs_without(parser, flag: str, dest: str, inverted: bool) -> None:
+    """A JAX switch that turns a default-on tier off; the port runs without
+    the tier either way."""
+    tier, item = RUNS_WITHOUT[dest]
+    help_ = (f"accepted for the JAX command line: the port runs without {tier} "
+             f"until it is ported (ROADMAP Queue A item {item})")
+    if inverted:
+        parser.add_argument(flag, action="store_false", dest=dest, default=True, help=help_)
+    else:
+        parser.add_argument(flag, action="store_true", help=help_)
+
+
+def _add_analysis_options(parser) -> None:
+    group = parser.add_argument_group("analysis options")
+    group.add_argument(
+        "-m", "--modules", metavar="MODULES", help="comma-separated detection modules"
+    )
+    group.add_argument("--max-depth", type=int, default=128, help="max instruction depth")
+    group.add_argument(
+        "--strategy",
+        choices=["dfs", "bfs", "naive-random", "weighted-random", "beam-search"],
+        default="bfs",
+        help="search strategy",
+    )
+    group.add_argument("--loop-bound", type=int, default=3, help="loop iteration bound")
+    group.add_argument("--call-depth-limit", type=int, default=3, help="message-call depth limit")
+    group.add_argument(
+        "-t", "--transaction-count", type=int, default=2, help="maximum number of transactions"
+    )
+    group.add_argument(
+        "--execution-timeout", type=int, default=86400, help="global timeout (seconds)"
+    )
+    group.add_argument("--create-timeout", type=int, default=10, help="creation tx timeout (seconds)")
+    group.add_argument("--solver-timeout", type=int, default=10000, help="per-query timeout (ms)")
+    group.add_argument("--solver-log", help="directory for solver query dumps")
+    group.add_argument("--parallel-solving", action="store_true", help="batched parallel solving")
+    group.add_argument(
+        "--unconstrained-storage",
+        action="store_true",
+        help="treat all storage as unconstrained symbols",
+    )
+    group.add_argument("--sparse-pruning", action="store_true", help="skip reachability pruning")
+    group.add_argument(
+        "--disable-dependency-pruning", action="store_true", help="disable dependency pruner"
+    )
+    group.add_argument("--enable-iprof", action="store_true", help="instruction profiler")
+    group.add_argument(
+        "--no-onchain-data", action="store_true", help="do not fetch on-chain data via RPC"
+    )
+    group.add_argument(
+        "--enable-coverage-strategy", action="store_true", help="coverage-driven search"
+    )
+    group.add_argument(
+        "--custom-modules-directory", default="", help="directory with additional detection modules"
+    )
+    group.add_argument(
+        "--probe-backend",
+        choices=PROBE_BACKENDS,
+        default="device",
+        help="constraint-probe backend: device (the tape VM on the analysis' "
+        "device; the JAX package's forced jax), host (CPU big-int), cdcl "
+        "(forced exact — recall differential testing); the JAX package's "
+        "auto is not ported yet (ROADMAP Queue A item 10)",
+    )
+    group.add_argument(
+        "--frontier",
+        action="store_true",
+        help="run message-call transactions on the batched device-resident "
+        "frontier interpreter (the frontier segment kernel; host engine "
+        "handles the rest)",
+    )
+    group.add_argument(
+        "--frontier-width",
+        type=int,
+        default=64,
+        help="device frontier batch width (paths held on device); on the "
+        "card at most what its cooperative grid holds resident",
+    )
+    group.add_argument(
+        "--frontier-force",
+        action="store_true",
+        help="bypass the a-priori narrow-width gate and put even tiny "
+        "seed sets on the device frontier (differential testing / CI "
+        "smoke; normally the gate keeps small contracts on the faster "
+        "host path)",
+    )
+    _runs_without(group, "--no-query-cache", "no_query_cache", inverted=False)
+    group.add_argument(
+        "--no-code-paging",
+        action="store_false",
+        dest="code_paging",
+        default=True,
+        help="disable the large-code frontier (per-code bucket isolation "
+        "and packed-code paging) and pad every code to one corpus-wide "
+        "size bucket; the issue set is identical either way",
+    )
+    group.add_argument(
+        "--code-page-budget",
+        type=int,
+        default=2048,
+        metavar="N",
+        help="instruction-axis residency budget for packed-code paging: "
+        "codes beyond the grown bucket of N instructions keep only a "
+        "window of that size device-resident, cold jumps fault to the "
+        "host for a sync-point repack (0 keeps bucket isolation only)",
+    )
+    _runs_without(group, "--no-pipeline", "pipeline", inverted=True)
+    _runs_without(group, "--no-prefilter", "prefilter", inverted=True)
+    _runs_without(group, "--no-devsolver", "devsolver", inverted=True)
+    _runs_without(group, "--no-mesh", "frontier_mesh", inverted=True)
+    _runs_without(group, "--no-adaptive", "adaptive", inverted=True)
+    _runs_without(group, "--no-staticpass", "no_staticpass", inverted=False)
+    _runs_without(group, "--no-staticpass-interproc", "no_staticpass_interproc", inverted=False)
+    _add_device(group)
+
+
+def _add_output_options(parser) -> None:
+    parser.add_argument(
+        "-o",
+        "--outform",
+        choices=["text", "markdown", "json", "jsonv2"],
+        default="text",
+        help="output format",
+    )
+    parser.add_argument("--graph", metavar="HTML_FILE", help="export call graph HTML")
+    parser.add_argument(
+        "--statespace-json", metavar="JSON_FILE", help="export statespace json"
+    )
+    parser.add_argument("--enable-physics", action="store_true", help="graph physics")
+    parser.add_argument("--epic", action="store_true", help=argparse.SUPPRESS)
+
+
+def create_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog=PROG,
+        description="Security analysis of Ethereum smart contracts (PyTorch/CUDA port)",
+    )
+    parser.add_argument("--version", action="store_true", help="print version and exit")
+    subparsers = parser.add_subparsers(dest="command")
+
+    analyze = subparsers.add_parser("analyze", aliases=["a"], help="analyze a contract")
+    _add_input_options(analyze)
+    _add_analysis_options(analyze)
+    _add_output_options(analyze)
+    _add_rpc_options(analyze)
+    _add_verbosity(analyze)
+
+    disassemble = subparsers.add_parser(
+        "disassemble", aliases=["d"], help="disassemble a contract"
+    )
+    _add_input_options(disassemble)
+    _add_rpc_options(disassemble)
+    _add_verbosity(disassemble)
+
+    safe = subparsers.add_parser(
+        "safe-functions", help="check functions which are completely safe using symbolic execution"
+    )
+    _add_input_options(safe)
+    _add_analysis_options(safe)
+    _add_rpc_options(safe)
+    _add_verbosity(safe)
+
+    listd = subparsers.add_parser("list-detectors", help="list available detection modules")
+    _add_output_options(listd)
+
+    reads = subparsers.add_parser("read-storage", help="read storage slots from a contract")
+    reads.add_argument("address", help="contract address")
+    reads.add_argument(
+        "storage_slots", nargs="+", help="position [length] | mapping pos key... | pos len array"
+    )
+    _add_rpc_options(reads)
+
+    f2h = subparsers.add_parser("function-to-hash", help="4-byte selector of a signature")
+    f2h.add_argument("func_name", help="e.g. 'transfer(address,uint256)'")
+
+    h2a = subparsers.add_parser("hash-to-address", help="look up signatures for a selector")
+    h2a.add_argument("hash", help="e.g. 0xa9059cbb")
+
+    subparsers.add_parser("version", help="print version")
+    subparsers.add_parser("help", help="print help")
+    return parser
+
+
+# ---------------------------------------------------------------------------
+# what the port refuses
+# ---------------------------------------------------------------------------
+
+
+def _command_of(argv: Sequence[str]) -> Optional[str]:
+    """The subcommand: the first argument that is not an option (the top
+    parser's only options are -h and --version, which take no value)."""
+    return next((a for a in argv if not a.startswith("-")), None)
+
+
+def screen(argv: Sequence[str]) -> List[str]:
+    """``argv`` with what the port accepts only at its JAX default taken out;
+    raises ``Refused`` for an unported subcommand or option."""
+    command = _command_of(argv)
+    if command in NOT_YET_PORTED:
+        raise refusal(f"the subcommand {command!r}", NOT_YET_PORTED[command])
+    if command not in ANALYSIS_COMMANDS:
+        return list(argv)
+    out, i = [], 0
+    while i < len(argv):
+        opt, eq, value = argv[i].partition("=")
+        if opt not in NOT_YET_PORTED:
+            out.append(argv[i])
+            if opt == "--probe-backend":
+                value = value if eq else (argv[i + 1] if i + 1 < len(argv) else "")
+                if value == "auto":
+                    raise refusal("--probe-backend auto", NOT_YET_PORTED["--probe-backend auto"])
+            i += 1
+            continue
+        if opt not in AT_DEFAULT_ONLY:
+            raise refusal(opt, NOT_YET_PORTED[opt])
+        if not eq:
+            i += 1
+            value = argv[i] if i < len(argv) else ""
+        type_, default = AT_DEFAULT_ONLY[opt]
+        try:
+            at_default = type_(value) == default
+        except ValueError:
+            at_default = False
+        if not at_default:
+            raise refusal(f"{opt} {value} (other than its default {default})", NOT_YET_PORTED[opt])
+        i += 1
+    return out
+
+
+def check_frontier_width(parsed) -> None:
+    """On the card, refuse a ``--frontier-width`` wider than the segment
+    kernel can launch, before anything runs; the CPU has no such limit."""
+    if not parsed.frontier or parsed.device == "cpu":
+        return
+    from mythril_tpu_torch.device import resolve
+    from mythril_tpu_torch.frontier.step import max_paths
+
+    limit = max_paths(resolve(parsed.device))
+    if parsed.frontier_width > limit:
+        raise Refused(
+            f"--frontier-width {parsed.frontier_width}: this card runs at most {limit} paths "
+            "in one frontier segment (its resident cooperative grid); use a smaller width")
+
+
+def runs_without_line(parsed) -> str:
+    """The stderr line naming the JAX default tiers this build runs without,
+    and which of them the command line switched off itself."""
+    tiers = [tier for tier, _item in RUNS_WITHOUT.values()]
+    asked = [tier for dest, (tier, _item) in RUNS_WITHOUT.items()
+             if getattr(parsed, dest) == dest.startswith("no_")]
+    line = (f"{PROG}: this build runs without these default tiers of the JAX package "
+            f"(ROADMAP Queue A): {', '.join(tiers)}")
+    return line + (f"; switched off on the command line: {', '.join(asked)}" if asked else "")
+
+
+# ---------------------------------------------------------------------------
+# command execution
+# ---------------------------------------------------------------------------
+
+
+def _set_logging(level: int) -> None:
+    levels = {
+        0: logging.NOTSET,
+        1: logging.CRITICAL,
+        2: logging.ERROR,
+        3: logging.WARNING,
+        4: logging.INFO,
+        5: logging.DEBUG,
+    }
+    logging.basicConfig(level=levels.get(level, logging.ERROR))
+
+
+def _load_code(parsed, disassembler) -> Optional[str]:
+    """Load input contracts into the disassembler; returns target address."""
+    address = None
+    try:
+        if parsed.code:
+            address, _ = disassembler.load_from_bytecode(parsed.code, parsed.bin_runtime)
+        elif parsed.codefile:
+            with open(parsed.codefile) as f:
+                code = f.read().strip()
+            address, _ = disassembler.load_from_bytecode(code, parsed.bin_runtime)
+        elif parsed.address:
+            address, _ = disassembler.load_from_address(parsed.address)
+        elif parsed.solidity_files:
+            address, _ = disassembler.load_from_solidity(parsed.solidity_files)
+        else:
+            raise CriticalError(
+                "no input bytecode or Solidity file specified; see --help"
+            )
+    except ValueError as e:
+        raise CriticalError(f"invalid bytecode input: {e}") from e
+    except FileNotFoundError as e:
+        raise CriticalError(str(e)) from e
+    return address
+
+
+def _disassembler(parsed):
+    from mythril_tpu_torch.facade.mythril_config import MythrilConfig
+    from mythril_tpu_torch.facade.mythril_disassembler import MythrilDisassembler
+
+    config = MythrilConfig()
+    if getattr(parsed, "infura_id", None):
+        config.infura_id = parsed.infura_id
+    if parsed.rpc and not getattr(parsed, "no_onchain_data", False):
+        config.set_api_rpc(parsed.rpc, parsed.rpctls)
+    return MythrilDisassembler(
+        eth=config.eth,
+        solc_version=getattr(parsed, "solv", None),
+        solc_settings_json=getattr(parsed, "solc_json", None),
+    )
+
+
+def _build_analyzer(parsed):
+    from mythril_tpu_torch.facade.mythril_analyzer import AnalyzerArgs, MythrilAnalyzer
+
+    check_frontier_width(parsed)
+    disassembler = _disassembler(parsed)
+    address = _load_code(parsed, disassembler)
+    modules = parsed.modules.split(",") if parsed.modules else None
+    cmd_args = AnalyzerArgs(
+        strategy=parsed.strategy,
+        max_depth=parsed.max_depth,
+        execution_timeout=parsed.execution_timeout,
+        create_timeout=parsed.create_timeout,
+        loop_bound=parsed.loop_bound,
+        call_depth_limit=parsed.call_depth_limit,
+        transaction_count=parsed.transaction_count,
+        modules=modules,
+        disable_dependency_pruning=parsed.disable_dependency_pruning,
+        solver_timeout=parsed.solver_timeout,
+        unconstrained_storage=parsed.unconstrained_storage,
+        sparse_pruning=parsed.sparse_pruning,
+        solver_log=parsed.solver_log,
+        enable_iprof=parsed.enable_iprof,
+        enable_coverage_strategy=parsed.enable_coverage_strategy,
+        custom_modules_directory=parsed.custom_modules_directory,
+        probe_backend=parsed.probe_backend,
+        frontier=parsed.frontier,
+        frontier_width=parsed.frontier_width,
+        frontier_force=parsed.frontier_force,
+        code_paging=parsed.code_paging,
+        code_page_budget=parsed.code_page_budget,
+    )
+    print(runs_without_line(parsed), file=sys.stderr)
+    return MythrilAnalyzer(
+        disassembler, cmd_args, strategy=parsed.strategy, address=address,
+        device=parsed.device,
+    )
+
+
+def execute_command(parsed) -> None:
+    command = COMMAND_ALIASES.get(parsed.command, parsed.command)
+
+    if command == "version":
+        print(f"{PROG} v{__version__}")
+        return
+
+    if command == "help":
+        create_parser().print_help()
+        return
+
+    if command == "function-to-hash":
+        from mythril_tpu_torch.support.signatures import selector_of
+
+        print(selector_of(parsed.func_name))
+        return
+
+    if command == "hash-to-address":
+        from mythril_tpu_torch.support.signatures import SignatureDB
+
+        sigs = SignatureDB().get(parsed.hash)
+        for sig in sigs:
+            print(sig)
+        if not sigs:
+            print(f"no signature found for {parsed.hash}")
+        return
+
+    if command == "list-detectors":
+        from mythril_tpu_torch.analysis.module.loader import ModuleLoader
+
+        modules = ModuleLoader().get_detection_modules()
+        if parsed.outform == "json":
+            print(
+                json.dumps(
+                    [
+                        {
+                            "classname": type(m).__name__,
+                            "title": m.name,
+                            "swc_id": m.swc_id,
+                            "description": m.description.strip(),
+                        }
+                        for m in modules
+                    ]
+                )
+            )
+        else:
+            for m in modules:
+                print(f"{type(m).__name__}: {m.name} (SWC-{m.swc_id})")
+        return
+
+    if command == "read-storage":
+        from mythril_tpu_torch.facade.mythril_config import MythrilConfig
+        from mythril_tpu_torch.facade.mythril_disassembler import MythrilDisassembler
+
+        config = MythrilConfig()
+        config.set_api_rpc(parsed.rpc, parsed.rpctls)
+        disassembler = MythrilDisassembler(eth=config.eth)
+        print(
+            disassembler.get_state_variable_from_storage(
+                parsed.address, parsed.storage_slots
+            )
+        )
+        return
+
+    if command == "disassemble":
+        disassembler = _disassembler(parsed)
+        _load_code(parsed, disassembler)
+        for contract in disassembler.contracts:
+            if contract.disassembly is not None:
+                print(contract.disassembly.get_easm())
+            elif contract.creation_disassembly is not None:
+                print(contract.creation_disassembly.get_easm())
+        return
+
+    if command == "safe-functions":
+        from mythril_tpu_torch.support.support_args import args as global_args
+
+        analyzer = _build_analyzer(parsed)
+        analyzer.cmd_args.transaction_count = 1
+        global_args.unconstrained_storage = True
+        report = analyzer.fire_lasers()
+        issue_functions = {i["function"] for i in report.sorted_issues()}
+        all_functions = set()
+        for contract in analyzer.contracts:
+            dis = contract.disassembly or contract.creation_disassembly
+            if dis:
+                all_functions |= set(dis.function_name_to_address.keys())
+        safe = sorted(all_functions - issue_functions)
+        print(f"{len(safe)} functions found to be safe (no issue found in 1-tx analysis "
+              "with unconstrained storage; probe-based, not a completeness proof):")
+        for fn in safe:
+            print(f"  - {fn}")
+        return
+
+    if command == "analyze":
+        analyzer = _build_analyzer(parsed)
+        if parsed.graph:
+            html = analyzer.graph_html(enable_physics=parsed.enable_physics)
+            with open(parsed.graph, "w") as f:
+                f.write(html)
+            return
+        if parsed.statespace_json:
+            with open(parsed.statespace_json, "w") as f:
+                f.write(analyzer.dump_statespace())
+            return
+        report = analyzer.fire_lasers()
+        outputs = {
+            "json": report.as_json,
+            "jsonv2": report.as_swc_standard_format,
+            "text": report.as_text,
+            "markdown": report.as_markdown,
+        }
+        rendered = outputs[parsed.outform]()
+        if parsed.epic and parsed.outform in ("text", "markdown"):
+            from mythril_tpu_torch.interfaces.epic import print_epic
+
+            print_epic(rendered)
+        else:
+            print(rendered)
+        return
+
+    raise CriticalError(f"unknown command {command}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Run one command line (``sys.argv[1:]`` when ``argv`` is None) and
+    return its exit code.  argparse's own usage errors exit with code 2."""
+    from mythril_tpu_torch.support.support_args import args
+
+    parser = create_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        argv = screen(argv)
+    except Refused as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        return 2
+    parsed = parser.parse_args(argv)
+    if parsed.version:
+        print(f"{PROG} v{__version__}")
+        return 0
+    if not parsed.command:
+        parser.print_help()
+        return 0
+    _set_logging(getattr(parsed, "v", 2))
+    saved = dataclasses.replace(args)
+    try:
+        execute_command(parsed)
+    except Refused as e:
+        print(f"{PROG}: {e}", file=sys.stderr)
+        return 2
+    except MythrilBaseException as e:
+        return exit_with_error(getattr(parsed, "outform", "text"), str(e))
+    except DeviceError as e:
+        return exit_with_error(getattr(parsed, "outform", "text"), f"{type(e).__name__}: {e}")
+    finally:
+        for field in dataclasses.fields(args):
+            setattr(args, field.name, getattr(saved, field.name))
+    return 0

@@ -156,6 +156,8 @@ def load() -> ctypes.CDLL:
             lib.mk_frontier_segment_shape.argtypes = [ctypes.POINTER(FrontierArgs)] + [
                 ctypes.POINTER(ctypes.c_int)] * 4
             lib.mk_frontier_segment_shape.restype = ctypes.c_int
+            lib.mk_frontier_max_paths.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.mk_frontier_max_paths.restype = ctypes.c_int
             _lib = lib
         return _lib
 

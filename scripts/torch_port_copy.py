@@ -89,6 +89,21 @@ COPIED = (
     "native/bitblast.py",
     "native/src/bitblast.cpp",
     "native/src/keccak.cpp",
+    "frontend/rpc.py",
+    "support/loader.py",
+    "frontend/evmcontract.py",
+    "frontend/soliditycontract.py",
+    "facade/__init__.py",
+    "facade/mythril_config.py",
+    "facade/mythril_disassembler.py",
+    "analysis/traceexplore.py",
+    "analysis/callgraph.py",
+    "plugin/__init__.py",
+    "plugin/interface.py",
+    "plugin/discovery.py",
+    "plugin/loader.py",
+    "interfaces/__init__.py",
+    "interfaces/epic.py",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

@@ -162,7 +162,10 @@ def issue_summary(issues) -> list:
 
 
 def _reset(base: str) -> None:
-    """Clear every cache that carries state from one analysis to the next."""
+    """Clear every cache that carries state from one analysis to the next,
+    and number transactions from 1 again, as a fresh process does: symbols
+    are named by transaction id, so the two packages build the same terms
+    only from the same id, whatever ran before in this process."""
     import importlib
 
     security = importlib.import_module(f"{base}.analysis.security")
@@ -171,6 +174,7 @@ def _reset(base: str) -> None:
     model = importlib.import_module(f"{base}.support.model")
     stats = importlib.import_module(f"{base}.frontier.stats")
     engine = importlib.import_module(f"{base}.frontier.engine")
+    txs = importlib.import_module(f"{base}.core.transaction.transaction_models")
 
     security.reset_callback_modules()
     for m in loader.ModuleLoader().get_detection_modules():
@@ -182,6 +186,7 @@ def _reset(base: str) -> None:
     stats.FrontierStatistics().reset()
     for memo in ("_NARROW_CODES", "_SLOW_CODES", "_SLOW_SEGMENTS", "_WARM_PROGRAMS"):
         getattr(engine, memo).clear()
+    txs.tx_id_manager.restart_counter()
 
 
 @contextlib.contextmanager

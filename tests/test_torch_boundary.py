@@ -10,7 +10,9 @@ small plain segment on the CPU, builds and loads the port's native library
 CDCL refute one formula, imports every module of the port, runs one
 whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 ``fire_lasers`` on the CPU, with the host engine and with the frontier
-forced), and reports which modules it loaded.  The same process shows that,
+forced), runs the command line in process (``interfaces.cli.main``:
+``analyze`` of the same contract with ``--device cpu``), and reports which
+modules it loaded.  The same process shows that,
 without a card, entry points called without ``device="cpu"`` (the solver,
 ``cached_segment``, ``SymExecWrapper``) raise instead of moving to the CPU.
 """
@@ -103,9 +105,19 @@ if not torch.cuda.is_available():
         sym_raised = True
     else:
         sym_raised = False
-print(json.dumps({"keep": keep, "status": status, "raised": raised, "n_exec": n_exec,
-                  "seg_raised": seg_raised, "opcodes": len(opcodes.OPCODES),
-                  "found": found, "sym_raised": sym_raised, "native": native,
+import contextlib, io, os, tempfile
+from mythril_tpu_torch.interfaces import cli
+os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp()
+for m in ModuleLoader().get_detection_modules():
+    m.cache.clear()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    cli_rc = cli.main(["analyze", "-f", sys.argv[3], "--bin-runtime", "-t", "1", "-m",
+                       "AccidentallyKillable", "-o", "json", "--device", "cpu"])
+cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
+print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
+                  "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
+                  "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native,
                   "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
@@ -136,6 +148,10 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["found"]["False"] == [["106", 0]]
     assert got["found"]["True"][0][0] == "106" and got["found"]["True"][0][1] > 0
     assert got["sym_raised"] in (True, None)
+    # the command line ran the same analysis
+    assert "mythril_tpu_torch.interfaces.cli" in got["modules"]
+    assert "mythril_tpu_torch.facade.mythril_analyzer" in got["modules"]
+    assert got["cli"] == [0, ["106"]]
     # the native CDCL builds from the port's own sources wherever g++ is
     if shutil.which("g++") or shutil.which("c++"):
         assert got["native"]["available"] and got["native"]["status"] == "unsat"

@@ -12,6 +12,8 @@ the whole analysis on every recorded engine run, without and with native
 CDCL.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -210,3 +212,24 @@ def test_cdcl_engine_runs_rubixi_on_card(card, frontier):
     got = run_port(run, None)
     assert check_run(run, got) == []
     assert default_keys_match(run, got["summary"])
+
+
+def test_cli_frontier_width_limit_on_card(card, tmp_path, monkeypatch, capsys):
+    """The command line refuses a ``--frontier-width`` one block over what
+    the card holds resident before anything launches, and runs the widest
+    width it allows (a cooperative grid of every resident block)."""
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_cli import KILL_SIMPLE, run_port
+
+    monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path))
+    limit = step.max_paths(card)
+    assert limit % step.BLOCK == 0 and limit > 8 * step.BLOCK
+    argv = ["analyze", "-f", str(KILL_SIMPLE), "--bin-runtime", "-t", "1", "-m",
+            "AccidentallyKillable", "-o", "json", "--frontier", "--frontier-force"]
+    step.launches = 0
+    rc, _ = run_port(argv + ["--frontier-width", str(limit + step.BLOCK)], device=None)
+    assert rc == 2 and step.launches == 0
+    assert f"at most {limit} paths" in capsys.readouterr().err
+    rc, out = run_port(argv + ["--frontier-width", str(limit)], device=None)
+    assert rc == 0 and step.launches > 0
+    assert [i["swc-id"] for i in json.loads(out)["issues"]] == ["106"]
