@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
 probe, the device frontier segment and the whole analysis around them,
-without and with the native CDCL tier.
+without and with the native CDCL tier, and under the solver's default
+prefilter and devsolver tiers.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -14,6 +15,17 @@ Phases, in order; any failure exits nonzero and prints no result:
    and each frontier kernel's local loads and stores (LDL, STL) in the SASS
    (``cuobjdump -sass``); then the native CDCL library (``native/build.py``,
    g++), which must build and load;
+2b. known bits: the ``known_bits`` kernel (the prefilter's device pass)
+   against its plain version ``eval_kb_plain``, both on the card, bit for
+   bit, on every known-bits pack of ``tests/testdata/torch_tier_kernels.npz``
+   (what the JAX package's runs of ``torch_engine_runs_tiers.json`` fed its
+   host twin), whose outputs must also hash to the recorded digests, and on
+   seeded synthetic tapes at N = 512 and 4096 nodes and R = 16 and 64 rows;
+2c. DPLL: the ``dpll`` kernel (the devsolver's search) against ``run_plain``,
+   both on the card, status, assignment and steps bit for bit, on every
+   recorded plane (digests as for 2b) and on seeded 3-CNF planes at [16,
+   4096, 3] with V = 4096 and at [16, 512, 3], with SAT, UNSAT and
+   budget-cut (UNKNOWN) queries;
 3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
    state) against ``keccak_f1600_reference``, both on the card, at N in
    {1, 3, 64, 130, 4096, 65536} random states, bit-equal; then ``keccak256``
@@ -73,11 +85,20 @@ Phases, in order; any failure exits nonzero and prints no result:
    their wall-clock budget (``timeouts``) cannot be held exactly: a
    difference there is reported, not failed, and its keys must still equal
    the default-tier keys.  Then ``bectoken_like`` under ``torch.profiler``;
+8d. the engine under the solver's default tiers: the same on every run of
+   ``tests/testdata/torch_engine_runs_tiers.json``, recorded from the JAX
+   package with native CDCL, the known-bits prefilter and the devsolver on,
+   the port's three on; also the two tiers' counters; the ``known_bits``
+   and ``dpll`` launches equal the JAX package's host-twin calls, and are
+   above 0 on the bench contracts; each run's wall beside the same run's
+   wall under CDCL alone (8b); then ``rubixi_like`` (frontier) under
+   ``torch.profiler``;
 8c. the command line: ``interfaces.cli.main`` in process, with no
    ``--device`` (the card), on the recorded command lines of
    ``tests/testdata/torch_cli_runs.json`` for ``etherstore_like``,
    ``rubixi_like`` and ``kill_simple`` (2 transactions, forced frontier of
-   256 paths, native CDCL on); each jsonv2 report equal to the JAX CLI's
+   256 paths, native CDCL on, the prefilter and devsolver off as the JAX CLI
+   ran) and ``etherstore_like`` again with both tiers on in both; each jsonv2 report equal to the JAX CLI's
    (``tests/test_torch_cli.py`` ``differences``), counts zeroed before each
    run and read after, one segment launch per frontier segment, one tape
    evaluation on the card per solver device dispatch; per run the CLI's
@@ -86,13 +107,16 @@ Phases, in order; any failure exits nonzero and prints no result:
    beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
    on ``kill_simple`` in a process of its own, which must exit 0 with the
    ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
-   limit, which must be refused before any launch;
+   limit, which must be refused before any launch (phase 8d runs before 8c,
+   for the CDCL-only walls it prints);
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
    phase 3; the frontier segment per dispatch with path-steps per second and
-   the ``push_state`` and ``pull_harvest`` times; the probe main path once
-   more under ``torch.profiler`` for the card's idle share;
+   the ``push_state`` and ``pull_harvest`` times; ``known_bits`` and
+   ``dpll`` on the recorded packs and planes of 8d's main path and on the
+   seeded ones; the probe main path once more under ``torch.profiler`` for
+   the card's idle share;
 10. one ``{"kernels": [...]}`` line (with each kernel's launches on every
    main path), and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -154,6 +178,20 @@ KECCAK_NS = (1, 3, 64, 130, 4096, 65536)
 DIV_BIT_OPS = 40
 EXP_MUL_OPS = 80
 SELECT_ROW_OPS = 10
+# 32-bit integer operations of the known-bits walk per node and row: the
+# transfer functions' 16-limb loops (about 6 logic ops a limb for the
+# common ops, more for shifts and adds), the override's meet and the
+# stores: an estimate from csrc/known_bits.cuh, at the ALU rate
+KB_NODE_OPS = 200
+# operations of the DPLL search per clause and step (three literal reads,
+# their truth, the counts) and per bitset word and step (both-ways test,
+# application, clearing), at the issue rate; counted over each query's
+# own steps (the kernel's steps output)
+DPLL_CLAUSE_OPS = 20
+DPLL_WORD_OPS = 8
+KB_SEEDED = ((11, 512, 16), (12, 512, 64), (13, 4096, 16), (14, 4096, 64))
+DPLL_SEEDED = ((21, 16, 4096, 4096, 2048), (22, 16, 4096, 4096, 2048),
+               (23, 16, 4096, 4096, 50), (24, 16, 512, 512, 2048))
 
 
 class SmokeFailure(Exception):
@@ -237,6 +275,7 @@ KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "tape_vm_kernel": "tape_vm", "frontier_segment_block": "frontier_segment/block",
     "frontier_segment_cluster": "frontier_segment/cluster",
     "frontier_segment_grid": "frontier_segment/grid",
+    "known_bits_kernel": "known_bits", "dpll_kernel": "dpll",
 }
 
 
@@ -395,7 +434,7 @@ def main_path(torch):
     from mythril_tpu_torch.smt.concrete_eval import evaluate
     from mythril_tpu_torch.smt.serialize import from_jax_dump
     from mythril_tpu_torch.support.support_args import args
-    from tests._torch_parity import port_no_cdcl
+    from tests._torch_parity import port_no_cdcl, port_no_tiers
     from tests.test_torch_fixture import disagreements, load_fixture, replay
 
     t0 = phase("main path: recorded probe traffic through the solver on the card")
@@ -420,7 +459,8 @@ def main_path(torch):
     try:
         verdicts, bad = collections.Counter(), []
         for contract in data["contracts"]:
-            with port_no_cdcl():  # recorded under the tiers without native CDCL
+            # recorded under the tiers without native CDCL, prefilter, devsolver
+            with port_no_cdcl(), port_no_tiers():
                 results = replay(contract["queries"], roots, P)  # device=None: the card
             bad += disagreements(contract["queries"], contract["jax_verdicts"], results, evaluate)
             for q, r in zip(contract["queries"], results):
@@ -446,19 +486,25 @@ def main_path(torch):
 
 
 def zero_launches() -> None:
+    from mythril_tpu_torch.absdomain import device as kb_device
+    from mythril_tpu_torch.devsolver import device as dpll_device
     from mythril_tpu_torch.frontier import step as fstep
     from mythril_tpu_torch.ops import keccak_cuda, tape_vm
 
     keccak_cuda.launches = tape_vm.launches = fstep.launches = 0
+    kb_device.launches = dpll_device.launches = 0
     keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
 
 
 def read_launches() -> dict:
+    from mythril_tpu_torch.absdomain import device as kb_device
+    from mythril_tpu_torch.devsolver import device as dpll_device
     from mythril_tpu_torch.frontier import step as fstep
     from mythril_tpu_torch.ops import keccak_cuda, tape_vm
 
     return {"tape_vm": tape_vm.launches, "keccak_f1600": keccak_cuda.launches,
-            "frontier_segment": fstep.launches}
+            "frontier_segment": fstep.launches, "known_bits": kb_device.launches,
+            "dpll": dpll_device.launches}
 
 
 def idle_share(torch):
@@ -471,14 +517,14 @@ def idle_share(torch):
 
     from mythril_tpu_torch.smt import solver as P
     from mythril_tpu_torch.smt.serialize import from_jax_dump
-    from tests._torch_parity import port_no_cdcl
+    from tests._torch_parity import port_no_cdcl, port_no_tiers
     from tests.test_torch_fixture import load_fixture, replay
 
     phase("idle share: the main path under torch.profiler")
     data, roots = load_fixture(from_jax_dump)
     try:
-        with port_no_cdcl(), profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]) as prof:
+        with port_no_cdcl(), port_no_tiers(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for contract in data["contracts"]:
                 replay(contract["queries"], roots, P)
@@ -1026,23 +1072,35 @@ class EngineSplit:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def engine_runs(torch, cdcl: bool = False):
+def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None):
     """The port's analysis (``SymExecWrapper`` + ``fire_lasers``, no device
     argument: the card) on every run of ``tests/testdata/torch_engine_runs.json``
-    with the port's native CDCL off, or of ``torch_engine_runs_cdcl.json``
-    with it on (``cdcl``), each held against the JAX package's recorded run:
+    with the port's native CDCL off, of ``torch_engine_runs_cdcl.json``
+    with it on (``cdcl``), or of ``torch_engine_runs_tiers.json`` with CDCL,
+    the prefilter and the devsolver on (``tiers``), each held against the
+    JAX package's recorded run:
     issue keys, step counts, fixed selectors; for the frontier every
     dispatch's input and output digests, one segment launch per dispatch, no
     replay or commit error; the tape VM evaluated on the card once per
     solver device dispatch; under CDCL the bench contracts' keys equal to
-    the JAX package's default-tier keys.  Counts zeroed before each run and
-    read after.  -> (summed launches, per-run rows)"""
+    the JAX package's default-tier keys; under the tiers their counters, and
+    one ``known_bits`` and ``dpll`` launch per host-twin call of the JAX
+    package, more than none on the bench contracts.  Counts zeroed before
+    each run and read after.  ``cdcl_walls``: {run label: wall under CDCL
+    alone}, printed beside the tiers' walls.  -> (summed launches, per-run
+    rows)"""
     from mythril_tpu_torch.smt.solver import SolverStatistics
-    from tests import test_torch_engine_cdcl, test_torch_engine_fixture
-    from tests.test_torch_engine_fixture import check_run
+    from tests import test_torch_engine_cdcl, test_torch_engine_fixture, test_torch_engine_tiers
 
-    fixture = test_torch_engine_cdcl if cdcl else test_torch_engine_fixture
-    if cdcl:
+    fixture = (test_torch_engine_tiers if tiers else
+               test_torch_engine_cdcl if cdcl else test_torch_engine_fixture)
+    check_run = (test_torch_engine_tiers.check_run if tiers else
+                 test_torch_engine_fixture.check_run)
+    cdcl = cdcl or tiers
+    if tiers:
+        phase("engine under the default solver tiers: the port's analysis on the card "
+              "against the recorded JAX runs with CDCL, prefilter and devsolver on")
+    elif cdcl:
         phase("engine under native CDCL: the port's analysis on the card against the "
               "recorded JAX runs with CDCL on")
     else:
@@ -1072,6 +1130,8 @@ def engine_runs(torch, cdcl: bool = False):
             "solver_s": solver_s, "solver_in_replay_s": t["solver_in_replay_s"],
             "cdcl": got["cdcl"], "held_exactly": not bad, "parks": f["parks_by_reason"],
         }
+        if tiers:
+            row.update(tiers=got["tiers"], cdcl_only_wall_s=(cdcl_walls or {}).get(label))
         row["rest_s"] = wall - (t["segment_s"] + t["push_s"] + t["pull_s"] + t["arena_s"]
                                 + t["replay_s"] + solver_out)
         if f["device_instructions"]:
@@ -1094,8 +1154,14 @@ def engine_runs(torch, cdcl: bool = False):
                   f"{run['cdcl']['cdcl_calls']}), {got['cdcl']['calls']} solves in "
                   f"{got['cdcl']['seconds']:.3f} s, {got['cdcl']['timeouts']} timeouts (JAX "
                   f"{run['cdcl']['timeouts']})")
-        print(f"    JAX default tiers {run['default_tiers_keys']}; port "
-              f"{[r[:5] for r in got['summary']]}")
+        if tiers:
+            print(f"    tiers {got['tiers']}; known_bits launches {launches['known_bits']} "
+                  f"(JAX host-twin calls {run['kb_passes']}), dpll launches "
+                  f"{launches['dpll']} (JAX {run['dpll_planes']}); wall {wall:.3f} s beside "
+                  f"{row['cdcl_only_wall_s']} s under CDCL alone")
+        else:
+            print(f"    JAX default tiers {run['default_tiers_keys']}; port "
+                  f"{[r[:5] for r in got['summary']]}")
         # a run whose JAX recording had CDCL answers cut by their wall-clock
         # budget cannot be held exactly: this host may answer them
         timeouts = run["cdcl"]["timeouts"] if cdcl else 0
@@ -1103,9 +1169,17 @@ def engine_runs(torch, cdcl: bool = False):
             print(f"    not held exactly ({timeouts} CDCL timeouts in the JAX recording): {bad[:3]}")
         else:
             check(not bad, f"{label}: differs from the recorded JAX run: {bad[:3]}")
-        if cdcl and run["name"] in test_torch_engine_cdcl.BENCH:
+        if cdcl and not tiers and run["name"] in test_torch_engine_cdcl.BENCH:
             check(test_torch_engine_cdcl.default_keys_match(run, got["summary"]),
                   f"{label}: the issue keys differ from the JAX package's default tiers")
+        if tiers:
+            check((launches["known_bits"], launches["dpll"]) == (run["kb_passes"],
+                                                                  run["dpll_planes"]),
+                  f"{label}: launches {launches} for the JAX package's {run['kb_passes']} "
+                  f"known-bits passes and {run['dpll_planes']} DPLL planes")
+            if run["name"] in test_torch_engine_tiers.BENCH:
+                check(launches["known_bits"] > 0 and launches["dpll"] > 0,
+                      f"{label}: the tiers launched no kernel")
         if run["frontier"]:
             check(launches["frontier_segment"] == len(got["dispatches"]),
                   f"{label}: {launches['frontier_segment']} segment launches for "
@@ -1117,17 +1191,19 @@ def engine_runs(torch, cdcl: bool = False):
     return dict(total), rows
 
 
-def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False):
+def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False,
+                      tiers: bool = False):
     """One frontier run of an engine phase again under ``torch.profiler``:
     the card's busy time over the run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tests import test_torch_engine_cdcl, test_torch_engine_fixture
+    from tests import test_torch_engine_cdcl, test_torch_engine_fixture, test_torch_engine_tiers
 
-    fixture = test_torch_engine_cdcl if cdcl else test_torch_engine_fixture
-    phase(f"engine idle share{' under native CDCL' if cdcl else ''}: {name} (frontier) under "
-          "torch.profiler")
+    fixture = (test_torch_engine_tiers if tiers else
+               test_torch_engine_cdcl if cdcl else test_torch_engine_fixture)
+    under = " under the default solver tiers" if tiers else " under native CDCL" if cdcl else ""
+    phase(f"engine idle share{under}: {name} (frontier) under torch.profiler")
     run = next(r for r in fixture.load_runs() if r["name"] == name and r["frontier"])
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1164,9 +1240,10 @@ def wrapper_seconds(torch, argv) -> float:
     from tests._torch_parity import _reset
 
     p = cli.create_parser().parse_args(argv)
-    saved = (args.frontier, args.frontier_force, args.frontier_width)
-    args.frontier, args.frontier_force, args.frontier_width = (p.frontier, p.frontier_force,
-                                                                p.frontier_width)
+    saved = (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
+             args.devsolver)
+    (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
+     args.devsolver) = (p.frontier, p.frontier_force, p.frontier_width, p.prefilter, p.devsolver)
     _reset("mythril_tpu_torch")
     cfg.gbl_next_uid[0] = 0
     try:
@@ -1178,11 +1255,13 @@ def wrapper_seconds(torch, argv) -> float:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     finally:
-        args.frontier, args.frontier_force, args.frontier_width = saved
+        (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
+         args.devsolver) = saved
 
 
-def cli_runs(torch, card: str, engine_rows: list):
-    """Phase 8c (see the module docstring) -> (summed launches, per-run rows)."""
+def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
+    """Phase 8c (see the module docstring); ``engine_rows`` and ``tier_rows``
+    are phase 8b's and 8d's -> (summed launches, per-run rows)."""
     import os
     import tempfile
 
@@ -1194,14 +1273,16 @@ def cli_runs(torch, card: str, engine_rows: list):
     phase("command line: the port's CLI on the card against the recorded JAX CLI")
     os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
     walls = {r["run"]: r["wall_s"] for r in engine_rows}
+    tier_walls = {r["run"]: r["wall_s"] for r in tier_rows}
     runs = T.load_runs()
     total, rows = collections.Counter(), []
     for name in T.BENCH:
         run = runs[name]
+        argv = T.port_argv(run)
         zero_launches()
         with EngineSplit(torch) as split:
             t0 = time.perf_counter()
-            rc, out = T.run_port(run["argv"], device=None)  # no --device: the card
+            rc, out = T.run_port(argv, device=None)  # no --device: the card
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1217,14 +1298,21 @@ def cli_runs(torch, card: str, engine_rows: list):
               f"{name}: {tape_calls} tape evaluations on the card for {dispatches} solver "
               "device dispatches")
         check(launches["tape_vm"] >= tape_calls, f"{name}: tape calls without a launch")
+        tiers_on = "--no-prefilter" not in argv
+        check((launches["known_bits"] > 0 and launches["dpll"] > 0) == tiers_on,
+              f"{name}: launches {launches} with the prefilter and devsolver "
+              f"{'on' if tiers_on else 'off'}")
+        if tiers_on:
+            diffs = T.tier_counter_differences(run)
+            check(not diffs, f"{name}: the tier counters differ from the JAX report's: {diffs}")
         # the same analysis with and without the CLI and facade, in turns
-        w1 = wrapper_seconds(torch, run["argv"])
-        w2 = wrapper_seconds(torch, run["argv"])
+        w1 = wrapper_seconds(torch, argv)
+        w2 = wrapper_seconds(torch, argv)
         t0 = time.perf_counter()
-        T.run_port(run["argv"], device=None)
+        T.run_port(argv, device=None)
         torch.cuda.synchronize()
         cli2 = time.perf_counter() - t0
-        engine = walls.get(f"{name.split('/')[0]} (frontier)")
+        engine = (tier_walls if tiers_on else walls).get(f"{name.split('/')[0]} (frontier)")
         row = {"run": name, "cli_wall_s": [wall, cli2], "wrapper_wall_s": [w1, w2],
                "overhead_s": (wall + cli2 - w1 - w2) / 2, "engine_phase_wall_s": engine,
                "jax_cli_cpu_s": run["jax_cpu_seconds"], "launches": launches,
@@ -1265,6 +1353,154 @@ def cli_runs(torch, card: str, engine_rows: list):
     check(rc == 2 and not any(launches.values()),
           "a frontier width over the card's limit was not refused before any launch")
     return dict(total), rows
+
+
+def known_bits_parity(torch):
+    """Phase 2b -> the recorded packs' kernel inputs (the main path's shapes)
+    and the seeded ones, for the timing."""
+    import numpy as np
+
+    from mythril_tpu_torch.absdomain import device, domains, tape
+    from tests import _torch_tier_cases as tier_cases
+    from tests import test_torch_engine_tiers as T
+
+    t0 = phase("known bits: the kernel against its plain version on the card")
+    recorded, seeded, bad = [], [], []
+    for rec in T.load_kernels()["kb"]:
+        pack = T.kb_pack(rec)
+        inputs = domains.kb_inputs(pack, "cuda")
+        got = device.known_bits(*inputs, pack.n_rows)
+        want = domains.eval_kb_plain(*inputs, pack.n_rows)
+        digest = T.kb_digest(got[0].cpu().numpy().view(np.uint32),
+                             got[1].cpu().numpy().view(np.uint32), got[2].cpu().numpy())
+        if not all(torch.equal(g, w) for g, w in zip(got, want)) or digest != rec["digest"]:
+            bad.append(rec["run"])
+        recorded.append((inputs, pack.n_rows, f"N={pack.n_nodes} R={pack.n_rows}"))
+    for seed, n, r in KB_SEEDED:
+        pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n, r), tape)
+        inputs = domains.kb_inputs(pack, "cuda")
+        got = device.known_bits(*inputs, r)
+        if not all(torch.equal(g, w) for g, w in zip(got, domains.eval_kb_plain(*inputs, r))):
+            bad.append(f"seeded N={n} R={r}")
+        seeded.append((inputs, r, f"N={n} R={r} (seeded)"))
+    print(f"  {len(recorded)} recorded packs (N <= {max(x[0][0].shape[0] for x in recorded)}, "
+          f"R <= {max(x[1] for x in recorded)}) and {len(seeded)} seeded in "
+          f"{time.perf_counter() - t0:.1f} s; mismatches {bad[:5]}")
+    check(not bad, f"known_bits differs from its plain version or the recording: {bad[:5]}")
+    return recorded, seeded
+
+
+def dpll_parity(torch):
+    """Phase 2c -> the recorded planes (the main path's shapes) and the
+    seeded ones, each as (lits, dec, n_vars, max_iters, label)."""
+    from mythril_tpu_torch.devsolver import device, kernel
+    from tests import _torch_tier_cases as tier_cases
+    from tests import test_torch_engine_tiers as T
+
+    t0 = phase("DPLL: the kernel against its plain version on the card")
+    recorded, seeded, bad, outcomes = [], [], [], collections.Counter()
+
+    def both(plane, iters, label, into):
+        lits = torch.from_numpy(plane.lits).cuda()
+        dec = torch.from_numpy(plane.dec).cuda()
+        got = device.dpll(lits, dec, plane.n_vars, iters)
+        if not all(torch.equal(g, w) for g, w in zip(
+                got, kernel.run_plain(lits, dec, plane.n_vars, iters))):
+            bad.append(label)
+        into.append((lits, dec, plane.n_vars, iters, label))
+        return got
+
+    for rec in T.load_kernels()["dpll"]:
+        plane = T.dpll_plane(rec)
+        q, c, _ = plane.lits.shape
+        status, assign, _steps = both(plane, int(rec["max_iters"]),
+                                      f"[{q},{c},3] V={plane.n_vars}", recorded)
+        if T.dpll_digest(status.cpu().numpy(), assign.cpu().numpy()) != rec["digest"]:
+            bad.append(f"{rec['run']} digest")
+    for seed, q, c, v, iters in DPLL_SEEDED:
+        plane = tier_cases.random_cnf_plane(seed, q, c, v, kernel)
+        status, _assign, steps = both(plane, iters, f"[{q},{c},3] V={v} iters={iters} (seeded)",
+                                      seeded)
+        outcomes.update(status.tolist())
+    print(f"  {len(recorded)} recorded planes and {len(seeded)} seeded in "
+          f"{time.perf_counter() - t0:.1f} s; seeded outcomes {dict(outcomes)} (1 SAT, 2 UNSAT, "
+          f"3 UNKNOWN); mismatches {bad[:5]}")
+    check(not bad, f"dpll differs from its plain version or the recording: {bad[:5]}")
+    check(set(outcomes) == {kernel.SAT_Q, kernel.UNSAT_Q, kernel.UNKNOWN_Q},
+          f"the seeded planes miss an outcome: {dict(outcomes)}")
+    return recorded, seeded
+
+
+def time_known_bits(torch, calls, reps: int = 10):
+    """Per call: the launch alone (``ms``), the ``known_bits`` wrapper
+    (``wrapper_ms``), the plain version, and the bound: the inputs read and
+    km, kv and refuted written once, ``KB_NODE_OPS`` per node and row."""
+    import ctypes
+
+    from mythril_tpu_torch.absdomain import device, domains
+    from mythril_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rows = []
+    for inputs, r, label in calls:
+        n = inputs[0].shape[0]
+        km = torch.empty((n, r, 16), dtype=torch.int32, device="cuda")
+        kv, refuted = torch.empty_like(km), torch.zeros(r, dtype=torch.bool, device="cuda")
+        zero = torch.zeros(16, dtype=torch.int32, device="cuda")
+        args = device.kb_args(*inputs, zero, km, kv, refuted)
+        stream = torch.cuda.current_stream().cuda_stream
+        timer = LaunchTimer(torch)
+        for _ in range(reps):
+            timer(lambda: _build.check(lib.mk_known_bits(ctypes.byref(args), stream),
+                                       "known_bits"))
+        ms = timer.total_ms() / reps
+        want = domains.eval_kb_plain(*inputs, r)
+        err = 0 if all(torch.equal(g, w) for g, w in zip((km, kv, refuted), want)) else 1
+        wrapper = cuda_ms(lambda: device.known_bits(*inputs, r), reps)
+        plain = cuda_ms(lambda: domains.eval_kb_plain(*inputs, r), 1)
+        n_bytes = sum(x.numel() * 4 for x in inputs) + 2 * km.numel() * 4 + r
+        b_ms, b_by = bound(n_bytes, n * r * KB_NODE_OPS)
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err, "shape": label})
+    return rows
+
+
+def time_dpll(torch, calls, reps: int = 5):
+    """Per call: the launch alone, the ``dpll`` wrapper, the plain version,
+    and the bound: the plane read and status, assignment and steps written
+    once; ``DPLL_CLAUSE_OPS`` per clause and ``DPLL_WORD_OPS`` per bitset
+    word for each step each query took (the kernel's steps)."""
+    import ctypes
+
+    from mythril_tpu_torch.devsolver import device, kernel
+    from mythril_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rows = []
+    for lits, dec, n_vars, iters, label in calls:
+        q, c = lits.shape[0], lits.shape[1]
+        status = torch.empty(q, dtype=torch.int8, device="cuda")
+        assign = torch.empty((q, n_vars), dtype=torch.int8, device="cuda")
+        steps = torch.empty(q, dtype=torch.int32, device="cuda")
+        args = device.dpll_args(lits, dec, status, assign, steps, n_vars, iters)
+        stream = torch.cuda.current_stream().cuda_stream
+        timer = LaunchTimer(torch)
+        for _ in range(reps):
+            timer(lambda: _build.check(lib.mk_dpll(ctypes.byref(args), stream), "dpll"))
+        ms = timer.total_ms() / reps
+        want = kernel.run_plain(lits, dec, n_vars, iters)
+        err = 0 if all(torch.equal(g, w) for g, w in zip((status, assign, steps), want)) else 1
+        wrapper = cuda_ms(lambda: device.dpll(lits, dec, n_vars, iters), reps)
+        plain = cuda_ms(lambda: kernel.run_plain(lits, dec, n_vars, iters), 1)
+        n_steps = int(steps.sum())
+        n_bytes = (lits.numel() + dec.numel()) * 4 + q + q * n_vars + 4 * q
+        b_ms, b_by = bound(n_bytes, 0, n_steps * (c * DPLL_CLAUSE_OPS
+                                                  + (n_vars + 31) // 32 * DPLL_WORD_OPS))
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err, "steps": n_steps,
+                     "smem_bytes": int(lib.mk_dpll_smem_bytes(c, n_vars)),
+                     "shape": f"{label} steps={n_steps}"})
+    return rows
 
 
 def native_library():
@@ -1328,6 +1564,8 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         attrs = build_kernels()
         native_library()
+        kb_recorded, kb_seeded = known_bits_parity(torch)
+        dpll_recorded, dpll_seeded = dpll_parity(torch)
         sass, local = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
@@ -1342,8 +1580,13 @@ def main() -> int:
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
             check(c_launches[name] > 0, f"the engine's CDCL runs launched {name} no time")
         c_idle = engine_idle_share(torch, cdcl=True)
-        cli_launches, cli_rows = cli_runs(torch, card, c_rows)
-        for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
+        t_launches, t_rows = engine_runs(torch, tiers=True,
+                                         cdcl_walls={r["run"]: r["wall_s"] for r in c_rows})
+        for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
+            check(t_launches[name] > 0, f"the engine's tier runs launched {name} no time")
+        t_idle = engine_idle_share(torch, "rubixi_like", tiers=True)
+        cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows)
+        for name in ("tape_vm", "keccak_f1600", "frontier_segment", "known_bits", "dpll"):
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
@@ -1370,23 +1613,43 @@ def main() -> int:
                                                          "bound_ms", "bound_by", "pull_harvest_ms",
                                                          "path_steps_per_s", "forks")}
                                       for r in f_rows])
-        kernels = [keccak, tape, frontier]
+        phase("known_bits and dpll times at the main path's shapes (CUDA events)")
+        known_bits = summarize("known_bits", time_known_bits(torch, kb_recorded),
+                               t_launches["known_bits"], card, route="cuda",
+                               source="mythril_tpu_torch/csrc/known_bits.cu",
+                               replaces="mythril_tpu/absdomain/device.py:50")
+        known_bits.update(attrs["known_bits"])
+        dpll = summarize("dpll", time_dpll(torch, dpll_recorded), t_launches["dpll"], card,
+                         route="cuda", source="mythril_tpu_torch/csrc/dpll.cu",
+                         replaces="mythril_tpu/devsolver/device.py:44")
+        dpll.update(attrs["dpll"])
+        kernels = [keccak, tape, frontier, known_bits, dpll]
         for entry in kernels:
             entry["launches_by_path"] = {
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
                 "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
-                "cli": cli_launches[entry["name"]]}
+                "engine_tiers": t_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
+        known_bits["engine_tiers"] = {"runs": t_rows, "idle_share": t_idle}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")
-        for entry, rows in zip(kernels[:2], at_scale(torch).values()):
-            entry["at_scale"] = [{k: r[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "slots", "block",
-                                                    "smem_bytes", "variants") if k in r}
-                                 for r in rows]
+        scaled = at_scale(torch)
+        scaled.update(known_bits=time_known_bits(torch, kb_seeded, reps=5),
+                      dpll=time_dpll(torch, dpll_seeded, reps=2))
+        for entry in kernels:
+            rows = scaled.get(entry["name"], ())
+            for r in rows if entry["name"] in ("known_bits", "dpll") else ():  # at_scale printed
+                print(f"  {entry['name']} {r['shape']}: kernel {r['ms']:.5f} ms, wrapper "
+                      f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                      f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
+                check(r.get("err", 0) == 0, f"{entry['name']} {r['shape']}: kernel differs")
+            if rows:
+                entry["at_scale"] = [{k: r[k] for k in (
+                    "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "slots",
+                    "block", "smem_bytes", "variants") if k in r} for r in rows]
         idle = idle_share(torch)
         if idle is not None:
             tape["main_path_idle_share"] = idle

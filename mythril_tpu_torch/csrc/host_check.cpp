@@ -2,13 +2,16 @@
 // arithmetic without a card: a host C++ compiler builds this file with the
 // same headers the kernels use (tests/test_torch_csrc_host.py,
 // tests/test_torch_frontier_host.py).  Each entry runs the body a CUDA
-// thread runs, once per state, candidate or path.
+// thread runs, once per state, candidate, path, row or query.
 #include <stdint.h>
+#include <string.h>
 #include <ucontext.h>
 
 #include <vector>
 
+#include "dpll.cuh"
 #include "frontier_segment.cuh"
+#include "known_bits.cuh"
 #include "tape_vm.cuh"
 
 extern "C" void mk_keccak_f1600_host(const int32_t* in, int32_t* out, long long n) {
@@ -197,5 +200,63 @@ struct HostExec {
 extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
   HostExec x(*args);
   mk::run_segment(x, *args);
+  return 0;
+}
+
+// The known-bits walk, row after row (one thread per row on the card).
+extern "C" int mk_known_bits_host(const mk::kb::KbArgs* args) {
+  for (int32_t r = 0; r < args->R; ++r) mk::kb::run_row(*args, r);
+  return 0;
+}
+
+// run_query's executor with every thread of a block of nt: each phase runs
+// for thread 0, 1, ... in turn, and the ORs are taken over all of them.
+struct HostBlock {
+  const mk::dpll::DpllArgs& a;
+  const mk::dpll::Query& s;
+  int nt;
+
+  void stage(int32_t q) {
+    for (int t = 0; t < nt; ++t) mk::dpll::stage(a, q, s, t, nt);
+  }
+  void sync() {}
+  int sweep() {
+    int f = 0;
+    for (int t = 0; t < nt; ++t) f |= mk::dpll::sweep(s, a.C, t, nt);
+    return f;
+  }
+  bool both() {
+    bool any = false;
+    for (int t = 0; t < nt; ++t) any = mk::dpll::both_ways(s, a.V, t, nt) || any;
+    return any;
+  }
+  bool apply(bool go) {
+    bool any = false;
+    for (int t = 0; t < nt; ++t) any = mk::dpll::apply(s, a.V, go, t, nt) || any;
+    return any;
+  }
+  void decide() { mk::dpll::decide(s); }
+  void set_sat() { mk::dpll::set_sat(s); }
+  void pick_jump() { mk::dpll::pick_jump(s); }
+  void flip(int32_t j) { mk::dpll::flip(s, j); }
+  void unassign(int32_t j) {
+    for (int t = 0; t < nt; ++t) mk::dpll::unassign_above(s, a.V, j, t, nt);
+  }
+  void store(int32_t q, int32_t steps) {
+    for (int t = 0; t < nt; ++t) mk::dpll::store(a, q, s, steps, t, nt);
+  }
+};
+
+// The DPLL search, query after query, as blocks of nt threads.  A query's
+// state starts poisoned, as shared memory starts with whatever the last
+// block left: every field must be staged.
+extern "C" int mk_dpll_host(const mk::dpll::DpllArgs* args, int nt) {
+  std::vector<char> mem(mk::dpll::state_bytes(args->C, args->V));
+  for (int32_t q = 0; q < args->Q; ++q) {
+    memset(mem.data(), 0xA5, mem.size());
+    const mk::dpll::Query s = mk::dpll::at(mem.data(), args->C, args->V);
+    HostBlock x{*args, s, nt};
+    mk::dpll::run_query(x, *args, q, s);
+  }
   return 0;
 }

@@ -20,6 +20,7 @@ import traceback
 from dataclasses import dataclass
 from typing import List, Optional
 
+from mythril_tpu_torch import absdomain, devsolver
 from mythril_tpu_torch.analysis.report import Issue, Report
 from mythril_tpu_torch.analysis.security import fire_lasers, retrieve_callback_issues
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper, analysis_device
@@ -58,6 +59,10 @@ class AnalyzerArgs:
     frontier_force: bool = False
     code_paging: bool = True
     code_page_budget: int = 2048
+    prefilter: bool = True
+    devsolver: bool = True
+    devsolver_bit_budget: int = 64
+    devsolver_iters: int = 2048
 
 
 class MythrilAnalyzer:
@@ -156,6 +161,8 @@ class MythrilAnalyzer:
             # contract N's report would count the earlier contracts too
             SolverStatistics().reset()
             FrontierStatistics().reset()
+            absdomain.reset_counters()
+            devsolver.reset_counters()
             try:
                 sym = self._sym_exec(contract)
                 issues = fire_lasers(sym, modules or self.cmd_args.modules)

@@ -49,3 +49,8 @@ def apply_analyzer_args(cmd_args) -> None:
     args.frontier_force = cmd_args.frontier_force
     args.code_paging = cmd_args.code_paging
     args.code_page_budget = cmd_args.code_page_budget
+    args.prefilter = cmd_args.prefilter
+    args.devsolver = cmd_args.devsolver
+    from mythril_tpu_torch import devsolver
+
+    devsolver.configure(bit_budget=cmd_args.devsolver_bit_budget, iters=cmd_args.devsolver_iters)

@@ -14,13 +14,17 @@ What differs from the JAX command line:
   moves to the CPU on its own.
 * ``--probe-backend`` has the port's backends: ``device`` (the default, the
   role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
-* The switches that turn a default-on JAX tier off (``--no-staticpass``,
-  ``--no-pipeline``, ...) are accepted: the port runs without those tiers
-  until they are ported, and ``analyze`` names them on one stderr line.
+* The known-bits prefilter and the devsolver run by default, as in the JAX
+  package; ``--no-prefilter`` and ``--no-devsolver`` switch them off and
+  ``--devsolver-bit-budget`` and ``--devsolver-iters`` set the devsolver's
+  budgets.  The other switches that turn a default-on JAX tier off
+  (``--no-staticpass``, ``--no-pipeline``, ...) are accepted: the port runs
+  without those tiers until they are ported, and ``analyze`` names them on
+  one stderr line.
 * Every other JAX option or subcommand the port lacks is refused with exit
   code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
-  worker counts, the devsolver's budgets and the heartbeat period are
-  accepted at their JAX defaults only.
+  worker counts and the heartbeat period are accepted at their JAX
+  defaults only.
 * With ``--frontier`` on the card, a ``--frontier-width`` wider than the
   card's resident cooperative grid is refused before the analysis starts.
 
@@ -55,8 +59,6 @@ NOT_YET_PORTED = {
     "--checkpoint-file": 13,
     "--resume-from": 13,
     "--query-cache-dir": 9,
-    "--devsolver-bit-budget": 7,
-    "--devsolver-iters": 7,
     "--coverage-target": 5,
     "--solver-workers": 11,
     "--harvest-workers": 11,
@@ -87,8 +89,6 @@ NOT_YET_PORTED = {
 AT_DEFAULT_ONLY = {
     "--solver-workers": (int, 2),
     "--harvest-workers": (int, 4),
-    "--devsolver-bit-budget": (int, 64),
-    "--devsolver-iters": (int, 2048),
     "--heartbeat-interval": (float, 0.5),
 }
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
@@ -96,8 +96,6 @@ RUNS_WITHOUT = {
     "no_staticpass": ("the static pass", 3),
     "no_staticpass_interproc": ("the interprocedural static pass", 3),
     "pipeline": ("the pipelined frontier", 11),
-    "prefilter": ("the known-bits prefilter", 6),
-    "devsolver": ("the devsolver", 7),
     "no_query_cache": ("the query cache", 9),
     "frontier_mesh": ("the device mesh", 12),
     "adaptive": ("the adaptive controller", 5),
@@ -270,8 +268,40 @@ def _add_analysis_options(parser) -> None:
         "host for a sync-point repack (0 keeps bucket isolation only)",
     )
     _runs_without(group, "--no-pipeline", "pipeline", inverted=True)
-    _runs_without(group, "--no-prefilter", "prefilter", inverted=True)
-    _runs_without(group, "--no-devsolver", "devsolver", inverted=True)
+    group.add_argument(
+        "--no-prefilter",
+        action="store_false",
+        dest="prefilter",
+        default=True,
+        help="disable the abstract feasibility pre-filter (interval + "
+        "known-bits pass ahead of the exact solver tiers, the known bits "
+        "on the device); the issue set is identical either way",
+    )
+    group.add_argument(
+        "--no-devsolver",
+        action="store_false",
+        dest="devsolver",
+        default=True,
+        help="disable the device SAT tier (batched bit-blast decision "
+        "procedure between the pre-filter and the exact tiers); the issue "
+        "set is identical either way",
+    )
+    group.add_argument(
+        "--devsolver-bit-budget",
+        type=int,
+        default=64,
+        metavar="BITS",
+        help="maximum free decision bits (after known-bits/interval "
+        "narrowing) for a query to enter the device SAT tier",
+    )
+    group.add_argument(
+        "--devsolver-iters",
+        type=int,
+        default=2048,
+        metavar="N",
+        help="device SAT tier search-kernel iteration budget per query "
+        "(budget lapse falls through as UNKNOWN)",
+    )
     _runs_without(group, "--no-mesh", "frontier_mesh", inverted=True)
     _runs_without(group, "--no-adaptive", "adaptive", inverted=True)
     _runs_without(group, "--no-staticpass", "no_staticpass", inverted=False)
@@ -506,6 +536,10 @@ def _build_analyzer(parsed):
         frontier_force=parsed.frontier_force,
         code_paging=parsed.code_paging,
         code_page_budget=parsed.code_page_budget,
+        prefilter=parsed.prefilter,
+        devsolver=parsed.devsolver,
+        devsolver_bit_budget=parsed.devsolver_bit_budget,
+        devsolver_iters=parsed.devsolver_iters,
     )
     print(runs_without_line(parsed), file=sys.stderr)
     return MythrilAnalyzer(

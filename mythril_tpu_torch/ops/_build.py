@@ -158,6 +158,15 @@ def load() -> ctypes.CDLL:
             lib.mk_frontier_segment_shape.restype = ctypes.c_int
             lib.mk_frontier_max_paths.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.mk_frontier_max_paths.restype = ctypes.c_int
+            from mythril_tpu_torch.absdomain.device import KbArgs
+            from mythril_tpu_torch.devsolver.device import DpllArgs
+
+            lib.mk_known_bits.argtypes = [ctypes.POINTER(KbArgs), ctypes.c_void_p]
+            lib.mk_known_bits.restype = ctypes.c_int
+            lib.mk_dpll.argtypes = [ctypes.POINTER(DpllArgs), ctypes.c_void_p]
+            lib.mk_dpll.restype = ctypes.c_int
+            lib.mk_dpll_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.mk_dpll_smem_bytes.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

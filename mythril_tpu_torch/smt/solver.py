@@ -6,7 +6,12 @@ this slice runs:
   tier 0    eager constant folding (terms.py), the per-conjunct-set result
             memo and tier 0.5, recent-model replay;
   tier 0.55 a few directed candidates for sat-biased queries;
+  tier 0.58 the abstract prefilter (``absdomain``: intervals on the host,
+            known bits on the device) — exact UNSAT;
   tier 0.6  interval-bound refutation (intervals.py) — exact UNSAT;
+  tier 0.65 the device SAT tier (``devsolver``: narrow conditions
+            bit-blasted and searched by batched DPLL on the device) — exact
+            UNSAT, or SAT with a validated model;
   tier 0.75 the independence split;
   tier 1    directed probing: the candidate generator (seeded
             ``random.Random(config.rng_seed)`` host Python, so it yields
@@ -27,9 +32,10 @@ issue gate).  ``check_satisfiable_batch`` merges the residue of many
 constraint sets into one tape and one dispatch (``_batch_probe_device``).
 A SAT answer always carries a model that ``concrete_eval`` validated.
 
-Not in this slice: the cross-run query cache, the abstract pre-filter and
-the device bit-blast tier.  A kernel error raises; there is no host
-fallback that would hide the card.  A conjunction the tape cannot express
+``args.prefilter`` and ``args.devsolver`` switch tiers 0.58 and 0.65 (on
+by default, as in the JAX package); both run on the solver's device.  Not
+in this slice: the cross-run query cache.  A kernel error raises; there is
+no host fallback that would hide the card.  A conjunction the tape cannot express
 (``TapeUnsupported``) is evaluated on the host candidate stream and counted
 as ``tape_unsupported``.
 """
@@ -1135,8 +1141,10 @@ def check_satisfiable_batch(
     Returns one bool per input set (True = keep the state).  When
     ``statuses_out`` is given, one status string per set is appended to it:
     ``"sat"`` / ``"unsat"`` / ``"unknown"`` (a timeout decided
-    unknown-as-unsat).  ``device``: None is the CUDA card (raises without
-    one); pass ``"cpu"`` for the plain PyTorch path.
+    unknown-as-unsat) / ``"prefilter"`` (the abstract prefilter proved
+    UNSAT) / ``"devsolver"`` (the device SAT tier proved UNSAT).
+    ``device``: None is the CUDA card (raises without one); pass ``"cpu"``
+    for the plain PyTorch path.
     """
     dev = resolve(device)
     config = config or ProbeConfig(
@@ -1192,6 +1200,44 @@ def check_satisfiable_batch(
             pending = still
             if not pending:
                 break
+
+    # Abstract prefilter over the residue: one interval + known-bits pass
+    # proves many sets UNSAT without bit-blasting; the verdict is sound, so
+    # it is remembered like any exact UNSAT.
+    if pending and global_args.prefilter:
+        from mythril_tpu_torch.absdomain import prefilter_batch
+
+        killed = prefilter_batch([conj for _i, conj, _k in pending], dev)
+        still = []
+        for (i, conj, key), dead in zip(pending, killed):
+            if dead:
+                results[i] = False
+                statuses[i] = "prefilter"
+                _model_cache.remember(key, UNSAT, None)
+            else:
+                still.append((i, conj, key))
+        pending = still
+
+    # Device SAT tier over what the prefilter left: narrow sets are
+    # bit-blasted and decided in one batch (tier 0.65).  UNSAT is exact,
+    # SAT models arrive validated and seed the replay cache, UNKNOWN falls
+    # through.
+    if pending and global_args.devsolver:
+        from mythril_tpu_torch import devsolver
+
+        verdicts = devsolver.decide_batch([conj for _i, conj, _k in pending], dev)
+        still = []
+        for (i, conj, key), (dstat, asg) in zip(pending, verdicts):
+            if dstat == UNSAT:
+                results[i] = False
+                statuses[i] = "devsolver"
+                _model_cache.remember(key, UNSAT, None)
+            elif dstat == SAT:
+                results[i] = True
+                _model_cache.remember(key, SAT, asg)
+            else:
+                still.append((i, conj, key))
+        pending = still
 
     # The merged dispatch pays off only when it amortizes over enough sets:
     # a 2-sibling fork goes through the per-set stack, >= 3 pending sets
@@ -1355,6 +1401,18 @@ def _solve_conjunction_impl(
                 stats.inc("solver_time", time.perf_counter() - t0)
                 return SAT, asg
 
+    # tier 0.58: the abstract prefilter (intervals + known bits over the
+    # packed tape), memoized under the canonical key, so one-shot queries
+    # and batched pruning share verdicts
+    if global_args.prefilter:
+        from mythril_tpu_torch.absdomain import refute as _abs_refute
+
+        if _abs_refute(conjuncts, device):
+            if use_cache:
+                _model_cache.remember(cache_key, UNSAT, None)
+            stats.inc("solver_time", time.perf_counter() - t0)
+            return UNSAT, None
+
     # tier 0.6: interval-bound refutation — exact UNSAT for range-impossible
     # demands, at one linear DAG walk
     from mythril_tpu_torch.smt.intervals import refute as _interval_refute
@@ -1364,6 +1422,24 @@ def _solve_conjunction_impl(
             _model_cache.remember(cache_key, UNSAT, None)
         stats.inc("solver_time", time.perf_counter() - t0)
         return UNSAT, None
+
+    # tier 0.65: the device SAT tier — narrow queries are bit-blasted and
+    # decided: exact UNSAT, or SAT with a validated model that seeds the
+    # replay cache; UNKNOWN falls through to the split, probe and CDCL
+    if global_args.devsolver:
+        from mythril_tpu_torch import devsolver
+
+        dstat, dasg = devsolver.decide(conjuncts, device)
+        if dstat == UNSAT:
+            if use_cache:
+                _model_cache.remember(cache_key, UNSAT, None)
+            stats.inc("solver_time", time.perf_counter() - t0)
+            return UNSAT, None
+        if dstat == SAT:
+            if use_cache:
+                _model_cache.remember(cache_key, SAT, dasg)
+            stats.inc("solver_time", time.perf_counter() - t0)
+            return SAT, dasg
 
     # tier 0.75: independence split — disjoint-variable buckets solve
     # separately and merge their models

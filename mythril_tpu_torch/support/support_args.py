@@ -10,6 +10,10 @@ plays the role of the JAX package's forced ``"jax"`` backend; ``"host"``
 never dispatches and evaluates candidates with the exact host evaluator
 only; ``"cdcl"`` is the forced exact mode: every query that the cheap tiers
 leave open goes to the native CDCL solver alone.
+``prefilter`` and ``devsolver`` are the solver's known-bits prefilter (tier
+0.58) and device SAT tier (tier 0.65), on by default as in the JAX package;
+``devsolver_bit_budget`` and ``devsolver_iters`` are the devsolver's budgets,
+read by ``devsolver.decide_batch`` and set through ``devsolver.configure``.
 
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
@@ -48,6 +52,12 @@ class Args:
     probe_candidates: int = 48
     probe_rounds: int = 4
     probe_backend: str = "device"  # device | host | cdcl
+    # the abstract known-bits + interval prefilter (absdomain/): tier 0.58
+    prefilter: bool = True
+    # the batched-DPLL device SAT tier (devsolver/): tier 0.65
+    devsolver: bool = True
+    devsolver_bit_budget: int = 64
+    devsolver_iters: int = 2048
     # the synchronous device frontier (frontier/engine.py): message-call
     # transactions run as segments of frontier_width paths
     frontier: bool = False

@@ -104,6 +104,8 @@ COPIED = (
     "plugin/loader.py",
     "interfaces/__init__.py",
     "interfaces/epic.py",
+    "absdomain/tape.py",
+    "devsolver/blaster.py",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

@@ -8,7 +8,9 @@ port carried before its native CDCL (tape-VM probe forced on, no query
 cache, no pre-filter, no device bit-blast tier, no native CDCL), and
 ``port_no_cdcl`` switches the port's CDCL off the same way, so the records
 made under it still hold; ``jax_cdcl_tiers`` is the same with native CDCL
-left on, the tier set the port carries now.
+left on.  ``jax_engine_config_tiers`` adds the known-bits prefilter and the
+devsolver, the tier set the port carries now; ``port_no_tiers`` switches the
+port's two off, as every older record was made.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def to_port_assignment(asg, jax_to_port: dict):
 
 
 @contextlib.contextmanager
-def _jax_tiers(cdcl: bool):
+def _jax_tiers(cdcl: bool, tiers: bool = False):
     from mythril_tpu.native import bitblast
     from mythril_tpu.querycache import configure, get_query_cache
     from mythril_tpu.smt.solver import clear_model_cache
@@ -49,7 +51,7 @@ def _jax_tiers(cdcl: bool):
     saved_qc = get_query_cache().enabled
     saved_available = bitblast.available
     args.probe_backend, args.prefilter, args.devsolver, args.query_cache = (
-        "jax", False, False, False,
+        "jax", tiers, tiers, False,
     )
     configure(enabled=False)
     if not cdcl:
@@ -75,6 +77,12 @@ def jax_cdcl_tiers():
     return _jax_tiers(cdcl=True)
 
 
+def jax_solver_tiers():
+    """``jax_cdcl_tiers`` with the JAX package's known-bits prefilter and
+    devsolver on: the solver tiers the port carries now."""
+    return _jax_tiers(cdcl=True, tiers=True)
+
+
 @contextlib.contextmanager
 def port_no_cdcl():
     """The port's native CDCL switched off (``bitblast.available`` returns
@@ -90,9 +98,24 @@ def port_no_cdcl():
 
 
 @contextlib.contextmanager
-def port_device_backend(cdcl: bool = False):
+def port_no_tiers():
+    """The port's known-bits prefilter and devsolver switched off, as the
+    JAX package ran for every record made before they were ported."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = (args.prefilter, args.devsolver)
+    args.prefilter = args.devsolver = False
+    try:
+        yield
+    finally:
+        args.prefilter, args.devsolver = saved
+
+
+@contextlib.contextmanager
+def port_device_backend(cdcl: bool = False, tiers: bool = False):
     """The port's solver with the device probe on and its caches cleared;
-    its native CDCL off unless ``cdcl``."""
+    its native CDCL off unless ``cdcl``, its prefilter and devsolver off
+    unless ``tiers``."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
     from mythril_tpu_torch.support.support_args import args
 
@@ -100,7 +123,11 @@ def port_device_backend(cdcl: bool = False):
     args.probe_backend = "device"
     clear_model_cache()
     try:
-        with contextlib.nullcontext() if cdcl else port_no_cdcl():
+        with contextlib.ExitStack() as stack:
+            if not cdcl:
+                stack.enter_context(port_no_cdcl())
+            if not tiers:
+                stack.enter_context(port_no_tiers())
             yield
     finally:
         args.probe_backend = saved
@@ -120,11 +147,11 @@ JAX_ENGINE_ARGS = dict(
 
 
 @contextlib.contextmanager
-def _jax_engine(cdcl: bool):
+def _jax_engine(cdcl: bool, tiers: bool = False):
     from mythril_tpu.support.support_args import args
 
     saved = {k: getattr(args, k) for k in JAX_ENGINE_ARGS}
-    with _jax_tiers(cdcl):
+    with _jax_tiers(cdcl, tiers):
         for k, v in JAX_ENGINE_ARGS.items():
             setattr(args, k, v)
         try:
@@ -144,6 +171,50 @@ def jax_engine_config_cdcl():
     """``jax_engine_config`` with the JAX package's native CDCL left on
     (``jax_cdcl_tiers``)."""
     return _jax_engine(cdcl=True)
+
+
+def jax_engine_config_tiers():
+    """``jax_engine_config_cdcl`` with the JAX package's known-bits
+    prefilter and devsolver on (its default budgets)."""
+    return _jax_engine(cdcl=True, tiers=True)
+
+
+TIER_COUNTERS = {
+    "prefilter": ("evaluated", "killed", "fallthrough"),
+    "devsolver": ("admitted", "decided_sat", "decided_unsat", "unknown",
+                  "model_validation_failures"),
+}
+
+
+def _tier_module(base: str, tier: str):
+    import importlib
+
+    return importlib.import_module(f"{base}.{'absdomain' if tier == 'prefilter' else tier}")
+
+
+def reset_tier_counters(base: str) -> None:
+    """Zero the prefilter's and the devsolver's counters of ``base``: the
+    port's module integers, the JAX package's registry counters."""
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        for tier in TIER_COUNTERS:
+            get_registry().reset(prefix=f"{tier}.")
+        return
+    for tier in TIER_COUNTERS:
+        _tier_module(base, tier).reset_counters()
+
+
+def tier_counters(base: str) -> dict:
+    """{"prefilter": {...}, "devsolver": {...}} of ``base`` (``TIER_COUNTERS``)."""
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        reg = get_registry()
+        return {tier: {n: int(reg.counter(f"{tier}.{n}").value or 0) for n in names}
+                for tier, names in TIER_COUNTERS.items()}
+    return {tier: {n: getattr(_tier_module(base, tier), n) for n in names}
+            for tier, names in TIER_COUNTERS.items()}
 
 
 def issue_key(issue) -> tuple:
@@ -171,6 +242,9 @@ def _reset(base: str) -> None:
     security = importlib.import_module(f"{base}.analysis.security")
     loader = importlib.import_module(f"{base}.analysis.module.loader")
     solver = importlib.import_module(f"{base}.smt.solver")
+    absdomain = importlib.import_module(f"{base}.absdomain")
+    devsolver = importlib.import_module(f"{base}.devsolver")
+    admission = importlib.import_module(f"{base}.devsolver.admission")
     model = importlib.import_module(f"{base}.support.model")
     stats = importlib.import_module(f"{base}.frontier.stats")
     engine = importlib.import_module(f"{base}.frontier.engine")
@@ -187,6 +261,11 @@ def _reset(base: str) -> None:
     for memo in ("_NARROW_CODES", "_SLOW_CODES", "_SLOW_SEGMENTS", "_WARM_PROGRAMS"):
         getattr(engine, memo).clear()
     txs.tx_id_manager.restart_counter()
+    # the tiers' verdict memos and admission accounting outlive an analysis
+    absdomain.reset_state()
+    devsolver.reset_state()
+    admission.reset_state()
+    reset_tier_counters(base)
 
 
 @contextlib.contextmanager
@@ -269,15 +348,16 @@ def counting_cdcl(base: str, into: dict):
 def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "dfs",
                  frontier: bool = False, force: bool = False, width: int = 64,
                  modules=None, timeout: int = 60, device="cpu", record: bool = True,
-                 cdcl: bool = False) -> dict:
+                 cdcl: bool = False, tiers: bool = False) -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
-    ("mythril_tpu" under ``jax_engine_config`` or ``jax_engine_config_cdcl``,
-    or "mythril_tpu_torch" on ``device``, its native CDCL on only when
-    ``cdcl``) with every cache cleared first.  -> {"issues", "summary",
+    ("mythril_tpu" under ``jax_engine_config``, ``jax_engine_config_cdcl``
+    or ``jax_engine_config_tiers``, or "mythril_tpu_torch" on ``device``,
+    its native CDCL on only when ``cdcl``, its prefilter and devsolver only
+    when ``tiers``) with every cache cleared first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
     "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
-    ``counting_cdcl``'s counts), "seconds" (wall, the digests' time
-    excluded)}"""
+    ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "seconds"
+    (wall, the digests' time excluded)}"""
     import importlib
     import time
 
@@ -300,6 +380,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                 stack.enter_context(recording_dispatches(base, dispatches))
             if port and not cdcl:
                 stack.enter_context(port_no_cdcl())
+            if port and not tiers:
+                stack.enter_context(port_no_tiers())
             stack.enter_context(counting_cdcl(base, native))
             t0 = time.perf_counter()
             sym = symbolic.SymExecWrapper(
@@ -324,6 +406,7 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
             "commit_errors": getattr(fstats, "commit_errors", 0),
         },
         "cdcl": {"cdcl_calls": solver.SolverStatistics().cdcl_calls, **native},
+        "tiers": tier_counters(base),
         "seconds": seconds,
     }
 

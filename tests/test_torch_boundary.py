@@ -7,7 +7,8 @@ query of the probe fixture on the CPU, imports the frontier modules
 (``frontier/{ops,arena,code,state,step}``, ``support/opcodes``) and runs one
 small plain segment on the CPU, builds and loads the port's native library
 (``native/bitblast``, g++ into ``mythril_tpu_torch/_build/``) and has its
-CDCL refute one formula, imports every module of the port, runs one
+CDCL refute one formula, runs the prefilter's ``prefilter_batch`` and the
+devsolver's ``decide_batch`` on the CPU, imports every module of the port, runs one
 whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 ``fire_lasers`` on the CPU, with the host engine and with the frontier
 forced), runs the command line in process (``interfaces.cli.main``:
@@ -78,6 +79,12 @@ if native["available"]:
     x = terms.var("boundary_x", 32)
     native["status"] = bitblast.solve(
         [terms.ult(x, terms.const(5, 32)), terms.ult(terms.const(10, 32), x)], 10.0)[0]
+from mythril_tpu_torch import absdomain, devsolver
+y = terms.var("boundary_y", 8)
+tier_rows = [[terms.ult(y, terms.const(5, 8)), terms.ult(terms.const(10, 8), y)],
+             [terms.eq(y, terms.const(3, 8))]]
+tiers = {"prefilter": absdomain.prefilter_batch(tier_rows, "cpu"),
+         "devsolver": [s for s, _a in devsolver.decide_batch(tier_rows, "cpu")]}
 import importlib, pkgutil
 import mythril_tpu_torch
 for m in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
@@ -117,7 +124,7 @@ with contextlib.redirect_stdout(out):
 cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
 print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
-                  "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native,
+                  "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
                   "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
@@ -138,6 +145,7 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["raised"] in (True, None)  # None: a card is visible
     assert got["n_exec"] > 0 and got["opcodes"] > 100
     assert got["seg_raised"] in (True, None)
+    assert got["tiers"] == {"prefilter": [True, False], "devsolver": ["unsat", "sat"]}
     for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
                 "frontier.step", "support.opcodes", "frontier.engine", "frontier.walker",
                 "frontier.harvest", "core.svm", "analysis.symbolic", "analysis.security",

@@ -5,8 +5,12 @@ The fixture ``tests/testdata/torch_cli_runs.json`` holds what the JAX CLI
 printed for each recorded command line, run with the JAX-only flags that pin
 it to the port's tiers (``JAX_PINS``: the forced device probe, and the static
 pass, pipeline, prefilter, devsolver, query cache, mesh, adaptive controller
-and harvest pool off; native CDCL on in both packages).  Under pytest the
-port's CLI replays the small runs (all but two bench contracts) in process
+and harvest pool off; native CDCL on in both packages).  The port's argv gets
+``--no-prefilter --no-devsolver`` too (``port_argv``), as the JAX CLI ran.
+The runs named ``.../tiers`` were recorded with the prefilter and the
+devsolver on in the JAX CLI (``TIER_PINS``), and the port runs them with its
+own on, its default.  Under pytest the port's CLI replays the small runs (all
+but the bench contracts of ``CARD_ONLY``) in process
 with ``--device cpu``; its output must equal the JAX CLI's field by field
 (``differences``), except the issues' ``discoveryTime``, the wall-time
 fields of the execution info, the JAX package's calibration block and the
@@ -49,6 +53,8 @@ JAX_PINS = [
     "--no-prefilter", "--no-devsolver", "--no-query-cache", "--no-mesh", "--no-adaptive",
     "--harvest-workers", "0",
 ]
+# the JAX CLI's pins for the runs recorded with its prefilter and devsolver on
+TIER_PINS = [a for a in JAX_PINS if a not in ("--no-prefilter", "--no-devsolver")]
 # jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
 # deviations: the port's meta carries the execution info only)
 JAX_ONLY_META = {"device", "devsolver", "exploration", "frontier", "health", "observability",
@@ -57,12 +63,14 @@ WALL_FIELDS = ("solver_time_s",)
 FRONTIER_WALL_FIELDS = ("segment_s", "harvest_s")
 # the file argument of --statespace-json and --graph in a recorded argv
 OUT = "{out}"
-# replayed on the card (chip_smoke.py); every other run is small and also
-# replayed under pytest on the CPU
+# replayed on the card (chip_smoke.py); every run but CARD_ONLY is small and
+# also replayed under pytest on the CPU
 BENCH = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
-         "kill_simple/frontier-256")
+         "kill_simple/frontier-256", "etherstore_like/frontier-256/tiers")
+CARD_ONLY = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
+             "etherstore_like/frontier-256/tiers")
 SMALL = tuple(r["name"] for r in json.loads(FIXTURE.read_text())["runs"]
-              if r["name"] not in BENCH[:2]) if FIXTURE.is_file() else ()
+              if r["name"] not in CARD_ONLY) if FIXTURE.is_file() else ()
 
 
 def recorded_runs() -> list:
@@ -72,7 +80,10 @@ def recorded_runs() -> list:
     json, ``kill_simple`` at one transaction as text and markdown, its
     statespace and call graph exports at two, and ``bench_contracts``'
     ``etherstore_like`` and ``rubixi_like`` and ``kill_simple`` at two
-    transactions on a forced frontier of 256 paths."""
+    transactions on a forced frontier of 256 paths; and with the JAX CLI's
+    prefilter and devsolver on (``TIER_PINS``), ``kill_simple`` at two
+    transactions on the host engine and ``etherstore_like`` on the forced
+    frontier of 256."""
     sys.path.insert(0, str(REPO))
     import bench_contracts
     from tests._torch_parity import engine_contracts
@@ -102,7 +113,18 @@ def recorded_runs() -> list:
         runs.append({"name": f"{name}/frontier-256",
                      "argv": analyze(code, 2) + ["-o", "jsonv2", *frontier,
                                                  "--frontier-width", "256"]})
+    runs.append({"name": "kill_simple/host/tiers", "pins": TIER_PINS,
+                 "argv": analyze(contracts["kill_simple"][0], 2) + ["-o", "jsonv2"]})
+    runs.append({"name": "etherstore_like/frontier-256/tiers", "pins": TIER_PINS,
+                 "argv": analyze(bench["etherstore_like"], 2) + [
+                     "-o", "jsonv2", *frontier, "--frontier-width", "256"]})
     return runs
+
+
+def port_argv(run: dict) -> list:
+    """A recorded run's argv for the port: the JAX pins' tier switches that
+    the port has (the prefilter's and the devsolver's) added."""
+    return run["argv"] + [a for a in ("--no-prefilter", "--no-devsolver") if a in run["pins"]]
 
 
 def load_runs() -> dict:
@@ -206,18 +228,36 @@ def _mythril_dir(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", SMALL)
 def test_port_cli_equals_jax_cli(name):
     run = load_runs()[name]
-    rc, out = run_port(run["argv"])
+    rc, out = run_port(port_argv(run))
     assert rc == run["rc"] == 0
     if OUT in run["argv"]:
         assert out == run["file"]
     else:
         assert differences(outform_of(run["argv"]), run["stdout"], out) == []
+    if name.endswith("/tiers"):
+        assert tier_counter_differences(run) == []
+
+
+def tier_counter_differences(run: dict) -> list:
+    """Where the port's prefilter and devsolver counters after a run differ
+    from the JAX report's ``prefilter`` and ``devsolver`` meta blocks."""
+    from tests._torch_parity import tier_counters
+
+    meta = _last_json_line(run["stdout"])[0]["meta"]
+    got = tier_counters("mythril_tpu_torch")
+    return [f"{tier}.{k}: JAX {meta[tier][k]} port {v}" for tier, counts in got.items()
+            for k, v in counts.items() if meta[tier][k] != v]
 
 
 def test_fixture_holds_the_runs_it_names():
     runs = load_runs()
     assert set(runs) == {r["name"] for r in recorded_runs()}
-    assert all(r["rc"] == 0 and r["pins"] == JAX_PINS for r in runs.values())
+    pins = {r["name"]: r.get("pins", JAX_PINS) for r in recorded_runs()}
+    assert all(r["rc"] == 0 and r["pins"] == pins[n] for n, r in runs.items())
+    # the tier runs' JAX reports show both tiers at work
+    for name in ("kill_simple/host/tiers", "etherstore_like/frontier-256/tiers"):
+        meta = _last_json_line(runs[name]["stdout"])[0]["meta"]
+        assert meta["prefilter"]["evaluated"] > 0 and meta["devsolver"]["admitted"] > 0
     # kill_simple's exploit calls kill() at the last step
     for name in ("kill_simple/frontier-256", "kill_simple/host"):
         issues = _last_json_line(runs[name]["stdout"])[0]["issues"]
@@ -333,6 +373,39 @@ def test_default_only_options_run_at_their_default():
     assert cli.screen(argv) == CLEAN
     rc, out = run_port(argv)
     assert rc == 0 and json.loads(out)["issues"] == []
+
+
+def test_prefilter_and_devsolver_switches_are_real(monkeypatch):
+    """Both tiers run by default; ``--no-prefilter``, ``--no-devsolver`` and
+    the devsolver's budgets reach the solver, and ``main`` restores them."""
+    from mythril_tpu_torch import absdomain
+    from mythril_tpu_torch.facade import warm
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+
+    real = ["--no-prefilter", "--no-devsolver", "--devsolver-bit-budget", "32",
+            "--devsolver-iters=100"]
+    assert cli.screen(CLEAN + real) == CLEAN + real
+    line = cli.runs_without_line(cli.create_parser().parse_args(CLEAN + real))
+    assert "prefilter" not in line and "devsolver" not in line
+    seen, apply = [], warm.apply_analyzer_args
+
+    def recording(cmd_args):
+        apply(cmd_args)
+        seen.append((args.prefilter, args.devsolver, args.devsolver_bit_budget,
+                     args.devsolver_iters))
+
+    monkeypatch.setattr(warm, "apply_analyzer_args", recording)
+    kill = ["analyze", "-c", KILL_SIMPLE.read_text().strip(), "--bin-runtime", "-t", "1",
+            "-o", "json"]
+    for extra in (real, []):
+        rc, out = run_port(kill + extra)
+        assert rc == 0 and len(json.loads(out)["issues"]) == 1
+        # the counters of the run: the prefilter evaluated only when on
+        assert (absdomain.evaluated > 0) == (not extra)
+    assert seen == [(False, False, 32, 100), (True, True, 64, 2048)]
+    assert (args.prefilter, args.devsolver, args.devsolver_bit_budget,
+            args.devsolver_iters) == (True, True, 64, 2048)
 
 
 def test_analyze_without_a_card_fails(monkeypatch, capsys):
@@ -556,7 +629,8 @@ def _record(run: dict) -> dict:
     from mythril_tpu.interfaces import cli as jax_cli
 
     path = os.path.join(home, "out")
-    sys.argv = ["myth", *[path if a == OUT else a for a in run["argv"]], *JAX_PINS]
+    pins = run.get("pins", JAX_PINS)
+    sys.argv = ["myth", *[path if a == OUT else a for a in run["argv"]], *pins]
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -567,7 +641,7 @@ def _record(run: dict) -> dict:
             rc = e.code or 0
     seconds = time.perf_counter() - t0
     exported = {"file": Path(path).read_text()} if OUT in run["argv"] else {}
-    return {**run, "pins": JAX_PINS, "rc": rc, "stdout": out.getvalue(),
+    return {**run, "pins": pins, "rc": rc, "stdout": out.getvalue(),
             "jax_cpu_seconds": seconds, **exported}
 
 

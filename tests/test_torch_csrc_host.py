@@ -1,8 +1,8 @@
 """The CUDA sources' arithmetic, built for the host and held against the plain
 PyTorch versions, bit for bit.
 
-``csrc/keccak.cuh``, ``csrc/bitvec.cuh`` and ``csrc/tape_vm.cuh`` are
-``__host__ __device__``; ``csrc/host_check.cpp`` wraps the body one CUDA
+``csrc/keccak.cuh``, ``csrc/bitvec.cuh``, ``csrc/tape_vm.cuh``,
+``csrc/known_bits.cuh`` and ``csrc/dpll.cuh`` are ``__host__ __device__``; ``csrc/host_check.cpp`` wraps the body one CUDA
 thread runs (one state, one candidate) in a host loop, with the tape's slot
 file as a host array poisoned at every segment's start, and runs the
 warp-per-state keccak body with its 25 lanes as coroutines of one host
@@ -23,11 +23,17 @@ import numpy as np
 import pytest
 import torch
 
+from mythril_tpu_torch.absdomain import device as kb_device
+from mythril_tpu_torch.absdomain import domains as kb_domains
+from mythril_tpu_torch.absdomain import tape as kb_tape
+from mythril_tpu_torch.devsolver import device as dpll_device
+from mythril_tpu_torch.devsolver import kernel as dpll_kernel
 from mythril_tpu_torch.ops import _build, keccak_torch
 from mythril_tpu_torch.ops import tape_vm as ptape
 from mythril_tpu_torch.smt import concrete_eval as pce
 from mythril_tpu_torch.smt import terms
 from tests import _torch_tape_cases as cases
+from tests import _torch_tier_cases as tier_cases
 
 
 @pytest.fixture(scope="module")
@@ -46,6 +52,10 @@ def host_lib(tmp_path_factory):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
     lib.mk_tape_vm_segment_host.argtypes = [ctypes.POINTER(_build.TapeArgs)]
     lib.mk_tape_vm_segment_host.restype = ctypes.c_int
+    lib.mk_known_bits_host.argtypes = [ctypes.POINTER(kb_device.KbArgs)]
+    lib.mk_known_bits_host.restype = ctypes.c_int
+    lib.mk_dpll_host.argtypes = [ctypes.POINTER(dpll_device.DpllArgs), ctypes.c_int]
+    lib.mk_dpll_host.restype = ctypes.c_int
     return lib
 
 
@@ -188,3 +198,54 @@ def test_out_of_range_tape_rows_are_refused():
     tape["a1"][0] = V + T
     with pytest.raises(ValueError, match="out of range"):
         ptape._check_tape(tape, compiled.n_steps, V, T, A, R)
+
+
+def _host_known_bits(lib, nodes, wm, cl, okm, okv, n_rows):
+    n = nodes.shape[0]
+    km = torch.full((n, n_rows, 16), -1, dtype=torch.int32)
+    kv = torch.full_like(km, -1)
+    refuted = torch.ones(n_rows, dtype=torch.bool)
+    zero = torch.zeros(16, dtype=torch.int32)  # held: args keeps only its address
+    args = kb_device.kb_args(nodes, wm, cl, okm, okv, zero, km, kv, refuted)
+    assert lib.mk_known_bits_host(ctypes.byref(args)) == 0
+    return km, kv, refuted
+
+
+@pytest.mark.parametrize("seed,n_nodes,n_rows", [(1, 64, 1), (4, 512, 16), (5, 96, 64)])
+def test_host_known_bits_matches_plain(host_lib, seed, n_nodes, n_rows):
+    """known_bits.cuh's row walk against eval_kb_plain on synthetic tapes
+    (every op code, missing children, overrides)."""
+    pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n_nodes, n_rows), kb_tape)
+    inputs = kb_domains.kb_inputs(pack, "cpu")
+    got = _host_known_bits(host_lib, *inputs, n_rows)
+    want = kb_domains.eval_kb_plain(*inputs, n_rows)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_host_known_bits_matches_plain_on_recorded_packs(host_lib):
+    from tests import test_torch_engine_tiers as tiers
+
+    for rec in tiers.load_kernels()["kb"][::4]:
+        inputs = kb_domains.kb_inputs(tiers.kb_pack(rec), "cpu")
+        got = _host_known_bits(host_lib, *inputs, int(rec["n_rows"]))
+        want = kb_domains.eval_kb_plain(*inputs, int(rec["n_rows"]))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), rec["run"]
+
+
+@pytest.mark.parametrize("seed,q,c,v,iters,threads", [
+    (1, 4, 512, 512, 2048, 256), (1, 4, 512, 512, 2048, 7), (2, 16, 512, 512, 2048, 7),
+    (3, 4, 512, 512, 20, 256), (4, 4, 4096, 4096, 40, 256)])
+def test_host_dpll_matches_plain(host_lib, seed, q, c, v, iters, threads):
+    """dpll.cuh's phases, run for a block of ``threads`` threads in turn,
+    against run_plain: status, assignment and steps."""
+    plane = tier_cases.random_cnf_plane(seed, q, c, v, dpll_kernel)
+    lits, dec = torch.from_numpy(plane.lits), torch.from_numpy(plane.dec)
+    status = torch.full((lits.shape[0],), 9, dtype=torch.int8)
+    assign = torch.full((lits.shape[0], plane.n_vars), 9, dtype=torch.int8)
+    steps = torch.full((lits.shape[0],), -1, dtype=torch.int32)
+    args = dpll_device.dpll_args(lits, dec, status, assign, steps, plane.n_vars, iters)
+    assert host_lib.mk_dpll_host(ctypes.byref(args), threads) == 0
+    want = dpll_kernel.run_plain(lits, dec, plane.n_vars, iters)
+    for g, w in zip((status, assign, steps), want):
+        assert torch.equal(g, w)

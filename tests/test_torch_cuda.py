@@ -233,3 +233,53 @@ def test_cli_frontier_width_limit_on_card(card, tmp_path, monkeypatch, capsys):
     rc, out = run_port(argv + ["--frontier-width", str(limit)], device=None)
     assert rc == 0 and step.launches > 0
     assert [i["swc-id"] for i in json.loads(out)["issues"]] == ["106"]
+
+
+@pytest.mark.parametrize("seed,n_nodes,n_rows", [(1, 64, 1), (4, 512, 16), (9, 4096, 64)])
+def test_known_bits_kernel_matches_plain(card, seed, n_nodes, n_rows):
+    """csrc/known_bits.cu against eval_kb_plain, both on the card, on
+    synthetic tapes (every op code, missing children, overrides)."""
+    from mythril_tpu_torch.absdomain import device, domains, tape
+    from tests import _torch_tier_cases as tier_cases
+
+    pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n_nodes, n_rows), tape)
+    inputs = domains.kb_inputs(pack, card)
+    before = device.launches
+    got = device.known_bits(*inputs, n_rows)
+    assert device.launches == before + 1
+    for g, w in zip(got, domains.eval_kb_plain(*inputs, n_rows)):
+        assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed,q,c,v,iters", [
+    (1, 4, 512, 512, 2048), (2, 16, 512, 512, 2048), (3, 4, 512, 512, 20),
+    (5, 16, 4096, 4096, 2048)])
+def test_dpll_kernel_matches_plain(card, seed, q, c, v, iters):
+    """csrc/dpll.cu against run_plain, both on the card: status, assignment
+    and steps."""
+    from mythril_tpu_torch.devsolver import device, kernel
+    from tests import _torch_tier_cases as tier_cases
+
+    plane = tier_cases.random_cnf_plane(seed, q, c, v, kernel)
+    lits, dec = torch.from_numpy(plane.lits).to(card), torch.from_numpy(plane.dec).to(card)
+    before = device.launches
+    got = device.dpll(lits, dec, plane.n_vars, iters)
+    assert device.launches == before + 1
+    for g, w in zip(got, kernel.run_plain(lits, dec, plane.n_vars, iters)):
+        assert g.is_cuda and torch.equal(g, w)
+
+
+def test_engine_runs_rubixi_under_the_tiers_on_card(card):
+    """The whole analysis on the card with the prefilter and the devsolver
+    on: the JAX package's recorded run (issues, tier counters), both
+    kernels launched."""
+    from mythril_tpu_torch.absdomain import device as kb_device
+    from mythril_tpu_torch.devsolver import device as dpll_device
+    from tests.test_torch_engine_tiers import check_run, load_runs, run_port
+
+    run = next(r for r in load_runs() if r["name"] == "rubixi_like" and not r["frontier"])
+    before = kb_device.launches, dpll_device.launches
+    got = run_port(run, None)
+    assert check_run(run, got) == []
+    assert kb_device.launches - before[0] == run["kb_passes"] > 0
+    assert dpll_device.launches - before[1] == run["dpll_planes"] > 0
