@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
-probe, the device frontier segment and the whole analysis around them,
+probe (the tape VM and the per-conjunction lowering), the device frontier
+segment and the whole analysis around them,
 without and with the native CDCL tier, and under the solver's default
 prefilter and devsolver tiers.
 
@@ -35,6 +36,15 @@ Phases, in order; any failure exits nonzero and prints no result:
    op family (all 20) at both profiles and both batch buckets, one batch of
    8192 on the large profile, and the slot cases of
    ``tests/_torch_tape_cases.py`` at both buckets;
+4b. lowering: ``run_lowering`` (the ``lowering`` kernel, and ``keccak_f1600``
+   on its keccak nodes) against ``run_lowering_reference``, both on the
+   card, bit-equal in truth and in every node's value: every op family of
+   ``tests/_torch_lowering_cases.py`` at every width of its ``WIDTHS`` (B =
+   63, and against ``concrete_eval``), three families at 256 and 520 bits
+   at B = 1, 192 and 4096, tables of K = 8, 16 and 64 rows at every B, and
+   every recorded dispatch of ``tests/testdata/torch_lowering_cases.npz``
+   (the JAX package's lowering dispatches on the probe fixture), against
+   its stored JAX truth too;
 5. frontier parity: the ``frontier_segment`` kernel against ``segment_torch``,
    both on the card, bit-equal in every output array, on every case of
    ``tests/_torch_frontier_cases.py`` (the 33 families on concrete and
@@ -51,6 +61,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``probe_backend="device"`` and the port's native CDCL off, as the JAX
    package ran when the traffic was recorded; every launch count zeroed just before and read
    just after; 0 keep/prune disagreements with the stored JAX verdicts;
+   ``tape_vm``, ``keccak_f1600`` and ``lowering`` launched (the conjunctions
+   the tape refuses go to the lowering, as in the JAX package), every
+   solver device dispatch a tape or a lowering evaluation; the counts
+   ``tape_unsupported``, ``lowering_unsupported`` and ``device_dispatches``;
 7. the frontier main path: every dispatch of
    ``tests/testdata/torch_frontier_dispatches.npz`` (the JAX engine's real
    segments at widths 1024 and 256) through ``push_state`` -> ``segment`` (the
@@ -69,8 +83,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    zeroed before each run and read after; each run's issue keys, step
    counts and fixed selectors equal the recorded ones, every frontier
    dispatch's input and output digests too, one segment launch per
-   dispatch, no replay or commit error, one tape evaluation on the card per
-   solver device dispatch; per run the wall seconds and their split
+   dispatch, no replay or commit error, one tape or lowering evaluation on
+   the card per solver device dispatch (the lowering's launches printed);
+   per run the wall seconds and their split
    (segment kernel by CUDA events, the segment call, ``push_state``,
    ``pull_harvest``, the arena pull, the walker's replay and commit, the
    solver, the rest of the host) and path-steps per second; then the
@@ -84,7 +99,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    seconds and timeouts.  A run whose JAX recording has CDCL answers cut by
    their wall-clock budget (``timeouts``) cannot be held exactly: a
    difference there is reported, not failed, and its keys must still equal
-   the default-tier keys.  Then ``bectoken_like`` under ``torch.profiler``;
+   the default-tier keys.  Then ``etherstore_like`` (frontier) under
+   ``torch.profiler``;
 8d. the engine under the solver's default tiers: the same on every run of
    ``tests/testdata/torch_engine_runs_tiers.json``, recorded from the JAX
    package with native CDCL, the known-bits prefilter and the devsolver on,
@@ -101,7 +117,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    ran) and ``etherstore_like`` again with both tiers on in both; each jsonv2 report equal to the JAX CLI's
    (``tests/test_torch_cli.py`` ``differences``), counts zeroed before each
    run and read after, one segment launch per frontier segment, one tape
-   evaluation on the card per solver device dispatch; per run the CLI's
+   or lowering evaluation on the card per solver device dispatch; per run
+   the CLI's
    wall beside ``SymExecWrapper`` + ``fire_lasers`` alone on the same
    contract and parameters, in turns (CLI, wrapper, wrapper, CLI), and
    beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
@@ -115,8 +132,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    phase 3; the frontier segment per dispatch with path-steps per second and
    the ``push_state`` and ``pull_harvest`` times; ``known_bits`` and
    ``dpll`` on the recorded packs and planes of 8d's main path and on the
-   seeded ones; the probe main path once more under ``torch.profiler`` for
-   the card's idle share;
+   seeded ones; the lowering on up to 16 of the probe main path's calls and
+   on two of them tiled to B = 4096; the probe main path once more under
+   ``torch.profiler`` for the card's idle share;
 10. one ``{"kernels": [...]}`` line (with each kernel's launches on every
    main path), and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -189,6 +207,22 @@ KB_NODE_OPS = 200
 # own steps (the kernel's steps output)
 DPLL_CLAUSE_OPS = 20
 DPLL_WORD_OPS = 8
+# 32-bit integer operations of one lowering record for one candidate, per
+# limb of its result (csrc/lowering.cuh: each limb's operand loads, the op,
+# the mask and the store); multiplication per limb product, division per
+# dividend bit and limb, exponentiation per multiply (counted from this
+# run's values), a lookup per table row and index limb.  At the issue rate.
+LOWER_LIMB_OPS = {"ADD": 6, "SUB": 7, "NEG": 5, "AND": 5, "OR": 5, "XOR": 5, "NOT": 4,
+                  "SHL": 10, "LSHR": 12, "ASHR": 14, "CONCAT": 12, "EXTRACT": 10,
+                  "ZEXT": 4, "SEXT": 6, "ITE": 3, "EQ": 3, "ULT": 5, "ULE": 5, "SLT": 5,
+                  "SLE": 5, "LOOKUP": 3, "MUL": 4, "UDIV": 4, "UREM": 4, "SDIV": 10,
+                  "SREM": 10, "EXP": 6, "KECCAK": 0}
+LOWER_PRODUCT_OPS = 4
+LOWER_DIV_BIT_LIMB_OPS = 12
+LOWER_ROW_LIMB_OPS = 3
+# the lowering's seeded shapes: candidates per program and rows per table
+LOWER_BS = (1, 63, 192, 4096)
+LOWER_KS = (8, 16, 64)
 KB_SEEDED = ((11, 512, 16), (12, 512, 64), (13, 4096, 16), (14, 4096, 64))
 DPLL_SEEDED = ((21, 16, 4096, 4096, 2048), (22, 16, 4096, 4096, 2048),
                (23, 16, 4096, 4096, 50), (24, 16, 512, 512, 2048))
@@ -275,7 +309,7 @@ KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "tape_vm_kernel": "tape_vm", "frontier_segment_block": "frontier_segment/block",
     "frontier_segment_cluster": "frontier_segment/cluster",
     "frontier_segment_grid": "frontier_segment/grid",
-    "known_bits_kernel": "known_bits", "dpll_kernel": "dpll",
+    "known_bits_kernel": "known_bits", "dpll_kernel": "dpll", "lowering_kernel": "lowering",
 }
 
 
@@ -428,8 +462,71 @@ def tape_parity(torch):
           f"+ {len(cases.SLOT_CASES)} slot cases x 2 buckets)")
 
 
+def lowering_both(torch, compiled, inputs):
+    """The lowering's wrapper (the kernel) and its plain version on the same
+    packed inputs on the card -> (kernel truth, equal: the truth tables and
+    every node's value)."""
+    from mythril_tpu_torch.ops import lowering
+    from tests._torch_lowering_cases import node_differences
+
+    arena = torch.empty((compiled.program.rows, inputs[1].shape[0]), dtype=torch.int32,
+                        device="cuda")
+    got = lowering.run_lowering(compiled, *inputs, arena=arena)
+    pooled = lowering.run_lowering(compiled, *inputs)  # as the main path calls it
+    values: dict = {}
+    want = lowering.run_lowering_reference(compiled, *inputs, values=values)
+    torch.cuda.synchronize()
+    bad = node_differences(compiled, arena, values)
+    return got, torch.equal(got, want) and torch.equal(pooled, want) and not bad
+
+
+def lowering_parity(torch):
+    """Every op family of tests/_torch_lowering_cases.py at every width
+    (B=63), the array and keccak families and the arithmetic at 256 and 520
+    bits at every B of LOWER_BS, tables of every K of LOWER_KS at every B,
+    and every recorded dispatch of tests/testdata/torch_lowering_cases.npz
+    (against its stored JAX truth too)."""
+    from mythril_tpu_torch.ops import lowering
+    from mythril_tpu_torch.smt import concrete_eval, terms
+    from tests import _torch_lowering_cases as lcases
+    from tests._torch_lowering_cases import load_recorded, recorded_inputs
+
+    t0 = phase("lowering: the kernel against its plain version on the card")
+    jobs = [(f, w, 63, 6) for f in lcases.FAMILIES for w in lcases.WIDTHS]
+    jobs += [(f, w, B, 6) for f in ("arith", "array", "keccak") for w in (256, 520)
+             for B in LOWER_BS if B != 63]
+    jobs += [("array", 256, B, K) for K in LOWER_KS for B in LOWER_BS]
+    for seed, (family, width, B, K) in enumerate(jobs):
+        conj, bv_vars, arrays = lcases.build(terms, family, width)
+        asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, seed, B, K)
+        compiled = lowering.compile_conjunction(conj)
+        inputs = lowering.pack_assignments(compiled, asgs, "cuda")
+        got, equal = lowering_both(torch, compiled, inputs)
+        check(equal, f"lowering kernel differs from its plain version: {family} w={width} "
+                     f"B={B} K={K}")
+        if B <= 63:  # and the host oracle
+            for b, asg in enumerate(asgs):
+                vals = concrete_eval.evaluate(conj, asg)
+                check(got[b].tolist() == [bool(vals[c]) for c in conj],
+                      f"lowering kernel differs from concrete_eval: {family} w={width} cand {b}")
+    meta, arrays, conjs = load_recorded()
+    recorded = 0
+    for n, (d, conj) in enumerate(zip(meta["dispatches"], conjs)):
+        if d.get("jax_error"):
+            continue
+        compiled = lowering.compile_conjunction(conj)
+        got, equal = lowering_both(torch, compiled, recorded_inputs(arrays, n, d, "cuda"))
+        check(equal and bool((got.cpu().numpy() == arrays[f"{n}_truth"]).all()),
+              f"lowering kernel differs on recorded dispatch {n}")
+        recorded += 1
+    print(f"  {len(jobs)} seeded programs ({len(lcases.FAMILIES)} families x "
+          f"{len(lcases.WIDTHS)} widths, B in {LOWER_BS}, K in {LOWER_KS}) and {recorded} "
+          f"recorded dispatches equal, every node's value, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main_path(torch):
-    from mythril_tpu_torch.ops import keccak_cuda, tape_vm
+    from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
     from mythril_tpu_torch.smt import solver as P
     from mythril_tpu_torch.smt.concrete_eval import evaluate
     from mythril_tpu_torch.smt.serialize import from_jax_dump
@@ -441,8 +538,9 @@ def main_path(torch):
     data, roots = load_fixture(from_jax_dump)
 
     # keep each kernel call's inputs for the timing below
-    tape_calls, keccak_calls = [], []
+    tape_calls, keccak_calls, lowering_calls = [], [], []
     run_tape_cuda, keccak_kernel = tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600
+    run_lowering_cuda = lowering._run_lowering_cuda
 
     def record_tape(*a, **kw):
         tape_calls.append((a, {k: v for k, v in kw.items() if k != "regs"}))
@@ -452,7 +550,12 @@ def main_path(torch):
         keccak_calls.append(state.clone())
         return keccak_kernel(state)
 
+    def record_lowering(compiled, *inputs, **kw):
+        lowering_calls.append((compiled, inputs))
+        return run_lowering_cuda(compiled, *inputs, **kw)
+
     tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = record_tape, record_keccak
+    lowering._run_lowering_cuda = record_lowering
     args.probe_backend = "device"
     P.SolverStatistics().reset()
     zero_launches()
@@ -471,27 +574,36 @@ def main_path(torch):
         torch.cuda.synchronize()
     finally:
         tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = run_tape_cuda, keccak_kernel
+        lowering._run_lowering_cuda = run_lowering_cuda
+    wall = time.perf_counter() - t0
     launches = read_launches()
     stats = P.SolverStatistics().as_dict()
     n_queries = sum(len(c["queries"]) for c in data["contracts"])
-    print(f"  {n_queries} queries in {time.perf_counter() - t0:.1f} s; verdicts {dict(verdicts)}")
+    print(f"  {n_queries} queries in {wall:.1f} s; verdicts {dict(verdicts)}")
     print(f"  disagreements with the JAX verdicts: {len(bad)} {bad[:5]}")
     print(f"  launches {launches} (keccak layouts {keccak_cuda.variant_launches}); "
           f"tape_unsupported {stats['tape_unsupported']}; "
-          f"device_dispatches {stats['device_dispatches']}")
+          f"lowering_unsupported {stats['lowering_unsupported']}; "
+          f"device_dispatches {stats['device_dispatches']} ({len(tape_calls)} tape, "
+          f"{len(lowering_calls)} lowering)")
     check(not bad, f"{len(bad)} keep/prune disagreements with the JAX verdicts")
-    for name in ("tape_vm", "keccak_f1600"):
+    for name in ("tape_vm", "keccak_f1600", "lowering"):
         check(launches[name] > 0, f"the main path launched {name} no time")
-    return launches, tape_calls, keccak_calls
+    check(len(tape_calls) + len(lowering_calls) == stats["device_dispatches"],
+          "device dispatches that neither the tape nor the lowering evaluated")
+    summary = {k: stats[k] for k in ("tape_unsupported", "lowering_unsupported",
+                                     "device_dispatches")}
+    summary.update(wall_s=wall, tape_calls=len(tape_calls), lowering_calls=len(lowering_calls))
+    return launches, tape_calls, keccak_calls, lowering_calls, summary
 
 
 def zero_launches() -> None:
     from mythril_tpu_torch.absdomain import device as kb_device
     from mythril_tpu_torch.devsolver import device as dpll_device
     from mythril_tpu_torch.frontier import step as fstep
-    from mythril_tpu_torch.ops import keccak_cuda, tape_vm
+    from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
 
-    keccak_cuda.launches = tape_vm.launches = fstep.launches = 0
+    keccak_cuda.launches = tape_vm.launches = fstep.launches = lowering.launches = 0
     kb_device.launches = dpll_device.launches = 0
     keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
 
@@ -500,11 +612,11 @@ def read_launches() -> dict:
     from mythril_tpu_torch.absdomain import device as kb_device
     from mythril_tpu_torch.devsolver import device as dpll_device
     from mythril_tpu_torch.frontier import step as fstep
-    from mythril_tpu_torch.ops import keccak_cuda, tape_vm
+    from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
 
     return {"tape_vm": tape_vm.launches, "keccak_f1600": keccak_cuda.launches,
             "frontier_segment": fstep.launches, "known_bits": kb_device.launches,
-            "dpll": dpll_device.launches}
+            "dpll": dpll_device.launches, "lowering": lowering.launches}
 
 
 def idle_share(torch):
@@ -636,6 +748,110 @@ def time_tape(torch, calls, reps: int = 20):
                      "bound_by": b_by, "err": err, "slots": plan.S, **shape,
                      "shape": f"B={B} T={T} steps={n} profile={profile}"})
     return rows
+
+
+def _ref_ints(prog, arena_np, ref: int, L: int):
+    """Python ints of a lowering value (arena rows or a pool constant), one
+    per candidate."""
+    if ref < 0:
+        at = -1 - ref
+        return [sum(int(prog.pool[at + i]) << (16 * i) for i in range(L))] * arena_np.shape[1]
+    limbs = arena_np[ref: ref + L]
+    return [sum(int(limbs[i, b]) << (16 * i) for i in range(L)) for b in range(limbs.shape[1])]
+
+
+def lowering_work(compiled, inputs, arena_np) -> float:
+    """32-bit integer operations the lowering kernel's records need over
+    every candidate (LOWER_LIMB_OPS), with division and exponentiation
+    counted from this run's values (``arena_np``: the kernel's arena)."""
+    from mythril_tpu_torch.ops import lowering as low
+
+    prog = compiled.program
+    names = {getattr(low, n): n[4:] for n in dir(low) if n.startswith("LOP_")}
+    B = arena_np.shape[1]
+    K = {i: tab[0].shape[1] for i, tab in enumerate(inputs[2])}
+    ops = 2.0 * B * len(compiled.conjuncts)
+    for r in prog.rec:
+        name, w, wa = names[int(r[low.R_OP])], int(r[low.R_W]), int(r[low.R_WA])
+        L, La = -(-w // 16), -(-wa // 16)
+        ops += LOWER_LIMB_OPS[name] * max(L, La) * B
+        if name == "MUL":
+            ops += LOWER_PRODUCT_OPS * L * (L + 1) // 2 * B
+        elif name == "LOOKUP":
+            ops += LOWER_ROW_LIMB_OPS * K[int(r[low.R_AUX0])] * (La + 1) * B
+        elif name in ("UDIV", "UREM", "SDIV", "SREM"):
+            for v in _ref_ints(prog, arena_np, int(r[low.R_A]), L):
+                if name[0] == "S" and v >> (w - 1):
+                    v = (1 << w) - v
+                ops += LOWER_DIV_BIT_LIMB_OPS * v.bit_length() * L
+        elif name == "EXP":
+            for e in _ref_ints(prog, arena_np, int(r[low.R_B]), L):
+                muls = bin(e).count("1") + max(e.bit_length() - 1, 0)
+                ops += muls * (LOWER_PRODUCT_OPS * L * (L + 1) // 2 + 4 * L)
+    return ops
+
+
+def time_lowering(torch, calls, reps: int = 10):
+    """Per call (compiled conjunction, packed inputs on the card): ``ms``, the
+    device time of the call's lowering launches alone (the keccak launches
+    between segments excluded); ``wrapper_ms``, the whole ``run_lowering``
+    call as the main path makes it (input copies, launches, keccak nodes,
+    the stream's synchronisation); ``plain_ms``, the plain version; the
+    bound: every input byte (the packed candidates, the node table and its
+    pool) read once and the truth table written once, against the records'
+    integer work (``lowering_work``)."""
+    import ctypes
+
+    from mythril_tpu_torch.ops import _build, keccak_cuda, lowering
+
+    lib = _build.load()
+    rows = []
+    for compiled, inputs in calls:
+        prog = compiled.program
+        B = inputs[1].shape[0]
+        arena = torch.empty((prog.rows, B), dtype=torch.int32, device="cuda")
+        got = lowering.run_lowering(compiled, *inputs, arena=arena)
+        want = lowering.run_lowering_reference(compiled, *inputs)
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        timer = LaunchTimer(torch)
+
+        def launch(largs):
+            stream = torch.cuda.current_stream().cuda_stream
+            timer(lambda: _build.check(lib.mk_lowering(ctypes.byref(largs), stream), "lowering"))
+
+        for _ in range(reps):
+            lowering.run_segments(compiled, *inputs, launch=launch,
+                                  permute=keccak_cuda.keccak_f1600, arena=arena)
+        ms = timer.total_ms() / reps
+        wrapper = cuda_ms(lambda: lowering.run_lowering(compiled, *inputs), reps)
+        plain = cuda_ms(lambda: lowering.run_lowering_reference(compiled, *inputs), 1)
+        flat = [*inputs[0], inputs[1], *(x for tab in inputs[2] for x in tab)]
+        n_bytes = (sum(x.numel() * x.element_size() for x in flat) + prog.rec.nbytes
+                   + prog.pool.nbytes + B * len(compiled.conjuncts))
+        b_ms, b_by = bound(n_bytes, 0.0, lowering_work(compiled, inputs, arena.cpu().numpy()))
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "err": err, "launches_per_call": len(prog.segments),
+                     "shape": f"B={B} records={len(prog.rec)} segments={len(prog.segments)} "
+                              f"rows={prog.rows}"})
+    return rows
+
+
+def lowering_timed_calls(torch, calls, limit: int = 16):
+    """At most ``limit`` of the main path's lowering calls, evenly spread
+    over their sizes (records x candidates), and the largest and the median
+    again with their candidates tiled to B=4096."""
+    order = sorted(calls, key=lambda c: len(c[0].program.rec) * c[1][1].shape[0])
+    step = max(1, len(order) // limit)
+    picked = order[::step][:limit]
+
+    def tiled(call, B=4096):
+        compiled, (scalars, bools, tabs) = call
+        reps = -(-B // bools.shape[0])
+        cut = lambda x: x.repeat(reps, *([1] * (x.dim() - 1)))[:B].contiguous()  # noqa: E731
+        return compiled, (tuple(cut(x) for x in scalars), cut(bools),
+                          tuple(tuple(cut(x) for x in tab) for tab in tabs))
+
+    return picked, [tiled(order[len(order) // 2]), tiled(order[-1])]
 
 
 def time_keccak(torch, states, reps: int = 50):
@@ -958,13 +1174,13 @@ class EngineSplit:
     of the transaction-end CDCL gate (``potential_issues._gate_issues``)
     that it does not already count, and ``solver_in_replay_s`` the part of
     it inside the replay;
-    ``tape_calls``: tape VM evaluations on the card.  Host clocks except
-    ``kernel_ms``."""
+    ``tape_calls`` and ``lowering_calls``: tape VM and lowering evaluations
+    on the card.  Host clocks except ``kernel_ms``."""
 
     def __init__(self, torch):
         self.torch = torch
         self.t = collections.Counter()
-        self.events, self.tape_calls = [], 0
+        self.events, self.tape_calls, self.lowering_calls = [], 0, 0
         self.in_replay = False
 
     def __enter__(self):
@@ -972,7 +1188,7 @@ class EngineSplit:
         from mythril_tpu_torch.frontier import engine as E
         from mythril_tpu_torch.frontier.arena import HostArena
         from mythril_tpu_torch.frontier.walker import Walker
-        from mythril_tpu_torch.ops import _build, tape_vm
+        from mythril_tpu_torch.ops import _build, lowering, tape_vm
         from mythril_tpu_torch.smt.solver import Optimize, SolverStatistics
 
         torch, t = self.torch, self.t
@@ -983,6 +1199,7 @@ class EngineSplit:
                        (HostArena, "pull_from_device", HostArena.pull_from_device),
                        (Walker, "replay", Walker.replay), (Walker, "commit", Walker.commit),
                        (tape_vm, "_run_tape_cuda", tape_vm._run_tape_cuda),
+                       (lowering, "_run_lowering_cuda", lowering._run_lowering_cuda),
                        (lib, "mk_frontier_segment", lib.mk_frontier_segment)]
         saved = {(id(o), n): f for o, n, f in self._saved}
 
@@ -1050,6 +1267,10 @@ class EngineSplit:
             self.tape_calls += 1
             return saved[(id(tape_vm), "_run_tape_cuda")](*a, **kw)
 
+        def lower(*a, **kw):
+            self.lowering_calls += 1
+            return saved[(id(lowering), "_run_lowering_cuda")](*a, **kw)
+
         PI._gate_issues = outside_solver_time(PI, "_gate_issues")
         Optimize.check = outside_solver_time(Optimize, "check")
         E.push_state = timed(E, "push_state", "push_s", sync=True)
@@ -1059,6 +1280,7 @@ class EngineSplit:
         Walker.replay = replay
         Walker.commit = timed(Walker, "commit", "replay_s")
         tape_vm._run_tape_cuda = tape
+        lowering._run_lowering_cuda = lower
         lib.mk_frontier_segment = launch
         return self
 
@@ -1124,7 +1346,8 @@ def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None)
             "run": label, "wall_s": wall, "jax_cpu_s": run["jax_cpu_seconds"],
             "issues": len(got["summary"]), "dispatches": len(got["dispatches"]),
             "path_steps": f["device_instructions"], "launches": launches,
-            "tape_calls": split.tape_calls, "device_dispatches": stats["device_dispatches"],
+            "tape_calls": split.tape_calls, "lowering_calls": split.lowering_calls,
+            "device_dispatches": stats["device_dispatches"],
             "kernel_ms": split.kernel_ms(), "segment_s": t["segment_s"], "push_s": t["push_s"],
             "pull_s": t["pull_s"], "arena_s": t["arena_s"], "replay_s": t["replay_s"],
             "solver_s": solver_s, "solver_in_replay_s": t["solver_in_replay_s"],
@@ -1141,7 +1364,9 @@ def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None)
         print(f"  {label}: {wall:.2f} s (JAX on the CPU {run['jax_cpu_seconds']:.1f} s); "
               f"{row['issues']} issues; {row['dispatches']} dispatches, "
               f"{row['path_steps']} path-steps; launches {launches}; tape calls "
-              f"{split.tape_calls} for {stats['device_dispatches']} solver device dispatches")
+              f"{split.tape_calls} and lowering calls {split.lowering_calls} (lowering launches "
+              f"{launches['lowering']}) for {stats['device_dispatches']} solver device "
+              f"dispatches")
         print(f"    split: kernel {row['kernel_ms']:.3f} ms, segment call {t['segment_s']:.4f} s, "
               f"push_state {t['push_s']:.4f} s, pull_harvest {t['pull_s']:.4f} s, arena pull "
               f"{t['arena_s']:.4f} s, walker replay + commit {t['replay_s']:.3f} s (solver inside "
@@ -1184,10 +1409,13 @@ def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None)
             check(launches["frontier_segment"] == len(got["dispatches"]),
                   f"{label}: {launches['frontier_segment']} segment launches for "
                   f"{len(got['dispatches'])} dispatches")
-        check(split.tape_calls == stats["device_dispatches"],
-              f"{label}: {split.tape_calls} tape evaluations on the card for "
-              f"{stats['device_dispatches']} solver device dispatches")
+        check(split.tape_calls + split.lowering_calls == stats["device_dispatches"],
+              f"{label}: {split.tape_calls} tape and {split.lowering_calls} lowering "
+              f"evaluations on the card for {stats['device_dispatches']} solver device "
+              "dispatches")
         check(launches["tape_vm"] >= split.tape_calls, f"{label}: tape calls without a launch")
+        check(launches["lowering"] >= split.lowering_calls,
+              f"{label}: lowering calls without a launch")
     return dict(total), rows
 
 
@@ -1288,16 +1516,18 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
         launches = read_launches()
         total.update(launches)
         stats, segments = SolverStatistics(), FrontierStatistics().segments
-        tape_calls, dispatches = split.tape_calls, stats.device_dispatches
+        evals, dispatches = split.tape_calls + split.lowering_calls, stats.device_dispatches
         check(rc == 0, f"{name}: the CLI exited {rc}")
         diffs = T.differences("jsonv2", run["stdout"], out)
         check(not diffs, f"{name}: the port's report differs from the JAX CLI's: {diffs[:3]}")
         check(launches["frontier_segment"] == segments > 0,
               f"{name}: {launches['frontier_segment']} segment launches for {segments} segments")
-        check(tape_calls == dispatches,
-              f"{name}: {tape_calls} tape evaluations on the card for {dispatches} solver "
-              "device dispatches")
-        check(launches["tape_vm"] >= tape_calls, f"{name}: tape calls without a launch")
+        check(evals == dispatches,
+              f"{name}: {evals} tape and lowering evaluations on the card for "
+              f"{dispatches} solver device dispatches")
+        check(launches["tape_vm"] >= split.tape_calls, f"{name}: tape calls without a launch")
+        check(launches["lowering"] >= split.lowering_calls,
+              f"{name}: lowering calls without a launch")
         tiers_on = "--no-prefilter" not in argv
         check((launches["known_bits"] > 0 and launches["dpll"] > 0) == tiers_on,
               f"{name}: launches {launches} with the prefilter and devsolver "
@@ -1316,7 +1546,8 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
         row = {"run": name, "cli_wall_s": [wall, cli2], "wrapper_wall_s": [w1, w2],
                "overhead_s": (wall + cli2 - w1 - w2) / 2, "engine_phase_wall_s": engine,
                "jax_cli_cpu_s": run["jax_cpu_seconds"], "launches": launches,
-               "segments": segments, "tape_calls": tape_calls, "device_dispatches": dispatches,
+               "segments": segments, "tape_calls": split.tape_calls,
+               "lowering_calls": split.lowering_calls, "device_dispatches": dispatches,
                "kernel_ms": split.kernel_ms(), "card": card}
         rows.append(row)
         print(f"  {name}: CLI {wall:.3f} s (checked) and {cli2:.3f} s, SymExecWrapper + "
@@ -1324,7 +1555,8 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
               f"CLI), overhead {row['overhead_s']:+.4f} s; engine phase's run of the contract "
               + (f"{engine:.3f} s" if engine is not None else "none") + f" ({card}); JAX CLI "
               f"on the CPU {run['jax_cpu_seconds']:.1f} s; launches {launches}, {segments} "
-              f"segments, tape calls {tape_calls} for {dispatches} solver device dispatches, "
+              f"segments, tape calls {split.tape_calls} and lowering calls "
+              f"{split.lowering_calls} for {dispatches} solver device dispatches, "
               f"kernel {row['kernel_ms']:.3f} ms")
 
     argv = ["analyze", "-f", "tests/testdata/inputs/kill_simple.bin-runtime", "--bin-runtime",
@@ -1569,8 +1801,9 @@ def main() -> int:
         sass, local = sass_per_round()
         keccak_parity(torch)
         tape_parity(torch)
+        lowering_parity(torch)
         f_shapes = frontier_parity(torch, attrs, local)
-        launches, tape_calls, keccak_calls = main_path(torch)
+        launches, tape_calls, keccak_calls, lowering_calls, probe = main_path(torch)
         f_launches, f_kept, transfers = frontier_main_path(torch)
         e_launches, e_rows = engine_runs(torch)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
@@ -1579,7 +1812,8 @@ def main() -> int:
         c_launches, c_rows = engine_runs(torch, cdcl=True)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
             check(c_launches[name] > 0, f"the engine's CDCL runs launched {name} no time")
-        c_idle = engine_idle_share(torch, cdcl=True)
+        # etherstore, not bectoken: bectoken's CDCL run repeated takes two minutes
+        c_idle = engine_idle_share(torch, "etherstore_like", cdcl=True)
         t_launches, t_rows = engine_runs(torch, tiers=True,
                                          cdcl_walls={r["run"]: r["wall_s"] for r in c_rows})
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
@@ -1613,6 +1847,12 @@ def main() -> int:
                                                          "bound_ms", "bound_by", "pull_harvest_ms",
                                                          "path_steps_per_s", "forks")}
                                       for r in f_rows])
+        phase("lowering times at the main path's shapes (CUDA events)")
+        timed, tiled = lowering_timed_calls(torch, lowering_calls)
+        lower = summarize("lowering", time_lowering(torch, timed), launches["lowering"], card,
+                          route="cuda", source="mythril_tpu_torch/csrc/lowering.cu",
+                          replaces="mythril_tpu/ops/lowering.py:99-161")
+        lower.update(attrs["lowering"], main_path=probe, calls_on_main_path=len(lowering_calls))
         phase("known_bits and dpll times at the main path's shapes (CUDA events)")
         known_bits = summarize("known_bits", time_known_bits(torch, kb_recorded),
                                t_launches["known_bits"], card, route="cuda",
@@ -1623,7 +1863,7 @@ def main() -> int:
                          route="cuda", source="mythril_tpu_torch/csrc/dpll.cu",
                          replaces="mythril_tpu/devsolver/device.py:44")
         dpll.update(attrs["dpll"])
-        kernels = [keccak, tape, frontier, known_bits, dpll]
+        kernels = [keccak, tape, frontier, known_bits, dpll, lower]
         for entry in kernels:
             entry["launches_by_path"] = {
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
@@ -1638,10 +1878,11 @@ def main() -> int:
         phase("kernel times at scale (CUDA events)")
         scaled = at_scale(torch)
         scaled.update(known_bits=time_known_bits(torch, kb_seeded, reps=5),
-                      dpll=time_dpll(torch, dpll_seeded, reps=2))
+                      dpll=time_dpll(torch, dpll_seeded, reps=2),
+                      lowering=time_lowering(torch, tiled, reps=5))
         for entry in kernels:
             rows = scaled.get(entry["name"], ())
-            for r in rows if entry["name"] in ("known_bits", "dpll") else ():  # at_scale printed
+            for r in rows if entry["name"] in ("known_bits", "dpll", "lowering") else ():
                 print(f"  {entry['name']} {r['shape']}: kernel {r['ms']:.5f} ms, wrapper "
                       f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
                       f"{r['bound_ms']:.6f} ms by {r['bound_by']}")

@@ -12,6 +12,7 @@
 #include "dpll.cuh"
 #include "frontier_segment.cuh"
 #include "known_bits.cuh"
+#include "lowering.cuh"
 #include "tape_vm.cuh"
 
 extern "C" void mk_keccak_f1600_host(const int32_t* in, int32_t* out, long long n) {
@@ -258,5 +259,12 @@ extern "C" int mk_dpll_host(const mk::dpll::DpllArgs* args, int nt) {
     HostBlock x{*args, s, nt};
     mk::dpll::run_query(x, *args, q, s);
   }
+  return 0;
+}
+
+// The lowering's records, candidate after candidate (one thread each on the
+// card).
+extern "C" int mk_lowering_host(const mk::low::LowerArgs* args) {
+  for (long long b = 0; b < args->B; ++b) mk::low::run_candidate(*args, b);
   return 0;
 }

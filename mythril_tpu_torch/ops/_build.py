@@ -165,6 +165,10 @@ def load() -> ctypes.CDLL:
             lib.mk_known_bits.restype = ctypes.c_int
             lib.mk_dpll.argtypes = [ctypes.POINTER(DpllArgs), ctypes.c_void_p]
             lib.mk_dpll.restype = ctypes.c_int
+            from mythril_tpu_torch.ops.lowering import LowerArgs
+
+            lib.mk_lowering.argtypes = [ctypes.POINTER(LowerArgs), ctypes.c_void_p]
+            lib.mk_lowering.restype = ctypes.c_int
             lib.mk_dpll_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.mk_dpll_smem_bytes.restype = ctypes.c_longlong
             _lib = lib

@@ -178,15 +178,12 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 
 def ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Lexicographic compare from the most-significant limb down."""
+    """Lexicographic compare: the most-significant differing limb decides."""
     a, b = _bcast(a, b)
-    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
-    gt = torch.zeros_like(lt)
-    for i in range(a.shape[-1] - 1, -1, -1):
-        ai, bi = a[..., i], b[..., i]
-        lt = lt | (~gt & (ai < bi))
-        gt = gt | (~lt & (ai > bi))
-    return lt
+    ne = a != b
+    pos = torch.arange(1, a.shape[-1] + 1, device=a.device)
+    top = (ne * pos).argmax(dim=-1, keepdim=True)
+    return torch.take_along_dim(a < b, top, dim=-1)[..., 0] & ne.any(dim=-1)
 
 
 def ule(a, b):
@@ -373,16 +370,40 @@ def resize(a: torch.Tensor, from_w: int, to_w: int) -> torch.Tensor:
     return torch.cat([mask_top(a, from_w), pad], dim=-1)
 
 
-def _const_shift(value: int, like: torch.Tensor) -> torch.Tensor:
-    s = from_ints(value, 32, like.device)
-    return s.expand(*like.shape[:-1], 2)
+def _limb_pad(a: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros((*a.shape[:-1], n), dtype=a.dtype, device=a.device)
+
+
+def _shl_static(a: torch.Tensor, n: int, width: int) -> torch.Tensor:
+    """``shl`` by a host-known amount: limb slices instead of gathers."""
+    L = a.shape[-1]
+    if n >= width:
+        return torch.zeros_like(a)
+    q, r = divmod(n, LIMB_BITS)
+    x = torch.cat([_limb_pad(a, q), a[..., : L - q]], dim=-1)
+    if r:
+        prev = torch.cat([_limb_pad(a, 1), x[..., :-1]], dim=-1)
+        x = ((x << r) | (prev >> (LIMB_BITS - r))) & LIMB_MASK
+    return mask_top(x, width)
+
+
+def _lshr_static(a: torch.Tensor, n: int, width: int) -> torch.Tensor:
+    """``lshr`` by a host-known amount: limb slices instead of gathers."""
+    if n >= width:
+        return torch.zeros_like(a)
+    q, r = divmod(n, LIMB_BITS)
+    x = torch.cat([a[..., q:], _limb_pad(a, q)], dim=-1)
+    if r:
+        nxt = torch.cat([x[..., 1:], _limb_pad(a, 1)], dim=-1)
+        x = ((x >> r) | (nxt << (LIMB_BITS - r))) & LIMB_MASK
+    return x
 
 
 def sext_to(a: torch.Tensor, from_w: int, to_w: int) -> torch.Tensor:
     s = sign_bit(a, from_w).bool()[..., None]
     low = resize(a, from_w, to_w)
     ones = mask_top(torch.full_like(low, LIMB_MASK), to_w)
-    high = shl(ones, _const_shift(from_w, low), to_w)
+    high = _shl_static(ones, from_w, to_w)
     return torch.where(s, low | high, low)
 
 
@@ -391,8 +412,7 @@ def extract_bits(a: torch.Tensor, hi: int, lo: int, from_w: int) -> torch.Tensor
     out_w = hi - lo + 1
     if lo % LIMB_BITS == 0:
         return mask_top(resize(a[..., lo // LIMB_BITS:], from_w - lo, out_w), out_w)
-    shifted = lshr(a, _const_shift(lo, a), from_w)
-    return resize(shifted, from_w, out_w)
+    return resize(_lshr_static(a, lo, from_w), from_w, out_w)
 
 
 def concat_bits(hi: torch.Tensor, lo: torch.Tensor, hi_w: int, lo_w: int) -> torch.Tensor:
@@ -400,7 +420,7 @@ def concat_bits(hi: torch.Tensor, lo: torch.Tensor, hi_w: int, lo_w: int) -> tor
     out_w = hi_w + lo_w
     lo_r = resize(lo, lo_w, out_w)
     hi_r = resize(hi, hi_w, out_w)
-    return lo_r | shl(hi_r, _const_shift(lo_w, hi_r), out_w)
+    return lo_r | _shl_static(hi_r, lo_w, out_w)
 
 
 def mux(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

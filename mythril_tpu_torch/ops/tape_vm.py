@@ -283,36 +283,7 @@ class TapeProgram:
                 return self._emit(
                     OP_KECCAK64, self._r(lo), self._r(hi), width=256
                 )
-            # a preimage built byte by byte (a memory word re-read as a
-            # concat chain, as mapping-slot hashes are): assemble each
-            # 256-bit half from its parts.  The JAX package sends these to
-            # its per-conjunction lowering instead.
-            lo_row, hi_row = self._word_row(inp, 0), self._word_row(inp, 256)
-            return self._emit(OP_KECCAK64, lo_row, hi_row, width=256)
         raise TapeUnsupported(f"keccak input width {inp.width}")
-
-    def _word_row(self, t: Term, base: int) -> int:
-        """Row of bits [base, base + 256) of a wide concat chain: constant
-        parts fold into one constant, the others are shifted into place and
-        OR-ed together."""
-        const_bits, row = 0, None
-        for part, off in _concat_parts(t, 0):
-            if not base <= off < base + 256:
-                continue
-            if off + part.width > base + 256:
-                raise TapeUnsupported("keccak preimage part spans both words")
-            if part.op == "const":
-                const_bits |= part.aux << (off - base)
-                continue
-            part_row = self._r(part)
-            if off > base:
-                part_row = self._emit(OP_SHL, part_row, self._const(off - base))
-            row = part_row if row is None else self._emit(OP_OR, row, part_row)
-        if row is None:
-            return self._const(const_bits)
-        if const_bits:
-            row = self._emit(OP_OR, row, self._const(const_bits))
-        return row
 
     # -- finalize into padded tensors ---------------------------------------
     def finalize(self, profile) -> Optional[dict]:
@@ -365,17 +336,6 @@ class TapeProgram:
 
 
 _STEP_BASE = 1 << 20
-
-
-def _concat_parts(t: Term, off: int):
-    """(part, bit offset) of a concat chain, descending through concats that
-    are wider than a word or straddle the word boundary at bit 256."""
-    if t.op == "concat" and (t.width > 256 or off < 256 < off + t.width):
-        for arg in reversed(t.args):
-            yield from _concat_parts(arg, off)
-            off += arg.width
-    else:
-        yield t, off
 
 
 # ---------------------------------------------------------------------------

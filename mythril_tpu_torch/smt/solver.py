@@ -16,8 +16,10 @@ this slice runs:
   tier 1    directed probing: the candidate generator (seeded
             ``random.Random(config.rng_seed)`` host Python, so it yields
             the same candidates as the JAX package) feeds one batched
-            evaluation of the conjunction on the tape VM (the CUDA kernel
-            on the card), then the exact host evaluator validates the hit;
+            evaluation of the conjunction on the tape VM, or the
+            per-conjunction lowering where the tape cannot express it (CUDA
+            kernels on the card), then the exact host evaluator validates
+            the hit;
             local repair mutates the best candidate.  When the exact tier
             is cheap (native CDCL present, a DAG under 1500 nodes) the
             probe gets one round and a shorter repair;
@@ -35,9 +37,11 @@ A SAT answer always carries a model that ``concrete_eval`` validated.
 ``args.prefilter`` and ``args.devsolver`` switch tiers 0.58 and 0.65 (on
 by default, as in the JAX package); both run on the solver's device.  Not
 in this slice: the cross-run query cache.  A kernel error raises; there is
-no host fallback that would hide the card.  A conjunction the tape cannot express
-(``TapeUnsupported``) is evaluated on the host candidate stream and counted
-as ``tape_unsupported``.
+no host fallback that would hide the card.  A conjunction the tape cannot
+express (``TapeUnsupported``, counted as ``tape_unsupported``) goes to the
+per-conjunction lowering (``ops/lowering.py``), as in the JAX package; one
+that cannot either (``LoweringUnsupported``, counted as
+``lowering_unsupported``) is evaluated on the host candidate stream.
 """
 
 from __future__ import annotations
@@ -75,13 +79,16 @@ class SolverStatistics:
     ``cdcl_calls`` counts native CDCL solves (tier 2, the forced exact
     mode, each Optimize session query, each issue-gate query);
     ``tape_unsupported`` counts conjunctions the tape VM could not express,
-    whose candidates were evaluated on the host instead;
-    ``device_dispatches`` counts tape evaluations of candidate batches."""
+    ``lowering_unsupported`` those the per-conjunction lowering could not
+    either, whose candidates were evaluated on the host instead;
+    ``device_dispatches`` counts device evaluations of candidate batches
+    (tape or lowering).  Port statistics: the jsonv2 report keeps the JAX
+    package's keys."""
 
     _instance = None
     _fields = (
         "query_count", "solver_time", "probe_hits", "cdcl_calls", "unknown_as_unsat",
-        "tape_unsupported", "device_dispatches",
+        "tape_unsupported", "lowering_unsupported", "device_dispatches",
     )
 
     def __new__(cls):
@@ -1056,7 +1063,8 @@ def _split_remember(key: frozenset, result: List[List[Term]]) -> None:
 
 
 def _device_backend_requested() -> bool:
-    """Whether candidate batches are evaluated on the tape VM.
+    """Whether candidate batches are evaluated on the device (the tape VM
+    or the per-conjunction lowering).
 
     ``args.probe_backend``: "device" always (the JAX package's forced "jax"
     backend), "host" and "cdcl" (the forced exact mode) never."""
@@ -1066,16 +1074,27 @@ def _device_backend_requested() -> bool:
     return backend == "device"
 
 
-def _try_compile_device(conjuncts: Sequence[Term]):
-    """The tape for a conjunction, or None when the tape cannot express it
-    (the candidates are then evaluated on the host)."""
-    from mythril_tpu_torch.ops import tape_vm
+def _try_compile_device(conjuncts: Sequence[Term], lower: bool = True):
+    """The tape for a conjunction; where the tape cannot express it
+    (``TapeUnsupported``), the per-conjunction lowering; None where that
+    cannot either (``LoweringUnsupported``): the candidates are then
+    evaluated on the host.  ``lower=False``: the tape alone, as the JAX
+    package's merged batch dispatch compiles (its ``_batch_probe_device``
+    sends a set the tape refuses to the per-set stack)."""
+    from mythril_tpu_torch.ops import lowering, tape_vm
 
     try:
         return tape_vm.compile_tape(conjuncts)
     except tape_vm.TapeUnsupported as e:
-        log.debug("tape VM unsupported (%s); host candidate stream", e)
+        log.debug("tape VM unsupported (%s); per-conjunction lowering", e)
         SolverStatistics().inc("tape_unsupported")
+    if not lower:
+        return None
+    try:
+        return lowering.compile_cached(conjuncts)
+    except lowering.LoweringUnsupported as e:
+        log.debug("lowering unsupported (%s); host candidate stream", e)
+        SolverStatistics().inc("lowering_unsupported")
         return None
 
 
@@ -1271,7 +1290,7 @@ def _batch_probe_device(pending, results, config, device) -> None:
             if c.tid not in col_of:
                 col_of[c.tid] = len(all_conjs)
                 all_conjs.append(c)
-    compiled = _try_compile_device(all_conjs)
+    compiled = _try_compile_device(all_conjs, lower=False)
     if compiled is None:
         return  # the per-set stack decides every set
 

@@ -79,6 +79,26 @@ if native["available"]:
     x = terms.var("boundary_x", 32)
     native["status"] = bitblast.solve(
         [terms.ult(x, terms.const(5, 32)), terms.ult(terms.const(10, 32), x)], 10.0)[0]
+from mythril_tpu_torch.ops import lowering
+from mythril_tpu_torch.smt.concrete_eval import Assignment
+k = terms.var("boundary_k", 256)
+pre = terms.concat(*[terms.extract(255 - 8 * i, 248 - 8 * i, k) for i in range(32)],
+                   *[terms.const(3, 8)] * 32)
+low_conj = [terms.ult(terms.keccak(pre), terms.const(1 << 255, 256)), terms.ult(k, terms.const(9, 256))]
+low_asgs = []
+for v in (0, 5, 12):
+    a = Assignment()
+    a.scalars[k] = v
+    low_asgs.append(a)
+compiled = lowering.compile_cached(low_conj)
+low = {"truth": compiled.evaluate_batch(low_asgs, "cpu").tolist(), "raised": None}
+if not torch.cuda.is_available():
+    try:
+        compiled.evaluate_batch(low_asgs)
+    except NoCudaDevice:
+        low["raised"] = True
+    else:
+        low["raised"] = False
 from mythril_tpu_torch import absdomain, devsolver
 y = terms.var("boundary_y", 8)
 tier_rows = [[terms.ult(y, terms.const(5, 8)), terms.ult(terms.const(10, 8), y)],
@@ -125,7 +145,7 @@ cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
 print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
                   "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
-                  "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
+                  "lowering": low, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
 
@@ -146,6 +166,13 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["n_exec"] > 0 and got["opcodes"] > 100
     assert got["seg_raised"] in (True, None)
     assert got["tiers"] == {"prefilter": [True, False], "devsolver": ["unsat", "sat"]}
+    # the per-conjunction lowering (a byte-built keccak preimage) on the CPU
+    from mythril_tpu_torch.ops.keccak import keccak256_int
+
+    want = [[keccak256_int(int.from_bytes(v.to_bytes(32, "big") + bytes([3] * 32), "big"), 64)
+             < 1 << 255, v < 9] for v in (0, 5, 12)]
+    assert got["lowering"] == {"truth": want, "raised": got["lowering"]["raised"]}
+    assert got["lowering"]["raised"] in (True, None)
     for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
                 "frontier.step", "support.opcodes", "frontier.engine", "frontier.walker",
                 "frontier.harvest", "core.svm", "analysis.symbolic", "analysis.security",

@@ -2,7 +2,8 @@
 PyTorch versions, bit for bit.
 
 ``csrc/keccak.cuh``, ``csrc/bitvec.cuh``, ``csrc/tape_vm.cuh``,
-``csrc/known_bits.cuh`` and ``csrc/dpll.cuh`` are ``__host__ __device__``; ``csrc/host_check.cpp`` wraps the body one CUDA
+``csrc/known_bits.cuh``, ``csrc/dpll.cuh`` and ``csrc/lowering.cuh`` are
+``__host__ __device__``; ``csrc/host_check.cpp`` wraps the body one CUDA
 thread runs (one state, one candidate) in a host loop, with the tape's slot
 file as a host array poisoned at every segment's start, and runs the
 warp-per-state keccak body with its 25 lanes as coroutines of one host
@@ -10,7 +11,10 @@ thread, phase by phase.  A host C++ compiler builds
 it into a shared library in the test's temporary directory, and
 ``tape_vm.run_segments`` drives it exactly as ``run_tape`` drives the
 kernels: the tape's slot plan, segments split at keccak steps, the spill and
-the permutation between them.
+the permutation between them; ``lowering.run_segments`` drives the
+lowering's body the same way, segment by segment, keccak nodes hashed
+between them, and every node's value in its arena must equal the plain
+version's.
 The launch code in the ``.cu`` files runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -29,9 +33,11 @@ from mythril_tpu_torch.absdomain import tape as kb_tape
 from mythril_tpu_torch.devsolver import device as dpll_device
 from mythril_tpu_torch.devsolver import kernel as dpll_kernel
 from mythril_tpu_torch.ops import _build, keccak_torch
+from mythril_tpu_torch.ops import lowering as plow
 from mythril_tpu_torch.ops import tape_vm as ptape
 from mythril_tpu_torch.smt import concrete_eval as pce
 from mythril_tpu_torch.smt import terms
+from tests import _torch_lowering_cases as lcases
 from tests import _torch_tape_cases as cases
 from tests import _torch_tier_cases as tier_cases
 
@@ -56,6 +62,8 @@ def host_lib(tmp_path_factory):
     lib.mk_known_bits_host.restype = ctypes.c_int
     lib.mk_dpll_host.argtypes = [ctypes.POINTER(dpll_device.DpllArgs), ctypes.c_int]
     lib.mk_dpll_host.restype = ctypes.c_int
+    lib.mk_lowering_host.argtypes = [ctypes.POINTER(plow.LowerArgs)]
+    lib.mk_lowering_host.restype = ctypes.c_int
     return lib
 
 
@@ -249,3 +257,47 @@ def test_host_dpll_matches_plain(host_lib, seed, q, c, v, iters, threads):
     want = dpll_kernel.run_plain(lits, dec, plane.n_vars, iters)
     for g, w in zip((status, assign, steps), want):
         assert torch.equal(g, w)
+
+
+def _host_lowering(lib):
+    def launch(largs):
+        assert lib.mk_lowering_host(ctypes.byref(largs)) == 0
+    return launch
+
+
+@pytest.mark.parametrize("width", lcases.WIDTHS)
+@pytest.mark.parametrize("family", list(lcases.FAMILIES))
+def test_host_lowering_matches_plain(host_lib, family, width):
+    conj, bv_vars, arrays = lcases.build(terms, family, width)
+    asgs = lcases.random_assignments(terms, pce, bv_vars, arrays, 100 + width, 20)
+    pc = plow.compile_conjunction(conj)
+    inputs = plow.pack_assignments(pc, asgs)
+    got, want, bad = lcases.kernel_and_plain(pc, inputs, _host_lowering(host_lib),
+                                            permute=_host_permute(host_lib))
+    assert bad == []
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("keys,n", [(8, 1), (16, 63), (64, 192)])
+def test_host_lowering_tables(host_lib, keys, n):
+    conj, bv_vars, arrays = lcases.build(terms, "array", 256)
+    asgs = lcases.random_assignments(terms, pce, bv_vars, arrays, keys, n, keys)
+    pc = plow.compile_conjunction(conj)
+    inputs = plow.pack_assignments(pc, asgs)
+    got, want, bad = lcases.kernel_and_plain(pc, inputs, _host_lowering(host_lib))
+    assert bad == [] and torch.equal(got, want)
+
+
+def test_host_lowering_matches_plain_on_recorded_dispatches(host_lib):
+    from tests._torch_lowering_cases import load_recorded, recorded_inputs
+
+    meta, arrays, conjs = load_recorded()
+    for n, (d, conj) in enumerate(zip(meta["dispatches"], conjs)):
+        if d.get("jax_error"):
+            continue
+        pc = plow.compile_conjunction(conj)
+        got, want, bad = lcases.kernel_and_plain(pc, recorded_inputs(arrays, n, d),
+                                                _host_lowering(host_lib))
+        assert bad == [], n
+        assert torch.equal(got, want), n
+        assert np.array_equal(got.numpy(), arrays[f"{n}_truth"]), n

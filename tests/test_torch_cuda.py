@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from mythril_tpu_torch.ops import keccak_cuda, keccak_torch, tape_vm
+from mythril_tpu_torch.ops import keccak_cuda, keccak_torch, lowering, tape_vm
 from mythril_tpu_torch.smt import concrete_eval, terms
+from tests import _torch_lowering_cases as lcases
 from tests import _torch_tape_cases as cases
 
 pytestmark = pytest.mark.cuda
@@ -283,3 +284,58 @@ def test_engine_runs_rubixi_under_the_tiers_on_card(card):
     assert check_run(run, got) == []
     assert kb_device.launches - before[0] == run["kb_passes"] > 0
     assert dpll_device.launches - before[1] == run["dpll_planes"] > 0
+
+
+def _lowering_on_card(card, conj, inputs):
+    """The lowering's wrapper on the card against its plain version on the
+    card: truth and every node's value; one launch per segment."""
+    compiled = lowering.compile_conjunction(conj) if isinstance(conj, list) else conj
+    B = inputs[1].shape[0]
+    arena = torch.empty((compiled.program.rows, B), dtype=torch.int32, device=card)
+    before = lowering.launches
+    got = lowering.run_lowering(compiled, *inputs, arena=arena)
+    assert lowering.launches == before + len(compiled.program.segments)
+    values = {}
+    want = lowering.run_lowering_reference(compiled, *inputs, values=values)
+    assert lcases.node_differences(compiled, arena, values) == []
+    assert torch.equal(got, want)
+    assert torch.equal(lowering.run_lowering(compiled, *inputs), want)  # the pooled arena
+    return got
+
+
+@pytest.mark.parametrize("width", lcases.WIDTHS)
+@pytest.mark.parametrize("family", list(lcases.FAMILIES))
+def test_lowering_kernel_matches_plain(card, family, width):
+    conj, bv_vars, arrays = lcases.build(terms, family, width)
+    asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, width, 70)
+    compiled = lowering.compile_conjunction(conj)
+    got = _lowering_on_card(card, compiled, lowering.pack_assignments(compiled, asgs, card))
+    assert np.array_equal(got.cpu().numpy(), compiled.evaluate_batch(asgs, "cpu"))
+
+
+@pytest.mark.parametrize("K", [8, 16, 64])
+@pytest.mark.parametrize("B", [1, 63, 192, 4096])
+def test_lowering_kernel_tables(card, B, K):
+    conj, bv_vars, arrays = lcases.build(terms, "array", 256)
+    asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, K + B, B, K)
+    compiled = lowering.compile_conjunction(conj)
+    _lowering_on_card(card, compiled, lowering.pack_assignments(compiled, asgs, card))
+
+
+def test_lowering_kernel_on_recorded_dispatches(card):
+    from tests._torch_lowering_cases import load_recorded, recorded_inputs
+
+    meta, arrays, conjs = load_recorded()
+    for n, (d, conj) in enumerate(zip(meta["dispatches"], conjs)):
+        if not d.get("jax_error"):
+            got = _lowering_on_card(card, conj, recorded_inputs(arrays, n, d, card))
+            assert np.array_equal(got.cpu().numpy(), arrays[f"{n}_truth"]), n
+
+
+def test_lowering_wrapper_refuses_mixed_devices(card):
+    conj, bv_vars, arrays = lcases.build(terms, "bool", 8)
+    asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, 1, 5)
+    compiled = lowering.compile_conjunction(conj)
+    scalars, bools, tabs = lowering.pack_assignments(compiled, asgs, card)
+    with pytest.raises(ValueError, match="expected int32"):
+        lowering.run_lowering(compiled, scalars, bools.cpu(), tabs)

@@ -145,6 +145,83 @@ def test_uf_goes_to_host_and_is_counted():
     status, asg = P.solve_conjunction(conj, P.ProbeConfig(sat_biased=False), device="cpu")
     assert status == P.SAT
     assert P.SolverStatistics().tape_unsupported >= 1
+    # neither does the lowering take an uninterpreted function
+    assert P.SolverStatistics().lowering_unsupported >= 1
+
+
+def _byte_built_slot():
+    """A mapping-slot hash over a preimage built byte by byte: the tapes
+    refuse it, the lowerings take it."""
+    k = jt.var("pbbk", 256)
+    parts = [jt.extract(255 - 8 * i, 248 - 8 * i, k) for i in range(32)]
+    pre = jt.concat(*parts, *[jt.const(b, 8) for b in (0,) * 31 + (3,)])
+    return [jt.ult(k, jt.const(1 << 160, 256)), jt.ult(jt.const(1 << 255, 256), jt.keccak(pre))]
+
+
+def test_tape_unsupported_goes_to_the_lowering(monkeypatch):
+    from mythril_tpu_torch.ops import lowering
+
+    calls = []
+    plain = lowering.run_lowering_reference
+    monkeypatch.setattr(lowering, "run_lowering_reference",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    conj = _byte_built_slot()
+    with jax_same_tiers():
+        want, _ = J.solve_conjunction(conj)
+    P.clear_model_cache()
+    pconj = to_port(conj)
+    got, asg = P.solve_conjunction(pconj, device="cpu")
+    assert got == want == P.SAT
+    assert all(evaluate(pconj, asg)[c] for c in pconj)
+    stats = P.SolverStatistics()
+    assert (stats.tape_unsupported, stats.lowering_unsupported) == (1, 0)
+    assert stats.device_dispatches == 1 and calls == [1]
+
+
+def test_merged_dispatch_takes_the_tape_alone():
+    # as the JAX package's _batch_probe_device: a merged set the tape
+    # refuses goes to the per-set stack, each set to the lowering
+    base = _byte_built_slot()
+    sets = [base + [jt.ult(jt.var("pbbk", 256), jt.const(b, 256))] for b in (1 << 100, 1 << 120, 1 << 140)]
+    with jax_same_tiers():
+        want = J.check_satisfiable_batch(sets)
+    P.clear_model_cache()
+    got = P.check_satisfiable_batch(_port_sets(sets), device="cpu")
+    assert got == want
+    stats = P.SolverStatistics()
+    assert stats.lowering_unsupported == 0 and stats.device_dispatches >= 1
+
+
+class _CardFault(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("where", ["launch", "readback"])
+@pytest.mark.parametrize("entry", ["solve_conjunction", "check_satisfiable_batch"])
+def test_lowering_errors_propagate(monkeypatch, where, entry):
+    # a kernel that fails at launch, or a fault read back with its output,
+    # leaves the solver: no host answer stands in for the card
+    from mythril_tpu_torch.ops import _build, lowering
+
+    if where == "launch":
+        def failing(compiled, *inputs, **kw):
+            raise _build.KernelLaunchError("lowering: CUDA error 700 at launch")
+        expected = _build.KernelLaunchError
+    else:
+        class Unreadable:
+            def cpu(self):
+                raise _CardFault("CUDA error: an illegal memory access was encountered")
+
+        def failing(compiled, *inputs, **kw):
+            return Unreadable()
+        expected = _CardFault
+    monkeypatch.setattr(lowering, "run_lowering", failing)
+    pconj = to_port(_byte_built_slot())
+    with pytest.raises(expected):
+        if entry == "solve_conjunction":
+            P.solve_conjunction(pconj, device="cpu")
+        else:
+            P.check_satisfiable_batch([pconj], device="cpu")
 
 
 def test_host_backend_never_dispatches():

@@ -102,12 +102,32 @@ def test_full_tape_padding_steps_are_inert():
     assert torch.equal(ptape.run_tape(*args, T=T, V=V, A=A, K=K, R=R), full)
 
 
+def _lowered_like_jax(conj, leaves, asgs):
+    """Both tapes refuse ``conj`` (JAX terms); the port's lowering gives the
+    JAX lowering's truth on the CPU.  -> (port conjuncts, port candidates,
+    port compiled lowering, truth)"""
+    from mythril_tpu.ops import lowering as jlow
+    from mythril_tpu_torch.ops import lowering as plow
+
+    with pytest.raises(jtape.TapeUnsupported, match="keccak input width"):
+        jtape.compile_tape(conj)
+    ported = to_port(list(conj) + list(leaves))
+    pconj, term_map = ported[: len(conj)], dict(zip(leaves, ported[len(conj):]))
+    with pytest.raises(ptape.TapeUnsupported, match="keccak input width"):
+        ptape.compile_tape(pconj)
+    pasgs = [to_port_assignment(a, term_map) for a in asgs]
+    pc = plow.compile_conjunction(pconj)
+    got = pc.evaluate_batch(pasgs, "cpu")
+    np.testing.assert_array_equal(got, jlow.compile_conjunction(conj).evaluate_batch(asgs))
+    return pconj, pasgs, pc, got
+
+
 @pytest.mark.parametrize("shape", ["slot", "bytes"])
 def test_byte_built_keccak_preimage(shape):
     # keccak over a 512-bit concat chain of bytes, as the engine builds
-    # mapping slots: JAX's tape refuses it (its lowering takes it), the
-    # port's tape assembles the two words.  Truth must equal the port's
-    # oracle, and JAX _run_tape's on the same preimage written as two words.
+    # mapping slots: both tapes refuse it and both lowerings take it.  Truth
+    # must equal the JAX lowering's, the port's oracle, and JAX _run_tape's
+    # on the same preimage written as two words.
     x, y = jterms.var(f"pbk_{shape}_x", 256), jterms.var(f"pbk_{shape}_y", 256)
     if shape == "slot":
         parts = [x] + [jterms.const(b, 8) for b in (0,) * 31 + (3,)]
@@ -123,27 +143,18 @@ def test_byte_built_keccak_preimage(shape):
     mk = lambda pre: [jterms.ult(jterms.keccak(pre), jterms.const(1 << 255, 256)),  # noqa: E731
                       jterms.ult(jterms.const(0, 256), y)]
     conj, words_conj = mk(chain), mk(words)
-    with pytest.raises(jtape.TapeUnsupported):
-        jtape.compile_tape(conj)
     asgs = cases.random_assignments(jterms, jce, [x, y], [], 3, 40)
-    ported = to_port(conj + [x, y])
-    pconj, term_map = ported[:2], dict(zip([x, y], ported[2:]))
-    pasgs = [to_port_assignment(a, term_map) for a in asgs]
-    pc = ptape.compile_tape(pconj)
-    assert ptape.OP_KECCAK64 in set(pc.tensors["op"][: pc.n_steps].tolist())
-    got = pc.evaluate_batch(pasgs, "cpu")
-    jc = jtape.compile_tape(words_conj)
-    want = jc.evaluate_batch(asgs)
+    pconj, pasgs, _pc, got = _lowered_like_jax(conj, [x, y], asgs)
+    want = jtape.compile_tape(words_conj).evaluate_batch(asgs)
     np.testing.assert_array_equal(got, want)
     for b, asg in enumerate(pasgs):
         vals = pce.evaluate(pconj, asg)
         assert list(got[b]) == [bool(vals[c]) for c in pconj]
 
 
-def _word_row_chain(shape):
-    """A 512-bit keccak preimage as a concat chain that the port's tape
-    assembles word by word (``TapeProgram._word_row``)."""
-    from mythril_tpu_torch.smt import terms as T
+def _word_row_chain(T, shape):
+    """A 512-bit keccak preimage as a concat chain whose parts are not the
+    two 256-bit words (the tapes refuse it; the lowerings take it)."""
 
     def v(name, w):
         return T.var(f"pwr_{shape}_{name}", w)
@@ -162,50 +173,51 @@ def _word_row_chain(shape):
         parts = [T.const(0, 8)] * 32 + byte_parts(v("x", 256))
     elif shape == "low_word_constant":
         parts = byte_parts(v("x", 256)) + [T.const(b, 8) for b in range(7, 39)]
-    elif shape == "spans_both_words":  # bits 248..264 in one part: refused
+    elif shape == "spans_both_words":  # bits 248..264 in one part
         parts = [v("a", 248), v("b", 16), v("c", 248)]
     else:
         raise ValueError(shape)
     return T.concat(*parts)
 
 
+def _word_row_case(shape):
+    # the preimage and the digest the port's lowering computes equal the
+    # oracle's values of the chain and of the keccak term, candidate by
+    # candidate, and its truth equals the JAX lowering's
+    from mythril_tpu_torch.ops import bitvec as pbv
+    from mythril_tpu_torch.ops import lowering as plow
+
+    chain = _word_row_chain(jterms, shape)
+    assert chain.op == "concat" and chain.width == 512
+    assert not all(a.width == 256 for a in chain.args)  # not the two-word form
+    conj = [jterms.ult(jterms.keccak(chain), jterms.const(1 << 255, 256))]
+    leaves = sorted(jterms.free_vars([chain]), key=lambda t: t.tid)
+    asgs = cases.random_assignments(jterms, jce, leaves, [], 5, 24)
+    pconj, pasgs, pc, got = _lowered_like_jax(conj, leaves, asgs)
+    k = pconj[0].args[0]
+    pchain = k.args[0]
+    values = {}
+    plow.run_lowering_reference(pc, *plow.pack_assignments(pc, pasgs), values=values)
+    pre = pbv.to_ints(values[pchain.tid], 512)
+    digest = pbv.to_ints(values[k.tid], 256)
+    for b, asg in enumerate(pasgs):
+        vals = pce.evaluate([pchain, k, *pconj], asg)
+        assert pre[b] == vals[pchain], b
+        assert digest[b] == vals[k], b
+        assert bool(got[b, 0]) == bool(vals[pconj[0]]), b
+
+
 @pytest.mark.parametrize("shape", ["edges", "const_in_high_word", "high_word_constant",
                                    "high_word_zero", "low_word_constant"])
 def test_word_row_assembles_both_words(shape):
-    # the words on the tape and the digest equal the oracle's values of the
-    # preimage's halves and of the keccak term, candidate by candidate
-    from mythril_tpu_torch.ops import bitvec as pbv
-    from mythril_tpu_torch.smt import terms as T
-
-    chain = _word_row_chain(shape)
-    assert chain.op == "concat" and chain.width == 512
-    assert not all(a.width == 256 for a in chain.args)  # not the two-word path
-    k = T.keccak(chain)
-    conj = [T.ult(k, T.const(1 << 255, 256))]
-    pc = ptape.compile_tape(conj)
-    tape = pc.tensors
-    (step,) = [t for t in range(pc.n_steps) if tape["op"][t] == ptape.OP_KECCAK64]
-    V = tape["shape"][1]
-    asgs = cases.random_assignments(T, pce, sorted(T.free_vars([chain]), key=lambda t: t.tid), [], 5, 24)
-    args, (Tn, V, A, K, R) = pc.pack_args(asgs, "cpu")
-    truth, regs = ptape.run_tape_reference(*args, T=Tn, V=V, A=A, K=K, R=R,
-                                           n_steps=pc.n_steps, return_regs=True)
-    lo = pbv.to_ints(regs[int(tape["a0"][step])], 256)
-    hi = pbv.to_ints(regs[int(tape["a1"][step])], 256)
-    digest = pbv.to_ints(regs[V + step], 256)
-    for b, asg in enumerate(asgs):
-        vals = pce.evaluate([chain, k, *conj], asg)
-        assert (lo[b], hi[b]) == (vals[chain] & ((1 << 256) - 1), vals[chain] >> 256), b
-        assert digest[b] == vals[k], b
-        assert bool(truth[b, 0]) == bool(vals[conj[0]]), b
+    # once the port's tape assembled these preimages word by word; now it
+    # refuses them as the JAX tape does, and the lowering evaluates them
+    _word_row_case(shape)
 
 
 def test_word_row_refuses_a_part_across_the_word_boundary():
-    from mythril_tpu_torch.smt import terms as T
-
-    chain = _word_row_chain("spans_both_words")
-    with pytest.raises(ptape.TapeUnsupported, match="spans both words"):
-        ptape.compile_tape([T.ult(T.keccak(chain), T.const(1 << 255, 256))])
+    # a part across bit 256: the tapes refuse it, the lowering evaluates it
+    _word_row_case("spans_both_words")
 
 
 def test_apply_raises_unsupported():
