@@ -36,15 +36,16 @@ Phases, in order; any failure exits nonzero and prints no result:
    op family (all 20) at both profiles and both batch buckets, one batch of
    8192 on the large profile, and the slot cases of
    ``tests/_torch_tape_cases.py`` at both buckets;
-4b. lowering: ``run_lowering`` (the ``lowering`` kernel, and ``keccak_f1600``
-   on its keccak nodes) against ``run_lowering_reference``, both on the
+4b. lowering: ``run_lowering`` (the ``lowering`` kernel, one launch a call,
+   keccak nodes inside) against ``run_lowering_reference``, both on the
    card, bit-equal in truth and in every node's value: every op family of
    ``tests/_torch_lowering_cases.py`` at every width of its ``WIDTHS`` (B =
    63, and against ``concrete_eval``), three families at 256 and 520 bits
-   at B = 1, 192 and 4096, tables of K = 8, 16 and 64 rows at every B, and
-   every recorded dispatch of ``tests/testdata/torch_lowering_cases.npz``
-   (the JAX package's lowering dispatches on the probe fixture), against
-   its stored JAX truth too;
+   at B = 1, 192 and 4096, tables of K = 8, 16 and 64 rows at every B, a
+   program past the shared-memory budget (the global-arena route) and a
+   keccak of three rate blocks, and every recorded dispatch of
+   ``tests/testdata/torch_lowering_cases.npz`` (the JAX package's lowering
+   dispatches on the probe fixture), against its stored JAX truth too;
 5. frontier parity: the ``frontier_segment`` kernel against ``segment_torch``,
    both on the card, bit-equal in every output array, on every case of
    ``tests/_torch_frontier_cases.py`` (the 33 families on concrete and
@@ -61,10 +62,13 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``probe_backend="device"`` and the port's native CDCL off, as the JAX
    package ran when the traffic was recorded; every launch count zeroed just before and read
    just after; 0 keep/prune disagreements with the stored JAX verdicts;
-   ``tape_vm``, ``keccak_f1600`` and ``lowering`` launched (the conjunctions
-   the tape refuses go to the lowering, as in the JAX package), every
-   solver device dispatch a tape or a lowering evaluation; the counts
-   ``tape_unsupported``, ``lowering_unsupported`` and ``device_dispatches``;
+   ``tape_vm`` and ``lowering`` launched (the conjunctions the tape refuses
+   go to the lowering, as in the JAX package; no tape of this traffic has a
+   keccak step, so ``keccak_f1600`` runs on the engine's paths), every
+   solver device dispatch a tape or a lowering evaluation, one ``lowering``
+   launch per lowering call and no ``keccak_f1600`` launch from one; the
+   counts ``tape_unsupported``, ``lowering_unsupported`` and
+   ``device_dispatches``;
 7. the frontier main path: every dispatch of
    ``tests/testdata/torch_frontier_dispatches.npz`` (the JAX engine's real
    segments at widths 1024 and 256) through ``push_state`` -> ``segment`` (the
@@ -84,7 +88,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    counts and fixed selectors equal the recorded ones, every frontier
    dispatch's input and output digests too, one segment launch per
    dispatch, no replay or commit error, one tape or lowering evaluation on
-   the card per solver device dispatch (the lowering's launches printed);
+   the card per solver device dispatch (the lowering's launches printed),
+   ``keccak_f1600`` launched (the tapes' keccak steps, whose states phase 9
+   times);
    per run the wall seconds and their split
    (segment kernel by CUDA events, the segment call, ``push_state``,
    ``pull_harvest``, the arena pull, the walker's replay and commit, the
@@ -145,6 +151,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import statistics
@@ -193,6 +200,8 @@ STEP_OPS = {
 # so the start event fires after the host has enqueued the launch.
 SLEEP_CYCLES = 1_000_000
 KECCAK_NS = (1, 3, 64, 130, 4096, 65536)
+# keccak_f1600 calls of the engine phase kept for timing
+KECCAK_KEPT = 64
 DIV_BIT_OPS = 40
 EXP_MUL_OPS = 80
 SELECT_ROW_OPS = 10
@@ -211,7 +220,8 @@ DPLL_WORD_OPS = 8
 # limb of its result (csrc/lowering.cuh: each limb's operand loads, the op,
 # the mask and the store); multiplication per limb product, division per
 # dividend bit and limb, exponentiation per multiply (counted from this
-# run's values), a lookup per table row and index limb.  At the issue rate.
+# run's values), a lookup per table row and index limb.  At the issue rate;
+# a keccak record's permutations (KECCAK_OPS per rate block) at the ALU rate.
 LOWER_LIMB_OPS = {"ADD": 6, "SUB": 7, "NEG": 5, "AND": 5, "OR": 5, "XOR": 5, "NOT": 4,
                   "SHL": 10, "LSHR": 12, "ASHR": 14, "CONCAT": 12, "EXTRACT": 10,
                   "ZEXT": 4, "SEXT": 6, "ITE": 3, "EQ": 3, "ULT": 5, "ULE": 5, "SLT": 5,
@@ -496,11 +506,17 @@ def lowering_parity(torch):
     jobs += [(f, w, B, 6) for f in ("arith", "array", "keccak") for w in (256, 520)
              for B in LOWER_BS if B != 63]
     jobs += [("array", 256, B, K) for K in LOWER_KS for B in LOWER_BS]
+    jobs += [("wide", 512, B, 6) for B in (5, 192)]
+    jobs += [("long_keccak", 2200, B, 6) for B in (63, 4096)]
+    routes = collections.Counter()
     for seed, (family, width, B, K) in enumerate(jobs):
-        conj, bv_vars, arrays = lcases.build(terms, family, width)
+        conj, bv_vars, arrays = (getattr(lcases, family)(terms) if family in ("wide", "long_keccak")
+                                 else lcases.build(terms, family, width))
         asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, seed, B, K)
         compiled = lowering.compile_conjunction(conj)
         inputs = lowering.pack_assignments(compiled, asgs, "cuda")
+        lowering.run_kernel(compiled, *inputs,  # the route only: no launch
+                            launch=lambda a: routes.update([("global", "shared")[a.in_smem]]))
         got, equal = lowering_both(torch, compiled, inputs)
         check(equal, f"lowering kernel differs from its plain version: {family} w={width} "
                      f"B={B} K={K}")
@@ -519,8 +535,10 @@ def lowering_parity(torch):
         check(equal and bool((got.cpu().numpy() == arrays[f"{n}_truth"]).all()),
               f"lowering kernel differs on recorded dispatch {n}")
         recorded += 1
+    check(routes["global"] == 2, f"the wide program did not take the global route: {routes}")
     print(f"  {len(jobs)} seeded programs ({len(lcases.FAMILIES)} families x "
-          f"{len(lcases.WIDTHS)} widths, B in {LOWER_BS}, K in {LOWER_KS}) and {recorded} "
+          f"{len(lcases.WIDTHS)} widths, B in {LOWER_BS}, K in {LOWER_KS}, the wide program and "
+          f"the long keccak; routes {dict(routes)}) and {recorded} "
           f"recorded dispatches equal, every node's value, in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -538,24 +556,24 @@ def main_path(torch):
     data, roots = load_fixture(from_jax_dump)
 
     # keep each kernel call's inputs for the timing below
-    tape_calls, keccak_calls, lowering_calls = [], [], []
-    run_tape_cuda, keccak_kernel = tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600
-    run_lowering_cuda = lowering._run_lowering_cuda
+    tape_calls, lowering_calls = [], []
+    run_tape_cuda, run_lowering_cuda = tape_vm._run_tape_cuda, lowering._run_lowering_cuda
 
     def record_tape(*a, **kw):
         tape_calls.append((a, {k: v for k, v in kw.items() if k != "regs"}))
         return run_tape_cuda(*a, **kw)
 
-    def record_keccak(state):
-        keccak_calls.append(state.clone())
-        return keccak_kernel(state)
+    lowering_keccak = 0
 
     def record_lowering(compiled, *inputs, **kw):
+        nonlocal lowering_keccak
         lowering_calls.append((compiled, inputs))
-        return run_lowering_cuda(compiled, *inputs, **kw)
+        before = keccak_cuda.launches
+        truth = run_lowering_cuda(compiled, *inputs, **kw)
+        lowering_keccak += keccak_cuda.launches - before
+        return truth
 
-    tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = record_tape, record_keccak
-    lowering._run_lowering_cuda = record_lowering
+    tape_vm._run_tape_cuda, lowering._run_lowering_cuda = record_tape, record_lowering
     args.probe_backend = "device"
     P.SolverStatistics().reset()
     zero_launches()
@@ -573,8 +591,7 @@ def main_path(torch):
                     verdicts[r[0]] += 1
         torch.cuda.synchronize()
     finally:
-        tape_vm._run_tape_cuda, keccak_cuda.keccak_f1600 = run_tape_cuda, keccak_kernel
-        lowering._run_lowering_cuda = run_lowering_cuda
+        tape_vm._run_tape_cuda, lowering._run_lowering_cuda = run_tape_cuda, run_lowering_cuda
     wall = time.perf_counter() - t0
     launches = read_launches()
     stats = P.SolverStatistics().as_dict()
@@ -587,14 +604,19 @@ def main_path(torch):
           f"device_dispatches {stats['device_dispatches']} ({len(tape_calls)} tape, "
           f"{len(lowering_calls)} lowering)")
     check(not bad, f"{len(bad)} keep/prune disagreements with the JAX verdicts")
-    for name in ("tape_vm", "keccak_f1600", "lowering"):
+    # keccak_f1600 runs here only for a tape's keccak steps, and this
+    # traffic's tapes have none: the engine phases hold it (and time it)
+    for name in ("tape_vm", "lowering"):
         check(launches[name] > 0, f"the main path launched {name} no time")
     check(len(tape_calls) + len(lowering_calls) == stats["device_dispatches"],
           "device dispatches that neither the tape nor the lowering evaluated")
+    check(launches["lowering"] == len(lowering_calls),
+          f"{launches['lowering']} lowering launches for {len(lowering_calls)} calls")
+    check(lowering_keccak == 0, f"the lowering launched keccak_f1600 {lowering_keccak} times")
     summary = {k: stats[k] for k in ("tape_unsupported", "lowering_unsupported",
                                      "device_dispatches")}
     summary.update(wall_s=wall, tape_calls=len(tape_calls), lowering_calls=len(lowering_calls))
-    return launches, tape_calls, keccak_calls, lowering_calls, summary
+    return launches, tape_calls, lowering_calls, summary
 
 
 def zero_launches() -> None:
@@ -760,9 +782,10 @@ def _ref_ints(prog, arena_np, ref: int, L: int):
     return [sum(int(limbs[i, b]) << (16 * i) for i in range(L)) for b in range(limbs.shape[1])]
 
 
-def lowering_work(compiled, inputs, arena_np) -> float:
+def lowering_work(compiled, inputs, arena_np):
     """32-bit integer operations the lowering kernel's records need over
-    every candidate (LOWER_LIMB_OPS), with division and exponentiation
+    every candidate -> (at the ALU rate: the keccak permutations, at the
+    issue rate: the rest, LOWER_LIMB_OPS), with division and exponentiation
     counted from this run's values (``arena_np``: the kernel's arena)."""
     from mythril_tpu_torch.ops import lowering as low
 
@@ -770,13 +793,15 @@ def lowering_work(compiled, inputs, arena_np) -> float:
     names = {getattr(low, n): n[4:] for n in dir(low) if n.startswith("LOP_")}
     B = arena_np.shape[1]
     K = {i: tab[0].shape[1] for i, tab in enumerate(inputs[2])}
-    ops = 2.0 * B * len(compiled.conjuncts)
+    ops, alu = 2.0 * B * len(compiled.conjuncts), 0.0
     for r in prog.rec:
         name, w, wa = names[int(r[low.R_OP])], int(r[low.R_W]), int(r[low.R_WA])
         L, La = -(-w // 16), -(-wa // 16)
         ops += LOWER_LIMB_OPS[name] * max(L, La) * B
         if name == "MUL":
             ops += LOWER_PRODUCT_OPS * L * (L + 1) // 2 * B
+        elif name == "KECCAK":
+            alu += KECCAK_OPS * (wa // 8 // 136 + 1) * B
         elif name == "LOOKUP":
             ops += LOWER_ROW_LIMB_OPS * K[int(r[low.R_AUX0])] * (La + 1) * B
         elif name in ("UDIV", "UREM", "SDIV", "SREM"):
@@ -788,21 +813,20 @@ def lowering_work(compiled, inputs, arena_np) -> float:
             for e in _ref_ints(prog, arena_np, int(r[low.R_B]), L):
                 muls = bin(e).count("1") + max(e.bit_length() - 1, 0)
                 ops += muls * (LOWER_PRODUCT_OPS * L * (L + 1) // 2 + 4 * L)
-    return ops
+    return alu, ops
 
 
 def time_lowering(torch, calls, reps: int = 10):
     """Per call (compiled conjunction, packed inputs on the card): ``ms``, the
-    device time of the call's lowering launches alone (the keccak launches
-    between segments excluded); ``wrapper_ms``, the whole ``run_lowering``
-    call as the main path makes it (input copies, launches, keccak nodes,
-    the stream's synchronisation); ``plain_ms``, the plain version; the
-    bound: every input byte (the packed candidates, the node table and its
-    pool) read once and the truth table written once, against the records'
-    integer work (``lowering_work``)."""
+    device time of the call's one launch alone, keccak nodes inside;
+    ``wrapper_ms``, the whole ``run_lowering`` call as the main path makes
+    it (the input table's upload and the launch); ``plain_ms``, the plain
+    version; the bound: every input byte (the packed candidates, the node
+    table and its pool) read once and the truth table written once, against
+    the records' integer work (``lowering_work``)."""
     import ctypes
 
-    from mythril_tpu_torch.ops import _build, keccak_cuda, lowering
+    from mythril_tpu_torch.ops import _build, lowering
 
     lib = _build.load()
     rows = []
@@ -813,26 +837,26 @@ def time_lowering(torch, calls, reps: int = 10):
         got = lowering.run_lowering(compiled, *inputs, arena=arena)
         want = lowering.run_lowering_reference(compiled, *inputs)
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        timer = LaunchTimer(torch)
+        timer, routes = LaunchTimer(torch), []
 
         def launch(largs):
             stream = torch.cuda.current_stream().cuda_stream
+            routes.append(largs.in_smem)
             timer(lambda: _build.check(lib.mk_lowering(ctypes.byref(largs), stream), "lowering"))
 
         for _ in range(reps):
-            lowering.run_segments(compiled, *inputs, launch=launch,
-                                  permute=keccak_cuda.keccak_f1600, arena=arena)
+            lowering.run_kernel(compiled, *inputs, launch=launch)  # as the main path: no arena
         ms = timer.total_ms() / reps
         wrapper = cuda_ms(lambda: lowering.run_lowering(compiled, *inputs), reps)
         plain = cuda_ms(lambda: lowering.run_lowering_reference(compiled, *inputs), 1)
         flat = [*inputs[0], inputs[1], *(x for tab in inputs[2] for x in tab)]
         n_bytes = (sum(x.numel() * x.element_size() for x in flat) + prog.rec.nbytes
                    + prog.pool.nbytes + B * len(compiled.conjuncts))
-        b_ms, b_by = bound(n_bytes, 0.0, lowering_work(compiled, inputs, arena.cpu().numpy()))
+        b_ms, b_by = bound(n_bytes, *lowering_work(compiled, inputs, arena.cpu().numpy()))
         rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "err": err, "launches_per_call": len(prog.segments),
-                     "shape": f"B={B} records={len(prog.rec)} segments={len(prog.segments)} "
-                              f"rows={prog.rows}"})
+                     "bound_by": b_by, "err": err, "launches_per_call": 1,
+                     "shape": f"B={B} records={len(prog.rec)} levels={prog.n_levels} "
+                              f"rows={prog.rows} route={('global', 'shared')[routes[0]]}"})
     return rows
 
 
@@ -1292,6 +1316,26 @@ class EngineSplit:
     def kernel_ms(self) -> float:
         self.torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+@contextlib.contextmanager
+def keeping_keccak(states: list):
+    """The states of the first KECCAK_KEPT ``keccak_f1600`` calls made inside
+    the block go to ``states`` (for timing the kernel at their shapes)."""
+    from mythril_tpu_torch.ops import keccak_cuda
+
+    permute = keccak_cuda.keccak_f1600
+
+    def record(state):
+        if len(states) < KECCAK_KEPT:
+            states.append(state.clone())
+        return permute(state)
+
+    keccak_cuda.keccak_f1600 = record
+    try:
+        yield
+    finally:
+        keccak_cuda.keccak_f1600 = permute
 
 
 def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None):
@@ -1803,9 +1847,11 @@ def main() -> int:
         tape_parity(torch)
         lowering_parity(torch)
         f_shapes = frontier_parity(torch, attrs, local)
-        launches, tape_calls, keccak_calls, lowering_calls, probe = main_path(torch)
+        launches, tape_calls, lowering_calls, probe = main_path(torch)
         f_launches, f_kept, transfers = frontier_main_path(torch)
-        e_launches, e_rows = engine_runs(torch)
+        keccak_calls = []
+        with keeping_keccak(keccak_calls):  # the tapes' keccak steps
+            e_launches, e_rows = engine_runs(torch)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment"):
             check(e_launches[name] > 0, f"the engine's runs launched {name} no time")
         e_idle = engine_idle_share(torch)
@@ -1824,7 +1870,7 @@ def main() -> int:
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
-                           launches["keccak_f1600"], card, route="cuda",
+                           e_launches["keccak_f1600"], card, route="cuda",
                            source="mythril_tpu_torch/csrc/keccak_f1600.cu",
                            replaces="mythril_tpu/ops/keccak_pallas.py:149")
         for variant, timing in keccak["variants"].items():

@@ -262,9 +262,66 @@ extern "C" int mk_dpll_host(const mk::dpll::DpllArgs* args, int nt) {
   return 0;
 }
 
-// The lowering's records, candidate after candidate (one thread each on the
-// card).
+// lowering.cuh's warp executor on the host: the 32 lanes as a loop, each
+// warp primitive between two phases a function over the 32 entries.
+template <class T>
+struct HostLanes {
+  T v[32];
+  T operator[](int l) const { return v[l]; }
+};
+
+struct HostLaneLoop {
+  template <class F>
+  auto each(F f) const {
+    HostLanes<decltype(f(0))> o;
+    for (int l = 0; l < 32; ++l) o.v[l] = f(l);
+    return o;
+  }
+  template <class F>
+  void run(F f) const {
+    for (int l = 0; l < 32; ++l) f(l);
+  }
+  uint32_t ballot(const HostLanes<bool>& p) const {
+    uint32_t m = 0;
+    for (int l = 0; l < 32; ++l) m |= (uint32_t)p.v[l] << l;
+    return m;
+  }
+  template <class T, class F>
+  HostLanes<T> shfl(const HostLanes<T>& x, F src) const {
+    HostLanes<T> o;
+    for (int l = 0; l < 32; ++l) o.v[l] = x.v[src(l)];
+    return o;
+  }
+  template <class T>
+  T at(const HostLanes<T>& x, int src) const {
+    return x.v[src];
+  }
+  // the warp's keccak_f1600_lane is held to mk::keccak_f1600 by
+  // test_host_keccak_matches_reference; here the state's 25 lanes go through
+  // the one-thread permutation
+  HostLanes<uint64_t> permute(const HostLanes<uint64_t>& a) const {
+    uint64_t s[25];
+    for (int l = 0; l < 25; ++l) s[l] = a.v[l];
+    mk::keccak_f1600(s);
+    HostLanes<uint64_t> o = a;
+    for (int l = 0; l < 25; ++l) o.v[l] = s[l];
+    return o;
+  }
+};
+
+// The lowering, candidate after candidate (a block each on the card): the
+// staging, every level's records by one warp in turn (the records of a level
+// are independent, so their order does not matter), the truth.  On the
+// shared-memory route the candidate's values live in a host array that
+// starts poisoned, as shared memory starts with whatever the last block left.
 extern "C" int mk_lowering_host(const mk::low::LowerArgs* args) {
-  for (long long b = 0; b < args->B; ++b) mk::low::run_candidate(*args, b);
+  const mk::low::LowerArgs& a = *args;
+  std::vector<int32_t> smem(a.in_smem ? a.smem_words : 1);
+  for (long long b = 0; b < a.B; ++b) {
+    for (auto& x : smem) x = (int32_t)(0xA5A5A5A5u ^ (uint32_t)b);
+    const mk::low::Cand cand = mk::low::stage(a, smem.data(), b, 0, 1);
+    mk::low::run_levels(HostLaneLoop{}, [] {}, a, cand, smem.data(), b, 0, 1);
+    mk::low::finish(a, cand.c, b, 0, 1);
+  }
   return 0;
 }

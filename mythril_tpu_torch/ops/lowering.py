@@ -7,9 +7,10 @@ take, a wide constant), as the JAX package does.  The JAX package compiles
 each such DAG into one jitted function; here the DAG is compiled once into a
 flat node table (``LoweringProgram``) that one hand-written kernel walks:
 
-* ``run_lowering`` on CUDA tensors launches ``csrc/lowering.cu`` (one
-  thread per candidate walks the node table, values in a limb-major arena
-  in device memory) and, for keccak nodes, ``csrc/keccak_f1600.cu``;
+* ``run_lowering`` on CUDA tensors launches ``csrc/lowering.cu`` once (a
+  block per candidate walks the node table level by level, a record's limbs
+  across a warp's lanes, the candidate's values in shared memory, keccak
+  nodes hashed inside);
 * ``run_lowering_reference`` is the plain PyTorch version: JAX's ``run``
   written on ``ops/bitvec.py``, node by node over the DAG.  ``run_lowering``
   takes it for CPU tensors.
@@ -29,7 +30,6 @@ equality of arrays, and any op ``_lower_node`` does not list.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -305,11 +305,12 @@ def _lower_node(t: Term, val, select, B: int, dev):
 ) = range(28)
 
 # record columns: op, result width, result row, operand refs a b c, the
-# widths of a and b, aux0 (extract lo, table id), aux1 (extract hi), pad
+# widths of a and b, aux0 (extract lo, table id), aux1 (extract hi), the
+# first scratch row, pad
 REC_INTS = 12
-(R_OP, R_W, R_OUT, R_A, R_B, R_C, R_WA, R_WB, R_AUX0, R_AUX1) = range(10)
+(R_OP, R_W, R_OUT, R_A, R_B, R_C, R_WA, R_WB, R_AUX0, R_AUX1, R_SCR) = range(11)
 # scratch rows a record of these ops uses, in multiples of its limb count
-_SCRATCH = {LOP_UDIV: 1, LOP_UREM: 0, LOP_SDIV: 3, LOP_SREM: 3, LOP_EXP: 2}
+_SCRATCH = {LOP_UDIV: 1, LOP_SDIV: 3, LOP_SREM: 3, LOP_EXP: 2}
 
 _BIN = {
     "bvadd": LOP_ADD, "bvsub": LOP_SUB, "bvmul": LOP_MUL, "bvudiv": LOP_UDIV,
@@ -326,33 +327,33 @@ def _pool_ref(offset: int) -> int:
 
 class LoweringProgram:
     """Port-only: a compiled conjunction as the flat node table that
-    ``csrc/lowering.cu`` walks, one thread per candidate.
+    ``csrc/lowering.cu`` walks, level by level.
 
     A value is a *ref*: a row of the arena ``[rows, B]`` int32 (limb ``i``
     of the value at row ``ref + i``), or, when negative, ``-1 - offset``
     into the constant pool (limb ``i`` at ``pool[offset + i]``).  Constants
     live once in the pool and are never broadcast over the batch.  Rows:
     the bv variables' limbs, then the bools (one row each), then one block
-    of ``nlimbs(width)`` rows per record, then the scratch rows of
-    division and exponentiation (from ``scratch_row``, shared by every
-    such record: one thread runs its records one after another).
+    of ``nlimbs(width)`` rows per record, followed, for division and
+    exponentiation, by the record's own scratch rows (records of one level
+    run at once).
 
     ``rec`` ``[n, REC_INTS]``: op code, result width, result row, operand
     refs a, b, c, the widths of a and b, aux0 (extract's lo, a lookup's
-    table), aux1 (extract's hi).  JAX's trace-time select recursion is
-    unrolled here: a select over a store becomes EQ + ITE records, over an
-    array ite an ITE of the two branches' selects, over a constant array
-    the default's ref, over a base array one LOOKUP record; a select of the
-    same array at the same index is emitted once.  Bool ops are the bv ops
-    at width 1.
+    table), aux1 (extract's hi), the first scratch row.  JAX's trace-time
+    select recursion is unrolled here: a select over a store becomes EQ +
+    ITE records, over an array ite an ITE of the two branches' selects,
+    over a constant array the default's ref, over a base array one LOOKUP
+    record; a select of the same array at the same index is emitted once.
+    Bool ops are the bv ops at width 1.
 
-    Keccak nodes split the table into segments, one kernel launch each:
-    every record has a level (a keccak node one above its operands, any
-    other the highest of its operands'), records are ordered by level, and
-    between the launches of levels ``l - 1`` and ``l`` the wrapper hashes
-    the keccak nodes of level ``l``.  ``segments``: per level, ``(r_begin,
-    r_end)`` of its records and the keccak records hashed before it.  The
-    last launch writes the truth of ``roots``."""
+    Every record has a dependency level, one above the highest level of the
+    records it reads (inputs and constants are level 0), keccak records
+    like any other; records are ordered by level (``rec_level``), and
+    ``levels`` holds the ``n_levels + 1`` offsets of each level's first
+    record, so that the records of one level can run at once and the level
+    count is the longest chain.  The kernel writes the truth of ``roots``
+    after the last level."""
 
     def __init__(self, compiled: CompiledConjunction):
         self.conjuncts = compiled.conjuncts
@@ -368,7 +369,6 @@ class LoweringProgram:
         self.n_input_rows = rows
         recs: List[List[int]] = []
         rec_level: List[int] = []
-        scratch = 0
         arrays: Dict[int, tuple] = {
             v.tid: ("base", i) for i, v in enumerate(compiled.array_vars)}
         selected: Dict[Tuple[int, int], int] = {}
@@ -381,15 +381,14 @@ class LoweringProgram:
             return pool_of[key]
 
         def emit(op, w, a=0, b=0, c=0, wa=0, wb=0, aux0=0, aux1=0, reads=()) -> int:
-            nonlocal rows, scratch
+            nonlocal rows
             out = rows
             rows += bv.nlimbs(w)
-            recs.append([op, w, out, a, b, c, wa, wb, aux0, aux1, 0, 0])
-            lvl = max((level.get(r, 0) for r in reads), default=0)
-            lvl += op == LOP_KECCAK
-            level[out] = lvl
-            rec_level.append(lvl)
-            scratch = max(scratch, _SCRATCH.get(op, 0) * bv.nlimbs(w))
+            scr = rows if op in _SCRATCH else 0
+            rows += _SCRATCH.get(op, 0) * bv.nlimbs(w)
+            recs.append([op, w, out, a, b, c, wa, wb, aux0, aux1, scr, 0])
+            level[out] = 1 + max((level.get(r, 0) for r in reads), default=0)
+            rec_level.append(level[out])
             return out
 
         def select(arr: Term, idx: int, dom_w: int, rng_w: int) -> int:
@@ -465,45 +464,34 @@ class LoweringProgram:
                 raise LoweringUnsupported(f"op {op}")
             ref_of[t.tid] = emit(code, w, *refs, **kw, reads=refs)
 
-        self.scratch_row = rows
-        self.rows = rows + scratch
+        self.rows = rows
         self.roots = np.asarray([ref_of[c.tid] for c in self.conjuncts], np.int32)
         self.pool = np.asarray(pool or [0], np.int64).astype(np.int32)
         self.ref_of = ref_of
-        n_levels = max(rec_level, default=0) + 1
-        # by level; within a level its keccak records first (their operands
-        # lie on lower levels), the others in topological order
-        is_keccak = [r[R_OP] == LOP_KECCAK for r in recs]
-        order = sorted(range(len(recs)), key=lambda i: (rec_level[i], not is_keccak[i], i))
+        order = sorted(range(len(recs)), key=lambda i: (rec_level[i], i))
         self.rec = np.asarray([recs[i] for i in order], np.int32).reshape(-1, REC_INTS)
-        self.segments: List[Tuple[int, int, List[int]]] = []
-        at = 0
-        for lvl in range(n_levels):
-            keccaks = []
-            while at < len(order) and rec_level[order[at]] == lvl and is_keccak[order[at]]:
-                keccaks.append(at)
-                at += 1
-            begin = at
-            while at < len(order) and rec_level[order[at]] == lvl:
-                at += 1
-            self.segments.append((begin, at, keccaks))
+        self.rec_level = np.asarray([rec_level[i] for i in order], np.int32)
+        self.n_levels = int(self.rec_level.max()) if len(order) else 0
+        self.levels = np.searchsorted(
+            self.rec_level, np.arange(1, self.n_levels + 2)).astype(np.int32)
         self._device: Dict[str, torch.Tensor] = {}
 
-    def device_arrays(self, device) -> Tuple[torch.Tensor, int, int]:
-        """``rec``, ``pool`` and ``roots`` in one int32 tensor on ``device``,
-        uploaded once, with the pool's and the roots' int32 offsets."""
+    def device_arrays(self, device) -> Tuple[torch.Tensor, int, int, int]:
+        """``rec``, ``levels``, ``pool`` and ``roots`` in one int32 tensor on
+        ``device``, uploaded once, with the int32 offsets of the last three."""
         key = str(torch.device(device))
         if key not in self._device:
-            host = np.concatenate([self.rec.ravel(), self.pool, self.roots]).astype(np.int32)
-            self._device[key] = torch.from_numpy(host).to(device)
-        return self._device[key], self.rec.size, self.rec.size + self.pool.size
+            host = np.concatenate([self.rec.ravel(), self.levels, self.pool, self.roots])
+            self._device[key] = torch.from_numpy(host.astype(np.int32)).to(device)
+        at = np.cumsum([self.rec.size, self.levels.size, self.pool.size])
+        return self._device[key], int(at[0]), int(at[1]), int(at[2])
 
 
 # ---------------------------------------------------------------------------
 # The kernel launch
 # ---------------------------------------------------------------------------
 
-# kernel launches of csrc/lowering.cu (one per segment)
+# kernel launches of csrc/lowering.cu (one per call)
 launches = 0
 
 
@@ -511,27 +499,18 @@ class LowerArgs(ctypes.Structure):
     """Mirror of ``mk::low::LowerArgs`` in ``csrc/lowering.cuh``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "rec", "pool", "roots", "tab_meta", "tabs", "arena", "truth",
+        "rec", "level", "pool", "roots", "inputs", "tabs", "arena", "truth",
     )] + [(name, ctypes.c_int32) for name in (
-        "B", "r_begin", "r_end", "C", "scratch", "write_truth",
+        "B", "C", "n_rec", "n_levels", "rows", "n_pool", "n_in", "n_tab", "smem_words", "in_smem",
     )]
 
 
-TAB_META = 8  # per table: offsets of idx, val, valid, default in tabs; K, Ld, Lr; pad
-
-_arenas: Dict[Tuple[str, int], torch.Tensor] = {}
-_arena_lock = threading.Lock()
-
-
-def arena_for(device, n: int) -> torch.Tensor:
-    """An int32 buffer of at least ``n`` elements on ``device``, allocated
-    once per (device, power-of-two size bucket) and reused."""
-    bucket = max(1 << 16, 1 << max(0, n - 1).bit_length())
-    key = (str(torch.device(device)), bucket)
-    buf = _arenas.get(key)
-    if buf is None:
-        buf = _arenas[key] = torch.empty(bucket, dtype=torch.int32, device=device)
-    return buf[:n]
+IN_COLS = 4  # per input: pointer, ints per candidate, limbs, first row
+TAB_COLS = 8  # per table: idx, val, valid, default pointers; K, Ld, Lr; staged offset
+# dynamic shared memory a block may take on Hopper (227 KB): a program whose
+# values, pool, table rows and node table need more keeps its values in the
+# global arena
+SMEM_BUDGET = 232448
 
 
 def _check_inputs(compiled: CompiledConjunction, scalars, bools, array_tabs) -> int:
@@ -548,82 +527,63 @@ def _check_inputs(compiled: CompiledConjunction, scalars, bools, array_tabs) -> 
         want += [(f"table {i} {name}", x, shape) for name, x, shape in zip(
             ("idx", "val", "valid", "default"), tab, ((B, K, Ld), (B, K, Lr), (B, K), (B, Lr)))]
     for name, x, shape in want:
-        if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected int32 {shape} on {dev}, got "
+        if (x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{name}: expected int32 {shape} on {dev}, contiguous; got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     return B
 
 
-def run_segments(compiled: CompiledConjunction, scalars, bools, array_tabs, *, launch,
-                 permute=None, arena: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Drive the node table as the kernel runs it: the inputs copied into
-    the arena's first rows, one ``launch(LowerArgs)`` per segment, and the
-    keccak nodes between segments hashed by ``keccak_torch.keccak256``
-    (``permute``: the keccak-f[1600] it uses on ``[N, 25, 4]`` int32
-    states, such as ``keccak_cuda.keccak_f1600``; default the public
-    ``keccak_torch.keccak_f1600``).  ``arena``: ``[rows, B]`` int32 to use (and
-    keep, for checks), else a pooled buffer.  -> truth [B, C] bool."""
+def run_kernel(compiled: CompiledConjunction, scalars, bools, array_tabs, *, launch,
+               arena: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Drive the node table as the kernel runs it: one ``launch(LowerArgs)``
+    over the packed inputs where they lie (a table of their pointers,
+    uploaded once per call).  The route: the candidate's values, the pool,
+    its table rows and the node table in shared memory when they fit
+    ``SMEM_BUDGET``, else the values in a ``[rows, B]`` int32 arena in
+    device memory.
+    ``arena``: such a tensor that receives every node's value on either
+    route (for checks).  -> truth [B, C] bool."""
     prog = compiled.program
     B = bools.shape[0]
     dev = bools.device
-    C = len(compiled.conjuncts)
-    truth = torch.empty((B, C), dtype=torch.bool, device=dev)
+    truth = torch.empty((B, len(compiled.conjuncts)), dtype=torch.bool, device=dev)
     if B == 0:
         return truth
-    if arena is None:
-        arena = arena_for(dev, prog.rows * B).view(prog.rows, B)
-    elif tuple(arena.shape) != (prog.rows, B) or arena.dtype != torch.int32:
-        raise ValueError(f"arena: expected int32 {(prog.rows, B)}")
-    inputs = [s.T for s in scalars] + [bools[:, : len(compiled.bool_vars)].T]
-    if prog.n_input_rows:
-        arena[: prog.n_input_rows] = torch.cat(inputs, dim=0)
-    parts = []
-    meta = np.zeros((max(1, len(array_tabs)), TAB_META), np.int64)
-    at = 0
-    for i, tab in enumerate(array_tabs):
-        for j, x in enumerate(tab):
-            meta[i, j] = at
-            at += x.numel()
-            parts.append(x.reshape(-1))
-        meta[i, 4:7] = (tab[0].shape[1], tab[0].shape[2], tab[1].shape[2])
-    tabs = torch.cat(parts) if parts else torch.zeros(1, dtype=torch.int32, device=dev)
-    tab_meta = torch.from_numpy(meta).to(dev)
-    table, pool_at, roots_at = prog.device_arrays(dev)
-    base = table.data_ptr()
-    largs = LowerArgs(base, base + 4 * pool_at, base + 4 * roots_at, tab_meta.data_ptr(),
-                      tabs.data_ptr(), arena.data_ptr(), truth.data_ptr(),
-                      B, 0, 0, C, prog.scratch_row, 0)
-    for n, (begin, end, keccaks) in enumerate(prog.segments):
-        for r in keccaks:
-            _hash_node(prog, arena, prog.rec[r], permute)
-        largs.r_begin, largs.r_end = begin, end
-        largs.write_truth = int(n == len(prog.segments) - 1)
-        launch(largs)
+    if arena is not None and (tuple(arena.shape) != (prog.rows, B) or arena.dtype != torch.int32
+                              or arena.device != dev or not arena.is_contiguous()):
+        raise ValueError(f"arena: expected int32 {(prog.rows, B)} on {dev}, contiguous")
+    desc = []
+    for x, v in zip(scalars, compiled.bv_vars):
+        L = bv.nlimbs(v.width)
+        desc += [x.data_ptr(), L, L, prog.ref_of[v.tid]]
+    if compiled.bool_vars:
+        desc += [bools.data_ptr(), bools.shape[1], len(compiled.bool_vars),
+                 prog.ref_of[compiled.bool_vars[0].tid]]
+    n_in = len(desc) // IN_COLS
+    staged = prog.rows + prog.pool.size
+    for idx, val, valid, default in array_tabs:
+        K, Ld, Lr = idx.shape[1], idx.shape[2], val.shape[2]
+        desc += [idx.data_ptr(), val.data_ptr(), valid.data_ptr(), default.data_ptr(),
+                 K, Ld, Lr, staged]
+        staged += K * (Ld + Lr + 1) + Lr
+    staged += prog.levels.size + prog.rec.size
+    in_smem = 4 * staged <= SMEM_BUDGET
+    if not in_smem and arena is None:
+        arena = torch.empty((prog.rows, B), dtype=torch.int32, device=dev)
+    meta = torch.from_numpy(np.asarray(desc or [0], np.int64)).to(dev)
+    table, level_at, pool_at, roots_at = prog.device_arrays(dev)
+    base, mp = table.data_ptr(), meta.data_ptr()
+    launch(LowerArgs(base, base + 4 * level_at, base + 4 * pool_at, base + 4 * roots_at,
+                     mp, mp + 8 * IN_COLS * n_in, None if arena is None else arena.data_ptr(),
+                     truth.data_ptr(), B, truth.shape[1], len(prog.rec), prog.n_levels, prog.rows,
+                     prog.pool.size, n_in, len(array_tabs), staged, int(in_smem)))
     return truth
-
-
-def _rows(prog: LoweringProgram, arena: torch.Tensor, ref: int, L: int) -> torch.Tensor:
-    """The [L, B] limbs of ``ref``: arena rows, or a pool constant expanded."""
-    if ref >= 0:
-        return arena[ref: ref + L]
-    at = -1 - ref
-    const = torch.from_numpy(prog.pool[at: at + L].copy()).to(arena.device)
-    return const[:, None].expand(L, arena.shape[1])
-
-
-def _hash_node(prog: LoweringProgram, arena: torch.Tensor, rec, permute) -> None:
-    wa = int(rec[R_WA])
-    data = _rows(prog, arena, int(rec[R_A]), bv.nlimbs(wa)).T
-    if permute is not None:  # a kernel's entry: [N, 25, 4] int32 states
-        kernel = permute
-        permute = lambda st: kernel(st.to(torch.int32).contiguous()).to(st.dtype)  # noqa: E731
-    digest = keccak_torch.keccak256(data, wa, permute=permute)
-    arena[int(rec[R_OUT]): int(rec[R_OUT]) + 16] = digest.T.to(torch.int32)
 
 
 def _run_lowering_cuda(compiled: CompiledConjunction, scalars, bools, array_tabs,
                        arena: Optional[torch.Tensor] = None) -> torch.Tensor:
-    from mythril_tpu_torch.ops import _build, keccak_cuda
+    from mythril_tpu_torch.ops import _build
 
     dev = bools.device
     lib = _build.load()
@@ -634,21 +594,17 @@ def _run_lowering_cuda(compiled: CompiledConjunction, scalars, bools, array_tabs
         _build.check(lib.mk_lowering(ctypes.byref(largs), stream), "lowering")
         launches += 1
 
-    with _arena_lock, torch.cuda.device(dev):
-        truth = run_segments(compiled, scalars, bools, array_tabs, launch=launch,
-                             permute=keccak_cuda.keccak_f1600, arena=arena)
-        # the pooled arena is reused by the next call: finish before handing it on
-        torch.cuda.current_stream(dev).synchronize()
-    return truth
+    with torch.cuda.device(dev):
+        return run_kernel(compiled, scalars, bools, array_tabs, launch=launch, arena=arena)
 
 
 def run_lowering(compiled: CompiledConjunction, scalars, bools, array_tabs,
                  arena: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Evaluate the conjunction over a packed candidate batch -> truth
-    [B, C] bool.  CUDA tensors launch the kernels (or raise); CPU tensors
+    [B, C] bool.  CUDA tensors launch the kernel (or raise); CPU tensors
     take the plain version.  Arguments are ``pack_assignments``' tuple.
     CUDA only: ``arena``, a ``[rows, B]`` int32 tensor that receives every
-    node's value (see ``run_segments``)."""
+    node's value (see ``run_kernel``)."""
     _check_inputs(compiled, scalars, bools, array_tabs)
     if bools.is_cuda:
         return _run_lowering_cuda(compiled, scalars, bools, array_tabs, arena=arena)

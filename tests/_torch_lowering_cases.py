@@ -136,6 +136,29 @@ FAMILIES = {
 }
 
 
+def wide(T, steps: int = 950):
+    """A program whose values outgrow a block's shared memory (about 61,000
+    rows, the kernel's global-arena route): a chain of 512-bit additions and
+    xors, then a product, a table lookup and a keccak of its end."""
+    x, y, z = _xyz(T, "wide", 512)
+    arr = T.array_var("lc_wide_a", 256, 256)
+    v = x
+    for _ in range(steps):
+        v = T.bxor(T.add(v, y), x)
+    m = T.mul(v, z)
+    conj = [T.ult(m, z), T.eq(T.select(arr, T.extract(255, 0, v)), T.extract(511, 256, m)),
+            T.ult(T.keccak(T.concat2(v, T.extract(255, 0, y))), T.extract(255, 0, z))]
+    return conj, [x, y, z], [arr]
+
+
+def long_keccak(T, width: int = 2200):
+    """Keccak of a preimage of three rate blocks, and of a digest of it."""
+    x, y, z = _xyz(T, "longk", width)
+    k1 = T.keccak(T.bxor(x, y))
+    k2 = T.keccak(T.concat2(k1, T.extract(width - 1, 8, x)))
+    return [T.ult(k1, T.extract(255, 0, z)), T.ult(k2, k1)], [x, y, z], []
+
+
 def build(T, family: str, width: int):
     return FAMILIES[family](T, width)
 
@@ -175,7 +198,7 @@ def random_assignments(T, ce, bv_vars, array_vars, seed: int, n: int, keys: int 
 
 
 def node_differences(compiled, arena, values) -> list:
-    """Term ids whose value in a kernel's arena (``run_segments``' ``[rows,
+    """Term ids whose value in a kernel's arena (``run_kernel``'s ``[rows,
     B]``) differs from the plain version's (``run_lowering_reference``'s
     ``values``): every bv and bool node the node table holds a row for."""
     import torch
@@ -193,10 +216,10 @@ def node_differences(compiled, arena, values) -> list:
     return bad
 
 
-def kernel_and_plain(compiled, inputs, launch, permute=None):
-    """Run the node table through ``launch`` (``run_segments``) and the plain
-    version on the same packed ``inputs`` -> (kernel truth, plain truth,
-    the term ids whose values differ)."""
+def kernel_and_plain(compiled, inputs, launch):
+    """Run the node table through ``launch`` (``run_kernel``) and the plain
+    version on the same packed ``inputs`` -> (kernel truth, plain truth, the
+    term ids whose values differ)."""
     import torch
 
     from mythril_tpu_torch.ops import lowering
@@ -205,7 +228,7 @@ def kernel_and_plain(compiled, inputs, launch, permute=None):
     want = lowering.run_lowering_reference(compiled, *inputs, values=values)
     B = inputs[1].shape[0]
     arena = torch.zeros((compiled.program.rows, B), dtype=torch.int32, device=inputs[1].device)
-    got = lowering.run_segments(compiled, *inputs, launch=launch, permute=permute, arena=arena)
+    got = lowering.run_kernel(compiled, *inputs, launch=launch, arena=arena)
     return got, want, node_differences(compiled, arena, values)
 
 

@@ -11,10 +11,11 @@ thread, phase by phase.  A host C++ compiler builds
 it into a shared library in the test's temporary directory, and
 ``tape_vm.run_segments`` drives it exactly as ``run_tape`` drives the
 kernels: the tape's slot plan, segments split at keccak steps, the spill and
-the permutation between them; ``lowering.run_segments`` drives the
-lowering's body the same way, segment by segment, keccak nodes hashed
-between them, and every node's value in its arena must equal the plain
-version's.
+the permutation between them.  The lowering's warp code runs with the 32
+lanes as a loop and each warp primitive between two phases a host function
+over the 32 entries; ``lowering.run_kernel`` drives it exactly as the
+wrapper drives the kernel, and every node's value in its arena must equal
+the plain version's.
 The launch code in the ``.cu`` files runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -272,8 +273,7 @@ def test_host_lowering_matches_plain(host_lib, family, width):
     asgs = lcases.random_assignments(terms, pce, bv_vars, arrays, 100 + width, 20)
     pc = plow.compile_conjunction(conj)
     inputs = plow.pack_assignments(pc, asgs)
-    got, want, bad = lcases.kernel_and_plain(pc, inputs, _host_lowering(host_lib),
-                                            permute=_host_permute(host_lib))
+    got, want, bad = lcases.kernel_and_plain(pc, inputs, _host_lowering(host_lib))
     assert bad == []
     assert torch.equal(got, want)
 
@@ -286,6 +286,28 @@ def test_host_lowering_tables(host_lib, keys, n):
     inputs = plow.pack_assignments(pc, asgs)
     got, want, bad = lcases.kernel_and_plain(pc, inputs, _host_lowering(host_lib))
     assert bad == [] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["wide", "long_keccak"])
+def test_host_lowering_routes(host_lib, case):
+    """Both routes of the kernel: a program past the shared-memory budget
+    keeps its values in the global arena; keccak of three rate blocks."""
+    conj, bv_vars, arrays = getattr(lcases, case)(terms)
+    asgs = lcases.random_assignments(terms, pce, bv_vars, arrays, 5, 12)
+    pc = plow.compile_conjunction(conj)
+    inputs = plow.pack_assignments(pc, asgs)
+    seen = []
+
+    def launch(largs):
+        seen.append(largs.in_smem)
+        _host_lowering(host_lib)(largs)
+
+    got, want, bad = lcases.kernel_and_plain(pc, inputs, launch)
+    assert bad == [] and torch.equal(got, want)
+    assert seen == [int(case == "long_keccak")]
+    for b, asg in enumerate(asgs):
+        vals = pce.evaluate(conj, asg)
+        assert got[b].tolist() == [bool(vals[c]) for c in conj]
 
 
 def test_host_lowering_matches_plain_on_recorded_dispatches(host_lib):

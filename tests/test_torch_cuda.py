@@ -288,13 +288,13 @@ def test_engine_runs_rubixi_under_the_tiers_on_card(card):
 
 def _lowering_on_card(card, conj, inputs):
     """The lowering's wrapper on the card against its plain version on the
-    card: truth and every node's value; one launch per segment."""
+    card: truth and every node's value; one launch per call."""
     compiled = lowering.compile_conjunction(conj) if isinstance(conj, list) else conj
     B = inputs[1].shape[0]
     arena = torch.empty((compiled.program.rows, B), dtype=torch.int32, device=card)
     before = lowering.launches
     got = lowering.run_lowering(compiled, *inputs, arena=arena)
-    assert lowering.launches == before + len(compiled.program.segments)
+    assert lowering.launches == before + 1
     values = {}
     want = lowering.run_lowering_reference(compiled, *inputs, values=values)
     assert lcases.node_differences(compiled, arena, values) == []
@@ -320,6 +320,32 @@ def test_lowering_kernel_tables(card, B, K):
     asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, K + B, B, K)
     compiled = lowering.compile_conjunction(conj)
     _lowering_on_card(card, compiled, lowering.pack_assignments(compiled, asgs, card))
+
+
+@pytest.mark.parametrize("B", [5, 192])
+def test_lowering_kernel_global_route(card, B):
+    """A program whose values outgrow a block's shared memory keeps them in
+    the global arena, in the same single launch."""
+    conj, bv_vars, arrays = lcases.wide(terms)
+    asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, B, B)
+    compiled = lowering.compile_conjunction(conj)
+    inputs = lowering.pack_assignments(compiled, asgs, card)
+    routes = []
+    lowering.run_kernel(compiled, *inputs, launch=lambda largs: routes.append(largs.in_smem))
+    assert routes == [0]
+    got = _lowering_on_card(card, compiled, inputs)
+    assert np.array_equal(got.cpu().numpy(), compiled.evaluate_batch(asgs, "cpu"))
+
+
+@pytest.mark.parametrize("B", [1, 63, 4096])
+def test_lowering_kernel_long_keccak(card, B):
+    """Keccak of a preimage of three rate blocks, and of a digest of it,
+    inside the kernel."""
+    conj, bv_vars, arrays = lcases.long_keccak(terms)
+    asgs = lcases.random_assignments(terms, concrete_eval, bv_vars, arrays, B, B)
+    compiled = lowering.compile_conjunction(conj)
+    got = _lowering_on_card(card, compiled, lowering.pack_assignments(compiled, asgs, card))
+    assert np.array_equal(got.cpu().numpy(), compiled.evaluate_batch(asgs, "cpu"))
 
 
 def test_lowering_kernel_on_recorded_dispatches(card):

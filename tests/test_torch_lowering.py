@@ -312,24 +312,52 @@ def test_pack_assignments_fields_match_jax():
 
 
 def test_node_table_segments_and_pool():
-    # the port-only node table: keccak nodes split it by level, each level's
-    # keccak records first; constants are pool refs, one per value
+    # the port-only node table: records ordered by dependency level, keccak
+    # records like any other; every operand a record reads is an input, a
+    # constant or a record of a lower level, and the level count is the
+    # longest chain; constants are pool refs, one per value
     from mythril_tpu_torch.ops import lowering as plow
     from mythril_tpu_torch.smt import terms as T
 
     from tests import _torch_lowering_cases as cases
 
+    unary = {plow.LOP_NOT, plow.LOP_NEG, plow.LOP_EXTRACT, plow.LOP_ZEXT, plow.LOP_SEXT,
+             plow.LOP_LOOKUP, plow.LOP_KECCAK}
+    for family, width in (("keccak", 256), ("div", 17), ("slice", 264), ("array", 8)):
+        conj, _, _ = cases.build(T, family, width)
+        prog = plow.compile_conjunction(conj).program
+        level_of = {}
+        chain = {}
+        for n, rec in enumerate(prog.rec):
+            lv = int(prog.rec_level[n])
+            assert prog.levels[lv - 1] <= n < prog.levels[lv]
+            reads = [int(rec[plow.R_A])]  # the operands the kernel reads, by op
+            if rec[plow.R_OP] not in unary:
+                reads.append(int(rec[plow.R_B]))
+            if rec[plow.R_OP] == plow.LOP_ITE:
+                reads.append(int(rec[plow.R_C]))
+            for r in reads:
+                assert r < 0 or r < prog.n_input_rows or level_of[r] < lv, (family, n, r)
+            assert lv == 1 + max((level_of.get(r, 0) for r in reads), default=0)
+            level_of[int(rec[plow.R_OUT])] = lv
+            chain[int(rec[plow.R_OUT])] = 1 + max((chain.get(r, 0) for r in reads), default=0)
+        assert prog.n_levels == max(chain.values()) == len(prog.levels) - 1
+        assert prog.levels[0] == 0 and prog.levels[-1] == len(prog.rec)
+        # division and exponentiation: scratch rows of their own, past the result
+        for rec in prog.rec:
+            L = -(-int(rec[plow.R_W]) // 16)
+            if int(rec[plow.R_OP]) in plow._SCRATCH:
+                assert rec[plow.R_SCR] == rec[plow.R_OUT] + L
+        consts = [prog.ref_of[t.tid] for t in T.topo_order(conj) if t.op == "const"]
+        assert all(r < 0 for r in consts) and len(set(consts)) == len(consts)
+    # keccak of x, of the 512-bit and of the 1104-bit preimage, then keccak
+    # of two digests one level above its operands
     conj, _, _ = cases.build(T, "keccak", 256)
     prog = plow.compile_conjunction(conj).program
-    # keccak of x, of the 512-bit and of the 1104-bit preimage on level 1,
-    # keccak of two digests on level 2: three launches
-    assert [len(k) for _b, _e, k in prog.segments] == [0, 3, 1]
-    for begin, end, keccaks in prog.segments:
-        assert all(k < begin for k in keccaks)
-        assert not (prog.rec[begin:end, plow.R_OP] == plow.LOP_KECCAK).any()
-    consts = [prog.ref_of[t.tid] for t in T.topo_order(conj) if t.op == "const"]
-    assert consts and all(r < 0 for r in consts) and len(set(consts)) == len(consts)
-    assert prog.rows == prog.scratch_row  # no division: no scratch rows
+    kl = sorted(int(prog.rec_level[n]) for n in range(len(prog.rec))
+                if prog.rec[n, plow.R_OP] == plow.LOP_KECCAK)
+    assert len(kl) == 4 and kl[-1] > kl[-2]
+    assert any(t.op == "const" for t in T.topo_order(conj))
 
 
 def test_cuda_tensors_need_the_card():
