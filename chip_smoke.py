@@ -21,7 +21,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    bit, on every known-bits pack of ``tests/testdata/torch_tier_kernels.npz``
    (what the JAX package's runs of ``torch_engine_runs_tiers.json`` fed its
    host twin), whose outputs must also hash to the recorded digests, and on
-   seeded synthetic tapes at N = 512 and 4096 nodes and R = 16 and 64 rows;
+   seeded synthetic tapes at N = 512 and 4096 nodes and R = 16 and 64 rows
+   and at N = 1000 and 1002, R = 2, the two sides of the kernel's
+   shared-memory cut; every recorded pack and N = 512 and 1000 must take
+   the shared-memory route, N = 1002 and 4096 the global one;
 2c. DPLL: the ``dpll`` kernel (the devsolver's search) against ``run_plain``,
    both on the card, status, assignment and steps bit for bit, on every
    recorded plane (digests as for 2b) and on seeded 3-CNF planes at [16,
@@ -138,7 +141,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    phase 3; the frontier segment per dispatch with path-steps per second and
    the ``push_state`` and ``pull_harvest`` times; ``known_bits`` and
    ``dpll`` on the recorded packs and planes of 8d's main path and on the
-   seeded ones; the lowering on up to 16 of the probe main path's calls and
+   seeded ones, ``known_bits`` also through the prefilter's whole pass
+   ``run_kb`` (the uploads, the level plan, the launch, the downloads) with
+   its parts; the lowering on up to 16 of the probe main path's calls and
    on two of them tiled to B = 4096; the probe main path once more under
    ``torch.profiler`` for the card's idle share;
 10. one ``{"kernels": [...]}`` line (with each kernel's launches on every
@@ -233,7 +238,11 @@ LOWER_ROW_LIMB_OPS = 3
 # the lowering's seeded shapes: candidates per program and rows per table
 LOWER_BS = (1, 63, 192, 4096)
 LOWER_KS = (8, 16, 64)
-KB_SEEDED = ((11, 512, 16), (12, 512, 64), (13, 4096, 16), (14, 4096, 64))
+# (seed, nodes, rows, the row's values in shared memory): both sides of the
+# known-bits kernel's shared-memory cut (about 1000 nodes) and the tape's
+# largest size
+KB_SEEDED = ((11, 512, 16, True), (12, 512, 64, True), (15, 1000, 2, True),
+             (16, 1002, 2, False), (13, 4096, 16, False), (14, 4096, 64, False))
 DPLL_SEEDED = ((21, 16, 4096, 4096, 2048), (22, 16, 4096, 4096, 2048),
                (23, 16, 4096, 4096, 50), (24, 16, 512, 512, 2048))
 
@@ -319,7 +328,8 @@ KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "tape_vm_kernel": "tape_vm", "frontier_segment_block": "frontier_segment/block",
     "frontier_segment_cluster": "frontier_segment/cluster",
     "frontier_segment_grid": "frontier_segment/grid",
-    "known_bits_kernel": "known_bits", "dpll_kernel": "dpll", "lowering_kernel": "lowering",
+    "known_bits_kernelILb1E": "known_bits/shared", "known_bits_kernelILb0E": "known_bits/global",
+    "dpll_kernel": "dpll", "lowering_kernel": "lowering",
 }
 
 
@@ -1632,8 +1642,9 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
 
 
 def known_bits_parity(torch):
-    """Phase 2b -> the recorded packs' kernel inputs (the main path's shapes)
-    and the seeded ones, for the timing."""
+    """Phase 2b -> the recorded packs' calls (the main path's shapes) and the
+    seeded ones, for the timing, each as (inputs, rows, label, pack, level
+    plan)."""
     import numpy as np
 
     from mythril_tpu_torch.absdomain import device, domains, tape
@@ -1641,27 +1652,35 @@ def known_bits_parity(torch):
     from tests import test_torch_engine_tiers as T
 
     t0 = phase("known bits: the kernel against its plain version on the card")
-    recorded, seeded, bad = [], [], []
+    recorded, seeded, bad, routes = [], [], [], collections.Counter()
+
+    def both(pack, label, into):
+        inputs, plan = domains.kb_inputs(pack, "cuda"), device.pack_plan(pack)
+        got = device.known_bits(*inputs, pack.n_rows, plan=plan)
+        if not all(torch.equal(g, w) for g, w in zip(
+                got, domains.eval_kb_plain(*inputs, pack.n_rows))):
+            bad.append(label)
+        smem = device.in_smem(pack.n_nodes, plan.n_levels)
+        routes["shared" if smem else "global"] += 1
+        into.append((inputs, pack.n_rows, label, pack, plan))
+        return got, smem
+
     for rec in T.load_kernels()["kb"]:
         pack = T.kb_pack(rec)
-        inputs = domains.kb_inputs(pack, "cuda")
-        got = device.known_bits(*inputs, pack.n_rows)
-        want = domains.eval_kb_plain(*inputs, pack.n_rows)
+        got, smem = both(pack, f"N={pack.n_nodes} R={pack.n_rows}", recorded)
         digest = T.kb_digest(got[0].cpu().numpy().view(np.uint32),
                              got[1].cpu().numpy().view(np.uint32), got[2].cpu().numpy())
-        if not all(torch.equal(g, w) for g, w in zip(got, want)) or digest != rec["digest"]:
-            bad.append(rec["run"])
-        recorded.append((inputs, pack.n_rows, f"N={pack.n_nodes} R={pack.n_rows}"))
-    for seed, n, r in KB_SEEDED:
+        if digest != rec["digest"] or not smem:
+            bad.append(f"{rec['run']} digest or route")
+    for seed, n, r, smem in KB_SEEDED:
         pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n, r), tape)
-        inputs = domains.kb_inputs(pack, "cuda")
-        got = device.known_bits(*inputs, r)
-        if not all(torch.equal(g, w) for g, w in zip(got, domains.eval_kb_plain(*inputs, r))):
-            bad.append(f"seeded N={n} R={r}")
-        seeded.append((inputs, r, f"N={n} R={r} (seeded)"))
+        _, took = both(pack, f"N={n} R={r} (seeded)", seeded)
+        if took != smem:
+            bad.append(f"seeded N={n} R={r} route")
     print(f"  {len(recorded)} recorded packs (N <= {max(x[0][0].shape[0] for x in recorded)}, "
-          f"R <= {max(x[1] for x in recorded)}) and {len(seeded)} seeded in "
-          f"{time.perf_counter() - t0:.1f} s; mismatches {bad[:5]}")
+          f"R <= {max(x[1] for x in recorded)}, levels <= "
+          f"{max(x[4].n_levels for x in recorded)}) and {len(seeded)} seeded in "
+          f"{time.perf_counter() - t0:.1f} s; routes {dict(routes)}; mismatches {bad[:5]}")
     check(not bad, f"known_bits differs from its plain version or the recording: {bad[:5]}")
     return recorded, seeded
 
@@ -1708,22 +1727,37 @@ def dpll_parity(torch):
 
 
 def time_known_bits(torch, calls, reps: int = 10):
-    """Per call: the launch alone (``ms``), the ``known_bits`` wrapper
-    (``wrapper_ms``), the plain version, and the bound: the inputs read and
-    km, kv and refuted written once, ``KB_NODE_OPS`` per node and row."""
+    """Per call: the launch alone (``ms``), the ``known_bits`` wrapper given
+    the level plan (``wrapper_ms``), the prefilter's whole pass ``run_kb``
+    (``run_kb_ms``, host clock: the inputs packed and uploaded, the plan
+    built and uploaded, the launch, the three downloads) and its parts
+    (``inputs_ms``: ``kb_inputs``; ``plan_ms``: ``pack_plan``;
+    ``download_ms``: km, kv and refuted to the host), the plain version, and
+    the bound: the function's inputs read and km, kv and refuted written
+    once (not the level plan, the kernel's own schedule), ``KB_NODE_OPS``
+    per node and row."""
     import ctypes
 
     from mythril_tpu_torch.absdomain import device, domains
     from mythril_tpu_torch.ops import _build
 
+    def host_ms(fn, n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
     lib = _build.load()
     rows = []
-    for inputs, r, label in calls:
+    for inputs, r, label, pack, plan in calls:
         n = inputs[0].shape[0]
         km = torch.empty((n, r, 16), dtype=torch.int32, device="cuda")
         kv, refuted = torch.empty_like(km), torch.zeros(r, dtype=torch.bool, device="cuda")
         zero = torch.zeros(16, dtype=torch.int32, device="cuda")
-        args = device.kb_args(*inputs, zero, km, kv, refuted)
+        plan_t = torch.from_numpy(plan.packed()).cuda()
+        args = device.kb_args(*inputs, zero, plan_t, plan.n_levels, km, kv, refuted)
         stream = torch.cuda.current_stream().cuda_stream
         timer = LaunchTimer(torch)
         for _ in range(reps):
@@ -1732,12 +1766,19 @@ def time_known_bits(torch, calls, reps: int = 10):
         ms = timer.total_ms() / reps
         want = domains.eval_kb_plain(*inputs, r)
         err = 0 if all(torch.equal(g, w) for g, w in zip((km, kv, refuted), want)) else 1
-        wrapper = cuda_ms(lambda: device.known_bits(*inputs, r), reps)
+        wrapper = cuda_ms(lambda: device.known_bits(*inputs, r, plan=plan), reps)
+        device.run_kb(pack, "cuda")
+        run_kb = host_ms(lambda: device.run_kb(pack, "cuda"), reps)
+        parts = {"inputs_ms": host_ms(lambda: domains.kb_inputs(pack, "cuda"), reps),
+                 "plan_ms": host_ms(lambda: device.pack_plan(pack), reps),
+                 "download_ms": host_ms(lambda: (km.cpu(), kv.cpu(), refuted.cpu()), reps)}
         plain = cuda_ms(lambda: domains.eval_kb_plain(*inputs, r), 1)
         n_bytes = sum(x.numel() * 4 for x in inputs) + 2 * km.numel() * 4 + r
         b_ms, b_by = bound(n_bytes, n * r * KB_NODE_OPS)
-        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "err": err, "shape": label})
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "run_kb_ms": run_kb, **parts,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "err": err,
+                     "shape": f"{label} {plan.n_levels} levels",
+                     "values": "shared" if device.in_smem(n, plan.n_levels) else "global"})
     return rows
 
 
@@ -1900,11 +1941,23 @@ def main() -> int:
                           replaces="mythril_tpu/ops/lowering.py:99-161")
         lower.update(attrs["lowering"], main_path=probe, calls_on_main_path=len(lowering_calls))
         phase("known_bits and dpll times at the main path's shapes (CUDA events)")
-        known_bits = summarize("known_bits", time_known_bits(torch, kb_recorded),
+        kb_rows = time_known_bits(torch, kb_recorded)
+        known_bits = summarize("known_bits", kb_rows,
                                t_launches["known_bits"], card, route="cuda",
                                source="mythril_tpu_torch/csrc/known_bits.cu",
                                replaces="mythril_tpu/absdomain/device.py:50")
-        known_bits.update(attrs["known_bits"])
+        known_bits.update(attrs["known_bits/shared"], ptxas_by_values={
+            k.split("/")[1]: attrs[k] for k in ("known_bits/shared", "known_bits/global")})
+        kb_mid = sorted(kb_rows, key=lambda r: r["ms"])[len(kb_rows) // 2]  # summarize's
+        known_bits.update({k: kb_mid[k] for k in (
+            "run_kb_ms", "inputs_ms", "plan_ms", "download_ms", "values")},
+            total_run_kb_ms=sum(r["run_kb_ms"] for r in kb_rows),
+            per_call=[{k: r[k] for k in ("shape", "ms", "wrapper_ms", "run_kb_ms")}
+                      for r in kb_rows])
+        print(f"  known_bits median call: run_kb {kb_mid['run_kb_ms']:.4f} ms (kb_inputs "
+              f"{kb_mid['inputs_ms']:.4f}, plan {kb_mid['plan_ms']:.4f}, downloads "
+              f"{kb_mid['download_ms']:.4f} ms); {len(kb_rows)} calls: run_kb "
+              f"{known_bits['total_run_kb_ms']:.3f} ms in all")
         dpll = summarize("dpll", time_dpll(torch, dpll_recorded), t_launches["dpll"], card,
                          route="cuda", source="mythril_tpu_torch/csrc/dpll.cu",
                          replaces="mythril_tpu/devsolver/device.py:44")
@@ -1931,12 +1984,15 @@ def main() -> int:
             for r in rows if entry["name"] in ("known_bits", "dpll", "lowering") else ():
                 print(f"  {entry['name']} {r['shape']}: kernel {r['ms']:.5f} ms, wrapper "
                       f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-                      f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
+                      f"{r['bound_ms']:.6f} ms by {r['bound_by']}"
+                      + (f", run_kb {r['run_kb_ms']:.4f} ms, values in {r['values']} memory"
+                         if "run_kb_ms" in r else ""))
                 check(r.get("err", 0) == 0, f"{entry['name']} {r['shape']}: kernel differs")
             if rows:
                 entry["at_scale"] = [{k: r[k] for k in (
                     "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "slots",
-                    "block", "smem_bytes", "variants") if k in r} for r in rows]
+                    "block", "smem_bytes", "variants", "run_kb_ms", "values") if k in r}
+                    for r in rows]
         idle = idle_share(torch)
         if idle is not None:
             tape["main_path_idle_share"] = idle

@@ -204,12 +204,6 @@ extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
   return 0;
 }
 
-// The known-bits walk, row after row (one thread per row on the card).
-extern "C" int mk_known_bits_host(const mk::kb::KbArgs* args) {
-  for (int32_t r = 0; r < args->R; ++r) mk::kb::run_row(*args, r);
-  return 0;
-}
-
 // run_query's executor with every thread of a block of nt: each phase runs
 // for thread 0, 1, ... in turn, and the ORs are taken over all of them.
 struct HostBlock {
@@ -262,48 +256,50 @@ extern "C" int mk_dpll_host(const mk::dpll::DpllArgs* args, int nt) {
   return 0;
 }
 
-// lowering.cuh's warp executor on the host: the 32 lanes as a loop, each
-// warp primitive between two phases a function over the 32 entries.
-template <class T>
+// The warp executors on the host: N lanes as a loop, each primitive
+// between two phases a function over the N entries (lowering.cuh's warp,
+// N = 32; known_bits.cuh's half-warp, N = 16).
+template <class T, int N>
 struct HostLanes {
-  T v[32];
+  T v[N];
   T operator[](int l) const { return v[l]; }
 };
 
+template <int N = 32>
 struct HostLaneLoop {
   template <class F>
   auto each(F f) const {
-    HostLanes<decltype(f(0))> o;
-    for (int l = 0; l < 32; ++l) o.v[l] = f(l);
+    HostLanes<decltype(f(0)), N> o;
+    for (int l = 0; l < N; ++l) o.v[l] = f(l);
     return o;
   }
   template <class F>
   void run(F f) const {
-    for (int l = 0; l < 32; ++l) f(l);
+    for (int l = 0; l < N; ++l) f(l);
   }
-  uint32_t ballot(const HostLanes<bool>& p) const {
+  uint32_t ballot(const HostLanes<bool, N>& p) const {
     uint32_t m = 0;
-    for (int l = 0; l < 32; ++l) m |= (uint32_t)p.v[l] << l;
+    for (int l = 0; l < N; ++l) m |= (uint32_t)p.v[l] << l;
     return m;
   }
   template <class T, class F>
-  HostLanes<T> shfl(const HostLanes<T>& x, F src) const {
-    HostLanes<T> o;
-    for (int l = 0; l < 32; ++l) o.v[l] = x.v[src(l)];
+  HostLanes<T, N> shfl(const HostLanes<T, N>& x, F src) const {
+    HostLanes<T, N> o;
+    for (int l = 0; l < N; ++l) o.v[l] = x.v[src(l)];
     return o;
   }
   template <class T>
-  T at(const HostLanes<T>& x, int src) const {
+  T at(const HostLanes<T, N>& x, int src) const {
     return x.v[src];
   }
   // the warp's keccak_f1600_lane is held to mk::keccak_f1600 by
   // test_host_keccak_matches_reference; here the state's 25 lanes go through
   // the one-thread permutation
-  HostLanes<uint64_t> permute(const HostLanes<uint64_t>& a) const {
+  HostLanes<uint64_t, N> permute(const HostLanes<uint64_t, N>& a) const {
     uint64_t s[25];
     for (int l = 0; l < 25; ++l) s[l] = a.v[l];
     mk::keccak_f1600(s);
-    HostLanes<uint64_t> o = a;
+    HostLanes<uint64_t, N> o = a;
     for (int l = 0; l < 25; ++l) o.v[l] = s[l];
     return o;
   }
@@ -320,8 +316,66 @@ extern "C" int mk_lowering_host(const mk::low::LowerArgs* args) {
   for (long long b = 0; b < a.B; ++b) {
     for (auto& x : smem) x = (int32_t)(0xA5A5A5A5u ^ (uint32_t)b);
     const mk::low::Cand cand = mk::low::stage(a, smem.data(), b, 0, 1);
-    mk::low::run_levels(HostLaneLoop{}, [] {}, a, cand, smem.data(), b, 0, 1);
+    mk::low::run_levels(HostLaneLoop<32>{}, [] {}, a, cand, smem.data(), b, 0, 1);
     mk::low::finish(a, cand.c, b, 0, 1);
   }
   return 0;
+}
+
+// The known-bits pass, row after row (a block each on the card): the
+// staging, every level's nodes by the block's kGroups half-warps, the last
+// group first, so that a node reading a node of its own level would read a
+// value not yet written; the write-out.  On the shared-memory route the
+// row's block of shared memory is a host array that starts poisoned, as
+// shared memory starts with whatever the last block left.
+template <bool kSmem>
+static void known_bits_rows(const mk::kb::KbArgs& a) {
+  std::vector<int32_t> smem(a.smem_words);
+  for (int32_t r = 0; r < a.R; ++r) {
+    for (auto& x : smem) x = (int32_t)(0xA5A5A5A5u ^ (uint32_t)r);
+    mk::kb::stage<kSmem>(a, smem.data(), 0, 1);
+    const mk::kb::Row row = mk::kb::row_of<kSmem>(a, smem.data(), r);
+    const int32_t* lv = smem.data() + (long long)a.N * mk::kb::KREC;
+    bool refuted = false;
+    for (int32_t l = 0; l < a.n_levels; ++l)
+      for (int g = mk::kb::kGroups - 1; g >= 0; --g)
+        refuted = mk::kb::level(HostLaneLoop<16>{}, a, row, smem.data(), lv[l], lv[l + 1], r, g,
+                                mk::kb::kGroups) || refuted;
+    mk::kb::finish<kSmem>(a, row, r, 0, 1);
+    a.refuted[r] = refuted;
+  }
+}
+
+extern "C" int mk_known_bits_host(const mk::kb::KbArgs* args) {
+  if (args->N <= 0 || args->R <= 0) return 0;
+  if (args->in_smem)
+    known_bits_rows<true>(*args);
+  else
+    known_bits_rows<false>(*args);
+  return 0;
+}
+
+// known_bits.cuh's cross-limb steps on two 512-bit values x and y (16
+// limbs each), for tests against plain integers: out[0:16] x + y,
+// [16:32] x - y, [32:48] x << s, [48:64] x >> s, then x all ones, x not
+// zero, the bit length of x, x < y, x == y and bit pos of x.
+extern "C" void mk_kb_steps_host(const uint32_t* x, const uint32_t* y, uint32_t s, int32_t pos,
+                                 uint32_t* out) {
+  const HostLaneLoop<16> w;
+  const auto a = w.each([&](int l) { return x[l]; });
+  const auto b = w.each([&](int l) { return y[l]; });
+  const auto nb = w.each([&](int l) -> uint32_t { return ~y[l]; });
+  const auto parts = {mk::kb::add_lanes(w, a, b, 0u), mk::kb::add_lanes(w, a, nb, 1u),
+                      mk::kb::shl_lanes(w, a, s), mk::kb::lshr_lanes(w, a, s)};
+  int at = 0;
+  for (const auto& p : parts)
+    for (int l = 0; l < 16; ++l) out[at++] = p[l];
+  bool lt, eq;
+  mk::kb::ult_eq(w, a, b, lt, eq);
+  out[at++] = mk::kb::all_ones(w, a);
+  out[at++] = mk::kb::any_set(w, a);
+  out[at++] = (uint32_t)mk::kb::bit_length(w, a);
+  out[at++] = lt;
+  out[at++] = eq;
+  out[at++] = mk::kb::bit_at(w, a, pos);
 }

@@ -15,7 +15,9 @@ the permutation between them.  The lowering's warp code runs with the 32
 lanes as a loop and each warp primitive between two phases a host function
 over the 32 entries; ``lowering.run_kernel`` drives it exactly as the
 wrapper drives the kernel, and every node's value in its arena must equal
-the plain version's.
+the plain version's.  The known-bits pass runs the same way with 16 lanes a
+node (``tests/test_torch_known_bits_host.py`` holds its level plan, its
+cross-limb steps and both of its routes).
 The launch code in the ``.cu`` files runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -61,6 +63,9 @@ def host_lib(tmp_path_factory):
     lib.mk_tape_vm_segment_host.restype = ctypes.c_int
     lib.mk_known_bits_host.argtypes = [ctypes.POINTER(kb_device.KbArgs)]
     lib.mk_known_bits_host.restype = ctypes.c_int
+    lib.mk_kb_steps_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                                     ctypes.c_int32, ctypes.c_void_p]
+    lib.mk_kb_steps_host.restype = None
     lib.mk_dpll_host.argtypes = [ctypes.POINTER(dpll_device.DpllArgs), ctypes.c_int]
     lib.mk_dpll_host.restype = ctypes.c_int
     lib.mk_lowering_host.argtypes = [ctypes.POINTER(plow.LowerArgs)]
@@ -209,21 +214,27 @@ def test_out_of_range_tape_rows_are_refused():
         ptape._check_tape(tape, compiled.n_steps, V, T, A, R)
 
 
-def _host_known_bits(lib, nodes, wm, cl, okm, okv, n_rows):
+def _host_known_bits(lib, nodes, wm, cl, okm, okv, n_rows, smem=None):
+    """known_bits.cuh's pass built for the host, driven as the wrapper
+    drives the kernel (the level plan from the nodes, the route by size
+    unless ``smem`` forces one); the output planes start poisoned."""
     n = nodes.shape[0]
     km = torch.full((n, n_rows, 16), -1, dtype=torch.int32)
     kv = torch.full_like(km, -1)
     refuted = torch.ones(n_rows, dtype=torch.bool)
     zero = torch.zeros(16, dtype=torch.int32)  # held: args keeps only its address
-    args = kb_device.kb_args(nodes, wm, cl, okm, okv, zero, km, kv, refuted)
+    plan = kb_device.level_plan(nodes[:, 2:5].numpy())
+    plan_t = torch.from_numpy(plan.packed())
+    args = kb_device.kb_args(nodes, wm, cl, okm, okv, zero, plan_t, plan.n_levels, km, kv,
+                             refuted, smem)
     assert lib.mk_known_bits_host(ctypes.byref(args)) == 0
     return km, kv, refuted
 
 
 @pytest.mark.parametrize("seed,n_nodes,n_rows", [(1, 64, 1), (4, 512, 16), (5, 96, 64)])
 def test_host_known_bits_matches_plain(host_lib, seed, n_nodes, n_rows):
-    """known_bits.cuh's row walk against eval_kb_plain on synthetic tapes
-    (every op code, missing children, overrides)."""
+    """known_bits.cuh's pass by levels against eval_kb_plain on synthetic
+    tapes (every op code, missing children, overrides)."""
     pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n_nodes, n_rows), kb_tape)
     inputs = kb_domains.kb_inputs(pack, "cpu")
     got = _host_known_bits(host_lib, *inputs, n_rows)

@@ -236,17 +236,23 @@ def test_cli_frontier_width_limit_on_card(card, tmp_path, monkeypatch, capsys):
     assert [i["swc-id"] for i in json.loads(out)["issues"]] == ["106"]
 
 
-@pytest.mark.parametrize("seed,n_nodes,n_rows", [(1, 64, 1), (4, 512, 16), (9, 4096, 64)])
-def test_known_bits_kernel_matches_plain(card, seed, n_nodes, n_rows):
+@pytest.mark.parametrize("seed,n_nodes,n_rows,smem", [
+    (1, 64, 1, True), (4, 512, 16, True), (15, 1000, 2, True), (16, 1002, 2, False),
+    (13, 4096, 16, False), (9, 4096, 64, False)])
+def test_known_bits_kernel_matches_plain(card, seed, n_nodes, n_rows, smem):
     """csrc/known_bits.cu against eval_kb_plain, both on the card, on
-    synthetic tapes (every op code, missing children, overrides)."""
+    synthetic tapes (every op code, missing children, overrides), on both
+    routes: the row's values in shared memory up to about 1000 nodes, in
+    the output planes past that."""
     from mythril_tpu_torch.absdomain import device, domains, tape
     from tests import _torch_tier_cases as tier_cases
 
     pack = tier_cases.kb_pack(tier_cases.random_kb_fields(seed, n_nodes, n_rows), tape)
     inputs = domains.kb_inputs(pack, card)
+    plan = device.pack_plan(pack)
+    assert device.in_smem(n_nodes, plan.n_levels) == smem
     before = device.launches
-    got = device.known_bits(*inputs, n_rows)
+    got = device.known_bits(*inputs, n_rows, plan=plan)
     assert device.launches == before + 1
     for g, w in zip(got, domains.eval_kb_plain(*inputs, n_rows)):
         assert g.is_cuda and torch.equal(g, w)
