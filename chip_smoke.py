@@ -27,9 +27,11 @@ Phases, in order; any failure exits nonzero and prints no result:
    the shared-memory route, N = 1002 and 4096 the global one;
 2c. DPLL: the ``dpll`` kernel (the devsolver's search) against ``run_plain``,
    both on the card, status, assignment and steps bit for bit, on every
-   recorded plane (digests as for 2b) and on seeded 3-CNF planes at [16,
+   recorded plane (digests as for 2b), on seeded 3-CNF planes at [16,
    4096, 3] with V = 4096 and at [16, 512, 3], with SAT, UNSAT and
-   budget-cut (UNKNOWN) queries;
+   budget-cut (UNKNOWN) queries, and on the hand-built edge planes of
+   ``tests/_torch_tier_cases.py`` ``dpll_edge_cases`` (also against the
+   status and steps each states);
 3. keccak: both layouts of the ``keccak_f1600`` kernel (thread and warp per
    state) against ``keccak_f1600_reference``, both on the card, at N in
    {1, 3, 64, 130, 4096, 65536} random states, bit-equal; then ``keccak256``
@@ -143,7 +145,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``dpll`` on the recorded packs and planes of 8d's main path and on the
    seeded ones, ``known_bits`` also through the prefilter's whole pass
    ``run_kb`` (the uploads, the level plan, the launch, the downloads) with
-   its parts; the lowering on up to 16 of the probe main path's calls and
+   its parts, ``dpll`` also per step and through the devsolver's whole call
+   ``run_device`` (one upload, the launch, one download), its bound counting
+   the clauses that are not padding; the lowering on up to 16 of the probe main path's calls and
    on two of them tiled to B = 4096; the probe main path once more under
    ``torch.profiler`` for the card's idle share;
 10. one ``{"kernels": [...]}`` line (with each kernel's launches on every
@@ -218,7 +222,9 @@ KB_NODE_OPS = 200
 # operations of the DPLL search per clause and step (three literal reads,
 # their truth, the counts) and per bitset word and step (both-ways test,
 # application, clearing), at the issue rate; counted over each query's
-# own steps (the kernel's steps output)
+# own steps (the kernel's steps output) and its real clauses (those that
+# can be false: the padding and the clauses holding literal 1 or 2 need no
+# work)
 DPLL_CLAUSE_OPS = 20
 DPLL_WORD_OPS = 8
 # 32-bit integer operations of one lowering record for one candidate, per
@@ -243,8 +249,6 @@ LOWER_KS = (8, 16, 64)
 # largest size
 KB_SEEDED = ((11, 512, 16, True), (12, 512, 64, True), (15, 1000, 2, True),
              (16, 1002, 2, False), (13, 4096, 16, False), (14, 4096, 64, False))
-DPLL_SEEDED = ((21, 16, 4096, 4096, 2048), (22, 16, 4096, 4096, 2048),
-               (23, 16, 4096, 4096, 50), (24, 16, 512, 512, 2048))
 
 
 class SmokeFailure(Exception):
@@ -329,7 +333,8 @@ KERNEL_NAMES = {  # kernel function (in the mangled name) -> report key
     "frontier_segment_cluster": "frontier_segment/cluster",
     "frontier_segment_grid": "frontier_segment/grid",
     "known_bits_kernelILb1E": "known_bits/shared", "known_bits_kernelILb0E": "known_bits/global",
-    "dpll_kernel": "dpll", "lowering_kernel": "lowering",
+    "dpll_kernelILi256E": "dpll/256", "dpll_kernelILi1024E": "dpll/1024",
+    "lowering_kernel": "lowering",
 }
 
 
@@ -1712,14 +1717,22 @@ def dpll_parity(torch):
                                       f"[{q},{c},3] V={plane.n_vars}", recorded)
         if T.dpll_digest(status.cpu().numpy(), assign.cpu().numpy()) != rec["digest"]:
             bad.append(f"{rec['run']} digest")
-    for seed, q, c, v, iters in DPLL_SEEDED:
+    for seed, q, c, v, iters in tier_cases.DPLL_SEEDED:
         plane = tier_cases.random_cnf_plane(seed, q, c, v, kernel)
         status, _assign, steps = both(plane, iters, f"[{q},{c},3] V={v} iters={iters} (seeded)",
                                       seeded)
         outcomes.update(status.tolist())
-    print(f"  {len(recorded)} recorded planes and {len(seeded)} seeded in "
-          f"{time.perf_counter() - t0:.1f} s; seeded outcomes {dict(outcomes)} (1 SAT, 2 UNSAT, "
-          f"3 UNKNOWN); mismatches {bad[:5]}")
+    edge = []
+    for case in tier_cases.dpll_edge_cases():
+        plane = kernel.Plane(case["lits"], case["dec"], case["lits"].shape[0], case["n_vars"])
+        status, _assign, steps = both(plane, case["iters"], case["label"], edge)
+        if case["status"] is not None and (status.tolist(), steps.tolist()) != (
+                case["status"], case["steps"]):
+            bad.append(f"{case['label']}: status {status.tolist()} steps {steps.tolist()}")
+        outcomes.update(status.tolist())
+    print(f"  {len(recorded)} recorded planes, {len(seeded)} seeded and {len(edge)} edge planes "
+          f"in {time.perf_counter() - t0:.1f} s; seeded and edge outcomes {dict(outcomes)} (1 "
+          f"SAT, 2 UNSAT, 3 UNKNOWN); mismatches {bad[:5]}")
     check(not bad, f"dpll differs from its plain version or the recording: {bad[:5]}")
     check(set(outcomes) == {kernel.SAT_Q, kernel.UNSAT_Q, kernel.UNKNOWN_Q},
           f"the seeded planes miss an outcome: {dict(outcomes)}")
@@ -1783,10 +1796,14 @@ def time_known_bits(torch, calls, reps: int = 10):
 
 
 def time_dpll(torch, calls, reps: int = 5):
-    """Per call: the launch alone, the ``dpll`` wrapper, the plain version,
-    and the bound: the plane read and status, assignment and steps written
-    once; ``DPLL_CLAUSE_OPS`` per clause and ``DPLL_WORD_OPS`` per bitset
-    word for each step each query took (the kernel's steps)."""
+    """Per call: the launch alone, microseconds a step (over the longest
+    query's steps: the blocks run side by side), the ``dpll`` wrapper, the
+    devsolver's whole call ``run_device`` (host clock: the plane uploaded
+    from numpy, the launch, the results downloaded), the plain version, and
+    the bound: the plane read and status, assignment and steps written once;
+    ``DPLL_CLAUSE_OPS`` per real clause (one that can be false: not the
+    padding, no literal 1 or 2) and ``DPLL_WORD_OPS`` per bitset word for
+    each step each query took (the kernel's steps)."""
     import ctypes
 
     from mythril_tpu_torch.devsolver import device, kernel
@@ -1808,13 +1825,23 @@ def time_dpll(torch, calls, reps: int = 5):
         want = kernel.run_plain(lits, dec, n_vars, iters)
         err = 0 if all(torch.equal(g, w) for g, w in zip((status, assign, steps), want)) else 1
         wrapper = cuda_ms(lambda: device.dpll(lits, dec, n_vars, iters), reps)
+        plane = kernel.Plane(lits.cpu().numpy(), dec.cpu().numpy(), q, n_vars)
+        device.run_device(plane, iters, "cuda")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            device.run_device(plane, iters, "cuda")
+        run_device = (time.perf_counter() - t0) * 1e3 / reps
         plain = cuda_ms(lambda: kernel.run_plain(lits, dec, n_vars, iters), 1)
-        n_steps = int(steps.sum())
+        real = (~((lits == 1) | (lits == 2)).any(dim=2)).sum(dim=1)
+        n_steps, longest = int(steps.sum()), int(steps.max())
         n_bytes = (lits.numel() + dec.numel()) * 4 + q + q * n_vars + 4 * q
-        b_ms, b_by = bound(n_bytes, 0, n_steps * (c * DPLL_CLAUSE_OPS
-                                                  + (n_vars + 31) // 32 * DPLL_WORD_OPS))
-        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "err": err, "steps": n_steps,
+        b_ms, b_by = bound(n_bytes, 0, int((steps.long() * (
+            real * DPLL_CLAUSE_OPS + (n_vars + 31) // 32 * DPLL_WORD_OPS)).sum()))
+        rows.append({"ms": ms, "us_per_step": ms * 1e3 / max(1, longest), "wrapper_ms": wrapper,
+                     "run_device_ms": run_device, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_counts": "real clauses (not padding, no literal "
+                     "1 or 2) over each query's own steps", "err": err, "steps": n_steps,
+                     "real_clauses": int(real.sum()), "block": device.block_threads(c),
                      "smem_bytes": int(lib.mk_dpll_smem_bytes(c, n_vars)),
                      "shape": f"{label} steps={n_steps}"})
     return rows
@@ -1958,10 +1985,23 @@ def main() -> int:
               f"{kb_mid['inputs_ms']:.4f}, plan {kb_mid['plan_ms']:.4f}, downloads "
               f"{kb_mid['download_ms']:.4f} ms); {len(kb_rows)} calls: run_kb "
               f"{known_bits['total_run_kb_ms']:.3f} ms in all")
-        dpll = summarize("dpll", time_dpll(torch, dpll_recorded), t_launches["dpll"], card,
+        from mythril_tpu_torch.ops import _build
+
+        dpll_rows = time_dpll(torch, dpll_recorded)
+        dpll = summarize("dpll", dpll_rows, t_launches["dpll"], card,
                          route="cuda", source="mythril_tpu_torch/csrc/dpll.cu",
                          replaces="mythril_tpu/devsolver/device.py:44")
-        dpll.update(attrs["dpll"])
+        dpll_mid = sorted(dpll_rows, key=lambda r: r["ms"])[len(dpll_rows) // 2]  # summarize's
+        dpll.update(attrs[f"dpll/{dpll_mid['block']}"], ptxas_by_block={
+            k.split("/")[1]: attrs[k] for k in ("dpll/256", "dpll/1024")},
+            **{k: dpll_mid[k] for k in ("us_per_step", "run_device_ms", "bound_counts")},
+            total_run_device_ms=sum(r["run_device_ms"] for r in dpll_rows),
+            smem_bytes_at_c_v={n: int(_build.load().mk_dpll_smem_bytes(n, n)) for n in (512, 4096)})
+        print(f"  dpll median call: {dpll_mid['us_per_step']:.3f} us a step, run_device "
+              f"{dpll_mid['run_device_ms']:.4f} ms; {len(dpll_rows)} calls: run_device "
+              f"{dpll['total_run_device_ms']:.3f} ms in all; ptxas by block "
+              f"{dpll['ptxas_by_block']}; shared memory at C = V = 512 and 4096: "
+              f"{dpll['smem_bytes_at_c_v']} B")
         kernels = [keccak, tape, frontier, known_bits, dpll, lower]
         for entry in kernels:
             entry["launches_by_path"] = {
@@ -1986,12 +2026,16 @@ def main() -> int:
                       f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
                       f"{r['bound_ms']:.6f} ms by {r['bound_by']}"
                       + (f", run_kb {r['run_kb_ms']:.4f} ms, values in {r['values']} memory"
-                         if "run_kb_ms" in r else ""))
+                         if "run_kb_ms" in r else "")
+                      + (f", {r['us_per_step']:.4f} us a step, run_device "
+                         f"{r['run_device_ms']:.4f} ms, {r['real_clauses']} real clauses"
+                         if "us_per_step" in r else ""))
                 check(r.get("err", 0) == 0, f"{entry['name']} {r['shape']}: kernel differs")
             if rows:
                 entry["at_scale"] = [{k: r[k] for k in (
                     "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "slots",
-                    "block", "smem_bytes", "variants", "run_kb_ms", "values") if k in r}
+                    "block", "smem_bytes", "variants", "run_kb_ms", "values", "us_per_step",
+                    "run_device_ms", "real_clauses") if k in r}
                     for r in rows]
         idle = idle_share(torch)
         if idle is not None:

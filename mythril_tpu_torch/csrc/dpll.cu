@@ -3,26 +3,38 @@
 //
 // Replaces mythril_tpu/devsolver/device.py _get_jitted -> _run (the jitted
 // lax.while_loop over devsolver/kernel.py step), bit for bit with the host
-// twin kernel.run_host; the loop and its phases are dpll.cuh (run_query),
-// which the host check also builds.
-//
-// Design: a block owns a query.  Its clauses (C x 3 x 4 B, 48 KB at C =
-// 4096), decision order, assignment (int8), levels (int16) and the two
-// implication bitsets live in shared memory, more than the 48 KB a launch
-// gets without asking (cudaFuncSetAttribute raises the limit).  A step's
-// phases are split by barriers: the sweep, threads striding over clauses,
-// with units OR-ed into the bitsets by shared atomics; the block-wide ORs
-// (__syncthreads_or) of its flags; the application, threads striding over
-// bitset words; one thread's decision or backtrack choice; the
-// unassignment striding over variables.  The JAX loop shares one step
-// counter across the batch; a block stops when its own query is decided,
-// which gives the same outputs (a decided query never changes).
+// twin kernel.run_host; the loop, its layout and its phases are dpll.cuh
+// (run_query), which the host check also builds.
 //
 // Bound: the function reads the plane once (12 B a clause, 256 B of
 // decision order) and writes V bytes of assignment per query; per step it
-// reads each clause's three literals and their variables, so the integer
-// work is steps x C x (about 20 operations).  What sets the time is the
-// chain of steps, each a few barriers long: latency, not bytes.
+// reads each clause that can be false (the padding and the clauses holding
+// an anchor's true literal cannot), so the integer work is steps x those
+// clauses x about 20 operations.  What sets the time is the chain of one
+// query's steps: latency, not bytes.
+//
+// What the design does about it (dpll.cuh):
+// - staging drops the clauses that are true for the whole run and packs the
+//   rest, 6 B a clause (24 KB at C = 4096), so a step sweeps only the real
+//   clauses and an empty query (every recorded plane) is one trivial step;
+//   a thread keeps its first 4 clauses in registers (the wrapper's block
+//   sizes cover the buckets: 256 threads for 512 clauses, 1024 for 4096);
+// - the assignment is a bit per literal, a variable's two literals side by
+//   side, so a literal's truth is one word read and one funnel shift; the
+//   step's implications apply as word ORs, and a backtrack is one AND a word
+//   with the snapshot taken at that decision;
+// - a step is two barriers: the sweep's flags, OR-ed within each warp
+//   (__reduce_or_sync) into the warp's word and then over the words, and the
+//   commit's end; every thread keeps the decision stack as two 64-bit masks
+//   and takes the same branch, so no thread waits on a one-thread phase;
+// - up to 1024 threads a block (4 clauses a thread at C = 4096); the
+//   wrapper picks the size from the clause bucket;
+// - the dynamic shared-memory limit is raised once per device and size,
+//   not at every launch.
+//
+// What is left sets the step (scripts/torch_dpll_probe.py --parts phases):
+// the sweep, three word reads a clause at random banks of one SM's shared
+// memory, then the vote and the commit's dependent reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,65 +43,83 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 using mk::dpll::DpllArgs;
 using mk::dpll::Query;
 
 // run_query's executor on the card: this thread of the query's block.
+template <int kThreads>
 struct Block {
-  const DpllArgs& a;
-  const Query& s;
+  static constexpr int nt = kThreads;
   int tid;
 
-  __device__ void stage(int32_t q) { mk::dpll::stage(a, q, s, tid, kThreads); }
-  __device__ void sync() { __syncthreads(); }
-  __device__ int sweep() {
-    const int f = mk::dpll::sweep(s, a.C, tid, kThreads);
-    const int conflict = __syncthreads_or(f & 1);
-    const int open = __syncthreads_or(f & 2);
-    return (conflict ? 1 : 0) | (open ? 2 : 0);
+  __device__ __forceinline__ void sync(uint32_t*) { __syncthreads(); }
+  // The warp's OR into its own word, the barrier, every lane one warp's
+  // word and the OR over the lanes: no atomic, no word to clear.
+  __device__ __forceinline__ uint32_t vote(uint32_t mine, uint32_t* votes) {
+    const uint32_t w = __reduce_or_sync(0xFFFFFFFFu, mine);
+    const int lane = tid & 31;
+    if (lane == 0) votes[tid >> 5] = w;
+    __syncthreads();
+    return __reduce_or_sync(0xFFFFFFFFu, lane < kThreads / 32 ? votes[lane] : 0u);
   }
-  __device__ bool both() { return __syncthreads_or(mk::dpll::both_ways(s, a.V, tid, kThreads)); }
-  __device__ bool apply(bool go) {
-    return __syncthreads_or(mk::dpll::apply(s, a.V, go, tid, kThreads));
-  }
-  __device__ void decide() {
-    if (tid == 0) mk::dpll::decide(s);
-  }
-  __device__ void set_sat() {
-    if (tid == 0) mk::dpll::set_sat(s);
-  }
-  __device__ void pick_jump() {
-    if (tid == 0) mk::dpll::pick_jump(s);
-  }
-  __device__ void flip(int32_t j) {
-    if (tid == 0) mk::dpll::flip(s, j);
-  }
-  __device__ void unassign(int32_t j) { mk::dpll::unassign_above(s, a.V, j, tid, kThreads); }
-  __device__ void store(int32_t q, int32_t steps) {
-    mk::dpll::store(a, q, s, steps, tid, kThreads);
+  // One shared atomic per warp: the warp's kept clauses take consecutive
+  // slots in lane order.
+  __device__ __forceinline__ int32_t claim(bool keep, int32_t* n) {
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
+    const int lane = tid & 31;
+    int32_t base = 0;
+    if (lane == 0 && m) base = atomicAdd(n, __popc(m));
+    base = __shfl_sync(0xFFFFFFFFu, base, 0);
+    return base + __popc(m & ((1u << lane) - 1u));
   }
 };
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads) dpll_kernel(DpllArgs a) {
   extern __shared__ __align__(16) char smem[];
   const Query s = mk::dpll::at(smem, a.C, a.V);
-  Block x{a, s, (int)threadIdx.x};
+  Block<kThreads> x{(int)threadIdx.x};
   mk::dpll::run_query(x, a, blockIdx.x, s);
+}
+
+constexpr int kMaxDevices = 64;
+constexpr int kSizes = 2;  // 256, 1024 threads
+// The dynamic shared memory each size's kernel was allowed, per device.
+size_t g_allowed[kMaxDevices][kSizes];
+
+template <int kThreads>
+int launch(const DpllArgs& a, int size, cudaStream_t stream) {
+  const size_t bytes = (size_t)mk::dpll::state_bytes(a.C, a.V);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  size_t& allowed = g_allowed[dev][size];
+  if (bytes > 48 * 1024 && bytes > allowed) {
+    e = cudaFuncSetAttribute(dpll_kernel<kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    allowed = bytes;
+  }
+  dpll_kernel<kThreads><<<a.Q, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the launch's cudaGetLastError(), or the attribute call's error.
+// Every query of a plane, one block each.  Returns the launch's
+// cudaGetLastError(), the attribute call's error, or cudaErrorInvalidValue
+// for a block size or a variable count the kernel does not take.
 extern "C" int mk_dpll(const DpllArgs* args, void* stream) {
-  if (args->Q <= 0) return 0;
-  const int64_t bytes = mk::dpll::state_bytes(args->C, args->V);
-  const cudaError_t e =
-      cudaFuncSetAttribute(dpll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  dpll_kernel<<<args->Q, kThreads, (size_t)bytes, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  const DpllArgs& a = *args;
+  if (a.Q <= 0) return 0;
+  if (a.V < 2 || a.V > mk::dpll::kMaxVars) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (a.threads) {
+    case 256: return launch<256>(a, 0, st);
+    case 1024: return launch<1024>(a, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The shared memory one query's block needs (bytes), for the wrapper's check.

@@ -1,28 +1,57 @@
-// The devsolver's batched DPLL search: one query's loop of steps, written
-// as phases over (tid, nthreads), for the kernel (dpll.cu) and the host
-// check (host_check.cpp).
+// The devsolver's batched DPLL search: one query's loop of steps, the
+// program each thread of the query's block runs, for the kernel (dpll.cu)
+// and the host check (host_check.cpp).
 //
 // Replaces one query's lane of mythril_tpu/devsolver/device.py _run (the
 // jitted lax.while_loop over devsolver/kernel.py step), bit for bit with
-// the host twin kernel.run_host: the same status and the same assignment.
+// the host twin kernel.run_host: the same status, assignment and steps.
 // A step is:
 //
-//   sweep: every clause reads the assignment as it was before the step
-//     (literal truth 0 unassigned, 1 true, 2 false); a clause with no true
-//     literal and none unassigned is a conflict; one with exactly one
-//     unassigned literal is a unit, which sets the literal's variable in
-//     the imp_t or imp_f bitset (an atomic OR on a shared word);
-//   a variable in both bitsets is a conflict too;
-//   apply (no conflict): every unassigned variable in exactly one bitset
-//     takes that value at the current depth; the bitsets are cleared;
-//   at the fixpoint (no conflict, nothing applied): SAT when every clause
-//     had a true literal, else one decision, false first, in the fixed
-//     order of dec; a slot whose variable is already assigned is marked
-//     tried (dflip = 1) and not assigned; depth 64 gives UNKNOWN;
+//   sweep: every clause reads the assignment as it was before the step; a
+//     clause with no true literal and none unassigned is a conflict; one
+//     with exactly one unassigned literal (occurrences counted, so [x, x, 0]
+//     is never a unit) is a unit, which implies its literal; a variable
+//     implied both ways is a conflict too;
+//   no conflict, a unit: every implied variable takes its value;
+//   at the fixpoint: SAT when every clause has a true literal, else one
+//     decision, false first, in the fixed order of dec; a slot whose
+//     variable is already assigned is marked tried and not assigned; depth
+//     64 gives UNKNOWN;
 //   on a conflict, a chronological backtrack: j, the highest slot below
-//     depth not yet flipped (none: UNSAT); every variable above level j is
-//     unassigned, dec[j] takes the other value at level j + 1, the slots
-//     above j are cleared, depth = j + 1.
+//     depth not yet flipped (none: UNSAT); every variable assigned after
+//     slot j's decision is unassigned, dec[j] takes the other value, the
+//     slots above j are cleared, depth = j + 1.
+//
+// Layout (shared memory on the card, one query a block):
+//
+//   - the clause table: at staging a clause holding literal 1 or 2 (the
+//     anchors' true literals, assigned at level 0 for the whole run) is
+//     dropped and the others are packed to the front, three 16-bit literals
+//     a clause (lo: literals 0 and 1, hi: literal 2), n of them; each
+//     thread then keeps its first kRegs clauses of the table (tid, tid + nt,
+//     ...) in registers, and the sweep runs over the n clauses only, so an
+//     empty query costs one trivial step;
+//   - the assignment as literal bits: bit l % 32 of lt[l / 32] is set when
+//     literal l (2 var, + 1 when negated) is true, so a variable's two bits
+//     are neighbours (true, false), a literal's truth is one word read and
+//     one rotate, and its falsity the rotate by l ^ 1;
+//   - imp, the step's implied literals in the same layout, OR-ed in by the
+//     sweep (an atomic whose old word shows the opposite literal: a variable
+//     implied both ways);
+//   - snap[j], both bits of every variable assigned when slot j's decision
+//     was made: exactly those at a level <= j, so the backtrack to j is
+//     lt &= snap[j] (it replaces the per-variable levels);
+//   - votes[32], the block's vote of a step, a word per warp: each warp
+//     writes its own word every step after the last barrier and every
+//     thread reads them before the next, so no word needs clearing and no
+//     two warps write one word.
+//
+// The decision stack (dval, dflip: 64-bit masks), depth and status live in
+// every thread's registers: the vote hands every thread the same flags, so
+// every thread takes the same branch and keeps the same copy, and no thread
+// waits on a one-thread phase.  A word of lt, imp and snap has one owner,
+// thread w mod nt, which alone writes it after the vote.  A step is two
+// barriers: the vote that ends the sweep, and the end of the commit.
 //
 // The batch's shared step counter of the JAX loop becomes a per-query loop
 // of at most max_iters steps: a finished query's state never changes, so
@@ -30,255 +59,325 @@
 // UNKNOWN.
 //
 // Every function is __host__ __device__ so that the arithmetic also builds
-// with a host C++ compiler.
+// with a host C++ compiler; the executor X supplies the barrier, the vote
+// and the warp's slot claim (run_query).
 #pragma once
 
 #include <stdint.h>
 
 #if !defined(__CUDACC__)
+#ifndef __host__
 #define __host__
 #define __device__
 #define __forceinline__ inline
+#endif
 #endif
 
 namespace mk {
 namespace dpll {
 
-constexpr int D = 64;  // decision slots (kernel.MAX_DECISIONS)
+constexpr int D = 64;               // decision slots (kernel.MAX_DECISIONS)
+constexpr int32_t kMaxVars = 4096;  // the largest variable bucket: literals fit 16 bits
+constexpr int kRegs = 4;            // clauses a thread keeps in registers
+constexpr int kWarps = 32;          // the largest block's warps: a vote word each
 enum Status { RUNNING = 0, SAT = 1, UNSAT = 2, UNKNOWN = 3 };
-enum Scalar { DEPTH = 0, STATUS = 1, JUMP = 2 };
+// The step's vote: a clause conflicts, a clause has no true literal, a
+// clause is a unit, a variable is implied both ways.
+enum Flag : uint32_t { CONFLICT = 1, OPEN = 2, UNIT = 4, BOTH = 8 };
 
-// lits: [Q, C, 3] int32 (2 * var, + 1 when negated); dec: [Q, 64] int32;
-// status: [Q] int8, assign: [Q, V] int8, steps: [Q] int32, out.
+// lits: [Q, C, 3] int32 (2 * var, + 1 when negated; var < V <= kMaxVars);
+// dec: [Q, 64] int32; status: [Q] int8, assign: [Q, V] int8, steps: [Q]
+// int32, out; threads: the block's size (dpll.cu instantiates 256 and
+// 1024).
 struct DpllArgs {
   const int32_t* lits;
   const int32_t* dec;
   int8_t* status;
   int8_t* assign;
   int32_t* steps;
-  int32_t Q, C, V, max_iters;
+  int32_t Q, C, V, max_iters, threads;
 };
 
-// One query's search state, in shared memory on the card.
+// One query's state, in shared memory on the card.
 struct Query {
-  int32_t* lits;   // [C * 3]
-  int32_t* dec;    // [D]
-  int32_t* sc;     // DEPTH, STATUS, JUMP
-  uint32_t* imp_t; // [words(V)]
-  uint32_t* imp_f;
-  int16_t* level;  // [V]
-  int8_t* assign;  // [V]
-  int8_t* dval;    // [D]
-  int8_t* dflip;   // [D]
+  uint32_t* votes;  // [kWarps]
+  int32_t* n;       // clauses kept
+  uint16_t* dec;    // [D]
+  uint32_t* lt;     // [W] literal bits
+  uint32_t* imp;    // [W] the same layout
+  uint32_t* snap;   // [D][W]
+  uint32_t* lo;     // [C]
+  uint16_t* hi;     // [C]
 };
 
-__host__ __device__ __forceinline__ int32_t words(int32_t V) { return (V + 31) / 32; }
+// Each thread's copy of the search's scalars.
+struct Regs {
+  uint64_t dval;   // slot d's value: bit d set when true
+  uint64_t dflip;  // slot d tried both ways (or skipped)
+  int32_t depth, status;
+  bool dec_free;   // slot depth's variable unassigned when the step began
+};
+
+// This thread's first kRegs clauses of the table, literal by literal: the
+// literal and the index of its word in lt.
+struct Mine {
+  uint32_t l[kRegs][3];
+  uint32_t w[kRegs][3];
+  int32_t m;  // how many of them there are
+};
+
+// Words of literal bits: 16 variables a word.
+__host__ __device__ __forceinline__ int32_t words(int32_t V) { return (V + 15) / 16; }
 
 // Bytes of one query's state; the layout of at().
 __host__ __device__ __forceinline__ int64_t state_bytes(int32_t C, int32_t V) {
-  return 4 * (3 * (int64_t)C + D + 4 + 2 * (int64_t)words(V)) + 2 * (int64_t)V + V + 2 * D;
+  return 4 * (kWarps + 1) + 2 * D + 4 * (2 + (int64_t)D) * words(V) + 6 * (int64_t)C;
 }
 
 __host__ __device__ __forceinline__ Query at(char* base, int32_t C, int32_t V) {
+  const int32_t W = words(V);
   Query s;
-  s.lits = (int32_t*)base;
-  s.dec = s.lits + 3 * (int64_t)C;
-  s.sc = s.dec + D;
-  s.imp_t = (uint32_t*)(s.sc + 4);
-  s.imp_f = s.imp_t + words(V);
-  s.level = (int16_t*)(s.imp_f + words(V));
-  s.assign = (int8_t*)(s.level + V);
-  s.dval = s.assign + V;
-  s.dflip = s.dval + D;
+  s.votes = (uint32_t*)base;
+  s.n = (int32_t*)(s.votes + kWarps);
+  s.dec = (uint16_t*)(s.n + 1);
+  s.lt = (uint32_t*)(s.dec + D);
+  s.imp = s.lt + W;
+  s.snap = s.imp + W;
+  s.lo = s.snap + (int64_t)D * W;
+  s.hi = (uint16_t*)(s.lo + C);
   return s;
 }
 
-__host__ __device__ __forceinline__ void or_word(uint32_t* p, uint32_t bits) {
+__host__ __device__ __forceinline__ uint64_t bit(int d) { return (uint64_t)1 << d; }
+// The slots below d (all 64 when d is 64).
+__host__ __device__ __forceinline__ uint64_t below(int32_t d) {
+  return d >= D ? ~(uint64_t)0 : bit(d) - 1;
+}
+
+__host__ __device__ __forceinline__ int top_bit(uint64_t m) {
 #if defined(__CUDA_ARCH__)
-  atomicOr(p, bits);
+  return 63 - __clzll((long long)m);
 #else
-  *p |= bits;
+  return 63 - __builtin_clzll(m);
 #endif
 }
 
-// Query q's clauses and decision order into its state; the anchors
-// (variable 0 false, 1 true, both at level 0), nothing else assigned.
-__host__ __device__ __forceinline__ void stage(const DpllArgs& a, int32_t q, const Query& s,
-                                               int tid, int nt) {
+// Bit l % 32 of x in bit 0 (one funnel shift on the card).
+__host__ __device__ __forceinline__ uint32_t at_bit(uint32_t x, uint32_t l) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(x, x, l);
+#else
+  return x >> (l & 31);
+#endif
+}
+
+// *p |= bits -> the old word.
+__host__ __device__ __forceinline__ uint32_t or_word(uint32_t* p, uint32_t bits) {
+#if defined(__CUDA_ARCH__)
+  return atomicOr(p, bits);
+#else
+  const uint32_t old = *p;
+  *p = old | bits;
+  return old;
+#endif
+}
+
+// Whether a literal is one of the anchors' true literals (var 0 negated,
+// var 1): its clause is satisfied for the whole run.
+__host__ __device__ __forceinline__ bool always_true(int32_t lit) { return lit == 1 || lit == 2; }
+
+// Both bits of every assigned variable of a word of literal bits.
+__host__ __device__ __forceinline__ uint32_t assigned(uint32_t x) {
+  const uint32_t a = (x | x >> 1) & 0x55555555u;
+  return a | a << 1;
+}
+
+// The query's scalars: nothing kept, the anchors (variable 0 false:
+// literal 1; variable 1 true: literal 2) and nothing else assigned, no
+// implication, the decision order.
+__host__ __device__ __forceinline__ void stage_state(const DpllArgs& a, int32_t q,
+                                                     const Query& s, int tid, int nt) {
+  if (tid == 0) *s.n = 0;
+  for (int32_t w = tid; w < words(a.V); w += nt) {
+    s.lt[w] = w == 0 ? 6u : 0u;
+    s.imp[w] = 0;
+  }
+  for (int32_t d = tid; d < D; d += nt) s.dec[d] = (uint16_t)a.dec[(int64_t)q * D + d];
+}
+
+// The clauses that can be false, packed to the front (in the order the
+// slots are claimed: the sweep does not depend on it).  x.claim(keep, n) is
+// collective over the warp, so every thread takes every round.
+template <class X>
+__host__ __device__ __forceinline__ void stage_clauses(X& x, const DpllArgs& a, int32_t q,
+                                                       const Query& s, int tid, int nt) {
   const int32_t* lits = a.lits + (int64_t)q * a.C * 3;
-  for (int32_t i = tid; i < 3 * a.C; i += nt) s.lits[i] = lits[i];
-  for (int32_t v = tid; v < a.V; v += nt) {
-    s.assign[v] = v == 0 ? 2 : (v == 1 ? 1 : 0);
-    s.level[v] = 0;
-  }
-  for (int32_t w = tid; w < words(a.V); w += nt) s.imp_t[w] = s.imp_f[w] = 0;
-  for (int32_t d = tid; d < D; d += nt) {
-    s.dec[d] = a.dec[(int64_t)q * D + d];
-    s.dval[d] = s.dflip[d] = 0;
-  }
-  if (tid == 0) s.sc[DEPTH] = 0, s.sc[STATUS] = RUNNING, s.sc[JUMP] = -1;
-}
-
-// The clause sweep over this thread's clauses: units into the bitsets;
-// -> bit 0: a clause conflicts, bit 1: a clause has no true literal.
-__host__ __device__ __forceinline__ int sweep(const Query& s, int32_t C, int tid, int nt) {
-  int flags = 0;
-  for (int32_t c = tid; c < C; c += nt) {
-    bool sat = false;
-    int n_un = 0;
-    int32_t unit = 0;
-    for (int k = 0; k < 3; ++k) {
-      const int32_t lit = s.lits[3 * c + k];
-      const int8_t val = s.assign[lit >> 1];
-      const int8_t cv = (lit & 1) ? (val == 0 ? 0 : 3 - val) : val;
-      sat = sat || cv == 1;
-      if (cv == 0) ++n_un, unit += lit;
-    }
-    if (sat) continue;
-    flags |= 2;
-    if (n_un == 0) flags |= 1;
-    if (n_un == 1) {
-      const int32_t v = unit >> 1;
-      or_word(((unit & 1) ? s.imp_f : s.imp_t) + (v >> 5), 1u << (v & 31));
+  for (int32_t base = 0; base < a.C; base += nt) {
+    const int32_t c = base + tid;
+    int32_t l0 = 0, l1 = 0, l2 = 0;
+    if (c < a.C) l0 = lits[3 * c], l1 = lits[3 * c + 1], l2 = lits[3 * c + 2];
+    const bool keep = c < a.C && !(always_true(l0) || always_true(l1) || always_true(l2));
+    const int32_t slot = x.claim(keep, s.n);
+    if (keep) {
+      s.lo[slot] = (uint32_t)l0 | (uint32_t)l1 << 16;
+      s.hi[slot] = (uint16_t)l2;
     }
   }
-  return flags;
 }
 
-// Whether one of this thread's words has a variable implied both ways.
-__host__ __device__ __forceinline__ bool both_ways(const Query& s, int32_t V, int tid, int nt) {
-  bool any = false;
-  for (int32_t w = tid; w < words(V); w += nt) any = any || (s.imp_t[w] & s.imp_f[w]);
-  return any;
+// This thread's first kRegs clauses of the table into registers.
+__host__ __device__ __forceinline__ void load_mine(const Query& s, Mine& mine, int tid, int nt) {
+  const int32_t n = *s.n;
+  mine.m = 0;
+#pragma unroll
+  for (int k = 0; k < kRegs; ++k) {
+    const int32_t c = tid + k * nt;
+    const uint32_t lo = c < n ? s.lo[c] : 0u;
+    mine.l[k][0] = lo & 0xFFFFu;
+    mine.l[k][1] = lo >> 16;
+    mine.l[k][2] = c < n ? s.hi[c] : 0u;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) mine.w[k][j] = mine.l[k][j] >> 5;
+    mine.m += c < n;
+  }
 }
 
-// The implications of this thread's words applied (when go) at the current
-// depth, and its words cleared; -> whether it assigned a variable.
-__host__ __device__ __forceinline__ bool apply(const Query& s, int32_t V, bool go, int tid,
-                                               int nt) {
-  bool progressed = false;
-  const int16_t depth = (int16_t)s.sc[DEPTH];
-  for (int32_t w = tid; w < words(V); w += nt) {
-    const uint32_t t = s.imp_t[w], f = s.imp_f[w];
-    if (go) {
-      for (uint32_t bits = t ^ f; bits; bits &= bits - 1) {
-#if defined(__CUDA_ARCH__)
-        const int b = __ffs(bits) - 1;
-#else
-        const int b = __builtin_ctz(bits);
-#endif
-        const int32_t v = 32 * w + b;
-        if (s.assign[v] != 0) continue;
-        s.assign[v] = ((t >> b) & 1u) ? 1 : 2;
-        s.level[v] = depth;
-        progressed = true;
+// The flags of one clause (literals l, their words w of lt) against the
+// assignment before the step, without a branch but for a unit's literal,
+// which goes into imp.  Bit 0 of t and u: the literal is true, unassigned;
+// of any and two: one, two or more literals unassigned (counted by
+// occurrence, as the reference does).
+__host__ __device__ __forceinline__ uint32_t clause(const Query& s, uint32_t l0, uint32_t l1,
+                                                    uint32_t l2, uint32_t w0, uint32_t w1,
+                                                    uint32_t w2) {
+  const uint32_t x0 = s.lt[w0], x1 = s.lt[w1], x2 = s.lt[w2];
+  const uint32_t t0 = at_bit(x0, l0), t1 = at_bit(x1, l1), t2 = at_bit(x2, l2);
+  const uint32_t u0 = ~(t0 | at_bit(x0, l0 ^ 1u)), u1 = ~(t1 | at_bit(x1, l1 ^ 1u)),
+                 u2 = ~(t2 | at_bit(x2, l2 ^ 1u));
+  const uint32_t open = ~(t0 | t1 | t2) & 1u;
+  const uint32_t any = u0 | u1 | u2;
+  const uint32_t two = (u0 & u1) | (u0 & u2) | (u1 & u2);
+  uint32_t f = open * OPEN | (open & ~any) * CONFLICT;
+  if (open & any & ~two) {
+    const uint32_t l = u0 & 1u ? l0 : (u1 & 1u ? l1 : l2);
+    const uint32_t old = or_word(s.imp + (l >> 5), 1u << (l & 31));
+    f |= UNIT | (at_bit(old, l ^ 1u) & 1u ? BOTH : 0u);
+  }
+  return f;
+}
+
+// This thread's clauses: -> its flags.  Also whether slot depth's variable
+// is free (read here, before any thread writes the assignment).
+__host__ __device__ __forceinline__ uint32_t sweep(const Query& s, const Mine& mine, Regs& r,
+                                                   int tid, int nt) {
+  uint32_t f = 0;
+#pragma unroll
+  for (int k = 0; k < kRegs; ++k)
+    if (k < mine.m)
+      f |= clause(s, mine.l[k][0], mine.l[k][1], mine.l[k][2], mine.w[k][0], mine.w[k][1],
+                  mine.w[k][2]);
+  for (int32_t c = tid + kRegs * nt, n = *s.n; c < n; c += nt) {
+    const uint32_t lo = s.lo[c], l0 = lo & 0xFFFFu, l1 = lo >> 16, l2 = s.hi[c];
+    f |= clause(s, l0, l1, l2, l0 >> 5, l1 >> 5, l2 >> 5);
+  }
+  if (r.depth < D) {
+    const uint32_t v = s.dec[r.depth];
+    r.dec_free = ((s.lt[v >> 4] >> (2 * v & 31)) & 3u) == 0;
+  }
+  return f;
+}
+
+// The step's outcome from the block's flags f: this thread's registers and
+// the words it owns.
+__host__ __device__ __forceinline__ void commit(const Query& s, Regs& r, uint32_t f, int32_t V,
+                                                int tid, int nt) {
+  const int32_t W = words(V);
+  if (f & (CONFLICT | BOTH)) {
+    const uint64_t cand = ~r.dflip & below(r.depth);
+    if (!cand) {
+      r.status = UNSAT;
+      return;
+    }
+    const int j = top_bit(cand);
+    const uint32_t v = s.dec[j];
+    const uint32_t now = 2 * v + (uint32_t)((r.dval >> j) & 1);  // the literal of the other value
+    for (int32_t w = tid; w < W; w += nt) {
+      s.lt[w] = (s.lt[w] & s.snap[j * W + w]) | (w == (int32_t)(v >> 4) ? 1u << (now & 31) : 0u);
+      if (f & UNIT) s.imp[w] = 0;
+    }
+    r.dval ^= bit(j);
+    r.dflip = (r.dflip & below(j)) | bit(j);
+    r.depth = j + 1;
+  } else if (f & UNIT) {
+    for (int32_t w = tid; w < W; w += nt) {
+      s.lt[w] |= s.imp[w];
+      s.imp[w] = 0;
+    }
+  } else if (f & OPEN) {
+    if (r.depth >= D) {
+      r.status = UNKNOWN;
+      return;
+    }
+    if (r.dec_free) {
+      const uint32_t v = s.dec[r.depth];
+      for (int32_t w = tid; w < W; w += nt) {
+        const uint32_t x = s.lt[w];
+        s.snap[r.depth * W + w] = assigned(x);
+        if (w == (int32_t)(v >> 4)) s.lt[w] = x | 1u << ((2 * v + 1) & 31);  // false first
       }
+      r.dval &= ~bit(r.depth);
+    } else {
+      r.dflip |= bit(r.depth);  // forced already: never flip a non-decision
     }
-    s.imp_t[w] = s.imp_f[w] = 0;
-  }
-  return progressed;
-}
-
-// At the fixpoint with a clause open (one thread): the next decision.
-__host__ __device__ __forceinline__ void decide(const Query& s) {
-  const int32_t depth = s.sc[DEPTH];
-  if (depth >= D) {
-    s.sc[STATUS] = UNKNOWN;
-    return;
-  }
-  const int32_t v = s.dec[depth];
-  if (s.assign[v] != 0) {
-    s.dflip[depth] = 1;  // forced already: never flip a non-decision
+    ++r.depth;
   } else {
-    s.dval[depth] = 2;  // false first
-    s.assign[v] = 2;
-    s.level[v] = (int16_t)(depth + 1);
+    r.status = SAT;
   }
-  s.sc[DEPTH] = depth + 1;
 }
 
-// On a conflict (one thread): the slot to flip into sc[JUMP], or UNSAT.
-__host__ __device__ __forceinline__ void pick_jump(const Query& s) {
-  int32_t j = -1;
-  for (int32_t d = (s.sc[DEPTH] < D ? s.sc[DEPTH] : D) - 1; d >= 0; --d)
-    if (s.dflip[d] == 0) {
-      j = d;
-      break;
-    }
-  s.sc[JUMP] = j;
-  if (j < 0) s.sc[STATUS] = UNSAT;
-}
-
-// Every variable above level j unassigned (this thread's variables).
-__host__ __device__ __forceinline__ void unassign_above(const Query& s, int32_t V, int32_t j,
-                                                        int tid, int nt) {
-  for (int32_t v = tid; v < V; v += nt)
-    if (s.level[v] > j) s.assign[v] = 0, s.level[v] = 0;
-}
-
-// The flip of slot j (one thread).
-__host__ __device__ __forceinline__ void flip(const Query& s, int32_t j) {
-  s.dval[j] = (int8_t)(3 - s.dval[j]);
-  const int32_t v = s.dec[j];
-  s.assign[v] = s.dval[j];
-  s.level[v] = (int16_t)(j + 1);
-  s.dflip[j] = 1;
-  for (int32_t d = j + 1; d < D; ++d) s.dflip[d] = 0;
-  s.sc[DEPTH] = j + 1;
-}
-
-__host__ __device__ __forceinline__ void set_sat(const Query& s) { s.sc[STATUS] = SAT; }
-
-// The assignment, the status (RUNNING becomes UNKNOWN) and the steps taken.
+// The assignment (int8: 0 unassigned, 1 true, 2 false: a variable's two
+// literal bits), the status (RUNNING becomes UNKNOWN) and the steps taken.
 __host__ __device__ __forceinline__ void store(const DpllArgs& a, int32_t q, const Query& s,
-                                               int32_t steps, int tid, int nt) {
+                                               int32_t status, int32_t steps, int tid, int nt) {
   int8_t* out = a.assign + (int64_t)q * a.V;
-  for (int32_t v = tid; v < a.V; v += nt) out[v] = s.assign[v];
+  for (int32_t v = tid; v < a.V; v += nt) out[v] = (int8_t)((s.lt[v >> 4] >> (2 * v & 31)) & 3u);
   if (tid == 0) {
-    a.status[q] = (int8_t)(s.sc[STATUS] == RUNNING ? UNKNOWN : s.sc[STATUS]);
+    a.status[q] = (int8_t)(status == RUNNING ? UNKNOWN : status);
     a.steps[q] = steps;
   }
 }
 
-// One query's search.  The executor X runs a phase on the threads it owns
-// (a CUDA thread itself, the host check all of them in turn):
+// One query's search, as thread x.tid of a block of x.nt runs it.  The
+// executor X supplies:
 //
-//   X::stage(q), X::store(q, steps)       stage and store;
-//   X::sweep() -> int                     the sweep's flags, OR over the block;
-//   X::both() -> bool, X::apply(go) -> bool   OR over the block;
-//   X::decide(), X::set_sat(), X::pick_jump(), X::flip(j)   on one thread;
-//   X::unassign(j);  X::sync()            the barrier.
+//   x.sync(dead)                 the barrier;
+//   x.vote(mine, votes)          the OR of every thread's flags: each warp's
+//                                OR into its word of votes, the barrier, the
+//                                OR of the block's words;
+//   x.claim(keep, n)             over the warp: a slot from the counter *n
+//                                for each thread that keeps a clause.
 //
-// Every OR is a barrier too, and every thread sees its result, so all take
-// the same branches.
+// dead is the vote words, which no thread reads until the next vote writes
+// them again (the host check poisons them at the barrier); the card
+// ignores it.
 template <class X>
 __host__ __device__ __forceinline__ void run_query(X& x, const DpllArgs& a, int32_t q,
                                                    const Query& s) {
-  x.stage(q);
-  x.sync();
+  const int tid = x.tid, nt = x.nt;
+  stage_state(a, q, s, tid, nt);
+  x.sync(nullptr);
+  stage_clauses(x, a, q, s, tid, nt);
+  x.sync(nullptr);
+  Mine mine;
+  load_mine(s, mine, tid, nt);
+  Regs r{0, 0, 0, RUNNING, false};
   int32_t it = 0;
-  for (; it < a.max_iters && s.sc[STATUS] == RUNNING; ++it) {
-    const int flags = x.sweep();
-    const bool conflict = (flags & 1) || x.both();
-    const bool progressed = x.apply(!conflict);
-    if (conflict) {
-      x.pick_jump();
-      x.sync();
-      const int32_t j = s.sc[JUMP];
-      if (j < 0) continue;
-      x.unassign(j);
-      x.sync();
-      x.flip(j);
-      x.sync();
-    } else if (!progressed) {
-      if (flags & 2)
-        x.decide();
-      else
-        x.set_sat();
-      x.sync();
-    }
+  for (; it < a.max_iters && r.status == RUNNING; ++it) {
+    const uint32_t f = x.vote(sweep(s, mine, r, tid, nt), s.votes);
+    commit(s, r, f, a.V, tid, nt);
+    x.sync(s.votes);
   }
-  x.store(q, it);
+  store(a, q, s, r.status, it, tid, nt);
 }
 
 }  // namespace dpll

@@ -204,56 +204,128 @@ extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
   return 0;
 }
 
-// run_query's executor with every thread of a block of nt: each phase runs
-// for thread 0, 1, ... in turn, and the ORs are taken over all of them.
-struct HostBlock {
+// The DPLL search with each thread of a block of nt as a ucontext coroutine
+// of the caller's thread: each runs run_query, the kernel's own per-thread
+// program, up to its next barrier; once every thread has arrived, the last
+// thread first, they go on to the next.  A phase that read what another
+// thread writes in the same phase would see the value before the write, so
+// a missing barrier shows.  A vote ORs each thread's flags into its warp's
+// sum; at the barrier the sums go to the warps' vote words, and after it
+// each thread ORs the words, as the card's lanes do.  At the step's second
+// barrier the vote words, read and not yet written again, are poisoned,
+// and the query's state starts poisoned, as shared memory starts with
+// whatever the last block left.  The threads must arrive at the same
+// barrier and leave the loop in the same round, as a block must.
+struct DpllFibers {
   const mk::dpll::DpllArgs& a;
-  const mk::dpll::Query& s;
   int nt;
+  std::vector<ucontext_t> fiber;
+  std::vector<char> stacks;
+  ucontext_t main;
+  // this query's
+  int32_t q = 0;
+  mk::dpll::Query s{};
+  int starting = 0;   // the thread a new fiber runs
+  std::vector<int> done;
+  std::vector<int> kind;  // the barrier each thread waits at: 1 sync, 2 vote
+  std::vector<uint32_t*> dead;
+  std::vector<uint32_t> warp_or;  // this round's vote, per warp
+  uint32_t* votes = nullptr;      // where this round's vote goes
+  bool bad_slot = false;
+};
 
-  void stage(int32_t q) {
-    for (int t = 0; t < nt; ++t) mk::dpll::stage(a, q, s, t, nt);
+static thread_local DpllFibers* dpll_fibers;
+static constexpr size_t kFiberStack = 64 * 1024;
+
+struct HostThread {
+  int tid, nt;
+  DpllFibers* h;
+
+  void arrive(int k, uint32_t* dead) {
+    h->kind[tid] = k;
+    h->dead[tid] = dead;
+    swapcontext(&h->fiber[tid], &h->main);
   }
-  void sync() {}
-  int sweep() {
-    int f = 0;
-    for (int t = 0; t < nt; ++t) f |= mk::dpll::sweep(s, a.C, t, nt);
+  void sync(uint32_t* dead) { arrive(1, dead); }
+  uint32_t vote(uint32_t mine, uint32_t* votes) {
+    h->warp_or[tid / 32] |= mine;
+    h->votes = votes;
+    arrive(2, nullptr);
+    uint32_t f = 0;
+    for (int w = 0; w < (nt + 31) / 32; ++w) f |= votes[w];
     return f;
   }
-  bool both() {
-    bool any = false;
-    for (int t = 0; t < nt; ++t) any = mk::dpll::both_ways(s, a.V, t, nt) || any;
-    return any;
-  }
-  bool apply(bool go) {
-    bool any = false;
-    for (int t = 0; t < nt; ++t) any = mk::dpll::apply(s, a.V, go, t, nt) || any;
-    return any;
-  }
-  void decide() { mk::dpll::decide(s); }
-  void set_sat() { mk::dpll::set_sat(s); }
-  void pick_jump() { mk::dpll::pick_jump(s); }
-  void flip(int32_t j) { mk::dpll::flip(s, j); }
-  void unassign(int32_t j) {
-    for (int t = 0; t < nt; ++t) mk::dpll::unassign_above(s, a.V, j, t, nt);
-  }
-  void store(int32_t q, int32_t steps) {
-    for (int t = 0; t < nt; ++t) mk::dpll::store(a, q, s, steps, t, nt);
+  // a slot outside the clause table (a counter read before it was set)
+  // fails the query instead of writing past the state
+  int32_t claim(bool keep, int32_t* n) {
+    if (!keep) return -1;
+    const int32_t slot = (*n)++;
+    if (slot < 0 || slot >= h->a.C) h->bad_slot = true;
+    return slot < 0 || slot >= h->a.C ? 0 : slot;
   }
 };
 
-// The DPLL search, query after query, as blocks of nt threads.  A query's
-// state starts poisoned, as shared memory starts with whatever the last
-// block left: every field must be staged.
+static void dpll_fiber() {
+  DpllFibers* h = dpll_fibers;
+  const int tid = h->starting;
+  HostThread x{tid, h->nt, h};
+  mk::dpll::run_query(x, h->a, h->q, h->s);
+  h->done[tid] = 1;
+  swapcontext(&h->fiber[tid], &h->main);  // never resumed
+}
+
+// The DPLL search, query after query, as blocks of nt threads.  Returns 0,
+// -1 when the threads of a block part ways at a barrier, -2 when a clause
+// was given a slot outside the table.
 extern "C" int mk_dpll_host(const mk::dpll::DpllArgs* args, int nt) {
-  std::vector<char> mem(mk::dpll::state_bytes(args->C, args->V));
-  for (int32_t q = 0; q < args->Q; ++q) {
+  const mk::dpll::DpllArgs& a = *args;
+  std::vector<char> mem(mk::dpll::state_bytes(a.C, a.V));
+  DpllFibers h{a, nt};
+  h.fiber.resize(nt);
+  h.stacks.resize((size_t)nt * kFiberStack);
+  h.done.resize(nt);
+  h.kind.resize(nt);
+  h.dead.resize(nt);
+  h.warp_or.resize((nt + 31) / 32);
+  dpll_fibers = &h;
+  int rc = 0;
+  for (int32_t q = 0; q < a.Q && rc == 0; ++q) {
     memset(mem.data(), 0xA5, mem.size());
-    const mk::dpll::Query s = mk::dpll::at(mem.data(), args->C, args->V);
-    HostBlock x{*args, s, nt};
-    mk::dpll::run_query(x, *args, q, s);
+    h.q = q;
+    h.s = mk::dpll::at(mem.data(), a.C, a.V);
+    for (int t = 0; t < nt; ++t) {
+      getcontext(&h.fiber[t]);
+      h.fiber[t].uc_stack.ss_sp = h.stacks.data() + (size_t)t * kFiberStack;
+      h.fiber[t].uc_stack.ss_size = kFiberStack;
+      h.fiber[t].uc_link = nullptr;
+      makecontext(&h.fiber[t], dpll_fiber, 0);
+      h.done[t] = 0;
+    }
+    while (rc == 0) {
+      for (auto& w : h.warp_or) w = 0;
+      for (int t = nt - 1; t >= 0; --t) {
+        h.starting = t;
+        if (!h.done[t]) swapcontext(&h.main, &h.fiber[t]);
+      }
+      int finished = 0;
+      for (int t = 0; t < nt; ++t) finished += h.done[t];
+      if (finished == nt) break;
+      bool same = finished == 0;
+      for (int t = 1; t < nt && same; ++t)
+        same = h.kind[t] == h.kind[0] && h.dead[t] == h.dead[0];
+      if (!same) {
+        rc = -1;  // the fibers left behind are abandoned with their stacks
+        break;
+      }
+      if (h.kind[0] == 2)
+        for (size_t w = 0; w < h.warp_or.size(); ++w) h.votes[w] = h.warp_or[w];
+      if (h.dead[0])
+        for (int w = 0; w < mk::dpll::kWarps; ++w) h.dead[0][w] = 0xA5A5A5A5u;
+    }
+    if (h.bad_slot) rc = -2;
   }
-  return 0;
+  dpll_fibers = nullptr;
+  return rc;
 }
 
 // The warp executors on the host: N lanes as a loop, each primitive

@@ -11,6 +11,12 @@ input bits (the decision variables, in order), Tseitin AND, OR and XOR
 gates over earlier variables (clauses of at most 3 literals), then random
 constraint clauses over the gates' outputs; the constraint count steers a
 query towards SAT or UNSAT, and a small iteration budget cuts it.
+``dpll_edge_cases`` builds small planes by hand (``edge_plane``, any
+variable count) for the search's edge cases: the empty plane, opposite
+units, a variable implied both ways, decisions exhausted, a forced slot
+and a backtrack across it, duplicated and tautological literals, the
+anchors' literals inside clauses, budgets of 0 and 1 steps, and variable
+counts that are no multiple of 32.
 Nothing here imports JAX (the packing helpers are the port's).
 """
 
@@ -22,6 +28,10 @@ from mythril_tpu_torch.absdomain.tape import LIMBS, _limbs_of, width_mask
 from mythril_tpu_torch.native.bitblast import OP_ASHR, OP_CONCAT, OP_EXTRACT, OP_ITE, OP_SEXT
 
 N_OPS = 31  # op codes 0..30; code 31 is outside the table (top)
+# the seeded DPLL planes of chip_smoke.py and scripts/torch_dpll_probe.py:
+# (seed, queries, clause bucket, variable bucket, max_iters)
+DPLL_SEEDED = ((21, 16, 4096, 4096, 2048), (22, 16, 4096, 4096, 2048),
+               (23, 16, 4096, 4096, 50), (24, 16, 512, 512, 2048))
 WIDTHS = (1, 8, 32, 64, 160, 256, 512)
 
 
@@ -129,3 +139,84 @@ def random_cnf_plane(seed: int, n_q: int, clause_bucket: int, n_vars_bucket: int
     assert plane.lits.shape[1] == clause_bucket and plane.n_vars == n_vars_bucket, (
         plane.lits.shape, plane.n_vars)
     return plane
+
+
+def _L(v: int) -> int:
+    return 2 * v
+
+
+def _N(v: int) -> int:
+    return 2 * v + 1
+
+
+def edge_plane(queries, n_clauses: int, n_vars: int):
+    """(lits [Q, n_clauses, 3], dec [Q, 64]) int32 of ``queries`` (clauses,
+    decision variables), padded as ``pack_plane`` pads: literal 0 in an
+    unused literal slot, clause [2, 0, 0] in an unused clause slot, variable
+    1 in an unused decision slot; no buckets, so any ``n_vars``."""
+    lits = np.zeros((len(queries), n_clauses, 3), np.int32)
+    lits[:, :, 0] = 2
+    dec = np.ones((len(queries), 64), np.int32)
+    for qi, (clauses, dvars) in enumerate(queries):
+        assert len(clauses) <= n_clauses and len(dvars) <= 64
+        for ci, cl in enumerate(clauses):
+            lits[qi, ci] = 0
+            lits[qi, ci, :len(cl)] = cl
+            assert max(cl) < 2 * n_vars
+        dec[qi, :len(dvars)] = dvars
+    return lits, dec
+
+
+def _raw_queries(seed: int, n_q: int, n_vars: int):
+    """Seeded gate queries that use every variable below ``n_vars``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_q):
+        n_in = int(rng.integers(4, min(64, n_vars - 3) + 1))
+        clauses, dvars, n = random_cnf_query(rng, n_in, n_vars - 2 - n_in,
+                                             int(rng.integers(1, n_in + 1)))
+        assert n == n_vars
+        out.append((clauses, dvars))
+    return out
+
+
+def dpll_edge_cases() -> list:
+    """Hand-built DPLL planes, each a dict: ``label``, ``lits``, ``dec``,
+    ``n_vars``, ``iters`` and the expected ``status`` and ``steps`` per query
+    (1 SAT, 2 UNSAT, 3 UNKNOWN), or None where a seeded plane's are only
+    held to the plain version."""
+    x, y, z, w, u = 2, 3, 4, 5, 6
+    forced = [([[_L(x), _L(y)], [_L(z), _L(w)], [_L(z), _N(w)], [_N(z), _L(u)],
+                [_N(z), _N(u)]], [x, y, z])]
+    cases = [
+        # every recorded plane: no clause left, one step, SAT
+        ("empty plane", [([], [])] * 4, 512, 512, 2048, [1] * 4, [1] * 4),
+        ("opposite unit clauses", [([[_L(x)], [_N(x)]], [x])], 512, 512, 2048, [2], [1]),
+        # x false makes y a unit both ways; the flip to x true satisfies both
+        ("implied both ways", [([[_L(x), _L(y)], [_L(x), _N(y)]], [x])], 512, 512, 2048,
+         [1], [3]),
+        # 64 free decisions, a clause over three undecided variables open
+        ("64 decisions exhausted", [([[_L(66), _L(67), _L(68)]], list(range(2, 66)))],
+         512, 512, 2048, [3], [65]),
+        # x false forces y, so slot 1 is skipped; z fails both ways, and the
+        # backtrack crosses slot 1 to x, then flips y, then gives up
+        ("forced slot and a backtrack across it", forced, 512, 512, 2048, [2], [13]),
+        ("duplicated literal and tautology",
+         [([[_L(x), _L(x), 0], [_L(x), _N(x), 0]], [x]),
+          ([[_L(y), _L(y), 0], [_N(y), _N(y), 0]], [y])], 512, 512, 2048, [1, 2], [3, 3]),
+        # literals 1 and 2 after the first slot (always true), 0 and 3 inside
+        # real clauses (always false): x, then y, then z by propagation
+        ("anchor literals inside clauses",
+         [([[_L(x), 2, _L(y)], [_L(x), _L(y), 1], [0, _L(x), 3], [_N(x), 3, _L(y)],
+            [_N(y), _L(z), 0]], [w])], 512, 512, 2048, [1], [4]),
+        ("max_iters 0", forced, 512, 512, 0, [3], [0]),
+        ("max_iters 1", forced, 512, 512, 1, [3], [1]),
+        ("n_vars 33", _raw_queries(31, 3, 33), 96, 33, 2048, None, None),
+        ("n_vars 100", _raw_queries(32, 3, 100), 300, 100, 2048, None, None),
+    ]
+    out = []
+    for label, queries, c, v, iters, status, steps in cases:
+        lits, dec = edge_plane(queries, c, v)
+        out.append({"label": label, "lits": lits, "dec": dec, "n_vars": v, "iters": iters,
+                    "status": status, "steps": steps})
+    return out

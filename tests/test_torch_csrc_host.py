@@ -17,7 +17,11 @@ over the 32 entries; ``lowering.run_kernel`` drives it exactly as the
 wrapper drives the kernel, and every node's value in its arena must equal
 the plain version's.  The known-bits pass runs the same way with 16 lanes a
 node (``tests/test_torch_known_bits_host.py`` holds its level plan, its
-cross-limb steps and both of its routes).
+cross-limb steps and both of its routes).  The DPLL search runs the
+kernel's own per-thread program with every thread of the block a coroutine
+run up to its next barrier, the last thread first, over poisoned state, so
+that a missing barrier shows; on seeded planes and the hand-built edge
+planes, at the kernel's block sizes and at odd ones.
 The launch code in the ``.cu`` files runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -253,22 +257,44 @@ def test_host_known_bits_matches_plain_on_recorded_packs(host_lib):
         assert all(torch.equal(g, w) for g, w in zip(got, want)), rec["run"]
 
 
-@pytest.mark.parametrize("seed,q,c,v,iters,threads", [
-    (1, 4, 512, 512, 2048, 256), (1, 4, 512, 512, 2048, 7), (2, 16, 512, 512, 2048, 7),
-    (3, 4, 512, 512, 20, 256), (4, 4, 4096, 4096, 40, 256)])
-def test_host_dpll_matches_plain(host_lib, seed, q, c, v, iters, threads):
-    """dpll.cuh's phases, run for a block of ``threads`` threads in turn,
-    against run_plain: status, assignment and steps."""
-    plane = tier_cases.random_cnf_plane(seed, q, c, v, dpll_kernel)
-    lits, dec = torch.from_numpy(plane.lits), torch.from_numpy(plane.dec)
+def _host_dpll(lib, lits, dec, n_vars, iters, threads):
+    """dpll.cuh's run_query for a block of ``threads`` threads (fibers, the
+    last thread first up to each barrier) against run_plain: status,
+    assignment and steps."""
+    lits, dec = torch.from_numpy(lits), torch.from_numpy(dec)
     status = torch.full((lits.shape[0],), 9, dtype=torch.int8)
-    assign = torch.full((lits.shape[0], plane.n_vars), 9, dtype=torch.int8)
+    assign = torch.full((lits.shape[0], n_vars), 9, dtype=torch.int8)
     steps = torch.full((lits.shape[0],), -1, dtype=torch.int32)
-    args = dpll_device.dpll_args(lits, dec, status, assign, steps, plane.n_vars, iters)
-    assert host_lib.mk_dpll_host(ctypes.byref(args), threads) == 0
-    want = dpll_kernel.run_plain(lits, dec, plane.n_vars, iters)
+    args = dpll_device.dpll_args(lits, dec, status, assign, steps, n_vars, iters, threads)
+    assert lib.mk_dpll_host(ctypes.byref(args), threads) == 0
+    want = dpll_kernel.run_plain(lits, dec, n_vars, iters)
     for g, w in zip((status, assign, steps), want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed,q,c,v,iters,threads", [
+    (1, 4, 512, 512, 2048, 256), (1, 4, 512, 512, 2048, 7), (2, 16, 512, 512, 2048, 7),
+    (3, 4, 512, 512, 20, 256), (4, 4, 4096, 4096, 40, 256), (4, 4, 4096, 4096, 40, 1024),
+    (5, 4, 4096, 4096, 40, 97)])
+def test_host_dpll_matches_plain(host_lib, seed, q, c, v, iters, threads):
+    """dpll.cuh's search on seeded planes, at the kernel's block sizes (256
+    for the small clause bucket, 1024 for the large one) and odd ones."""
+    plane = tier_cases.random_cnf_plane(seed, q, c, v, dpll_kernel)
+    _host_dpll(host_lib, plane.lits, plane.dec, plane.n_vars, iters, threads)
+
+
+DPLL_EDGE = tier_cases.dpll_edge_cases()
+
+
+@pytest.mark.parametrize("threads", ["kernel", 37])
+@pytest.mark.parametrize("case", DPLL_EDGE, ids=[c["label"] for c in DPLL_EDGE])
+def test_host_dpll_edge_planes(host_lib, case, threads):
+    """dpll.cuh's search on the hand-built edge planes (``dpll_edge_cases``)
+    at the kernel's block size and at an odd one."""
+    lits = case["lits"]
+    if threads == "kernel":
+        threads = dpll_device.block_threads(lits.shape[1])
+    _host_dpll(host_lib, lits, case["dec"], case["n_vars"], case["iters"], threads)
 
 
 def _host_lowering(lib):

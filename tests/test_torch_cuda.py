@@ -22,6 +22,7 @@ from mythril_tpu_torch.ops import keccak_cuda, keccak_torch, lowering, tape_vm
 from mythril_tpu_torch.smt import concrete_eval, terms
 from tests import _torch_lowering_cases as lcases
 from tests import _torch_tape_cases as cases
+from tests import _torch_tier_cases as tier_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -274,6 +275,45 @@ def test_dpll_kernel_matches_plain(card, seed, q, c, v, iters):
     assert device.launches == before + 1
     for g, w in zip(got, kernel.run_plain(lits, dec, plane.n_vars, iters)):
         assert g.is_cuda and torch.equal(g, w)
+
+
+DPLL_EDGE = tier_cases.dpll_edge_cases()
+
+
+@pytest.mark.parametrize("case", DPLL_EDGE, ids=[c["label"] for c in DPLL_EDGE])
+def test_dpll_kernel_edge_planes(card, case):
+    """csrc/dpll.cu against run_plain on the hand-built edge planes
+    (``dpll_edge_cases``), both on the card: status, assignment and steps,
+    and the status and steps the case states."""
+    from mythril_tpu_torch.devsolver import device, kernel
+
+    lits = torch.from_numpy(case["lits"]).to(card)
+    dec = torch.from_numpy(case["dec"]).to(card)
+    v, iters = case["n_vars"], case["iters"]
+    before = device.launches
+    got = device.dpll(lits, dec, v, iters)
+    assert device.launches == before + 1
+    for g, w in zip(got, kernel.run_plain(lits, dec, v, iters)):
+        assert g.is_cuda and torch.equal(g, w)
+    if case["status"] is not None:
+        assert got[0].tolist() == case["status"] and got[2].tolist() == case["steps"]
+
+
+def test_dpll_run_device_matches_plain(card):
+    """``run_device`` (one upload, one download) against the plain search on
+    the CPU, twice on one plane (the pinned buffers reused), and the
+    wrapper's refusal of a variable count past the kernel's."""
+    from mythril_tpu_torch.devsolver import device, kernel
+
+    plane = tier_cases.random_cnf_plane(24, 16, 512, 512, kernel)
+    want = kernel.run_torch(plane, 2048, "cpu")
+    for _ in range(2):
+        status, assign = device.run_device(plane, 2048, card)
+        assert np.array_equal(status, want[0].numpy()) and np.array_equal(assign, want[1].numpy())
+    lits = torch.zeros((1, 4, 3), dtype=torch.int32, device=card)
+    dec = torch.ones((1, 64), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        device.dpll(lits, dec, device.MAX_VARS + 1, 10)
 
 
 def test_engine_runs_rubixi_under_the_tiers_on_card(card):

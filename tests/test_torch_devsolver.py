@@ -7,7 +7,8 @@ port through ``_torch_parity.to_port``; CNF planes come from
 ``tests/_torch_tier_cases.py``.  Held equal: ``blaster.blast``'s output, the
 plain search ``kernel.run_torch`` against the JAX host twin ``run_host``
 (status and assignment, SAT, UNSAT and UNKNOWN, both clause and variable
-buckets, up to 16 queries), ``decide_batch``'s verdicts and models, and the
+buckets, up to 16 queries, and the hand-built edge planes of
+``dpll_edge_cases``), ``decide_batch``'s verdicts and models, and the
 statuses of ``solve_conjunction`` and ``check_satisfiable_batch`` with both
 new tiers on in both packages.  The decision tests run both packages at a
 search budget of ``ITERS`` steps (the default is 2048: one budget-cut query
@@ -100,6 +101,29 @@ def test_planes_cover_every_outcome():
         seen |= set(status.tolist())
         assert int(steps.max()) <= iters
     assert seen == {pkernel.SAT_Q, pkernel.UNSAT_Q, pkernel.UNKNOWN_Q}
+
+
+EDGE = cases.dpll_edge_cases()
+
+
+@pytest.mark.parametrize("case", EDGE, ids=[c["label"] for c in EDGE])
+def test_edge_planes_match_host_twin(case):
+    """The hand-built planes (``dpll_edge_cases``: the empty plane, opposite
+    units, a variable implied both ways, decisions exhausted, a forced slot
+    backtracked across, duplicated and tautological literals, anchor
+    literals inside clauses, budgets of 0 and 1, 33 and 100 variables)
+    through the port's ``device.dpll`` on CPU tensors against the JAX host
+    twin ``run_host``: status and assignment; status and steps as the case
+    states them."""
+    from mythril_tpu_torch.devsolver import device
+
+    lits, dec, v, iters = case["lits"], case["dec"], case["n_vars"], case["iters"]
+    want_status, want_assign = jkernel.run_host(jkernel.Plane(lits, dec, lits.shape[0], v), iters)
+    status, assign, steps = device.dpll(torch.from_numpy(lits), torch.from_numpy(dec), v, iters)
+    assert np.array_equal(status.numpy(), want_status)
+    assert np.array_equal(assign.numpy(), want_assign)
+    if case["status"] is not None:
+        assert status.tolist() == case["status"] and steps.tolist() == case["steps"]
 
 
 ITERS = 256
