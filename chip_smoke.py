@@ -2,8 +2,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end: the solver's
 probe (the tape VM and the per-conjunction lowering), the device frontier
 segment and the whole analysis around them,
-without and with the native CDCL tier, and under the solver's default
-prefilter and devsolver tiers.
+without and with the native CDCL tier, under the solver's default
+prefilter and devsolver tiers, and under the default host tiers (the static
+pass and the query cache).  Every phase before 8e holds the port with the
+static pass, its interprocedural layer and the query cache off
+(``tests/_torch_parity.port_no_host_tiers``, ``test_torch_cli.port_argv``),
+as the JAX package ran when those runs were recorded.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -104,10 +108,12 @@ Phases, in order; any failure exits nonzero and prints no result:
    the card's idle share;
 8b. the engine under native CDCL: the same on every run of
    ``tests/testdata/torch_engine_runs_cdcl.json``, recorded from the JAX
-   package with CDCL on, the port's CDCL on; besides, the issue keys of
-   ``bectoken_like``, ``etherstore_like`` and ``rubixi_like`` equal the JAX
-   package's default-tier keys; per run also the CDCL calls, solves,
-   seconds and timeouts.  A run whose JAX recording has CDCL answers cut by
+   package with CDCL on, the port's CDCL on, but ``bectoken_like``
+   (``CDCL_RUNS_LEFT_OUT``: 112 s of host CDCL, left out so that the script
+   with phase 8e stays within the earlier slices' time; phase 8 still runs
+   it with CDCL off); besides, the issue keys of ``etherstore_like`` and
+   ``rubixi_like`` equal the JAX package's default-tier keys; per run also
+   the CDCL calls, solves, seconds and timeouts.  A run whose JAX recording has CDCL answers cut by
    their wall-clock budget (``timeouts``) cannot be held exactly: a
    difference there is reported, not failed, and its keys must still equal
    the default-tier keys.  Then ``etherstore_like`` (frontier) under
@@ -120,6 +126,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    above 0 on the bench contracts; each run's wall beside the same run's
    wall under CDCL alone (8b); then ``rubixi_like`` (frontier) under
    ``torch.profiler``;
+8e. the engine under the default host tiers: every run of
+   ``tests/testdata/torch_engine_runs_defaults.json`` (``etherstore_like``
+   and ``rubixi_like`` at width 256, ``kill_simple``, KillBilly and the
+   dead-code contract at 64, 2 transactions, each on the forced frontier
+   and the host engine), recorded from the JAX package with the static
+   pass, its interprocedural layer and the query cache on besides CDCL and
+   the two solver tiers, the port's five on: the issues, every dispatch's
+   digests and the frontier's, tier, ``staticpass.*`` and ``querycache.*``
+   counters equal to the recording; per run the launches of every kernel,
+   the events the segment shipped, the query cache's hits by tier and the
+   wall, beside the same run once more with the static pass and the query
+   cache off (its issues must be the same) and beside phase 8d's run of
+   the contract where 8d has one; then ``python -m mythril_tpu_torch
+   static -o json`` on ``kill_simple`` and on KillBilly's creation code,
+   each equal to the JAX CLI's recorded report but for its wall times;
 8c. the command line: ``interfaces.cli.main`` in process, with no
    ``--device`` (the card), on the recorded command lines of
    ``tests/testdata/torch_cli_runs.json`` for ``etherstore_like``,
@@ -127,7 +148,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    256 paths, native CDCL on, the prefilter and devsolver off as the JAX CLI
    ran) and ``etherstore_like`` again with both tiers on in both; each jsonv2 report equal to the JAX CLI's
    (``tests/test_torch_cli.py`` ``differences``), counts zeroed before each
-   run and read after, one segment launch per frontier segment, one tape
+   run and read after, and ``etherstore_like`` once more with the static
+   pass and the query cache on too (both packages' defaults but the JAX
+   package's pipeline, mesh, adaptive controller and harvest workers, which
+   the port does not have), one segment launch per frontier segment, one tape
    or lowering evaluation on the card per solver device dispatch; per run
    the CLI's
    wall beside ``SymExecWrapper`` + ``fire_lasers`` alone on the same
@@ -135,8 +159,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
    on ``kill_simple`` in a process of its own, which must exit 0 with the
    ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
-   limit, which must be refused before any launch (phase 8d runs before 8c,
-   for the CDCL-only walls it prints);
+   limit, which must be refused before any launch (phases 8d and 8e run
+   before 8c, for the walls it prints);
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -249,6 +273,12 @@ LOWER_KS = (8, 16, 64)
 # largest size
 KB_SEEDED = ((11, 512, 16, True), (12, 512, 64, True), (15, 1000, 2, True),
              (16, 1002, 2, False), (13, 4096, 16, False), (14, 4096, 64, False))
+
+
+# phase 8b's recorded runs left out so that the script, with phase 8e, stays
+# within the time of the earlier slices' runs: bectoken_like under CDCL
+# alone took 112 s of the card's wall (the CDCL solves, on the host)
+CDCL_RUNS_LEFT_OUT = ("bectoken_like",)
 
 
 class SmokeFailure(Exception):
@@ -564,7 +594,7 @@ def main_path(torch):
     from mythril_tpu_torch.smt.concrete_eval import evaluate
     from mythril_tpu_torch.smt.serialize import from_jax_dump
     from mythril_tpu_torch.support.support_args import args
-    from tests._torch_parity import port_no_cdcl, port_no_tiers
+    from tests._torch_parity import port_no_cdcl, port_no_host_tiers, port_no_tiers
     from tests.test_torch_fixture import disagreements, load_fixture, replay
 
     t0 = phase("main path: recorded probe traffic through the solver on the card")
@@ -596,7 +626,7 @@ def main_path(torch):
         verdicts, bad = collections.Counter(), []
         for contract in data["contracts"]:
             # recorded under the tiers without native CDCL, prefilter, devsolver
-            with port_no_cdcl(), port_no_tiers():
+            with port_no_cdcl(), port_no_tiers(), port_no_host_tiers():
                 results = replay(contract["queries"], roots, P)  # device=None: the card
             bad += disagreements(contract["queries"], contract["jax_verdicts"], results, evaluate)
             for q, r in zip(contract["queries"], results):
@@ -666,13 +696,13 @@ def idle_share(torch):
 
     from mythril_tpu_torch.smt import solver as P
     from mythril_tpu_torch.smt.serialize import from_jax_dump
-    from tests._torch_parity import port_no_cdcl, port_no_tiers
+    from tests._torch_parity import port_no_cdcl, port_no_host_tiers, port_no_tiers
     from tests.test_torch_fixture import load_fixture, replay
 
     phase("idle share: the main path under torch.profiler")
     data, roots = load_fixture(from_jax_dump)
     try:
-        with port_no_cdcl(), port_no_tiers(), profile(
+        with port_no_cdcl(), port_no_tiers(), port_no_host_tiers(), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for contract in data["contracts"]:
@@ -1214,12 +1244,15 @@ class EngineSplit:
     that it does not already count, and ``solver_in_replay_s`` the part of
     it inside the replay;
     ``tape_calls`` and ``lowering_calls``: tape VM and lowering evaluations
-    on the card.  Host clocks except ``kernel_ms``."""
+    on the card; ``shipped_events``: the events the segment kernel wrote
+    for the host, summed over every harvest (``ev_len`` of each path).
+    Host clocks except ``kernel_ms``."""
 
     def __init__(self, torch):
         self.torch = torch
         self.t = collections.Counter()
         self.events, self.tape_calls, self.lowering_calls = [], 0, 0
+        self.shipped_events = 0
         self.in_replay = False
 
     def __enter__(self):
@@ -1310,10 +1343,17 @@ class EngineSplit:
             self.lowering_calls += 1
             return saved[(id(lowering), "_run_lowering_cuda")](*a, **kw)
 
+        def pull_harvest(*a, **kw):
+            t0 = time.perf_counter()
+            out = saved[(id(E), "pull_harvest")](*a, **kw)
+            t["pull_s"] += time.perf_counter() - t0
+            self.shipped_events += int(out[0].ev_len.sum())
+            return out
+
         PI._gate_issues = outside_solver_time(PI, "_gate_issues")
         Optimize.check = outside_solver_time(Optimize, "check")
         E.push_state = timed(E, "push_state", "push_s", sync=True)
-        E.pull_harvest = timed(E, "pull_harvest", "pull_s")
+        E.pull_harvest = pull_harvest
         E.cached_segment = cached_segment
         HostArena.pull_from_device = timed(HostArena, "pull_from_device", "arena_s")
         Walker.replay = replay
@@ -1388,6 +1428,8 @@ def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None)
         phase("engine: the port's analysis on the card against the recorded JAX runs")
     total, rows = collections.Counter(), []
     for run in fixture.load_runs():
+        if cdcl and not tiers and run["name"] in CDCL_RUNS_LEFT_OUT:
+            continue
         label = f"{run['name']} ({'frontier' if run['frontier'] else 'host engine'})"
         zero_launches()
         with EngineSplit(torch) as split:
@@ -1478,6 +1520,98 @@ def engine_runs(torch, cdcl: bool = False, tiers: bool = False, cdcl_walls=None)
     return dict(total), rows
 
 
+def defaults_runs(torch, card: str, tier_rows: list):
+    """Phase 8e (see the module docstring); ``tier_rows`` are phase 8d's ->
+    (summed launches of the checked runs, per-run rows)."""
+    from mythril_tpu_torch.querycache.cache import ENTRY_HITS
+    from mythril_tpu_torch.smt.solver import SolverStatistics
+    from tests import test_torch_cli as T
+    from tests import test_torch_engine_defaults as D
+    from tests._torch_parity import run_analysis
+
+    phase("engine under the default host tiers: the port's analysis on the card against "
+          "the recorded JAX runs with the static pass and the query cache on, beside the "
+          "same run with them off")
+    tier_walls = {r["run"]: r["wall_s"] for r in tier_rows}
+    total, rows = collections.Counter(), []
+
+    def measured(run, defaults: bool):
+        zero_launches()
+        with EngineSplit(torch) as split:
+            if defaults:
+                got = D.run_port(run, None)  # no device: the card
+            else:
+                got = run_analysis("mythril_tpu_torch", bytes.fromhex(run["code"]),
+                                   tx_count=run["transactions"], strategy=run["strategy"],
+                                   frontier=run["frontier"], force=run["frontier"],
+                                   width=run["width"], timeout=3600, device=None, cdcl=True,
+                                   tiers=True)
+            torch.cuda.synchronize()
+        stats = SolverStatistics().as_dict()
+        return got, read_launches(), split, stats
+
+    for run in D.load_runs():
+        label = f"{run['name']} ({'frontier' if run['frontier'] else 'host engine'})"
+        got, launches, split, stats = measured(run, True)
+        entry_hits = dict(ENTRY_HITS)
+        total.update(launches)
+        bad = D.check_run(run, got)
+        off, off_launches, off_split, _ = measured(run, False)
+        check(off["summary"] == got["summary"],
+              f"{label}: the issues differ with the static pass and the query cache off")
+        row = {"run": label, "wall_s": got["seconds"], "launches": launches,
+               "shipped_events": split.shipped_events, "kernel_ms": split.kernel_ms(),
+               "tape_calls": split.tape_calls, "lowering_calls": split.lowering_calls,
+               "device_dispatches": stats["device_dispatches"],
+               "staticpass": got["staticpass"], "querycache": got["querycache"],
+               "querycache_hits_by_entry": entry_hits,
+               "tiers": got["tiers"], "held_exactly": not bad,
+               "off": {"wall_s": off["seconds"], "launches": off_launches,
+                       "shipped_events": off_split.shipped_events,
+                       "kernel_ms": off_split.kernel_ms()},
+               "tiers_phase_wall_s": tier_walls.get(label), "card": card}
+        rows.append(row)
+        qc = got["querycache"]
+        print(f"  {label}: {got['seconds']:.3f} s on, {off['seconds']:.3f} s off (8d's run "
+              + (f"{row['tiers_phase_wall_s']:.3f} s" if row["tiers_phase_wall_s"] is not None
+                 else "none") + f", {card}); {len(got['summary'])} issues; segment launches "
+              f"{launches['frontier_segment']} on / {off_launches['frontier_segment']} off, "
+              f"events shipped {split.shipped_events} / {off_split.shipped_events}; launches on "
+              f"{launches}, off {off_launches}")
+        print(f"    staticpass {got['staticpass']}; querycache hits exact {qc['exact_hits']}, "
+              f"model {qc['model_hits']}, core {qc['core_hits']}, unknown "
+              f"{qc['unknown_hits']} of {qc['lookups']} lookups, by entry point {entry_hits}; "
+              f"tiers {got['tiers']}")
+        check(not bad, f"{label}: differs from the recorded JAX run: {bad[:3]}")
+        if run["frontier"]:
+            check(launches["frontier_segment"] == len(got["dispatches"]),
+                  f"{label}: {launches['frontier_segment']} segment launches for "
+                  f"{len(got['dispatches'])} dispatches")
+        check(split.tape_calls + split.lowering_calls == stats["device_dispatches"],
+              f"{label}: {split.tape_calls} tape and {split.lowering_calls} lowering "
+              f"evaluations on the card for {stats['device_dispatches']} solver device "
+              "dispatches")
+        check(launches["tape_vm"] >= split.tape_calls, f"{label}: tape calls without a launch")
+        check(launches["lowering"] >= split.lowering_calls,
+              f"{label}: lowering calls without a launch")
+
+    runs = T.load_runs()
+    for name in ("static/kill_simple/json", "static/killbilly-creation/json"):
+        argv = runs[name]["argv"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", *argv], cwd=str(ROOT),
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m mythril_tpu_torch {name}: {proc.stderr[-2000:]}")
+        diffs = T.differences("static", runs[name]["stdout"], proc.stdout)
+        print(f"  python -m mythril_tpu_torch {' '.join(argv[:2])} ... {' '.join(argv[-2:])} "
+              f"({name}): exit 0 in {wall:.2f} s, differences from the JAX CLI {diffs}")
+        check(not diffs, f"{name}: the static report differs from the JAX CLI's: {diffs[:3]}")
+        rows.append({"run": f"python -m mythril_tpu_torch {name}", "cli_wall_s": wall,
+                     "card": card})
+    return dict(total), rows
+
+
 def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False,
                       tiers: bool = False):
     """One frontier run of an engine phase again under ``torch.profiler``:
@@ -1526,11 +1660,17 @@ def wrapper_seconds(torch, argv) -> float:
     from mythril_tpu_torch.support.support_args import args
     from tests._torch_parity import _reset
 
+    from mythril_tpu_torch.querycache import configure
+
     p = cli.create_parser().parse_args(argv)
-    saved = (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
-             args.devsolver)
-    (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
-     args.devsolver) = (p.frontier, p.frontier_force, p.frontier_width, p.prefilter, p.devsolver)
+    fields = ("frontier", "frontier_force", "frontier_width", "prefilter", "devsolver",
+              "staticpass", "staticpass_interproc", "query_cache")
+    saved = tuple(getattr(args, f) for f in fields)
+    (args.frontier, args.frontier_force, args.frontier_width, args.prefilter, args.devsolver,
+     args.staticpass, args.staticpass_interproc, args.query_cache) = (
+        p.frontier, p.frontier_force, p.frontier_width, p.prefilter, p.devsolver,
+        not p.no_staticpass, not p.no_staticpass_interproc, not p.no_query_cache)
+    configure(enabled=args.query_cache)
     _reset("mythril_tpu_torch")
     cfg.gbl_next_uid[0] = 0
     try:
@@ -1542,13 +1682,15 @@ def wrapper_seconds(torch, argv) -> float:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     finally:
-        (args.frontier, args.frontier_force, args.frontier_width, args.prefilter,
-         args.devsolver) = saved
+        for f, v in zip(fields, saved):
+            setattr(args, f, v)
+        configure(enabled=args.query_cache)
 
 
-def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
-    """Phase 8c (see the module docstring); ``engine_rows`` and ``tier_rows``
-    are phase 8b's and 8d's -> (summed launches, per-run rows)."""
+def cli_runs(torch, card: str, engine_rows: list, tier_rows: list, default_rows: list):
+    """Phase 8c (see the module docstring); ``engine_rows``, ``tier_rows``
+    and ``default_rows`` are phase 8b's, 8d's and 8e's -> (summed launches,
+    per-run rows)."""
     import os
     import tempfile
 
@@ -1561,6 +1703,7 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
     os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
     walls = {r["run"]: r["wall_s"] for r in engine_rows}
     tier_walls = {r["run"]: r["wall_s"] for r in tier_rows}
+    default_walls = {r["run"]: r.get("wall_s") for r in default_rows}
     runs = T.load_runs()
     total, rows = collections.Counter(), []
     for name in T.BENCH:
@@ -1601,7 +1744,9 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list):
         T.run_port(argv, device=None)
         torch.cuda.synchronize()
         cli2 = time.perf_counter() - t0
-        engine = (tier_walls if tiers_on else walls).get(f"{name.split('/')[0]} (frontier)")
+        host_tiers_on = "--no-staticpass" not in argv
+        engine = (default_walls if host_tiers_on else tier_walls if tiers_on else walls).get(
+            f"{name.split('/')[0]} (frontier)")
         row = {"run": name, "cli_wall_s": [wall, cli2], "wrapper_wall_s": [w1, w2],
                "overhead_s": (wall + cli2 - w1 - w2) / 2, "engine_phase_wall_s": engine,
                "jax_cli_cpu_s": run["jax_cpu_seconds"], "launches": launches,
@@ -1933,7 +2078,10 @@ def main() -> int:
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
             check(t_launches[name] > 0, f"the engine's tier runs launched {name} no time")
         t_idle = engine_idle_share(torch, "rubixi_like", tiers=True)
-        cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows)
+        d_launches, d_rows = defaults_runs(torch, card, t_rows)
+        for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
+            check(d_launches[name] > 0, f"the engine's default-tier runs launched {name} no time")
+        cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows, d_rows)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment", "known_bits", "dpll"):
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
         phase("kernel times at the main path's shapes (CUDA events)")
@@ -2007,11 +2155,13 @@ def main() -> int:
             entry["launches_by_path"] = {
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
                 "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
-                "engine_tiers": t_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
+                "engine_tiers": t_launches[entry["name"]],
+                "engine_defaults": d_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
         known_bits["engine_tiers"] = {"runs": t_rows, "idle_share": t_idle}
+        frontier["engine_defaults"] = {"runs": d_rows}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

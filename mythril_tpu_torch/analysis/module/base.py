@@ -57,8 +57,7 @@ class DetectionModule:
     # output, and carrier memory is rebuilt from the device word table at
     # terminals/parks instead of per-write replay.
     value_gated_hooks: frozenset = frozenset()
-    # -- static-pass gating declarations (read by the static pass, which
-    # the port does not carry yet) ----
+    # -- static-pass gating declarations (mythril_tpu_torch/staticpass/gate) ----
     # Over-approximate CLAIMS about when the module can raise an issue;
     # the static pre-analysis skips a module (and never registers its
     # hooks) when a claim is statically refuted for a contract.  Declare

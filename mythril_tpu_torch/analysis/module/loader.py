@@ -31,7 +31,13 @@ class ModuleLoader(metaclass=Singleton):
         self,
         entry_point: Optional[EntryPoint] = None,
         white_list: Optional[List[str]] = None,
+        static_view=None,
     ) -> List[DetectionModule]:
+        """``static_view`` (a staticpass GateView, or None) drops CALLBACK
+        modules statically proven irrelevant for the contract being set up.
+        Only the hook-registration path (analysis/symbolic.py) passes it;
+        issue collection always sees every module, so nothing a non-skipped
+        module found is ever lost."""
         result = self._modules[:]
         if white_list:
             available = {type(m).__name__ for m in result}
@@ -45,6 +51,14 @@ class ModuleLoader(metaclass=Singleton):
             result = [m for m in result if type(m).__name__ != "IntegerArithmetics"]
         if entry_point:
             result = [m for m in result if m.entry_point == entry_point]
+        if static_view is not None and entry_point == EntryPoint.CALLBACK:
+            from mythril_tpu_torch.staticpass import count, filter_modules
+
+            result, skipped = filter_modules(result, static_view)
+            if skipped:
+                count("modules_skipped", len(skipped))
+                count("hooks_elided",
+                      sum(len(m.pre_hooks) + len(m.post_hooks) for m in skipped))
         return result
 
     def load_custom_modules(self, directory: str) -> None:

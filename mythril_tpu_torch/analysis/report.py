@@ -4,8 +4,9 @@ Reference parity: mythril/analysis/report.py:21-341 — Issue with source-map
 resolution and function-name resolution, Report with the four output formats
 (jsonv2 kept structurally compatible: issues sorted by (swc-id, address),
 extra.discoveryTime, sourceMap/sourceList fields).  The port's jsonv2 meta
-carries the execution info only; the observability, static-pass, prefilter,
-devsolver, device and frontier rollups come with the surfaces that own them.
+carries the execution info and the static pass's rollup
+(``meta.staticpass``); the observability, prefilter, devsolver, device and
+frontier rollups come with the surfaces that own them.
 """
 
 from __future__ import annotations
@@ -238,6 +239,7 @@ class Report:
             meta["mythril_execution_info"] = {}
             for ei in self.execution_info:
                 meta["mythril_execution_info"].update(ei.as_dict())
+        meta["staticpass"] = _staticpass_meta()
         result = [
             {
                 "issues": sorted(_issues, key=lambda k: k["swcID"]),
@@ -248,6 +250,18 @@ class Report:
             }
         ]
         return json.dumps(result, sort_keys=True)
+
+
+def _staticpass_meta() -> dict:
+    """Static-pass rollup for report ``meta``: gate state (including
+    self-disable reasons), recovered functions, the reachable-edge
+    oracle, and the top ranked interesting points."""
+    try:
+        from mythril_tpu_torch.staticpass import staticpass_meta
+
+        return staticpass_meta()
+    except Exception:  # reporting must never fail the report
+        return {}
 
 
 def _swc_title(swc_id: str) -> str:

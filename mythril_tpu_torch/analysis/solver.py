@@ -50,12 +50,18 @@ def get_transaction_sequence(
     tx_constraints, minimize = _set_minimisation_constraints(
         transaction_sequence, constraints.copy(), [], 5000, global_state.world_state
     )
-    model = get_model(
-        tx_constraints,
-        minimize=minimize,
-        session=session,
-        session_enable=session_enable,
-    )
+    # issue confirmation is one of the query cache's entry points: the
+    # solve below flows through the solver's cache hook, and the hits it
+    # took are counted under "confirm"
+    from mythril_tpu_torch.querycache.cache import entry_hits
+
+    with entry_hits("confirm"):
+        model = get_model(
+            tx_constraints,
+            minimize=minimize,
+            session=session,
+            session_enable=session_enable,
+        )
 
     # keccak terms evaluate concretely under the model — no sha replacement
     # pass needed (reference needed _replace_with_actual_sha, solver.py:128-164)

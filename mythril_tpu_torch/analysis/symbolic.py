@@ -10,9 +10,11 @@ the CUDA card and raises ``NoCudaDevice`` without one; ``"cpu"`` runs the
 plain PyTorch kernels), carries it on the ``LaserEVM`` to the frontier
 engine, and sets it as ``args.device`` for the solver calls made during the
 run, restoring the previous value after.  The kernels build at first use;
-a build or launch error raises.  Not carried yet: the static pass (the
-wrapper behaves as the JAX package's ``--no-staticpass``), checkpoints, the
-benchmark plugin and deferred (cooperative) execution.
+a build or launch error raises.  The static pass gates the detection
+modules before their hooks are registered, as in the JAX package (the
+port has no checkpoint resume, so ``resume_from`` is always None).  Not
+carried yet: checkpoints, the benchmark plugin and deferred (cooperative)
+execution.
 """
 
 from __future__ import annotations
@@ -143,8 +145,17 @@ class SymExecWrapper:
                 ModuleLoader().load_custom_modules(custom_modules_directory)
 
             if run_analysis_modules:
+                # static pre-analysis gate: modules statically proven
+                # irrelevant for this contract never register their hooks
+                # (mythril_tpu_torch/staticpass — over-approximate, so the
+                # issue set is unchanged; --no-staticpass restores blind wiring)
+                from mythril_tpu_torch.staticpass import gate_view_for_contract
+
+                static_view = gate_view_for_contract(
+                    contract, dynloader=dynloader, resume_from=None
+                )
                 analysis_modules = ModuleLoader().get_detection_modules(
-                    EntryPoint.CALLBACK, white_list=modules
+                    EntryPoint.CALLBACK, white_list=modules, static_view=static_view
                 )
                 self.laser.register_hooks(
                     hook_type="pre",

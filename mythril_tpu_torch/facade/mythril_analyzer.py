@@ -57,6 +57,10 @@ class AnalyzerArgs:
     frontier: bool = False
     frontier_width: int = 64
     frontier_force: bool = False
+    query_cache: bool = True
+    query_cache_dir: Optional[str] = None
+    staticpass: bool = True
+    staticpass_interproc: bool = True
     code_paging: bool = True
     code_page_budget: int = 2048
     prefilter: bool = True

@@ -1,10 +1,11 @@
 """Flag propagation shared by the facade's entry points.
 
-The JAX package's ``facade/warm.py`` also arms the persistent caches and
-holds the analysis service's per-worker scope (``WorkerContext``,
-``reset_analysis_scope``); the port carries only ``apply_analyzer_args``,
-for the flags its ``Args`` has.  The cache arming and the service side come
-with ROADMAP Queue A item 13.
+The JAX package's ``facade/warm.py`` also arms the XLA compilation cache,
+derives both caches' directories from ``--cache-root`` and holds the
+analysis service's per-worker scope (``WorkerContext``,
+``reset_analysis_scope``); the port carries ``apply_analyzer_args``, for
+the flags its ``Args`` has, and configures the query cache from them.
+The rest comes with ROADMAP Queue A item 13.
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ def apply_analyzer_args(cmd_args) -> None:
     args.frontier = cmd_args.frontier
     args.frontier_width = cmd_args.frontier_width
     args.frontier_force = cmd_args.frontier_force
+    args.query_cache = cmd_args.query_cache
+    args.staticpass = cmd_args.staticpass
+    args.staticpass_interproc = cmd_args.staticpass_interproc
     args.code_paging = cmd_args.code_paging
     args.code_page_budget = cmd_args.code_page_budget
     args.prefilter = cmd_args.prefilter
@@ -54,3 +58,7 @@ def apply_analyzer_args(cmd_args) -> None:
     from mythril_tpu_torch import devsolver
 
     devsolver.configure(bit_budget=cmd_args.devsolver_bit_budget, iters=cmd_args.devsolver_iters)
+    args.query_cache_dir = cmd_args.query_cache_dir
+    from mythril_tpu_torch.querycache import configure as _configure_query_cache
+
+    _configure_query_cache(enabled=args.query_cache, cache_dir=args.query_cache_dir)

@@ -1,12 +1,12 @@
 """Per-instruction dispatch tables: bytecode -> dense device tables.
 
-A copy of ``mythril_tpu/frontier/code.py`` (numpy only), without the
-static-pass counters that module publishes to the JAX package's metrics
-registry (the port has none yet).
+A copy of ``mythril_tpu/frontier/code.py`` (numpy only); the static-pass
+counters that module publishes to the JAX package's metrics registry
+count into ``staticpass.COUNTERS`` here.
 
 The host pre-decodes the instruction stream once per contract (the analogue of
 ``Disassembly`` feeding the host engine's dispatch,
-mythril_tpu/core/svm.py:274-317) into flat numpy tables indexed by
+mythril_tpu_torch/core/svm.py:274-317) into flat numpy tables indexed by
 *instruction index* (not byte address — matching the host engine's pc
 convention, reference mythril/laser/ethereum/svm.py:351):
 
@@ -117,7 +117,7 @@ class CodeTables:
         self.loop_id = np.full(n + 1, -1, np.int32)
         n_loops = 0
 
-        # static pre-analysis (mythril_tpu/staticpass): statically
+        # static pre-analysis (mythril_tpu_torch/staticpass): statically
         # unreachable instructions leave the packed event set (they can
         # never execute, so no walker replay depends on them) and their
         # JUMPDESTs claim no loop slot (the _LOOPS_CAP budget goes to
@@ -133,6 +133,8 @@ class CodeTables:
         ):
             reach = static_summary.instr_reachable
         self.static_target = np.full(n + 1, -1, np.int32)
+        events_pruned = 0
+        jumpi_events_pruned = 0
 
         for i, ins in enumerate(instruction_list):
             name = ins.opcode
@@ -145,6 +147,10 @@ class CodeTables:
             reachable = reach is None or bool(reach[i])
             event = name in _ALWAYS_EVENT or name in hooked
             self.event[i] = event and reachable
+            if event and not reachable:
+                events_pruned += 1
+                if name == "JUMPI":
+                    jumpi_events_pruned += 1
             self.concskip[i] = name in conc_nop
             self.valgate[i] = name in val_gate
             fam, aux = self._classify(ins, arena, code_size)
@@ -156,6 +162,34 @@ class CodeTables:
                     n_loops += 1
             if reach is not None and reachable:
                 self.static_target[i] = static_summary.static_target[i]
+
+        if events_pruned:
+            from mythril_tpu_torch.staticpass import count
+
+            count("events_pruned", events_pruned)
+            if jumpi_events_pruned:
+                count("jumpi_events_pruned", jumpi_events_pruned)
+
+        # reachable-edge oracle accounting: JUMPI edges the interprocedural
+        # layer proved dead (constant-folded condition or invalid/unreachable
+        # destination).  The event bit itself stays at instruction
+        # granularity — a reachable JUMPI with one dead edge still events
+        # for the walker — but the dead-edge count is what the pruning
+        # parity gate and the drift doctor watch.
+        if (
+            reach is not None
+            and getattr(static_summary, "edge_taken_live", None) is not None
+        ):
+            taken_live = static_summary.edge_taken_live
+            fall_live = static_summary.edge_fall_live
+            edges_dead = 0
+            for i, ins in enumerate(instruction_list):
+                if ins.opcode == "JUMPI":
+                    edges_dead += int(not taken_live[i]) + int(not fall_live[i])
+            if edges_dead:
+                from mythril_tpu_torch.staticpass import count
+
+                count("jumpi_edges_pruned", edges_dead)
 
         # implicit STOP past the end of code (reference svm.py:281-284)
         self.fam[n] = O.F_STOP

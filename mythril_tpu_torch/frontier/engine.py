@@ -364,8 +364,18 @@ class FrontierEngine:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _hook_info(laser) -> Tuple[set, set, set]:
+    def _hook_info(laser, summary=None) -> Tuple[set, set, set]:
         """(hooked, concrete-nop, value-gated) opcode sets for this laser.
+
+        When a static summary for the code being packed is supplied
+        (mythril_tpu_torch/staticpass), two further elisions apply per code:
+        opcodes with no statically reachable instruction leave the hooked
+        set (their events could never fire), and an opcode whose EVERY
+        hook belongs to a module with a statically dead declared taint
+        flow is dropped too — safe because such modules only raise at
+        their declared sinks, and those sinks (JUMPI) are _ALWAYS_EVENT
+        ops whose events and host hook replays are unaffected by this
+        set.
 
         An opcode is concrete-nop when EVERY hook on it (pre and post) is a
         bound method of a module that declares it in ``concrete_nop_hooks``
@@ -420,7 +430,26 @@ class FrontierEngine:
             op for op in hooked
             if all(op in declared(h, "value_gated_hooks") for h in hooks(op))
         }
-        return hooked - taint_src, conc_nop, val_gate
+        hooked = hooked - taint_src
+        if summary is not None:
+            from mythril_tpu_torch.staticpass import GateView, count, module_relevant
+
+            view = GateView([summary])
+            dropped = {op for op in hooked if op not in summary.reachable_opcodes}
+            for op in hooked - dropped:
+                owners = {getattr(h, "__self__", None) for h in hooks(op)}
+                if owners and all(
+                    m is not None
+                    and getattr(m, "static_taint_sources", None)
+                    and getattr(m, "static_taint_sinks", None)
+                    and not module_relevant(m, view)
+                    for m in owners
+                ):
+                    dropped.add(op)
+            if dropped:
+                count("hooks_elided_device", len(dropped))
+                hooked -= dropped
+        return hooked, conc_nop, val_gate
 
     def _seed_ctx(self, arena: HostArena, gs, seed_idx: int) -> np.ndarray:
         from mythril_tpu_torch.smt import symbol_factory
@@ -664,7 +693,16 @@ class FrontierEngine:
             if ci is None:
                 ci = len(tables)
                 table_idx[key] = ci
-                hooked, conc_nop, val_gate = self._hook_info(laser)
+                # once-per-bytecode static pre-analysis (cached): prunes
+                # events on statically unreachable instructions and feeds
+                # the per-code hook elision below; None = pass disabled
+                # or failed, packing proceeds exactly as before.  (The JAX
+                # package also hands the summary's interesting points to
+                # its adaptive controller, which the port does not have.)
+                from mythril_tpu_torch.staticpass import summary_for_code
+
+                summary = summary_for_code(code)
+                hooked, conc_nop, val_gate = self._hook_info(laser, summary)
                 tables.append(
                     CodeTables(
                         code.instruction_list,
@@ -674,6 +712,7 @@ class FrontierEngine:
                         or None,
                         conc_nop_opcodes=conc_nop,
                         value_gate_opcodes=val_gate,
+                        static_summary=summary,
                     )
                 )
                 table_laser.append(laser)
@@ -1122,9 +1161,12 @@ class FrontierEngine:
         if len(queries) >= 2:
             # the hook's exact budget (imported, so they cannot diverge); the
             # call's side effect is the solver memo the hook will hit
-            check_satisfiable_batch(
-                queries, ProbeConfig(**MUTATION_PROBE_CONFIG), device=self.device
-            )
+            from mythril_tpu_torch.querycache.cache import entry_hits
+
+            with entry_hits("mutation_prefetch"):
+                check_satisfiable_batch(
+                    queries, ProbeConfig(**MUTATION_PROBE_CONFIG), device=self.device
+                )
 
     def _prune_running(self, st: FrontierState, records, walker: Walker,
                        ev_seen: np.ndarray) -> None:
@@ -1154,9 +1196,15 @@ class FrontierEngine:
             todo.append((slot, rec, n_cons, raws))
         if not todo:
             return
-        flags = check_satisfiable_batch(
-            [raws for _, _, _, raws in todo], device=self.device
-        )
+        # harvest feasibility is one of the query cache's entry points: the
+        # batched check takes the cache's exact/core tiers per set inside
+        # the solver's _fast_path
+        from mythril_tpu_torch.querycache.cache import entry_hits
+
+        with entry_hits("prune_check"):
+            flags = check_satisfiable_batch(
+                [raws for _, _, _, raws in todo], device=self.device
+            )
         for (slot, rec, n_cons, _), ok in zip(todo, flags):
             if ok:
                 rec._pruned_at = n_cons

@@ -3,7 +3,7 @@
 Reference parity: mythril/interfaces/cli.py:236-935, by way of the JAX
 package's ``interfaces/cli.py``, whose option names, defaults and choices
 the port keeps for every option it has.  Subcommands: analyze (a),
-disassemble (d), safe-functions, list-detectors, read-storage,
+disassemble (d), static, safe-functions, list-detectors, read-storage,
 function-to-hash, hash-to-address, version, help.
 
 What differs from the JAX command line:
@@ -14,13 +14,16 @@ What differs from the JAX command line:
   moves to the CPU on its own.
 * ``--probe-backend`` has the port's backends: ``device`` (the default, the
   role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
-* The known-bits prefilter and the devsolver run by default, as in the JAX
-  package; ``--no-prefilter`` and ``--no-devsolver`` switch them off and
-  ``--devsolver-bit-budget`` and ``--devsolver-iters`` set the devsolver's
-  budgets.  The other switches that turn a default-on JAX tier off
-  (``--no-staticpass``, ``--no-pipeline``, ...) are accepted: the port runs
-  without those tiers until they are ported, and ``analyze`` names them on
-  one stderr line.
+* The known-bits prefilter, the devsolver, the static pass and the query
+  cache run by default, as in the JAX package; ``--no-prefilter``,
+  ``--no-devsolver``, ``--no-staticpass``, ``--no-staticpass-interproc``
+  and ``--no-query-cache`` switch them off, ``--devsolver-bit-budget`` and
+  ``--devsolver-iters`` set the devsolver's budgets, ``--query-cache-dir``
+  adds the query cache's disk store and ``--staticpass-report`` writes the
+  static pass's JSON after the run.  The other switches that turn a
+  default-on JAX tier off (``--no-pipeline``, ...) are accepted: the port
+  runs without those tiers until they are ported, and ``analyze`` names
+  them on one stderr line.
 * Every other JAX option or subcommand the port lacks is refused with exit
   code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
   worker counts and the heartbeat period are accepted at their JAX
@@ -58,13 +61,11 @@ NOT_YET_PORTED = {
     "--benchmark": 13,
     "--checkpoint-file": 13,
     "--resume-from": 13,
-    "--query-cache-dir": 9,
     "--coverage-target": 5,
     "--solver-workers": 11,
     "--harvest-workers": 11,
     "--compile-cache-dir": 13,
     "--cache-root": 13,
-    "--staticpass-report": 3,
     "--trace-out": 13,
     "--metrics-out": 13,
     "--coverage-out": 5,
@@ -74,7 +75,6 @@ NOT_YET_PORTED = {
     "--watchdog-deadline": 13,
     "--history-dir": 13,
     "--probe-backend auto": 10,
-    "static": 3,
     "concolic": 4,
     "c": 4,
     "serve": 13,
@@ -93,10 +93,7 @@ AT_DEFAULT_ONLY = {
 }
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
 RUNS_WITHOUT = {
-    "no_staticpass": ("the static pass", 3),
-    "no_staticpass_interproc": ("the interprocedural static pass", 3),
     "pipeline": ("the pipelined frontier", 11),
-    "no_query_cache": ("the query cache", 9),
     "frontier_mesh": ("the device mesh", 12),
     "adaptive": ("the adaptive controller", 5),
 }
@@ -161,16 +158,14 @@ def _add_input_options(parser) -> None:
     parser.add_argument("--solv", metavar="SOLC_VERSION", help="solc version to use")
 
 
-def _runs_without(parser, flag: str, dest: str, inverted: bool) -> None:
+def _runs_without(parser, flag: str, dest: str) -> None:
     """A JAX switch that turns a default-on tier off; the port runs without
     the tier either way."""
     tier, item = RUNS_WITHOUT[dest]
-    help_ = (f"accepted for the JAX command line: the port runs without {tier} "
-             f"until it is ported (ROADMAP Queue A item {item})")
-    if inverted:
-        parser.add_argument(flag, action="store_false", dest=dest, default=True, help=help_)
-    else:
-        parser.add_argument(flag, action="store_true", help=help_)
+    parser.add_argument(
+        flag, action="store_false", dest=dest, default=True,
+        help=f"accepted for the JAX command line: the port runs without {tier} "
+        f"until it is ported (ROADMAP Queue A item {item})")
 
 
 def _add_analysis_options(parser) -> None:
@@ -247,7 +242,19 @@ def _add_analysis_options(parser) -> None:
         "smoke; normally the gate keeps small contracts on the faster "
         "host path)",
     )
-    _runs_without(group, "--no-query-cache", "no_query_cache", inverted=False)
+    group.add_argument(
+        "--query-cache-dir",
+        metavar="DIR",
+        help="persist solver verdicts in DIR and reuse them across runs "
+        "(exact-hit, model-reuse and unsat-core-subsumption tiers); safe "
+        "for concurrent writers via atomic write-then-rename",
+    )
+    group.add_argument(
+        "--no-query-cache",
+        action="store_true",
+        help="disable the SMT query cache entirely (in-process LRU "
+        "included)",
+    )
     group.add_argument(
         "--no-code-paging",
         action="store_false",
@@ -267,7 +274,7 @@ def _add_analysis_options(parser) -> None:
         "window of that size device-resident, cold jumps fault to the "
         "host for a sync-point repack (0 keeps bucket isolation only)",
     )
-    _runs_without(group, "--no-pipeline", "pipeline", inverted=True)
+    _runs_without(group, "--no-pipeline", "pipeline")
     group.add_argument(
         "--no-prefilter",
         action="store_false",
@@ -302,10 +309,31 @@ def _add_analysis_options(parser) -> None:
         help="device SAT tier search-kernel iteration budget per query "
         "(budget lapse falls through as UNKNOWN)",
     )
-    _runs_without(group, "--no-mesh", "frontier_mesh", inverted=True)
-    _runs_without(group, "--no-adaptive", "adaptive", inverted=True)
-    _runs_without(group, "--no-staticpass", "no_staticpass", inverted=False)
-    _runs_without(group, "--no-staticpass-interproc", "no_staticpass_interproc", inverted=False)
+    _runs_without(group, "--no-mesh", "frontier_mesh")
+    _runs_without(group, "--no-adaptive", "adaptive")
+    group.add_argument(
+        "--no-staticpass",
+        action="store_true",
+        help="disable the static bytecode pre-analysis pass (CFG + abstract-"
+        "interpretation pruning of detector hooks and packed device events); "
+        "the issue set is identical either way, this only removes the "
+        "pruning",
+    )
+    group.add_argument(
+        "--no-staticpass-interproc",
+        action="store_true",
+        help="keep only the base (intra-procedural) static passes: no "
+        "value-set jump refinement, function recovery, reachable-edge "
+        "oracle or cross-contract call graph; the issue set is identical "
+        "either way",
+    )
+    group.add_argument(
+        "--staticpass-report",
+        metavar="FILE",
+        help="write the static pre-analysis summary (per-contract CFG "
+        "blocks/edges, unreachable spans, taint reachability, skipped "
+        "modules) to FILE as JSON after the run",
+    )
     _add_device(group)
 
 
@@ -346,6 +374,29 @@ def create_parser() -> argparse.ArgumentParser:
     _add_input_options(disassemble)
     _add_rpc_options(disassemble)
     _add_verbosity(disassemble)
+
+    static = subparsers.add_parser(
+        "static",
+        help="static pre-analysis only (no symbolic execution): recovered "
+        "function table, storage read/write summaries, reachable-edge "
+        "oracle, ranked interesting points, cross-contract call graph",
+    )
+    _add_input_options(static)
+    _add_rpc_options(static)
+    static.add_argument(
+        "-o", "--outform", choices=["text", "json"], default="text",
+        help="output format",
+    )
+    static.add_argument(
+        "--top", type=int, default=10, metavar="N",
+        help="interesting points to print in text mode (default 10)",
+    )
+    static.add_argument(
+        "--no-staticpass-interproc", action="store_true",
+        help="base (intra-procedural) passes only: skip value-set jump "
+        "refinement and function recovery",
+    )
+    _add_verbosity(static)
 
     safe = subparsers.add_parser(
         "safe-functions", help="check functions which are completely safe using symbolic execution"
@@ -442,7 +493,7 @@ def runs_without_line(parsed) -> str:
     and which of them the command line switched off itself."""
     tiers = [tier for tier, _item in RUNS_WITHOUT.values()]
     asked = [tier for dest, (tier, _item) in RUNS_WITHOUT.items()
-             if getattr(parsed, dest) == dest.startswith("no_")]
+             if not getattr(parsed, dest)]
     line = (f"{PROG}: this build runs without these default tiers of the JAX package "
             f"(ROADMAP Queue A): {', '.join(tiers)}")
     return line + (f"; switched off on the command line: {', '.join(asked)}" if asked else "")
@@ -534,6 +585,10 @@ def _build_analyzer(parsed):
         frontier=parsed.frontier,
         frontier_width=parsed.frontier_width,
         frontier_force=parsed.frontier_force,
+        query_cache=not parsed.no_query_cache,
+        query_cache_dir=parsed.query_cache_dir,
+        staticpass=not parsed.no_staticpass,
+        staticpass_interproc=not parsed.no_staticpass_interproc,
         code_paging=parsed.code_paging,
         code_page_budget=parsed.code_page_budget,
         prefilter=parsed.prefilter,
@@ -546,6 +601,99 @@ def _build_analyzer(parsed):
         disassembler, cmd_args, strategy=parsed.strategy, address=address,
         device=parsed.device,
     )
+
+
+def _print_static_report(report: dict, top: int = 10) -> None:
+    """Human rendering of the ``myth static`` report dict."""
+    for entry in report.get("contracts", []):
+        print(f"contract {entry['name']}")
+        for code in entry.get("codes", []):
+            kind = "creation" if code.get("is_creation") else "runtime"
+            r = code.get("reachability", {})
+            d = code.get("dispatch", {})
+            print(
+                f"  [{kind}] {code['instructions']} instrs, "
+                f"{code['blocks']} blocks, edges "
+                f"{r.get('edges_reachable', 0)}/{r.get('edges_total', 0)} "
+                f"reachable ({r.get('reachable_edge_pct', 100.0):.1f}%), "
+                f"interproc={'on' if code.get('interproc') else 'off'}"
+            )
+            if d.get("recovered"):
+                print(
+                    f"    dispatch recovered, "
+                    f"fallback entry @ {d.get('fallback_addr')}"
+                )
+            for fn in code.get("functions", []):
+                flags = [
+                    label for key, label in (
+                        ("caller_guarded", "caller-guarded"),
+                        ("selfdestruct", "selfdestruct"),
+                        ("delegatecall", "delegatecall"),
+                        ("writes_after_call", "writes-after-call"),
+                    ) if fn.get(key)
+                ]
+                reads = ("?" if fn.get("reads_unknown")
+                         else str(len(fn.get("storage_reads", []))))
+                writes = ("?" if fn.get("writes_unknown")
+                          else str(len(fn.get("storage_writes", []))))
+                print(
+                    f"    fn {fn['name']:<12} entry={fn['entry_addr']:<6} "
+                    f"blocks={fn['n_blocks']:<4} sloads={reads:<3} "
+                    f"sstores={writes:<3} calls={len(fn.get('calls', []))}"
+                    + (f"  [{', '.join(flags)}]" if flags else "")
+                )
+    points = [
+        p
+        for entry in report.get("contracts", [])
+        for code in entry.get("codes", [])
+        for p in code.get("interesting_points", [])
+    ]
+    points.sort(key=lambda p: -p.get("score", 0))
+    if points:
+        print(
+            f"interesting points (top {min(top, len(points))} "
+            f"of {len(points)}):"
+        )
+        for p in points[:top]:
+            print(
+                f"  [{p.get('score', 0):>3}] {p.get('kind')} "
+                f"@ {p.get('addr')} in {p.get('function')}"
+            )
+    cg = report.get("callgraph", {})
+    print(
+        f"callgraph: {len(cg.get('nodes', []))} nodes, "
+        f"{len(cg.get('edges', []))} edges "
+        f"({cg.get('resolved_edges', 0)} resolved)"
+    )
+
+
+def _execute_static(parsed) -> None:
+    """``static``: the interprocedural pre-pass alone, no symbolic
+    execution — recovered functions, reachable-edge oracle, ranked
+    interesting points, cross-contract call graph."""
+    from mythril_tpu_torch.staticpass import report_dict, summarize_contract
+    from mythril_tpu_torch.support.support_args import args as global_args
+
+    global_args.staticpass = True
+    global_args.staticpass_interproc = not parsed.no_staticpass_interproc
+    disassembler = _disassembler(parsed)
+    _load_code(parsed, disassembler)
+    for contract in disassembler.contracts or []:
+        summarize_contract(contract)
+    report = report_dict()
+    if parsed.outform == "json":
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        _print_static_report(report, top=parsed.top)
+
+
+def _export_staticpass_report(parsed) -> None:
+    """``--staticpass-report FILE``: the static pass's JSON after a run."""
+    if parsed.staticpass_report:
+        from mythril_tpu_torch.staticpass import export_report
+
+        export_report(parsed.staticpass_report)
+        log.info("wrote static pre-analysis report to %s", parsed.staticpass_report)
 
 
 def execute_command(parsed) -> None:
@@ -622,13 +770,20 @@ def execute_command(parsed) -> None:
                 print(contract.creation_disassembly.get_easm())
         return
 
+    if command == "static":
+        _execute_static(parsed)
+        return
+
     if command == "safe-functions":
         from mythril_tpu_torch.support.support_args import args as global_args
 
         analyzer = _build_analyzer(parsed)
         analyzer.cmd_args.transaction_count = 1
         global_args.unconstrained_storage = True
-        report = analyzer.fire_lasers()
+        try:
+            report = analyzer.fire_lasers()
+        finally:
+            _export_staticpass_report(parsed)
         issue_functions = {i["function"] for i in report.sorted_issues()}
         all_functions = set()
         for contract in analyzer.contracts:
@@ -653,7 +808,10 @@ def execute_command(parsed) -> None:
             with open(parsed.statespace_json, "w") as f:
                 f.write(analyzer.dump_statespace())
             return
-        report = analyzer.fire_lasers()
+        try:
+            report = analyzer.fire_lasers()
+        finally:
+            _export_staticpass_report(parsed)
         outputs = {
             "json": report.as_json,
             "jsonv2": report.as_swc_standard_format,
@@ -705,4 +863,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     finally:
         for field in dataclasses.fields(args):
             setattr(args, field.name, getattr(saved, field.name))
+        # the query cache singleton's switch and disk store, as they were
+        from mythril_tpu_torch.querycache import configure
+
+        configure(enabled=args.query_cache, cache_dir=args.query_cache_dir)
     return 0

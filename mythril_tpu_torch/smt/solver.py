@@ -1104,15 +1104,26 @@ def _evaluate_candidates_device(compiled, candidates, device):
     return compiled.evaluate_batch(candidates, device)
 
 
+def _query_cache():
+    from mythril_tpu_torch.querycache import get_query_cache
+
+    return get_query_cache()
+
+
 def _fast_path(
     conjuncts: Sequence[Term], use_cache: bool = True, replay: bool = True,
+    budget_ms: Optional[int] = None,
 ) -> Tuple[Optional[Tuple[str, Optional["Assignment"]]], List[Term], frozenset]:
     """Cheap solving tiers shared by single-query and batched entry points.
 
-    Tier 0 (structural fold), result memo and tier 0.5 (recent-model
+    Tier 0 (structural fold), result memo, the query cache (exact /
+    unsat-core-subsumption / model-reuse tiers), and tier 0.5 (recent-model
     replay).  Returns ``(resolved, folded_conjuncts, cache_key)`` where
     ``resolved`` is the final (status, assignment) when a cheap tier
-    decided the query, else None.
+    decided the query, else None.  ``budget_ms`` lets the query cache
+    serve stored UNKNOWN verdicts (only to an equal-or-smaller budget;
+    None never serves them) — ``resolved`` can therefore be UNKNOWN, which
+    callers must treat like their own probe-exhausted outcome.
     """
     folded = terms.land(*conjuncts)
     if folded.op == "const":
@@ -1125,6 +1136,16 @@ def _fast_path(
         hit = _model_cache.results.get(key)
         if hit is not None:
             return hit, conj, key
+        qc = _query_cache()
+        if qc.enabled:
+            # model probing inside the cache mirrors the replay tier below;
+            # batched callers (replay=False) replay over a merged union
+            # themselves, so they take only the exact/core tiers here
+            cached = qc.lookup(conj, budget_ms=budget_ms, probe_models=replay)
+            if cached is not None:
+                if cached[0] != UNKNOWN:
+                    _model_cache.remember(key, cached[0], cached[1])
+                return cached, conj, key
     if use_cache and replay:
         # replay only the freshest models: each miss costs a full DAG
         # evaluation, and hits overwhelmingly come from the last few
@@ -1178,8 +1199,16 @@ def check_satisfiable_batch(
         # per-set model replay is deferred: it is batched below over the
         # UNION of pending conjuncts (sibling sets share their whole path
         # prefix, so N separate replays re-walk the same DAG N times)
-        resolved, conj, key = _fast_path(cs, replay=False)
+        resolved, conj, key = _fast_path(
+            cs, replay=False, budget_ms=config.timeout_ms
+        )
         if resolved is not None:
+            if resolved[0] == UNKNOWN:
+                # a cached UNKNOWN served at this budget: the prune decision
+                # is the same unknown-as-unsat call the cold path would have
+                # made, and it must show in the same recall-risk counter
+                SolverStatistics().inc("unknown_as_unsat")
+                statuses[i] = "unknown"
             results[i] = resolved[0] == SAT
         else:
             pending.append((i, conj, key))
@@ -1359,6 +1388,14 @@ def remember_model(conjuncts: Sequence[Term], assignment: Assignment) -> None:
         return
     conj = list(folded.args) if folded.op == "and" else [folded]
     _model_cache.remember(frozenset(c.tid for c in conj), SAT, assignment)
+    # the issue-confirmation gate's session models are exactly the SAT
+    # verdicts a warm re-run wants back — persist them too
+    qc = _query_cache()
+    if qc.enabled:
+        try:
+            qc.record(conj, SAT, assignment)
+        except Exception:
+            log.debug("query-cache record failed", exc_info=True)
 
 
 def clear_model_cache() -> None:
@@ -1366,6 +1403,12 @@ def clear_model_cache() -> None:
         _model_cache.models = []
         _model_cache.results = {}
         _split_cache.clear()
+    # ditto the query cache's term-id-keyed fingerprint memos (its hash/
+    # verdict layers hold no Terms and are reset separately — see
+    # querycache.reset_query_cache)
+    from mythril_tpu_torch.querycache import clear_query_cache_memos
+
+    clear_query_cache_memos()
 
 
 def solve_conjunction(
@@ -1378,13 +1421,44 @@ def solve_conjunction(
 ) -> Tuple[str, Optional[Assignment]]:
     """Core entry: find a model of And(conjuncts) or report unsat/unknown.
 
-    ``use_cache=False`` skips both memo tiers.  ``device``: None is the CUDA
-    card (raises without one); pass ``"cpu"`` for the plain PyTorch path.
+    ``use_cache=False`` skips both memo tiers and the query cache.
+    ``device``: None is the CUDA card (raises without one); pass ``"cpu"``
+    for the plain PyTorch path.  The verdict is recorded in the query
+    cache.
     """
-    return _solve_conjunction_impl(
-        conjuncts, config or ProbeConfig(), extra_seeds, use_cache, replay,
-        resolve(device),
+    config = config or ProbeConfig()
+    result = _solve_conjunction_impl(
+        conjuncts, config, extra_seeds, use_cache, replay, resolve(device),
     )
+    if use_cache:
+        _record_query_cache(conjuncts, result, config)
+    return result
+
+
+def _record_query_cache(
+    conjuncts: Sequence[Term],
+    result: Tuple[str, Optional[Assignment]],
+    config: ProbeConfig,
+) -> None:
+    """Persist a solve outcome in the query cache.
+
+    Recording is idempotent (a verdict that was itself served from the
+    cache re-records as a no-op) and covers every tier's outcome.
+    Independence-split buckets recurse through ``solve_conjunction``, so
+    their smaller sub-conjunctions get entries (and unsat cores) of their
+    own.  Best-effort: a cache failure must never fail the solve.
+    """
+    qc = _query_cache()
+    if not qc.enabled:
+        return
+    folded = terms.land(*conjuncts)
+    if folded.op == "const":
+        return
+    conj = list(folded.args) if folded.op == "and" else [folded]
+    try:
+        qc.record(conj, result[0], result[1], budget_ms=config.timeout_ms)
+    except Exception:
+        log.debug("query-cache record failed", exc_info=True)
 
 
 def _solve_conjunction_impl(
@@ -1399,8 +1473,10 @@ def _solve_conjunction_impl(
     stats.inc("query_count")
     t0 = time.perf_counter()
 
-    # tiers 0 + memo + 0.5 (shared with check_satisfiable_batch)
-    resolved, conjuncts, cache_key = _fast_path(conjuncts, use_cache, replay)
+    # tiers 0 + memo + query cache + 0.5 (shared with check_satisfiable_batch)
+    resolved, conjuncts, cache_key = _fast_path(
+        conjuncts, use_cache, replay, budget_ms=config.timeout_ms
+    )
     if resolved is not None:
         return resolved
 
@@ -1477,8 +1553,11 @@ def _solve_conjunction_impl(
                 prune_critical=config.prune_critical,
                 sat_biased=config.sat_biased,
             )
-            status, asg = _solve_conjunction_impl(
-                bucket, sub_config, extra_seeds, use_cache, replay, device
+            # through the public entry, so each bucket's verdict is
+            # recorded in the query cache too
+            status, asg = solve_conjunction(
+                bucket, sub_config, extra_seeds=extra_seeds,
+                use_cache=use_cache, replay=replay, device=device,
             )
             if status == UNSAT:
                 if use_cache:

@@ -14,6 +14,12 @@ leave open goes to the native CDCL solver alone.
 0.58) and device SAT tier (tier 0.65), on by default as in the JAX package;
 ``devsolver_bit_budget`` and ``devsolver_iters`` are the devsolver's budgets,
 read by ``devsolver.decide_batch`` and set through ``devsolver.configure``.
+``staticpass`` and ``staticpass_interproc`` are the static pre-analysis
+(``staticpass/``: the detector gate, the hook elision and the event
+pruning of the frontier's tables) and its interprocedural layer;
+``query_cache`` and ``query_cache_dir`` the solver's query cache
+(``querycache/``) and its disk store.  All on by default (no disk store),
+as in the JAX package.
 
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
@@ -58,6 +64,14 @@ class Args:
     devsolver: bool = True
     devsolver_bit_budget: int = 64
     devsolver_iters: int = 2048
+    # static bytecode pre-analysis (staticpass/) and its interprocedural
+    # layer; the issue set is identical either way
+    staticpass: bool = True
+    staticpass_interproc: bool = True
+    # the solver's query cache (querycache/): the in-process tiers run
+    # whenever query_cache is True; a dir adds the disk store
+    query_cache: bool = True
+    query_cache_dir: Optional[str] = None
     # the synchronous device frontier (frontier/engine.py): message-call
     # transactions run as segments of frontier_width paths
     frontier: bool = False

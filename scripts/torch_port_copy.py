@@ -106,6 +106,17 @@ COPIED = (
     "interfaces/epic.py",
     "absdomain/tape.py",
     "devsolver/blaster.py",
+    "staticpass/errors.py",
+    "staticpass/tables.py",
+    "staticpass/cfg.py",
+    "staticpass/stackheight.py",
+    "staticpass/taintflow.py",
+    "staticpass/interproc.py",
+    "staticpass/functions.py",
+    "staticpass/callgraph.py",
+    "querycache/canon.py",
+    "querycache/store.py",
+    "querycache/__init__.py",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

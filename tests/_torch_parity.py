@@ -9,8 +9,11 @@ cache, no pre-filter, no device bit-blast tier, no native CDCL), and
 ``port_no_cdcl`` switches the port's CDCL off the same way, so the records
 made under it still hold; ``jax_cdcl_tiers`` is the same with native CDCL
 left on.  ``jax_engine_config_tiers`` adds the known-bits prefilter and the
-devsolver, the tier set the port carries now; ``port_no_tiers`` switches the
-port's two off, as every older record was made.
+devsolver; ``port_no_tiers`` switches the port's two off, as every older
+record was made.  ``jax_engine_config_defaults`` adds the static pass, its
+interprocedural layer and the query cache, the tier set the port carries
+now; ``port_no_host_tiers`` switches the port's three off, as every older
+record was made.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def to_port_assignment(asg, jax_to_port: dict):
 
 
 @contextlib.contextmanager
-def _jax_tiers(cdcl: bool, tiers: bool = False):
+def _jax_tiers(cdcl: bool, tiers: bool = False, query_cache: bool = False):
     from mythril_tpu.native import bitblast
     from mythril_tpu.querycache import configure, get_query_cache
     from mythril_tpu.smt.solver import clear_model_cache
@@ -51,9 +54,9 @@ def _jax_tiers(cdcl: bool, tiers: bool = False):
     saved_qc = get_query_cache().enabled
     saved_available = bitblast.available
     args.probe_backend, args.prefilter, args.devsolver, args.query_cache = (
-        "jax", tiers, tiers, False,
+        "jax", tiers, tiers, query_cache,
     )
-    configure(enabled=False)
+    configure(enabled=query_cache)
     if not cdcl:
         bitblast.available = lambda: False
     clear_model_cache()
@@ -112,10 +115,30 @@ def port_no_tiers():
 
 
 @contextlib.contextmanager
-def port_device_backend(cdcl: bool = False, tiers: bool = False):
+def port_no_host_tiers():
+    """The port's static pass (and its interprocedural layer) and query
+    cache switched off, as the JAX package ran for every record made
+    before they were ported (``JAX_ENGINE_ARGS``, ``_jax_tiers``)."""
+    from mythril_tpu_torch.querycache import configure, get_query_cache
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = (args.staticpass, args.staticpass_interproc, args.query_cache)
+    saved_qc = get_query_cache().enabled
+    args.staticpass = args.staticpass_interproc = args.query_cache = False
+    configure(enabled=False)
+    try:
+        yield
+    finally:
+        args.staticpass, args.staticpass_interproc, args.query_cache = saved
+        configure(enabled=saved_qc)
+
+
+@contextlib.contextmanager
+def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool = False):
     """The port's solver with the device probe on and its caches cleared;
     its native CDCL off unless ``cdcl``, its prefilter and devsolver off
-    unless ``tiers``."""
+    unless ``tiers``, its static pass and query cache off unless
+    ``defaults``."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
     from mythril_tpu_torch.support.support_args import args
 
@@ -128,6 +151,8 @@ def port_device_backend(cdcl: bool = False, tiers: bool = False):
                 stack.enter_context(port_no_cdcl())
             if not tiers:
                 stack.enter_context(port_no_tiers())
+            if not defaults:
+                stack.enter_context(port_no_host_tiers())
             yield
     finally:
         args.probe_backend = saved
@@ -146,14 +171,18 @@ JAX_ENGINE_ARGS = dict(
 )
 
 
+# the JAX package's host tiers that ``jax_engine_config_defaults`` leaves on
+DEFAULT_ON = ("staticpass", "staticpass_interproc")
+
+
 @contextlib.contextmanager
-def _jax_engine(cdcl: bool, tiers: bool = False):
+def _jax_engine(cdcl: bool, tiers: bool = False, defaults: bool = False):
     from mythril_tpu.support.support_args import args
 
     saved = {k: getattr(args, k) for k in JAX_ENGINE_ARGS}
-    with _jax_tiers(cdcl, tiers):
+    with _jax_tiers(cdcl, tiers, query_cache=defaults):
         for k, v in JAX_ENGINE_ARGS.items():
-            setattr(args, k, v)
+            setattr(args, k, True if defaults and k in DEFAULT_ON else v)
         try:
             yield
         finally:
@@ -177,6 +206,14 @@ def jax_engine_config_tiers():
     """``jax_engine_config_cdcl`` with the JAX package's known-bits
     prefilter and devsolver on (its default budgets)."""
     return _jax_engine(cdcl=True, tiers=True)
+
+
+def jax_engine_config_defaults():
+    """``jax_engine_config_tiers`` with the JAX package's static pass, its
+    interprocedural layer and its query cache (in process, no disk store)
+    on; the pipeline, mesh, adaptive controller and harvest workers stay
+    off."""
+    return _jax_engine(cdcl=True, tiers=True, defaults=True)
 
 
 TIER_COUNTERS = {
@@ -217,6 +254,60 @@ def tier_counters(base: str) -> dict:
             for tier, names in TIER_COUNTERS.items()}
 
 
+def reset_host_tier_counters(base: str) -> None:
+    """Zero the ``staticpass.*`` and ``querycache.*`` counters of ``base``:
+    the port's module state, the JAX package's registry counters."""
+    import importlib
+
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        for prefix in ("staticpass.", "querycache."):
+            get_registry().reset(prefix=prefix)
+        return
+    importlib.import_module(f"{base}.staticpass").reset_counters()
+    importlib.import_module(f"{base}.querycache.cache").reset_counters()
+
+
+# counters that measure time, not work: never compared
+TIMED = ("wall_time_s",)
+
+
+def staticpass_counters(base: str) -> dict:
+    """The ``staticpass.*`` counters of ``base`` that are not zero, the
+    prefix left out (the timed ones too), with ``gate_disabled`` as
+    {reason: count}."""
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        snap = get_registry().snapshot(prefix="staticpass.")
+        snap.pop("staticpass.reachable_edge_pct", None)
+        disabled = snap.pop("staticpass.gate_disabled", {}) or {}
+        counts = {k.split(".", 1)[1]: v for k, v in snap.items()}
+    else:
+        import importlib
+
+        sp = importlib.import_module(f"{base}.staticpass")
+        counts, disabled = dict(sp.COUNTERS), dict(sp.GATE_DISABLED)
+    out = {k: v for k, v in sorted(counts.items()) if v and k not in TIMED}
+    out["gate_disabled"] = {k: v for k, v in sorted(disabled.items()) if v}
+    return out
+
+
+def querycache_counters(base: str) -> dict:
+    """The ``querycache.*`` counters of ``base`` (every name, the prefix
+    left out)."""
+    import importlib
+
+    cache = importlib.import_module(f"{base}.querycache.cache")
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        reg = get_registry()
+        return {n.split(".", 1)[1]: int(reg.counter(n).value or 0) for n in cache._COUNTERS}
+    return dict(cache.COUNTERS)
+
+
 def issue_key(issue) -> tuple:
     return (issue.swc_id, issue.address, issue.function, issue.severity, issue.title)
 
@@ -249,6 +340,8 @@ def _reset(base: str) -> None:
     stats = importlib.import_module(f"{base}.frontier.stats")
     engine = importlib.import_module(f"{base}.frontier.engine")
     txs = importlib.import_module(f"{base}.core.transaction.transaction_models")
+    staticpass = importlib.import_module(f"{base}.staticpass")
+    querycache = importlib.import_module(f"{base}.querycache")
 
     security.reset_callback_modules()
     for m in loader.ModuleLoader().get_detection_modules():
@@ -266,6 +359,13 @@ def _reset(base: str) -> None:
     devsolver.reset_state()
     admission.reset_state()
     reset_tier_counters(base)
+    # the static pass's summaries, report views and call graph, and the
+    # query cache's in-process layers, outlive an analysis too
+    staticpass.clear_cache()
+    staticpass.reset_views()
+    staticpass.get_callgraph().reset()
+    querycache.reset_query_cache()
+    reset_host_tier_counters(base)
 
 
 @contextlib.contextmanager
@@ -348,16 +448,18 @@ def counting_cdcl(base: str, into: dict):
 def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "dfs",
                  frontier: bool = False, force: bool = False, width: int = 64,
                  modules=None, timeout: int = 60, device="cpu", record: bool = True,
-                 cdcl: bool = False, tiers: bool = False) -> dict:
+                 cdcl: bool = False, tiers: bool = False, defaults: bool = False) -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
     ("mythril_tpu" under ``jax_engine_config``, ``jax_engine_config_cdcl``
     or ``jax_engine_config_tiers``, or "mythril_tpu_torch" on ``device``,
     its native CDCL on only when ``cdcl``, its prefilter and devsolver only
-    when ``tiers``) with every cache cleared first.  -> {"issues", "summary",
+    when ``tiers``, its static pass and query cache only when ``defaults``)
+    with every cache cleared first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
     "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
-    ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "seconds"
-    (wall, the digests' time excluded)}"""
+    ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "staticpass"
+    (``staticpass_counters``), "querycache" (``querycache_counters``),
+    "seconds" (wall, the digests' time excluded)}"""
     import importlib
     import time
 
@@ -382,6 +484,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                 stack.enter_context(port_no_cdcl())
             if port and not tiers:
                 stack.enter_context(port_no_tiers())
+            if port and not defaults:
+                stack.enter_context(port_no_host_tiers())
             stack.enter_context(counting_cdcl(base, native))
             t0 = time.perf_counter()
             sym = symbolic.SymExecWrapper(
@@ -407,6 +511,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
         },
         "cdcl": {"cdcl_calls": solver.SolverStatistics().cdcl_calls, **native},
         "tiers": tier_counters(base),
+        "staticpass": staticpass_counters(base),
+        "querycache": querycache_counters(base),
         "seconds": seconds,
     }
 
@@ -442,3 +548,23 @@ def engine_contracts() -> dict:
                           + "14" "15" "604757" "00" "5b33ff", 1, ["AccidentallyKillable"]),
         "kill_simple": (kill_simple.strip(), 2, None),
     }
+
+
+# KillBilly (bench.KILLBILLY) with a dead span after its last instruction:
+# a JUMPDEST no jump reaches, then an SSTORE, a JUMPI on calldata, and
+# CALLER SELFDESTRUCT.  The static pass proves the span unreachable, so the
+# frontier's tables drop its events (SSTORE, JUMPI and SELFDESTRUCT are
+# events everywhere else) and its JUMPDEST's loop slot.
+DEAD_SPAN = "5b" "6001" "6000" "55" "6000" "35" "6003" "57" "33" "ff" "00"
+
+
+def dead_code_contract() -> str:
+    """The runtime hex of KillBilly with ``DEAD_SPAN`` appended."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import bench
+
+    return bench.KILLBILLY + DEAD_SPAN
+

@@ -6,15 +6,20 @@ printed for each recorded command line, run with the JAX-only flags that pin
 it to the port's tiers (``JAX_PINS``: the forced device probe, and the static
 pass, pipeline, prefilter, devsolver, query cache, mesh, adaptive controller
 and harvest pool off; native CDCL on in both packages).  The port's argv gets
-``--no-prefilter --no-devsolver`` too (``port_argv``), as the JAX CLI ran.
-The runs named ``.../tiers`` were recorded with the prefilter and the
-devsolver on in the JAX CLI (``TIER_PINS``), and the port runs them with its
-own on, its default.  Under pytest the port's CLI replays the small runs (all
-but the bench contracts of ``CARD_ONLY``) in process
-with ``--device cpu``; its output must equal the JAX CLI's field by field
-(``differences``), except the issues' ``discoveryTime``, the wall-time
-fields of the execution info, the JAX package's calibration block and the
-report meta blocks of the surfaces the port does not carry yet
+the pins' switches that the port has too (``port_argv``: ``--no-prefilter
+--no-devsolver --no-staticpass --no-staticpass-interproc --no-query-cache``),
+as the JAX CLI ran.  The runs named ``.../tiers`` were recorded with the
+prefilter and the devsolver on in the JAX CLI (``TIER_PINS``), the runs named
+``.../defaults`` with the static pass and the query cache on as well
+(``DEFAULT_PINS``), and the port runs them with its own on, its default.  The
+``static/...`` runs are the ``static`` subcommand, which takes no pins, and
+``.../staticpass-report`` writes ``--staticpass-report``.  Under pytest the
+port's CLI replays the small runs (all but the bench contracts of
+``CARD_ONLY``) in process with ``--device cpu`` (``static`` has no device);
+its output must equal the JAX CLI's field by field (``differences``), except
+the issues' ``discoveryTime``, the wall-time fields of the execution info and
+of the static pass's reports (``wall_s``), the JAX package's calibration
+block and the report meta blocks of the surfaces the port does not carry yet
 (``JAX_ONLY_META``).  ``chip_smoke.py`` replays the bench runs the same way
 on the card.
 
@@ -55,10 +60,13 @@ JAX_PINS = [
 ]
 # the JAX CLI's pins for the runs recorded with its prefilter and devsolver on
 TIER_PINS = [a for a in JAX_PINS if a not in ("--no-prefilter", "--no-devsolver")]
+# ... and with its static pass and query cache on as well
+HOST_TIER_SWITCHES = ("--no-staticpass", "--no-staticpass-interproc", "--no-query-cache")
+DEFAULT_PINS = [a for a in TIER_PINS if a not in HOST_TIER_SWITCHES]
 # jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
-# deviations: the port's meta carries the execution info only)
+# deviations: the port's meta carries the execution info and the static pass)
 JAX_ONLY_META = {"device", "devsolver", "exploration", "frontier", "health", "observability",
-                 "prefilter", "staticpass"}
+                 "prefilter"}
 WALL_FIELDS = ("solver_time_s",)
 FRONTIER_WALL_FIELDS = ("segment_s", "harvest_s")
 # the file argument of --statespace-json and --graph in a recorded argv
@@ -66,9 +74,10 @@ OUT = "{out}"
 # replayed on the card (chip_smoke.py); every run but CARD_ONLY is small and
 # also replayed under pytest on the CPU
 BENCH = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
-         "kill_simple/frontier-256", "etherstore_like/frontier-256/tiers")
+         "kill_simple/frontier-256", "etherstore_like/frontier-256/tiers",
+         "etherstore_like/frontier-256/defaults")
 CARD_ONLY = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
-             "etherstore_like/frontier-256/tiers")
+             "etherstore_like/frontier-256/tiers", "etherstore_like/frontier-256/defaults")
 SMALL = tuple(r["name"] for r in json.loads(FIXTURE.read_text())["runs"]
               if r["name"] not in CARD_ONLY) if FIXTURE.is_file() else ()
 
@@ -83,10 +92,16 @@ def recorded_runs() -> list:
     transactions on a forced frontier of 256 paths; and with the JAX CLI's
     prefilter and devsolver on (``TIER_PINS``), ``kill_simple`` at two
     transactions on the host engine and ``etherstore_like`` on the forced
-    frontier of 256."""
+    frontier of 256; with its static pass and query cache on too
+    (``DEFAULT_PINS``), the same two, ``killbilly_2tx`` and the dead-code
+    contract (``_torch_parity.dead_code_contract``) on a forced frontier of
+    64, and ``kill_simple``'s ``--staticpass-report``; and ``static -o json``
+    on ``kill_simple`` and on KillBilly with its creation code, and ``static``
+    text on ``kill_simple``."""
     sys.path.insert(0, str(REPO))
     import bench_contracts
-    from tests._torch_parity import engine_contracts
+    from bench import KILLBILLY, KILLBILLY_CREATION
+    from tests._torch_parity import dead_code_contract, engine_contracts
 
     def analyze(code, tx, modules=None):
         return (["analyze", "-c", code, "--bin-runtime", "-t", str(tx)]
@@ -118,13 +133,36 @@ def recorded_runs() -> list:
     runs.append({"name": "etherstore_like/frontier-256/tiers", "pins": TIER_PINS,
                  "argv": analyze(bench["etherstore_like"], 2) + [
                      "-o", "jsonv2", *frontier, "--frontier-width", "256"]})
+    runs.append({"name": "kill_simple/host/defaults", "pins": DEFAULT_PINS,
+                 "argv": analyze(contracts["kill_simple"][0], 2) + ["-o", "jsonv2"]})
+    runs.append({"name": "etherstore_like/frontier-256/defaults", "pins": DEFAULT_PINS,
+                 "argv": analyze(bench["etherstore_like"], 2) + [
+                     "-o", "jsonv2", *frontier, "--frontier-width", "256"]})
+    for name, code in (("killbilly_2tx", KILLBILLY), ("dead_code", dead_code_contract())):
+        runs.append({"name": f"{name}/frontier/defaults", "pins": DEFAULT_PINS,
+                     "argv": analyze(code, 2) + ["-o", "jsonv2", *frontier]})
+    runs.append({"name": "kill_simple/host/staticpass-report", "pins": DEFAULT_PINS,
+                 "argv": analyze(contracts["kill_simple"][0], 2) + [
+                     "-o", "json", "--staticpass-report", OUT]})
+    static = ["static", "-c", contracts["kill_simple"][0], "--bin-runtime"]
+    runs.append({"name": "static/kill_simple/json", "pins": [], "argv": static + ["-o", "json"]})
+    runs.append({"name": "static/kill_simple/text", "pins": [], "argv": static})
+    runs.append({"name": "static/killbilly-creation/json", "pins": [],
+                 "argv": ["static", "-c", KILLBILLY_CREATION, "-o", "json"]})
     return runs
 
 
 def port_argv(run: dict) -> list:
     """A recorded run's argv for the port: the JAX pins' tier switches that
-    the port has (the prefilter's and the devsolver's) added."""
-    return run["argv"] + [a for a in ("--no-prefilter", "--no-devsolver") if a in run["pins"]]
+    the port has (the prefilter's, the devsolver's, the static pass's and
+    the query cache's) added."""
+    return run["argv"] + [a for a in ("--no-prefilter", "--no-devsolver", *HOST_TIER_SWITCHES)
+                          if a in run["pins"]]
+
+
+def device_of(run: dict):
+    """The ``--device`` the port's replay passes: none for ``static``."""
+    return None if run["argv"][0] == "static" else "cpu"
 
 
 def load_runs() -> dict:
@@ -180,9 +218,22 @@ def _paths(a, b, path="") -> list:
     return [] if a == b else [f"{path}: JAX {json.dumps(a)[:200]} port {json.dumps(b)[:200]}"]
 
 
+def without_walls(value):
+    """A static-pass report (``static -o json``, ``--staticpass-report``)
+    without its ``wall_s`` fields."""
+    if isinstance(value, dict):
+        return {k: without_walls(v) for k, v in value.items() if k != "wall_s"}
+    if isinstance(value, list):
+        return [without_walls(v) for v in value]
+    return value
+
+
 def differences(outform: str, jax_out: str, port_out: str) -> list:
     """Where the port's CLI output differs from the JAX CLI's; [] when equal
-    field by field up to the exceptions in the module docstring."""
+    field by field up to the exceptions in the module docstring
+    (``outform`` "static" for a static-pass JSON document)."""
+    if outform == "static":
+        return _paths(without_walls(json.loads(jax_out)), without_walls(json.loads(port_out)))[:10]
     if outform == "jsonv2":
         return _paths(_jsonv2_normalized(_last_json_line(jax_out), jax=True),
                       _jsonv2_normalized(_last_json_line(port_out), jax=False))[:10]
@@ -225,16 +276,27 @@ def _mythril_dir(tmp_path, monkeypatch):
     monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path / "mythril"))
 
 
+def compare(run: dict, rc: int, out: str) -> list:
+    """Where a replay of ``run`` (exit code, output or exported file)
+    differs from the recorded JAX CLI run; [] when equal."""
+    if rc != run["rc"]:
+        return [f"exit {rc} != {run['rc']}"]
+    if "--staticpass-report" in run["argv"]:
+        return differences("static", run["file"], out)
+    if OUT in run["argv"]:
+        return [] if out == run["file"] else ["exported file differs"]
+    if run["argv"][0] == "static" and outform_of(run["argv"]) == "json":
+        return differences("static", run["stdout"], out)
+    return differences(outform_of(run["argv"]), run["stdout"], out)
+
+
 @pytest.mark.parametrize("name", SMALL)
 def test_port_cli_equals_jax_cli(name):
     run = load_runs()[name]
-    rc, out = run_port(port_argv(run))
+    rc, out = run_port(port_argv(run), device=device_of(run))
     assert rc == run["rc"] == 0
-    if OUT in run["argv"]:
-        assert out == run["file"]
-    else:
-        assert differences(outform_of(run["argv"]), run["stdout"], out) == []
-    if name.endswith("/tiers"):
+    assert compare(run, rc, out) == []
+    if name.endswith(("/tiers", "/defaults")):
         assert tier_counter_differences(run) == []
 
 
@@ -258,6 +320,18 @@ def test_fixture_holds_the_runs_it_names():
     for name in ("kill_simple/host/tiers", "etherstore_like/frontier-256/tiers"):
         meta = _last_json_line(runs[name]["stdout"])[0]["meta"]
         assert meta["prefilter"]["evaluated"] > 0 and meta["devsolver"]["admitted"] > 0
+    # the defaults runs' reports show the static pass at work, the pinned
+    # runs' show it off
+    for name, run in runs.items():
+        if outform_of(run["argv"]) != "jsonv2" or OUT in run["argv"]:
+            continue
+        meta = _last_json_line(run["stdout"])[0]["meta"]["staticpass"]
+        assert (meta["contracts"] > 0) == name.endswith("/defaults"), name
+    assert _last_json_line(runs["dead_code/frontier/defaults"]["stdout"])[0][
+        "meta"]["staticpass"]["modules_skipped"]
+    report = json.loads(runs["static/killbilly-creation/json"]["stdout"])
+    assert [c["is_creation"] for c in report["contracts"][0]["codes"]] == [True]
+    assert json.loads(runs["kill_simple/host/staticpass-report"]["file"])["contracts"]
     # kill_simple's exploit calls kill() at the last step
     for name in ("kill_simple/frontier-256", "kill_simple/host"):
         issues = _last_json_line(runs[name]["stdout"])[0]["issues"]
@@ -330,12 +404,12 @@ def test_runs_without_switches_are_accepted_and_named():
     from mythril_tpu_torch.interfaces import cli
 
     parsed = cli.create_parser().parse_args(
-        ["analyze", "-c", "0x00", "--no-pipeline", "--no-staticpass"])
+        ["analyze", "-c", "0x00", "--no-pipeline", "--no-adaptive"])
     line = cli.runs_without_line(parsed)
     for tier, _item in cli.RUNS_WITHOUT.values():
         assert tier in line
-    assert line.endswith("switched off on the command line: the static pass, "
-                         "the pipelined frontier")
+    assert line.endswith("switched off on the command line: the pipelined frontier, "
+                         "the adaptive controller")
     for action in _subcommands(cli.create_parser())["analyze"]._actions:
         if action.dest in cli.RUNS_WITHOUT:
             item = cli.RUNS_WITHOUT[action.dest][1]
@@ -354,7 +428,7 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
     (CLEAN + ["--coverage-target=90"], 5),
     (CLEAN + ["--harvest-workers", "0"], 11),
     (CLEAN + ["--probe-backend", "auto"], 10),
-    (["static", "-c", "0x60006000f3"], 3),
+    (["serve", "--port", "7396"], 13),
     (["c", "input.json", "--branches", "1"], 4),
 ], ids=["value-option", "value-option-eq", "non-default-workers", "probe-backend-auto",
         "subcommand", "subcommand-alias"])
@@ -406,6 +480,41 @@ def test_prefilter_and_devsolver_switches_are_real(monkeypatch):
     assert seen == [(False, False, 32, 100), (True, True, 64, 2048)]
     assert (args.prefilter, args.devsolver, args.devsolver_bit_budget,
             args.devsolver_iters) == (True, True, 64, 2048)
+
+
+def test_static_pass_and_query_cache_switches_are_real(tmp_path):
+    """``analyze`` runs the static pass and the query cache by default;
+    ``--no-staticpass``, ``--no-staticpass-interproc`` and
+    ``--no-query-cache`` switch them off, ``--query-cache-dir`` adds the
+    disk store and ``--staticpass-report`` writes the report; none is
+    refused, and ``main`` restores the flags and the cache."""
+    from mythril_tpu_torch import querycache, staticpass
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.querycache.cache import COUNTERS
+    from mythril_tpu_torch.support.support_args import args
+
+    kill = ["analyze", "-c", KILL_SIMPLE.read_text().strip(), "--bin-runtime", "-t", "1",
+            "-o", "json"]
+    report, qc_dir = tmp_path / "static.json", tmp_path / "qc"
+    real = ["--staticpass-report", str(report), "--query-cache-dir", str(qc_dir)]
+    assert cli.screen(kill + real) == kill + real
+    static = ["static", "-c", "0x60006000f3", "--bin-runtime", "-o", "json"]
+    assert cli.screen(static) == static
+    assert not {"static", "--staticpass-report", "--query-cache-dir"} & set(cli.NOT_YET_PORTED)
+    seen = []
+    for extra in (real, ["--no-staticpass", "--no-query-cache"], ["--no-staticpass-interproc"]):
+        rc, out = run_port(kill + extra)
+        assert rc == 0 and len(json.loads(out)["issues"]) == 1
+        seen.append((staticpass.COUNTERS.get("contracts", 0),
+                     staticpass.COUNTERS.get("interproc_refined", 0), COUNTERS["lookups"] > 0))
+    assert seen == [(1, 1, True), (0, 0, False), (1, 0, True)]
+    written = json.loads(report.read_text())
+    assert written["contracts"][0]["codes"][0]["interproc"] is True
+    assert any(qc_dir.rglob("*.json"))
+    assert (args.staticpass, args.staticpass_interproc, args.query_cache,
+            args.query_cache_dir) == (True, True, True, None)
+    qc = querycache.get_query_cache()
+    assert qc.enabled and not qc.stats()["disk"]
 
 
 def test_analyze_without_a_card_fails(monkeypatch, capsys):

@@ -9,7 +9,7 @@ machine need not have):
 
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes, and
 the whole analysis on every recorded engine run, without and with native
-CDCL.
+CDCL, under the solver tiers and under the default host tiers.
 """
 
 import json
@@ -330,6 +330,21 @@ def test_engine_runs_rubixi_under_the_tiers_on_card(card):
     assert check_run(run, got) == []
     assert kb_device.launches - before[0] == run["kb_passes"] > 0
     assert dpll_device.launches - before[1] == run["dpll_planes"] > 0
+
+
+def test_engine_runs_the_dead_code_contract_under_the_defaults_on_card(card):
+    """The whole analysis on the card with the static pass and the query
+    cache on: the JAX package's recorded frontier run of the dead-code
+    contract (issues, dispatch digests, every counter), one segment launch
+    per dispatch."""
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_engine_defaults import check_run, load_runs, run_port
+
+    run = next(r for r in load_runs() if r["name"] == "dead_code" and r["frontier"])
+    before = step.launches
+    got = run_port(run, None)
+    assert check_run(run, got) == []
+    assert step.launches - before == len(run["dispatches"]) > 0
 
 
 def _lowering_on_card(card, conj, inputs):
