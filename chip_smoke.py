@@ -3,11 +3,16 @@
 probe (the tape VM and the per-conjunction lowering), the device frontier
 segment and the whole analysis around them,
 without and with the native CDCL tier, under the solver's default
-prefilter and devsolver tiers, and under the default host tiers (the static
-pass and the query cache).  Every phase before 8e holds the port with the
-static pass, its interprocedural layer and the query cache off
+prefilter and devsolver tiers, under the default host tiers (the static
+pass and the query cache), and pipelined (chained segments on a stream of
+their own, delta pulls, the feasibility pool and the replay workers).
+Every phase before 8e holds the port with the static pass, its
+interprocedural layer and the query cache off
 (``tests/_torch_parity.port_no_host_tiers``, ``test_torch_cli.port_argv``),
-as the JAX package ran when those runs were recorded.
+and every phase but 8f and 8c's ``python -m`` run with the synchronous
+frontier loop and a serial harvest (``port_no_pipeline``, ``--no-pipeline
+--harvest-workers 0``), as the JAX package ran when those runs were
+recorded.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -141,6 +146,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    the contract where 8d has one; then ``python -m mythril_tpu_torch
    static -o json`` on ``kill_simple`` and on KillBilly's creation code,
    each equal to the JAX CLI's recorded report but for its wall times;
+8f. the pipelined frontier: every run of
+   ``tests/testdata/torch_engine_runs_pipeline.json`` (``etherstore_like``
+   at widths 256 and 64 and ``rubixi_like`` at 256 with 2 transactions,
+   ``kill_simple`` and the storage-gated contract at 64, ``bench``'s wide
+   (1024) and largecode (256) contracts), recorded from the JAX package's
+   default engine on one device (the pipeline, two feasibility workers, four
+   replay workers, CDCL, the solver and host tiers; no mesh, no adaptive
+   controller), run on the card in turns, pipelined, with
+   ``--no-pipeline`` twice, pipelined again, in the same process: the
+   issues equal to the recording's and to the three other runs',
+   ``segments_pipelined >
+   0`` on every run of two or more segments and, where no path was rolled
+   back, the recording's segments and dispatch-sequence counters
+   (``test_torch_pipeline.check_run``), one segment launch per segment; per
+   run the four walls, ``segments_pipelined``,
+   ``overlap_segments``, ``bubble_s``, ``overlap_s``, the delta pulls and
+   their bytes beside the bytes full pulls of the same mirrors would have
+   copied, the carried and corrected slots and the pool's submitted, dedup
+   and rollback counts; ``etherstore_like`` at 256 in both modes under
+   ``torch.profiler`` for the card's idle share; then one segment chained
+   on a recorded dispatch (``etherstore_like`` and the wide contract) under
+   ``torch.cuda.set_sync_debug_mode("error")``, its merged input and outputs
+   equal to the plain merge and ``segment_torch`` on the CPU, its delta
+   pull equal to its full pull; then the recorded ``analyze --frontier``
+   command line with the pipeline on against the JAX CLI's report;
 8c. the command line: ``interfaces.cli.main`` in process, with no
    ``--device`` (the card), on the recorded command lines of
    ``tests/testdata/torch_cli_runs.json`` for ``etherstore_like``,
@@ -159,8 +189,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
    on ``kill_simple`` in a process of its own, which must exit 0 with the
    ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
-   limit, which must be refused before any launch (phases 8d and 8e run
-   before 8c, for the walls it prints);
+   limit, which must be refused before any launch (phases 8d, 8e and 8f
+   run before 8c, for the walls it prints);
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -1616,9 +1646,6 @@ def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False,
                       tiers: bool = False):
     """One frontier run of an engine phase again under ``torch.profiler``:
     the card's busy time over the run's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tests import test_torch_engine_cdcl, test_torch_engine_fixture, test_torch_engine_tiers
 
     fixture = (test_torch_engine_tiers if tiers else
@@ -1626,25 +1653,8 @@ def engine_idle_share(torch, name: str = "bectoken_like", cdcl: bool = False,
     under = " under the default solver tiers" if tiers else " under native CDCL" if cdcl else ""
     phase(f"engine idle share{under}: {name} (frontier) under torch.profiler")
     run = next(r for r in fixture.load_runs() if r["name"] == name and r["frontier"])
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            got = fixture.run_port(run, None, record=False)
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    except Exception as e:  # a measurement only: the run itself was checked above
-        print(f"  not measured: {type(e).__name__}: {e}")
-        return None
-    if not device:
-        print("  not measured: the profiler recorded no device time")
-        return None
-    wall_ms = got["seconds"] * 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"  wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.6f}; by kernel: "
-          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
-    return {"run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms}
+    idle = profiled_idle_share(torch, lambda: fixture.run_port(run, None, record=False))
+    return None if idle is None else {"run": name, **idle}
 
 
 def wrapper_seconds(torch, argv) -> float:
@@ -1664,12 +1674,15 @@ def wrapper_seconds(torch, argv) -> float:
 
     p = cli.create_parser().parse_args(argv)
     fields = ("frontier", "frontier_force", "frontier_width", "prefilter", "devsolver",
-              "staticpass", "staticpass_interproc", "query_cache")
+              "staticpass", "staticpass_interproc", "query_cache", "pipeline", "solver_workers",
+              "harvest_workers")
     saved = tuple(getattr(args, f) for f in fields)
     (args.frontier, args.frontier_force, args.frontier_width, args.prefilter, args.devsolver,
-     args.staticpass, args.staticpass_interproc, args.query_cache) = (
+     args.staticpass, args.staticpass_interproc, args.query_cache, args.pipeline,
+     args.solver_workers, args.harvest_workers) = (
         p.frontier, p.frontier_force, p.frontier_width, p.prefilter, p.devsolver,
-        not p.no_staticpass, not p.no_staticpass_interproc, not p.no_query_cache)
+        not p.no_staticpass, not p.no_staticpass_interproc, not p.no_query_cache, p.pipeline,
+        p.solver_workers, p.harvest_workers)
     configure(enabled=args.query_cache)
     _reset("mythril_tpu_torch")
     cfg.gbl_next_uid[0] = 0
@@ -1685,6 +1698,186 @@ def wrapper_seconds(torch, argv) -> float:
         for f, v in zip(fields, saved):
             setattr(args, f, v)
         configure(enabled=args.query_cache)
+
+
+# phase 8f's run under torch.profiler in both modes
+PIPELINE_PROFILED = "etherstore_like/256"
+# the recorded dispatches phase 8f chains a segment on
+PIPELINE_CHAINED = (("etherstore_like", 0), ("wide_contract_10", 0))
+
+
+@contextlib.contextmanager
+def counting_pulls(into: collections.Counter):
+    """Count every ``step.pull_harvest`` of the runs inside: ``delta`` and
+    ``full`` pulls, the bytes each delta pull copied (``delta_bytes``, from
+    ``pipeline.COUNTERS``) and the bytes a full pull of the same mirror
+    would have copied (``full_bytes_for_delta``)."""
+    from mythril_tpu_torch.frontier import pipeline
+    from mythril_tpu_torch.frontier import step as fstep
+    from tests.test_torch_pipeline import full_pull_bytes
+
+    orig = fstep.pull_harvest
+
+    def counted(*a, prev=None, **kw):
+        before = pipeline.COUNTERS["delta_pull_bytes"]
+        out = orig(*a, prev=prev, **kw)
+        if prev is None:
+            into["full"] += 1
+        else:
+            into["delta"] += 1
+            into["delta_bytes"] += pipeline.COUNTERS["delta_pull_bytes"] - before
+            into["full_bytes_for_delta"] += full_pull_bytes(out[0])
+        return out
+
+    fstep.pull_harvest = counted
+    try:
+        yield into
+    finally:
+        fstep.pull_harvest = orig
+
+
+def profiled_idle_share(torch, fn, indent: str = "  ") -> Optional[dict]:
+    """``fn()`` (an analysis: -> its result with "seconds") under
+    ``torch.profiler``: prints and returns the card's busy time over the
+    wall, with the kernels that took the most, or None with the reason
+    printed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    except Exception as e:  # a measurement only: the runs themselves were checked
+        print(f"{indent}not measured: {type(e).__name__}: {e}")
+        return None
+    if not device:
+        print(f"{indent}not measured: the profiler recorded no device time")
+        return None
+    wall_ms = got["seconds"] * 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{indent}wall {wall_ms:.1f} ms (profiled), device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.6f}; by kernel: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
+
+
+def pipeline_runs(torch, card: str):
+    """Phase 8f (see the module docstring) -> (summed launches of the
+    pipelined runs, per-run rows)."""
+    import os
+    import tempfile
+
+    from mythril_tpu_torch.frontier import pipeline
+    from mythril_tpu_torch.frontier.harvest import shutdown_replay_pool
+    from tests import test_torch_cli as T
+    from tests import test_torch_pipeline as P
+
+    phase("pipelined frontier: the port's pipelined analysis on the card against the recorded "
+          "JAX pipeline, beside the same run with --no-pipeline")
+    t_phase = time.perf_counter()
+    total, rows = collections.Counter(), []
+    for run in P.load_runs():
+        label = P.label(run["name"], run["width"])
+        zero_launches()
+        pulls = collections.Counter()
+        with counting_pulls(pulls):
+            got = P.run_port(run, None)  # no device: the card
+            torch.cuda.synchronize()
+        launches = read_launches()
+        total.update(launches)
+        zero_launches()
+        off = P.run_port(run, None, pipeline=False)
+        torch.cuda.synchronize()
+        off_launches = read_launches()
+        # the modes in turns (pipelined, --no-pipeline, --no-pipeline,
+        # pipelined), so that neither wall pair favours the mode run second
+        off2 = P.run_port(run, None, pipeline=False)
+        got2 = P.run_port(run, None)
+        walls = [got["seconds"], got2["seconds"]]
+        off_walls = [off["seconds"], off2["seconds"]]
+        pc, f = got["pipeline"], got["frontier"]
+        bad = P.check_run(run, got)
+        row = {"run": label, "wall_s": walls, "no_pipeline_wall_s": off_walls,
+               "issues": len(got["summary"]), "segments": f["segments"],
+               "no_pipeline_segments": off["frontier"]["segments"],
+               "segment_launches": launches["frontier_segment"],
+               "no_pipeline_segment_launches": off_launches["frontier_segment"],
+               "launches": launches, "pipeline": pc, "pulls": dict(pulls),
+               "jax_pipeline": run["pipeline"], "held_exactly": not bad, "card": card}
+        rows.append(row)
+        print(f"  {label}: in turns pipelined {walls[0]:.3f} s, --no-pipeline {off_walls[0]:.3f} "
+              f"and {off_walls[1]:.3f} s, pipelined {walls[1]:.3f} s ({card}); "
+              f"{len(got['summary'])} issues (recorded {len(run['summary'])}, "
+              f"--no-pipeline {len(off['summary'])}); segments {f['segments']} (launches "
+              f"{launches['frontier_segment']}), --no-pipeline {off['frontier']['segments']}")
+        print(f"    segments_pipelined {pc['segments_pipelined']}, overlap_segments "
+              f"{pc['overlap_segments']}, bubble_s {pc['bubble_s']:.4f}, overlap_s "
+              f"{pc['overlap_s']:.4f}; delta pulls {pc['delta_pulls']} of {pc['delta_pull_bytes']}"
+              f" bytes against {pulls['full_bytes_for_delta']} bytes as full pulls, full pulls "
+              f"{pulls['full']}; carried {pc['carried_slots']}, corrected {pc['corrected_slots']}"
+              f"; pool submitted {pc['pool_submitted']}, dedup {pc['pool_inflight_dedup']}, "
+              f"prefilter kills {pc['pool_prefilter_kills']}, rollbacks "
+              f"{pc['pool_unsat_rollbacks']} UNSAT / {pc['orphan_rollbacks']} orphan; launches "
+              f"{launches}")
+        check(not bad, f"{label}: differs from the recorded JAX pipeline: {bad[:3]}")
+        for again, mode in ((off, "--no-pipeline"), (off2, "--no-pipeline, again"),
+                            (got2, "pipelined, again")):
+            check(not P.summary_differences(again["summary"], got["summary"]),
+                  f"{label}: the issues differ ({mode})")
+        check(launches["frontier_segment"] == f["segments"] > 0,
+              f"{label}: {launches['frontier_segment']} segment launches for {f['segments']} "
+              "segments")
+        check(pulls["delta"] == pc["delta_pulls"] and pulls["delta_bytes"] == pc["delta_pull_bytes"],
+              f"{label}: delta pulls {dict(pulls)} against the counters {pc}")
+        if label == PIPELINE_PROFILED:
+            for mode, on in (("pipelined", True), ("--no-pipeline", False)):
+                print(f"    {mode} under torch.profiler:")
+                row[f"idle_{'pipelined' if on else 'no_pipeline'}"] = profiled_idle_share(
+                    torch, lambda: P.run_port(run, None, pipeline=on), indent="      ")
+    shutdown_replay_pool()
+    # one segment chained on a recorded dispatch: no host read on the way
+    # (sync debug mode "error"), the merged input and the outputs equal to
+    # the plain merge and segment, the delta pull equal to the full pull
+    for name, index in PIPELINE_CHAINED:
+        d = P.recorded_dispatch(name, index)
+        P.chained_dispatch(d, "cuda")  # the pinned pools and the library outside the check
+        zero_launches()
+        got = P.chained_dispatch(d, "cuda", sync_debug=True)
+        launches = read_launches()
+        print(f"  {name} dispatch {index} and one chained segment ({got['corrected']} slots "
+              f"corrected) under set_sync_debug_mode(\"error\"): merged input "
+              f"{'equal' if got['in'] == got['plain_in'] else 'DIFFERENT'}, outputs "
+              f"{'equal' if got['out'] == got['plain_out'] else 'DIFFERENT'} to the plain "
+              f"version; delta pull {'equal' if got['delta_equal'] else 'DIFFERENT'} to the full "
+              f"pull, {got['delta_bytes']} bytes against {got['full_bytes']}")
+        check(launches["frontier_segment"] == 2, f"{name}: launches {launches}")
+        check(got["in"] == got["plain_in"], f"{name}: the chained input differs from the plain merge")
+        check(got["out"] == got["plain_out"], f"{name}: the chained segment differs from the plain one")
+        check(got["delta_equal"], f"{name}: the delta pull differs from the full pull")
+        rows.append({"run": f"chained {name}/{index}", **{k: got[k] for k in (
+            "corrected", "delta_bytes", "full_bytes")}, "card": card})
+    # one command line with the pipeline on, against the JAX CLI's record
+    os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
+    name = "etherstore_like/frontier-256/pipeline"
+    record = T.load_runs()[name]
+    pipeline.reset_counters()
+    zero_launches()
+    t0 = time.perf_counter()
+    rc, out = T.run_port(T.port_argv(record), device=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    diffs = T.differences("jsonv2", record["stdout"], out)
+    print(f"  CLI {name}: exit {rc} in {wall:.3f} s, differences from the JAX CLI {diffs}; "
+          f"segments_pipelined {pipeline.COUNTERS['segments_pipelined']}; launches {launches}")
+    check(rc == 0 and not diffs, f"{name}: the report differs from the JAX CLI's: {diffs[:3]}")
+    check(pipeline.COUNTERS["segments_pipelined"] > 0, f"{name}: no chained segment")
+    rows.append({"run": f"CLI {name}", "cli_wall_s": wall, "launches": launches, "card": card})
+    print(f"  phase 8f took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), rows
 
 
 def cli_runs(torch, card: str, engine_rows: list, tier_rows: list, default_rows: list):
@@ -2081,6 +2274,9 @@ def main() -> int:
         d_launches, d_rows = defaults_runs(torch, card, t_rows)
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
             check(d_launches[name] > 0, f"the engine's default-tier runs launched {name} no time")
+        p_launches, p_rows = pipeline_runs(torch, card)
+        for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
+            check(p_launches[name] > 0, f"the pipelined runs launched {name} no time")
         cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows, d_rows)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment", "known_bits", "dpll"):
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
@@ -2156,12 +2352,14 @@ def main() -> int:
                 "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
                 "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
                 "engine_tiers": t_launches[entry["name"]],
-                "engine_defaults": d_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
+                "engine_defaults": d_launches[entry["name"]],
+                "engine_pipeline": p_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
         known_bits["engine_tiers"] = {"runs": t_rows, "idle_share": t_idle}
         frontier["engine_defaults"] = {"runs": d_rows}
+        frontier["engine_pipeline"] = {"runs": p_rows}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

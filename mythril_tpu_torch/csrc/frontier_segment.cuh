@@ -132,8 +132,12 @@ struct SegArgs {
   // scratch: free_list [B]; fkeys [B, 2]; grants [B, GRANT_W] (-1 on
   // entry); cnt [2, 4 * blocks]; out [3]: arena_len, n_exec, max_live
   int32_t *free_list, *fkeys, *grants, *cnt, *out;
+  // the arena length the segment starts from, read from memory when the
+  // segment starts: a chained segment reads its predecessor's out[0], so
+  // the host never waits for that value before queueing the launch
+  const int32_t* arena_len0;
   int32_t B, STK, MEM, STO, CON, EVT, R, K, ARENA, NL, T, C, N, A, Cv, Iv;
-  int32_t arena_len0, max_depth, loop_bound, row_zero, row_one, sel_mode, k_limit;
+  int32_t max_depth, loop_bound, row_zero, row_one, sel_mode, k_limit;
 };
 
 // ---- XLA's int32 and index rules ------------------------------------------
@@ -1235,7 +1239,7 @@ __host__ __device__ __forceinline__ void lane_counts(Lane& l, const Tally& t, co
 template <class X>
 __host__ __device__ __forceinline__ void run_segment(X& x, const SegArgs& s) {
   const int32_t k = s.k_limit < s.K ? s.k_limit : s.K;
-  int32_t arena_len = s.arena_len0, n_exec = 0, max_live = 0;
+  int32_t arena_len = *s.arena_len0, n_exec = 0, max_live = 0;
   x.begin();
   x.publish(0);
   x.sync();

@@ -3,10 +3,11 @@
 The port's counterpart of ``mythril_tpu/devsolver/admission.py``, edited
 down to the per-point give-up rule.  The JAX module also always admits the
 top points of the solver-hotspot ledger (``observability/exploration``);
-the port has no such ledger yet (ROADMAP Queue A), so that rule is left
-out.  ``point_context`` has no caller until the pipelined frontier
-(Queue A), so every query carries the empty point and is admitted, as in
-the JAX package without the pipeline.
+the port has no such ledger yet (ROADMAP Queue A item 5), so that rule is
+left out.  ``point_context``'s caller is the pipelined frontier's
+feasibility pool (``frontier/pipeline.py`` ``FeasibilityPool._work``): its
+queries carry their JUMPI's point; every other query carries the empty
+point and is admitted.
 
 Structural admission (does the query blast to <= budget free bits?) is
 decided inside ``devsolver.blaster``; this module decides whether a query

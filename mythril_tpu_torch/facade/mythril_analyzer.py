@@ -67,6 +67,9 @@ class AnalyzerArgs:
     devsolver: bool = True
     devsolver_bit_budget: int = 64
     devsolver_iters: int = 2048
+    pipeline: bool = True
+    solver_workers: int = 2
+    harvest_workers: int = 4
 
 
 class MythrilAnalyzer:

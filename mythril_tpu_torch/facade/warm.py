@@ -55,6 +55,9 @@ def apply_analyzer_args(cmd_args) -> None:
     args.code_page_budget = cmd_args.code_page_budget
     args.prefilter = cmd_args.prefilter
     args.devsolver = cmd_args.devsolver
+    args.pipeline = cmd_args.pipeline
+    args.solver_workers = cmd_args.solver_workers
+    args.harvest_workers = cmd_args.harvest_workers
     from mythril_tpu_torch import devsolver
 
     devsolver.configure(bit_budget=cmd_args.devsolver_bit_budget, iters=cmd_args.devsolver_iters)

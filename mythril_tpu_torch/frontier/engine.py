@@ -22,15 +22,17 @@ addressing, cap overflows) degrades gracefully: the path is parked with its
 exact machine state and the ordinary host engine picks it up — the frontier
 is a fast path, never a semantics fork.
 
-The port runs the JAX package's synchronous loop on one device: the
-segment is the CUDA kernel (``csrc/frontier_segment.cu``) when the laser's
-device is the card and its plain PyTorch version when the caller asked for
-the CPU.  The code tables, the arena and the coverage planes are copied to
-the device once per run (the tables again only at a page-fault repack); an
-error in a transfer, the kernel or the engine propagates to the caller.
-Not carried yet: the pipelined runner, the mesh, the static pass, the
-adaptive controller, the link calibration (the gates use the JAX package's
-uncalibrated constants) and the microbenchmark.
+The port runs the JAX package's loops on one device: the pipelined runner
+(``frontier/pipeline.py``, ``args.pipeline``, the default) or the
+synchronous loop (``--no-pipeline``); the segment is the CUDA kernel
+(``csrc/frontier_segment.cu``) when the laser's device is the card and its
+plain PyTorch version when the caller asked for the CPU.  The code tables,
+the arena and the coverage planes are copied to the device once per run
+(the tables again only at a page-fault repack); an error in a transfer,
+the kernel or the engine propagates to the caller, and nothing falls back
+from the pipeline to the synchronous loop.  Not carried yet: the mesh
+(ROADMAP item 12), the adaptive controller (item 5) and the link
+calibration (the gates use the JAX package's uncalibrated constants).
 """
 
 from __future__ import annotations
@@ -158,6 +160,28 @@ def _jumpi_count(code) -> int:
             _jumpi_count_cache.clear()
         _jumpi_count_cache[key] = got
     return got
+
+
+_code_tag_cache: Dict[object, str] = {}
+
+
+def _code_tag(code) -> str:
+    """Short codehash prefix for program-point labels (the feasibility
+    pool's devsolver admission)."""
+    key = _code_key(code)
+    tag = _code_tag_cache.get(key)
+    if tag is None:
+        bytecode = getattr(code, "bytecode", b"") or b""
+        if bytecode:
+            from mythril_tpu_torch.support.support_utils import get_code_hash
+
+            tag = get_code_hash(bytecode.hex())[:10]
+        else:
+            tag = "?"
+        if len(_code_tag_cache) >= 4096:
+            _code_tag_cache.clear()
+        _code_tag_cache[key] = tag
+    return tag
 
 
 def _strategy_chain(laser):
@@ -901,6 +925,31 @@ class FrontierEngine:
             if live == 0 and not seed_queue:
                 skip_loop = True  # nothing left for the floored program
 
+        if not skip_loop and args.pipeline:
+            # one device: the pipelined runner drives the loop (the mesh,
+            # with which the JAX package composes it, is not ported)
+            from mythril_tpu_torch.frontier.pipeline import PipelinedRunner
+
+            runner = PipelinedRunner(
+                self, st=st, records=records, walker=walker, arena=arena,
+                ev_seen=ev_seen, seeds=seeds, lasers=lasers, ctxs=ctxs,
+                seed_code_idx=seed_code_idx, mid_enc=mid_enc, seed_queue=seed_queue, statics=statics,
+                beam=beam, tables=tables, table_code=table_code,
+                table_idx=table_idx, segment=segment, code_dev=code_dev,
+                cfg=cfg, dev_arena=dev_arena, arena_len=arena_len,
+                visited=visited, deadline=deadline,
+                program_key=program_key, program_warm=program_warm,
+                repack_fn=self._maybe_repack,
+            )
+            runner.run()
+            st = runner.st
+            executed = runner.executed + executed
+            arena_len = runner.arena_len
+            visited = runner.visited
+            max_live = max(max_live, runner.max_live)
+            slow_bailed = runner.slow_bailed
+            width_verdict_valid = runner.width_verdict_valid
+            skip_loop = True
         while not skip_loop:
             if time.perf_counter() > deadline or time_handler.time_remaining() <= 0:
                 log.info("frontier: execution timeout; parking live paths")
@@ -1067,10 +1116,15 @@ class FrontierEngine:
     # ------------------------------------------------------------------
 
     def _harvest(self, st: FrontierState, records, walker: Walker,
-                 ev_seen: np.ndarray) -> None:
+                 ev_seen: np.ndarray, pipe=None) -> None:
         """Ingest, prune, replay and commit one pulled segment
-        (frontier/harvest.py)."""
-        _harvest.harvest(self, st, records, walker, ev_seen)
+        (frontier/harvest.py: the replay pool of ``args.harvest_workers``;
+        0 replays inline).  ``pipe`` is the PipelinedRunner when the
+        pipelined loop drives this harvest: slot mutations are reported to
+        its correction ledger (so they ride the next chained dispatch) and
+        feasibility checks go to its background pool instead of blocking
+        here."""
+        _harvest.HarvestExecutor(self).harvest(st, records, walker, ev_seen, pipe)
 
     def _lineage_constraint_rows(self, rec) -> List[int]:
         """Arena rows of the branch conditions appended along this path
@@ -1169,7 +1223,7 @@ class FrontierEngine:
                 )
 
     def _prune_running(self, st: FrontierState, records, walker: Walker,
-                       ev_seen: np.ndarray) -> None:
+                       ev_seen: np.ndarray, pipe=None) -> None:
         from mythril_tpu_torch.smt.solver import check_satisfiable_batch
 
         todo = []
@@ -1180,6 +1234,8 @@ class FrontierEngine:
             n_cons = int(st.cons_len[slot])
             if n_cons <= rec._pruned_at:
                 continue
+            if pipe is not None and n_cons <= rec._submitted_at:
+                continue  # verdict for this lineage depth still pending
             seed = walker.seeds[rec.seed_idx]
             raws = list(seed.world_state.constraints.get_all_raw())
             try:
@@ -1195,6 +1251,34 @@ class FrontierEngine:
                 continue
             todo.append((slot, rec, n_cons, raws))
         if not todo:
+            return
+        if pipe is not None:
+            # pipelined: the path keeps running SPECULATIVELY while the
+            # pool solves in the background; an UNSAT verdict rolls it
+            # back at a later harvest (pipeline.apply_verdicts).  The key
+            # mirrors the solver fast path's canonical identity, so the
+            # pool dedups in-flight twins and the worker hits the query
+            # cache for everything already decided.  The prefilter runs
+            # here, on this thread (its known-bits pass on the card): a
+            # proven-UNSAT verdict skips the worker and is published
+            # through the pool's done-queue, so the rollback kills the path
+            kills = [False] * len(todo)
+            if getattr(args, "prefilter", True):
+                from mythril_tpu_torch.absdomain import prefilter_batch
+
+                kills = prefilter_batch([raws for _, _, _, raws in todo],
+                                        device=self.device)
+            for (slot, rec, n_cons, raws), killed in zip(todo, kills):
+                rec._submitted_at = n_cons
+                pipe.pool.submit(
+                    slot, rec, n_cons, raws,
+                    frozenset(t.tid for t in raws),
+                    verdict=False if killed else None,
+                    point="%s:%#x" % (
+                        _code_tag(walker.seeds[rec.seed_idx].environment.code),
+                        int(st.pc[slot]),
+                    ),
+                )
             return
         # harvest feasibility is one of the query cache's entry points: the
         # batched check takes the cache's exact/core tiers per set inside

@@ -1,27 +1,43 @@
-"""The harvest: event ingestion, replay and slot-order commit.
+"""The harvest: event ingestion, the replay pool and the slot-order commit.
 
 The host side of every segment — drain device events into path records,
-replay finished paths through the walker, recycle slots — in the JAX
-package's serial sweep (its ``harvest_workers=0`` branch, the parity
-baseline of its sharded executor):
+replay finished paths through the walker, recycle slots — as the JAX
+package's ``HarvestExecutor`` runs it:
 
 1. **Vectorized event ingestion** (``ingest_events``): one NumPy batch
    decode over the event buffer; fork->child chains resolve with an
    iterative frontier over the newly created child slots, so each slot is
    scanned exactly once per harvest.
-2. **Replay** of every finishing record, in slot order, through
-   ``walker.replay``.  A record whose replay raises is dropped, as in the
-   JAX package, and counted in ``FrontierStatistics.replay_errors``; a
-   ``DeviceError`` (a kernel that did not build or launch) propagates.
-3. **Commit**, in slot order: park routing (``walker.commit``), slot clears.
-   A commit that raises is counted in ``FrontierStatistics.commit_errors``.
+2. **Seed-affinity replay workers** (``HarvestExecutor``).  Terminal
+   replays shard across a persistent thread pool (``args.harvest_workers``,
+   4 by default; 0 replays inline, the serial escape hatch).  The shard key
+   is the laser owning ``rec.seed_idx``: a laser's records replay on one
+   worker, in slot order, so no two workers touch the same LaserEVM or
+   plugin state.  Cross-laser shared state is guarded elsewhere: the solver
+   memos (``smt/solver.py`` ``_cache_lock``), the term intern table
+   (``smt/terms.py``), the frontier's counters; the walker's row bindings
+   are per laser.  A replay that raises is dropped, as in the JAX package,
+   and counted in ``FrontierStatistics.replay_errors``; a ``DeviceError``
+   (a kernel that did not build or launch) is raised on the calling thread
+   once every worker of the harvest has finished.
+3. **Deterministic slot-order commit**, on the calling thread: pending-fork
+   resume decisions, final-state snapshots, park stamps, walker ``commit``
+   (park-sink routing), slot clears and the pipeline's correction-ledger
+   touches.  A commit that raises is counted in
+   ``FrontierStatistics.commit_errors``.  Issue sets and park stamps are
+   the same with any number of workers.
 
-The replay pool of the JAX package (``harvest_workers > 0``) comes later.
+``pipe`` is the pipelined runner when it drives the harvest: slot mutations
+are reported to its correction ledger and feasibility checks go to its
+background pool (``engine._prune_running``).  The JAX package's exploration
+ledger (``classify_termination``) comes with the adaptive controller
+(ROADMAP item 5), its phase spans and histograms with item 13.
 """
 
 from __future__ import annotations
 
 import logging
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -109,73 +125,17 @@ def attribute_steps(st: FrontierState,
         walker.lasers[rec.seed_idx].total_states += int(steps[i] - seen[i])
 
 
-def harvest(engine, st: FrontierState, records, walker,
-            ev_seen: np.ndarray) -> None:
-    """Full harvest of one pulled segment: ingest -> solve -> replay ->
-    commit."""
-    caps = engine.caps
-    stats = FrontierStatistics()
+# ---------------------------------------------------------------------------
+# the executor
+# ---------------------------------------------------------------------------
 
-    ingest_events(st, records, ev_seen)
-    attribute_steps(st, records, walker)
 
-    # feasibility prune + mutation-check prefetch: batched solver work
-    if not args.sparse_pruning:
-        engine._prune_running(st, records, walker, ev_seen)
-    engine._prefetch_mutation_checks(st, records, walker)
-
-    # decide finishing slots in slot order: a pending-fork resume sees
-    # exactly the slots already free plus earlier finishing slots
-    halts = np.asarray(st.halt)
-    free_cnt = sum(1 for s in range(caps.B) if records[s] is None)
-    finishing: List[int] = []
-    for slot in range(caps.B):
-        rec = records[slot]
-        if rec is None:
-            continue
-        halt = int(halts[slot])
-        if halt == O.H_RUNNING:
-            continue
-        if halt == O.H_PENDING_FORK and free_cnt > 0:
-            # slots freed this harvest: just resume next segment
-            st.halt[slot] = O.H_RUNNING
-            continue
-        # batch saturated pending-forks spill to the host engine
-        rec.final = snapshot_slot(st, slot)
-        stats.device_paths += 1
-        if halt == O.H_PENDING_FORK:
-            rec.final["halt"] = O.H_PARK
-            stats.record_bulk_park("batch-full")
-        elif halt == O.H_PAGE_FAULT:
-            # packed-code paging: the pc left the code's resident window.
-            # Degrade to an ordinary park carrier (the host engine is
-            # always correct) and tell the engine which window to fold in
-            # at the next repack; past the code's fault budget, pin the
-            # carrier host-side instead of re-injecting into another fault
-            rec.final["halt"] = O.H_PARK
-            rec.final["page_fault"] = True
-            ok = engine._note_page_fault(
-                int(np.asarray(st.code_id)[slot]),
-                int(rec.final["pc"]),
-            )
-            if not ok:
-                rec.final["semantic_park"] = True
-                stats.semantic_parks += 1
-            stats.record_bulk_park("page-fault")
-        elif halt == O.H_PARK:
-            pc = int(rec.final["pc"])
-            names = walker.tables_for(rec).opcode_names
-            stats.record_park(names[pc] if pc < len(names) else "?")
-            # semantic park: re-injecting at this pc would immediately
-            # re-park — the walker stamps the carrier so _mid_eligible
-            # holds it host-side until the host steps past the pc
-            rec.final["semantic_park"] = True
-            stats.semantic_parks += 1
-        finishing.append(slot)
-        free_cnt += 1
-
-    for slot in finishing:
-        rec = records[slot]
+def _replay_group(walker, recs: List[PathRecord]) -> None:
+    """Replay one laser shard's finished records, in slot order.  An
+    exception poisons only the failing record (stored for the commit phase
+    to count and log); a ``DeviceError`` stops the shard and reaches the
+    calling thread."""
+    for rec in recs:
         try:
             walker.replay(rec)
         except DeviceError:
@@ -183,23 +143,156 @@ def harvest(engine, st: FrontierState, records, walker,
         except Exception as e:
             rec._replay_err = e
 
-    for slot in finishing:
-        rec = records[slot]
-        if rec._replay_err is not None:
-            stats.replay_errors += 1
-            log.warning(
-                "frontier walker failed on a path: %s",
-                rec._replay_err, exc_info=rec._replay_err,
-            )
+
+# The replay pool is process-wide and persistent (spawning threads per
+# harvest would cost more than short replays take); it is resized lazily
+# when --harvest-workers changes between analyses
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_size = 0
+
+
+def _shared_pool(workers: int) -> Optional[ThreadPoolExecutor]:
+    global _pool, _pool_size
+    if workers <= 0:
+        return None
+    if _pool is None or _pool_size != workers:
+        if _pool is not None:
+            _pool.shutdown(wait=True)
+        _pool = ThreadPoolExecutor(
+            max_workers=workers, thread_name_prefix="mythril-harvest"
+        )
+        _pool_size = workers
+    return _pool
+
+
+def shutdown_replay_pool() -> None:
+    """Drain and drop the shared replay pool (test isolation hook)."""
+    global _pool, _pool_size
+    if _pool is not None:
+        _pool.shutdown(wait=True)
+        _pool = None
+        _pool_size = 0
+
+
+class HarvestExecutor:
+    """Drives the ingest -> solve -> replay -> commit phases of a harvest,
+    sharding the replay phase over the shared pool.
+
+    ``workers == 0`` is the serial escape hatch (``--harvest-workers 0``):
+    the same phase structure, replayed inline on the calling thread."""
+
+    def __init__(self, engine, workers: Optional[int] = None):
+        self.engine = engine
+        if workers is None:
+            workers = getattr(args, "harvest_workers", 0)
+        self.workers = max(0, int(workers))
+
+    def harvest(self, st: FrontierState, records, walker,
+                ev_seen: np.ndarray, pipe=None) -> None:
+        """Full harvest of one pulled segment."""
+        eng = self.engine
+        caps = eng.caps
+        stats = FrontierStatistics()
+
+        ingest_events(st, records, ev_seen)
+        attribute_steps(st, records, walker)
+
+        # feasibility prune + mutation-check prefetch: batched solver work
+        # (the pipelined path submits to the background pool instead)
+        if not args.sparse_pruning:
+            eng._prune_running(st, records, walker, ev_seen, pipe)
+        eng._prefetch_mutation_checks(st, records, walker)
+
+        # decide finishing slots in slot order: a pending-fork resume sees
+        # exactly the slots already free plus earlier finishing slots
+        halts = np.asarray(st.halt)
+        free_cnt = sum(1 for s in range(caps.B) if records[s] is None)
+        finishing: List[int] = []
+        for slot in range(caps.B):
+            rec = records[slot]
+            if rec is None:
+                continue
+            halt = int(halts[slot])
+            if halt == O.H_RUNNING:
+                continue
+            if halt == O.H_PENDING_FORK and free_cnt > 0:
+                # slots freed this harvest: just resume next segment
+                st.halt[slot] = O.H_RUNNING
+                if pipe is not None:
+                    pipe.ledger.touch(slot)
+                continue
+            # batch saturated pending-forks spill to the host engine
+            rec.final = snapshot_slot(st, slot)
+            stats.count("device_paths")
+            if halt == O.H_PENDING_FORK:
+                rec.final["halt"] = O.H_PARK
+                stats.record_bulk_park("batch-full")
+            elif halt == O.H_PAGE_FAULT:
+                # packed-code paging: the pc left the code's resident
+                # window.  Degrade to an ordinary park carrier (the host
+                # engine is always correct) and tell the engine which
+                # window to fold in at the next repack; past the code's
+                # fault budget, pin the carrier host-side instead of
+                # re-injecting into another fault
+                rec.final["halt"] = O.H_PARK
+                rec.final["page_fault"] = True
+                ok = eng._note_page_fault(
+                    int(np.asarray(st.code_id)[slot]),
+                    int(rec.final["pc"]),
+                )
+                if not ok:
+                    rec.final["semantic_park"] = True
+                    stats.count("semantic_parks")
+                stats.record_bulk_park("page-fault")
+            elif halt == O.H_PARK:
+                pc = int(rec.final["pc"])
+                names = walker.tables_for(rec).opcode_names
+                stats.record_park(names[pc] if pc < len(names) else "?")
+                # semantic park: re-injecting at this pc would immediately
+                # re-park — the walker stamps the carrier so _mid_eligible
+                # holds it host-side until the host steps past the pc
+                rec.final["semantic_park"] = True
+                stats.count("semantic_parks")
+            finishing.append(slot)
+            free_cnt += 1
+
+        # replay: shard by owning laser, slot order within each shard
+        pool = _shared_pool(self.workers)
+        if pool is not None and finishing:
+            by_laser: Dict[int, List[PathRecord]] = {}
+            for slot in finishing:
+                rec = records[slot]
+                by_laser.setdefault(id(walker.laser_for(rec)), []).append(rec)
+            futs = [pool.submit(_replay_group, walker, recs)
+                    for recs in by_laser.values()]
+            # every shard finishes before a DeviceError unwinds the harvest
+            wait(futs)
+            for f in futs:
+                f.result()
         else:
-            try:
-                walker.commit(rec)
-            except DeviceError:
-                raise
-            except Exception as e:
-                stats.commit_errors += 1
-                log.warning("frontier walker failed on a path: %s", e,
-                            exc_info=True)
-        records[slot] = None
-        clear_slot(st, slot)
-        ev_seen[slot] = 0
+            _replay_group(walker, [records[slot] for slot in finishing])
+
+        # commit: calling thread, slot order — park routing, slot
+        # recycling, ledger touches
+        for slot in finishing:
+            rec = records[slot]
+            if rec._replay_err is not None:
+                stats.count("replay_errors")
+                log.warning(
+                    "frontier walker failed on a path: %s",
+                    rec._replay_err, exc_info=rec._replay_err,
+                )
+            else:
+                try:
+                    walker.commit(rec)
+                except DeviceError:
+                    raise
+                except Exception as e:
+                    stats.count("commit_errors")
+                    log.warning("frontier walker failed on a path: %s", e,
+                                exc_info=True)
+            records[slot] = None
+            clear_slot(st, slot)
+            ev_seen[slot] = 0
+            if pipe is not None:
+                pipe.ledger.touch(slot)

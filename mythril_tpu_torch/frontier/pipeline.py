@@ -1,0 +1,821 @@
+"""Pipelined frontier loop: overlap device segments with host harvest/solve.
+
+The synchronous loop in engine._run alternates strictly — dispatch a
+segment, block pulling its results, harvest on the host, repeat — so the
+device idles for the whole harvest.  This module keeps ONE segment in
+flight at all times:
+
+  * dispatch N+1 is CHAINED onto dispatch N's device outputs
+    (step.chain_dispatch) before the host ever blocks on N, so the device
+    starts segment N+1 the moment N retires while the host is still
+    pulling/harvesting N;
+  * host mutations from harvest N-1 (freed slots, resumed pending forks,
+    fresh seed injections) ride dispatch N+1 as a per-slot correction mask
+    merged on device — one packed upload, same cost the synchronous loop
+    pays for its full push;
+  * per-record feasibility checks (engine._prune_running) move into a
+    bounded background pool: running paths continue SPECULATIVELY while the
+    solver works, and an UNSAT verdict rolls the path (and any descendants
+    it forked meanwhile) back at the next harvest.  Pruning is a
+    performance optimization, not a soundness gate — issues are confirmed
+    by their own solver queries at detection time — so late rollback keeps
+    the issue set identical (args.sparse_pruning already disables the
+    sweep entirely).
+
+Correction protocol (the part that makes chaining sound):
+
+  * every host write to a slot is uploaded EXACTLY ONCE.  corrections from
+    harvest j ride dispatch j+2 (the first dispatch issued after harvest
+    j), so ``active_at[slot]`` records that dispatch index;
+  * until the pull of segment ``active_at[slot]`` the device's view of the
+    slot is stale, so each pull carries the slot's row forward from the
+    previous host mirror (pull_harvest builds a fresh mirror every
+    segment).  Carried slots get ``ev_len = 0``: their device events were
+    already drained at the harvest that mutated them, and re-draining the
+    stale buffer would duplicate events;
+  * a slot whose correction exposed it FREE becomes device-owned the
+    moment a chained dispatch consumes the mask: every later chained
+    segment may grant a fork into it, so the host never re-injects into it
+    until a sync point (no dispatch in flight) resets ownership.  Fork
+    grants into freed slots whose parent was meanwhile killed show up as
+    occupied device slots with no host record — the orphan scan clears
+    them and schedules the clear as a correction.
+
+Sync points (the only places the pipeline intentionally drains): host
+arena appends for spill re-injection (an in-flight segment appends device
+rows at the same indices), reclaiming
+device-owned free slots for a backed-up seed queue, and the final drain —
+an in-flight segment is always pulled and harvested before the loop exits,
+never discarded.
+
+On the card (the port's own part).  The runner queues every segment and
+its correction merge on a stream of its own, entered only around
+``_dispatch_full`` and ``_chain``: the harvest's kernels (the prefilter's
+known-bits pass, the probe) and its reads stay on the caller's stream and
+never wait behind an in-flight segment.  An event recorded right behind
+each segment orders its pull, which runs on a copy stream of its own, so a
+pull waits for its segment and never for the one chained after it.  The
+host arena's re-injected rows are written into the device arena in place
+(``step.push_arena_rows``) only at a sync point, after the copy stream's
+last pull.  A failed stream, event or launch raises; nothing falls back to
+the synchronous loop.  On the CPU (the plain segment) the same loop runs
+with no streams.
+
+The runner is the JAX package's with ``--no-adaptive`` on one device: the
+adaptive controller's hooks (the parked-spill pool, the requeue, the
+coverage stop) come with the controller (ROADMAP item 5), the mesh's
+rebalance and per-shard accounting with the mesh (item 12).  The JAX
+package's tracer spans, flight recorder, heartbeat and device-plane calls
+come with the observability surface (item 13); its ``pipeline.*`` metrics
+are the module state ``COUNTERS`` here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mythril_tpu_torch.frontier import ops as O
+from mythril_tpu_torch.frontier.records import PathRecord
+from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
+from mythril_tpu_torch.frontier.stats import FrontierStatistics
+from mythril_tpu_torch.support.support_args import args
+from mythril_tpu_torch.support.time_handler import time_handler
+
+log = logging.getLogger(__name__)
+
+# the JAX package's ``pipeline.*`` counters, by the same names (module
+# state: the port has no metrics registry); ``count`` is safe under the
+# pool's threads
+_COUNTER_NAMES = (
+    "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
+    "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
+    "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
+    "reinject_queued", "reinjected",
+)
+COUNTERS: Dict[str, float] = {}
+_counter_lock = threading.Lock()
+
+
+def count(name: str, n=1) -> None:
+    with _counter_lock:
+        COUNTERS[name] += n
+
+
+def reset_counters() -> None:
+    with _counter_lock:
+        for name in _COUNTER_NAMES:
+            COUNTERS[name] = 0.0 if name.endswith("_s") else 0
+
+
+reset_counters()
+
+
+class CorrectionLedger:
+    """Exactly-once correction bookkeeping for chained dispatches.
+
+    Tracks, per slot, the index of the first segment output that reflects
+    the host's latest write (``active_at``), the pending upload mask, and
+    device ownership of host-freed slots.  Kept free of engine state so the
+    protocol is unit-testable on its own."""
+
+    def __init__(self, n_slots: int):
+        self.corr_mask = np.zeros(n_slots, bool)
+        self.active_at = np.full(n_slots, -1, np.int64)
+        self.device_owned = np.zeros(n_slots, bool)
+        self.next_dispatch = 0  # index of the next dispatch to be issued
+        self.pulled = -1  # index of the last pulled segment
+
+    def touch(self, slot: int) -> None:
+        """Host mutated ``slot``: upload it with the next dispatch."""
+        self.corr_mask[slot] = True
+        self.active_at[slot] = self.next_dispatch
+        count("corrected_slots")
+
+    def consume(self, host_seed: np.ndarray) -> np.ndarray:
+        """A dispatch is consuming the pending mask: return it (copy) and
+        mark host-freed slots device-owned (the device may fork-grant into
+        them from this dispatch on)."""
+        mask = self.corr_mask.copy()
+        self.device_owned |= mask & (host_seed < 0)
+        self.corr_mask[:] = False
+        self.next_dispatch += 1
+        return mask
+
+    def consume_all(self) -> None:
+        """A FULL push is being dispatched: every slot becomes device
+        authoritative at this dispatch's output."""
+        self.corr_mask[:] = False
+        self.active_at[:] = self.next_dispatch
+        self.next_dispatch += 1
+
+    def on_pull(self) -> np.ndarray:
+        """A segment was pulled; returns the slots whose host value is
+        newer than this output (to carry forward from the old mirror)."""
+        self.pulled += 1
+        return np.nonzero(self.active_at > self.pulled)[0]
+
+    def carry_forward(self, new_st: FrontierState, prev_st: FrontierState
+                      ) -> int:
+        slots = self.on_pull()
+        for slot in slots:
+            s = int(slot)
+            for name, dst, src in zip(new_st._fields, new_st, prev_st):
+                if name == "events":
+                    continue
+                dst[s] = src[s]
+            # host-authoritative slots have no undrained device events
+            new_st.ev_len[s] = 0
+        return len(slots)
+
+    def release_owned(self) -> None:
+        """Sync point (no dispatch in flight anywhere): nothing can grant
+        into host-freed slots anymore, the host may reclaim them."""
+        self.device_owned[:] = False
+
+
+class FeasibilityPool:
+    """Background solver pool for speculative feasibility checks.
+
+    Raws are decoded on the MAIN thread (the walker/arena decode path is
+    not thread-safe); workers only run check_satisfiable_batch, which is
+    query-cache-aware through the solver fast path.  In-flight queries are
+    deduplicated by the fast path's own canonical key (the frozenset of
+    constraint term ids), so identical lineages pending at the same time
+    solve once.  Actual solves are serialized under one lock: the solver's
+    memo caches are shared, and the win is moving the solve OFF the
+    dispatch critical path, not parallel solving.
+
+    A worker's solve launches the solver's kernels (the tape VM, the
+    lowering, known bits, DPLL) from the worker thread, on its current
+    stream, on the device the pool was given (None: the card).  An
+    exception of the solve stops the run as it does in the synchronous
+    prune (``engine._prune_running``), where the JAX package counts it as
+    "satisfiable": a kernel that fails to build or launch, faults, runs out
+    of memory or refuses its shapes is not a verdict.  The worker keeps the
+    first such exception, and the next ``drain``, or ``shutdown`` when no
+    drain follows, raises it on the calling thread."""
+
+    def __init__(self, workers: int, device=None):
+        self._executor = ThreadPoolExecutor(
+            max_workers=max(1, int(workers)),
+            thread_name_prefix="mythril-feas",
+        )
+        self._device = device
+        self._solver_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._inflight: Dict[frozenset, list] = {}
+        self._done: list = []
+        self._fault: Optional[BaseException] = None
+
+    def submit(self, slot: int, rec, n_cons: int, raws, key: frozenset,
+               verdict: Optional[bool] = None, point: str = "") -> None:
+        """Queue a feasibility check.  ``verdict=False`` means the abstract
+        pre-filter already PROVED the query UNSAT: no worker runs, and the
+        verdict is published to EVERY waiter deduplicated under ``key`` —
+        including ones already in flight, so concurrent identical lineages
+        never fall through to an exact solve the pre-filter refuted.
+
+        ``point`` is the program-point label ("codehash:0xPC") of the JUMPI
+        being checked: the devsolver's admission attributes the query to it
+        (``devsolver.admission.point_context``)."""
+        if verdict is False:
+            with self._lock:
+                waiters = self._inflight.get(key)
+                if waiters is not None:
+                    waiters.append((slot, rec, n_cons))
+                    count("pool_inflight_dedup")
+                else:
+                    self._inflight[key] = [(slot, rec, n_cons)]
+                # drain() tolerates a second (key, ok, why) entry for a
+                # query a worker also finishes: the later pop finds nothing
+                self._done.append((key, False, "prefilter"))
+            count("pool_prefilter_kills")
+            return
+        with self._lock:
+            waiters = self._inflight.get(key)
+            if waiters is not None:
+                waiters.append((slot, rec, n_cons))
+                count("pool_inflight_dedup")
+                return
+            self._inflight[key] = [(slot, rec, n_cons)]
+        count("pool_submitted")
+        self._executor.submit(self._work, key, raws, point)
+
+    def _work(self, key: frozenset, raws, point: str = "") -> None:
+        from mythril_tpu_torch.devsolver.admission import point_context
+        from mythril_tpu_torch.smt import solver
+
+        statuses: list = []
+        try:
+            with self._solver_lock, point_context(point):
+                ok = bool(solver.check_satisfiable_batch(
+                    [raws], statuses_out=statuses, device=self._device)[0])
+        except Exception as e:
+            with self._lock:
+                if self._fault is None:
+                    self._fault = e
+            return
+        why = statuses[0] if statuses else ("sat" if ok else "unsat")
+        with self._lock:
+            self._done.append((key, ok, why))
+
+    def drain(self) -> list:
+        """Verdicts that landed since the last drain as
+        (slot, rec, n_cons, ok, why) tuples.  Raises the exception a
+        worker met."""
+        out = []
+        with self._lock:
+            if self._fault is not None:
+                fault, self._fault = self._fault, None
+                raise fault
+            done, self._done = self._done, []
+            for key, ok, why in done:
+                for item in self._inflight.pop(key, ()):
+                    out.append((*item, ok, why))
+        return out
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._inflight)
+
+    def shutdown(self) -> None:
+        """Wait for the workers.  Apply nothing: whatever verdicts are
+        still queued are dropped with the run (speculation is sound without
+        them); a worker's exception is raised."""
+        self._executor.shutdown(wait=True)
+        with self._lock:
+            fault, self._fault = self._fault, None
+        if fault is not None:
+            raise fault
+
+
+class _Streams:
+    """The runner's CUDA streams: segments on one, pulls on another, an
+    event recorded behind every segment.  On the CPU every method is a
+    no-op."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        if self.cuda:
+            self.device = torch.device(device)
+            self.segment = torch.cuda.Stream(device=self.device)
+            self.copy = torch.cuda.Stream(device=self.device)
+
+    def dispatching(self):
+        """Queue on the segment stream, after everything the caller's
+        stream has queued (the tables, the arena, a sync point's arena
+        rows)."""
+        if not self.cuda:
+            return contextlib.nullcontext()
+        self.segment.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.segment)
+
+    def mark(self):
+        """An event right behind the segment just queued."""
+        if not self.cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.segment)
+        return event
+
+    def pulling(self, event):
+        """Read on the copy stream once the segment behind ``event`` is
+        done (not the one chained after it)."""
+        if not self.cuda:
+            return contextlib.nullcontext()
+        self.copy.wait_event(event)
+        return torch.cuda.stream(self.copy)
+
+    def settle(self) -> None:
+        """The caller's stream after the copy stream's last pull and the
+        segment stream's last work: what it queues next (a sync point's
+        in-place arena write, the final coverage read) is ordered after
+        them."""
+        if self.cuda:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_stream(self.copy)
+            current.wait_stream(self.segment)
+
+
+class PipelinedRunner:
+    """Drives engine._run's segment loop in pipelined (chained) form.
+
+    Constructed by engine._run with the run's prepared state; mutates the
+    shared mirrors/records in place and reports the loop outcome via
+    attributes (executed, max_live, slow_bailed, width_verdict_valid,
+    visited, arena_len)."""
+
+    def __init__(self, engine, *, st, records, walker, arena, ev_seen,
+                 seeds, lasers, ctxs, seed_code_idx, mid_enc,
+                 seed_queue, statics, beam, tables, table_code, table_idx,
+                 segment, code_dev, cfg, dev_arena, arena_len, visited,
+                 deadline, program_key, program_warm, repack_fn=None):
+        self.engine = engine
+        self.caps = engine.caps
+        self.device = engine.device
+        self.st = st
+        self.records = records
+        self.walker = walker
+        self.arena = arena
+        self.ev_seen = ev_seen
+        self.seeds = seeds
+        self.lasers = lasers
+        self.ctxs = ctxs
+        self.seed_code_idx = seed_code_idx
+        self.mid_enc = mid_enc
+        self.seed_queue = seed_queue
+        self.statics = statics
+        self.beam = beam
+        self.tables = tables
+        self.table_code = table_code
+        self.table_idx = table_idx
+        self.segment = segment
+        self.code_dev = code_dev
+        self.cfg = cfg
+        self.dev_arena = dev_arena
+        self.arena_len = arena_len
+        self.visited = visited
+        self.deadline = deadline
+        self.program_key = program_key
+        self.program_warm = program_warm
+        # packed-code paging: engine callback that folds pending window
+        # moves into fresh same-shape tables.  Called ONLY at sync points
+        # (no dispatch in flight), the one place swapping code_dev cannot
+        # race a chained dispatch that already captured the old tables.
+        self.repack_fn = repack_fn
+
+        self.ledger = CorrectionLedger(self.caps.B)
+        self.pool = FeasibilityPool(args.solver_workers, self.device)
+        self.streams = _Streams(self.device)
+        self.reinject_q: List[tuple] = []
+
+        self.executed = 0
+        self.max_live = 0
+        self.slow_bailed = False
+        self.width_verdict_valid = True
+
+    # -- walker park sink: catch re-runnable spills ---------------------
+
+    def _park_sink(self, laser, rec, carrier, snap) -> bool:
+        """Batch-full spills are perfectly re-runnable device states; queue
+        them for re-injection at the next sync point instead of bouncing
+        them to the host work list.  Semantic parks (the device provably
+        cannot execute the instruction) always go to the host."""
+        if snap.get("semantic_park"):
+            return False
+        from mythril_tpu_torch.frontier.engine import _mid_eligible
+
+        if len(self.reinject_q) >= 2 * self.caps.B or not _mid_eligible(carrier):
+            return False
+        self.reinject_q.append((laser, carrier))
+        count("reinject_queued")
+        return True
+
+    # -- speculative verdicts ------------------------------------------
+
+    def apply_verdicts(self) -> None:
+        st, records = self.st, self.records
+        for slot, rec, n_cons, ok, _why in self.pool.drain():
+            if ok:
+                if records[slot] is rec:
+                    rec._pruned_at = max(rec._pruned_at, n_cons)
+                continue
+            # UNSAT: roll back the speculatively-running path and every
+            # descendant it forked while the verdict was pending.  A path
+            # that already finished replayed its events, but its issues
+            # (if any) fail their own confirmation query — soundness does
+            # not depend on this rollback, only slot recycling does.
+            for s in range(self.caps.B):
+                r = records[s]
+                node = r
+                while node is not None and node is not rec:
+                    node = node.parent
+                if node is rec and r is not None:
+                    records[s] = None
+                    clear_slot(st, s)
+                    self.ev_seen[s] = 0
+                    self.ledger.touch(s)
+                    count("pool_unsat_rollbacks")
+
+    def clear_orphans(self) -> None:
+        """Device-occupied slots with no host record are descendants of
+        paths killed while a segment was in flight: the fork event that
+        would have created their record was skipped (dead parent)."""
+        st, records = self.st, self.records
+        for slot in range(self.caps.B):
+            if records[slot] is not None:
+                continue
+            if self.ledger.active_at[slot] > self.ledger.pulled:
+                continue  # host-authoritative row, host knows it is free
+            if int(st.seed[slot]) >= 0:
+                clear_slot(st, slot)
+                self.ev_seen[slot] = 0
+                self.ledger.touch(slot)
+                count("orphan_rollbacks")
+
+    # -- refill ---------------------------------------------------------
+
+    def _free_slot(self) -> Optional[int]:
+        """Next injection target: the first host-reclaimable slot (no
+        record, not device-owned, no seed on the device)."""
+        B = self.caps.B
+        rec = np.fromiter(
+            (self.records[s] is not None for s in range(B)), bool, B
+        )
+        free = np.flatnonzero(~rec & ~self.ledger.device_owned
+                              & (np.asarray(self.st.seed) < 0))
+        return int(free[0]) if free.size else None
+
+    def refill(self) -> None:
+        """Queued seeds into host-reclaimable free slots.  Unlike the
+        synchronous loop, beam scores of LIVE slots are not refreshed:
+        uploading onto a device-advanced slot would clobber it.  Seed
+        order is FIFO (the JAX package's order without the adaptive
+        controller)."""
+        from mythril_tpu_torch.frontier.engine import _beam_importance
+
+        eng = self.engine
+        while self.seed_queue:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            si = self.seed_queue.pop(0)
+            eng._inject(self.st, slot, si, self.ctxs[si],
+                        self.seed_code_idx[si],
+                        _beam_importance(self.seeds[si]) if self.beam else 0,
+                        static=self.statics[si])
+            if self.mid_enc[si] is not None:
+                eng._apply_mid(self.st, slot, self.mid_enc[si])
+                FrontierStatistics().count("mid_injections")
+            self.records[slot] = PathRecord(seed_idx=si)
+            self.ev_seen[slot] = 0
+            self.ledger.touch(slot)
+
+    # -- sync-point spill re-injection ---------------------------------
+
+    def _reinject(self) -> bool:
+        """Encode queued spills back into free slots.  ONLY at a sync
+        point: seed-context/mid encoding appends host arena rows, which an
+        in-flight segment would race at the same indices.  Returns True
+        when device arena rows were appended (the next dispatch must use
+        the refreshed arena)."""
+        from mythril_tpu_torch.frontier.engine import _beam_importance
+        from mythril_tpu_torch.frontier.step import push_arena_rows
+
+        eng, arena = self.engine, self.arena
+        old_len = arena.length
+        q, self.reinject_q = self.reinject_q, []
+        for laser, carrier in q:
+            slot = self._free_slot()
+            ci = self.table_idx.get((id(laser), id(carrier.environment.code)))
+            if slot is None or ci is None:
+                laser.work_list.append(carrier)
+                continue
+            try:
+                si = len(self.seeds)
+                ctx = eng._seed_ctx(arena, carrier, si)
+                enc = eng._encode_mid(arena, carrier)
+            except MemoryError:
+                laser.work_list.append(carrier)
+                continue
+            if enc is None:
+                # stamp like a bounced seed so _mid_eligible stops
+                # re-offering the state at this pc
+                carrier._frontier_park_pc = carrier.mstate.pc
+                laser.work_list.append(carrier)
+                continue
+            self.walker.add_seed(laser, self.tables[ci], carrier)
+            self.ctxs.append(ctx)
+            self.seed_code_idx.append(ci)
+            self.mid_enc.append(enc)
+            self.statics.append(
+                1 if getattr(carrier.environment, "static", False) else 0
+            )
+            eng._inject(self.st, slot, si, ctx, ci,
+                        _beam_importance(carrier) if self.beam else 0,
+                        static=self.statics[-1])
+            eng._apply_mid(self.st, slot, enc)
+            FrontierStatistics().count("mid_injections")
+            self.records[slot] = PathRecord(seed_idx=si)
+            self.ev_seen[slot] = 0
+            self.ledger.touch(slot)
+            count("reinjected")
+        if arena.length > old_len:
+            # in place on the caller's stream, after the last pull
+            # (settle) and before the next dispatch (which waits for it)
+            self.streams.settle()
+            self.dev_arena = push_arena_rows(
+                self.dev_arena, arena, old_len, arena.length
+            )
+            self.arena_len = arena.length
+            return True
+        return False
+
+    def _flush_reinject_queue(self) -> None:
+        for laser, carrier in self.reinject_q:
+            laser.work_list.append(carrier)
+        self.reinject_q = []
+
+    # -- the loop -------------------------------------------------------
+
+    def _ramped_cfg(self):
+        caps = self.caps
+        return self.cfg._replace(
+            k_limit=min(caps.K, 96 << min(FrontierStatistics().segments, 4))
+        )
+
+    def _dispatch_full(self):
+        """Full push of the host mirror (dispatch 0 and sync points), on
+        the segment stream.  -> (outputs, the event behind the segment)."""
+        from mythril_tpu_torch.frontier.step import push_state
+
+        cfg = self._ramped_cfg()
+        with self.streams.dispatching():
+            st_dev = push_state(self.st, device=self.device)
+            self.ledger.consume_all()
+            # every free slot is exposed to the device again
+            for slot in range(self.caps.B):
+                self.ledger.device_owned[slot] = self.records[slot] is None
+            out = self.segment(st_dev, self.dev_arena, self.arena_len,
+                               self.visited, self.code_dev, cfg)
+            event = self.streams.mark()
+        return out, event
+
+    def _chain(self, inflight):
+        """The next segment chained on ``inflight``'s outputs, on the
+        segment stream; the host reads no device value.  -> (outputs, the
+        event behind the segment)."""
+        from mythril_tpu_torch.frontier.step import chain_dispatch
+
+        cfg = self._ramped_cfg()
+        with self.streams.dispatching():
+            mask = self.ledger.consume(self.st.seed)
+            out = chain_dispatch(self.segment, inflight, self.st, mask,
+                                 self.code_dev, cfg)
+            event = self.streams.mark()
+        count("segments_pipelined")
+        return out, event
+
+    def run(self) -> None:
+        from mythril_tpu_torch.frontier import engine as _eng
+        from mythril_tpu_torch.frontier.step import pull_harvest
+
+        eng, caps = self.engine, self.caps
+        stats = FrontierStatistics()
+        self.walker.park_sink = self._park_sink
+        narrow_harvests = 0
+        run_segments = 0
+        stop: Optional[str] = None
+
+        t0 = time.perf_counter()
+        inflight, inflight_event = self._dispatch_full()
+        dispatch_wall = time.perf_counter() - t0
+        prev_st = self.st
+        # while any dispatch is in flight the device owns the arena append
+        # indices; host encode paths must not race them (arena.freeze)
+        self.arena.freeze()
+        try:
+            while True:
+                deadline_hit = (time.perf_counter() > self.deadline
+                                or time_handler.time_remaining() <= 0)
+                # chain the next dispatch BEFORE blocking on the current
+                # one, unless this iteration must end at a sync point
+                free_owned = bool(
+                    (self.ledger.device_owned
+                     & np.fromiter((self.records[s] is None
+                                    for s in range(caps.B)), bool, caps.B)
+                     ).any()
+                )
+                want_sync = bool(self.reinject_q
+                                 or (self.seed_queue and free_owned))
+                nxt = None
+                nxt_event = None
+                nxt_wall = 0.0
+                if stop is None and not deadline_hit and not want_sync:
+                    t_d = time.perf_counter()
+                    nxt, nxt_event = self._chain(inflight)
+                    nxt_wall = time.perf_counter() - t_d
+
+                # ---- pull: the pipeline's only blocking point, on the
+                # copy stream once the in-flight segment (not nxt) is done
+                (out_state, out_arena, out_len, n_exec, seg_ml,
+                 out_visited) = inflight
+                t_pull = time.perf_counter()
+                with self.streams.pulling(inflight_event):
+                    # steady state (next dispatch chained): delta pull —
+                    # the [B] scalar plane + dirty rows/events only; a sync
+                    # point follows otherwise and _dispatch_full pushes the
+                    # whole mirror, so pull everything
+                    new_st, arena_len_new, n_exec_host, seg_ml_host = (
+                        pull_harvest(
+                            out_state, out_len, n_exec, seg_ml,
+                            prev=prev_st if nxt is not None else None,
+                        )
+                    )
+                    bubble = time.perf_counter() - t_pull
+                    self.arena.pull_from_device(out_arena, arena_len_new)
+                self.max_live = max(self.max_live, seg_ml_host)
+                self.arena_len = arena_len_new
+                self.dev_arena = out_arena
+                self.visited = out_visited
+                self.executed += n_exec_host
+                stats.count("device_instructions", n_exec_host)
+                stats.count("segments")
+                # host-visible device cost of this segment: its dispatch
+                # call plus the time the host actually waited on it — the
+                # harvest that overlapped it is NOT device time
+                seg_equiv = dispatch_wall + bubble
+                stats.count("segment_s", seg_equiv)
+                count("bubble_s", bubble)
+                if nxt is not None:
+                    count("overlap_segments")
+                _eng._WARM_PROGRAMS.add(self.program_key)
+
+                # ---- harvest (overlaps the in-flight nxt segment)
+                carried = self.ledger.carry_forward(new_st, prev_st)
+                if carried:
+                    count("carried_slots", carried)
+                self.st = new_st
+                prev_st = new_st
+                if nxt is None:
+                    self.ledger.release_owned()
+                t_har = time.perf_counter()
+                self.apply_verdicts()
+                eng._harvest(self.st, self.records, self.walker,
+                             self.ev_seen, pipe=self)
+                self.clear_orphans()
+                for slot in range(caps.B):
+                    if self.records[slot] is not None:
+                        self.ledger.device_owned[slot] = False
+                self.ev_seen.fill(0)
+                har_only = time.perf_counter() - t_har
+                stats.count("harvest_s", har_only)
+                if nxt is not None:
+                    count("overlap_s", har_only)
+
+                # ---- slow-bail accounting on the host-visible wall
+                bail_now = False
+                if ((run_segments > 0 or self.program_warm)
+                        and not args.frontier_force):
+                    host_rates = [
+                        r for r in (
+                            getattr(laser, "host_step_rate", lambda: None)()
+                            for laser in self.lasers
+                        ) if r
+                    ]
+                    bail_rate = (
+                        _eng._SLOW_BAIL_HOST_FACTOR * min(host_rates)
+                        if host_rates else _eng._SLOW_BAIL_FLOOR
+                    )
+                    code_keys = [_eng._code_key(c) for c in self.table_code]
+                    seg_rate = n_exec_host / max(seg_equiv, 1e-6)
+                    if seg_rate < bail_rate:
+                        counts = [
+                            _eng._SLOW_SEGMENTS.get(k, 0) + 1
+                            for k in code_keys
+                        ]
+                        for k, c in zip(code_keys, counts):
+                            _eng._SLOW_SEGMENTS[k] = c
+                        if (max(counts) >= _eng._SLOW_BAIL_SEGMENTS
+                                or seg_rate
+                                < _eng._SLOW_BAIL_DECISIVE * bail_rate):
+                            log.info(
+                                "frontier: %d instructions in %.2fs (below "
+                                "%.0f/s); host engine takes over",
+                                n_exec_host, seg_equiv, bail_rate,
+                            )
+                            bail_now = True
+                    else:
+                        for k in code_keys:
+                            _eng._SLOW_SEGMENTS.pop(k, None)
+                run_segments += 1
+
+                if stop is None:
+                    self.refill()
+                live = int(((self.st.halt == O.H_RUNNING)
+                            & (self.st.seed >= 0)).sum())
+                self.max_live = max(self.max_live, live)
+
+                # ---- exit decisions (first verdict wins; a later drain
+                # iteration must not overwrite it)
+                if stop is None:
+                    if deadline_hit:
+                        log.info(
+                            "frontier: execution timeout; parking live paths"
+                        )
+                        stop = "timeout"
+                    elif bail_now:
+                        stop = "slow-bail"
+                    elif (live == 0 and not self.seed_queue
+                          and not self.reinject_q):
+                        stop = "done"
+                    elif (self.arena_len + max(live, 1) * caps.R * 4
+                          >= caps.ARENA):
+                        # double the synchronous margin: up to two segments
+                        # of appends can be in flight before the next check
+                        log.warning(
+                            "frontier: arena nearly full; parking live paths"
+                        )
+                        stop = "arena-full"
+                    elif live < caps.MIN_LIVE:
+                        narrow_harvests += 1
+                        if narrow_harvests >= caps.NARROW_BAIL:
+                            log.info(
+                                "frontier: only %d live paths after %d "
+                                "segments; host engine takes over",
+                                live, narrow_harvests,
+                            )
+                            stop = "narrow-bail"
+                    else:
+                        narrow_harvests = 0
+
+                if nxt is not None:
+                    inflight, inflight_event = nxt, nxt_event
+                    dispatch_wall = nxt_wall
+                    continue
+                # sync point: no dispatch in flight anywhere
+                if stop is not None:
+                    break
+                self.ledger.release_owned()
+                self.arena.thaw()
+                if self.repack_fn is not None:
+                    # fold pending page-window moves in BEFORE re-injection
+                    # so faulted carriers resume against tables whose
+                    # resident window now covers their pc
+                    new_cd = self.repack_fn()
+                    if new_cd is not None:
+                        self.code_dev = new_cd
+                if self.reinject_q:
+                    self._reinject()
+                self.refill()
+                t0 = time.perf_counter()
+                inflight, inflight_event = self._dispatch_full()
+                dispatch_wall = time.perf_counter() - t0
+                self.arena.freeze()
+        finally:
+            self.arena.thaw()
+            self.walker.park_sink = None
+            self._flush_reinject_queue()
+            # whatever the caller's stream reads next (the coverage planes)
+            # comes after the runner's last segment and pull
+            self.streams.settle()
+            # last: raises a feasibility worker's exception
+            self.pool.shutdown()
+
+        if stop == "slow-bail":
+            self.slow_bailed = True
+        if stop in ("timeout", "slow-bail", "arena-full"):
+            self.width_verdict_valid = False
+        live = int(((self.st.halt == O.H_RUNNING)
+                    & (self.st.seed >= 0)).sum())
+        if stop != "done" or live > 0:
+            eng._park_all(self.st, self.records, self.walker,
+                          reason=stop or "drain")

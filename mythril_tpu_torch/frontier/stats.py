@@ -11,11 +11,15 @@ The port keeps the counters as plain attributes (it has no metrics
 registry), with the JAX package's names, and adds two that the JAX package
 only logs: ``replay_errors`` (a path whose event replay raised; the path is
 dropped, as in the JAX package) and ``commit_errors`` (a path whose commit
-raised).  A parity run requires both to stay 0.
+raised).  A parity run requires both to stay 0.  ``count`` and the park
+records hold a lock, as the JAX registry's counters do, since the harvest's
+replay workers and the pipeline's feasibility pool run on threads of their
+own.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 from mythril_tpu_torch.support.support_utils import Singleton
@@ -33,23 +37,32 @@ class FrontierStatistics(metaclass=Singleton):
     """The frontier's counters (one instance per process)."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        for name in _COUNTERS:
-            setattr(self, name, 0)
-        for name in _SECONDS:
-            setattr(self, name, 0.0)
-        self.parks_by_opcode: Counter = Counter()
-        self.parks_by_reason: Counter = Counter()
+        with self._lock:
+            for name in _COUNTERS:
+                setattr(self, name, 0)
+            for name in _SECONDS:
+                setattr(self, name, 0.0)
+            self.parks_by_opcode: Counter = Counter()
+            self.parks_by_reason: Counter = Counter()
+
+    def count(self, name: str, n=1) -> None:
+        """``name += n`` under the lock."""
+        with self._lock:
+            setattr(self, name, getattr(self, name) + n)
 
     def record_park(self, opcode: str) -> None:
-        self.parks_by_opcode[opcode] += 1
-        self.parks_by_reason["opcode"] += 1
+        with self._lock:
+            self.parks_by_opcode[opcode] += 1
+            self.parks_by_reason["opcode"] += 1
 
     def record_bulk_park(self, reason: str, n: int = 1) -> None:
         if n:
-            self.parks_by_reason[reason] += n
+            with self._lock:
+                self.parks_by_reason[reason] += n
 
     def as_dict(self) -> dict:
         return {

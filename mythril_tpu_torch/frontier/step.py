@@ -862,8 +862,7 @@ def _check_inputs(state, arena, visited, code, caps: Caps) -> None:
 _SCRATCH = ("free_list", "fkeys", "grants", "cnt", "out")
 GRANT_W = 8  # int32 words of a grant record (mk::GRANT_W)
 _DIMS = ("B", "STK", "MEM", "STO", "CON", "EVT", "R", "K", "ARENA", "NL", "T", "C", "N", "A",
-         "Cv", "Iv", "arena_len0", "max_depth", "loop_bound", "row_zero", "row_one", "sel_mode",
-         "k_limit")
+         "Cv", "Iv", "max_depth", "loop_bound", "row_zero", "row_one", "sel_mode", "k_limit")
 BLOCK = 128  # threads per block of the kernel, one path each
 # mk_frontier_segment's refusals: a cooperative grid (B > 1024) that the card
 # cannot hold resident (cudaErrorCooperativeLaunchTooLarge), and a cluster
@@ -877,7 +876,7 @@ class FrontierArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         *FrontierState._fields, *("a_" + n for n in ArenaDev._fields), "visited",
-        *CodeDev._fields, "code_rows", *_SCRATCH,
+        *CodeDev._fields, "code_rows", *_SCRATCH, "arena_len0",
     )] + [(n, ctypes.c_int) for n in _DIMS]
 
 
@@ -894,15 +893,34 @@ def code_rows(code: CodeDev) -> torch.Tensor:
                         torch.zeros_like(code.fam)], -1).contiguous()
 
 
+def arena_len_word(arena_len, device) -> torch.Tensor:
+    """The segment's starting arena length as a one-word int32 tensor on
+    ``device``, which the kernel reads when it starts: a 0-d tensor there
+    (a chained segment's predecessor's ``out[0]``) is taken as it is, so the
+    host reads no device value; a host integer is filled in on the device,
+    a launch and no copy."""
+    if isinstance(arena_len, torch.Tensor):
+        if arena_len.device != torch.device(device) or arena_len.dtype != I32 or \
+                arena_len.numel() != 1:
+            raise ValueError("arena_len must be one int32 word on the state's device")
+        return arena_len.reshape(1)
+    return torch.full((1,), int(arena_len), dtype=I32, device=device)
+
+
 def kernel_args(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
-                cfg: CfgScalars, caps: Caps):
+                cfg: CfgScalars, caps: Caps, fresh_state: bool = False):
     """The kernel's arguments over COPIES of the inputs, which it updates in
     place: -> (FrontierArgs, (state, arena, visited, out scalars), keepalive).
-    Used by ``segment_cuda`` and by the host build of the kernel body."""
+    ``fresh_state``: the state's tensors were made for this call and are
+    read by nothing else (a chained dispatch's merge), so the kernel takes
+    them without a copy.  ``arena_len`` is a host integer or a one-word
+    int32 tensor on the state's device (``arena_len_word``).  Used by
+    ``segment_cuda`` and by the host build of the kernel body."""
     _check_inputs(state, arena, visited, code, caps)
     if caps.B <= 0 or state.ctx.shape[1] != 16:
         raise ValueError("the kernel takes B >= 1 paths with a [B, 16] ctx")
-    state = FrontierState(*[f.clone() for f in state])
+    if not fresh_state:
+        state = FrontierState(*[f.clone() for f in state])
     arena = ArenaDev(*[x.clone() for x in arena])
     visited = visited.clone()
     code = CodeDev(*[x.contiguous() for x in code])
@@ -912,31 +930,35 @@ def kernel_args(state: FrontierState, arena: ArenaDev, arena_len, visited, code:
     size = {"fkeys": 2 * B, "grants": GRANT_W * B, "cnt": 2 * 4 * blocks, "out": 3}
     scratch = {n: torch.zeros(size.get(n, B), dtype=I32, device=dev) for n in _SCRATCH}
     scratch["grants"].fill_(-1)
+    len0 = arena_len_word(arena_len, dev)
     args = FrontierArgs(
         *[f.data_ptr() for f in state], *[x.data_ptr() for x in arena], visited.data_ptr(),
         *[x.data_ptr() for x in code], rows.data_ptr(), *[scratch[n].data_ptr() for n in _SCRATCH],
+        len0.data_ptr(),
         B, caps.STK, caps.MEM, caps.STO, caps.CON, caps.EVT, caps.R, caps.K, caps.ARENA,
         state.loops.shape[1], arena.op.shape[0], code.fam.shape[0], code.fam.shape[1],
-        code.jumpmap.shape[1], visited.shape[1], visited.shape[2], int(arena_len),
+        code.jumpmap.shape[1], visited.shape[1], visited.shape[2],
         cfg.max_depth, cfg.loop_bound, cfg.row_zero, cfg.row_one, cfg.sel_mode,
         min(int(cfg.k_limit), INT32_MAX),
     )
-    return args, (state, arena, visited, scratch["out"]), (code, rows, scratch)
+    return args, (state, arena, visited, scratch["out"]), (code, rows, scratch, len0)
 
 
 def segment_cuda(state: FrontierState, arena: ArenaDev, arena_len, visited,
-                 code: CodeDev, cfg: CfgScalars, caps: Caps):
+                 code: CodeDev, cfg: CfgScalars, caps: Caps, fresh_state: bool = False):
     """The segment as one launch of ``csrc/frontier_segment.cu``; inputs on
-    a CUDA device, not modified.  Same outputs as ``segment_torch``, the
-    scalars as 0-d int32 tensors on the card (no host synchronisation).
-    Raises when the card cannot hold the launch shape B needs."""
+    a CUDA device, not modified (but the state's with ``fresh_state``, see
+    ``kernel_args``).  ``arena_len`` may be a 0-d int32 tensor on the card.
+    Same outputs as ``segment_torch``, the scalars as 0-d int32 tensors on
+    the card; the host reads no device value.  Queued on the current
+    stream.  Raises when the card cannot hold the launch shape B needs."""
     global launches
     if not state.pc.is_cuda:
         raise ValueError("segment_cuda takes CUDA tensors")
     from mythril_tpu_torch.ops import _build
 
     args, (state, arena, visited, out), keep = kernel_args(state, arena, arena_len, visited,
-                                                           code, cfg, caps)
+                                                           code, cfg, caps, fresh_state)
     lib = _build.load()
     with torch.cuda.device(state.pc.device):
         stream = torch.cuda.current_stream(state.pc.device).cuda_stream
@@ -985,9 +1007,10 @@ def max_paths(device) -> int:
 @lru_cache(maxsize=16)
 def _cached(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int, loops_cap: int):
     def segment(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
-                cfg: CfgScalars):
-        impl = segment_cuda if state.pc.is_cuda else segment_torch
-        return impl(state, arena, arena_len, visited, code, cfg, caps)
+                cfg: CfgScalars, fresh_state: bool = False):
+        if state.pc.is_cuda:
+            return segment_cuda(state, arena, arena_len, visited, code, cfg, caps, fresh_state)
+        return segment_torch(state, arena, arena_len, visited, code, cfg, caps)
 
     return segment
 
@@ -997,9 +1020,10 @@ def cached_segment(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int,
     """The segment for (caps, size bucket), with the JAX signature
     ``segment(state, arena, arena_len, visited, code, cfg) -> (state, arena,
     arena_len, n_exec, max_live, visited)``: the kernel on CUDA tensors, the
-    plain version on CPU tensors.  ``device=None`` means the CUDA card and
-    raises ``NoCudaDevice`` without one; pass ``device="cpu"`` to run the
-    plain version here."""
+    plain version on CPU tensors.  ``fresh_state=True`` (a chained
+    dispatch's merged state) lets the kernel take the state without a copy.
+    ``device=None`` means the CUDA card and raises ``NoCudaDevice`` without
+    one; pass ``device="cpu"`` to run the plain version here."""
     _device.resolve(device)
     return _cached(caps, code_cap, instr_cap, addr_cap, loops_cap)
 
@@ -1028,15 +1052,27 @@ def _pack_events(state: FrontierState, cap: int) -> torch.Tensor:
     return state.events[:, :cap, :].reshape(-1)
 
 
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """A host array onto ``device`` without a host wait: to the card from
+    pinned memory, queued on the current stream (the caching host allocator
+    keeps the pinned block until the copy has run); on the CPU the array's
+    own memory."""
+    x = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return x
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 def push_state(state: FrontierState, device=None) -> FrontierState:
     """Host numpy state -> tensors on ``device`` (the card unless "cpu"):
-    one packed copy of the non-event fields; the event buffers are made
-    empty on the device (the harvest drains them every segment)."""
+    one packed copy of the non-event fields, queued without a host wait
+    (``upload``); the event buffers are made empty on the device (the
+    harvest drains them every segment)."""
     dev = _device.resolve(device)
     if any(np.asarray(f).dtype != np.int32 for f in state):
         raise ValueError("packed state transfer assumes uniform int32 fields")
     flat = [np.asarray(getattr(state, n)).reshape(-1) for n in _NON_EVENT]
-    buf = torch.from_numpy(np.concatenate(flat)).to(dev)
+    buf = upload(np.concatenate(flat), dev)
     fields, off = {}, 0
     for n, x in zip(_NON_EVENT, flat):
         fields[n] = buf[off: off + x.size].view(np.asarray(getattr(state, n)).shape)
@@ -1046,23 +1082,117 @@ def push_state(state: FrontierState, device=None) -> FrontierState:
     return FrontierState(**fields)
 
 
-def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None, shards: int = 1):
-    """Device -> host harvest: one packed copy of every non-event field and
-    the three scalars, then the events in a bucket covering max(ev_len).
-    -> (numpy FrontierState, arena_len, n_exec, max_live).  The delta pull
-    (``prev``) belongs to the pipelined frontier, not ported yet."""
-    return _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev, shards=shards)
+def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None):
+    """Device -> host harvest.  -> (numpy FrontierState, arena_len, n_exec,
+    max_live).  Reads on the current stream, and waits for it.
+
+    ``prev=None`` (the synchronous loop, the pipeline's sync points): one
+    packed copy of every non-event field and the three scalars, then the
+    events in a bucket covering max(ev_len).
+
+    ``prev`` set (the pipeline's steady state, the next dispatch already
+    chained): a DELTA pull.  The harvest reads three things of a fresh
+    mirror: the per-slot scalars, the 2-D rows of slots it finishes or
+    prunes, and the new events.  So the pull ships the [B] fields (and the
+    scalars) in one copy, then the rows of the dirty slots only (halted
+    with a seed, events to drain, or a constraint list that grew since
+    ``prev``: the list is append-only, and a recycled slot's mirror length
+    is 0 after ``clear_slot``), and the events of the slots that have any;
+    every other row is ``prev``'s.  Row and slot counts are padded to
+    ``_SLOT_BUCKETS`` as in the JAX package, so the bytes counted in
+    ``pipeline.COUNTERS`` (``delta_pulls``, ``delta_pull_bytes``) are its
+    bytes."""
+    return _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev)
 
 
-def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None,
-                       shards: int = 1):
-    if prev is not None or shards != 1:
-        raise NotImplementedError("delta and sharded pulls come with the pipelined frontier")
+def _scalars(state: FrontierState, arena_len, n_exec, max_live) -> torch.Tensor:
+    dev = state.pc.device
+    return torch.stack([torch.as_tensor(x, dtype=I32, device=dev).reshape(())
+                        for x in (arena_len, n_exec, max_live)])
+
+
+# Delta pulls pad their index vectors to these row counts (the JAX package
+# does, so that its gathers compile a few times); the full batch width is
+# the last resort
+_SLOT_BUCKETS = (8, 32, 128)
+
+
+def _bucketed(n: int, full: int) -> int:
+    return next((b for b in _SLOT_BUCKETS if b >= n and b <= full), full)
+
+
+def _pack_meta_1d(state: FrontierState, arena_len, n_exec, max_live) -> torch.Tensor:
+    """Every [B] field flattened into one tensor, then the three scalars."""
+    return torch.cat([f for f in state if f.dim() == 1]
+                     + [_scalars(state, arena_len, n_exec, max_live)])
+
+
+def _gather_rows(state: FrontierState, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of every 2-D field, concatenated flat (field order)."""
+    return torch.cat([f[idx].reshape(-1) for f in state if f.dim() == 2])
+
+
+def _gather_events_rows(state: FrontierState, idx: torch.Tensor, cap: int) -> torch.Tensor:
+    return state.events[idx, :cap, :].reshape(-1)
+
+
+def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev):
+    from mythril_tpu_torch.frontier import pipeline
+
+    dev = state.pc.device
+    B, EVT, EVW = np.asarray(prev.events).shape
+    names_1d = [n for n, f in zip(prev._fields, prev) if np.asarray(f).ndim == 1]
+    names_2d = [n for n, f in zip(prev._fields, prev) if np.asarray(f).ndim == 2]
+    buf = _pack_meta_1d(state, arena_len, n_exec, max_live).cpu().numpy()
+    fields, off = {}, 0
+    for n in names_1d:
+        fields[n] = buf[off: off + B].copy()
+        off += B
+    scalars = (int(buf[off]), int(buf[off + 1]), int(buf[off + 2]))
+    pulled_bytes = buf.nbytes
+
+    halt, seed = fields["halt"], fields["seed"]
+    ev_len = np.minimum(fields["ev_len"], EVT)
+    dirty = (((seed >= 0) & (halt != O.H_RUNNING)) | (ev_len > 0)
+             | (fields["cons_len"] != prev.cons_len))
+    idx = np.nonzero(dirty)[0].astype(np.int32)
+    for n in names_2d:
+        fields[n] = np.asarray(getattr(prev, n)).copy()
+    if idx.size:
+        cap_n = _bucketed(idx.size, B)
+        pad = np.zeros(cap_n, np.int64)
+        pad[: idx.size] = idx
+        rows = _gather_rows(state, torch.from_numpy(pad).to(dev)).cpu().numpy()
+        pulled_bytes += rows.nbytes
+        off2 = 0
+        for n in names_2d:
+            w = fields[n].shape[1]
+            fields[n][idx] = rows[off2: off2 + cap_n * w].reshape(cap_n, w)[: idx.size]
+            off2 += cap_n * w
+
+    events = np.full((B, EVT, EVW), -1, np.int32)
+    ev_idx = np.nonzero(ev_len > 0)[0].astype(np.int32)
+    if ev_idx.size:
+        cap = events_cap(int(ev_len[ev_idx].max()), EVT)
+        cap_m = _bucketed(ev_idx.size, B)
+        pad = np.zeros(cap_m, np.int64)
+        pad[: ev_idx.size] = ev_idx
+        pulled = _gather_events_rows(state, torch.from_numpy(pad).to(dev), cap).cpu().numpy()
+        pulled = pulled.reshape(cap_m, cap, EVW)
+        events[ev_idx, :cap, :] = pulled[: ev_idx.size]
+        pulled_bytes += pulled.nbytes
+    fields["events"] = events
+    pipeline.count("delta_pulls")
+    pipeline.count("delta_pull_bytes", pulled_bytes)
+    return (FrontierState(**fields), *scalars)
+
+
+def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None):
     if any(f.dtype != I32 for f in state):
         raise ValueError("packed state transfer assumes uniform int32 fields")
-    dev = state.pc.device
-    scalars = torch.stack([torch.as_tensor(x, dtype=I32, device=dev).reshape(())
-                           for x in (arena_len, n_exec, max_live)])
+    if prev is not None:
+        return _pull_delta(state, arena_len, n_exec, max_live, prev)
+    scalars = _scalars(state, arena_len, n_exec, max_live)
     buf = torch.cat([getattr(state, n).reshape(-1) for n in _NON_EVENT] + [scalars]).cpu().numpy()
     fields, off = {}, 0
     for n in _NON_EVENT:
@@ -1113,7 +1243,9 @@ def push_arena_rows(dev_arena: ArenaDev, host_arena, lo: int, hi: int) -> ArenaD
     a clamped chunk get their own mirror values, rows past ``hi`` the
     mirror's fill: both are what decoding already sees).  Unlike the JAX
     package, which returns new arrays, this writes into ``dev_arena``'s
-    tensors and returns it."""
+    tensors and returns it: the one transfer that writes device memory in
+    place.  Only at a pipeline sync point (no segment in flight, no pull
+    pending), on a stream ordered after the last pull's."""
     cap = int(dev_arena.op.shape[0])
     C = min(REINJECT_CHUNK, cap)
     dev = dev_arena.op.device
@@ -1128,3 +1260,52 @@ def push_arena_rows(dev_arena: ArenaDev, host_arena, lo: int, hi: int) -> ArenaD
             dst[sl] = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
         pos = eff + C
     return dev_arena
+
+
+# ---------------------------------------------------------------------------
+# Pipelined dispatch chaining (frontier/pipeline.py).  A chained dispatch
+# takes the previous segment's device outputs as they are (the host reads
+# none of them) and folds in the host's corrections (the slots the last
+# harvest changed) with a per-slot select.  The event buffers start empty
+# for every slot, as after a full push: the harvest drains them every
+# segment.
+# ---------------------------------------------------------------------------
+
+# the fields the correction merge takes from the host; events and ev_len
+# start empty on the device
+_MERGE_FIELDS = tuple(n for n in FrontierState._fields if n not in ("events", "ev_len"))
+
+
+def _merge_corrections(prev: FrontierState, corr: FrontierState, mask) -> FrontierState:
+    """``corr``'s row where ``mask`` [B] is set, else ``prev``'s; events
+    -1 and ev_len 0.  Every field a new tensor (one launch each), so the
+    segment may take the result without a copy."""
+    fields = {}
+    for name, p in zip(prev._fields, prev):
+        if name in _MERGE_FIELDS:
+            m = mask.reshape((-1,) + (1,) * (p.dim() - 1))
+            fields[name] = torch.where(m, getattr(corr, name), p)
+    fields["events"] = torch.full_like(prev.events, -1)
+    fields["ev_len"] = torch.zeros_like(prev.ev_len)
+    return FrontierState(**fields)
+
+
+def chain_dispatch(segment, prev_out, host_state: FrontierState, corr_mask: np.ndarray,
+                   code_dev, cfg):
+    """Dispatch the next segment on the previous segment's outputs.
+
+    ``prev_out`` is the 6-tuple a segment call returned, possibly still
+    being computed; ``host_state`` is the host mirror, whose rows are
+    uploaded for the slots set in ``corr_mask`` (one packed ``push_state``
+    copy and the mask, both queued from pinned memory) and merged over the
+    device's own rows (``_merge_corrections``).  The segment starts from the
+    previous segment's arena length in device memory.  Nothing here reads a
+    device value on the host, so the call returns while the previous
+    segment runs; everything is queued on the current stream, which must
+    be the one the previous segment ran on."""
+    out_state, dev_arena, out_len, _n_exec, _max_live, visited = prev_out
+    dev = out_state.pc.device
+    corr = push_state(host_state, device=dev)
+    mask = upload(np.asarray(corr_mask, dtype=bool), dev)
+    merged = _merge_corrections(out_state, corr, mask)
+    return segment(merged, dev_arena, out_len, visited, code_dev, cfg, fresh_state=True)

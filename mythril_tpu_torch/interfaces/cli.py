@@ -14,20 +14,21 @@ What differs from the JAX command line:
   moves to the CPU on its own.
 * ``--probe-backend`` has the port's backends: ``device`` (the default, the
   role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
-* The known-bits prefilter, the devsolver, the static pass and the query
-  cache run by default, as in the JAX package; ``--no-prefilter``,
-  ``--no-devsolver``, ``--no-staticpass``, ``--no-staticpass-interproc``
-  and ``--no-query-cache`` switch them off, ``--devsolver-bit-budget`` and
-  ``--devsolver-iters`` set the devsolver's budgets, ``--query-cache-dir``
-  adds the query cache's disk store and ``--staticpass-report`` writes the
-  static pass's JSON after the run.  The other switches that turn a
-  default-on JAX tier off (``--no-pipeline``, ...) are accepted: the port
-  runs without those tiers until they are ported, and ``analyze`` names
-  them on one stderr line.
+* The known-bits prefilter, the devsolver, the static pass, the query
+  cache and the pipelined frontier run by default, as in the JAX package;
+  ``--no-prefilter``, ``--no-devsolver``, ``--no-staticpass``,
+  ``--no-staticpass-interproc``, ``--no-query-cache`` and ``--no-pipeline``
+  switch them off, ``--devsolver-bit-budget`` and ``--devsolver-iters`` set
+  the devsolver's budgets, ``--solver-workers`` and ``--harvest-workers``
+  the pipeline's feasibility pool and the harvest's replay pool (0: the
+  serial harvest), ``--query-cache-dir`` adds the query cache's disk store
+  and ``--staticpass-report`` writes the static pass's JSON after the run.
+  The other switches that turn a default-on JAX tier off (``--no-mesh``,
+  ``--no-adaptive``) are accepted: the port runs without those tiers until
+  they are ported, and ``analyze`` names them on one stderr line.
 * Every other JAX option or subcommand the port lacks is refused with exit
   code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
-  worker counts and the heartbeat period are accepted at their JAX
-  defaults only.
+  heartbeat period is accepted at its JAX default only.
 * With ``--frontier`` on the card, a ``--frontier-width`` wider than the
   card's resident cooperative grid is refused before the analysis starts.
 
@@ -62,8 +63,6 @@ NOT_YET_PORTED = {
     "--checkpoint-file": 13,
     "--resume-from": 13,
     "--coverage-target": 5,
-    "--solver-workers": 11,
-    "--harvest-workers": 11,
     "--compile-cache-dir": 13,
     "--cache-root": 13,
     "--trace-out": 13,
@@ -87,13 +86,10 @@ NOT_YET_PORTED = {
 # refused options that the port accepts at their JAX default, and runs as
 # that default: option -> (type, default)
 AT_DEFAULT_ONLY = {
-    "--solver-workers": (int, 2),
-    "--harvest-workers": (int, 4),
     "--heartbeat-interval": (float, 0.5),
 }
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
 RUNS_WITHOUT = {
-    "pipeline": ("the pipelined frontier", 11),
     "frontier_mesh": ("the device mesh", 12),
     "adaptive": ("the adaptive controller", 5),
 }
@@ -274,7 +270,15 @@ def _add_analysis_options(parser) -> None:
         "window of that size device-resident, cold jumps fault to the "
         "host for a sync-point repack (0 keeps bucket isolation only)",
     )
-    _runs_without(group, "--no-pipeline", "pipeline")
+    group.add_argument(
+        "--no-pipeline",
+        action="store_false",
+        dest="pipeline",
+        default=True,
+        help="disable the pipelined frontier (chained device dispatch + "
+        "background feasibility pool) and run the synchronous "
+        "segment/harvest loop; the issue set is identical either way",
+    )
     group.add_argument(
         "--no-prefilter",
         action="store_false",
@@ -311,6 +315,25 @@ def _add_analysis_options(parser) -> None:
     )
     _runs_without(group, "--no-mesh", "frontier_mesh")
     _runs_without(group, "--no-adaptive", "adaptive")
+    group.add_argument(
+        "--solver-workers",
+        type=int,
+        default=2,
+        metavar="N",
+        help="feasibility-pool worker threads for the pipelined frontier "
+        "(solves are serialized by a shared lock — this moves solve "
+        "latency off the harvest critical path, not parallel solving)",
+    )
+    group.add_argument(
+        "--harvest-workers",
+        type=int,
+        default=4,
+        metavar="N",
+        help="harvest replay worker threads: terminal path replays shard "
+        "by owning laser (no shared per-laser state across workers) and "
+        "commit in slot order, so the issue set is identical to serial; "
+        "0 runs the serial harvest",
+    )
     group.add_argument(
         "--no-staticpass",
         action="store_true",
@@ -595,6 +618,9 @@ def _build_analyzer(parsed):
         devsolver=parsed.devsolver,
         devsolver_bit_budget=parsed.devsolver_bit_budget,
         devsolver_iters=parsed.devsolver_iters,
+        pipeline=parsed.pipeline,
+        solver_workers=parsed.solver_workers,
+        harvest_workers=parsed.harvest_workers,
     )
     print(runs_without_line(parsed), file=sys.stderr)
     return MythrilAnalyzer(

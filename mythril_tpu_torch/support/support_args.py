@@ -18,8 +18,10 @@ read by ``devsolver.decide_batch`` and set through ``devsolver.configure``.
 (``staticpass/``: the detector gate, the hook elision and the event
 pruning of the frontier's tables) and its interprocedural layer;
 ``query_cache`` and ``query_cache_dir`` the solver's query cache
-(``querycache/``) and its disk store.  All on by default (no disk store),
-as in the JAX package.
+(``querycache/``) and its disk store.  ``pipeline``, ``solver_workers``
+and ``harvest_workers`` are the pipelined frontier, its feasibility pool
+and the harvest's replay pool.  All on by default (no disk store), with the
+JAX package's worker counts.
 
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
@@ -82,6 +84,15 @@ class Args:
     # instruction axis exceeds the budget keeps only a resident window
     code_paging: bool = True
     code_page_budget: int = 2048
+    # the pipelined frontier (frontier/pipeline.py): chained segment
+    # dispatches overlap the host's harvest, and the harvest's feasibility
+    # checks run in a background pool of solver_workers threads; the issue
+    # set is identical to the synchronous loop's (--no-pipeline)
+    pipeline: bool = True
+    solver_workers: int = 2
+    # harvest replay threads (frontier/harvest.py HarvestExecutor): a
+    # laser's replays on one worker, commits in slot order; 0 = serial
+    harvest_workers: int = 4
     device: Optional[torch.device] = None
 
 

@@ -13,7 +13,11 @@ devsolver; ``port_no_tiers`` switches the port's two off, as every older
 record was made.  ``jax_engine_config_defaults`` adds the static pass, its
 interprocedural layer and the query cache, the tier set the port carries
 now; ``port_no_host_tiers`` switches the port's three off, as every older
-record was made.
+record was made.  ``jax_engine_config_pipeline`` adds the pipelined
+frontier (two feasibility workers, four replay workers), the JAX package's
+default engine on one device without the adaptive controller;
+``port_no_pipeline`` runs the port's synchronous loop with a serial
+harvest, as every older record was made.
 """
 
 from __future__ import annotations
@@ -134,11 +138,27 @@ def port_no_host_tiers():
 
 
 @contextlib.contextmanager
+def port_no_pipeline():
+    """The port's synchronous frontier loop with a serial harvest
+    (``--no-pipeline --harvest-workers 0``), as the JAX package ran for
+    every record made before the pipeline was ported
+    (``JAX_ENGINE_ARGS``)."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = (args.pipeline, args.harvest_workers)
+    args.pipeline, args.harvest_workers = False, 0
+    try:
+        yield
+    finally:
+        args.pipeline, args.harvest_workers = saved
+
+
+@contextlib.contextmanager
 def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool = False):
     """The port's solver with the device probe on and its caches cleared;
     its native CDCL off unless ``cdcl``, its prefilter and devsolver off
     unless ``tiers``, its static pass and query cache off unless
-    ``defaults``."""
+    ``defaults``; its frontier synchronous (``port_no_pipeline``)."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
     from mythril_tpu_torch.support.support_args import args
 
@@ -153,6 +173,7 @@ def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool 
                 stack.enter_context(port_no_tiers())
             if not defaults:
                 stack.enter_context(port_no_host_tiers())
+            stack.enter_context(port_no_pipeline())
             yield
     finally:
         args.probe_backend = saved
@@ -173,16 +194,23 @@ JAX_ENGINE_ARGS = dict(
 
 # the JAX package's host tiers that ``jax_engine_config_defaults`` leaves on
 DEFAULT_ON = ("staticpass", "staticpass_interproc")
+# ... and the engine settings ``jax_engine_config_pipeline`` adds: the JAX
+# package's defaults
+PIPELINE_ON = dict(pipeline=True, harvest_workers=4, solver_workers=2)
 
 
 @contextlib.contextmanager
-def _jax_engine(cdcl: bool, tiers: bool = False, defaults: bool = False):
+def _jax_engine(cdcl: bool, tiers: bool = False, defaults: bool = False,
+                pipeline: bool = False):
     from mythril_tpu.support.support_args import args
 
-    saved = {k: getattr(args, k) for k in JAX_ENGINE_ARGS}
+    saved = {k: getattr(args, k) for k in (*JAX_ENGINE_ARGS, *PIPELINE_ON)}
     with _jax_tiers(cdcl, tiers, query_cache=defaults):
         for k, v in JAX_ENGINE_ARGS.items():
             setattr(args, k, True if defaults and k in DEFAULT_ON else v)
+        if pipeline:
+            for k, v in PIPELINE_ON.items():
+                setattr(args, k, v)
         try:
             yield
         finally:
@@ -214,6 +242,48 @@ def jax_engine_config_defaults():
     on; the pipeline, mesh, adaptive controller and harvest workers stay
     off."""
     return _jax_engine(cdcl=True, tiers=True, defaults=True)
+
+
+def jax_engine_config_pipeline():
+    """``jax_engine_config_defaults`` with the JAX package's pipelined
+    frontier on, two feasibility-pool workers and four harvest replay
+    workers (``PIPELINE_ON``, its defaults); the mesh and the adaptive
+    controller stay off."""
+    return _jax_engine(cdcl=True, tiers=True, defaults=True, pipeline=True)
+
+
+# the pipelined runner's counters (the JAX package's ``pipeline.*``
+# metrics, the port's ``frontier.pipeline.COUNTERS``)
+PIPELINE_COUNTERS = (
+    "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
+    "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
+    "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
+    "reinject_queued", "reinjected",
+)
+
+
+def reset_pipeline_counters(base: str) -> None:
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        get_registry().reset(prefix="pipeline.")
+        return
+    import importlib
+
+    importlib.import_module(f"{base}.frontier.pipeline").reset_counters()
+
+
+def pipeline_counters(base: str) -> dict:
+    """``PIPELINE_COUNTERS`` of ``base`` (the prefix left out)."""
+    if base == "mythril_tpu":
+        from mythril_tpu.observability import get_registry
+
+        reg = get_registry()
+        return {n: reg.counter(f"pipeline.{n}").value or 0 for n in PIPELINE_COUNTERS}
+    import importlib
+
+    counters = importlib.import_module(f"{base}.frontier.pipeline").COUNTERS
+    return {n: counters[n] for n in PIPELINE_COUNTERS}
 
 
 TIER_COUNTERS = {
@@ -366,6 +436,7 @@ def _reset(base: str) -> None:
     staticpass.get_callgraph().reset()
     querycache.reset_query_cache()
     reset_host_tier_counters(base)
+    reset_pipeline_counters(base)
 
 
 @contextlib.contextmanager
@@ -388,13 +459,13 @@ def recording_dispatches(base: str, into: list):
     def cached_segment(caps, *bucket, **kw):
         segment = orig(caps, *bucket, **kw)
 
-        def recorded(state, arena, arena_len, visited, code, cfg):
+        def recorded(state, arena, arena_len, visited, code, cfg, **kw):
             if threading.current_thread() is not owner:
-                return segment(state, arena, arena_len, visited, code, cfg)
+                return segment(state, arena, arena_len, visited, code, cfg, **kw)
             t0 = time.perf_counter()
             digest_in = interop.input_digests(state, arena, arena_len, visited, code, cfg)
             t1 = time.perf_counter()
-            out = segment(state, arena, arena_len, visited, code, cfg)
+            out = segment(state, arena, arena_len, visited, code, cfg, **kw)
             t2 = time.perf_counter()
             digest_out = interop.output_digests(out)
             into.append({"in": digest_in, "out": digest_out,
@@ -448,18 +519,21 @@ def counting_cdcl(base: str, into: dict):
 def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "dfs",
                  frontier: bool = False, force: bool = False, width: int = 64,
                  modules=None, timeout: int = 60, device="cpu", record: bool = True,
-                 cdcl: bool = False, tiers: bool = False, defaults: bool = False) -> dict:
+                 cdcl: bool = False, tiers: bool = False, defaults: bool = False,
+                 pipeline: bool = False) -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
     ("mythril_tpu" under ``jax_engine_config``, ``jax_engine_config_cdcl``
     or ``jax_engine_config_tiers``, or "mythril_tpu_torch" on ``device``,
     its native CDCL on only when ``cdcl``, its prefilter and devsolver only
-    when ``tiers``, its static pass and query cache only when ``defaults``)
+    when ``tiers``, its static pass and query cache only when ``defaults``,
+    its pipelined frontier and replay workers only when ``pipeline``)
     with every cache cleared first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
     "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
     ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "staticpass"
     (``staticpass_counters``), "querycache" (``querycache_counters``),
-    "seconds" (wall, the digests' time excluded)}"""
+    "pipeline" (``pipeline_counters``), "seconds" (wall, the digests' time
+    excluded)}"""
     import importlib
     import time
 
@@ -486,6 +560,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                 stack.enter_context(port_no_tiers())
             if port and not defaults:
                 stack.enter_context(port_no_host_tiers())
+            if port and not pipeline:
+                stack.enter_context(port_no_pipeline())
             stack.enter_context(counting_cdcl(base, native))
             t0 = time.perf_counter()
             sym = symbolic.SymExecWrapper(
@@ -513,6 +589,7 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
         "tiers": tier_counters(base),
         "staticpass": staticpass_counters(base),
         "querycache": querycache_counters(base),
+        "pipeline": pipeline_counters(base),
         "seconds": seconds,
     }
 

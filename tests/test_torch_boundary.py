@@ -8,10 +8,12 @@ query of the probe fixture on the CPU, imports the frontier modules
 small plain segment on the CPU, builds and loads the port's native library
 (``native/bitblast``, g++ into ``mythril_tpu_torch/_build/``) and has its
 CDCL refute one formula, runs the prefilter's ``prefilter_batch`` and the
-devsolver's ``decide_batch`` on the CPU, imports every module of the port, runs one
+devsolver's ``decide_batch`` on the CPU, imports the pipelined frontier
+(``frontier/pipeline``) and runs a ``CorrectionLedger`` through a dispatch,
+a pull and a carry, imports every module of the port, runs one
 whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 ``fire_lasers`` on the CPU, with the host engine and with the frontier
-forced), runs the command line in process (``interfaces.cli.main``:
+forced, which runs pipelined by default), runs the command line in process (``interfaces.cli.main``:
 ``analyze`` of the same contract with ``--device cpu``), and reports which
 modules it loaded.  The same process shows that,
 without a card, entry points called without ``device="cpu"`` (the solver,
@@ -105,6 +107,16 @@ tier_rows = [[terms.ult(y, terms.const(5, 8)), terms.ult(terms.const(10, 8), y)]
              [terms.eq(y, terms.const(3, 8))]]
 tiers = {"prefilter": absdomain.prefilter_batch(tier_rows, "cpu"),
          "devsolver": [s for s, _a in devsolver.decide_batch(tier_rows, "cpu")]}
+import numpy as np
+from mythril_tpu_torch.frontier import pipeline
+led = pipeline.CorrectionLedger(4)
+led.consume(np.full(4, -1))
+led.touch(2)
+ledger_mask = led.consume(np.array([5, -1, 7, -1])).tolist()
+prev_st, new_st = state.empty_state(state.Caps(B=4), 4), state.empty_state(state.Caps(B=4), 4)
+prev_st.pc[2], new_st.pc[2], new_st.ev_len[2] = 42, 7, 3
+ledger = {"mask": ledger_mask, "carried": led.carry_forward(new_st, prev_st),
+          "pc": int(new_st.pc[2]), "ev_len": int(new_st.ev_len[2])}
 import importlib, pkgutil
 import mythril_tpu_torch
 for m in pkgutil.walk_packages(mythril_tpu_torch.__path__, "mythril_tpu_torch."):
@@ -118,12 +130,14 @@ found = {}
 for frontier in (False, True):
     args.frontier = args.frontier_force = frontier
     FrontierStatistics().reset()
+    pipeline.reset_counters()
     for m in ModuleLoader().get_detection_modules():
         m.cache.clear()
     sym = SymExecWrapper(code, address=0x0901D12E, transaction_count=1, execution_timeout=60,
                          modules=["AccidentallyKillable"], device="cpu")
     found[str(frontier)] = [[i.swc_id, FrontierStatistics().segments]
                             for i in fire_lasers(sym, white_list=["AccidentallyKillable"])]
+    found[str(frontier) + "_pipelined"] = pipeline.COUNTERS["segments_pipelined"]
 sym_raised = None
 if not torch.cuda.is_available():
     try:
@@ -145,7 +159,7 @@ cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
 print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
                   "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
-                  "lowering": low, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
+                  "ledger": ledger, "lowering": low, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
 
@@ -175,13 +189,19 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["lowering"]["raised"] in (True, None)
     for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
                 "frontier.step", "support.opcodes", "frontier.engine", "frontier.walker",
-                "frontier.harvest", "core.svm", "analysis.symbolic", "analysis.security",
+                "frontier.harvest", "frontier.pipeline", "core.svm", "analysis.symbolic", "analysis.security",
                 "analysis.module.modules.suicide", "plugins.plugins.dependency_pruner"):
         assert f"mythril_tpu_torch.{mod}" in got["modules"]
     # the host engine finds the issue without the device; the forced
     # frontier finds it through at least one segment
     assert got["found"]["False"] == [["106", 0]]
     assert got["found"]["True"][0][0] == "106" and got["found"]["True"][0][1] > 0
+    # ... pipelined, by default
+    assert got["found"]["True_pipelined"] > 0 and got["found"]["False_pipelined"] == 0
+    # the correction ledger: slot 2's write rode dispatch 1, so the pull of
+    # dispatch 0 carries it from the host mirror, events cleared
+    assert got["ledger"] == {"mask": [False, False, True, False], "carried": 1, "pc": 42,
+                             "ev_len": 0}
     assert got["sym_raised"] in (True, None)
     # the command line ran the same analysis
     assert "mythril_tpu_torch.interfaces.cli" in got["modules"]

@@ -7,11 +7,15 @@ it to the port's tiers (``JAX_PINS``: the forced device probe, and the static
 pass, pipeline, prefilter, devsolver, query cache, mesh, adaptive controller
 and harvest pool off; native CDCL on in both packages).  The port's argv gets
 the pins' switches that the port has too (``port_argv``: ``--no-prefilter
---no-devsolver --no-staticpass --no-staticpass-interproc --no-query-cache``),
-as the JAX CLI ran.  The runs named ``.../tiers`` were recorded with the
-prefilter and the devsolver on in the JAX CLI (``TIER_PINS``), the runs named
-``.../defaults`` with the static pass and the query cache on as well
-(``DEFAULT_PINS``), and the port runs them with its own on, its default.  The
+--no-devsolver --no-staticpass --no-staticpass-interproc --no-query-cache
+--no-pipeline --harvest-workers 0``), as the JAX CLI ran.  The runs named
+``.../tiers`` were recorded with the prefilter and the devsolver on in the JAX
+CLI (``TIER_PINS``), the runs named ``.../defaults`` with the static pass and
+the query cache on as well (``DEFAULT_PINS``), the runs named ``.../pipeline``
+with the pipelined frontier and the replay workers on besides
+(``PIPELINE_PINS``: the JAX CLI's defaults but the forced device probe, the
+mesh and the adaptive controller), and the port runs them with its own on,
+its default.  The
 ``static/...`` runs are the ``static`` subcommand, which takes no pins, and
 ``.../staticpass-report`` writes ``--staticpass-report``.  Under pytest the
 port's CLI replays the small runs (all but the bench contracts of
@@ -63,6 +67,8 @@ TIER_PINS = [a for a in JAX_PINS if a not in ("--no-prefilter", "--no-devsolver"
 # ... and with its static pass and query cache on as well
 HOST_TIER_SWITCHES = ("--no-staticpass", "--no-staticpass-interproc", "--no-query-cache")
 DEFAULT_PINS = [a for a in TIER_PINS if a not in HOST_TIER_SWITCHES]
+# ... and with its pipelined frontier and harvest replay workers on as well
+PIPELINE_PINS = ["--probe-backend", "jax", "--no-mesh", "--no-adaptive"]
 # jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
 # deviations: the port's meta carries the execution info and the static pass)
 JAX_ONLY_META = {"device", "devsolver", "exploration", "frontier", "health", "observability",
@@ -77,7 +83,8 @@ BENCH = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
          "kill_simple/frontier-256", "etherstore_like/frontier-256/tiers",
          "etherstore_like/frontier-256/defaults")
 CARD_ONLY = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
-             "etherstore_like/frontier-256/tiers", "etherstore_like/frontier-256/defaults")
+             "etherstore_like/frontier-256/tiers", "etherstore_like/frontier-256/defaults",
+             "etherstore_like/frontier-256/pipeline")
 SMALL = tuple(r["name"] for r in json.loads(FIXTURE.read_text())["runs"]
               if r["name"] not in CARD_ONLY) if FIXTURE.is_file() else ()
 
@@ -95,7 +102,9 @@ def recorded_runs() -> list:
     frontier of 256; with its static pass and query cache on too
     (``DEFAULT_PINS``), the same two, ``killbilly_2tx`` and the dead-code
     contract (``_torch_parity.dead_code_contract``) on a forced frontier of
-    64, and ``kill_simple``'s ``--staticpass-report``; and ``static -o json``
+    64, and ``kill_simple``'s ``--staticpass-report``; with the pipeline and
+    the replay workers on too (``PIPELINE_PINS``), ``kill_simple`` on a
+    forced frontier of 64 and ``etherstore_like`` of 256; and ``static -o json``
     on ``kill_simple`` and on KillBilly with its creation code, and ``static``
     text on ``kill_simple``."""
     sys.path.insert(0, str(REPO))
@@ -141,6 +150,11 @@ def recorded_runs() -> list:
     for name, code in (("killbilly_2tx", KILLBILLY), ("dead_code", dead_code_contract())):
         runs.append({"name": f"{name}/frontier/defaults", "pins": DEFAULT_PINS,
                      "argv": analyze(code, 2) + ["-o", "jsonv2", *frontier]})
+    runs.append({"name": "kill_simple/frontier/pipeline", "pins": PIPELINE_PINS,
+                 "argv": analyze(contracts["kill_simple"][0], 2) + ["-o", "jsonv2", *frontier]})
+    runs.append({"name": "etherstore_like/frontier-256/pipeline", "pins": PIPELINE_PINS,
+                 "argv": analyze(bench["etherstore_like"], 2) + [
+                     "-o", "jsonv2", *frontier, "--frontier-width", "256"]})
     runs.append({"name": "kill_simple/host/staticpass-report", "pins": DEFAULT_PINS,
                  "argv": analyze(contracts["kill_simple"][0], 2) + [
                      "-o", "json", "--staticpass-report", OUT]})
@@ -154,10 +168,15 @@ def recorded_runs() -> list:
 
 def port_argv(run: dict) -> list:
     """A recorded run's argv for the port: the JAX pins' tier switches that
-    the port has (the prefilter's, the devsolver's, the static pass's and
-    the query cache's) added."""
-    return run["argv"] + [a for a in ("--no-prefilter", "--no-devsolver", *HOST_TIER_SWITCHES)
-                          if a in run["pins"]]
+    the port has (the prefilter's, the devsolver's, the static pass's, the
+    query cache's and the pipeline's, and the replay workers' count)
+    added."""
+    pins = run["pins"]
+    extra = [a for a in ("--no-prefilter", "--no-devsolver", *HOST_TIER_SWITCHES,
+                         "--no-pipeline") if a in pins]
+    if "--harvest-workers" in pins:
+        extra += pins[pins.index("--harvest-workers"):][:2]
+    return run["argv"] + extra
 
 
 def device_of(run: dict):
@@ -326,7 +345,7 @@ def test_fixture_holds_the_runs_it_names():
         if outform_of(run["argv"]) != "jsonv2" or OUT in run["argv"]:
             continue
         meta = _last_json_line(run["stdout"])[0]["meta"]["staticpass"]
-        assert (meta["contracts"] > 0) == name.endswith("/defaults"), name
+        assert (meta["contracts"] > 0) == name.endswith(("/defaults", "/pipeline")), name
     assert _last_json_line(runs["dead_code/frontier/defaults"]["stdout"])[0][
         "meta"]["staticpass"]["modules_skipped"]
     report = json.loads(runs["static/killbilly-creation/json"]["stdout"])
@@ -408,8 +427,9 @@ def test_runs_without_switches_are_accepted_and_named():
     line = cli.runs_without_line(parsed)
     for tier, _item in cli.RUNS_WITHOUT.values():
         assert tier in line
-    assert line.endswith("switched off on the command line: the pipelined frontier, "
-                         "the adaptive controller")
+    # the pipeline is ported: its switch is real and no longer named
+    assert "pipeline" not in line and not parsed.pipeline
+    assert line.endswith("switched off on the command line: the adaptive controller")
     for action in _subcommands(cli.create_parser())["analyze"]._actions:
         if action.dest in cli.RUNS_WITHOUT:
             item = cli.RUNS_WITHOUT[action.dest][1]
@@ -426,7 +446,9 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
 @pytest.mark.parametrize("argv, item", [
     (CLEAN + ["--trace-out", "trace.json"], 13),
     (CLEAN + ["--coverage-target=90"], 5),
-    (CLEAN + ["--harvest-workers", "0"], 11),
+    # the worker counts are real switches now; the heartbeat period is the
+    # option left that the port takes at its JAX default only
+    (CLEAN + ["--heartbeat-interval", "2"], 13),
     (CLEAN + ["--probe-backend", "auto"], 10),
     (["serve", "--port", "7396"], 13),
     (["c", "input.json", "--branches", "1"], 4),
@@ -443,10 +465,41 @@ def test_refused(argv, item, capsys):
 def test_default_only_options_run_at_their_default():
     from mythril_tpu_torch.interfaces import cli
 
-    argv = CLEAN + ["--harvest-workers", "4", "--solver-workers=2", "--heartbeat-interval", "0.50"]
-    assert cli.screen(argv) == CLEAN
+    workers = ["--harvest-workers", "4", "--solver-workers=2"]
+    argv = CLEAN + workers + ["--heartbeat-interval", "0.50"]
+    assert cli.screen(argv) == CLEAN + workers  # the worker counts are real
     rc, out = run_port(argv)
     assert rc == 0 and json.loads(out)["issues"] == []
+
+
+def test_pipeline_and_worker_switches_are_real():
+    """``--no-pipeline``, ``--solver-workers`` and ``--harvest-workers`` (0:
+    the serial harvest) reach the engine's flags at any value, and ``main``
+    restores them."""
+    from mythril_tpu_torch.facade import warm
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+
+    seen, apply = [], warm.apply_analyzer_args
+
+    def recording(cmd_args):
+        apply(cmd_args)
+        seen.append((args.pipeline, args.solver_workers, args.harvest_workers))
+
+    saved = (args.pipeline, args.solver_workers, args.harvest_workers)
+    assert saved == (True, 2, 4)
+    warm.apply_analyzer_args = recording
+    try:
+        for extra, want in ((["--solver-workers", "1", "--harvest-workers", "0"], (True, 1, 0)),
+                            (["--no-pipeline", "--solver-workers=7"], (False, 7, 4)),
+                            ([], (True, 2, 4))):
+            assert cli.screen(CLEAN + extra) == CLEAN + extra
+            rc, out = run_port(CLEAN + extra)
+            assert rc == 0 and json.loads(out)["issues"] == []
+            assert seen[-1] == want
+            assert (args.pipeline, args.solver_workers, args.harvest_workers) == saved
+    finally:
+        warm.apply_analyzer_args = apply
 
 
 def test_prefilter_and_devsolver_switches_are_real(monkeypatch):

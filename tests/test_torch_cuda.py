@@ -426,3 +426,45 @@ def test_lowering_wrapper_refuses_mixed_devices(card):
     scalars, bools, tabs = lowering.pack_assignments(compiled, asgs, card)
     with pytest.raises(ValueError, match="expected int32"):
         lowering.run_lowering(compiled, scalars, bools.cpu(), tabs)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined frontier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,index", [("etherstore_like", 0), ("wide_contract_10", 0)])
+def test_chained_dispatch_has_no_host_sync_and_matches_plain(card, name, index):
+    """A recorded dispatch on the card, then one segment chained on its
+    device outputs under ``set_sync_debug_mode("error")`` (the host reads no
+    device value); the merged input and the chained outputs equal the merge
+    and the plain segment on the CPU, and the delta pull equals the full
+    pull."""
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_pipeline import chained_dispatch, recorded_dispatch
+
+    d = recorded_dispatch(name, index)
+    chained_dispatch(d, card)  # builds the kernels and the pinned pools outside the check
+    before = step.launches
+    got = chained_dispatch(d, card, sync_debug=True)
+    assert step.launches - before == 2
+    assert got["corrected"] > 0
+    assert got["in"] == got["plain_in"] and got["out"] == got["plain_out"]
+    assert got["delta_equal"] and 0 < got["delta_bytes"] < got["full_bytes"]
+
+
+def test_pipelined_analysis_on_card_equals_its_record(card):
+    """The pipelined engine on the card (two feasibility workers, four
+    replay workers, the segment stream and the copy stream): the JAX
+    pipeline's recorded issues and counters, and the same issues with
+    ``--no-pipeline``."""
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_pipeline import check_run, run_of, run_port, summary_differences
+
+    run = run_of("etherstore_like/64")
+    before = step.launches
+    got = run_port(run, None)
+    assert check_run(run, got) == []
+    assert step.launches - before == got["frontier"]["segments"]
+    sync = run_port(run, None, pipeline=False)
+    assert summary_differences(sync["summary"], got["summary"]) == []
