@@ -4,15 +4,19 @@ probe (the tape VM and the per-conjunction lowering), the device frontier
 segment and the whole analysis around them,
 without and with the native CDCL tier, under the solver's default
 prefilter and devsolver tiers, under the default host tiers (the static
-pass and the query cache), and pipelined (chained segments on a stream of
-their own, delta pulls, the feasibility pool and the replay workers).
+pass and the query cache), pipelined (chained segments on a stream of
+their own, delta pulls, the feasibility pool and the replay workers), and
+with the adaptive controller (the exploration ledger, the seed scheduler,
+the park pool, the coverage target) on single analyses and on cooperative
+multi-contract batches.
 Every phase before 8e holds the port with the static pass, its
 interprocedural layer and the query cache off
 (``tests/_torch_parity.port_no_host_tiers``, ``test_torch_cli.port_argv``),
-and every phase but 8f and 8c's ``python -m`` run with the synchronous
+every phase but 8f, 8g and 8c's ``python -m`` run with the synchronous
 frontier loop and a serial harvest (``port_no_pipeline``, ``--no-pipeline
---harvest-workers 0``), as the JAX package ran when those runs were
-recorded.
+--harvest-workers 0``), and every phase but 8g and 8c's ``python -m``
+without the adaptive controller (``port_no_adaptive``, ``--no-adaptive``),
+as the JAX package ran when those runs were recorded.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card, nvcc
 
@@ -153,14 +157,16 @@ Phases, in order; any failure exits nonzero and prints no result:
    (1024) and largecode (256) contracts), recorded from the JAX package's
    default engine on one device (the pipeline, two feasibility workers, four
    replay workers, CDCL, the solver and host tiers; no mesh, no adaptive
-   controller), run on the card in turns, pipelined, with
-   ``--no-pipeline`` twice, pipelined again, in the same process: the
-   issues equal to the recording's and to the three other runs',
+   controller), run on the card pipelined and with ``--no-pipeline``
+   (``etherstore_like`` and ``rubixi_like`` at 256, wide and largecode in
+   turns, pipelined, ``--no-pipeline`` twice, pipelined again; the short
+   runs once each), in the same process: the issues equal to the recording's
+   and to the other runs',
    ``segments_pipelined >
    0`` on every run of two or more segments and, where no path was rolled
    back, the recording's segments and dispatch-sequence counters
    (``test_torch_pipeline.check_run``), one segment launch per segment; per
-   run the four walls, ``segments_pipelined``,
+   run the walls, ``segments_pipelined``,
    ``overlap_segments``, ``bubble_s``, ``overlap_s``, the delta pulls and
    their bytes beside the bytes full pulls of the same mirrors would have
    copied, the carried and corrected slots and the pool's submitted, dedup
@@ -171,6 +177,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    equal to the plain merge and ``segment_torch`` on the CPU, its delta
    pull equal to its full pull; then the recorded ``analyze --frontier``
    command line with the pipeline on against the JAX CLI's report;
+8g. the adaptive controller: every run of
+   ``tests/testdata/torch_engine_runs_adaptive.json`` (``kill_simple`` and
+   the storage-gated contract at 64, ``etherstore_like`` and
+   ``rubixi_like`` at 256, each pipelined and with ``--no-pipeline``),
+   recorded from the JAX package's default engine with the controller on,
+   run on the card in turns, adaptive, ``--no-adaptive`` twice, adaptive:
+   the issues equal to the recording's in all four runs, on
+   ``--no-pipeline`` the exploration ledger's bitmaps, coverage and
+   termination classes equal to the recording's (the segment kernel's three
+   coverage planes end to end), ``partition_ok``, one segment launch per
+   segment, no plan with ``--no-adaptive``; per run the four walls, the
+   segments, the ``adaptive.*`` counters, the park pool's size and the
+   ``dpll`` and ``known_bits`` launches beside the recording's tier
+   counters; then the three cooperative batches of ``bench.py``
+   ``adaptive_compare`` through the port's ``analyze_cooperative``, the
+   controller on and off (``loop_tail`` also under ``coverage_target``
+   90): the issue sets equal to the JAX recording's and to each other,
+   resteered slots above 0 in all, none and no plan with the controller
+   off, ``loop_tail``'s target latching a stop with the JAX recording's
+   segments (as many as without a target, in the recording too); each
+   run's wall and segments, and ``loop_tail``'s walls with and without the
+   target in turns beside the JAX bench's test (fewer segments or less
+   wall), which is printed and not held; then the recorded
+   ``--coverage-target 90 --coverage-out`` command line on ``loop_tail``,
+   its report and ledger file equal to the JAX CLI's;
 8c. the command line: ``interfaces.cli.main`` in process, with no
    ``--device`` (the card), on the recorded command lines of
    ``tests/testdata/torch_cli_runs.json`` for ``etherstore_like``,
@@ -1702,6 +1733,11 @@ def wrapper_seconds(torch, argv) -> float:
 
 # phase 8f's run under torch.profiler in both modes
 PIPELINE_PROFILED = "etherstore_like/256"
+# phase 8f's runs timed in four turns; the short ones (kill_simple, the
+# storage gate, etherstore_like at 64) run pipelined and with --no-pipeline
+# once each, which keeps the script within the earlier slices' time
+PIPELINE_FOUR_TURNS = ("etherstore_like/256", "rubixi_like/256", "wide_contract_10/1024",
+                       "largecode_contract_2400/256")
 # the recorded dispatches phase 8f chains a segment on
 PIPELINE_CHAINED = (("etherstore_like", 0), ("wide_contract_10", 0))
 
@@ -1794,10 +1830,13 @@ def pipeline_runs(torch, card: str):
         off_launches = read_launches()
         # the modes in turns (pipelined, --no-pipeline, --no-pipeline,
         # pipelined), so that neither wall pair favours the mode run second
-        off2 = P.run_port(run, None, pipeline=False)
-        got2 = P.run_port(run, None)
-        walls = [got["seconds"], got2["seconds"]]
-        off_walls = [off["seconds"], off2["seconds"]]
+        again = []
+        if label in PIPELINE_FOUR_TURNS:
+            off2 = P.run_port(run, None, pipeline=False)
+            got2 = P.run_port(run, None)
+            again = [(off2, "--no-pipeline, again"), (got2, "pipelined, again")]
+        walls = [got["seconds"]] + [g["seconds"] for g, m in again if "--no" not in m]
+        off_walls = [off["seconds"]] + [g["seconds"] for g, m in again if "--no" in m]
         pc, f = got["pipeline"], got["frontier"]
         bad = P.check_run(run, got)
         row = {"run": label, "wall_s": walls, "no_pipeline_wall_s": off_walls,
@@ -1808,8 +1847,9 @@ def pipeline_runs(torch, card: str):
                "launches": launches, "pipeline": pc, "pulls": dict(pulls),
                "jax_pipeline": run["pipeline"], "held_exactly": not bad, "card": card}
         rows.append(row)
-        print(f"  {label}: in turns pipelined {walls[0]:.3f} s, --no-pipeline {off_walls[0]:.3f} "
-              f"and {off_walls[1]:.3f} s, pipelined {walls[1]:.3f} s ({card}); "
+        print(f"  {label}: in turns pipelined {walls[0]:.3f} s, --no-pipeline "
+              f"{' and '.join(f'{w:.3f}' for w in off_walls)} s"
+              + (f", pipelined {walls[1]:.3f} s" if len(walls) > 1 else "") + f" ({card}); "
               f"{len(got['summary'])} issues (recorded {len(run['summary'])}, "
               f"--no-pipeline {len(off['summary'])}); segments {f['segments']} (launches "
               f"{launches['frontier_segment']}), --no-pipeline {off['frontier']['segments']}")
@@ -1823,9 +1863,8 @@ def pipeline_runs(torch, card: str):
               f"{pc['pool_unsat_rollbacks']} UNSAT / {pc['orphan_rollbacks']} orphan; launches "
               f"{launches}")
         check(not bad, f"{label}: differs from the recorded JAX pipeline: {bad[:3]}")
-        for again, mode in ((off, "--no-pipeline"), (off2, "--no-pipeline, again"),
-                            (got2, "pipelined, again")):
-            check(not P.summary_differences(again["summary"], got["summary"]),
+        for other, mode in [(off, "--no-pipeline"), *again]:
+            check(not P.summary_differences(other["summary"], got["summary"]),
                   f"{label}: the issues differ ({mode})")
         check(launches["frontier_segment"] == f["segments"] > 0,
               f"{label}: {launches['frontier_segment']} segment launches for {f['segments']} "
@@ -1877,6 +1916,142 @@ def pipeline_runs(torch, card: str):
     check(pipeline.COUNTERS["segments_pipelined"] > 0, f"{name}: no chained segment")
     rows.append({"run": f"CLI {name}", "cli_wall_s": wall, "launches": launches, "card": card})
     print(f"  phase 8f took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), rows
+
+
+def adaptive_runs(torch, card: str):
+    """Phase 8g (see the module docstring) -> (summed launches of the runs
+    with the controller on, per-run rows)."""
+    import os
+    import tempfile
+
+    from mythril_tpu_torch.frontier import pipeline
+    from mythril_tpu_torch.frontier.harvest import shutdown_replay_pool
+    from tests import test_torch_adaptive as A
+    from tests import test_torch_cli as T
+    from tests.test_torch_pipeline import summary_differences
+
+    phase("adaptive controller: the port's analysis with the controller on and off on the card "
+          "against the recorded JAX runs, the cooperative batches, the coverage-target CLI")
+    t_phase = time.perf_counter()
+    total, rows = collections.Counter(), []
+    for run in A.load_fixture()["runs"]:
+        label = A.label(run["name"], run["width"], run["pipelined"])
+        turns = []
+        # the modes in turns (adaptive, --no-adaptive twice, adaptive), so
+        # that neither wall pair favours the mode run second
+        for adaptive in (True, False, False, True):
+            zero_launches()
+            got = A.run_port(run, None, adaptive=adaptive)  # no device: the card
+            torch.cuda.synchronize()
+            turns.append((adaptive, got, read_launches()))
+        got, launches = turns[0][1], turns[0][2]
+        total.update(launches)
+        walls = [g["seconds"] for _a, g, _l in turns]
+        ex, f = got["exploration"], got["frontier"]
+        row = {"run": label, "walls_s": walls, "modes": ["adaptive", "no-adaptive",
+                                                         "no-adaptive", "adaptive"],
+               "issues": len(got["summary"]), "segments": [g["frontier"]["segments"]
+                                                           for _a, g, _l in turns],
+               "adaptive": [g["adaptive"] for _a, g, _l in turns],
+               "adaptive_parked": [g["pipeline"]["adaptive_parked"] for _a, g, _l in turns],
+               "launches": launches, "terminated": ex["terminated"],
+               "coverage_pct": ex["coverage_pct"], "jax_adaptive": run["adaptive"],
+               "jax_tiers": run["tiers"], "card": card}
+        rows.append(row)
+        print(f"  {label}: in turns adaptive {walls[0]:.3f} s, --no-adaptive {walls[1]:.3f} and "
+              f"{walls[2]:.3f} s, adaptive {walls[3]:.3f} s ({card}); {row['issues']} issues "
+              f"(recorded {len(run['summary'])}); segments {row['segments']} (recorded "
+              f"{run['frontier_stats']['segments']}); park pool {row['adaptive_parked']}")
+        print(f"    adaptive {got['adaptive']} (recorded {run['adaptive']}); terminated "
+              f"{ex['terminated']}, coverage {ex['coverage_pct']} %; known_bits launches "
+              f"{launches['known_bits']}, dpll launches {launches['dpll']} (the recording's "
+              f"tiers {run['tiers']}); launches {launches}")
+        for i, (adaptive, g, lc) in enumerate(turns):
+            bad = A.check_run(run, g, adaptive=adaptive)
+            check(not bad, f"{label} turn {i} ({'adaptive' if adaptive else '--no-adaptive'}): "
+                  f"differs from the recorded JAX run: {bad[:3]}")
+            check(not summary_differences(got["summary"], g["summary"]),
+                  f"{label} turn {i}: the issues differ from the first turn's")
+            check(lc["frontier_segment"] == g["frontier"]["segments"] > 0,
+                  f"{label} turn {i}: {lc['frontier_segment']} segment launches for "
+                  f"{g['frontier']['segments']} segments")
+    shutdown_replay_pool()
+    # the cooperative batches: the controller steers multi-code seed queues
+    resteered = 0
+    for batch in A.BATCHES:
+        got = {}
+        for adaptive, target in A.cooperative_modes(batch):
+            zero_launches()
+            got[adaptive, target] = g = A.cooperative("mythril_tpu_torch", batch, adaptive,
+                                                      target, device=None)
+            torch.cuda.synchronize()
+            g["launches"] = read_launches()
+            want = A.batch_of(batch, adaptive, target)
+            mode = A.batch_label(batch, adaptive, target)
+            print(f"  {mode}: {g['seconds']:.3f} s ({card}), {len(g['issues'])} issues "
+                  f"(recorded {len(want['issues'])}), segments {g['segments']} (recorded "
+                  f"{want['segments']}), segment launches {g['launches']['frontier_segment']}; "
+                  f"adaptive {g['adaptive']} (recorded {want['adaptive']}); stop {g['stop']}")
+            check(g["issues"] == want["issues"], f"{mode}: the issue set differs from the JAX "
+                  f"package's: {g['issues']} != {want['issues']}")
+            check(g["launches"]["frontier_segment"] == g["segments"] > 0,
+                  f"{mode}: {g['launches']['frontier_segment']} segment launches for "
+                  f"{g['segments']} segments")
+            rows.append({"run": mode, "wall_s": g["seconds"], "segments": g["segments"],
+                         "adaptive": g["adaptive"], "stop": g["stop"], "card": card})
+        on, off = got[True, None], got[False, None]
+        check(on["issues"] == off["issues"], f"{batch}: steering changed the issue set")
+        check(off["adaptive"]["plans"] == off["adaptive"]["resteered_slots"] == 0,
+              f"{batch}: --no-adaptive planned or steered: {off['adaptive']}")
+        resteered += on["adaptive"]["resteered_slots"]
+        target = A.BATCHES[batch][2]
+        if target:
+            # the stop latches, with as many segments as the JAX package
+            # dispatches (its recording): the device planes reach the ledger
+            # when a drain ends, so the stop saves no segment there either.
+            # The walls, in turns (without, with, with, without), are printed
+            # beside the JAX bench's own test (fewer segments or less wall),
+            # which is not held: see PERF.md
+            tg, want = got[True, target], A.batch_of(batch, True, target)
+            check(tg["stop"] is not None and tg["stop"]["reason"] == "target"
+                  and tg["segments"] == want["segments"],
+                  f"{batch}: coverage target {target} latched {tg['stop']} with "
+                  f"{tg['segments']} segments against the JAX package's {want['segments']}")
+            tg2 = A.cooperative("mythril_tpu_torch", batch, True, target, device=None)
+            off2 = A.cooperative("mythril_tpu_torch", batch, False, None, device=None)
+            for g, mode in ((tg2, "target, again"), (off2, "--no-adaptive, again")):
+                check(g["issues"] == off["issues"], f"{batch} ({mode}): the issue set differs")
+            on_walls, off_walls = [tg["seconds"], tg2["seconds"]], [off["seconds"], off2["seconds"]]
+            on_mean, off_mean = sum(on_walls) / 2, sum(off_walls) / 2
+            print(f"  {batch}: coverage target {target}: stop {tg['stop']}, {tg['segments']} "
+                  f"segments against {off['segments']} without; walls in turns without "
+                  f"{off_walls[0]:.3f}, with {on_walls[0]:.3f} and {on_walls[1]:.3f}, without "
+                  f"{off_walls[1]:.3f} s, means {on_mean:.4f} against {off_mean:.4f} s ({card});"
+                  f" fewer segments {tg['segments'] < off['segments']}, less mean wall "
+                  f"{on_mean < off_mean}")
+            rows.append({"run": f"{batch}/target-{target:g} in turns", "target_walls_s": on_walls,
+                         "no_adaptive_walls_s": off_walls, "segments": tg["segments"],
+                         "no_adaptive_segments": off["segments"], "card": card})
+    check(resteered > 0, "the controller resteered no dispatch slot in any cooperative batch")
+    # the coverage-target command line against the JAX CLI's report and
+    # --coverage-out file
+    os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
+    name = "loop_tail/frontier/coverage-target"
+    record = T.load_runs()[name]
+    pipeline.reset_counters()
+    zero_launches()
+    t0 = time.perf_counter()
+    rc, ledger, out = T.run_port(T.port_argv(record), device=None, with_stdout=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    diffs = T.compare(record, rc, ledger, out)
+    print(f"  CLI {name}: exit {rc} in {wall:.3f} s, differences from the JAX CLI's report and "
+          f"--coverage-out file {diffs}; launches {launches}")
+    check(rc == 0 and not diffs, f"{name}: differs from the JAX CLI's: {diffs[:3]}")
+    rows.append({"run": f"CLI {name}", "cli_wall_s": wall, "launches": launches, "card": card})
+    print(f"  phase 8g took {time.perf_counter() - t_phase:.1f} s")
     return dict(total), rows
 
 
@@ -2277,6 +2452,9 @@ def main() -> int:
         p_launches, p_rows = pipeline_runs(torch, card)
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
             check(p_launches[name] > 0, f"the pipelined runs launched {name} no time")
+        a_launches, a_rows = adaptive_runs(torch, card)
+        for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
+            check(a_launches[name] > 0, f"the adaptive runs launched {name} no time")
         cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows, d_rows)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment", "known_bits", "dpll"):
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
@@ -2353,13 +2531,15 @@ def main() -> int:
                 "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
                 "engine_tiers": t_launches[entry["name"]],
                 "engine_defaults": d_launches[entry["name"]],
-                "engine_pipeline": p_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
+                "engine_pipeline": p_launches[entry["name"]],
+                "engine_adaptive": a_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
         known_bits["engine_tiers"] = {"runs": t_rows, "idle_share": t_idle}
         frontier["engine_defaults"] = {"runs": d_rows}
         frontier["engine_pipeline"] = {"runs": p_rows}
+        frontier["engine_adaptive"] = {"runs": a_rows}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

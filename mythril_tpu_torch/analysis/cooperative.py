@@ -1,0 +1,189 @@
+"""Cooperative corpus analysis: many contracts, one device frontier.
+
+The reference analyzes a corpus strictly sequentially — one contract, one
+full symbolic execution, next contract (reference mythril/mythril/
+mythril_analyzer.py:138-175).  On a device that serializes exactly the axis
+the hardware wants to batch: each small contract's frontier is too narrow
+to amortize segment dispatches, so per-contract runs stay host-bound.
+
+This driver instead runs the per-contract transaction loops in LOCKSTEP:
+
+  1. every contract's analysis is constructed (plugins, hooks, world state)
+     but deferred (``SymExecWrapper(defer_exec=True)``);
+  2. per transaction round, every live analysis seeds its work list
+     (``seed_message_call``) and the combined seed set — one code identity
+     per contract — executes as ONE wide multi-code frontier batch
+     (``frontier.engine.drain_lasers``): the corpus is the batch axis, and
+     the adaptive controller's scheduler orders the codes' seeds;
+  3. each analysis then drains its residual work list through its own host
+     engine (parked paths, frontier-ineligible states) and closes the round
+     (plugin signals, open-state reseeding) exactly as ``LaserEVM.
+     _execute_transactions`` does;
+  4. issues are grouped per contract by the distinct address each analysis
+     ran at.
+
+Semantics per contract are unchanged — the frontier parks anything it
+cannot run and each laser's host engine finishes it — only the scheduling
+across contracts differs.
+
+The port's copy of ``mythril_tpu/analysis/cooperative.py``, with the parts
+the analysis needs.  What differs:
+
+* ``device`` (default the CUDA card; ``"cpu"`` for the plain PyTorch
+  kernels) is the batch's device: every wrapper, the lockstep rounds'
+  open-state prune and the frontier run on it.
+* Every error propagates: nothing falls back to the host engines, and no
+  job's failure is isolated from the batch.  The service's entry point
+  ``run_cooperative_batch`` (per-job fault isolation, ``request_tags``,
+  ``request_flow_cb``) comes with the service, its first caller (ROADMAP
+  Queue A item 13); so does the benchmark plugin's per-contract series.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from mythril_tpu_torch.device import DeviceLike, resolve
+from mythril_tpu_torch.support.support_args import args
+from mythril_tpu_torch.support.time_handler import time_handler
+
+log = logging.getLogger(__name__)
+
+#: default spacing of per-contract analysis addresses (issues group by address)
+BASE_ADDRESS = 0x0901D12E
+
+
+def analyze_cooperative(
+    jobs: Sequence[Tuple[str, bytes]],
+    transaction_count: int = 2,
+    modules: Optional[List[str]] = None,
+    strategy: str = "bfs",
+    execution_timeout: int = 60,
+    base_address: int = BASE_ADDRESS,
+    caps=None,
+    device: DeviceLike = None,
+):
+    """Analyze ``jobs`` (name, runtime bytecode) cooperatively.
+
+    Returns ``(issues_by_name, total_states)``.  Every contract gets its own
+    laser/plugins/hooks at a distinct address; recall semantics match
+    sequential per-contract analysis.  The first error of any job
+    propagates.
+    """
+    from mythril_tpu_torch.analysis.security import retrieve_callback_issues
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper, analysis_device
+    from mythril_tpu_torch.core.transaction import symbolic as sym_tx
+    from mythril_tpu_torch.frontier.engine import drain_lasers
+    from mythril_tpu_torch.smt.solver import check_satisfiable_batch
+    from mythril_tpu_torch.support.support_utils import get_code_hash
+
+    device = resolve(device)
+    addresses = [base_address + 0x10000 * i for i in range(len(jobs))]
+    # --coverage-target needs a live coverage feed to measure the bar
+    # against: the device frontier merges its visited planes into the
+    # ledger, but the host path only feeds it through the instruction
+    # coverage plugin — enable it when a bar is set and the frontier is
+    # off, or the stop verdict could never latch
+    host_coverage = bool(getattr(args, "coverage_target", None)) \
+        and not bool(args.frontier)
+    with analysis_device(device):
+        wrappers: List[Tuple[str, int, object]] = [
+            (name, addr, SymExecWrapper(
+                code,
+                address=addr,
+                strategy=strategy,
+                transaction_count=transaction_count,
+                execution_timeout=execution_timeout,
+                modules=modules,
+                defer_exec=True,
+                enable_coverage_strategy=host_coverage,
+                device=device,
+            ))
+            for (name, code), addr in zip(jobs, addresses)
+        ]
+
+        # the global wall-clock budget covers the whole batch: the lockstep
+        # rounds interleave contracts, so per-contract budgets do not partition
+        time_handler.start_execution(execution_timeout * max(1, len(jobs)))
+        t0 = time.time()
+        for _name, _addr, w in wrappers:
+            w.laser._fire("start_sym_exec")
+            w.laser.time = t0
+            w.laser.open_states = [w.deferred_world_state]
+            w.laser.executed_transactions = True
+
+        use_frontier = bool(args.frontier)
+        # pin ONE segment-program bucket for the whole sweep: later rounds see
+        # fewer live codes, and a shrunken bucket would build a new program
+        # shape mid-run
+        bucket_floor = None
+        if use_frontier and wrappers:
+            from mythril_tpu_torch.frontier.code import bucket_hint, bucket_hint_classes
+
+            lists = [
+                w.deferred_world_state[addr].code.instruction_list
+                for _name, addr, w in wrappers
+            ]
+            if args.code_paging:
+                # per-class floors: each size class keeps its own pinned
+                # program, so a creation-heavy outlier does not inflate the
+                # floor every small code pads to
+                bucket_floor = bucket_hint_classes(lists)
+            else:
+                bucket_floor = bucket_hint(lists)
+        for round_idx in range(transaction_count):
+            live = []
+            for name, addr, w in wrappers:
+                laser = w.laser
+                if not laser.open_states:
+                    continue
+                # batched open-state prune (core/svm.py _execute_transactions)
+                if not args.sparse_pruning:
+                    flags = check_satisfiable_batch(
+                        [s.constraints.get_all_raw() for s in laser.open_states],
+                        device=device,
+                    )
+                    laser.open_states = [
+                        s for s, ok in zip(laser.open_states, flags) if ok
+                    ]
+                if not laser.open_states:
+                    continue
+                laser._fire("start_sym_trans")
+                sym_tx.seed_message_call(laser, addr)
+                live.append((name, w))
+            if not live:
+                break
+            log.info(
+                "cooperative round %d: %d live contracts, %d seeds",
+                round_idx,
+                len(live),
+                sum(len(w.laser.work_list) for _n, w in live),
+            )
+            if use_frontier:
+                # the whole corpus round as one wide multi-code segment batch
+                drain_lasers([w.laser for _n, w in live], caps=caps,
+                             bucket_floor=bucket_floor)
+            for _name, w in live:
+                # host continuation: parked paths + frontier-ineligible states
+                w.laser.exec()
+                w.laser._fire("stop_sym_trans")
+
+        for _name, _addr, w in wrappers:
+            w.laser._fire("stop_sym_exec")
+            w.finalize()
+
+        # callback issues accumulated across ALL contracts: group by the code
+        # hash every issue carries (Issue.bytecode_hash; Issue.address is the
+        # instruction address, not the account).  Identical bytecode under two
+        # names shares its issues — the per-code issue cache deduplicates
+        # detection, so both names must see the findings.
+        by_hash: Dict[str, List] = {}
+        for issue in retrieve_callback_issues(modules):
+            by_hash.setdefault(issue.bytecode_hash, []).append(issue)
+        issues_by_name = {
+            name: by_hash.get(get_code_hash(code), []) for (name, code) in jobs
+        }
+    total_states = sum(w.laser.total_states for _n, _a, w in wrappers)
+    return issues_by_name, total_states

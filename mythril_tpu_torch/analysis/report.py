@@ -4,9 +4,10 @@ Reference parity: mythril/analysis/report.py:21-341 — Issue with source-map
 resolution and function-name resolution, Report with the four output formats
 (jsonv2 kept structurally compatible: issues sorted by (swc-id, address),
 extra.discoveryTime, sourceMap/sourceList fields).  The port's jsonv2 meta
-carries the execution info and the static pass's rollup
-(``meta.staticpass``); the observability, prefilter, devsolver, device and
-frontier rollups come with the surfaces that own them.
+carries the execution info, the exploration ledger (``meta.exploration``)
+and the static pass's rollup (``meta.staticpass``); the observability,
+prefilter, devsolver, health, device and frontier rollups come with the
+surfaces that own them.
 """
 
 from __future__ import annotations
@@ -239,6 +240,9 @@ class Report:
             meta["mythril_execution_info"] = {}
             for ei in self.execution_info:
                 meta["mythril_execution_info"].update(ei.as_dict())
+        from mythril_tpu_torch.observability.exploration import exploration_meta
+
+        meta["exploration"] = exploration_meta()
         meta["staticpass"] = _staticpass_meta()
         result = [
             {

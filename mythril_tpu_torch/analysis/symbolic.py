@@ -12,9 +12,11 @@ engine, and sets it as ``args.device`` for the solver calls made during the
 run, restoring the previous value after.  The kernels build at first use;
 a build or launch error raises.  The static pass gates the detection
 modules before their hooks are registered, as in the JAX package (the
-port has no checkpoint resume, so ``resume_from`` is always None).  Not
-carried yet: checkpoints, the benchmark plugin and deferred (cooperative)
-execution.
+port has no checkpoint resume, so ``resume_from`` is always None).
+``defer_exec`` builds the analysis without running it, for the
+cooperative driver (``analysis/cooperative.py``), which runs the
+transactions and calls ``finalize``.  Not carried yet: checkpoints and the
+benchmark plugin.
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ class SymExecWrapper:
         enable_coverage_strategy: bool = False,
         custom_modules_directory: str = "",
         device: DeviceLike = None,
+        defer_exec: bool = False,
     ):
         self.device = resolve(device)
         with analysis_device(self.device):
@@ -166,6 +169,23 @@ class SymExecWrapper:
                     hook_dict=get_detection_module_hooks(analysis_modules, "post"),
                 )
 
+            # deferred execution: the cooperative corpus driver owns the tx
+            # loop (analysis/cooperative.py) — set up the account, stash
+            # the world state, and skip both execution and statespace
+            # post-processing
+            self.deferred_world_state: Optional[WorldState] = None
+            if defer_exec:
+                if not isinstance(contract, (bytes, bytearray)):
+                    raise ValueError("defer_exec supports raw runtime bytecode only")
+                from mythril_tpu_torch.frontend.disassembler import Disassembly
+
+                acct = world_state.create_account(
+                    balance=0, address=address, concrete_storage=False
+                )
+                acct.code = Disassembly(bytes(contract))
+                self.deferred_world_state = world_state
+                return
+
             # execute (creation vs runtime, reference symbolic.py:168-220)
             if isinstance(contract, (bytes, bytearray)):
                 # raw runtime bytecode
@@ -196,6 +216,16 @@ class SymExecWrapper:
             self.nodes = self.laser.nodes
             self.edges = self.laser.edges
             self._parse_calls()
+
+    def finalize(self) -> None:
+        """Deferred-run epilogue: the statespace post-processing the eager
+        constructor path does after execution.  Called by the cooperative
+        driver once its transaction loop ends."""
+        if not self.laser.requires_statespace:
+            return
+        self.nodes = self.laser.nodes
+        self.edges = self.laser.edges
+        self._parse_calls()
 
     def _exec_creation(self, contract, world_state: WorldState) -> None:
         from mythril_tpu_torch.core.transaction import symbolic as sym_tx

@@ -239,6 +239,13 @@ class LaserEVM:
             if time.perf_counter() > deadline or time_handler.time_remaining() <= 0:
                 log.info("%s timeout reached; halting exec loop", "create" if create else "execution")
                 break
+            # --coverage-target: the request contract ends exploration at
+            # the bar (or on an all-codes plateau); checked every 16 host
+            # steps so the ledger scan stays off the per-step critical path
+            if (args.coverage_target and not create and iteration % 16 == 0
+                    and self._coverage_target_stop()):
+                log.info("coverage target reached; halting exec loop")
+                break
             t_step = time.perf_counter()
             new_states, op_code = self.execute_state(global_state)
             if self.requires_statespace:
@@ -313,6 +320,33 @@ class LaserEVM:
                     )
         self._fire("stop_exec")
         return final_states if track_gas else None
+
+    def _coverage_target_stop(self) -> bool:
+        """True when the adaptive controller's --coverage-target verdict
+        says exploration is over (bar reached or plateau)."""
+        try:
+            # the instruction-coverage plugin only lands its bitmap in
+            # the exploration ledger at stop_sym_exec; the verdict needs
+            # the LIVE view, so flush the in-memory planes first
+            plugin = getattr(self, "coverage_plugin", None)
+            if plugin is not None and getattr(plugin, "coverage", None):
+                from mythril_tpu_torch.observability.exploration import (
+                    get_exploration_ledger,
+                )
+                from mythril_tpu_torch.support.support_utils import get_code_hash
+
+                led = get_exploration_ledger()
+                for code, (total, seen) in plugin.coverage.items():
+                    led.record_instr(
+                        get_code_hash(code), total,
+                        [i for i, hit in enumerate(seen) if hit],
+                    )
+            from mythril_tpu_torch.adaptive import get_adaptive_controller
+
+            return get_adaptive_controller().coverage_stop() is not None
+        except Exception:  # the contract must never break a run
+            log.debug("coverage-target check failed", exc_info=True)
+            return False
 
     def _prune_unsatisfiable(self, states: List[GlobalState]) -> List[GlobalState]:
         """Drop successors with unsatisfiable path conditions.

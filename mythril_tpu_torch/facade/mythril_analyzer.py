@@ -70,6 +70,8 @@ class AnalyzerArgs:
     pipeline: bool = True
     solver_workers: int = 2
     harvest_workers: int = 4
+    adaptive: bool = True
+    coverage_target: Optional[float] = None
 
 
 class MythrilAnalyzer:
@@ -165,7 +167,12 @@ class MythrilAnalyzer:
         execution_info = []
         for contract in self.contracts:
             # the counters are process-wide: without a per-contract reset,
-            # contract N's report would count the earlier contracts too
+            # contract N's report would count the earlier contracts too;
+            # reset_analysis_metrics also sweeps the exploration ledger's
+            # bitmaps and the adaptive controller's scope
+            from mythril_tpu_torch.observability import reset_analysis_metrics
+
+            reset_analysis_metrics()
             SolverStatistics().reset()
             FrontierStatistics().reset()
             absdomain.reset_counters()

@@ -58,6 +58,8 @@ def apply_analyzer_args(cmd_args) -> None:
     args.pipeline = cmd_args.pipeline
     args.solver_workers = cmd_args.solver_workers
     args.harvest_workers = cmd_args.harvest_workers
+    args.adaptive = cmd_args.adaptive
+    args.coverage_target = cmd_args.coverage_target
     from mythril_tpu_torch import devsolver
 
     devsolver.configure(bit_budget=cmd_args.devsolver_bit_budget, iters=cmd_args.devsolver_iters)

@@ -30,9 +30,13 @@ plain PyTorch version when the caller asked for the CPU.  The code tables,
 the arena and the coverage planes are copied to the device once per run
 (the tables again only at a page-fault repack); an error in a transfer,
 the kernel or the engine propagates to the caller, and nothing falls back
-from the pipeline to the synchronous loop.  Not carried yet: the mesh
-(ROADMAP item 12), the adaptive controller (item 5) and the link
-calibration (the gates use the JAX package's uncalibrated constants).
+from the pipeline to the synchronous loop.  Both loops feed the
+exploration ledger (coverage planes, termination stamps, solver hotspots)
+and consult the adaptive controller (``adaptive/``): its deficit scheduler
+orders multi-code seed injection and its ``--coverage-target`` verdict
+parks the live paths, as in the JAX package.  Not carried yet: the mesh
+(ROADMAP item 12) and the link calibration (the gates use the JAX
+package's uncalibrated constants).
 """
 
 from __future__ import annotations
@@ -162,26 +166,71 @@ def _jumpi_count(code) -> int:
     return got
 
 
-_code_tag_cache: Dict[object, str] = {}
-
-
 def _code_tag(code) -> str:
-    """Short codehash prefix for program-point labels (the feasibility
-    pool's devsolver admission)."""
+    """Short codehash prefix for program-point labels (the exploration
+    ledger's solver hotspots, the feasibility pool's devsolver
+    admission)."""
+    return _code_hash_full(code)[:10]
+
+
+_code_hash_cache: Dict[object, str] = {}
+
+
+def _code_hash_full(code) -> str:
+    """Full codehash — the exploration ledger's coverage key (and the
+    adaptive planner's), so steering weights join coverage bitmaps
+    without prefix games."""
     key = _code_key(code)
-    tag = _code_tag_cache.get(key)
-    if tag is None:
+    h = _code_hash_cache.get(key)
+    if h is None:
         bytecode = getattr(code, "bytecode", b"") or b""
         if bytecode:
             from mythril_tpu_torch.support.support_utils import get_code_hash
 
-            tag = get_code_hash(bytecode.hex())[:10]
+            h = get_code_hash(bytecode.hex())
         else:
-            tag = "?"
-        if len(_code_tag_cache) >= 4096:
-            _code_tag_cache.clear()
-        _code_tag_cache[key] = tag
-    return tag
+            h = "?"
+        if len(_code_hash_cache) >= 4096:
+            _code_hash_cache.clear()
+        _code_hash_cache[key] = h
+    return h
+
+
+def _adaptive_pick(seed_queue: List[int], seed_code_idx: List[int],
+                   table_hash: List[str]) -> int:
+    """Queue position of the next seed to inject (0 = FIFO, the order
+    without the controller).  With >1 code queued and the controller
+    enabled, the steering plan's deficit scheduler picks the code whose
+    uncovered reachable edges earn the next slot."""
+    if len(seed_queue) <= 1:
+        return 0
+    try:
+        from mythril_tpu_torch.adaptive import get_adaptive_controller
+
+        ctrl = get_adaptive_controller()
+        if not ctrl.enabled:
+            return 0
+        ctrl.plan()  # throttled refresh; cheap when recently built
+        return ctrl.pick_seed(
+            [table_hash[seed_code_idx[si]] for si in seed_queue]
+        )
+    except Exception:  # steering must never break a dispatch
+        log.debug("adaptive seed pick failed", exc_info=True)
+        return 0
+
+
+def _adaptive_coverage_stop() -> bool:
+    """True when the --coverage-target contract says stop exploring
+    (bar reached or all-codes plateau)."""
+    if not getattr(args, "coverage_target", None):
+        return False
+    try:
+        from mythril_tpu_torch.adaptive import get_adaptive_controller
+
+        return get_adaptive_controller().coverage_stop() is not None
+    except Exception:
+        log.debug("adaptive coverage check failed", exc_info=True)
+        return False
 
 
 def _strategy_chain(laser):
@@ -708,6 +757,7 @@ class FrontierEngine:
         tables: List[CodeTables] = []
         table_laser: List = []
         table_code: List = []
+        table_hash: List[str] = []
         table_idx: Dict[tuple, int] = {}
         seed_code_idx: List[int] = []
         for laser, gs in pairs:
@@ -720,12 +770,33 @@ class FrontierEngine:
                 # once-per-bytecode static pre-analysis (cached): prunes
                 # events on statically unreachable instructions and feeds
                 # the per-code hook elision below; None = pass disabled
-                # or failed, packing proceeds exactly as before.  (The JAX
-                # package also hands the summary's interesting points to
-                # its adaptive controller, which the port does not have.)
-                from mythril_tpu_torch.staticpass import summary_for_code
+                # or failed, packing proceeds exactly as before
+                from mythril_tpu_torch.staticpass import (
+                    publish_reachability,
+                    summary_for_code,
+                )
 
                 summary = summary_for_code(code)
+                # register the reachable-edge oracle with the exploration
+                # ledger so coverage is also quoted against the statically
+                # reachable denominator (coverage_pct_reachable), and hand
+                # the static interesting points to the adaptive controller
+                # (flip-target ranking shares the oracle's codehash key)
+                publish_reachability(code, summary)
+                if summary is not None and getattr(
+                        summary, "interesting_points", None):
+                    try:
+                        from mythril_tpu_torch.adaptive import (
+                            get_adaptive_controller,
+                        )
+
+                        get_adaptive_controller().register_points(
+                            _code_hash_full(code),
+                            summary.interesting_points,
+                        )
+                    except Exception:  # steering never breaks packing
+                        log.debug("adaptive point registration failed",
+                                  exc_info=True)
                 hooked, conc_nop, val_gate = self._hook_info(laser, summary)
                 tables.append(
                     CodeTables(
@@ -741,6 +812,7 @@ class FrontierEngine:
                 )
                 table_laser.append(laser)
                 table_code.append(code)
+                table_hash.append(_code_hash_full(code))
             seed_code_idx.append(ci)
 
         # per-code bucket isolation (large-code frontier): cluster the
@@ -842,7 +914,11 @@ class FrontierEngine:
         ]
 
         def refill(slot: int) -> None:
-            si = seed_queue.pop(0)
+            # the steering plan's deficit scheduler orders multi-code
+            # injection; FIFO with one code, no plan, or --no-adaptive
+            si = seed_queue.pop(
+                _adaptive_pick(seed_queue, seed_code_idx, table_hash)
+            )
             self._inject(st, slot, si, ctxs[si], seed_code_idx[si],
                          _beam_importance(seeds[si]) if beam else 0,
                          static=statics[si])
@@ -852,7 +928,7 @@ class FrontierEngine:
             records[slot] = PathRecord(seed_idx=si)
             ev_seen[slot] = 0
 
-        # initial fill, in seed order
+        # initial fill
         for slot in range(caps.B):
             if not seed_queue:
                 break
@@ -935,7 +1011,8 @@ class FrontierEngine:
                 ev_seen=ev_seen, seeds=seeds, lasers=lasers, ctxs=ctxs,
                 seed_code_idx=seed_code_idx, mid_enc=mid_enc, seed_queue=seed_queue, statics=statics,
                 beam=beam, tables=tables, table_code=table_code,
-                table_idx=table_idx, segment=segment, code_dev=code_dev,
+                table_idx=table_idx, table_hash=table_hash,
+                segment=segment, code_dev=code_dev,
                 cfg=cfg, dev_arena=dev_arena, arena_len=arena_len,
                 visited=visited, deadline=deadline,
                 program_key=program_key, program_warm=program_warm,
@@ -1056,6 +1133,15 @@ class FrontierEngine:
             max_live = max(max_live, live)
             if live == 0 and not seed_queue:
                 break
+            # --coverage-target: the request contract says stop at the
+            # bar (or the all-codes plateau)
+            if _adaptive_coverage_stop():
+                log.info(
+                    "frontier: coverage target reached; parking live paths"
+                )
+                self._park_all(st, records, walker, reason="coverage-target")
+                width_verdict_valid = False
+                break
             if arena_len + max(live, 1) * caps.R * 2 >= caps.ARENA:
                 log.warning("frontier: arena nearly full; parking live paths")
                 self._park_all(st, records, walker, reason="arena-full")
@@ -1102,15 +1188,27 @@ class FrontierEngine:
 
     @staticmethod
     def _merge_coverage(visited: np.ndarray, tables, code, laser) -> None:
-        """Device-executed instruction coverage ``visited[0]`` into the
-        coverage plugin's bitmap (the walker only replays hook events, so
-        plugin-side coverage alone would underreport frontier runs)."""
+        """Device-executed coverage planes ``[3, I]`` into the coverage
+        plugin's bitmap and the exploration ledger (the walker only
+        replays hook events, so plugin-side coverage alone would
+        underreport frontier runs; edge planes exist only here)."""
         bytecode = getattr(code, "bytecode", None)
-        cov = getattr(laser, "coverage_plugin", None)
-        if not bytecode or cov is None:
+        if not bytecode:
             return
-        cov.record_visited(
-            bytecode.hex(), tables.n, np.nonzero(visited[0, : tables.n])[0],
+        cov = getattr(laser, "coverage_plugin", None)
+        if cov is not None:
+            cov.record_visited(
+                bytecode.hex(), tables.n,
+                np.nonzero(visited[0, : tables.n])[0],
+            )
+        from mythril_tpu_torch.observability.exploration import (
+            get_exploration_ledger,
+        )
+        from mythril_tpu_torch.support.support_utils import get_code_hash
+
+        get_exploration_ledger().record_device_planes(
+            get_code_hash(bytecode.hex()), tables.n, _jumpi_count(code),
+            visited[:, : tables.n],
         )
 
     # ------------------------------------------------------------------
@@ -1283,16 +1381,38 @@ class FrontierEngine:
         # harvest feasibility is one of the query cache's entry points: the
         # batched check takes the cache's exact/core tiers per set inside
         # the solver's _fast_path
+        from mythril_tpu_torch.observability.exploration import (
+            VERDICT_CLASS,
+            get_exploration_ledger,
+        )
         from mythril_tpu_torch.querycache.cache import entry_hits
 
+        statuses: List[str] = []
+        t_solve = time.perf_counter()
         with entry_hits("prune_check"):
             flags = check_satisfiable_batch(
-                [raws for _, _, _, raws in todo], device=self.device
+                [raws for _, _, _, raws in todo], statuses_out=statuses,
+                device=self.device,
             )
-        for (slot, rec, n_cons, _), ok in zip(todo, flags):
+        # batched solve: attribute the sweep's wall evenly across the
+        # program points it decided (the pipelined pool times each query)
+        share = (time.perf_counter() - t_solve) / len(todo)
+        led = get_exploration_ledger()
+        if len(statuses) < len(todo):  # defensive: fill missing statuses
+            statuses = statuses + ["unsat"] * (len(todo) - len(statuses))
+        for (slot, rec, n_cons, _), ok, status in zip(todo, flags, statuses):
+            led.record_solver_time(
+                "%s:%#x" % (
+                    _code_tag(walker.seeds[rec.seed_idx].environment.code),
+                    int(st.pc[slot]),
+                ),
+                share,
+            )
             if ok:
                 rec._pruned_at = n_cons
             else:
+                rec.term_class = VERDICT_CLASS.get(status, "solver_unsat")
+                led.stamp(rec.term_class)
                 records[slot] = None
                 clear_slot(st, slot)
                 ev_seen[slot] = 0
@@ -1303,6 +1423,22 @@ class FrontierEngine:
         A path whose replay raises is dropped, as in the JAX package, and
         counted in ``replay_errors``; a ``DeviceError`` propagates."""
         stats = FrontierStatistics()
+        if reason in ("timeout", "coverage-target"):
+            # the execution budget is gone (or the coverage contract ended
+            # the request): the host work list these paths land on will
+            # never be drained, so they stop exploring HERE — other park
+            # reasons (slow/narrow-bail, drain) genuinely continue
+            # host-side and are stamped at their real end
+            from mythril_tpu_torch.observability.exploration import (
+                get_exploration_ledger,
+            )
+
+            led = get_exploration_ledger()
+            for slot in range(self.caps.B):
+                rec = records[slot]
+                if rec is not None and rec.term_class is None:
+                    rec.term_class = "budget_exhausted"
+                    led.stamp("budget_exhausted")
         for slot in range(self.caps.B):
             rec = records[slot]
             if rec is None:

@@ -29,9 +29,10 @@ package's ``HarvestExecutor`` runs it:
 
 ``pipe`` is the pipelined runner when it drives the harvest: slot mutations
 are reported to its correction ledger and feasibility checks go to its
-background pool (``engine._prune_running``).  The JAX package's exploration
-ledger (``classify_termination``) comes with the adaptive controller
-(ROADMAP item 5), its phase spans and histograms with item 13.
+background pool (``engine._prune_running``).  Every path that retires
+through the commit is stamped with its termination class in the
+exploration ledger (``classify_termination``), as in the JAX package; the
+harvest's phase spans and histograms come with ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -47,9 +48,39 @@ from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.records import PathRecord, snapshot_slot
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
 from mythril_tpu_torch.frontier.stats import FrontierStatistics
+from mythril_tpu_torch.observability.exploration import get_exploration_ledger
 from mythril_tpu_torch.support.support_args import args
 
 log = logging.getLogger(__name__)
+
+# Termination attribution (observability/exploration.py): halt kind ->
+# ledger class for paths retiring through the commit loop.  Parks
+# (H_PARK / H_PENDING_FORK spills) are absent on purpose — those paths
+# continue host-side and must not be stamped as terminated.
+_TERMINAL_CLASS = {
+    O.H_STOP: "completed",
+    O.H_RETURN: "completed",
+    O.H_REVERT: "completed",
+    O.H_SELFDESTRUCT: "completed",
+    O.H_INVALID: "completed",
+    O.H_DEPTH: "budget_exhausted",
+    O.H_LOOP: "loop_bound",
+}
+
+
+def classify_termination(rec: PathRecord) -> Optional[str]:
+    """Exploration-ledger class for a retiring record, or ``None`` when
+    the path parks (continues host-side)."""
+    if rec.term_class is not None:
+        return rec.term_class
+    if rec.dead:
+        # walker kill without an explicit class (dead branch detected
+        # during replay, empty hook result, ...) counts as a normally
+        # completed path; plugin prunes set term_class before dying
+        return "completed"
+    if rec._replay_err is not None or rec.final is None:
+        return "completed"
+    return _TERMINAL_CLASS.get(int(rec.final["halt"]))
 
 
 def ingest_events(st: FrontierState, records: Dict[int, Optional[PathRecord]],
@@ -273,7 +304,8 @@ class HarvestExecutor:
             _replay_group(walker, [records[slot] for slot in finishing])
 
         # commit: calling thread, slot order — park routing, slot
-        # recycling, ledger touches
+        # recycling, ledger touches, termination stamps
+        led = get_exploration_ledger()
         for slot in finishing:
             rec = records[slot]
             if rec._replay_err is not None:
@@ -291,6 +323,11 @@ class HarvestExecutor:
                     stats.count("commit_errors")
                     log.warning("frontier walker failed on a path: %s", e,
                                 exc_info=True)
+            if rec.term_class is None:
+                cls = classify_termination(rec)
+                if cls is not None:
+                    rec.term_class = cls
+                    led.stamp(cls)
             records[slot] = None
             clear_slot(st, slot)
             ev_seen[slot] = 0

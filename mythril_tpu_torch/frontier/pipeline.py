@@ -61,13 +61,19 @@ last pull.  A failed stream, event or launch raises; nothing falls back to
 the synchronous loop.  On the CPU (the plain segment) the same loop runs
 with no streams.
 
-The runner is the JAX package's with ``--no-adaptive`` on one device: the
-adaptive controller's hooks (the parked-spill pool, the requeue, the
-coverage stop) come with the controller (ROADMAP item 5), the mesh's
-rebalance and per-shard accounting with the mesh (item 12).  The JAX
-package's tracer spans, flight recorder, heartbeat and device-plane calls
-come with the observability surface (item 13); its ``pipeline.*`` metrics
-are the module state ``COUNTERS`` here.
+The runner is the JAX package's on one device, with the adaptive
+controller's hooks: spills the re-injection queue cannot hold wait in a
+bounded park pool (``adaptive_parked``) that the steering plan resurrects
+at sync points when slots free (``_adaptive_requeue``), anything still
+pooled flushes back to its host work list when the run ends, on every exit
+path (a pooled carrier is never also on a work list or in a slot), and the
+``--coverage-target`` verdict ends the run.  Killed and retired paths are
+stamped with their termination class in the exploration ledger, and the
+feasibility pool attributes each solve's wall time to its program point.
+The mesh's rebalance and per-shard accounting come with the mesh (ROADMAP
+item 12).  The JAX package's tracer spans, flight recorder, heartbeat and
+device-plane calls come with the observability surface (item 13); its
+``pipeline.*`` metrics are the module state ``COUNTERS`` here.
 """
 
 from __future__ import annotations
@@ -98,7 +104,7 @@ _COUNTER_NAMES = (
     "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
     "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
     "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
-    "reinject_queued", "reinjected",
+    "reinject_queued", "reinjected", "adaptive_parked",
 )
 COUNTERS: Dict[str, float] = {}
 _counter_lock = threading.Lock()
@@ -251,9 +257,13 @@ class FeasibilityPool:
 
     def _work(self, key: frozenset, raws, point: str = "") -> None:
         from mythril_tpu_torch.devsolver.admission import point_context
+        from mythril_tpu_torch.observability.exploration import (
+            get_exploration_ledger,
+        )
         from mythril_tpu_torch.smt import solver
 
         statuses: list = []
+        t0 = time.perf_counter()
         try:
             with self._solver_lock, point_context(point):
                 ok = bool(solver.check_satisfiable_batch(
@@ -263,6 +273,9 @@ class FeasibilityPool:
                 if self._fault is None:
                     self._fault = e
             return
+        if point:
+            get_exploration_ledger().record_solver_time(
+                point, time.perf_counter() - t0)
         why = statuses[0] if statuses else ("sat" if ok else "unsat")
         with self._lock:
             self._done.append((key, ok, why))
@@ -356,7 +369,7 @@ class PipelinedRunner:
     def __init__(self, engine, *, st, records, walker, arena, ev_seen,
                  seeds, lasers, ctxs, seed_code_idx, mid_enc,
                  seed_queue, statics, beam, tables, table_code, table_idx,
-                 segment, code_dev, cfg, dev_arena, arena_len, visited,
+                 table_hash, segment, code_dev, cfg, dev_arena, arena_len, visited,
                  deadline, program_key, program_warm, repack_fn=None):
         self.engine = engine
         self.caps = engine.caps
@@ -377,6 +390,7 @@ class PipelinedRunner:
         self.tables = tables
         self.table_code = table_code
         self.table_idx = table_idx
+        self.table_hash = table_hash
         self.segment = segment
         self.code_dev = code_dev
         self.cfg = cfg
@@ -396,6 +410,12 @@ class PipelinedRunner:
         self.pool = FeasibilityPool(args.solver_workers, self.device)
         self.streams = _Streams(self.device)
         self.reinject_q: List[tuple] = []
+        # adaptive park pool: re-runnable spills the reinject queue could
+        # not hold.  The controller's plan names which to resurrect when
+        # arena slots free; anything still pooled at run end flushes back
+        # to its host work list (exactly-once: a pooled carrier is never
+        # simultaneously on a work list or in a slot)
+        self.adaptive_parked: List[tuple] = []
 
         self.executed = 0
         self.max_live = 0
@@ -413,7 +433,18 @@ class PipelinedRunner:
             return False
         from mythril_tpu_torch.frontier.engine import _mid_eligible
 
-        if len(self.reinject_q) >= 2 * self.caps.B or not _mid_eligible(carrier):
+        if len(self.reinject_q) >= 2 * self.caps.B:
+            # queue full: these spills are exactly the "budget" parks the
+            # adaptive plan resurrects when slots free — pool them
+            # (bounded) instead of bouncing to the host work list
+            if self._adaptive_enabled() and \
+                    len(self.adaptive_parked) < 4 * self.caps.B \
+                    and _mid_eligible(carrier):
+                self.adaptive_parked.append((laser, carrier))
+                count("adaptive_parked")
+                return True
+            return False
+        if not _mid_eligible(carrier):
             return False
         self.reinject_q.append((laser, carrier))
         count("reinject_queued")
@@ -422,8 +453,14 @@ class PipelinedRunner:
     # -- speculative verdicts ------------------------------------------
 
     def apply_verdicts(self) -> None:
+        from mythril_tpu_torch.observability.exploration import (
+            VERDICT_CLASS,
+            get_exploration_ledger,
+        )
+
         st, records = self.st, self.records
-        for slot, rec, n_cons, ok, _why in self.pool.drain():
+        led = get_exploration_ledger()
+        for slot, rec, n_cons, ok, why in self.pool.drain():
             if ok:
                 if records[slot] is rec:
                     rec._pruned_at = max(rec._pruned_at, n_cons)
@@ -433,6 +470,7 @@ class PipelinedRunner:
             # that already finished replayed its events, but its issues
             # (if any) fail their own confirmation query — soundness does
             # not depend on this rollback, only slot recycling does.
+            cls = VERDICT_CLASS.get(why, "solver_unsat")
             for s in range(self.caps.B):
                 r = records[s]
                 node = r
@@ -444,6 +482,9 @@ class PipelinedRunner:
                     self.ev_seen[s] = 0
                     self.ledger.touch(s)
                     count("pool_unsat_rollbacks")
+                    if r.term_class is None:
+                        r.term_class = cls
+                        led.stamp(cls)
 
     def clear_orphans(self) -> None:
         """Device-occupied slots with no host record are descendants of
@@ -463,31 +504,45 @@ class PipelinedRunner:
 
     # -- refill ---------------------------------------------------------
 
-    def _free_slot(self) -> Optional[int]:
-        """Next injection target: the first host-reclaimable slot (no
-        record, not device-owned, no seed on the device)."""
+    def _slot_masks(self):
+        """([B] live, [B] free) numpy masks of the host's current view:
+        live = running record present, free = host-reclaimable."""
         B = self.caps.B
         rec = np.fromiter(
             (self.records[s] is not None for s in range(B)), bool, B
         )
-        free = np.flatnonzero(~rec & ~self.ledger.device_owned
-                              & (np.asarray(self.st.seed) < 0))
+        seed = np.asarray(self.st.seed)
+        live = rec & (np.asarray(self.st.halt) == O.H_RUNNING) & (seed >= 0)
+        free = ~rec & ~self.ledger.device_owned & (seed < 0)
+        return live, free
+
+    def _free_slot(self) -> Optional[int]:
+        """Next injection target: the first host-reclaimable slot (no
+        record, not device-owned, no seed on the device)."""
+        _live, free = self._slot_masks()
+        free = np.flatnonzero(free)
         return int(free[0]) if free.size else None
 
     def refill(self) -> None:
         """Queued seeds into host-reclaimable free slots.  Unlike the
         synchronous loop, beam scores of LIVE slots are not refreshed:
         uploading onto a device-advanced slot would clobber it.  Seed
-        order is FIFO (the JAX package's order without the adaptive
-        controller)."""
-        from mythril_tpu_torch.frontier.engine import _beam_importance
+        order follows the adaptive plan's deficit scheduler (FIFO with one
+        code or --no-adaptive)."""
+        from mythril_tpu_torch.frontier.engine import (
+            _adaptive_pick,
+            _beam_importance,
+        )
 
         eng = self.engine
         while self.seed_queue:
             slot = self._free_slot()
             if slot is None:
                 break
-            si = self.seed_queue.pop(0)
+            si = self.seed_queue.pop(
+                _adaptive_pick(self.seed_queue, self.seed_code_idx,
+                               self.table_hash)
+            )
             eng._inject(self.st, slot, si, self.ctxs[si],
                         self.seed_code_idx[si],
                         _beam_importance(self.seeds[si]) if self.beam else 0,
@@ -498,6 +553,53 @@ class PipelinedRunner:
             self.records[slot] = PathRecord(seed_idx=si)
             self.ev_seen[slot] = 0
             self.ledger.touch(slot)
+
+    # -- adaptive steering ---------------------------------------------
+
+    @staticmethod
+    def _adaptive_enabled() -> bool:
+        return bool(getattr(args, "adaptive", True))
+
+    def _adaptive_requeue(self) -> None:
+        """Resurrect pooled spills when arena slots free (sync point
+        only: the moved carriers ride the ordinary ``_reinject`` path, so
+        arena appends and ledger touches stay inside the existing
+        exactly-once protocol).  The plan picks which parked paths earn
+        their slot back; the rest stay pooled."""
+        if not self.adaptive_parked or not self._adaptive_enabled():
+            return
+        _live, free = self._slot_masks()
+        room = int(free.sum()) - len(self.reinject_q) - len(self.seed_queue)
+        if room <= 0:
+            return
+        try:
+            from mythril_tpu_torch.adaptive import get_adaptive_controller
+
+            parked = [
+                (id(carrier), "budget_exhausted")
+                for _, carrier in self.adaptive_parked
+            ]
+            picked = set(get_adaptive_controller().select_requeue(
+                parked, live=(), limit=room
+            ))
+        except Exception:  # steering must never break a dispatch
+            log.debug("adaptive requeue failed", exc_info=True)
+            return
+        if not picked:
+            return
+        keep: List[tuple] = []
+        cap = 2 * self.caps.B
+        for laser, carrier in self.adaptive_parked:
+            if id(carrier) in picked and len(self.reinject_q) < cap:
+                self.reinject_q.append((laser, carrier))
+            else:
+                keep.append((laser, carrier))
+        self.adaptive_parked = keep
+
+    def _adaptive_coverage_stop(self) -> bool:
+        from mythril_tpu_torch.frontier.engine import _adaptive_coverage_stop
+
+        return _adaptive_coverage_stop()
 
     # -- sync-point spill re-injection ---------------------------------
 
@@ -563,6 +665,12 @@ class PipelinedRunner:
         for laser, carrier in self.reinject_q:
             laser.work_list.append(carrier)
         self.reinject_q = []
+        self._flush_adaptive_pool()
+
+    def _flush_adaptive_pool(self) -> None:
+        for laser, carrier in self.adaptive_parked:
+            laser.work_list.append(carrier)
+        self.adaptive_parked = []
 
     # -- the loop -------------------------------------------------------
 
@@ -634,8 +742,11 @@ class PipelinedRunner:
                                     for s in range(caps.B)), bool, caps.B)
                      ).any()
                 )
-                want_sync = bool(self.reinject_q
-                                 or (self.seed_queue and free_owned))
+                want_sync = bool(
+                    self.reinject_q
+                    or (self.seed_queue and free_owned)
+                    or (self.adaptive_parked and free_owned)
+                )
                 nxt = None
                 nxt_event = None
                 nxt_wall = 0.0
@@ -754,8 +865,15 @@ class PipelinedRunner:
                         stop = "timeout"
                     elif bail_now:
                         stop = "slow-bail"
+                    elif self._adaptive_coverage_stop():
+                        log.info(
+                            "frontier: coverage target reached; "
+                            "parking live paths"
+                        )
+                        stop = "coverage-target"
                     elif (live == 0 and not self.seed_queue
-                          and not self.reinject_q):
+                          and not self.reinject_q
+                          and not self.adaptive_parked):
                         stop = "done"
                     elif (self.arena_len + max(live, 1) * caps.R * 4
                           >= caps.ARENA):
@@ -786,6 +904,15 @@ class PipelinedRunner:
                     break
                 self.ledger.release_owned()
                 self.arena.thaw()
+                self._adaptive_requeue()
+                if (self.adaptive_parked and not self.reinject_q
+                        and not self.seed_queue):
+                    live_now, _ = self._slot_masks()
+                    if not live_now.any():
+                        # nothing else runs and the plan declined the
+                        # pooled spills: hand them to the host engine
+                        # rather than spin on empty segments
+                        self._flush_adaptive_pool()
                 if self.repack_fn is not None:
                     # fold pending page-window moves in BEFORE re-injection
                     # so faulted carriers resume against tables whose
@@ -812,7 +939,7 @@ class PipelinedRunner:
 
         if stop == "slow-bail":
             self.slow_bailed = True
-        if stop in ("timeout", "slow-bail", "arena-full"):
+        if stop in ("timeout", "slow-bail", "arena-full", "coverage-target"):
             self.width_verdict_valid = False
         live = int(((self.st.halt == O.H_RUNNING)
                     & (self.st.seed >= 0)).sum())

@@ -15,17 +15,19 @@ What differs from the JAX command line:
 * ``--probe-backend`` has the port's backends: ``device`` (the default, the
   role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
 * The known-bits prefilter, the devsolver, the static pass, the query
-  cache and the pipelined frontier run by default, as in the JAX package;
-  ``--no-prefilter``, ``--no-devsolver``, ``--no-staticpass``,
-  ``--no-staticpass-interproc``, ``--no-query-cache`` and ``--no-pipeline``
-  switch them off, ``--devsolver-bit-budget`` and ``--devsolver-iters`` set
+  cache, the pipelined frontier and the adaptive controller run by default,
+  as in the JAX package; ``--no-prefilter``, ``--no-devsolver``,
+  ``--no-staticpass``, ``--no-staticpass-interproc``, ``--no-query-cache``,
+  ``--no-pipeline`` and ``--no-adaptive`` switch them off, ``--devsolver-bit-budget`` and ``--devsolver-iters`` set
   the devsolver's budgets, ``--solver-workers`` and ``--harvest-workers``
   the pipeline's feasibility pool and the harvest's replay pool (0: the
   serial harvest), ``--query-cache-dir`` adds the query cache's disk store
-  and ``--staticpass-report`` writes the static pass's JSON after the run.
-  The other switches that turn a default-on JAX tier off (``--no-mesh``,
-  ``--no-adaptive``) are accepted: the port runs without those tiers until
-  they are ported, and ``analyze`` names them on one stderr line.
+  and ``--staticpass-report`` writes the static pass's JSON after the run;
+  ``--coverage-target`` stops exploring at a coverage bar and
+  ``--coverage-out`` writes the exploration ledger after the run.  The
+  other switch that turns a default-on JAX tier off (``--no-mesh``) is
+  accepted: the port runs without the mesh until it is ported, and
+  ``analyze`` names it on one stderr line.
 * Every other JAX option or subcommand the port lacks is refused with exit
   code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
   heartbeat period is accepted at its JAX default only.
@@ -62,12 +64,10 @@ NOT_YET_PORTED = {
     "--benchmark": 13,
     "--checkpoint-file": 13,
     "--resume-from": 13,
-    "--coverage-target": 5,
     "--compile-cache-dir": 13,
     "--cache-root": 13,
     "--trace-out": 13,
     "--metrics-out": 13,
-    "--coverage-out": 5,
     "--heartbeat-out": 13,
     "--heartbeat-interval": 13,
     "--flight-recorder": 13,
@@ -91,7 +91,6 @@ AT_DEFAULT_ONLY = {
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
 RUNS_WITHOUT = {
     "frontier_mesh": ("the device mesh", 12),
-    "adaptive": ("the adaptive controller", 5),
 }
 
 
@@ -314,7 +313,24 @@ def _add_analysis_options(parser) -> None:
         "(budget lapse falls through as UNKNOWN)",
     )
     _runs_without(group, "--no-mesh", "frontier_mesh")
-    _runs_without(group, "--no-adaptive", "adaptive")
+    group.add_argument(
+        "--no-adaptive",
+        action="store_false",
+        dest="adaptive",
+        default=True,
+        help="disable coverage-guided adaptive exploration (feedback "
+        "controller steering dispatch slots and requeues at uncovered "
+        "reachable edges); the issue set is identical either way",
+    )
+    group.add_argument(
+        "--coverage-target",
+        type=float,
+        default=None,
+        metavar="PCT",
+        help="stop exploring once reachable coverage reaches PCT percent "
+        "(or every explored code plateaus), instead of running the full "
+        "time/tx budget; requires the adaptive controller",
+    )
     group.add_argument(
         "--solver-workers",
         type=int,
@@ -356,6 +372,13 @@ def _add_analysis_options(parser) -> None:
         help="write the static pre-analysis summary (per-contract CFG "
         "blocks/edges, unreachable spans, taint reachability, skipped "
         "modules) to FILE as JSON after the run",
+    )
+    group.add_argument(
+        "--coverage-out",
+        metavar="FILE",
+        help="write the exploration ledger (per-contract instruction and "
+        "JUMPI branch-edge coverage bitmaps, termination-class breakdown, "
+        "solver hotspots by program point) to FILE as JSON after the run",
     )
     _add_device(group)
 
@@ -621,6 +644,8 @@ def _build_analyzer(parsed):
         pipeline=parsed.pipeline,
         solver_workers=parsed.solver_workers,
         harvest_workers=parsed.harvest_workers,
+        adaptive=parsed.adaptive,
+        coverage_target=parsed.coverage_target,
     )
     print(runs_without_line(parsed), file=sys.stderr)
     return MythrilAnalyzer(
@@ -713,8 +738,20 @@ def _execute_static(parsed) -> None:
         _print_static_report(report, top=parsed.top)
 
 
-def _export_staticpass_report(parsed) -> None:
-    """``--staticpass-report FILE``: the static pass's JSON after a run."""
+def _export_reports(parsed) -> None:
+    """``--coverage-out FILE`` (the exploration ledger) and
+    ``--staticpass-report FILE`` (the static pass's JSON) after a run."""
+    if parsed.coverage_out:
+        from mythril_tpu_torch.observability import get_exploration_ledger
+
+        snap = get_exploration_ledger().snapshot()
+        with open(parsed.coverage_out, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
+        log.info(
+            "wrote exploration ledger (%d contracts, %.1f%% coverage) to %s",
+            len(snap.get("coverage", {})),
+            snap.get("coverage_pct") or 0.0, parsed.coverage_out,
+        )
     if parsed.staticpass_report:
         from mythril_tpu_torch.staticpass import export_report
 
@@ -809,7 +846,7 @@ def execute_command(parsed) -> None:
         try:
             report = analyzer.fire_lasers()
         finally:
-            _export_staticpass_report(parsed)
+            _export_reports(parsed)
         issue_functions = {i["function"] for i in report.sorted_issues()}
         all_functions = set()
         for contract in analyzer.contracts:
@@ -837,7 +874,7 @@ def execute_command(parsed) -> None:
         try:
             report = analyzer.fire_lasers()
         finally:
-            _export_staticpass_report(parsed)
+            _export_reports(parsed)
         outputs = {
             "json": report.as_json,
             "jsonv2": report.as_swc_standard_format,

@@ -36,12 +36,26 @@ class InstructionCoverage(LaserPlugin):
                 total = len(global_state.environment.code.instruction_list)
                 self.coverage[code] = (total, [False] * max(total, 1))
             pc = global_state.mstate.pc
-            # an out-of-range pc (execution fell off the end of the
-            # instruction list) marks nothing
             if 0 <= pc < len(self.coverage[code][1]):
                 self.coverage[code][1][pc] = True
+            else:
+                # an out-of-range pc (execution fell off the end of the
+                # instruction list, or a corrupt jump) used to be clamped
+                # onto the LAST instruction, silently inflating its
+                # coverage; count it instead so the anomaly is visible
+                from mythril_tpu_torch.observability.exploration import (
+                    get_exploration_ledger,
+                )
+
+                get_exploration_ledger().record_pc_overflow()
 
         def stop_sym_exec_hook():
+            from mythril_tpu_torch.observability.exploration import (
+                get_exploration_ledger,
+            )
+            from mythril_tpu_torch.support.support_utils import get_code_hash
+
+            led = get_exploration_ledger()
             for code, (total, seen) in self.coverage.items():
                 covered = sum(seen)
                 pct = 100.0 * covered / total if total else 0.0
@@ -49,6 +63,13 @@ class InstructionCoverage(LaserPlugin):
                     "Achieved %.2f%% coverage for code: %s...",
                     pct,
                     code[:40],
+                )
+                # end-of-run coverage also lands in the exploration ledger
+                # (per-codehash gauge -> Prometheus / --metrics-out), not
+                # just this log line
+                led.record_instr(
+                    get_code_hash(code), total,
+                    [i for i, hit in enumerate(seen) if hit],
                 )
 
         def start_sym_trans_hook():
@@ -66,9 +87,18 @@ class InstructionCoverage(LaserPlugin):
         coverage, matching its states-executed accounting."""
         entry = self.coverage.setdefault(code_hex, (total, [False] * max(total, 1)))
         seen = entry[1]
+        oob = 0
         for i in indices:
             if 0 <= int(i) < len(seen):
                 seen[int(i)] = True
+            else:
+                oob += 1
+        if oob:
+            from mythril_tpu_torch.observability.exploration import (
+                get_exploration_ledger,
+            )
+
+            get_exploration_ledger().record_pc_overflow(oob)
 
     def get_coverage(self) -> Dict[str, float]:
         return {

@@ -2,9 +2,9 @@
 
 The port's copy of ``mythril_tpu/staticpass`` (numpy only, no device
 program).  What differs: the ``staticpass.*`` counters are module state
-(``COUNTERS``, ``GATE_DISABLED``, ``reset_counters``; see :mod:`summary`),
-and the exploration ledger is not fed (``publish_reachability`` does
-nothing until the port has one).
+(``COUNTERS``, ``GATE_DISABLED``, ``reset_counters``; see :mod:`summary`);
+``publish_reachability`` feeds the exploration ledger as in the JAX
+package.
 
 Three vectorized passes over the decoded instruction stream — the same
 flat tables ``frontier/code.py`` builds its device dispatch from:

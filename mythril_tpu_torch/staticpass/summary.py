@@ -5,8 +5,8 @@ package publishes its ``staticpass.*`` counters to its metrics registry;
 the port keeps them as module state: ``COUNTERS`` (name without the
 prefix -> value; ``count`` adds to it), ``GATE_DISABLED`` (the gate's
 self-disables by reason), both zeroed by ``reset_counters``.
-``publish_reachability`` feeds the JAX package's exploration ledger, which
-the port does not have yet, and does nothing here; the process-wide
+``publish_reachability`` feeds the exploration ledger
+(``observability/exploration.py``) as in the JAX package; the process-wide
 ``staticpass.reachable_edge_pct`` gauge, read by the JAX package's service
 and drift doctor, is not kept.
 
@@ -288,9 +288,29 @@ def summary_for_code(code, is_creation: bool = False) -> Optional[StaticSummary]
 
 
 def publish_reachability(code, summary: Optional[StaticSummary]) -> None:
-    """The JAX package registers a summary's reachability masks with its
-    exploration ledger here (``coverage_pct_reachable``); the port has no
-    such ledger yet, so nothing is published."""
+    """Register a summary's reachability masks with the exploration
+    ledger, keyed by the same keccak code hash the engines use, so
+    coverage can be reported over the statically reachable denominator
+    (`coverage_pct_reachable`) next to the raw one."""
+    if summary is None or summary.edge_taken_live is None:
+        return
+    try:
+        from mythril_tpu_torch.observability.exploration import get_exploration_ledger
+        from mythril_tpu_torch.support.support_utils import get_code_hash
+
+        bytecode = getattr(code, "bytecode", None) or b""
+        if isinstance(bytecode, (bytes, bytearray)):
+            hex_code = bytes(bytecode).hex()
+        else:
+            hex_code = bytecode
+        get_exploration_ledger().register_static(
+            get_code_hash(hex_code),
+            summary.instr_reachable,
+            summary.edge_taken_live,
+            summary.edge_fall_live,
+        )
+    except Exception as e:  # observe-only plumbing: never fatal
+        log.debug("static reachability not published: %s", e)
 
 
 # the JAX package's ``staticpass.*`` registry counters (the prefix left

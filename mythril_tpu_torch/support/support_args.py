@@ -20,8 +20,10 @@ pruning of the frontier's tables) and its interprocedural layer;
 ``query_cache`` and ``query_cache_dir`` the solver's query cache
 (``querycache/``) and its disk store.  ``pipeline``, ``solver_workers``
 and ``harvest_workers`` are the pipelined frontier, its feasibility pool
-and the harvest's replay pool.  All on by default (no disk store), with the
-JAX package's worker counts.
+and the harvest's replay pool; ``adaptive`` the adaptive controller
+(``adaptive/``) and ``coverage_target`` its ``--coverage-target`` bar.
+All on by default (no disk store, no coverage bar), with the JAX package's
+worker counts.
 
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
@@ -93,6 +95,15 @@ class Args:
     # harvest replay threads (frontier/harvest.py HarvestExecutor): a
     # laser's replays on one worker, commits in slot order; 0 = serial
     harvest_workers: int = 4
+    # coverage-guided adaptive exploration (adaptive/): the feedback
+    # controller that re-steers frontier dispatch slots at uncovered
+    # reachable edges and resurrects budget-parked paths when slots free;
+    # the issue set is identical either way (--no-adaptive)
+    adaptive: bool = True
+    # stop exploring once reachable instruction coverage reaches this
+    # percent (or every explored code plateaus below it); None explores
+    # to the transaction and time budget
+    coverage_target: Optional[float] = None
     device: Optional[torch.device] = None
 
 

@@ -117,6 +117,10 @@ COPIED = (
     "querycache/canon.py",
     "querycache/store.py",
     "querycache/__init__.py",
+    "observability/metrics.py",
+    "adaptive/plan.py",
+    "adaptive/controller.py",
+    "plugins/plugins/coverage.py",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

@@ -154,11 +154,27 @@ def port_no_pipeline():
 
 
 @contextlib.contextmanager
+def port_no_adaptive():
+    """The port's adaptive controller switched off (``--no-adaptive``), as
+    the JAX package ran for every record made before the controller was
+    ported (``JAX_ENGINE_ARGS``, ``PIPELINE_PINS``)."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.adaptive
+    args.adaptive = False
+    try:
+        yield
+    finally:
+        args.adaptive = saved
+
+
+@contextlib.contextmanager
 def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool = False):
     """The port's solver with the device probe on and its caches cleared;
     its native CDCL off unless ``cdcl``, its prefilter and devsolver off
     unless ``tiers``, its static pass and query cache off unless
-    ``defaults``; its frontier synchronous (``port_no_pipeline``)."""
+    ``defaults``; its frontier synchronous (``port_no_pipeline``) and
+    without the adaptive controller (``port_no_adaptive``)."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
     from mythril_tpu_torch.support.support_args import args
 
@@ -174,6 +190,7 @@ def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool 
             if not defaults:
                 stack.enter_context(port_no_host_tiers())
             stack.enter_context(port_no_pipeline())
+            stack.enter_context(port_no_adaptive())
             yield
     finally:
         args.probe_backend = saved
@@ -201,7 +218,7 @@ PIPELINE_ON = dict(pipeline=True, harvest_workers=4, solver_workers=2)
 
 @contextlib.contextmanager
 def _jax_engine(cdcl: bool, tiers: bool = False, defaults: bool = False,
-                pipeline: bool = False):
+                pipeline: bool = False, adaptive: bool = False):
     from mythril_tpu.support.support_args import args
 
     saved = {k: getattr(args, k) for k in (*JAX_ENGINE_ARGS, *PIPELINE_ON)}
@@ -211,6 +228,7 @@ def _jax_engine(cdcl: bool, tiers: bool = False, defaults: bool = False,
         if pipeline:
             for k, v in PIPELINE_ON.items():
                 setattr(args, k, v)
+        args.adaptive = adaptive
         try:
             yield
         finally:
@@ -252,13 +270,20 @@ def jax_engine_config_pipeline():
     return _jax_engine(cdcl=True, tiers=True, defaults=True, pipeline=True)
 
 
+def jax_engine_config_adaptive(pipeline: bool = True):
+    """``jax_engine_config_pipeline`` (or, with ``pipeline`` False,
+    ``jax_engine_config_defaults``) with the JAX package's adaptive
+    controller on, its default; the mesh stays off."""
+    return _jax_engine(cdcl=True, tiers=True, defaults=True, pipeline=pipeline, adaptive=True)
+
+
 # the pipelined runner's counters (the JAX package's ``pipeline.*``
 # metrics, the port's ``frontier.pipeline.COUNTERS``)
 PIPELINE_COUNTERS = (
     "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
     "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
     "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
-    "reinject_queued", "reinjected",
+    "reinject_queued", "reinjected", "adaptive_parked",
 )
 
 
@@ -378,6 +403,37 @@ def querycache_counters(base: str) -> dict:
     return dict(cache.COUNTERS)
 
 
+# the adaptive controller's counters (``adaptive.*`` in both registries)
+ADAPTIVE_COUNTERS = ("plans", "resteered_slots", "requeued_paths", "flips_planned",
+                     "flips_hit", "plateau_stops", "coverage_stops")
+
+
+def adaptive_counters(base: str) -> dict:
+    import importlib
+
+    reg = importlib.import_module(f"{base}.observability.metrics").get_registry()
+    return {n: int(reg.counter(f"adaptive.{n}").value or 0) for n in ADAPTIVE_COUNTERS}
+
+
+def exploration_state(base: str) -> dict:
+    """``base``'s exploration ledger after a run, without what depends on
+    the clock: its ``snapshot()`` (``meta()`` and the bitmaps as index
+    lists) with ``solver_hotspots``, whose order and seconds are timings,
+    replaced by ``hotspot_queries``, every point's query count.  -> also
+    ``stop``, the adaptive controller's latched coverage stop (None)."""
+    import importlib
+
+    ledger = importlib.import_module(f"{base}.observability.exploration")
+    reg = importlib.import_module(f"{base}.observability.metrics").get_registry()
+    controller = importlib.import_module(f"{base}.adaptive").get_adaptive_controller()
+    snap = ledger.get_exploration_ledger().snapshot()
+    snap.pop("solver_hotspots")
+    counts = reg.labeled_counter("exploration.solver_hotspot_n", label_name="point").snapshot()
+    snap["hotspot_queries"] = {k: int(v) for k, v in sorted(counts.items())}
+    snap["stop"] = controller.stop_state()
+    return snap
+
+
 def issue_key(issue) -> tuple:
     return (issue.swc_id, issue.address, issue.function, issue.severity, issue.title)
 
@@ -437,6 +493,9 @@ def _reset(base: str) -> None:
     querycache.reset_query_cache()
     reset_host_tier_counters(base)
     reset_pipeline_counters(base)
+    # the metrics registry, the exploration ledger's bitmaps and the
+    # adaptive controller's scope, as at the start of an analysis
+    importlib.import_module(f"{base}.observability").reset_analysis_metrics()
 
 
 @contextlib.contextmanager
@@ -520,20 +579,22 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                  frontier: bool = False, force: bool = False, width: int = 64,
                  modules=None, timeout: int = 60, device="cpu", record: bool = True,
                  cdcl: bool = False, tiers: bool = False, defaults: bool = False,
-                 pipeline: bool = False) -> dict:
+                 pipeline: bool = False, adaptive: bool = False) -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
     ("mythril_tpu" under ``jax_engine_config``, ``jax_engine_config_cdcl``
     or ``jax_engine_config_tiers``, or "mythril_tpu_torch" on ``device``,
     its native CDCL on only when ``cdcl``, its prefilter and devsolver only
     when ``tiers``, its static pass and query cache only when ``defaults``,
-    its pipelined frontier and replay workers only when ``pipeline``)
-    with every cache cleared first.  -> {"issues", "summary",
+    its pipelined frontier and replay workers only when ``pipeline``, its
+    adaptive controller only when ``adaptive``) with every cache cleared
+    first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
     "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
     ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "staticpass"
     (``staticpass_counters``), "querycache" (``querycache_counters``),
-    "pipeline" (``pipeline_counters``), "seconds" (wall, the digests' time
-    excluded)}"""
+    "pipeline" (``pipeline_counters``), "exploration"
+    (``exploration_state``), "adaptive" (``adaptive_counters``), "seconds"
+    (wall, the digests' time excluded)}"""
     import importlib
     import time
 
@@ -562,6 +623,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                 stack.enter_context(port_no_host_tiers())
             if port and not pipeline:
                 stack.enter_context(port_no_pipeline())
+            if port and not adaptive:
+                stack.enter_context(port_no_adaptive())
             stack.enter_context(counting_cdcl(base, native))
             t0 = time.perf_counter()
             sym = symbolic.SymExecWrapper(
@@ -590,6 +653,8 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
         "staticpass": staticpass_counters(base),
         "querycache": querycache_counters(base),
         "pipeline": pipeline_counters(base),
+        "exploration": exploration_state(base),
+        "adaptive": adaptive_counters(base),
         "seconds": seconds,
     }
 

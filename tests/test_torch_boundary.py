@@ -13,7 +13,9 @@ devsolver's ``decide_batch`` on the CPU, imports the pipelined frontier
 a pull and a carry, imports every module of the port, runs one
 whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 ``fire_lasers`` on the CPU, with the host engine and with the frontier
-forced, which runs pipelined by default), runs the command line in process (``interfaces.cli.main``:
+forced, which runs pipelined by default, and reads the exploration
+ledger after each), runs a cooperative batch of two contracts
+(``analysis.cooperative``, the adaptive controller on), runs the command line in process (``interfaces.cli.main``:
 ``analyze`` of the same contract with ``--device cpu``), and reports which
 modules it loaded.  The same process shows that,
 without a card, entry points called without ``device="cpu"`` (the solver,
@@ -138,6 +140,23 @@ for frontier in (False, True):
     found[str(frontier)] = [[i.swc_id, FrontierStatistics().segments]
                             for i in fire_lasers(sym, white_list=["AccidentallyKillable"])]
     found[str(frontier) + "_pipelined"] = pipeline.COUNTERS["segments_pipelined"]
+    from mythril_tpu_torch.observability import exploration_meta
+    meta = exploration_meta()
+    found[str(frontier) + "_ledger"] = [meta["partition_ok"], meta["terminated_total"],
+                                        meta["coverage_pct"]]
+from mythril_tpu_torch.adaptive import get_adaptive_controller
+from mythril_tpu_torch.analysis.cooperative import analyze_cooperative
+from mythril_tpu_torch.analysis.security import reset_callback_modules
+reset_callback_modules()
+for m in ModuleLoader().get_detection_modules():
+    m.cache.clear()
+args.frontier = args.frontier_force = True
+coop_issues, _states = analyze_cooperative(
+    [("kill", code), ("gated", bytes.fromhex(
+        "60003580600a9010600c57005b80600514601c5780601414601c57005b33ff"))],
+    transaction_count=1, modules=["AccidentallyKillable"], device="cpu")
+coop = {"issues": sorted((n, i.swc_id) for n, found_ in coop_issues.items() for i in found_),
+        "adaptive": get_adaptive_controller().meta()}
 sym_raised = None
 if not torch.cuda.is_available():
     try:
@@ -159,7 +178,7 @@ cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
 print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
                   "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
-                  "ledger": ledger, "lowering": low, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
+                  "ledger": ledger, "lowering": low, "coop": coop, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
 
@@ -198,6 +217,17 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["found"]["True"][0][0] == "106" and got["found"]["True"][0][1] > 0
     # ... pipelined, by default
     assert got["found"]["True_pipelined"] > 0 and got["found"]["False_pipelined"] == 0
+    # the exploration ledger saw both runs: the frontier's terminations
+    # partition, its coverage planes merged
+    partition_ok, terminated, coverage = got["found"]["True_ledger"]
+    assert partition_ok and terminated > 0 and coverage > 0
+    # a cooperative batch of two contracts on one frontier, the controller
+    # on by default
+    assert got["coop"]["issues"] == [["gated", "106"], ["kill", "106"]]
+    assert got["coop"]["adaptive"]["enabled"] and got["coop"]["adaptive"]["plans"] > 0
+    for mod in ("adaptive.controller", "adaptive.plan", "observability.exploration",
+                "observability.metrics", "analysis.cooperative"):
+        assert f"mythril_tpu_torch.{mod}" in got["modules"]
     # the correction ledger: slot 2's write rode dispatch 1, so the pull of
     # dispatch 0 carries it from the host mirror, events cleared
     assert got["ledger"] == {"mask": [False, False, True, False], "carried": 1, "pc": 42,

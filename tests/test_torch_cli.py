@@ -15,7 +15,11 @@ the query cache on as well (``DEFAULT_PINS``), the runs named ``.../pipeline``
 with the pipelined frontier and the replay workers on besides
 (``PIPELINE_PINS``: the JAX CLI's defaults but the forced device probe, the
 mesh and the adaptive controller), and the port runs them with its own on,
-its default.  The
+its default; the port's argv gets ``--no-adaptive`` wherever the pins had
+it.  ``loop_tail/frontier/coverage-target`` (``bench.LOOP_TAIL`` on a
+forced frontier with ``--coverage-target 90 --coverage-out``) was recorded
+with the JAX CLI's defaults but the forced device probe and the mesh
+(``COVERAGE_PINS``), the adaptive controller on in both.  The
 ``static/...`` runs are the ``static`` subcommand, which takes no pins, and
 ``.../staticpass-report`` writes ``--staticpass-report``.  Under pytest the
 port's CLI replays the small runs (all but the bench contracts of
@@ -24,7 +28,8 @@ its output must equal the JAX CLI's field by field (``differences``), except
 the issues' ``discoveryTime``, the wall-time fields of the execution info and
 of the static pass's reports (``wall_s``), the JAX package's calibration
 block and the report meta blocks of the surfaces the port does not carry yet
-(``JAX_ONLY_META``).  ``chip_smoke.py`` replays the bench runs the same way
+(``JAX_ONLY_META``) and the seconds of the exploration ledger's solver
+hotspots.  ``chip_smoke.py`` replays the bench runs the same way
 on the card.
 
     JAX_PLATFORMS=cpu python tests/test_torch_cli.py --write [names]
@@ -49,6 +54,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import pytest
 
@@ -69,10 +75,11 @@ HOST_TIER_SWITCHES = ("--no-staticpass", "--no-staticpass-interproc", "--no-quer
 DEFAULT_PINS = [a for a in TIER_PINS if a not in HOST_TIER_SWITCHES]
 # ... and with its pipelined frontier and harvest replay workers on as well
 PIPELINE_PINS = ["--probe-backend", "jax", "--no-mesh", "--no-adaptive"]
+# ... and with its adaptive controller on as well
+COVERAGE_PINS = ["--probe-backend", "jax", "--no-mesh"]
 # jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
 # deviations: the port's meta carries the execution info and the static pass)
-JAX_ONLY_META = {"device", "devsolver", "exploration", "frontier", "health", "observability",
-                 "prefilter"}
+JAX_ONLY_META = {"device", "devsolver", "frontier", "health", "observability", "prefilter"}
 WALL_FIELDS = ("solver_time_s",)
 FRONTIER_WALL_FIELDS = ("segment_s", "harvest_s")
 # the file argument of --statespace-json and --graph in a recorded argv
@@ -104,12 +111,16 @@ def recorded_runs() -> list:
     contract (``_torch_parity.dead_code_contract``) on a forced frontier of
     64, and ``kill_simple``'s ``--staticpass-report``; with the pipeline and
     the replay workers on too (``PIPELINE_PINS``), ``kill_simple`` on a
-    forced frontier of 64 and ``etherstore_like`` of 256; and ``static -o json``
-    on ``kill_simple`` and on KillBilly with its creation code, and ``static``
-    text on ``kill_simple``."""
+    forced frontier of 64 and ``etherstore_like`` of 256; with the adaptive
+    controller on too (``COVERAGE_PINS``), ``bench.LOOP_TAIL`` on a forced
+    frontier with ``--coverage-target 90`` and ``--coverage-out``; and
+    ``static -o json`` on ``kill_simple`` and on KillBilly with its creation
+    code, and ``static`` text on ``kill_simple``."""
     sys.path.insert(0, str(REPO))
     import bench_contracts
     from bench import KILLBILLY, KILLBILLY_CREATION
+
+    from tests.test_torch_adaptive import LOOP_TAIL
     from tests._torch_parity import dead_code_contract, engine_contracts
 
     def analyze(code, tx, modules=None):
@@ -155,6 +166,9 @@ def recorded_runs() -> list:
     runs.append({"name": "etherstore_like/frontier-256/pipeline", "pins": PIPELINE_PINS,
                  "argv": analyze(bench["etherstore_like"], 2) + [
                      "-o", "jsonv2", *frontier, "--frontier-width", "256"]})
+    runs.append({"name": "loop_tail/frontier/coverage-target", "pins": COVERAGE_PINS,
+                 "argv": analyze(LOOP_TAIL, 1) + ["-o", "jsonv2", *frontier, "--coverage-target",
+                                                  "90", "--coverage-out", OUT]})
     runs.append({"name": "kill_simple/host/staticpass-report", "pins": DEFAULT_PINS,
                  "argv": analyze(contracts["kill_simple"][0], 2) + [
                      "-o", "json", "--staticpass-report", OUT]})
@@ -169,11 +183,11 @@ def recorded_runs() -> list:
 def port_argv(run: dict) -> list:
     """A recorded run's argv for the port: the JAX pins' tier switches that
     the port has (the prefilter's, the devsolver's, the static pass's, the
-    query cache's and the pipeline's, and the replay workers' count)
-    added."""
+    query cache's, the pipeline's and the adaptive controller's, and the
+    replay workers' count) added."""
     pins = run["pins"]
     extra = [a for a in ("--no-prefilter", "--no-devsolver", *HOST_TIER_SWITCHES,
-                         "--no-pipeline") if a in pins]
+                         "--no-pipeline", "--no-adaptive") if a in pins]
     if "--harvest-workers" in pins:
         extra += pins[pins.index("--harvest-workers"):][:2]
     return run["argv"] + extra
@@ -201,10 +215,21 @@ def _last_json_line(text: str):
     return json.loads([line for line in text.splitlines() if line.strip()][-1])
 
 
+def without_hotspot_seconds(exploration: dict) -> dict:
+    """An exploration ledger's ``meta()`` or ``snapshot()`` with its solver
+    hotspots as (point, queries) pairs sorted by point: their seconds, and
+    the order by seconds, are timings."""
+    exploration = dict(exploration)
+    exploration["solver_hotspots"] = sorted(
+        [h["point"], h["queries"]] for h in exploration["solver_hotspots"])
+    return exploration
+
+
 def _jsonv2_normalized(report: list, jax: bool) -> list:
     """A jsonv2 report without what may differ: the issues' discovery time,
-    the execution info's wall times and calibration, and (JAX side) the meta
-    blocks in ``JAX_ONLY_META``, which must all be there."""
+    the execution info's wall times and calibration, the exploration
+    ledger's hotspot seconds, and (JAX side) the meta blocks in
+    ``JAX_ONLY_META``, which must all be there."""
     report = copy.deepcopy(report)
     for entry in report:
         for issue in entry["issues"]:
@@ -215,6 +240,8 @@ def _jsonv2_normalized(report: list, jax: bool) -> list:
             assert not missing, f"the JAX report lacks meta blocks {missing}"
             for key in JAX_ONLY_META:
                 meta.pop(key)
+        if "exploration" in meta:
+            meta["exploration"] = without_hotspot_seconds(meta["exploration"])
         info = meta.get("mythril_execution_info", {})
         info.pop("calibration", None)
         for key in WALL_FIELDS:
@@ -266,11 +293,12 @@ def differences(outform: str, jax_out: str, port_out: str) -> list:
 # ---------------------------------------------------------------------------
 
 
-def run_port(argv, device="cpu"):
+def run_port(argv, device="cpu", with_stdout=False):
     """One in-process run of the port's CLI as in a fresh process: every
     cache that carries state between analyses cleared, the statespace's node
     numbering from 1 -> (exit code, stdout, or for an export the file written
-    in place of ``OUT``).  ``device`` None passes no ``--device`` (the card)."""
+    in place of ``OUT``; with ``with_stdout`` the stdout after the file).
+    ``device`` None passes no ``--device`` (the card)."""
     import tempfile
 
     from mythril_tpu_torch.core import cfg
@@ -286,7 +314,8 @@ def run_port(argv, device="cpu"):
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv + (["--device", device] if device else []))
         if path in argv:
-            return rc, Path(path).read_text()
+            exported = Path(path).read_text()
+            return (rc, exported, out.getvalue()) if with_stdout else (rc, exported)
     return rc, out.getvalue()
 
 
@@ -295,13 +324,18 @@ def _mythril_dir(tmp_path, monkeypatch):
     monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path / "mythril"))
 
 
-def compare(run: dict, rc: int, out: str) -> list:
-    """Where a replay of ``run`` (exit code, output or exported file)
-    differs from the recorded JAX CLI run; [] when equal."""
+def compare(run: dict, rc: int, out: str, stdout: Optional[str] = None) -> list:
+    """Where a replay of ``run`` (exit code, output or exported file, and
+    for ``--coverage-out`` the stdout beside the file) differs from the
+    recorded JAX CLI run; [] when equal."""
     if rc != run["rc"]:
         return [f"exit {rc} != {run['rc']}"]
     if "--staticpass-report" in run["argv"]:
         return differences("static", run["file"], out)
+    if "--coverage-out" in run["argv"]:
+        return (_paths(without_hotspot_seconds(json.loads(run["file"])),
+                       without_hotspot_seconds(json.loads(out)))[:10]
+                + differences(outform_of(run["argv"]), run["stdout"], stdout))
     if OUT in run["argv"]:
         return [] if out == run["file"] else ["exported file differs"]
     if run["argv"][0] == "static" and outform_of(run["argv"]) == "json":
@@ -312,9 +346,10 @@ def compare(run: dict, rc: int, out: str) -> list:
 @pytest.mark.parametrize("name", SMALL)
 def test_port_cli_equals_jax_cli(name):
     run = load_runs()[name]
-    rc, out = run_port(port_argv(run), device=device_of(run))
+    both = "--coverage-out" in run["argv"]
+    rc, out, *stdout = run_port(port_argv(run), device=device_of(run), with_stdout=both)
     assert rc == run["rc"] == 0
-    assert compare(run, rc, out) == []
+    assert compare(run, rc, out, *stdout) == []
     if name.endswith(("/tiers", "/defaults")):
         assert tier_counter_differences(run) == []
 
@@ -345,7 +380,8 @@ def test_fixture_holds_the_runs_it_names():
         if outform_of(run["argv"]) != "jsonv2" or OUT in run["argv"]:
             continue
         meta = _last_json_line(run["stdout"])[0]["meta"]["staticpass"]
-        assert (meta["contracts"] > 0) == name.endswith(("/defaults", "/pipeline")), name
+        assert (meta["contracts"] > 0) == name.endswith(
+            ("/defaults", "/pipeline", "/coverage-target")), name
     assert _last_json_line(runs["dead_code/frontier/defaults"]["stdout"])[0][
         "meta"]["staticpass"]["modules_skipped"]
     report = json.loads(runs["static/killbilly-creation/json"]["stdout"])
@@ -427,9 +463,15 @@ def test_runs_without_switches_are_accepted_and_named():
     line = cli.runs_without_line(parsed)
     for tier, _item in cli.RUNS_WITHOUT.values():
         assert tier in line
-    # the pipeline is ported: its switch is real and no longer named
+    # the pipeline and the adaptive controller are ported: their switches
+    # are real and no longer named; the line names the mesh alone
     assert "pipeline" not in line and not parsed.pipeline
-    assert line.endswith("switched off on the command line: the adaptive controller")
+    assert "adaptive" not in line and not parsed.adaptive
+    assert set(cli.RUNS_WITHOUT) == {"frontier_mesh"}
+    assert line.endswith("(ROADMAP Queue A): the device mesh")
+    parsed = cli.create_parser().parse_args(["analyze", "-c", "0x00", "--no-mesh"])
+    assert cli.runs_without_line(parsed).endswith(
+        "switched off on the command line: the device mesh")
     for action in _subcommands(cli.create_parser())["analyze"]._actions:
         if action.dest in cli.RUNS_WITHOUT:
             item = cli.RUNS_WITHOUT[action.dest][1]
@@ -445,7 +487,7 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
 
 @pytest.mark.parametrize("argv, item", [
     (CLEAN + ["--trace-out", "trace.json"], 13),
-    (CLEAN + ["--coverage-target=90"], 5),
+    (CLEAN + ["--metrics-out=metrics.json"], 13),
     # the worker counts are real switches now; the heartbeat period is the
     # option left that the port takes at its JAX default only
     (CLEAN + ["--heartbeat-interval", "2"], 13),
@@ -500,6 +542,43 @@ def test_pipeline_and_worker_switches_are_real():
             assert (args.pipeline, args.solver_workers, args.harvest_workers) == saved
     finally:
         warm.apply_analyzer_args = apply
+
+
+def test_adaptive_switches_are_real(tmp_path):
+    """The adaptive controller runs by default; ``--no-adaptive`` switches
+    it off (no plan), ``--coverage-target=90`` is accepted and reaches the
+    engine's flags, ``--coverage-out`` writes the exploration ledger; none
+    is refused, and ``main`` restores the flags."""
+    from mythril_tpu_torch.facade import warm
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+    from tests._torch_parity import adaptive_counters
+
+    kill = ["analyze", "-c", KILL_SIMPLE.read_text().strip(), "--bin-runtime", "-t", "1",
+            "-o", "json", "--frontier", "--frontier-force"]
+    ledger = tmp_path / "coverage.json"
+    real = ["--coverage-target=90", "--coverage-out", str(ledger)]
+    assert cli.screen(kill + real + ["--no-adaptive"]) == kill + real + ["--no-adaptive"]
+    assert not {"--coverage-target", "--coverage-out", "--no-adaptive"} & set(cli.NOT_YET_PORTED)
+    seen, apply = [], warm.apply_analyzer_args
+
+    def recording(cmd_args):
+        apply(cmd_args)
+        seen.append((args.adaptive, args.coverage_target))
+
+    warm.apply_analyzer_args = recording
+    try:
+        for extra, want in ((real, (True, 90.0)), (["--no-adaptive"], (False, None))):
+            rc, out = run_port(kill + extra)
+            assert rc == 0 and len(json.loads(out)["issues"]) == 1
+            assert seen[-1] == want
+            plans = adaptive_counters("mythril_tpu_torch")["plans"]
+            assert (plans > 0) == want[0]
+    finally:
+        warm.apply_analyzer_args = apply
+    assert (args.adaptive, args.coverage_target) == (True, None)
+    snap = json.loads(ledger.read_text())
+    assert snap["partition_ok"] and snap["bitmaps"] and snap["terminated_total"] > 0
 
 
 def test_prefilter_and_devsolver_switches_are_real(monkeypatch):

@@ -468,3 +468,30 @@ def test_pipelined_analysis_on_card_equals_its_record(card):
     assert step.launches - before == got["frontier"]["segments"]
     sync = run_port(run, None, pipeline=False)
     assert summary_differences(sync["summary"], got["summary"]) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lbl", ("rubixi_like/256/no-pipeline", "rubixi_like/256"))
+def test_adaptive_analysis_on_card_equals_its_record(card, lbl):
+    """The engine on the card with the adaptive controller on: the JAX
+    recording's issues, and on ``--no-pipeline`` its exploration ledger
+    (the segment kernel's three coverage planes, the termination classes);
+    with ``--no-adaptive`` the same issues and no plan."""
+    from tests.test_torch_adaptive import check_run, run_of, run_port
+
+    run = run_of(lbl)
+    assert check_run(run, run_port(run, None)) == []
+    assert check_run(run, run_port(run, None, adaptive=False), adaptive=False) == []
+
+
+@pytest.mark.cuda
+def test_cooperative_batch_on_card_equals_its_record(card):
+    """``exploit_mix`` through the port's ``analyze_cooperative`` on the
+    card: the JAX package's issue sets with the controller on and off, and
+    the scheduler steering with it on."""
+    from tests.test_torch_adaptive import CPU_BATCH, batch_of, cooperative
+
+    for adaptive in (True, False):
+        got = cooperative("mythril_tpu_torch", CPU_BATCH, adaptive, device=None)
+        assert got["issues"] == batch_of(CPU_BATCH, adaptive)["issues"]
+        assert (got["adaptive"]["resteered_slots"] > 0) == adaptive
