@@ -8,8 +8,13 @@ pass and the query cache), pipelined (chained segments on a stream of
 their own, delta pulls, the feasibility pool and the replay workers), and
 with the adaptive controller (the exploration ledger, the seed scheduler,
 the park pool, the coverage target) on single analyses and on cooperative
-multi-contract batches.
-Every phase before 8e holds the port with the static pass, its
+multi-contract batches, under the default ``auto`` probe backend with its
+link calibration, and in concolic execution.
+Every phase but 8h and 8i holds the port's probe backend at ``device``
+where the JAX runs it replays forced ``jax`` (``tests/_torch_parity.py``
+``run_analysis``, ``test_torch_cli.port_argv``) and its link calibration
+as a CPU recording had it (``port_uncalibrated``: nothing measured, the
+break-evens at their defaults).  Every phase before 8e holds the port with the static pass, its
 interprocedural layer and the query cache off
 (``tests/_torch_parity.port_no_host_tiers``, ``test_torch_cli.port_argv``),
 every phase but 8f, 8g and 8c's ``python -m`` run with the synchronous
@@ -222,6 +227,40 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
    limit, which must be refused before any launch (phases 8d, 8e and 8f
    run before 8c, for the walls it prints);
+8h. the ``auto`` probe backend: the port's link calibration reset (as the
+   JAX package's calibration tests reset it) and taken on the card, the
+   measured round trip printed beside five more measurements, the applied
+   constants equal to the JAX package's formula recomputed here for the
+   measured round trip; then the default command line (no
+   ``--probe-backend``: ``auto``), calibrated, through ``cli.main`` on the
+   card on ``kill_simple``, ``etherstore_like`` and ``rubixi_like`` (2
+   transactions, the host engine), in turns with ``--probe-backend device``
+   (auto, device, device, auto): the issue keys (SWC, title, severity,
+   location, description head) equal to the JAX CLI's default-tier
+   recording (``.../host/auto`` in ``torch_cli_runs.json``; on its CPU the
+   JAX package's ``auto`` probes on the host), the report's ``calibration``
+   block equal to the measurement, per run the walls, the launches of every
+   kernel, ``device_dispatches`` and, under ``auto``, the largest DAG size x
+   candidates the gate saw against the threshold;
+8i. concolic execution: every case of
+   ``tests/testdata/torch_concolic_runs.json`` (the JAX package's concrete
+   replays and branch flips on ``bench_contracts``' ``bectoken_like``
+   transfer and batchTransfer, ``etherstore_like`` deposit then withdraw
+   and ``rubixi_like``) through the port on the card under ``device``: the
+   concrete trace and every output equal to the recording (a case whose
+   recording has CDCL answers cut by their budget, ``timeouts``, is named
+   and held as under ``auto``), no segment launch, the tape VM launched;
+   ``etherstore_like`` again through ``cli.main(["concolic", ...])``; every
+   case again under ``auto``, calibrated: the same requested flips succeed
+   and each output, replayed by the port's ``concrete_execution``, leaves
+   the recorded trace at a requested JUMPI; ``etherstore_like`` with the
+   frontier forced: the same output and no segment launch; per case the
+   wall beside the JAX package's CPU seconds and the launches; then a real
+   ``torch.OutOfMemoryError`` from the card (an allocation no card holds)
+   raised inside a harvest replay, with 0 and 4 replay workers, which must
+   reach the harvest's caller; over 8h and 8i, at least one query under
+   ``auto`` crosses the calibrated threshold and launches a probe kernel
+   (``tape_vm`` or ``lowering``);
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -351,9 +390,14 @@ def check(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name: str) -> float:
-    print(f"== {name}", flush=True)
-    return time.perf_counter()
+    """Print a phase's heading with the script's seconds so far."""
+    now = time.perf_counter()
+    print(f"== {name} (at {now - _STARTED:.1f} s)", flush=True)
+    return now
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1699,30 +1743,31 @@ def wrapper_seconds(torch, argv) -> float:
     from mythril_tpu_torch.frontend.evmcontract import EVMContract
     from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.support.support_args import args
-    from tests._torch_parity import _reset
+    from tests._torch_parity import _reset, port_uncalibrated
 
     from mythril_tpu_torch.querycache import configure
 
     p = cli.create_parser().parse_args(argv)
     fields = ("frontier", "frontier_force", "frontier_width", "prefilter", "devsolver",
               "staticpass", "staticpass_interproc", "query_cache", "pipeline", "solver_workers",
-              "harvest_workers")
+              "harvest_workers", "probe_backend")
     saved = tuple(getattr(args, f) for f in fields)
     (args.frontier, args.frontier_force, args.frontier_width, args.prefilter, args.devsolver,
      args.staticpass, args.staticpass_interproc, args.query_cache, args.pipeline,
-     args.solver_workers, args.harvest_workers) = (
+     args.solver_workers, args.harvest_workers, args.probe_backend) = (
         p.frontier, p.frontier_force, p.frontier_width, p.prefilter, p.devsolver,
         not p.no_staticpass, not p.no_staticpass_interproc, not p.no_query_cache, p.pipeline,
-        p.solver_workers, p.harvest_workers)
+        p.solver_workers, p.harvest_workers, p.probe_backend)
     configure(enabled=args.query_cache)
     _reset("mythril_tpu_torch")
     cfg.gbl_next_uid[0] = 0
     try:
         t0 = time.perf_counter()
-        sym = SymExecWrapper(EVMContract(code=p.code.replace("0x", ""), name="MAIN"),
-                             "0x" + "0" * 38 + "06", strategy=p.strategy,
-                             transaction_count=p.transaction_count)
-        fire_lasers(sym)
+        with port_uncalibrated():  # as the CLI's run (test_torch_cli.run_port)
+            sym = SymExecWrapper(EVMContract(code=p.code.replace("0x", ""), name="MAIN"),
+                                 "0x" + "0" * 38 + "06", strategy=p.strategy,
+                                 transaction_count=p.transaction_count)
+            fire_lasers(sym)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     finally:
@@ -2159,6 +2204,267 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list, default_rows:
     return dict(total), rows
 
 
+def jsonv2_issue_keys(stdout: str) -> list:
+    """A jsonv2 report's issues without their models: SWC, title,
+    severity, location and description head, sorted."""
+    from tests import test_torch_cli as T
+
+    return sorted((i["swcID"], i["swcTitle"], i["severity"], i["locations"][0]["sourceMap"],
+                   i["description"]["head"]) for i in T._last_json_line(stdout)[0]["issues"])
+
+
+def auto_runs(torch, card: str):
+    """Phase 8h (see the module docstring) -> (summed launches of the
+    ``auto`` runs' first turns, rows)."""
+    import os
+    import tempfile
+
+    from mythril_tpu_torch.frontier import engine as fengine
+    from mythril_tpu_torch.smt.solver import SolverStatistics
+    from mythril_tpu_torch.support import calibration
+    from mythril_tpu_torch.support.support_args import args
+    from tests import test_torch_cli as T
+    from tests._torch_parity import port_calibration
+
+    phase("auto probe backend: the link calibration on the card, then the default command line "
+          "(no --probe-backend) calibrated, against the JAX CLI's default-tier recording")
+    t_phase = time.perf_counter()
+    total, rows = collections.Counter(), []
+    with port_calibration(done=False):
+        applied = calibration.calibrate(torch.device("cuda"))
+        rtt = calibration._state["rtt_ms"]
+        check(rtt is not None, "the calibration measured no round trip on the card")
+        # the JAX package's formula (mythril_tpu/support/calibration.py:76-108)
+        scale = rtt / 100.0
+        want = {"dispatch_rtt_ms": round(rtt, 2),
+                "device_probe_threshold": int(min(5_000_000, max(20_000, 600_000 * scale))),
+                "min_static_jumpis": int(min(16, max(2, round(8 * scale)))),
+                "min_seed_width": int(min(64, max(8, round(24 * scale))))}
+        constants = (args.device_probe_threshold, fengine._MIN_STATIC_JUMPIS,
+                     fengine._MIN_SEED_WIDTH)
+        again = sorted(calibration.measure_dispatch_rtt_ms(torch.device("cuda"))
+                       for _ in range(5))
+        print(f"  dispatch round trip {rtt:.5f} ms (median of 3 after a warm-up; five more "
+              f"measurements {', '.join(f'{r:.5f}' for r in again)} ms) ({card}); applied "
+              f"{applied}; device_probe_threshold {constants[0]}, min_static_jumpis "
+              f"{constants[1]}, min_seed_width {constants[2]}")
+        check(applied == want, f"the calibration applied {applied}, the JAX formula gives {want}")
+        check(constants == (want["device_probe_threshold"], want["min_static_jumpis"],
+                            want["min_seed_width"]),
+              f"the rescaled constants {constants} differ from {want}")
+        check(calibration.calibrate(torch.device("cuda")) == applied,
+              "a second decision measured again")
+        rows.append({"run": "calibration", "rtt_ms": rtt, "rtt_again_ms": again,
+                     "applied": applied, "card": card})
+        os.environ["MYTHRIL_DIR"] = tempfile.mkdtemp(prefix="mythril-")
+        runs = T.load_runs()
+        for name in T.AUTO:
+            run = runs[name]
+            argv = T.port_argv(run)
+            check("--probe-backend" not in argv, f"{name}: the port's argv names a backend")
+            want_keys = jsonv2_issue_keys(run["stdout"])
+            turns = []
+            # in turns (auto, device, device, auto), so that neither mode's
+            # walls favour the one run second
+            for mode in ("auto", "device", "device", "auto"):
+                zero_launches()
+                t0 = time.perf_counter()
+                with gate_products() as products:
+                    rc, out = T.run_port(argv + (["--probe-backend", "device"] if mode == "device"
+                                                 else []), device=None, calibrated=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+                check(rc == 0, f"{name} ({mode}): the CLI exited {rc}")
+                keys = jsonv2_issue_keys(out)
+                check(keys == want_keys, f"{name} ({mode}): the issue keys differ from the JAX "
+                      f"CLI's default-tier recording: {keys} != {want_keys}")
+                block = T._last_json_line(out)[0]["meta"]["mythril_execution_info"].get(
+                    "calibration")
+                check(block == calibration.telemetry() and block["device_probe_threshold"]
+                      == want["device_probe_threshold"],
+                      f"{name} ({mode}): the report's calibration block {block}")
+                turns.append((mode, wall, launches, SolverStatistics().device_dispatches,
+                              products))
+            total.update(turns[0][2])
+            for mode, wall, launches, dispatches, products in turns:
+                top = max(products, default=0)
+                print(f"  {name} --probe-backend {mode}: {wall:.3f} s ({card}), device_dispatches "
+                      f"{dispatches}, launches {launches}; the auto gate saw {len(products)} "
+                      f"queries, the largest DAG size x candidates {top} (threshold "
+                      f"{want['device_probe_threshold']})" if mode == "auto" else
+                      f"  {name} --probe-backend {mode}: {wall:.3f} s ({card}), device_dispatches "
+                      f"{dispatches}, launches {launches}")
+            rows.append({"run": name, "modes": [t[0] for t in turns],
+                         "walls_s": [t[1] for t in turns], "launches": [t[2] for t in turns],
+                         "device_dispatches": [t[3] for t in turns],
+                         "gate_queries": len(turns[0][4]),
+                         "gate_max_product": max(turns[0][4], default=0),
+                         "jax_cli_cpu_s": run["jax_cpu_seconds"], "card": card})
+    print(f"  phase 8h took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), rows
+
+
+@contextlib.contextmanager
+def gate_products():
+    """The DAG size x candidates of every query the solver's ``auto`` gate
+    decides inside the block (a list, filled as the gate runs)."""
+    from mythril_tpu_torch.smt import solver as P
+    from mythril_tpu_torch.smt import terms
+
+    real, products = P._device_worthwhile, []
+
+    def recording(conjuncts, n_candidates, device):
+        if P.global_args.probe_backend == "auto":
+            products.append(len(terms.topo_order(list(conjuncts))) * max(1, n_candidates))
+        return real(conjuncts, n_candidates, device)
+
+    P._device_worthwhile = recording
+    try:
+        yield products
+    finally:
+        P._device_worthwhile = real
+
+
+def concolic_runs(torch, card: str):
+    """Phase 8i (see the module docstring) -> (summed launches of the
+    recorded cases under ``device``, and under ``auto``, rows)."""
+    import io
+    import os
+    import tempfile
+
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support import calibration
+    from mythril_tpu_torch.support.support_args import args
+    from tests import test_torch_concolic as C
+    from tests._torch_parity import port_calibration, port_probe_backend
+
+    phase("concolic execution on the card: every recorded case under device and auto, the "
+          "CLI, the frontier forced, a device fault in a harvest replay")
+    t_phase = time.perf_counter()
+    runs = C.load_runs()
+    total, rows = collections.Counter(), []
+    for name, run in runs.items():
+        zero_launches()
+        got = C.run_port(run, None, "device")  # no device: the card
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total.update(launches)
+        cut = run["cdcl"]["timeouts"]
+        print(f"  {name} (device): {got['seconds']:.3f} s ({card}), the JAX package on the CPU "
+              f"{run['jax_cpu_seconds']:.1f} s; {len(run['branches'])} branches, hits "
+              f"{got['hits']} (recorded {run['hits']}); CDCL {got['cdcl']} (recorded "
+              f"{run['cdcl']}); launches {launches}")
+        check(got["trace"] == run["trace"], f"{name}: the concrete trace differs")
+        check(launches["frontier_segment"] == 0, f"{name}: a concolic run launched a segment")
+        bad = C.output_differences(run, got)
+        if cut:
+            # the recording has CDCL answers cut by their wall-clock budget:
+            # held as under auto
+            print(f"    the recording has {cut} CDCL answers cut by their budget: held "
+                  f"semantically, exact differences {bad[:1]}")
+            bad = ([] if got["hits"] == run["hits"] else [f"hits {got['hits']}"]) + [
+                d for o in got["outputs"] for d in C.flip_check(run, o, None)]
+        check(not bad, f"{name}: differs from the JAX recording: {bad[:2]}")
+        rows.append({"run": f"{name} (device)", "wall_s": got["seconds"],
+                     "jax_cpu_s": run["jax_cpu_seconds"], "launches": launches,
+                     "hits": got["hits"], "cdcl": got["cdcl"], "card": card})
+    check(total["tape_vm"] > 0, "the concolic runs launched tape_vm no time")
+    # the command line, under device as recorded (``concolic`` has no
+    # --probe-backend, as in the JAX CLI)
+    name = "etherstore_like"
+    run = runs[name]
+    path = os.path.join(tempfile.mkdtemp(prefix="concolic-"), "input.json")
+    with open(path, "w") as f:
+        json.dump(run["data"], f)
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), port_probe_backend("device"):
+        rc = cli.main(["concolic", path, "--branches", ",".join(map(str, run["branches"]))])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"  CLI concolic {name}: exit {rc} in {wall:.3f} s ({card}), launches {launches}")
+    check(rc == 0 and json.loads(out.getvalue()) == run["outputs"],
+          f"CLI concolic {name}: the output differs from the JAX recording")
+    rows.append({"run": f"CLI concolic {name}", "wall_s": wall, "launches": launches,
+                 "card": card})
+    # auto, calibrated: the models may differ; the same flips must succeed
+    # and each input must leave the recorded trace at a requested JUMPI
+    auto_total = collections.Counter()
+    with port_calibration(done=False):
+        calibration.calibrate(torch.device("cuda"))
+        for name, run in runs.items():
+            zero_launches()
+            with gate_products() as products:
+                got = C.run_port(run, None, "auto")
+            torch.cuda.synchronize()
+            launches = read_launches()
+            auto_total.update(launches)
+            print(f"  {name} (auto): {got['seconds']:.3f} s ({card}), hits {got['hits']}, CDCL "
+                  f"{got['cdcl']}, launches {launches}; the auto gate saw {len(products)} "
+                  f"queries, the largest DAG size x candidates {max(products, default=0)}")
+            check(got["hits"] == run["hits"], f"{name} (auto): hits {got['hits']} != "
+                  f"{run['hits']}")
+            for output in got["outputs"]:
+                bad = C.flip_check(run, output, None)
+                check(not bad, f"{name} (auto): {bad}")
+            rows.append({"run": f"{name} (auto)", "wall_s": got["seconds"],
+                         "launches": launches, "card": card})
+    # the frontier forced: no concolic laser reaches it
+    name = "etherstore_like"
+    saved = (args.frontier, args.frontier_force)
+    args.frontier = args.frontier_force = True
+    try:
+        zero_launches()
+        got = C.run_port(runs[name], None, "device")
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        args.frontier, args.frontier_force = saved
+    print(f"  {name} with the frontier forced: hits {got['hits']}, launches {launches}")
+    check(launches["frontier_segment"] == 0 and not C.output_differences(runs[name], got),
+          f"{name} with the frontier forced: {launches['frontier_segment']} segment launches, "
+          f"{C.output_differences(runs[name], got)[:1]}")
+    device_fault(torch)
+    print(f"  phase 8i took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), dict(auto_total), rows
+
+
+def device_fault(torch) -> None:
+    """A real ``torch.OutOfMemoryError`` from the card, raised inside a
+    harvest replay (an allocation the card cannot hold), must reach the
+    harvest's caller, with replay workers and without."""
+    import numpy as np
+
+    from mythril_tpu_torch.frontier import harvest
+    from tests.test_torch_harvest import _FakeEngine, _finished, _Laser
+
+    for workers in (0, 4):
+        caps, st, records, walker = _finished("mythril_tpu_torch", 8, 4, [_Laser(), _Laser()])
+
+        class CardWalker(type(walker)):
+            def replay(self, rec):
+                if self.slot_of[id(rec)] == 2:
+                    torch.empty(1 << 50, dtype=torch.uint8, device="cuda")  # a petabyte
+                super().replay(rec)
+
+        walker.__class__ = CardWalker
+        raised = None
+        try:
+            harvest.HarvestExecutor(_FakeEngine(caps), workers=workers).harvest(
+                st, records, walker, np.zeros(caps.B, np.int64))
+        except torch.OutOfMemoryError as e:
+            raised = e
+        finally:
+            harvest.shutdown_replay_pool()
+        print(f"  a harvest replay's torch.OutOfMemoryError from the card, {workers} workers: "
+              f"{'raised to the caller' if raised else 'not raised'} "
+              f"({str(raised).splitlines()[0][:80] if raised else ''})")
+        check(raised is not None, f"the card's OutOfMemoryError in a replay ({workers} workers) "
+              "did not reach the harvest's caller")
+
+
 def known_bits_parity(torch):
     """Phase 2b -> the recorded packs' calls (the main path's shapes) and the
     seeded ones, for the timing, each as (inputs, rows, label, pack, level
@@ -2458,6 +2764,17 @@ def main() -> int:
         cli_launches, cli_rows = cli_runs(torch, card, c_rows, t_rows, d_rows)
         for name in ("tape_vm", "keccak_f1600", "frontier_segment", "known_bits", "dpll"):
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
+        h_launches, h_rows = auto_runs(torch, card)
+        i_launches, i_auto, i_rows = concolic_runs(torch, card)
+        # the auto path: a query above the calibrated threshold reaches a
+        # probe kernel on the card (on the recorded traffic the one that
+        # crosses it, a batchTransfer flip, is refused by the tape and goes
+        # to the lowering: PERF.md, PR 16)
+        auto_probe = {k: h_launches.get(k, 0) + i_auto.get(k, 0) for k in ("tape_vm", "lowering")}
+        print(f"  probe launches under auto (8h and 8i): {auto_probe}")
+        check(sum(auto_probe.values()) > 0,
+              "no query under auto (8h's command lines, 8i's concolic runs) crossed the "
+              "calibrated threshold: no probe kernel was launched")
         phase("kernel times at the main path's shapes (CUDA events)")
         keccak = summarize("keccak_f1600", time_keccak(torch, keccak_calls),
                            e_launches["keccak_f1600"], card, route="cuda",
@@ -2532,7 +2849,10 @@ def main() -> int:
                 "engine_tiers": t_launches[entry["name"]],
                 "engine_defaults": d_launches[entry["name"]],
                 "engine_pipeline": p_launches[entry["name"]],
-                "engine_adaptive": a_launches[entry["name"]], "cli": cli_launches[entry["name"]]}
+                "engine_adaptive": a_launches[entry["name"]], "cli": cli_launches[entry["name"]],
+                "auto": h_launches.get(entry["name"], 0),
+                "concolic": i_launches.get(entry["name"], 0),
+                "concolic_auto": i_auto.get(entry["name"], 0)}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
@@ -2540,6 +2860,8 @@ def main() -> int:
         frontier["engine_defaults"] = {"runs": d_rows}
         frontier["engine_pipeline"] = {"runs": p_rows}
         frontier["engine_adaptive"] = {"runs": a_rows}
+        tape["auto"] = {"runs": h_rows}
+        tape["concolic"] = {"runs": i_rows}
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

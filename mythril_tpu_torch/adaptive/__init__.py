@@ -19,9 +19,8 @@ strict scheduling optimization, so the issue set is bit-identical either
 way (bench ``--adaptive-compare`` asserts it).
 
 A copy of ``mythril_tpu/adaptive/__init__.py`` (the package renamed).  The
-controller's ``flip_targets_for`` and ``count_flips`` are copied with it;
-their first caller is the concolic driver, which the port does not have
-yet (ROADMAP Queue A item 4).
+controller's ``count_flips`` is fed by the concolic driver
+(``concolic/concolic_execution.py``) for the planned flips it is given.
 """
 
 from mythril_tpu_torch.adaptive.controller import (

@@ -3,10 +3,10 @@
 Reference parity: mythril/laser/execution_info.py:4-11 — engines expose
 ``ExecutionInfo`` objects whose ``as_dict`` payloads are merged into the
 jsonv2 report meta (mythril/analysis/report.py:319-320).  This build ships
-engine totals, solver statistics and the frontier's counters, each in the
-JAX package's report shape (its keys and its rounding), so that the two
-packages' reports compare field by field.  The port has no
-``CalibrationInfo``: it has no ``auto`` probe backend to calibrate.
+engine totals, solver statistics, the link calibration of the ``auto``
+probe backend and the frontier's counters, each in the JAX package's report
+shape (its keys and its rounding), so that the two packages' reports
+compare field by field.
 """
 
 from __future__ import annotations
@@ -50,6 +50,17 @@ class SolverStatsInfo(ExecutionInfo):
             # completeness boundary: prune decisions taken on UNKNOWN
             "unknown_as_unsat": stats.unknown_as_unsat,
         }
+
+
+class CalibrationInfo(ExecutionInfo):
+    """Measured dispatch RTT and the break-evens rescaled from it; nothing
+    when no decision for the card measured it (a CPU run)."""
+
+    def as_dict(self) -> Dict:
+        from mythril_tpu_torch.support.calibration import telemetry
+
+        cal = telemetry()
+        return {"calibration": cal} if cal else {}
 
 
 class FrontierStatsInfo(ExecutionInfo):

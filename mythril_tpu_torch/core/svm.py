@@ -104,6 +104,10 @@ class LaserEVM:
 
         self.iprof = iprof
         self.executed_instruction_count = 0
+        # the concolic driver's concrete replay: its trace hook must see
+        # every instruction, so the frontier engine never takes its states
+        # (frontier/engine.py _is_concolic)
+        self.concolic = False
 
     def host_step_rate(self) -> Optional[float]:
         """Measured host stepping rate (states/s) on this workload, or None

@@ -24,6 +24,20 @@ class NoCudaDevice(DeviceError):
     """CUDA was needed (no explicit ``device="cpu"``) but no card is visible."""
 
 
+# what the card raises besides the port's own ``DeviceError``: a kernel that
+# faults while it runs surfaces at the next synchronization as an
+# ``AcceleratorError``, a failed allocation as an ``OutOfMemoryError``
+_DEVICE_FAULTS = (DeviceError, torch.AcceleratorError, torch.OutOfMemoryError)
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is the device failing the run rather than one
+    analysed path: a ``DeviceError``, a ``torch.AcceleratorError`` or a
+    ``torch.OutOfMemoryError``.  Any other ``RuntimeError`` is host code's,
+    which raises them too."""
+    return isinstance(exc, _DEVICE_FAULTS)
+
+
 def resolve(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: CUDA unless CPU was requested."""
     if device is None:

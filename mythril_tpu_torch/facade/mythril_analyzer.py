@@ -9,8 +9,11 @@ raises ``NoCudaDevice`` without one; ``"cpu"`` runs the plain PyTorch
 kernels).  It passes that device to every ``SymExecWrapper`` it builds, and
 every solver call it makes after a wrapper returns (the detection modules'
 post pass, issue collection, code info, function names) runs with it as
-``args.device``.  A ``DeviceError`` (no card, a kernel that did not build or
-launch) fails the analysis instead of degrading to partial results.
+``args.device``.  A device fault (``device.is_device_fault``: no card, a
+kernel that did not build, launch or run, an allocation the card refused)
+fails the analysis instead of degrading to partial results.  Under the
+``auto`` probe backend the report's execution info carries the link
+calibration (``CalibrationInfo``) once a decision for the card measured it.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from mythril_tpu_torch import absdomain, devsolver
 from mythril_tpu_torch.analysis.report import Issue, Report
 from mythril_tpu_torch.analysis.security import fire_lasers, retrieve_callback_issues
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper, analysis_device
-from mythril_tpu_torch.device import DeviceError, DeviceLike, resolve
+from mythril_tpu_torch.device import DeviceLike, is_device_fault, resolve
 from mythril_tpu_torch.frontier.stats import FrontierStatistics
 from mythril_tpu_torch.smt.solver import SolverStatistics
 from mythril_tpu_torch.support.support_args import args
@@ -35,7 +38,8 @@ log = logging.getLogger(__name__)
 @dataclass
 class AnalyzerArgs:
     """The JAX package's ``AnalyzerArgs`` for the options the port has;
-    ``probe_backend`` is one of ``support_args.PROBE_BACKENDS``."""
+    ``probe_backend`` is one of ``support_args.PROBE_BACKENDS``, ``auto`` by
+    default as in the JAX package."""
 
     strategy: str = "dfs"
     max_depth: int = 128
@@ -53,7 +57,7 @@ class AnalyzerArgs:
     enable_iprof: bool = False
     enable_coverage_strategy: bool = False
     custom_modules_directory: str = ""
-    probe_backend: str = "device"
+    probe_backend: str = "auto"
     frontier: bool = False
     frontier_width: int = 64
     frontier_force: bool = False
@@ -156,6 +160,7 @@ class MythrilAnalyzer:
 
     def _fire_lasers_loop(self, modules):
         from mythril_tpu_torch.core.execution_info import (
+            CalibrationInfo,
             EngineStatsInfo,
             FrontierStatsInfo,
             SolverStatsInfo,
@@ -180,15 +185,19 @@ class MythrilAnalyzer:
             try:
                 sym = self._sym_exec(contract)
                 issues = fire_lasers(sym, modules or self.cmd_args.modules)
-                execution_info = [EngineStatsInfo(sym.laser), SolverStatsInfo()]
+                execution_info = [
+                    EngineStatsInfo(sym.laser),
+                    SolverStatsInfo(),
+                    CalibrationInfo(),
+                ]
                 if args.frontier:
                     execution_info.append(FrontierStatsInfo())
-            except DeviceError:
-                raise  # the device failed the run, not this contract
             except KeyboardInterrupt:
                 log.critical("keyboard interrupt: saving partial results")
                 issues = retrieve_callback_issues(modules or self.cmd_args.modules)
-            except Exception:  # noqa: BLE001 - graceful degradation to partial results
+            except Exception as e:  # noqa: BLE001 - graceful degradation to partial results
+                if is_device_fault(e):
+                    raise  # the device failed the run, not this contract
                 log.exception("exception during analysis; saving partial results")
                 issues = retrieve_callback_issues(modules or self.cmd_args.modules)
                 exceptions.append(traceback.format_exc())

@@ -34,9 +34,11 @@ from the pipeline to the synchronous loop.  Both loops feed the
 exploration ledger (coverage planes, termination stamps, solver hotspots)
 and consult the adaptive controller (``adaptive/``): its deficit scheduler
 orders multi-code seed injection and its ``--coverage-target`` verdict
-parks the live paths, as in the JAX package.  Not carried yet: the mesh
-(ROADMAP item 12) and the link calibration (the gates use the JAX
-package's uncalibrated constants).
+parks the live paths, as in the JAX package.  The admission gate's
+constants (``_MIN_STATIC_JUMPIS``, ``_MIN_SEED_WIDTH``) are rescaled to the
+card's measured round trip (``support/calibration.py``) at the first gate
+decision for the card; a concolic run never reaches the frontier
+(``_is_concolic``).  Not carried yet: the mesh (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mythril_tpu_torch.device import DeviceError
+from mythril_tpu_torch.device import is_device_fault
 from mythril_tpu_torch.frontier import harvest as _harvest
 from mythril_tpu_torch.frontier import interop
 from mythril_tpu_torch.frontier import ops as O
@@ -138,9 +140,10 @@ _WARM_PROGRAMS: set = set()
 # seed set cannot fan out wide enough to amortize segment dispatches
 _MIN_STATIC_JUMPIS = 8
 
-# observed-width admission gate: a seed set narrower than this stays
-# host-side even when statically branchy (genuinely wide workloads prove
-# their width on the host within milliseconds, by fork doubling)
+# observed-width admission gate (calibration-scaled with the link RTT): a
+# seed set narrower than this stays host-side even when statically branchy
+# (genuinely wide workloads prove their width on the host within
+# milliseconds, by fork doubling)
 _MIN_SEED_WIDTH = 8
 
 _jumpi_count_cache: Dict[object, int] = {}
@@ -240,6 +243,19 @@ def _strategy_chain(laser):
     while strategy is not None:
         yield strategy
         strategy = getattr(strategy, "super_strategy", None)
+
+
+def _is_concolic(laser) -> bool:
+    """Concolic runs are excluded from the frontier: trace recording and the
+    ConcolicStrategy depend on the host engine stepping every instruction.
+    The JAX package tells them by the strategy alone, so a forced frontier
+    takes its concrete replay (BFS) and the recorded trace misses every
+    instruction the device stepped; the port also skips the replay's laser
+    (``LaserEVM.concolic``, set by ``concolic/find_trace.py``)."""
+    from mythril_tpu_torch.core.strategy.concolic import ConcolicStrategy
+
+    return laser.concolic or any(
+        isinstance(s, ConcolicStrategy) for s in _strategy_chain(laser))
 
 
 def _sel_mode(laser) -> int:
@@ -360,6 +376,8 @@ def drain_lasers(
     keeps one bucket shape as the live code set shrinks."""
     groups: Dict[tuple, List[Tuple]] = {}
     for laser in lasers:
+        if _is_concolic(laser):
+            continue
         seeds = [s for s in laser.work_list if _eligible(s)]
         if not seeds:
             continue
@@ -389,6 +407,8 @@ class FrontierEngine:
         """Run every eligible work-list state on the device; parked paths
         land back on ``laser.work_list``.  Returns #states executed."""
         laser = self.laser
+        if _is_concolic(laser):
+            return 0
         seeds = [s for s in laser.work_list if _eligible(s)]
         if not seeds:
             return 0
@@ -412,11 +432,16 @@ class FrontierEngine:
     def _device_worthwhile(self, pairs: List[Tuple]) -> bool:
         """A-priori narrow bail: segment dispatches only amortize over wide
         frontiers, so a seed set that cannot fan out stays host-side.  The
-        admission evidence is OBSERVED width (_MIN_SEED_WIDTH); a
-        statically-branchy seed set that has already fanned out to half the
-        gate is admitted early."""
+        admission evidence is OBSERVED width (the link-calibrated
+        _MIN_SEED_WIDTH); a statically-branchy seed set that has already
+        fanned out to half the gate is admitted early."""
         if args.frontier_force:
             return True
+        # scale the break-evens to the measured link (no-op after the first
+        # decision for the card, and for the CPU)
+        from mythril_tpu_torch.support.calibration import calibrate
+
+        calibrate(self.device)
         codes = {id(s.environment.code): s.environment.code for _, s in pairs}
         # the slow verdict outranks the width bypass (see _SLOW_CODES)
         if all(_code_key(c) in _SLOW_CODES for c in codes.values()):
@@ -1421,7 +1446,8 @@ class FrontierEngine:
                   reason: str = "bulk") -> None:
         """Timeout/overflow: hand every live path back to the host engine.
         A path whose replay raises is dropped, as in the JAX package, and
-        counted in ``replay_errors``; a ``DeviceError`` propagates."""
+        counted in ``replay_errors``; a device fault (``is_device_fault``)
+        propagates."""
         stats = FrontierStatistics()
         if reason in ("timeout", "coverage-target"):
             # the execution budget is gone (or the coverage contract ended
@@ -1452,9 +1478,9 @@ class FrontierEngine:
             stats.record_bulk_park(reason)
             try:
                 walker.finish(rec)
-            except DeviceError:
-                raise
             except Exception as e:
+                if is_device_fault(e):
+                    raise
                 stats.replay_errors += 1
                 log.warning("frontier park failed: %s", e, exc_info=True)
             records[slot] = None

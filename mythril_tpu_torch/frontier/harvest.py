@@ -17,14 +17,15 @@ package's ``HarvestExecutor`` runs it:
    memos (``smt/solver.py`` ``_cache_lock``), the term intern table
    (``smt/terms.py``), the frontier's counters; the walker's row bindings
    are per laser.  A replay that raises is dropped, as in the JAX package,
-   and counted in ``FrontierStatistics.replay_errors``; a ``DeviceError``
-   (a kernel that did not build or launch) is raised on the calling thread
+   and counted in ``FrontierStatistics.replay_errors``; a device fault
+   (``device.is_device_fault``: a kernel that did not build, launch or
+   run, or an allocation the card refused) is raised on the calling thread
    once every worker of the harvest has finished.
 3. **Deterministic slot-order commit**, on the calling thread: pending-fork
    resume decisions, final-state snapshots, park stamps, walker ``commit``
    (park-sink routing), slot clears and the pipeline's correction-ledger
    touches.  A commit that raises is counted in
-   ``FrontierStatistics.commit_errors``.  Issue sets and park stamps are
+   ``FrontierStatistics.commit_errors``; a device fault propagates.  Issue sets and park stamps are
    the same with any number of workers.
 
 ``pipe`` is the pipelined runner when it drives the harvest: slot mutations
@@ -43,7 +44,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from mythril_tpu_torch.device import DeviceError
+from mythril_tpu_torch.device import is_device_fault
 from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.records import PathRecord, snapshot_slot
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
@@ -164,14 +165,14 @@ def attribute_steps(st: FrontierState,
 def _replay_group(walker, recs: List[PathRecord]) -> None:
     """Replay one laser shard's finished records, in slot order.  An
     exception poisons only the failing record (stored for the commit phase
-    to count and log); a ``DeviceError`` stops the shard and reaches the
-    calling thread."""
+    to count and log); a device fault (``is_device_fault``) stops the shard
+    and reaches the calling thread."""
     for rec in recs:
         try:
             walker.replay(rec)
-        except DeviceError:
-            raise
         except Exception as e:
+            if is_device_fault(e):
+                raise
             rec._replay_err = e
 
 
@@ -296,7 +297,7 @@ class HarvestExecutor:
                 by_laser.setdefault(id(walker.laser_for(rec)), []).append(rec)
             futs = [pool.submit(_replay_group, walker, recs)
                     for recs in by_laser.values()]
-            # every shard finishes before a DeviceError unwinds the harvest
+            # every shard finishes before a device fault unwinds the harvest
             wait(futs)
             for f in futs:
                 f.result()
@@ -317,9 +318,9 @@ class HarvestExecutor:
             else:
                 try:
                     walker.commit(rec)
-                except DeviceError:
-                    raise
                 except Exception as e:
+                    if is_device_fault(e):
+                        raise
                     stats.count("commit_errors")
                     log.warning("frontier walker failed on a path: %s", e,
                                 exc_info=True)

@@ -3,17 +3,19 @@
 Reference parity: mythril/interfaces/cli.py:236-935, by way of the JAX
 package's ``interfaces/cli.py``, whose option names, defaults and choices
 the port keeps for every option it has.  Subcommands: analyze (a),
-disassemble (d), static, safe-functions, list-detectors, read-storage,
-function-to-hash, hash-to-address, version, help.
+disassemble (d), concolic (c), static, safe-functions, list-detectors,
+read-storage, function-to-hash, hash-to-address, version, help.
 
 What differs from the JAX command line:
 
 * ``--device {cuda,cpu}`` (default ``cuda``) picks the analysis' device,
   the port's counterpart of ``JAX_PLATFORMS``.  Without a card ``analyze``
-  fails with ``NoCudaDevice`` unless ``--device cpu`` is given; nothing
-  moves to the CPU on its own.
-* ``--probe-backend`` has the port's backends: ``device`` (the default, the
-  role of the JAX package's forced ``jax``), ``host`` and ``cdcl``.
+  and ``concolic`` fail with ``NoCudaDevice`` unless ``--device cpu`` is
+  given; nothing moves to the CPU on its own.
+* ``--probe-backend`` has the port's backends: ``auto`` (the default, as in
+  the JAX package: the card for queries above the calibrated break-even,
+  the host below it and on the CPU), ``device`` (the role of the JAX
+  package's forced ``jax``), ``host`` and ``cdcl``.
 * The known-bits prefilter, the devsolver, the static pass, the query
   cache, the pipelined frontier and the adaptive controller run by default,
   as in the JAX package; ``--no-prefilter``, ``--no-devsolver``,
@@ -55,7 +57,7 @@ from mythril_tpu_torch.support.support_args import PROBE_BACKENDS
 log = logging.getLogger(__name__)
 
 PROG = "myth-tpu-torch"
-COMMAND_ALIASES = {"a": "analyze", "d": "disassemble"}
+COMMAND_ALIASES = {"a": "analyze", "d": "disassemble", "c": "concolic"}
 ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
 
 # What the JAX command line has and the port does not yet: option or
@@ -73,9 +75,6 @@ NOT_YET_PORTED = {
     "--flight-recorder": 13,
     "--watchdog-deadline": 13,
     "--history-dir": 13,
-    "--probe-backend auto": 10,
-    "concolic": 4,
-    "c": 4,
     "serve": 13,
     "submit": 13,
     "top": 13,
@@ -209,11 +208,12 @@ def _add_analysis_options(parser) -> None:
     group.add_argument(
         "--probe-backend",
         choices=PROBE_BACKENDS,
-        default="device",
-        help="constraint-probe backend: device (the tape VM on the analysis' "
-        "device; the JAX package's forced jax), host (CPU big-int), cdcl "
-        "(forced exact — recall differential testing); the JAX package's "
-        "auto is not ported yet (ROADMAP Queue A item 10)",
+        default="auto",
+        help="constraint-probe backend: auto (the card for queries above the "
+        "break-even calibrated to its measured round trip, the host below it "
+        "and on the CPU), device (the tape VM on the analysis' device; the JAX "
+        "package's forced jax), host (CPU big-int), cdcl (forced exact — "
+        "recall differential testing)",
     )
     group.add_argument(
         "--frontier",
@@ -452,6 +452,17 @@ def create_parser() -> argparse.ArgumentParser:
     _add_rpc_options(safe)
     _add_verbosity(safe)
 
+    concolic = subparsers.add_parser(
+        "concolic", aliases=["c"], help="concolic execution / branch flipping"
+    )
+    concolic.add_argument("input", help="json file with concrete transaction data")
+    concolic.add_argument(
+        "--branches", help="comma-separated branch addresses to flip", required=True
+    )
+    concolic.add_argument("--solver-timeout", type=int, default=100000)
+    _add_device(concolic)
+    _add_verbosity(concolic)
+
     listd = subparsers.add_parser("list-detectors", help="list available detection modules")
     _add_output_options(listd)
 
@@ -497,10 +508,6 @@ def screen(argv: Sequence[str]) -> List[str]:
         opt, eq, value = argv[i].partition("=")
         if opt not in NOT_YET_PORTED:
             out.append(argv[i])
-            if opt == "--probe-backend":
-                value = value if eq else (argv[i + 1] if i + 1 < len(argv) else "")
-                if value == "auto":
-                    raise refusal("--probe-backend auto", NOT_YET_PORTED["--probe-backend auto"])
             i += 1
             continue
         if opt not in AT_DEFAULT_ONLY:
@@ -821,6 +828,17 @@ def execute_command(parsed) -> None:
                 parsed.address, parsed.storage_slots
             )
         )
+        return
+
+    if command == "concolic":
+        with open(parsed.input) as f:
+            concrete_data = json.load(f)
+        from mythril_tpu_torch.concolic.concolic_execution import concolic_execution
+
+        branches = [int(b, 0) for b in parsed.branches.split(",")]
+        results = concolic_execution(concrete_data, branches, parsed.solver_timeout,
+                                     device=parsed.device)
+        print(json.dumps(results, indent=2))
         return
 
     if command == "disassemble":

@@ -27,20 +27,27 @@ this slice runs:
             UNSAT verdicts and models the probe missed, validated by
             ``concrete_eval`` like every other model.
 
-``probe_backend="cdcl"`` skips the heuristic tiers and answers with tier 2
-alone.  ``Optimize`` refines its objectives by bound queries on one
-incremental CDCL session (or a live one passed in by the transaction-end
-issue gate).  ``check_satisfiable_batch`` merges the residue of many
-constraint sets into one tape and one dispatch (``_batch_probe_device``).
+Under ``probe_backend="auto"`` (the default) a query's candidates go to the
+device only when the query's device is the card and its DAG size times its
+candidate count reaches ``args.device_probe_threshold``, rescaled to the
+card's measured round trip (``support/calibration.py``); below it, and on
+the CPU, they are evaluated on the host.  ``"device"`` always dispatches
+(the JAX package's forced ``"jax"``).  ``probe_backend="cdcl"`` skips the
+heuristic tiers and answers with tier 2 alone.  ``Optimize`` refines its
+objectives by bound queries on one incremental CDCL session (or a live one
+passed in by the transaction-end issue gate).  ``check_satisfiable_batch``
+merges the residue of many constraint sets into one tape and one dispatch
+(``_batch_probe_device``).
 A SAT answer always carries a model that ``concrete_eval`` validated.
 
 ``args.prefilter`` and ``args.devsolver`` switch tiers 0.58 and 0.65 (on
-by default, as in the JAX package); both run on the solver's device.  Not
-in this slice: the cross-run query cache.  A kernel error raises; there is
-no host fallback that would hide the card.  A conjunction the tape cannot
-express (``TapeUnsupported``, counted as ``tape_unsupported``) goes to the
-per-conjunction lowering (``ops/lowering.py``), as in the JAX package; one
-that cannot either (``LoweringUnsupported``, counted as
+by default, as in the JAX package); both run on the solver's device.  A
+kernel error raises, under ``auto`` as under ``device``: the host is chosen
+by the cost gate before any dispatch, never because a kernel failed, and
+there is no host fallback that would hide the card.  A conjunction the tape
+cannot express (``TapeUnsupported``, counted as ``tape_unsupported``) goes to
+the per-conjunction lowering (``ops/lowering.py``), as in the JAX package;
+one that cannot either (``LoweringUnsupported``, counted as
 ``lowering_unsupported``) is evaluated on the host candidate stream.
 """
 
@@ -1062,16 +1069,49 @@ def _split_remember(key: frozenset, result: List[List[Term]]) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _device_backend_requested() -> bool:
-    """Whether candidate batches are evaluated on the device (the tape VM
-    or the per-conjunction lowering).
+def _device_backend_requested(device) -> bool:
+    """Whether candidate batches may be evaluated on ``device`` (the tape VM
+    or the per-conjunction lowering) at all.
 
     ``args.probe_backend``: "device" always (the JAX package's forced "jax"
-    backend), "host" and "cdcl" (the forced exact mode) never."""
+    backend), "host" and "cdcl" (the forced exact mode) never, "auto" only
+    when the query's device is the card: a JAX run under
+    ``JAX_PLATFORMS=cpu`` with "auto" probes on the host, and so does a port
+    run on ``device="cpu"``."""
     backend = global_args.probe_backend
     if backend not in PROBE_BACKENDS:
         raise ValueError(f"probe_backend must be one of {PROBE_BACKENDS}, got {backend!r}")
+    if backend == "auto":
+        return device.type == "cuda"
     return backend == "device"
+
+
+_topo_size_cache: Dict[frozenset, int] = {}
+
+
+def _device_worthwhile(conjuncts: Sequence[Term], n_candidates: int, device) -> bool:
+    """Latency-aware dispatch decision for the "auto" backend.
+
+    A device dispatch costs a fixed round trip; the host evaluator costs
+    about DAG-size x candidates Python operations.  Small queries are
+    faster on the host, large batches over big DAGs on the device: "auto"
+    takes whichever side of the break-even the query lands on ("device"
+    always dispatches).  The threshold is ``args.device_probe_threshold``,
+    rescaled to the measured link by ``calibrate`` for the query's device.
+    """
+    if global_args.probe_backend == "device":
+        return True
+    from mythril_tpu_torch.support.calibration import calibrate
+
+    calibrate(device)  # scale the threshold to the measured link (memoized)
+    key = frozenset(c.tid for c in conjuncts)
+    size = _topo_size_cache.get(key)
+    if size is None:
+        size = len(terms.topo_order(list(conjuncts)))
+        if len(_topo_size_cache) > 8192:
+            _topo_size_cache.clear()
+        _topo_size_cache[key] = size
+    return size * max(1, n_candidates) >= global_args.device_probe_threshold
 
 
 def _try_compile_device(conjuncts: Sequence[Term], lower: bool = True):
@@ -1289,8 +1329,17 @@ def check_satisfiable_batch(
 
     # The merged dispatch pays off only when it amortizes over enough sets:
     # a 2-sibling fork goes through the per-set stack, >= 3 pending sets
-    # take the single merged dispatch.
-    if len(pending) >= 3 and _device_backend_requested():
+    # take the single merged dispatch, under "auto" when the union is above
+    # the break-even.
+    if (
+        len(pending) >= 3
+        and _device_backend_requested(dev)
+        and _device_worthwhile(
+            [c for _i, conj, _k in pending for c in conj],
+            config.max_rounds * config.candidates_per_round,
+            dev,
+        )
+    ):
         _batch_probe_device(pending, results, config, dev)
 
     for i, conj, _key in pending:
@@ -1637,7 +1686,9 @@ def _solve_conjunction_impl(
     # batched evaluation only when the deadline still has room
     compiled = (
         _try_compile_device(conjuncts)
-        if _device_backend_requested() and time.perf_counter() < deadline
+        if _device_backend_requested(device)
+        and _device_worthwhile(conjuncts, total + len(candidates), device)
+        and time.perf_counter() < deadline
         else None
     )
     if compiled is not None:

@@ -4,12 +4,17 @@ The subset of ``mythril_tpu/support/support_args.py``'s ``Args`` that the
 port consults, with the JAX package's defaults: the engine's limits and
 switches, the probe solver's flags, the device frontier's, and the
 packed-code paging flags that ``frontier/code.py`` reads.
-``probe_backend``: ``"device"`` evaluates candidate batches with the tape VM
-(the CUDA kernel on the card, its plain PyTorch version on the CPU) and
-plays the role of the JAX package's forced ``"jax"`` backend; ``"host"``
-never dispatches and evaluates candidates with the exact host evaluator
-only; ``"cdcl"`` is the forced exact mode: every query that the cheap tiers
-leave open goes to the native CDCL solver alone.
+``probe_backend``: ``"auto"`` (the default, as in the JAX package)
+evaluates a query's candidates on the device only when the device is the
+card and the query's DAG size times its candidate count reaches
+``device_probe_threshold`` (rescaled to the card's measured round trip by
+``support/calibration.py``), on the host otherwise; ``"device"`` always
+evaluates candidate batches with the tape VM (the CUDA kernel on the card,
+its plain PyTorch version on the CPU) and plays the role of the JAX
+package's forced ``"jax"`` backend; ``"host"`` never dispatches and
+evaluates candidates with the exact host evaluator only; ``"cdcl"`` is the
+forced exact mode: every query that the cheap tiers leave open goes to the
+native CDCL solver alone.
 ``prefilter`` and ``devsolver`` are the solver's known-bits prefilter (tier
 0.58) and device SAT tier (tier 0.65), on by default as in the JAX package;
 ``devsolver_bit_budget`` and ``devsolver_iters`` are the devsolver's budgets,
@@ -38,7 +43,7 @@ from typing import Optional
 
 import torch
 
-PROBE_BACKENDS = ("device", "host", "cdcl")
+PROBE_BACKENDS = ("auto", "device", "host", "cdcl")
 
 
 @dataclass
@@ -61,7 +66,11 @@ class Args:
     multi_selector_seeding: bool = False
     probe_candidates: int = 48
     probe_rounds: int = 4
-    probe_backend: str = "device"  # device | host | cdcl
+    probe_backend: str = "auto"  # auto | device | host | cdcl
+    # the auto backend's break-even: a query goes to the card when its DAG
+    # size x candidates reaches this (host evaluation below it is faster
+    # than one round trip); calibration rescales it to the measured link
+    device_probe_threshold: int = 600_000
     # the abstract known-bits + interval prefilter (absdomain/): tier 0.58
     prefilter: bool = True
     # the batched-DPLL device SAT tier (devsolver/): tier 0.65

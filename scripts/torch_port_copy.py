@@ -121,6 +121,10 @@ COPIED = (
     "adaptive/plan.py",
     "adaptive/controller.py",
     "plugins/plugins/coverage.py",
+    "concolic/__init__.py",
+    "concolic/concrete_data.py",
+    "core/strategy/concolic.py",
+    "core/transaction/concolic.py",
 )
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

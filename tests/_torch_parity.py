@@ -169,20 +169,67 @@ def port_no_adaptive():
 
 
 @contextlib.contextmanager
+def port_probe_backend(backend: str = "device"):
+    """The port's ``args.probe_backend`` set to ``backend``: "device", the
+    counterpart of the JAX pin ``"jax"``, for every record made before the
+    port's default became "auto"."""
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = args.probe_backend
+    args.probe_backend = backend
+    try:
+        yield
+    finally:
+        args.probe_backend = saved
+
+
+def port_uncalibrated():
+    """The port's link calibration as a JAX run under ``JAX_PLATFORMS=cpu``
+    leaves it (taken, nothing measured, nothing rescaled), so a run on the
+    card keeps the uncalibrated break-evens its CPU recording was made
+    with."""
+    return port_calibration(done=True)
+
+
+@contextlib.contextmanager
+def port_calibration(done: bool):
+    """The port's link calibration taken with nothing measured (``done``),
+    or not taken yet, as at a process's start (the next decision for the
+    card measures); the break-evens it rescales at their defaults either
+    way; the calibration state and the break-evens as they were on exit."""
+    from mythril_tpu_torch.frontier import engine
+    from mythril_tpu_torch.support import calibration
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = dict(calibration._state)
+    constants = (args.device_probe_threshold, engine._MIN_STATIC_JUMPIS, engine._MIN_SEED_WIDTH)
+    calibration._state.clear()
+    calibration._state.update({"done": done, "rtt_ms": None, "applied": {}})
+    args.device_probe_threshold = calibration._ANCHOR_PROBE_THRESHOLD
+    engine._MIN_STATIC_JUMPIS, engine._MIN_SEED_WIDTH = calibration._ANCHOR_MIN_STATIC_JUMPIS, 8
+    try:
+        yield
+    finally:
+        calibration._state.clear()
+        calibration._state.update(saved)
+        args.device_probe_threshold, engine._MIN_STATIC_JUMPIS, engine._MIN_SEED_WIDTH = constants
+
+
+@contextlib.contextmanager
 def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool = False):
     """The port's solver with the device probe on and its caches cleared;
     its native CDCL off unless ``cdcl``, its prefilter and devsolver off
     unless ``tiers``, its static pass and query cache off unless
     ``defaults``; its frontier synchronous (``port_no_pipeline``) and
-    without the adaptive controller (``port_no_adaptive``)."""
+    without the adaptive controller (``port_no_adaptive``); uncalibrated
+    (``port_uncalibrated``)."""
     from mythril_tpu_torch.smt.solver import clear_model_cache
-    from mythril_tpu_torch.support.support_args import args
 
-    saved = args.probe_backend
-    args.probe_backend = "device"
     clear_model_cache()
     try:
         with contextlib.ExitStack() as stack:
+            stack.enter_context(port_probe_backend("device"))
+            stack.enter_context(port_uncalibrated())
             if not cdcl:
                 stack.enter_context(port_no_cdcl())
             if not tiers:
@@ -193,7 +240,6 @@ def port_device_backend(cdcl: bool = False, tiers: bool = False, defaults: bool 
             stack.enter_context(port_no_adaptive())
             yield
     finally:
-        args.probe_backend = saved
         clear_model_cache()
 
 
@@ -579,15 +625,17 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
                  frontier: bool = False, force: bool = False, width: int = 64,
                  modules=None, timeout: int = 60, device="cpu", record: bool = True,
                  cdcl: bool = False, tiers: bool = False, defaults: bool = False,
-                 pipeline: bool = False, adaptive: bool = False) -> dict:
+                 pipeline: bool = False, adaptive: bool = False,
+                 probe_backend: str = "device") -> dict:
     """One ``SymExecWrapper`` + ``fire_lasers`` run of package ``base``
     ("mythril_tpu" under ``jax_engine_config``, ``jax_engine_config_cdcl``
     or ``jax_engine_config_tiers``, or "mythril_tpu_torch" on ``device``,
     its native CDCL on only when ``cdcl``, its prefilter and devsolver only
     when ``tiers``, its static pass and query cache only when ``defaults``,
     its pipelined frontier and replay workers only when ``pipeline``, its
-    adaptive controller only when ``adaptive``) with every cache cleared
-    first.  -> {"issues", "summary",
+    adaptive controller only when ``adaptive``, its probe backend
+    ``probe_backend`` and its calibration as the CPU recordings had it,
+    ``port_uncalibrated``) with every cache cleared first.  -> {"issues", "summary",
     "dispatches" (digests, in order), "frontier" (the frontier's counters),
     "cdcl" (``SolverStatistics.cdcl_calls`` as "cdcl_calls", and
     ``counting_cdcl``'s counts), "tiers" (``tier_counters``), "staticpass"
@@ -615,6 +663,9 @@ def run_analysis(base: str, code: bytes, *, tx_count: int = 1, strategy: str = "
         with contextlib.ExitStack() as stack:
             if record:
                 stack.enter_context(recording_dispatches(base, dispatches))
+            if port:
+                stack.enter_context(port_probe_backend(probe_backend))
+                stack.enter_context(port_uncalibrated())
             if port and not cdcl:
                 stack.enter_context(port_no_cdcl())
             if port and not tiers:

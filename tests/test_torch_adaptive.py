@@ -41,6 +41,7 @@ and batch on the card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import types
@@ -144,7 +145,8 @@ def _analyze(name: str, width: int, tx: int, modules, pipeline: bool) -> dict:
 def cooperative(base: str, batch: str, adaptive: bool, target=None, device=None) -> dict:
     """One cooperative batch of ``base`` ("mythril_tpu" under
     ``jax_engine_config_adaptive``, or the port on ``device`` with its
-    defaults) with ``COOPERATIVE_ARGS``, the controller on or off and the
+    defaults but the forced device probe, uncalibrated) with
+    ``COOPERATIVE_ARGS``, the controller on or off and the
     coverage target, every cache cleared first -> the issue set (name,
     SWC, address, code hash per issue, sorted), the segments, the
     ``adaptive.*`` counters, the latched stop, the ``pipeline.*`` counters
@@ -152,7 +154,13 @@ def cooperative(base: str, batch: str, adaptive: bool, target=None, device=None)
     import importlib
     import time
 
-    from tests._torch_parity import _reset, adaptive_counters, pipeline_counters
+    from tests._torch_parity import (
+        _reset,
+        adaptive_counters,
+        pipeline_counters,
+        port_probe_backend,
+        port_uncalibrated,
+    )
 
     args = importlib.import_module(f"{base}.support.support_args").args
     coop = importlib.import_module(f"{base}.analysis.cooperative")
@@ -165,11 +173,15 @@ def cooperative(base: str, batch: str, adaptive: bool, target=None, device=None)
     args.adaptive, args.coverage_target = adaptive, target
     kw = {} if base == "mythril_tpu" else {"device": device}
     try:
-        t0 = time.perf_counter()
-        per_name, _states = coop.analyze_cooperative(
-            batch_jobs(batch), transaction_count=BATCHES[batch][1],
-            execution_timeout=COOPERATIVE_TIMEOUT, **kw)
-        seconds = time.perf_counter() - t0
+        with contextlib.ExitStack() as stack:
+            if base != "mythril_tpu":  # the forced device probe, as recorded
+                stack.enter_context(port_probe_backend("device"))
+                stack.enter_context(port_uncalibrated())
+            t0 = time.perf_counter()
+            per_name, _states = coop.analyze_cooperative(
+                batch_jobs(batch), transaction_count=BATCHES[batch][1],
+                execution_timeout=COOPERATIVE_TIMEOUT, **kw)
+            seconds = time.perf_counter() - t0
     finally:
         for k, v in saved.items():
             setattr(args, k, v)
@@ -313,12 +325,17 @@ def check_run(run: dict, got: dict, adaptive: bool = True) -> list:
 # ---------------------------------------------------------------------------
 
 
-def port_cases(path: Path, name: str) -> types.ModuleType:
+def port_cases(path: Path, name: str, subs=()) -> types.ModuleType:
     """The JAX test module at ``path`` with the package renamed, as a module
-    of its own: its test functions and fixtures then run on the port."""
+    of its own: its test functions and fixtures then run on the port.
+    ``subs``: further (pattern, replacement) rewrites, applied in order
+    after the rename (the device an entry point of the port runs on)."""
     import re
 
     src = re.sub(r"\bmythril_tpu(?!_torch)\b", "mythril_tpu_torch", path.read_text())
+    for pattern, repl in subs:
+        src, n = re.subn(pattern, repl, src)
+        assert n, f"{path.name}: the rewrite {pattern!r} matched nothing"
     mod = types.ModuleType(name)
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)

@@ -16,8 +16,9 @@ whole analysis of ``kill_simple.bin-runtime`` (``SymExecWrapper`` +
 forced, which runs pipelined by default, and reads the exploration
 ledger after each), runs a cooperative batch of two contracts
 (``analysis.cooperative``, the adaptive controller on), runs the command line in process (``interfaces.cli.main``:
-``analyze`` of the same contract with ``--device cpu``), and reports which
-modules it loaded.  The same process shows that,
+``analyze`` of the same contract with ``--device cpu``), flips the JAX
+package's concolic unit contract's branch on the CPU, asks the link
+calibration for a CPU decision, and reports which modules it loaded.  The same process shows that,
 without a card, entry points called without ``device="cpu"`` (the solver,
 ``cached_segment``, ``SymExecWrapper``) raise instead of moving to the CPU.
 """
@@ -175,7 +176,20 @@ with contextlib.redirect_stdout(out):
     cli_rc = cli.main(["analyze", "-f", sys.argv[3], "--bin-runtime", "-t", "1", "-m",
                        "AccidentallyKillable", "-o", "json", "--device", "cpu"])
 cli_issues = [i["swc-id"] for i in json.loads(out.getvalue())["issues"]]
-print(json.dumps({"cli": [cli_rc, cli_issues], "keep": keep, "status": status,
+from mythril_tpu_torch.concolic.concolic_execution import concolic_execution
+from mythril_tpu_torch.support import calibration
+# the JAX package's branch-flip unit contract (tests/integration/test_concolic.py)
+unit = {"initialState": {"accounts": {"0x" + "ab" * 20: {
+            "balance": "0x0", "code": "0x600035600514600f576002600055005b600160005500",
+            "nonce": 0, "storage": {}}}},
+        "steps": [{"address": "0x" + "ab" * 20, "gasLimit": "0x100000", "gasPrice": "0x0",
+                   "input": "0x" + "00" * 32, "origin": "0x" + "cd" * 20, "value": "0x0"}]}
+flips = concolic_execution(unit, [8], solver_timeout=30000, device="cpu")
+concolic = [int(f["steps"][0]["input"][2:66].ljust(64, "0"), 16) for f in flips]
+cal = [calibration.calibrate("cpu"), calibration.measure_dispatch_rtt_ms("cpu"),
+       calibration.telemetry()]
+print(json.dumps({"cli": [cli_rc, cli_issues], "concolic": concolic, "calibration": cal,
+                  "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
                   "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
                   "ledger": ledger, "lowering": low, "coop": coop, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
@@ -237,6 +251,13 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert "mythril_tpu_torch.interfaces.cli" in got["modules"]
     assert "mythril_tpu_torch.facade.mythril_analyzer" in got["modules"]
     assert got["cli"] == [0, ["106"]]
+    # concolic execution flipped the unit contract's branch on the CPU; the
+    # calibration measured nothing for the CPU
+    assert got["concolic"] == [5]
+    assert got["calibration"] == [{}, None, {}]
+    for mod in ("concolic.concolic_execution", "concolic.find_trace", "concolic.concrete_data",
+                "core.strategy.concolic", "core.transaction.concolic", "support.calibration"):
+        assert f"mythril_tpu_torch.{mod}" in got["modules"]
     # the native CDCL builds from the port's own sources wherever g++ is
     if shutil.which("g++") or shutil.which("c++"):
         assert got["native"]["available"] and got["native"]["status"] == "unsat"

@@ -19,16 +19,26 @@ its default; the port's argv gets ``--no-adaptive`` wherever the pins had
 it.  ``loop_tail/frontier/coverage-target`` (``bench.LOOP_TAIL`` on a
 forced frontier with ``--coverage-target 90 --coverage-out``) was recorded
 with the JAX CLI's defaults but the forced device probe and the mesh
-(``COVERAGE_PINS``), the adaptive controller on in both.  The
+(``COVERAGE_PINS``), the adaptive controller on in both.  The runs named
+``.../auto`` (``AUTO``: ``kill_simple``, ``etherstore_like`` and
+``rubixi_like`` at two transactions on the host engine) were recorded with
+the JAX CLI's defaults but the mesh (``AUTO_PINS``: its ``auto`` probe
+backend, which on its CPU probes on the host), and the port runs them with
+no ``--probe-backend``, its default ``auto``; wherever the pins force the
+JAX CLI's ``jax`` backend the port's argv gets ``--probe-backend device``.
+The port's link calibration is held as on the JAX CLI's CPU, nothing
+measured (``_torch_parity.port_uncalibrated``), but in ``chip_smoke.py``
+phase 8h, which replays the ``auto`` runs calibrated on the card.  The
 ``static/...`` runs are the ``static`` subcommand, which takes no pins, and
 ``.../staticpass-report`` writes ``--staticpass-report``.  Under pytest the
 port's CLI replays the small runs (all but the bench contracts of
 ``CARD_ONLY``) in process with ``--device cpu`` (``static`` has no device);
 its output must equal the JAX CLI's field by field (``differences``), except
 the issues' ``discoveryTime``, the wall-time fields of the execution info and
-of the static pass's reports (``wall_s``), the JAX package's calibration
-block and the report meta blocks of the surfaces the port does not carry yet
-(``JAX_ONLY_META``) and the seconds of the exploration ledger's solver
+of the static pass's reports (``wall_s``), the calibration block (a
+measurement; neither CPU run has one) and the report meta blocks of the
+surfaces the port does not carry yet (``JAX_ONLY_META``) and the seconds of
+the exploration ledger's solver
 hotspots.  ``chip_smoke.py`` replays the bench runs the same way
 on the card.
 
@@ -77,6 +87,9 @@ DEFAULT_PINS = [a for a in TIER_PINS if a not in HOST_TIER_SWITCHES]
 PIPELINE_PINS = ["--probe-backend", "jax", "--no-mesh", "--no-adaptive"]
 # ... and with its adaptive controller on as well
 COVERAGE_PINS = ["--probe-backend", "jax", "--no-mesh"]
+# ... and with its default probe backend, auto (on the JAX package's CPU:
+# the host probe), as well
+AUTO_PINS = ["--probe-backend", "auto", "--no-mesh"]
 # jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
 # deviations: the port's meta carries the execution info and the static pass)
 JAX_ONLY_META = {"device", "devsolver", "frontier", "health", "observability", "prefilter"}
@@ -89,9 +102,13 @@ OUT = "{out}"
 BENCH = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
          "kill_simple/frontier-256", "etherstore_like/frontier-256/tiers",
          "etherstore_like/frontier-256/defaults")
+# the default command line (no --probe-backend: auto) on the host engine,
+# replayed calibrated on the card (chip_smoke.py phase 8h)
+AUTO = ("kill_simple/host/auto", "etherstore_like/host/auto", "rubixi_like/host/auto")
 CARD_ONLY = ("etherstore_like/frontier-256", "rubixi_like/frontier-256",
              "etherstore_like/frontier-256/tiers", "etherstore_like/frontier-256/defaults",
-             "etherstore_like/frontier-256/pipeline")
+             "etherstore_like/frontier-256/pipeline", "etherstore_like/host/auto",
+             "rubixi_like/host/auto")
 SMALL = tuple(r["name"] for r in json.loads(FIXTURE.read_text())["runs"]
               if r["name"] not in CARD_ONLY) if FIXTURE.is_file() else ()
 
@@ -172,6 +189,9 @@ def recorded_runs() -> list:
     runs.append({"name": "kill_simple/host/staticpass-report", "pins": DEFAULT_PINS,
                  "argv": analyze(contracts["kill_simple"][0], 2) + [
                      "-o", "json", "--staticpass-report", OUT]})
+    for name in AUTO:
+        code = bench[name.split("/")[0]]
+        runs.append({"name": name, "pins": AUTO_PINS, "argv": analyze(code, 2) + ["-o", "jsonv2"]})
     static = ["static", "-c", contracts["kill_simple"][0], "--bin-runtime"]
     runs.append({"name": "static/kill_simple/json", "pins": [], "argv": static + ["-o", "json"]})
     runs.append({"name": "static/kill_simple/text", "pins": [], "argv": static})
@@ -184,10 +204,14 @@ def port_argv(run: dict) -> list:
     """A recorded run's argv for the port: the JAX pins' tier switches that
     the port has (the prefilter's, the devsolver's, the static pass's, the
     query cache's, the pipeline's and the adaptive controller's, and the
-    replay workers' count) added."""
+    replay workers' count) added, and ``--probe-backend device`` where the
+    pins force the JAX package's ``jax`` backend (the ``auto`` runs get no
+    ``--probe-backend``: the port's default)."""
     pins = run["pins"]
     extra = [a for a in ("--no-prefilter", "--no-devsolver", *HOST_TIER_SWITCHES,
                          "--no-pipeline", "--no-adaptive") if a in pins]
+    if "jax" in pins:
+        extra += ["--probe-backend", "device"]
     if "--harvest-workers" in pins:
         extra += pins[pins.index("--harvest-workers"):][:2]
     return run["argv"] + extra
@@ -293,17 +317,19 @@ def differences(outform: str, jax_out: str, port_out: str) -> list:
 # ---------------------------------------------------------------------------
 
 
-def run_port(argv, device="cpu", with_stdout=False):
+def run_port(argv, device="cpu", with_stdout=False, calibrated=False):
     """One in-process run of the port's CLI as in a fresh process: every
     cache that carries state between analyses cleared, the statespace's node
     numbering from 1 -> (exit code, stdout, or for an export the file written
     in place of ``OUT``; with ``with_stdout`` the stdout after the file).
-    ``device`` None passes no ``--device`` (the card)."""
+    ``device`` None passes no ``--device`` (the card).  The link calibration
+    is held as the CPU recordings had it (``_torch_parity.port_uncalibrated``)
+    unless ``calibrated``."""
     import tempfile
 
     from mythril_tpu_torch.core import cfg
     from mythril_tpu_torch.interfaces import cli
-    from tests._torch_parity import _reset
+    from tests._torch_parity import _reset, port_uncalibrated
 
     _reset("mythril_tpu_torch")
     cfg.gbl_next_uid[0] = 0
@@ -311,7 +337,8 @@ def run_port(argv, device="cpu", with_stdout=False):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "out")
         argv = [path if a == OUT else a for a in argv]
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), (
+                contextlib.nullcontext() if calibrated else port_uncalibrated()):
             rc = cli.main(argv + (["--device", device] if device else []))
         if path in argv:
             exported = Path(path).read_text()
@@ -381,7 +408,7 @@ def test_fixture_holds_the_runs_it_names():
             continue
         meta = _last_json_line(run["stdout"])[0]["meta"]["staticpass"]
         assert (meta["contracts"] > 0) == name.endswith(
-            ("/defaults", "/pipeline", "/coverage-target")), name
+            ("/defaults", "/pipeline", "/coverage-target", "/auto")), name
     assert _last_json_line(runs["dead_code/frontier/defaults"]["stdout"])[0][
         "meta"]["staticpass"]["modules_skipped"]
     report = json.loads(runs["static/killbilly-creation/json"]["stdout"])
@@ -438,8 +465,8 @@ def test_parser_keeps_the_jax_options_and_lists_what_it_lacks():
             j, p = jax_opts[opt], port_opts[opt]
             assert (p.dest, p.option_strings) == (j.dest, j.option_strings), (name, opt)
             if opt == "--probe-backend":  # the port's backends, "device" for "jax"
-                assert set(p.choices) == set(j.choices) - {"auto", "jax"} | {"device"}
-                assert (j.default, p.default) == ("auto", "device")
+                assert set(p.choices) == set(j.choices) - {"jax"} | {"device"}
+                assert j.default == p.default == "auto"
                 continue
             assert (p.default, p.choices, p.type, p.nargs) == (j.default, j.choices, j.type,
                                                                j.nargs), (name, opt)
@@ -448,7 +475,6 @@ def test_parser_keeps_the_jax_options_and_lists_what_it_lacks():
     table = set(cli.NOT_YET_PORTED)
     assert {k for k in table if k.startswith("-") and " " not in k} == missing_opts
     assert {k for k in table if not k.startswith("-")} == missing_subs
-    assert "auto" in _options(jax_subs["analyze"])["--probe-backend"].choices
     for opt, (type_, default) in cli.AT_DEFAULT_ONLY.items():
         assert opt in table
         j = _options(jax_subs["analyze"])[opt]
@@ -491,17 +517,39 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
     # the worker counts are real switches now; the heartbeat period is the
     # option left that the port takes at its JAX default only
     (CLEAN + ["--heartbeat-interval", "2"], 13),
-    (CLEAN + ["--probe-backend", "auto"], 10),
     (["serve", "--port", "7396"], 13),
-    (["c", "input.json", "--branches", "1"], 4),
-], ids=["value-option", "value-option-eq", "non-default-workers", "probe-backend-auto",
-        "subcommand", "subcommand-alias"])
+], ids=["value-option", "value-option-eq", "non-default-workers", "subcommand"])
 def test_refused(argv, item, capsys):
     from mythril_tpu_torch.interfaces import cli
 
     assert cli.main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue A item {item})" in err and "not ported yet" in err
+
+
+@pytest.mark.parametrize("backend", [None, "auto", "device", "host"])
+def test_probe_backends_are_accepted_and_auto_is_the_default(backend, monkeypatch):
+    """``--probe-backend auto`` is the port's default, as in the JAX
+    package; on the CPU it probes on the host (no device dispatch), and
+    the report carries no calibration block (nothing was measured)."""
+    from mythril_tpu_torch.facade import warm
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.smt.solver import SolverStatistics
+
+    seen = []
+    real = warm.apply_analyzer_args
+    monkeypatch.setattr(warm, "apply_analyzer_args",
+                        lambda a: (seen.append(a.probe_backend), real(a)))
+    assert cli.screen(CLEAN + (["--probe-backend", backend] if backend else [])) == (
+        CLEAN + (["--probe-backend", backend] if backend else []))
+    argv = ["analyze", "-c", KILL_SIMPLE.read_text().strip(), "--bin-runtime", "-t", "1",
+            "-o", "jsonv2"] + (["--probe-backend", backend] if backend else [])
+    rc, out = run_port(argv)
+    assert rc == 0 and seen == [backend or "auto"]
+    report = _last_json_line(out)
+    assert "calibration" not in report[0]["meta"]["mythril_execution_info"]
+    if (backend or "auto") in ("auto", "host"):
+        assert SolverStatistics().device_dispatches == 0
 
 
 def test_default_only_options_run_at_their_default():

@@ -236,7 +236,7 @@ def test_host_backend_never_dispatches():
 def test_unknown_backend_is_refused():
     from mythril_tpu_torch.support.support_args import args
 
-    args.probe_backend = "auto"
+    args.probe_backend = "jax"  # the JAX package's name; the port's is "device"
     with pytest.raises(ValueError, match="probe_backend"):
         P.solve_conjunction(to_port(_sum_bound()), P.ProbeConfig(sat_biased=False), device="cpu")
 
