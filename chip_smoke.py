@@ -261,6 +261,24 @@ Phases, in order; any failure exits nonzero and prints no result:
    reach the harvest's caller; over 8h and 8i, at least one query under
    ``auto`` crosses the calibrated threshold and launches a probe kernel
    (``tape_vm`` or ``lowering``);
+8j. the traced path: ``python -m mythril_tpu_torch analyze``'s entry point
+   (``cli.main``) on ``etherstore_like`` (2 transactions, the forced
+   frontier at 256 paths, the pipelined default loop, ``--probe-backend
+   device``; the command line ``etherstore_like/frontier-256/pipeline`` of
+   ``torch_cli_runs.json``) with ``--trace-out`` and ``--metrics-out``, in
+   turns with the same command line untraced (untraced, traced, traced,
+   untraced, twice): every run's issue keys equal to the JAX CLI's
+   recording; in the first traced run's trace every flow ``s`` has its
+   ``f``, the ``frontier.segment`` spans count the segment launches, the
+   ``smt.device_probe`` spans count the solver's per-conjunction device
+   dispatches (the merged batch dispatch has no span in the JAX package
+   either), ``meta.device.segment_device_s.count`` counts the segment
+   launches; one traced run under ``torch.profiler`` shows the
+   ``frontier.segment`` and ``smt.device_probe`` ranges; one run with
+   ``args.frontier_microbench`` gives ``0 < segment_compute_s <=
+   dispatch_plus_link_s`` (on ``kill_simple/frontier/pipeline``, 64
+   paths); the walls of both modes with their spread, the
+   traced run's seconds by span name; the phase in under 60 s;
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -2431,6 +2449,139 @@ def concolic_runs(torch, card: str):
     return dict(total), dict(auto_total), rows
 
 
+# phase 8j's recorded command line: the pipelined frontier (the port's
+# default loop) at 256 paths with the device probe, on etherstore_like
+TRACED_RUN = "etherstore_like/frontier-256/pipeline"
+MICROBENCH_RUN = "kill_simple/frontier/pipeline"
+
+
+def traced_runs(torch, card: str):
+    """Phase 8j (see the module docstring) -> (the traced run's launches,
+    the phase's row)."""
+    import os
+    import statistics as stats
+    import tempfile
+
+    from mythril_tpu_torch.frontier.stats import FrontierStatistics
+    from mythril_tpu_torch.observability import get_tracer
+    from mythril_tpu_torch.smt import solver
+    from mythril_tpu_torch.support.support_args import args
+    from tests import test_torch_cli as T
+    from tests import test_torch_observability as O
+
+    t_phase = phase("traced: the pipelined analysis through the CLI with --trace-out and "
+                    "--metrics-out on the card, against the untraced run and the JAX record")
+    run = T.load_runs()[TRACED_RUN]
+    argv = T.port_argv(run)
+    tmp = tempfile.mkdtemp(prefix="traced-")
+    trace_path, metrics_path = os.path.join(tmp, "trace.json"), os.path.join(tmp, "metrics.json")
+    traced_argv = argv + ["--trace-out", trace_path, "--metrics-out", metrics_path]
+    want = jsonv2_issue_keys(run["stdout"])
+    probes = collections.Counter()
+    evaluate = solver._evaluate_candidates_device
+
+    def counting(compiled, candidates, device):
+        # the per-conjunction dispatch is the one the JAX package spans as
+        # smt.device_probe; the merged batch dispatch has no span there
+        probes[sys._getframe(1).f_code.co_name] += 1
+        return evaluate(compiled, candidates, device)
+
+    def one(traced: bool, profile: bool = False):
+        zero_launches()
+        probes.clear()
+        prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                   torch.profiler.ProfilerActivity.CUDA])
+                if profile else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with prof:
+            rc, out = T.run_port(traced_argv if traced else argv, device=None)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{TRACED_RUN} ({'traced' if traced else 'untraced'}): exit {rc}")
+        check(jsonv2_issue_keys(out) == want,
+              f"{TRACED_RUN} ({'traced' if traced else 'untraced'}): the issue keys differ from "
+              "the JAX recording")
+        return wall, out, read_launches(), dict(probes), prof
+
+    solver._evaluate_candidates_device = counting
+    try:
+        walls = {"untraced": [], "traced": []}
+        for turn in ("untraced", "traced", "traced", "untraced") * 2:
+            wall, out, launches, by_caller, _ = one(turn == "traced")
+            walls[turn].append(wall)
+            if turn == "traced" and len(walls["traced"]) == 1:
+                traced_out, traced_launches, traced_probes = out, launches, by_caller
+                with open(trace_path) as f:
+                    trace = json.load(f)
+                with open(metrics_path) as f:
+                    metrics = json.load(f)
+        _, _, _, _, prof = one(True, profile=True)
+        # the microbench, once, on the first productive segment of the
+        # short pipelined command line (kill_simple, 64 paths)
+        saved = args.frontier_microbench
+        args.frontier_microbench = True
+        try:
+            rc, _ = T.run_port(T.port_argv(T.load_runs()[MICROBENCH_RUN]), device=None)
+            check(rc == 0, f"{MICROBENCH_RUN} with the microbench: exit {rc}")
+            micro = dict(FrontierStatistics().microbench)
+        finally:
+            args.frontier_microbench = saved
+    finally:
+        solver._evaluate_candidates_device = evaluate
+    check(not get_tracer().enabled, "the CLI left the tracer on")
+    events = O.event_counts(trace)
+    spans = {k[:-2]: v for k, v in events.items() if k.endswith("|X")}
+    segments = traced_launches["frontier_segment"]
+    per_conjunction = traced_probes.get("_solve_conjunction_impl", 0)
+    report = T._last_json_line(traced_out)[0]
+    seg_meta = report["meta"]["device"].get("segment_device_s", {})
+    dispatches = metrics["metrics"]["solver.device_dispatches"]
+    print(f"  {card}; traced run: {sum(events.values())} events, spans by name {spans}; "
+          f"launches {traced_launches}; solver device_dispatches {dispatches} "
+          f"({traced_probes})")
+    check(O.unmatched_flows(trace) == [], f"flows without both ends: {O.unmatched_flows(trace)[:5]}")
+    check(spans.get("frontier.segment", 0) == segments > 0,
+          f"{spans.get('frontier.segment', 0)} frontier.segment spans for {segments} segment "
+          "launches")
+    check(spans.get("smt.device_probe", 0) == per_conjunction,
+          f"{spans.get('smt.device_probe', 0)} smt.device_probe spans for {per_conjunction} "
+          "per-conjunction device dispatches")
+    check(sum(traced_probes.values()) == dispatches,
+          f"device_dispatches {dispatches} against {traced_probes}")
+    check(seg_meta.get("count") == segments,
+          f"meta.device.segment_device_s.count {seg_meta.get('count')} for {segments} launches")
+    pull = metrics["metrics"].get("frontier.pull_device_s", {})
+    print(f"  meta.device: {report['meta']['device']}; pulls {pull.get('count')}, "
+          f"{pull.get('sum')} s")
+    check(micro and 0 < micro["segment_compute_s"] <= micro["dispatch_plus_link_s"],
+          f"microbench {micro}")
+    print(f"  microbench: {micro}")
+    ranges = {e.key: e for e in prof.key_averages()}
+    for name in ("frontier.segment", "smt.device_probe"):
+        check(name in ranges or (name == "smt.device_probe" and per_conjunction == 0),
+              f"torch.profiler shows no {name} range")
+    print("  torch.profiler ranges: " + ", ".join(
+        f"{n} x{ranges[n].count}" for n in ("frontier.segment", "smt.device_probe")
+        if n in ranges))
+    # the traced run's wall split by span name (seconds, host clock)
+    split = collections.defaultdict(float)
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            split[e["name"]] += e["dur"] / 1e6
+    split = dict(sorted(split.items(), key=lambda kv: -kv[1]))
+    print("  span seconds (traced run): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    for turn, ws in walls.items():
+        print(f"  {turn}: walls {[round(w, 4) for w in ws]} s, median "
+              f"{stats.median(ws):.4f} s, spread {min(ws):.4f}-{max(ws):.4f} s ({card})")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 8j took {seconds:.1f} s")
+    check(seconds < 60, f"phase 8j took {seconds:.1f} s (its budget is 60 s)")
+    row = {"run": TRACED_RUN, "walls": walls, "span_seconds": split, "spans": spans,
+           "device_meta": report["meta"]["device"], "microbench": micro, "card": card,
+           "seconds": seconds}
+    return traced_launches, row
+
+
 def device_fault(torch) -> None:
     """A real ``torch.OutOfMemoryError`` from the card, raised inside a
     harvest replay (an allocation the card cannot hold), must reach the
@@ -2766,6 +2917,9 @@ def main() -> int:
             check(cli_launches[name] > 0, f"the command line's runs launched {name} no time")
         h_launches, h_rows = auto_runs(torch, card)
         i_launches, i_auto, i_rows = concolic_runs(torch, card)
+        j_launches, j_row = traced_runs(torch, card)
+        for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
+            check(j_launches[name] > 0, f"the traced run launched {name} no time")
         # the auto path: a query above the calibrated threshold reaches a
         # probe kernel on the card (on the recorded traffic the one that
         # crosses it, a batchTransfer flip, is refused by the tape and goes
@@ -2852,7 +3006,8 @@ def main() -> int:
                 "engine_adaptive": a_launches[entry["name"]], "cli": cli_launches[entry["name"]],
                 "auto": h_launches.get(entry["name"], 0),
                 "concolic": i_launches.get(entry["name"], 0),
-                "concolic_auto": i_auto.get(entry["name"], 0)}
+                "concolic_auto": i_auto.get(entry["name"], 0),
+                "traced": j_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
@@ -2862,6 +3017,7 @@ def main() -> int:
         frontier["engine_adaptive"] = {"runs": a_rows}
         tape["auto"] = {"runs": h_rows}
         tape["concolic"] = {"runs": i_rows}
+        frontier["traced"] = j_row
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

@@ -18,10 +18,12 @@ Entry points
 ``refute(conjuncts, device)``
     The single-row form (the solver's tier 0.58).
 
-Verdicts are memoized under the frozenset of conjunct tids.  The JAX
-package's ``prefilter.{evaluated,killed,fallthrough}`` counters are the
-module integers ``evaluated``, ``killed`` and ``fallthrough`` here: every
-fresh evaluation is counted, memo hits are not.  Unsupported structure and
+Verdicts are memoized under the frozenset of conjunct tids.
+``prefilter.{evaluated,killed,fallthrough}`` counters and the
+``prefilter.eval_s`` histogram in the metrics registry account every fresh
+evaluation, as in the JAX package; memo hits are not counted.  The module
+attributes ``evaluated``, ``killed`` and ``fallthrough`` read the
+counters.  Unsupported structure and
 other errors of the host steps fall through (never a verdict); any error
 of the device pass (no card, a kernel that did not build, launch or run)
 propagates.
@@ -30,6 +32,7 @@ propagates.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import List, Optional, Sequence
 
@@ -46,9 +49,29 @@ _MEMO_CAP = 8192
 _memo: "OrderedDict[frozenset, bool]" = OrderedDict()
 _memo_lock = threading.Lock()
 
-evaluated = 0
-killed = 0
-fallthrough = 0
+_COUNTER_NAMES = ("evaluated", "killed", "fallthrough")
+
+
+def _counters():
+    from mythril_tpu_torch.observability import get_registry
+
+    reg = get_registry()
+    return (
+        reg.counter("prefilter.evaluated"),
+        reg.counter("prefilter.killed"),
+        reg.counter("prefilter.fallthrough"),
+        reg.histogram("prefilter.eval_s"),
+    )
+
+
+def __getattr__(name: str):
+    """``evaluated``, ``killed``, ``fallthrough``: the registry counters."""
+    if name in _COUNTER_NAMES:
+        from mythril_tpu_torch.observability import get_registry
+
+        m = get_registry()._metrics.get("prefilter." + name)
+        return m.value if m is not None else 0
+    raise AttributeError(name)
 
 
 def reset_state() -> None:
@@ -58,8 +81,9 @@ def reset_state() -> None:
 
 
 def reset_counters() -> None:
-    global evaluated, killed, fallthrough
-    evaluated = killed = fallthrough = 0
+    from mythril_tpu_torch.observability import get_registry
+
+    get_registry().reset(prefix="prefilter.")
 
 
 def _memo_get(key: frozenset) -> Optional[bool]:
@@ -121,7 +145,6 @@ def prefilter_batch(conjunct_sets: Sequence[Sequence[Term]],
     outputs are read, a wrapper's own check) raises.
     ``device``: None is the CUDA card; pass ``"cpu"`` for the plain path.
     """
-    global evaluated, killed, fallthrough
     n = len(conjunct_sets)
     results: List[Optional[bool]] = [None] * n
     keys = [frozenset(t.tid for t in cs) for cs in conjunct_sets]
@@ -140,17 +163,20 @@ def prefilter_batch(conjunct_sets: Sequence[Sequence[Term]],
 
     if fresh_idx:
         dev = resolve(device)
+        c_eval, c_kill, c_fall, h_eval = _counters()
+        t0 = time.perf_counter()
         try:
             verdicts = _evaluate_rows([list(conjunct_sets[i]) for i in fresh_idx], dev)
         except _HostFault:
             verdicts = [None] * len(fresh_idx)
-        evaluated += len(fresh_idx)
+        h_eval.observe(time.perf_counter() - t0)
+        c_eval.inc(len(fresh_idx))
         for i, v in zip(fresh_idx, verdicts):
             if v is None:
-                fallthrough += 1
+                c_fall.inc()
                 v = False
             elif v:
-                killed += 1
+                c_kill.inc()
             _memo_put(keys[i], v)
             results[i] = v
 

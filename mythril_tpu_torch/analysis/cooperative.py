@@ -36,7 +36,7 @@ the analysis needs.  What differs:
   job's failure is isolated from the batch.  The service's entry point
   ``run_cooperative_batch`` (per-job fault isolation, ``request_tags``,
   ``request_flow_cb``) comes with the service, its first caller (ROADMAP
-  Queue A item 13); so does the benchmark plugin's per-contract series.
+  Queue A item 13).
 """
 
 from __future__ import annotations
@@ -170,9 +170,17 @@ def analyze_cooperative(
                 w.laser.exec()
                 w.laser._fire("stop_sym_trans")
 
-        for _name, _addr, w in wrappers:
-            w.laser._fire("stop_sym_exec")
-            w.finalize()
+        benchmark_base = args.benchmark_path
+        try:
+            for n, (_name, _addr, w) in enumerate(wrappers):
+                w.laser._fire("stop_sym_exec")
+                if benchmark_base and len(wrappers) > 1:
+                    # one series file per contract (the facade's convention)
+                    # instead of silent overwrites
+                    args.benchmark_path = f"{benchmark_base}.{n}"
+                w.finalize()
+        finally:
+            args.benchmark_path = benchmark_base
 
         # callback issues accumulated across ALL contracts: group by the code
         # hash every issue carries (Issue.bytecode_hash; Issue.address is the

@@ -15,6 +15,7 @@ from typing import List, Mapping, Optional, Set, Tuple
 
 from mythril_tpu_torch.analysis.report import Issue
 from mythril_tpu_torch.core.state.global_state import GlobalState
+from mythril_tpu_torch.observability import tracer as _otrace
 
 log = logging.getLogger(__name__)
 
@@ -96,9 +97,21 @@ class DetectionModule:
         return address, code_hash
 
     def execute(self, target) -> Optional[List[Issue]]:
-        """Entry point called by the engine hook or fire_lasers."""
+        """Entry point called by the engine hook or fire_lasers.
+
+        This runs once per hooked opcode per state, so the tracing hook
+        must stay one attribute check when the tracer is disabled.
+        """
         log.debug("entering module %s", type(self).__name__)
-        result = self._execute(target)
+        if not _otrace.get_tracer().enabled:
+            result = self._execute(target)
+        else:
+            with _otrace.span(
+                "module." + type(self).__name__, cat="analysis"
+            ) as sp:
+                result = self._execute(target)
+                if result:
+                    sp.set(issues=len(result))
         if result:
             self.issues.extend(result)
             self.update_cache(result)

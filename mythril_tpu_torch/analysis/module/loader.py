@@ -52,13 +52,16 @@ class ModuleLoader(metaclass=Singleton):
         if entry_point:
             result = [m for m in result if m.entry_point == entry_point]
         if static_view is not None and entry_point == EntryPoint.CALLBACK:
-            from mythril_tpu_torch.staticpass import count, filter_modules
+            from mythril_tpu_torch.observability import get_registry
+            from mythril_tpu_torch.staticpass import filter_modules
 
             result, skipped = filter_modules(result, static_view)
             if skipped:
-                count("modules_skipped", len(skipped))
-                count("hooks_elided",
-                      sum(len(m.pre_hooks) + len(m.post_hooks) for m in skipped))
+                reg = get_registry()
+                reg.counter("staticpass.modules_skipped").inc(len(skipped))
+                reg.counter("staticpass.hooks_elided").inc(
+                    sum(len(m.pre_hooks) + len(m.post_hooks) for m in skipped)
+                )
         return result
 
     def load_custom_modules(self, directory: str) -> None:

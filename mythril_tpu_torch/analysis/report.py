@@ -4,10 +4,12 @@ Reference parity: mythril/analysis/report.py:21-341 — Issue with source-map
 resolution and function-name resolution, Report with the four output formats
 (jsonv2 kept structurally compatible: issues sorted by (swc-id, address),
 extra.discoveryTime, sourceMap/sourceList fields).  The port's jsonv2 meta
-carries the execution info, the exploration ledger (``meta.exploration``)
-and the static pass's rollup (``meta.staticpass``); the observability,
-prefilter, devsolver, health, device and frontier rollups come with the
-surfaces that own them.
+carries the JAX package's blocks: the execution info, the metrics snapshot
+(``meta.observability``, with the trace summary when tracing was on), the
+prefilter's and the devsolver's rollups, the exploration ledger, the static
+pass's rollup, the device plane (``meta.device``) and the frontier's
+isolation and paging rollup; ``meta.health`` comes with the watchtower
+(ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -240,10 +242,20 @@ class Report:
             meta["mythril_execution_info"] = {}
             for ei in self.execution_info:
                 meta["mythril_execution_info"].update(ei.as_dict())
+        # full metrics snapshot (and trace summary when tracing was on):
+        # the machine-readable per-stage breakdown next to the execution
+        # info rollups
+        from mythril_tpu_torch.observability import observability_meta
+        from mythril_tpu_torch.observability.deviceplane import device_meta
         from mythril_tpu_torch.observability.exploration import exploration_meta
 
+        meta["observability"] = observability_meta()
+        meta["prefilter"] = _prefilter_meta()
+        meta["devsolver"] = _devsolver_meta()
         meta["exploration"] = exploration_meta()
         meta["staticpass"] = _staticpass_meta()
+        meta["device"] = device_meta()
+        meta["frontier"] = _frontier_meta()
         result = [
             {
                 "issues": sorted(_issues, key=lambda k: k["swcID"]),
@@ -266,6 +278,64 @@ def _staticpass_meta() -> dict:
         return staticpass_meta()
     except Exception:  # reporting must never fail the report
         return {}
+
+
+def _prefilter_meta() -> dict:
+    """Abstract pre-filter rollup for report ``meta`` (kill-rate at a
+    glance; the full counter set lives under meta.observability)."""
+    from mythril_tpu_torch.observability import get_registry
+
+    reg = get_registry()
+    evaluated = reg.counter("prefilter.evaluated").value or 0
+    killed = reg.counter("prefilter.killed").value or 0
+    return {
+        "evaluated": evaluated,
+        "killed": killed,
+        "fallthrough": reg.counter("prefilter.fallthrough").value or 0,
+        "kill_rate": round(killed / evaluated, 4) if evaluated else 0.0,
+    }
+
+
+def _devsolver_meta() -> dict:
+    """Device SAT tier rollup for report ``meta`` — decide-rate at a
+    glance (decided / admitted; admission denials are not attempts)."""
+    from mythril_tpu_torch.observability import get_registry
+
+    reg = get_registry()
+    admitted = reg.counter("devsolver.admitted").value or 0
+    sat = reg.counter("devsolver.decided_sat").value or 0
+    unsat = reg.counter("devsolver.decided_unsat").value or 0
+    return {
+        "admitted": admitted,
+        "decided_sat": sat,
+        "decided_unsat": unsat,
+        "unknown": reg.counter("devsolver.unknown").value or 0,
+        "model_validation_failures": reg.counter(
+            "devsolver.model_validation_failures").value or 0,
+        "kernel_wall_s": round(
+            float(reg.counter("devsolver.kernel_wall_s").value or 0.0), 4),
+        "decide_rate": round((sat + unsat) / admitted, 4) if admitted else 0.0,
+    }
+
+
+def _frontier_meta() -> dict:
+    """Large-code frontier rollup for report ``meta`` — pad economics and
+    paging pressure at a glance (bucket classes, pad-waste after
+    isolation vs the single-bucket counterfactual, fault/repack counts
+    and the resident fraction of paged codes)."""
+    from mythril_tpu_torch.observability import get_registry
+
+    reg = get_registry()
+    return {
+        "bucket_classes": reg.gauge("frontier.bucket_classes").value or 0,
+        "pad_waste_pct": reg.gauge("frontier.pad_waste_pct").value or 0.0,
+        "pad_waste_single_bucket_pct": reg.gauge(
+            "frontier.pad_waste_single_bucket_pct").value or 0.0,
+        "page_faults": reg.counter("frontier.page_faults").value or 0,
+        "page_repacks": reg.counter("frontier.page_repacks").value or 0,
+        "page_resident_pct": reg.gauge(
+            "frontier.page_resident_pct").value or 100.0,
+    }
 
 
 def _swc_title(swc_id: str) -> str:

@@ -11,6 +11,7 @@ from typing import List, Optional
 from mythril_tpu_torch.analysis.module.base import EntryPoint
 from mythril_tpu_torch.analysis.module.loader import ModuleLoader
 from mythril_tpu_torch.analysis.report import Issue
+from mythril_tpu_torch.observability import tracer as _otrace
 
 log = logging.getLogger(__name__)
 
@@ -28,13 +29,14 @@ def retrieve_callback_issues(white_list: Optional[List[str]] = None) -> List[Iss
 def fire_lasers(statespace, white_list: Optional[List[str]] = None) -> List[Issue]:
     log.info("Starting analysis")
     issues: List[Issue] = []
-    for module in ModuleLoader().get_detection_modules(
-        entry_point=EntryPoint.POST, white_list=white_list
-    ):
-        log.info("Executing %s", module.name)
-        result = module.execute(statespace)
-        if result:
-            issues.extend(result)
+    with _otrace.span("analysis.post_modules", cat="analysis"):
+        for module in ModuleLoader().get_detection_modules(
+            entry_point=EntryPoint.POST, white_list=white_list
+        ):
+            log.info("Executing %s", module.name)
+            result = module.execute(statespace)
+            if result:
+                issues.extend(result)
     issues.extend(retrieve_callback_issues(white_list))
     return issues
 

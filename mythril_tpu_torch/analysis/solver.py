@@ -19,6 +19,7 @@ from mythril_tpu_torch.core.transaction.transaction_models import (
     ContractCreationTransaction,
 )
 from mythril_tpu_torch.exceptions import UnsatError
+from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.smt import UGE, ULE, symbol_factory
 from mythril_tpu_torch.smt.solver import Model
 from mythril_tpu_torch.support.model import get_model
@@ -51,11 +52,12 @@ def get_transaction_sequence(
         transaction_sequence, constraints.copy(), [], 5000, global_state.world_state
     )
     # issue confirmation is one of the query cache's entry points: the
-    # solve below flows through the solver's cache hook, and the hits it
-    # took are counted under "confirm"
+    # solve below flows through the solver's cache hook; the span records
+    # how much of it the cache absorbed
     from mythril_tpu_torch.querycache.cache import entry_hits
 
-    with entry_hits("confirm"):
+    with _otrace.span("analysis.confirm_solve", cat="analysis") as sp, \
+            entry_hits("confirm", sp):
         model = get_model(
             tx_constraints,
             minimize=minimize,

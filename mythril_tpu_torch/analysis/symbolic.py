@@ -42,6 +42,7 @@ from mythril_tpu_torch.core.strategy.extensions.bounded_loops import BoundedLoop
 from mythril_tpu_torch.core.svm import LaserEVM
 from mythril_tpu_torch.core.transaction.symbolic import ACTORS
 from mythril_tpu_torch.device import DeviceLike, resolve
+from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.plugins.loader import LaserPluginLoader
 from mythril_tpu_torch.plugins.plugins.call_depth_limiter import CallDepthLimitBuilder
 from mythril_tpu_torch.plugins.plugins.coverage import CoveragePluginBuilder
@@ -55,9 +56,13 @@ log = logging.getLogger(__name__)
 
 @contextlib.contextmanager
 def analysis_device(device):
-    """``args.device`` set to ``device`` for the body, restored after."""
+    """``args.device`` set to ``device`` for the body, restored after; the
+    device plane notes its type (the report's ``meta.device.backend``)."""
+    from mythril_tpu_torch.observability.deviceplane import note_backend
+
     saved = args.device
     args.device = device
+    note_backend(device)
     try:
         yield
     finally:
@@ -129,6 +134,14 @@ class SymExecWrapper:
             plugin_loader.load(CallDepthLimitBuilder())
             if args.enable_iprof:
                 plugin_loader.load(InstructionProfilerBuilder())
+            self._benchmark_plugin = None
+            if args.benchmark_path:
+                # instantiated directly (not via the loader) so the series can
+                # be written out after execution
+                from mythril_tpu_torch.plugins.plugins.benchmark import BenchmarkPlugin
+
+                self._benchmark_plugin = BenchmarkPlugin()
+                self._benchmark_plugin.initialize(self.laser)
             plugin_loader.add_args("call-depth-limit", call_depth_limit=args.call_depth_limit)
             if not disable_dependency_pruning:
                 plugin_loader.load(DependencyPrunerBuilder())
@@ -187,28 +200,31 @@ class SymExecWrapper:
                 return
 
             # execute (creation vs runtime, reference symbolic.py:168-220)
-            if isinstance(contract, (bytes, bytearray)):
-                # raw runtime bytecode
-                from mythril_tpu_torch.frontend.disassembler import Disassembly
+            with _otrace.span("analysis.sym_exec", cat="analysis"):
+                if isinstance(contract, (bytes, bytearray)):
+                    # raw runtime bytecode
+                    from mythril_tpu_torch.frontend.disassembler import Disassembly
 
-                acct = world_state.create_account(
-                    balance=0, address=address, concrete_storage=False
-                )
-                acct.code = Disassembly(bytes(contract))
-                self.laser.sym_exec(
-                    world_state=world_state, target_address=address
-                )
-            elif getattr(contract, "creation_code", None):
-                self._exec_creation(contract, world_state)
-            else:
-                acct = world_state.create_account(
-                    balance=0, address=address, concrete_storage=False
-                )
-                acct.code = contract.disassembly
-                acct.contract_name = getattr(contract, "name", "Unknown")
-                self.laser.sym_exec(
-                    world_state=world_state, target_address=address
-                )
+                    acct = world_state.create_account(
+                        balance=0, address=address, concrete_storage=False
+                    )
+                    acct.code = Disassembly(bytes(contract))
+                    self.laser.sym_exec(
+                        world_state=world_state, target_address=address
+                    )
+                elif getattr(contract, "creation_code", None):
+                    self._exec_creation(contract, world_state)
+                else:
+                    acct = world_state.create_account(
+                        balance=0, address=address, concrete_storage=False
+                    )
+                    acct.code = contract.disassembly
+                    acct.contract_name = getattr(contract, "name", "Unknown")
+                    self.laser.sym_exec(
+                        world_state=world_state, target_address=address
+                    )
+
+            self._write_benchmark()
 
             if not requires_statespace:
                 return
@@ -218,14 +234,22 @@ class SymExecWrapper:
             self._parse_calls()
 
     def finalize(self) -> None:
-        """Deferred-run epilogue: the statespace post-processing the eager
-        constructor path does after execution.  Called by the cooperative
-        driver once its transaction loop ends."""
+        """Deferred-run epilogue: the benchmark series and the statespace
+        post-processing the eager constructor path does after execution.
+        Called by the cooperative driver once its transaction loop ends."""
+        self._write_benchmark()
         if not self.laser.requires_statespace:
             return
         self.nodes = self.laser.nodes
         self.edges = self.laser.edges
         self._parse_calls()
+
+    def _write_benchmark(self) -> None:
+        if self._benchmark_plugin is not None:
+            try:
+                self._benchmark_plugin.write_to_file(args.benchmark_path)
+            except OSError as e:
+                log.warning("could not write benchmark series: %s", e)
 
     def _exec_creation(self, contract, world_state: WorldState) -> None:
         from mythril_tpu_torch.core.transaction import symbolic as sym_tx

@@ -71,8 +71,6 @@ class FrontierStatsInfo(ExecutionInfo):
         from mythril_tpu_torch.frontier.stats import FrontierStatistics
 
         stats = FrontierStatistics().as_dict()
-        keys = ("device_instructions", "device_paths", "segments", "segment_s", "harvest_s",
-                "mid_injections", "mid_encode_failures", "semantic_parks", "parks_by_opcode",
-                "parks_by_reason")
-        # one card, no mesh: no segment ran path-sharded
-        return {"frontier": {**{k: stats[k] for k in keys}, "mesh_devices": 0}}
+        # the JAX package's keys: the port's two error counters stay out
+        return {"frontier": {k: v for k, v in stats.items()
+                             if k not in ("replay_errors", "commit_errors")}}

@@ -18,16 +18,18 @@ propagation and bounded DPLL (``device.dpll``: the CUDA kernel on the card,
 
 Entry points: ``decide_batch(rows, device)`` / ``decide(conjuncts,
 device)``; ``configure()`` sets the budgets (``support_args.args``); ``reset_state()``
-drops the verdict memo and the admission accounting.  The JAX package's
-``devsolver.*`` counters are the module integers ``admitted``,
-``decided_sat``, ``decided_unsat``, ``unknown`` and
-``model_validation_failures``.  Unsupported structure and host-side errors
+drops the verdict memo and the admission accounting.  The ``devsolver.*``
+counters (and ``devsolver.kernel_wall_s``, the host wall of the planes'
+``run_device`` calls) live in the metrics registry, as in the JAX package;
+the module attributes ``admitted``, ``decided_sat``, ``decided_unsat``,
+``unknown`` and ``model_validation_failures`` read them.  Unsupported structure and host-side errors
 of the blaster fall through; a ``DeviceError`` propagates.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
@@ -48,11 +50,8 @@ _MEMO_CAP = 8192
 _memo: "OrderedDict[frozenset, tuple]" = OrderedDict()
 _memo_lock = threading.Lock()
 
-admitted = 0
-decided_sat = 0
-decided_unsat = 0
-unknown = 0
-model_validation_failures = 0
+_COUNTER_NAMES = ("admitted", "decided_sat", "decided_unsat", "unknown",
+                  "model_validation_failures")
 
 
 def configure(bit_budget: Optional[int] = None,
@@ -75,9 +74,34 @@ def reset_state() -> None:
     admission.reset_state()
 
 
+def _counters():
+    from mythril_tpu_torch.observability import get_registry
+
+    reg = get_registry()
+    return (
+        reg.counter("devsolver.admitted"),
+        reg.counter("devsolver.decided_sat"),
+        reg.counter("devsolver.decided_unsat"),
+        reg.counter("devsolver.unknown"),
+        reg.counter("devsolver.model_validation_failures"),
+        reg.counter("devsolver.kernel_wall_s"),
+    )
+
+
+def __getattr__(name: str):
+    """The ``devsolver.*`` counters by their JAX names."""
+    if name in _COUNTER_NAMES:
+        from mythril_tpu_torch.observability import get_registry
+
+        m = get_registry()._metrics.get("devsolver." + name)
+        return m.value if m is not None else 0
+    raise AttributeError(name)
+
+
 def reset_counters() -> None:
-    global admitted, decided_sat, decided_unsat, unknown, model_validation_failures
-    admitted = decided_sat = decided_unsat = unknown = model_validation_failures = 0
+    from mythril_tpu_torch.observability import get_registry
+
+    get_registry().reset(prefix="devsolver.")
 
 
 def _memo_get(key: frozenset):
@@ -112,12 +136,12 @@ def decide_batch(conjunct_sets: Sequence[Sequence[Term]], device: DeviceLike = N
     """One (status, model) per row: ``"sat"`` (a validated ``Assignment``),
     ``"unsat"`` (exact) or ``"unknown"`` (fall through).  ``device``: None
     is the CUDA card; pass ``"cpu"`` for the plain path."""
-    global admitted, decided_sat, decided_unsat, unknown, model_validation_failures
     from mythril_tpu_torch.devsolver import admission, blaster, device as dpll_device, kernel
 
     n = len(conjunct_sets)
     results: List[Optional[tuple]] = [None] * n
     keys = [frozenset(t.tid for t in cs) for cs in conjunct_sets]
+    c_adm, c_sat, c_unsat, c_unk, c_badmodel, c_wall = _counters()
     point = admission.current_point()
 
     fresh: List[int] = []
@@ -137,29 +161,29 @@ def decide_batch(conjunct_sets: Sequence[Sequence[Term]], device: DeviceLike = N
     for i in list(fresh):
         if not admission.policy.admit(point):
             results[i] = (UNKNOWN, None)
-            unknown += 1
+            c_unk.inc()
             fresh.remove(i)
             continue
-        admitted += 1
+        c_adm.inc()
         try:
             b = blaster.blast(list(conjunct_sets[i]), bit_budget=args.devsolver_bit_budget)
         except Unsupported:
             results[i] = (UNKNOWN, None)
             _memo_put(keys[i], (UNKNOWN, None))
-            unknown += 1
+            c_unk.inc()
             admission.policy.note(point, decided=False)
             fresh.remove(i)
             continue
         except Exception:  # host-side structure the blaster does not take
             results[i] = (UNKNOWN, None)
-            unknown += 1
+            c_unk.inc()
             admission.policy.note(point, decided=False)
             fresh.remove(i)
             continue
         if b.verdict == UNSAT:
             results[i] = (UNSAT, None)
             _memo_put(keys[i], (UNSAT, None))
-            decided_unsat += 1
+            c_unsat.inc()
             admission.policy.note(point, decided=True)
             fresh.remove(i)
             continue
@@ -174,7 +198,9 @@ def decide_batch(conjunct_sets: Sequence[Sequence[Term]], device: DeviceLike = N
         n_vars = max(blasted[i].n_vars for i in idx)
         plane = kernel.pack_plane(
             [(blasted[i].clauses, blasted[i].dec_vars) for i in idx], n_vars)
+        t0 = time.perf_counter()
         status, assign = dpll_device.run_device(plane, args.devsolver_iters, dev)
+        c_wall.inc(round(time.perf_counter() - t0, 6))
 
         for qi, i in enumerate(idx):
             if int(status[qi]) == kernel.UNSAT_Q:
@@ -187,7 +213,7 @@ def decide_batch(conjunct_sets: Sequence[Sequence[Term]], device: DeviceLike = N
                     # abstracted one it is the expected fallthrough
                     if (blasted[i].projected == 0 and blasted[i].truncated == 0
                             and not blasted[i].abstracted):
-                        model_validation_failures += 1
+                        c_badmodel.inc()
                     verdict = (UNKNOWN, None)
                 else:
                     verdict = (SAT, asg)
@@ -197,11 +223,11 @@ def decide_batch(conjunct_sets: Sequence[Sequence[Term]], device: DeviceLike = N
             _memo_put(keys[i], verdict)
             admission.policy.note(point, decided=verdict[0] in (SAT, UNSAT))
             if verdict[0] == SAT:
-                decided_sat += 1
+                c_sat.inc()
             elif verdict[0] == UNSAT:
-                decided_unsat += 1
+                c_unsat.inc()
             else:
-                unknown += 1
+                c_unk.inc()
 
     out: List[Tuple[str, Optional[object]]] = []
     for i in range(n):

@@ -23,12 +23,10 @@ import traceback
 from dataclasses import dataclass
 from typing import List, Optional
 
-from mythril_tpu_torch import absdomain, devsolver
 from mythril_tpu_torch.analysis.report import Issue, Report
 from mythril_tpu_torch.analysis.security import fire_lasers, retrieve_callback_issues
 from mythril_tpu_torch.analysis.symbolic import SymExecWrapper, analysis_device
 from mythril_tpu_torch.device import DeviceLike, is_device_fault, resolve
-from mythril_tpu_torch.frontier.stats import FrontierStatistics
 from mythril_tpu_torch.smt.solver import SolverStatistics
 from mythril_tpu_torch.support.support_args import args
 
@@ -55,6 +53,7 @@ class AnalyzerArgs:
     sparse_pruning: bool = False
     solver_log: Optional[str] = None
     enable_iprof: bool = False
+    benchmark_path: Optional[str] = None
     enable_coverage_strategy: bool = False
     custom_modules_directory: str = ""
     probe_backend: str = "auto"
@@ -147,8 +146,17 @@ class MythrilAnalyzer:
         return generate_graph(sym, physics=enable_physics, phrackify=phrackify)
 
     def fire_lasers(self, modules: Optional[List[str]] = None) -> Report:
-        with analysis_device(self.device):
-            all_issues, exceptions, execution_info = self._fire_lasers_loop(modules)
+        from mythril_tpu_torch.frontier.engine import reset_isolation_gauges
+
+        reset_isolation_gauges()
+        SolverStatistics().enabled = True
+        benchmark_base = args.benchmark_path
+        try:
+            with analysis_device(self.device):
+                all_issues, exceptions, execution_info = self._fire_lasers_loop(
+                    modules, benchmark_base)
+        finally:
+            args.benchmark_path = benchmark_base
         report = Report(
             contracts=self.contracts,
             exceptions=exceptions,
@@ -158,7 +166,7 @@ class MythrilAnalyzer:
             report.append_issue(issue)
         return report
 
-    def _fire_lasers_loop(self, modules):
+    def _fire_lasers_loop(self, modules, benchmark_base):
         from mythril_tpu_torch.core.execution_info import (
             CalibrationInfo,
             EngineStatsInfo,
@@ -170,7 +178,10 @@ class MythrilAnalyzer:
         all_issues: List[Issue] = []
         exceptions = []
         execution_info = []
-        for contract in self.contracts:
+        for n_contract, contract in enumerate(self.contracts):
+            if benchmark_base and len(self.contracts) > 1:
+                # one series file per contract instead of silent overwrites
+                args.benchmark_path = f"{benchmark_base}.{n_contract}"
             # the counters are process-wide: without a per-contract reset,
             # contract N's report would count the earlier contracts too;
             # reset_analysis_metrics also sweeps the exploration ledger's
@@ -178,10 +189,6 @@ class MythrilAnalyzer:
             from mythril_tpu_torch.observability import reset_analysis_metrics
 
             reset_analysis_metrics()
-            SolverStatistics().reset()
-            FrontierStatistics().reset()
-            absdomain.reset_counters()
-            devsolver.reset_counters()
             try:
                 sym = self._sym_exec(contract)
                 issues = fire_lasers(sym, modules or self.cmd_args.modules)

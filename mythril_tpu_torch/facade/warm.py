@@ -30,6 +30,7 @@ def apply_analyzer_args(cmd_args) -> None:
     args.sparse_pruning = cmd_args.sparse_pruning
     args.solver_log = cmd_args.solver_log
     args.enable_iprof = cmd_args.enable_iprof
+    args.benchmark_path = cmd_args.benchmark_path
     if cmd_args.probe_backend not in PROBE_BACKENDS:
         raise ValueError(
             f"probe backend {cmd_args.probe_backend!r}: the port has {', '.join(PROBE_BACKENDS)}"

@@ -274,6 +274,10 @@ class HostArena:
         self.val[lo:hi] = val
         self.isconst[lo:hi] = isconst.astype(bool)
         self.length = hi
+        # a blocking point: publish the device-time stamps it completed
+        from mythril_tpu_torch.observability import deviceplane
+
+        deviceplane.settle()
 
     # ------------------------------------------------------------------
     # decode: arena row -> host term

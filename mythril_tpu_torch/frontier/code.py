@@ -1,9 +1,5 @@
 """Per-instruction dispatch tables: bytecode -> dense device tables.
 
-A copy of ``mythril_tpu/frontier/code.py`` (numpy only); the static-pass
-counters that module publishes to the JAX package's metrics registry
-count into ``staticpass.COUNTERS`` here.
-
 The host pre-decodes the instruction stream once per contract (the analogue of
 ``Disassembly`` feeding the host engine's dispatch,
 mythril_tpu_torch/core/svm.py:274-317) into flat numpy tables indexed by
@@ -164,11 +160,15 @@ class CodeTables:
                 self.static_target[i] = static_summary.static_target[i]
 
         if events_pruned:
-            from mythril_tpu_torch.staticpass import count
+            from mythril_tpu_torch.observability import get_registry
 
-            count("events_pruned", events_pruned)
+            get_registry().counter("staticpass.events_pruned").inc(
+                events_pruned
+            )
             if jumpi_events_pruned:
-                count("jumpi_events_pruned", jumpi_events_pruned)
+                get_registry().counter(
+                    "staticpass.jumpi_events_pruned"
+                ).inc(jumpi_events_pruned)
 
         # reachable-edge oracle accounting: JUMPI edges the interprocedural
         # layer proved dead (constant-folded condition or invalid/unreachable
@@ -187,9 +187,11 @@ class CodeTables:
                 if ins.opcode == "JUMPI":
                     edges_dead += int(not taken_live[i]) + int(not fall_live[i])
             if edges_dead:
-                from mythril_tpu_torch.staticpass import count
+                from mythril_tpu_torch.observability import get_registry
 
-                count("jumpi_edges_pruned", edges_dead)
+                get_registry().counter(
+                    "staticpass.jumpi_edges_pruned"
+                ).inc(edges_dead)
 
         # implicit STOP past the end of code (reference svm.py:281-284)
         self.fam[n] = O.F_STOP

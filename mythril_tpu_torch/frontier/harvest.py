@@ -32,13 +32,16 @@ package's ``HarvestExecutor`` runs it:
 are reported to its correction ledger and feasibility checks go to its
 background pool (``engine._prune_running``).  Every path that retires
 through the commit is stamped with its termination class in the
-exploration ledger (``classify_termination``), as in the JAX package; the
-harvest's phase spans and histograms come with ROADMAP item 13.
+exploration ledger (``classify_termination``), as in the JAX package, and
+each phase has the JAX package's span and ``frontier.harvest.*_s``
+histogram; a replay worker's span finishes the flow arrow its submit
+started.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, Optional
 
@@ -49,7 +52,9 @@ from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.records import PathRecord, snapshot_slot
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
 from mythril_tpu_torch.frontier.stats import FrontierStatistics
+from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.observability.exploration import get_exploration_ledger
+from mythril_tpu_torch.observability.metrics import get_registry as _get_metrics
 from mythril_tpu_torch.support.support_args import args
 
 log = logging.getLogger(__name__)
@@ -176,6 +181,18 @@ def _replay_group(walker, recs: List[PathRecord]) -> None:
             rec._replay_err = e
 
 
+def _replay_traced(walker, recs: List[PathRecord], sid: int = -1,
+                   fid: Optional[int] = None) -> None:
+    """``_replay_group`` in a ``frontier.replay`` span on the worker's
+    thread: the span carries the segment id and finishes the flow arrow the
+    harvest thread started when it submitted this laser's work."""
+    with _otrace.span("frontier.replay", cat="frontier", segment=sid,
+                      paths=len(recs)):
+        if fid is not None:
+            _otrace.get_tracer().flow("f", fid, "flow.replay", cat="frontier")
+        _replay_group(walker, recs)
+
+
 # The replay pool is process-wide and persistent (spawning threads per
 # harvest would cost more than short replays take); it is resized lazily
 # when --harvest-workers changes between analyses
@@ -224,16 +241,27 @@ class HarvestExecutor:
         """Full harvest of one pulled segment."""
         eng = self.engine
         caps = eng.caps
+        reg = _get_metrics()
         stats = FrontierStatistics()
+        sid = getattr(pipe, "current_sid", -1) if pipe is not None else -1
 
-        ingest_events(st, records, ev_seen)
-        attribute_steps(st, records, walker)
+        t0 = time.perf_counter()
+        with _otrace.span("frontier.harvest.ingest", cat="frontier",
+                          segment=sid):
+            ingest_events(st, records, ev_seen)
+            attribute_steps(st, records, walker)
+        t1 = time.perf_counter()
+        reg.observe("frontier.harvest.ingest_s", t1 - t0)
 
         # feasibility prune + mutation-check prefetch: batched solver work
         # (the pipelined path submits to the background pool instead)
-        if not args.sparse_pruning:
-            eng._prune_running(st, records, walker, ev_seen, pipe)
-        eng._prefetch_mutation_checks(st, records, walker)
+        with _otrace.span("frontier.harvest.solver", cat="solver",
+                          segment=sid):
+            if not args.sparse_pruning:
+                eng._prune_running(st, records, walker, ev_seen, pipe)
+            eng._prefetch_mutation_checks(st, records, walker)
+        t2 = time.perf_counter()
+        reg.observe("frontier.harvest.solver_s", t2 - t1)
 
         # decide finishing slots in slot order: a pending-fork resume sees
         # exactly the slots already free plus earlier finishing slots
@@ -288,24 +316,47 @@ class HarvestExecutor:
             finishing.append(slot)
             free_cnt += 1
 
-        # replay: shard by owning laser, slot order within each shard
+        # replay: shard by owning laser, slot order within each shard (one
+        # device: the JAX package's (device, laser) shard is the laser's)
+        t3 = time.perf_counter()
         pool = _shared_pool(self.workers)
         if pool is not None and finishing:
             by_laser: Dict[int, List[PathRecord]] = {}
             for slot in finishing:
                 rec = records[slot]
                 by_laser.setdefault(id(walker.laser_for(rec)), []).append(rec)
-            futs = [pool.submit(_replay_group, walker, recs)
-                    for recs in by_laser.values()]
+            tracer = _otrace.get_tracer()
+            futs = []
+            for recs in by_laser.values():
+                fid = None
+                if tracer.enabled:
+                    # flow arrow: this harvest slice -> the worker's replay
+                    # span (emitted before submit so "s" precedes "f")
+                    fid = tracer.new_flow_id()
+                    tracer.flow("s", fid, "flow.replay", cat="frontier")
+                futs.append(pool.submit(_replay_traced, walker, recs, sid, fid))
             # every shard finishes before a device fault unwinds the harvest
             wait(futs)
             for f in futs:
                 f.result()
+            reg.counter("frontier.harvest.replay_shards").inc(len(by_laser))
+            reg.counter("frontier.harvest.device_laser_shards").inc(len(by_laser))
+            reg.counter("frontier.harvest.sharded_paths").inc(len(finishing))
         else:
-            _replay_group(walker, [records[slot] for slot in finishing])
+            _replay_traced(walker, [records[slot] for slot in finishing], sid)
+        t4 = time.perf_counter()
+        reg.observe("frontier.harvest.replay_s", t4 - t3)
 
         # commit: calling thread, slot order — park routing, slot
         # recycling, ledger touches, termination stamps
+        with _otrace.span("frontier.harvest.commit", cat="frontier",
+                          segment=sid, paths=len(finishing)):
+            self._commit(st, records, walker, ev_seen, pipe, finishing)
+        reg.observe("frontier.harvest.commit_s", time.perf_counter() - t4)
+
+    @staticmethod
+    def _commit(st, records, walker, ev_seen, pipe, finishing) -> None:
+        stats = FrontierStatistics()
         led = get_exploration_ledger()
         for slot in finishing:
             rec = records[slot]

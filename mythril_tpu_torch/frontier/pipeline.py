@@ -71,9 +71,12 @@ path (a pooled carrier is never also on a work list or in a slot), and the
 stamped with their termination class in the exploration ledger, and the
 feasibility pool attributes each solve's wall time to its program point.
 The mesh's rebalance and per-shard accounting come with the mesh (ROADMAP
-item 12).  The JAX package's tracer spans, flight recorder, heartbeat and
-device-plane calls come with the observability surface (item 13); its
-``pipeline.*`` metrics are the module state ``COUNTERS`` here.
+item 12).  The tracer's spans and flows and the device plane's scope,
+stamps and analysis are the JAX package's; the ``pipeline.*`` metrics
+live in the registry (``COUNTERS`` is a view of the counters by name
+without the prefix).  The queue-depth gauges the JAX package's heartbeat
+samples every 0.5 s are sampled once, when the run ends (the heartbeat and
+the flight recorder are item 13).
 """
 
 from __future__ import annotations
@@ -92,36 +95,32 @@ from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.records import PathRecord
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
 from mythril_tpu_torch.frontier.stats import FrontierStatistics
+from mythril_tpu_torch.observability import deviceplane as _devplane
+from mythril_tpu_torch.observability import tracer as _otrace
+from mythril_tpu_torch.observability import views
+from mythril_tpu_torch.observability.metrics import get_registry as _get_metrics
 from mythril_tpu_torch.support.support_args import args
 from mythril_tpu_torch.support.time_handler import time_handler
 
 log = logging.getLogger(__name__)
 
-# the JAX package's ``pipeline.*`` counters, by the same names (module
-# state: the port has no metrics registry); ``count`` is safe under the
-# pool's threads
+# the JAX package's ``pipeline.*`` counters; ``count`` is one registry
+# increment, safe under the pool's threads
 _COUNTER_NAMES = (
     "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
     "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
     "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
     "reinject_queued", "reinjected", "adaptive_parked",
 )
-COUNTERS: Dict[str, float] = {}
-_counter_lock = threading.Lock()
+COUNTERS = views.CounterView("pipeline.", _COUNTER_NAMES)
 
 
 def count(name: str, n=1) -> None:
-    with _counter_lock:
-        COUNTERS[name] += n
+    _get_metrics().counter("pipeline." + name).inc(n)
 
 
 def reset_counters() -> None:
-    with _counter_lock:
-        for name in _COUNTER_NAMES:
-            COUNTERS[name] = 0.0 if name.endswith("_s") else 0
-
-
-reset_counters()
+    _get_metrics().reset(prefix="pipeline.")
 
 
 class CorrectionLedger:
@@ -222,7 +221,8 @@ class FeasibilityPool:
         self._fault: Optional[BaseException] = None
 
     def submit(self, slot: int, rec, n_cons: int, raws, key: frozenset,
-               verdict: Optional[bool] = None, point: str = "") -> None:
+               sid: int = -1, verdict: Optional[bool] = None,
+               point: str = "") -> None:
         """Queue a feasibility check.  ``verdict=False`` means the abstract
         pre-filter already PROVED the query UNSAT: no worker runs, and the
         verdict is published to EVERY waiter deduplicated under ``key`` —
@@ -253,29 +253,40 @@ class FeasibilityPool:
                 return
             self._inflight[key] = [(slot, rec, n_cons)]
         count("pool_submitted")
-        self._executor.submit(self._work, key, raws, point)
+        tracer = _otrace.get_tracer()
+        fid = None
+        if tracer.enabled:
+            # flow arrow: harvest slice (caller's thread) -> worker span
+            fid = tracer.new_flow_id()
+            tracer.flow("s", fid, "flow.feasibility", cat="solver")
+        self._executor.submit(self._work, key, raws, sid, fid, point)
 
-    def _work(self, key: frozenset, raws, point: str = "") -> None:
+    def _work(self, key: frozenset, raws, sid: int = -1,
+              fid: Optional[int] = None, point: str = "") -> None:
         from mythril_tpu_torch.devsolver.admission import point_context
         from mythril_tpu_torch.observability.exploration import (
             get_exploration_ledger,
         )
         from mythril_tpu_torch.smt import solver
 
-        statuses: list = []
-        t0 = time.perf_counter()
-        try:
-            with self._solver_lock, point_context(point):
-                ok = bool(solver.check_satisfiable_batch(
-                    [raws], statuses_out=statuses, device=self._device)[0])
-        except Exception as e:
-            with self._lock:
-                if self._fault is None:
-                    self._fault = e
-            return
-        if point:
-            get_exploration_ledger().record_solver_time(
-                point, time.perf_counter() - t0)
+        with _otrace.span("pipeline.feasibility", cat="solver", segment=sid):
+            if fid is not None:
+                _otrace.get_tracer().flow("f", fid, "flow.feasibility",
+                                          cat="solver")
+            statuses: list = []
+            t0 = time.perf_counter()
+            try:
+                with self._solver_lock, point_context(point):
+                    ok = bool(solver.check_satisfiable_batch(
+                        [raws], statuses_out=statuses, device=self._device)[0])
+            except Exception as e:
+                with self._lock:
+                    if self._fault is None:
+                        self._fault = e
+                return
+            if point:
+                get_exploration_ledger().record_solver_time(
+                    point, time.perf_counter() - t0)
         why = statuses[0] if statuses else ("sat" if ok else "unsat")
         with self._lock:
             self._done.append((key, ok, why))
@@ -421,6 +432,57 @@ class PipelinedRunner:
         self.max_live = 0
         self.slow_bailed = False
         self.width_verdict_valid = True
+        # one device: the path axis is one shard (the mesh is item 12)
+        self.n_shards = 1
+
+        # trace correlation: every dispatch (full or chained) gets a
+        # monotonic segment id that its pull, harvest, replay and
+        # feasibility spans all carry, plus a flow id linking the dispatch
+        # slice to the host work it produced (s at dispatch, t at pull,
+        # f at harvest)
+        self.seg_uid = -1
+        self.current_sid = -1  # sid of the segment being harvested
+        self._seg_flow: Dict[int, int] = {}
+        self._last_dispatch_sid = -1
+        self._full_args = None  # the last full dispatch's inputs (microbench)
+
+    def _begin_dispatch(self) -> int:
+        self.seg_uid += 1
+        sid = self.seg_uid
+        self._last_dispatch_sid = sid
+        tracer = _otrace.get_tracer()
+        if tracer.enabled:
+            self._seg_flow[sid] = tracer.new_flow_id()
+        return sid
+
+    # -- queue depths --------------------------------------------------
+
+    def _heartbeat_sample(self) -> dict:
+        """The queue depths the JAX package's heartbeat samples."""
+        B = self.caps.B
+        live, free = self._slot_masks()
+        sample = {
+            "pipeline.pool_queue_depth": self.pool.pending(),
+            "pipeline.ledger_pending_corrections": int(
+                self.ledger.corr_mask.sum()
+            ),
+            "pipeline.reinject_queue_depth": len(self.reinject_q),
+            "pipeline.seed_queue_depth": len(self.seed_queue),
+            "frontier.arena_occupancy": int(self.arena.length),
+            "frontier.live_paths": int(live.sum()),
+        }
+        n_sh = self.n_shards
+        if n_sh >= 1 and B % max(n_sh, 1) == 0:
+            sz = B // n_sh
+            sample["pipeline.free_slots_by_shard"] = {
+                f"shard{i}": int(free[i * sz:(i + 1) * sz].sum())
+                for i in range(n_sh)
+            }
+            sample["pipeline.live_slots_by_shard"] = {
+                f"shard{i}": int(live[i * sz:(i + 1) * sz].sum())
+                for i in range(n_sh)
+            }
+        return sample
 
     # -- walker park sink: catch re-runnable spills ---------------------
 
@@ -548,7 +610,9 @@ class PipelinedRunner:
                         _beam_importance(self.seeds[si]) if self.beam else 0,
                         static=self.statics[si])
             if self.mid_enc[si] is not None:
-                eng._apply_mid(self.st, slot, self.mid_enc[si])
+                with _otrace.span("frontier.mid_inject", cat="frontier",
+                                  seed=si):
+                    eng._apply_mid(self.st, slot, self.mid_enc[si])
                 FrontierStatistics().count("mid_injections")
             self.records[slot] = PathRecord(seed_idx=si)
             self.ev_seen[slot] = 0
@@ -682,19 +746,30 @@ class PipelinedRunner:
 
     def _dispatch_full(self):
         """Full push of the host mirror (dispatch 0 and sync points), on
-        the segment stream.  -> (outputs, the event behind the segment)."""
+        the segment stream.  -> (outputs, the event behind the segment).
+        The segment's device time is stamped on the segment stream; the
+        bucket's first dispatch harvests the allocator's peak."""
         from mythril_tpu_torch.frontier.step import push_state
 
+        sid = self._begin_dispatch()
         cfg = self._ramped_cfg()
-        with self.streams.dispatching():
-            st_dev = push_state(self.st, device=self.device)
-            self.ledger.consume_all()
-            # every free slot is exposed to the device again
-            for slot in range(self.caps.B):
-                self.ledger.device_owned[slot] = self.records[slot] is None
-            out = self.segment(st_dev, self.dev_arena, self.arena_len,
-                               self.visited, self.code_dev, cfg)
-            event = self.streams.mark()
+        with _otrace.span("frontier.dispatch", cat="device", segment=sid,
+                          full=True, shards=self.n_shards):
+            self._emit_dispatch_flow(sid)
+            with self.streams.dispatching():
+                st_dev = push_state(self.st, device=self.device)
+                self.ledger.consume_all()
+                # every free slot is exposed to the device again
+                for slot in range(self.caps.B):
+                    self.ledger.device_owned[slot] = self.records[slot] is None
+                self._full_args = (st_dev, self.dev_arena, self.arena_len,
+                                   self.visited, self.code_dev, cfg)
+                with _devplane.harvest_analysis(self.device,
+                                                _devplane.current_bucket()):
+                    stamp = _devplane.stamp_begin(self.device)
+                    out = self.segment(*self._full_args)
+                    _devplane.stamp_end(stamp, "frontier.segment_device_s")
+                event = self.streams.mark()
         return out, event
 
     def _chain(self, inflight):
@@ -703,14 +778,23 @@ class PipelinedRunner:
         event behind the segment)."""
         from mythril_tpu_torch.frontier.step import chain_dispatch
 
+        sid = self._begin_dispatch()
         cfg = self._ramped_cfg()
-        with self.streams.dispatching():
-            mask = self.ledger.consume(self.st.seed)
-            out = chain_dispatch(self.segment, inflight, self.st, mask,
-                                 self.code_dev, cfg)
-            event = self.streams.mark()
+        with _otrace.span("frontier.dispatch", cat="device", segment=sid,
+                          chained=True, shards=self.n_shards):
+            self._emit_dispatch_flow(sid)
+            with self.streams.dispatching():
+                mask = self.ledger.consume(self.st.seed)
+                out = chain_dispatch(self.segment, inflight, self.st, mask,
+                                     self.code_dev, cfg, segment_id=sid)
+                event = self.streams.mark()
         count("segments_pipelined")
         return out, event
+
+    def _emit_dispatch_flow(self, sid: int) -> None:
+        fid = self._seg_flow.get(sid)
+        if fid is not None:
+            _otrace.get_tracer().flow("s", fid, "flow.segment", cat="device")
 
     def run(self) -> None:
         from mythril_tpu_torch.frontier import engine as _eng
@@ -718,13 +802,25 @@ class PipelinedRunner:
 
         eng, caps = self.engine, self.caps
         stats = FrontierStatistics()
+        reg = _get_metrics()
         self.walker.park_sink = self._park_sink
         narrow_harvests = 0
         run_segments = 0
         stop: Optional[str] = None
+        micro_pending = bool(args.frontier_microbench and not stats.microbench)
+
+        # device plane: tag this thread's dispatches and pulls (and any
+        # kernel build they trigger) with the program's bucket shape for
+        # the duration of the run; restored in the finally below
+        _devplane.install()
+        _bucket_tag = _devplane.bucket_tag(self.program_key[1])
+        _dscope = _devplane.dispatch_scope(_bucket_tag)
+        _dscope.__enter__()
 
         t0 = time.perf_counter()
         inflight, inflight_event = self._dispatch_full()
+        inflight_sid = self._last_dispatch_sid
+        full_args = self._full_args
         dispatch_wall = time.perf_counter() - t0
         prev_st = self.st
         # while any dispatch is in flight the device owns the arena append
@@ -743,16 +839,18 @@ class PipelinedRunner:
                      ).any()
                 )
                 want_sync = bool(
-                    self.reinject_q
+                    micro_pending or self.reinject_q
                     or (self.seed_queue and free_owned)
                     or (self.adaptive_parked and free_owned)
                 )
                 nxt = None
                 nxt_event = None
+                nxt_sid = -1
                 nxt_wall = 0.0
                 if stop is None and not deadline_hit and not want_sync:
                     t_d = time.perf_counter()
                     nxt, nxt_event = self._chain(inflight)
+                    nxt_sid = self._last_dispatch_sid
                     nxt_wall = time.perf_counter() - t_d
 
                 # ---- pull: the pipeline's only blocking point, on the
@@ -761,16 +859,25 @@ class PipelinedRunner:
                  out_visited) = inflight
                 t_pull = time.perf_counter()
                 with self.streams.pulling(inflight_event):
-                    # steady state (next dispatch chained): delta pull —
-                    # the [B] scalar plane + dirty rows/events only; a sync
-                    # point follows otherwise and _dispatch_full pushes the
-                    # whole mirror, so pull everything
-                    new_st, arena_len_new, n_exec_host, seg_ml_host = (
-                        pull_harvest(
-                            out_state, out_len, n_exec, seg_ml,
-                            prev=prev_st if nxt is not None else None,
+                    with _otrace.span(
+                        "frontier.segment", cat="device", segment=inflight_sid,
+                        warm=self.program_warm, pipelined=True,
+                    ), _otrace.device_annotation("frontier.segment"):
+                        _fid = self._seg_flow.get(inflight_sid)
+                        if _fid is not None:
+                            _otrace.get_tracer().flow(
+                                "t", _fid, "flow.segment", cat="device"
+                            )
+                        # steady state (next dispatch chained): delta pull
+                        # — the [B] scalar plane + dirty rows/events only; a
+                        # sync point follows otherwise and _dispatch_full
+                        # pushes the whole mirror, so pull everything
+                        new_st, arena_len_new, n_exec_host, seg_ml_host = (
+                            pull_harvest(
+                                out_state, out_len, n_exec, seg_ml,
+                                prev=prev_st if nxt is not None else None,
+                            )
                         )
-                    )
                     bubble = time.perf_counter() - t_pull
                     self.arena.pull_from_device(out_arena, arena_len_new)
                 self.max_live = max(self.max_live, seg_ml_host)
@@ -785,10 +892,20 @@ class PipelinedRunner:
                 # harvest that overlapped it is NOT device time
                 seg_equiv = dispatch_wall + bubble
                 stats.count("segment_s", seg_equiv)
+                reg.observe("frontier.segment_wall_s", seg_equiv)
                 count("bubble_s", bubble)
                 if nxt is not None:
                     count("overlap_segments")
                 _eng._WARM_PROGRAMS.add(self.program_key)
+
+                if micro_pending and n_exec_host > 0:
+                    t_mb = time.perf_counter()
+                    with self.streams.dispatching():
+                        eng._run_microbench(
+                            self.segment, full_args, n_exec_host, new_st
+                        )
+                    self.deadline += time.perf_counter() - t_mb
+                    micro_pending = False
 
                 # ---- harvest (overlaps the in-flight nxt segment)
                 carried = self.ledger.carry_forward(new_st, prev_st)
@@ -800,8 +917,16 @@ class PipelinedRunner:
                     self.ledger.release_owned()
                 t_har = time.perf_counter()
                 self.apply_verdicts()
-                eng._harvest(self.st, self.records, self.walker,
-                             self.ev_seen, pipe=self)
+                self.current_sid = inflight_sid
+                with _otrace.span("frontier.harvest", cat="frontier",
+                                  segment=inflight_sid):
+                    _fid = self._seg_flow.pop(inflight_sid, None)
+                    if _fid is not None:
+                        _otrace.get_tracer().flow(
+                            "f", _fid, "flow.segment", cat="device"
+                        )
+                    eng._harvest(self.st, self.records, self.walker,
+                                 self.ev_seen, pipe=self)
                 self.clear_orphans()
                 for slot in range(caps.B):
                     if self.records[slot] is not None:
@@ -809,6 +934,7 @@ class PipelinedRunner:
                 self.ev_seen.fill(0)
                 har_only = time.perf_counter() - t_har
                 stats.count("harvest_s", har_only)
+                reg.observe("frontier.harvest_wall_s", har_only)
                 if nxt is not None:
                     count("overlap_s", har_only)
 
@@ -897,6 +1023,7 @@ class PipelinedRunner:
 
                 if nxt is not None:
                     inflight, inflight_event = nxt, nxt_event
+                    inflight_sid = nxt_sid
                     dispatch_wall = nxt_wall
                     continue
                 # sync point: no dispatch in flight anywhere
@@ -925,15 +1052,49 @@ class PipelinedRunner:
                 self.refill()
                 t0 = time.perf_counter()
                 inflight, inflight_event = self._dispatch_full()
+                inflight_sid = self._last_dispatch_sid
+                full_args = self._full_args
                 dispatch_wall = time.perf_counter() - t0
                 self.arena.freeze()
         finally:
+            _dscope.__exit__(None, None, None)
             self.arena.thaw()
             self.walker.park_sink = None
             self._flush_reinject_queue()
             # whatever the caller's stream reads next (the coverage planes)
             # comes after the runner's last segment and pull
             self.streams.settle()
+            # an abandoned dispatch (exception before its pull) would leave
+            # a started flow with no finish; close it so every "s" in the
+            # export has its "f"
+            if self._seg_flow:
+                tracer = _otrace.get_tracer()
+                for sid, fid in self._seg_flow.items():
+                    with tracer.span("frontier.dispatch.abandoned",
+                                     cat="device", segment=sid):
+                        tracer.flow("f", fid, "flow.segment", cat="device")
+                self._seg_flow.clear()
+            # the queue depths, sampled once at the end of the run
+            for key, val in self._heartbeat_sample().items():
+                reg.gauge(key).set(val)
+            overlap = reg.counter("pipeline.overlap_s").value
+            total_har = overlap + reg.counter("pipeline.bubble_s").value
+            if total_har > 0:
+                reg.gauge("pipeline.overlap_ratio").set(
+                    round(overlap / total_har, 4)
+                )
+            # the microbench ran at a sync point (full pull), so its
+            # bytes_pulled estimate is the full-state figure; overwrite it
+            # with the measured steady-state delta-pull average
+            mb = stats.microbench
+            pulls = reg.counter("pipeline.delta_pulls").value
+            if mb and pulls:
+                mb = dict(mb)
+                mb["bytes_pulled_meta_per_segment"] = int(
+                    reg.counter("pipeline.delta_pull_bytes").value / pulls
+                )
+                mb["delta_pull_segments"] = int(pulls)
+                stats.microbench = mb
             # last: raises a feasibility worker's exception
             self.pool.shutdown()
 

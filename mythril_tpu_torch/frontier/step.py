@@ -48,6 +48,8 @@ from mythril_tpu_torch import device as _device
 from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.code import CTX_ADDRESS, CTX_BALANCES, CTX_SEED, CTX_STORAGE
 from mythril_tpu_torch.frontier.state import Caps, FrontierState
+from mythril_tpu_torch.observability import deviceplane as _devplane
+from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.ops import bitvec as bv
 
 I32 = torch.int32
@@ -1101,8 +1103,18 @@ def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None):
     every other row is ``prev``'s.  Row and slot counts are padded to
     ``_SLOT_BUCKETS`` as in the JAX package, so the bytes counted in
     ``pipeline.COUNTERS`` (``delta_pulls``, ``delta_pull_bytes``) are its
-    bytes."""
-    return _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev)
+    bytes.
+
+    This is the frontier's blocking device->host point: the pull's device
+    time is stamped into the device plane's ``frontier.pull_device_s``
+    series (CUDA events on the current stream, host clocks on the CPU;
+    attributed to the caller's dispatch scope), and the stamps whose work
+    has completed are published here."""
+    stamp = _devplane.stamp_begin(state.pc.device)
+    out = _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev)
+    _devplane.stamp_end(stamp, "frontier.pull_device_s")
+    _devplane.settle()
+    return out
 
 
 def _scalars(state: FrontierState, arena_len, n_exec, max_live) -> torch.Tensor:
@@ -1291,7 +1303,7 @@ def _merge_corrections(prev: FrontierState, corr: FrontierState, mask) -> Fronti
 
 
 def chain_dispatch(segment, prev_out, host_state: FrontierState, corr_mask: np.ndarray,
-                   code_dev, cfg):
+                   code_dev, cfg, segment_id: int = -1):
     """Dispatch the next segment on the previous segment's outputs.
 
     ``prev_out`` is the 6-tuple a segment call returned, possibly still
@@ -1302,10 +1314,17 @@ def chain_dispatch(segment, prev_out, host_state: FrontierState, corr_mask: np.n
     previous segment's arena length in device memory.  Nothing here reads a
     device value on the host, so the call returns while the previous
     segment runs; everything is queued on the current stream, which must
-    be the one the previous segment ran on."""
+    be the one the previous segment ran on.  The segment's device time is
+    stamped into the device plane; ``segment_id`` (the runner's dispatch
+    id) only annotates the ``frontier.chain_merge`` span."""
     out_state, dev_arena, out_len, _n_exec, _max_live, visited = prev_out
     dev = out_state.pc.device
-    corr = push_state(host_state, device=dev)
-    mask = upload(np.asarray(corr_mask, dtype=bool), dev)
-    merged = _merge_corrections(out_state, corr, mask)
-    return segment(merged, dev_arena, out_len, visited, code_dev, cfg, fresh_state=True)
+    with _otrace.span("frontier.chain_merge", cat="device",
+                      segment=segment_id):
+        corr = push_state(host_state, device=dev)
+        mask = upload(np.asarray(corr_mask, dtype=bool), dev)
+        merged = _merge_corrections(out_state, corr, mask)
+        stamp = _devplane.stamp_begin(dev)
+        out = segment(merged, dev_arena, out_len, visited, code_dev, cfg, fresh_state=True)
+        _devplane.stamp_end(stamp, "frontier.segment_device_s")
+        return out

@@ -26,7 +26,11 @@ What differs from the JAX command line:
   serial harvest), ``--query-cache-dir`` adds the query cache's disk store
   and ``--staticpass-report`` writes the static pass's JSON after the run;
   ``--coverage-target`` stops exploring at a coverage bar and
-  ``--coverage-out`` writes the exploration ledger after the run.  The
+  ``--coverage-out`` writes the exploration ledger after the run.
+  ``--trace-out FILE`` enables the span tracer and writes a
+  Chrome-trace/Perfetto JSON (and ``FILE.jsonl``) after the run,
+  ``--metrics-out FILE`` the metrics-registry snapshot, ``--benchmark
+  FILE`` the benchmark plugin's instructions-over-time series.  The
   other switch that turns a default-on JAX tier off (``--no-mesh``) is
   accepted: the port runs without the mesh until it is ported, and
   ``analyze`` names it on one stderr line.
@@ -63,13 +67,10 @@ ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
 # What the JAX command line has and the port does not yet: option or
 # subcommand -> the ROADMAP Queue A item that ports it.
 NOT_YET_PORTED = {
-    "--benchmark": 13,
     "--checkpoint-file": 13,
     "--resume-from": 13,
     "--compile-cache-dir": 13,
     "--cache-root": 13,
-    "--trace-out": 13,
-    "--metrics-out": 13,
     "--heartbeat-out": 13,
     "--heartbeat-interval": 13,
     "--flight-recorder": 13,
@@ -196,6 +197,12 @@ def _add_analysis_options(parser) -> None:
         "--disable-dependency-pruning", action="store_true", help="disable dependency pruner"
     )
     group.add_argument("--enable-iprof", action="store_true", help="instruction profiler")
+    group.add_argument(
+        "--benchmark",
+        metavar="FILE",
+        help="record instructions-over-time and write the series to FILE "
+        "(JSON) and FILE.svg (chart) after the run",
+    )
     group.add_argument(
         "--no-onchain-data", action="store_true", help="do not fetch on-chain data via RPC"
     )
@@ -372,6 +379,19 @@ def _add_analysis_options(parser) -> None:
         help="write the static pre-analysis summary (per-contract CFG "
         "blocks/edges, unreachable spans, taint reachability, skipped "
         "modules) to FILE as JSON after the run",
+    )
+    group.add_argument(
+        "--trace-out",
+        metavar="FILE",
+        help="enable span tracing and write a Chrome-trace/Perfetto JSON "
+        "to FILE after the run (open in https://ui.perfetto.dev); "
+        "FILE.jsonl additionally gets the flat span records",
+    )
+    group.add_argument(
+        "--metrics-out",
+        metavar="FILE",
+        help="write the full metrics-registry snapshot (frontier/solver/"
+        "profiler counters and per-stage histograms) to FILE as JSON",
     )
     group.add_argument(
         "--coverage-out",
@@ -632,6 +652,7 @@ def _build_analyzer(parsed):
         sparse_pruning=parsed.sparse_pruning,
         solver_log=parsed.solver_log,
         enable_iprof=parsed.enable_iprof,
+        benchmark_path=parsed.benchmark,
         enable_coverage_strategy=parsed.enable_coverage_strategy,
         custom_modules_directory=parsed.custom_modules_directory,
         probe_backend=parsed.probe_backend,
@@ -745,9 +766,38 @@ def _execute_static(parsed) -> None:
         _print_static_report(report, top=parsed.top)
 
 
+def _arm_observability(parsed) -> None:
+    """``--trace-out``: the tracer on, emptied, before the analyzer is
+    built (one trace per command line when ``main`` runs several in one
+    process)."""
+    if parsed.trace_out:
+        from mythril_tpu_torch.observability import get_tracer
+
+        get_tracer().reset()
+        get_tracer().enabled = True
+
+
 def _export_reports(parsed) -> None:
-    """``--coverage-out FILE`` (the exploration ledger) and
-    ``--staticpass-report FILE`` (the static pass's JSON) after a run."""
+    """After a run: ``--trace-out FILE`` (the Chrome trace and
+    ``FILE.jsonl``), ``--metrics-out FILE`` (the registry snapshot),
+    ``--coverage-out FILE`` (the exploration ledger) and
+    ``--staticpass-report FILE`` (the static pass's JSON)."""
+    if parsed.trace_out:
+        from mythril_tpu_torch.observability import get_tracer
+
+        tracer = get_tracer()
+        tracer.export_chrome_trace(parsed.trace_out)
+        tracer.export_jsonl(parsed.trace_out + ".jsonl")
+        log.info(
+            "wrote %d spans (%d dropped) to %s [+.jsonl]",
+            len(tracer), tracer.dropped, parsed.trace_out,
+        )
+    if parsed.metrics_out:
+        from mythril_tpu_torch.observability import observability_meta
+
+        with open(parsed.metrics_out, "w") as f:
+            json.dump(observability_meta(), f, indent=2, sort_keys=True)
+        log.info("wrote metrics snapshot to %s", parsed.metrics_out)
     if parsed.coverage_out:
         from mythril_tpu_torch.observability import get_exploration_ledger
 
@@ -858,6 +908,7 @@ def execute_command(parsed) -> None:
     if command == "safe-functions":
         from mythril_tpu_torch.support.support_args import args as global_args
 
+        _arm_observability(parsed)
         analyzer = _build_analyzer(parsed)
         analyzer.cmd_args.transaction_count = 1
         global_args.unconstrained_storage = True
@@ -879,6 +930,7 @@ def execute_command(parsed) -> None:
         return
 
     if command == "analyze":
+        _arm_observability(parsed)
         analyzer = _build_analyzer(parsed)
         if parsed.graph:
             html = analyzer.graph_html(enable_physics=parsed.enable_physics)
@@ -932,6 +984,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0
     _set_logging(getattr(parsed, "v", 2))
     saved = dataclasses.replace(args)
+    from mythril_tpu_torch.observability import get_tracer
+
+    tracing = get_tracer().enabled
     try:
         execute_command(parsed)
     except Refused as e:
@@ -944,6 +999,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     finally:
         for field in dataclasses.fields(args):
             setattr(args, field.name, getattr(saved, field.name))
+        # the tracer as it was (``--trace-out`` switched it on)
+        get_tracer().enabled = tracing
         # the query cache singleton's switch and disk store, as they were
         from mythril_tpu_torch.querycache import configure
 

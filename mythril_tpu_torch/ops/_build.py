@@ -11,6 +11,11 @@ other sources (a measurement script's kernel) into a library of their own.
 Pointers and the CUDA stream are passed as ``c_void_p``; each C entry
 returns ``cudaGetLastError()`` of its launch and the Python wrapper raises
 when it is not zero.
+
+Once the device plane is installed (``observability/deviceplane.py``),
+``build`` reports to it: a library found on disk is a cache hit, one that
+must be built a miss and a compile event with its wall, tagged with the
+calling thread's dispatch scope.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -84,10 +90,16 @@ def build_log() -> str:
 def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> Path:
     """Compile every source (default: the package's) in parallel and link;
     a no-op when up to date."""
+    from mythril_tpu_torch.observability import deviceplane
+
     srcs = sources() if srcs is None else srcs
     lib = library_path(srcs, name)
+    plane = deviceplane.installed()
+    if plane:
+        deviceplane.on_cache(lib.exists())
     if lib.exists():
         return lib
+    t0 = time.perf_counter()
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -118,6 +130,8 @@ def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> P
             raise KernelBuildError(f"link failed:\n{link.stdout}")
         lib.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_lib, lib)
+    if plane:
+        deviceplane.on_compile(time.perf_counter() - t0)
     return lib
 
 

@@ -32,12 +32,16 @@ model reuse
 Every tier either re-validates on the live query or rests on an exact
 argument, so cached answers are verdict-identical to cold solving.
 
-The port's copy of ``mythril_tpu/querycache/cache.py``.  The JAX package's
-``querycache.*`` registry counters are module state here: ``COUNTERS``
-(name without the prefix -> value), zeroed by ``reset_counters``.
-``ENTRY_HITS`` counts the hits taken at each of the cache's entry points
-(issue confirmation, the frontier's mutation prefetch), which the JAX
-package records on its tracer spans.
+Counters (``querycache.*``) live in the observability registry and flow
+into jsonv2 report meta / ``--metrics-out`` like every other subsystem's.
+
+The port's copy of ``mythril_tpu/querycache/cache.py`` adds, after
+``materialize_counters``: ``COUNTERS``, a view of the ``querycache.*``
+counters by name without the prefix; ``entry_hits(entry, span)``, which
+sets the hits the body took on the entry point's span as the JAX package's
+``querycache_hits`` argument and counts them, when there are any, in the
+labeled counter ``querycache.entry_hits{entry}`` (``ENTRY_HITS``, a view);
+and ``reset_counters``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ import threading
 from collections import OrderedDict
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
+from mythril_tpu_torch.observability import tracer as _otrace
+from mythril_tpu_torch.observability import views
 from mythril_tpu_torch.querycache import canon
 from mythril_tpu_torch.querycache.store import DiskStore
 from mythril_tpu_torch.smt.concrete_eval import Assignment, evaluate
@@ -86,37 +92,46 @@ _HIT_COUNTERS = (
 )
 
 
-COUNTERS: Dict[str, int] = {name.split(".", 1)[1]: 0 for name in _COUNTERS}
-ENTRY_HITS: Dict[str, int] = {}
+def _registry():
+    from mythril_tpu_torch.observability.metrics import get_registry
 
-
-def _inc(name: str) -> None:
-    COUNTERS[name] += 1
-
-
-def reset_counters() -> None:
-    for name in COUNTERS:
-        COUNTERS[name] = 0
-    ENTRY_HITS.clear()
-
-
-def _hits() -> int:
-    return sum(COUNTERS[name.split(".", 1)[1]] for name in _HIT_COUNTERS)
-
-
-@contextlib.contextmanager
-def entry_hits(entry: str):
-    """Count the hits the body takes under the entry point ``entry``."""
-    before = _hits()
-    try:
-        yield
-    finally:
-        ENTRY_HITS[entry] = ENTRY_HITS.get(entry, 0) + _hits() - before
+    return get_registry()
 
 
 def materialize_counters() -> None:
-    """The JAX package force-creates its registry counters here; the
-    port's ``COUNTERS`` always hold every name."""
+    """Force-create the querycache.* counters so registry snapshots (report
+    meta, --metrics-out, bench) always carry the full block, zeroes
+    included, even for runs where the cache never fired."""
+    reg = _registry()
+    for name in _COUNTERS:
+        reg.counter(name)
+
+
+# the counters by name without the prefix, and the hits by entry point
+COUNTERS = views.CounterView("querycache.", [n.split(".", 1)[1] for n in _COUNTERS])
+ENTRY_HITS = views.LabeledView("querycache.entry_hits")
+
+
+def reset_counters() -> None:
+    _registry().reset(prefix="querycache.")
+
+
+@contextlib.contextmanager
+def entry_hits(entry: str, span=None):
+    """The hits the body takes under the entry point ``entry`` (issue
+    confirmation, the frontier's prune check and mutation prefetch): set on
+    ``span`` as ``querycache_hits`` and counted in ``ENTRY_HITS``."""
+    from mythril_tpu_torch.querycache import get_query_cache
+
+    cache = get_query_cache()
+    before = cache.hits_total()
+    yield
+    hits = cache.hits_total() - before
+    if span is not None:
+        span.set(querycache_hits=hits)
+    if hits:
+        _registry().labeled_counter("querycache.entry_hits",
+                                    label_name="entry").inc(entry, hits)
 
 
 class QueryCache:
@@ -220,26 +235,34 @@ class QueryCache:
         """
         if not self.enabled or not conjuncts:
             return None
+        reg = _registry()
         with self._lock:
-            _inc("lookups")
+            reg.counter("querycache.lookups").inc()
             fp = self._fingerprint(conjuncts)
             result, tier = self._lookup_locked(
-                conjuncts, fp, budget_ms, probe_models
+                conjuncts, fp, budget_ms, probe_models, reg
             )
         if result is None:
-            _inc("misses")
+            reg.counter("querycache.misses").inc()
             return None
-        _inc(tier)
+        reg.counter("querycache." + tier).inc()
+        if _otrace.get_tracer().enabled:
+            with _otrace.span(
+                "querycache.hit", cat="smt",
+                tier=tier[:-1] if tier.endswith("s") else tier,
+                status=result[0], conjuncts=len(conjuncts),
+            ):
+                pass
         return result
 
-    def _lookup_locked(self, conjuncts, fp, budget_ms, probe_models):
+    def _lookup_locked(self, conjuncts, fp, budget_ms, probe_models, reg):
         entry = self._entries.get(fp.qhash)
         if entry is not None:
             self._entries.move_to_end(fp.qhash)
         elif self._store is not None:
             entry = self._store.read_entry(fp.qhash)
             if entry is not None:
-                _inc("disk_reads")
+                reg.counter("querycache.disk_reads").inc()
                 self._remember_entry(fp.qhash, entry)
         if entry is not None:
             verdict = entry.get("verdict")
@@ -253,7 +276,7 @@ class QueryCache:
                     return (SAT, asg), "exact_hits"
                 # hash collisions are cryptographically negligible, but the
                 # validation gate means even one could only cost a miss
-                _inc("validation_failures")
+                reg.counter("querycache.validation_failures").inc()
             elif verdict == UNKNOWN:
                 cached_budget = entry.get("budget_ms")
                 if (
@@ -262,7 +285,7 @@ class QueryCache:
                     and int(budget_ms) <= int(cached_budget)
                 ):
                     return (UNKNOWN, None), "unknown_hits"
-                _inc("unknown_retries")
+                reg.counter("querycache.unknown_retries").inc()
         cid = self._subsuming_core(fp.conj_hashes)
         if cid is not None:
             return (UNSAT, None), "core_hits"
@@ -307,6 +330,7 @@ class QueryCache:
             return
         if status not in (SAT, UNSAT, UNKNOWN):
             return
+        reg = _registry()
         with self._lock:
             fp = self._fingerprint(conjuncts)
             existing = self._entries.get(fp.qhash)
@@ -337,9 +361,9 @@ class QueryCache:
                 entry = {"verdict": UNSAT}
                 self._record_core(conjuncts)
             self._remember_entry(fp.qhash, entry)
-            _inc("stores")
+            reg.counter("querycache.stores").inc()
             if self._store is not None and self._store.write_entry(fp.qhash, entry):
-                _inc("disk_writes")
+                reg.counter("querycache.disk_writes").inc()
 
     def _record_core(self, conjuncts: Sequence[Term]) -> None:
         core = self._minimize_core(list(conjuncts))
@@ -399,10 +423,13 @@ class QueryCache:
     # -- introspection --------------------------------------------------
 
     def hits_total(self) -> int:
-        return _hits()
+        reg = _registry()
+        return sum(reg.counter(name).value for name in _HIT_COUNTERS)
 
     def stats(self) -> dict:
-        out = dict(COUNTERS)
+        reg = _registry()
+        out = {name.split(".", 1)[1]: reg.counter(name).value
+               for name in _COUNTERS}
         out["entries"] = len(self._entries)
         out["cores"] = len(self._cores)
         out["disk"] = self._store is not None

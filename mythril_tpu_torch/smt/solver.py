@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from mythril_tpu_torch.device import DeviceLike, resolve
 from mythril_tpu_torch.exceptions import UnsatError
 from mythril_tpu_torch.native import bitblast
+from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.concrete_eval import ArrayValue, Assignment, evaluate
 from mythril_tpu_torch.smt.terms import Term, mask
@@ -80,45 +81,92 @@ UNKNOWN = "unknown"
 # ---------------------------------------------------------------------------
 
 
-class SolverStatistics:
-    """Process-wide solver counters (singleton).
+def _solver_counter_prop(attr: str, initial=0, doc: str = ""):
+    name = "solver." + attr
 
-    ``cdcl_calls`` counts native CDCL solves (tier 2, the forced exact
-    mode, each Optimize session query, each issue-gate query);
-    ``tape_unsupported`` counts conjunctions the tape VM could not express,
-    ``lowering_unsupported`` those the per-conjunction lowering could not
-    either, whose candidates were evaluated on the host instead;
-    ``device_dispatches`` counts device evaluations of candidate batches
-    (tape or lowering).  Port statistics: the jsonv2 report keeps the JAX
-    package's keys."""
+    def fget(self):
+        return _metrics_registry().counter(name, initial=initial).value
+
+    def fset(self, v):
+        _metrics_registry().counter(name, initial=initial).set(v)
+
+    return property(fget, fset, doc=doc)
+
+
+def _metrics_registry():
+    from mythril_tpu_torch.observability.metrics import get_registry
+
+    return get_registry()
+
+
+class SolverStatistics:
+    """Process-wide counters for solver usage (singleton).
+
+    Thin facade over the ``solver.*`` metrics in the observability
+    registry, as in the JAX package: each attribute is a property over a
+    named counter, ``inc`` goes through the registry's lock, ``enabled`` is
+    plain instance state that survives resets.  The port adds three
+    counters: ``tape_unsupported`` (conjunctions the tape VM could not
+    express), ``lowering_unsupported`` (those the per-conjunction lowering
+    could not either, evaluated on the host instead) and
+    ``device_dispatches`` (device evaluations of candidate batches, tape or
+    lowering).  ``cdcl_calls`` counts native CDCL solves (tier 2, the forced
+    exact mode, each Optimize session query, each issue-gate query).
+    ``as_dict`` lists all eight."""
 
     _instance = None
-    _fields = (
-        "query_count", "solver_time", "probe_hits", "cdcl_calls", "unknown_as_unsat",
-        "tape_unsupported", "lowering_unsupported", "device_dispatches",
-    )
+
+    query_count = _solver_counter_prop("query_count")
+    solver_time = _solver_counter_prop("solver_time_s", initial=0.0)
+    probe_hits = _solver_counter_prop("probe_hits")
+    cdcl_calls = _solver_counter_prop("cdcl_calls")
+    # completeness boundary: prune decisions taken on an UNKNOWN verdict
+    unknown_as_unsat = _solver_counter_prop("unknown_as_unsat")
+    tape_unsupported = _solver_counter_prop("tape_unsupported")
+    lowering_unsupported = _solver_counter_prop("lowering_unsupported")
+    device_dispatches = _solver_counter_prop("device_dispatches")
 
     def __new__(cls):
         if cls._instance is None:
             cls._instance = super().__new__(cls)
-            cls._instance._lock = threading.Lock()
+            cls._instance.enabled = False
             cls._instance.reset()
         return cls._instance
 
+    # attribute -> (registry counter name, zero value)
+    _counters = {
+        "query_count": ("solver.query_count", 0),
+        "solver_time": ("solver.solver_time_s", 0.0),
+        "probe_hits": ("solver.probe_hits", 0),
+        "cdcl_calls": ("solver.cdcl_calls", 0),
+        "unknown_as_unsat": ("solver.unknown_as_unsat", 0),
+        "tape_unsupported": ("solver.tape_unsupported", 0),
+        "lowering_unsupported": ("solver.lowering_unsupported", 0),
+        "device_dispatches": ("solver.device_dispatches", 0),
+    }
+
     def inc(self, attr: str, n=1) -> None:
-        with self._lock:
-            setattr(self, attr, getattr(self, attr) + n)
+        """Thread-safe ``attr += n`` (use instead of ``+=`` on solve paths)."""
+        name, initial = self._counters[attr]
+        _metrics_registry().counter(name, initial=initial).inc(n)
 
     def reset(self) -> None:
-        for name in self._fields:
-            setattr(self, name, 0.0 if name == "solver_time" else 0)
+        """Zero the solver-scoped metrics (not the ``enabled`` switch)."""
+        _metrics_registry().reset(prefix="solver.")
+        # force-create the backing counters so snapshots always carry
+        # the full solver block even before the first query
+        for attr in self._counters:
+            getattr(self, attr)
 
     def as_dict(self) -> dict:
-        return {name: getattr(self, name) for name in self._fields}
+        return {attr: getattr(self, attr) for attr in self._counters}
 
     def __repr__(self):
-        return "Solver statistics: " + ", ".join(
-            f"{k}: {v}" for k, v in self.as_dict().items()
+        return (
+            f"Solver statistics: query count: {self.query_count}, "
+            f"solver time: {self.solver_time:.3f}, probe hits: {self.probe_hits}, "
+            f"cdcl calls: {self.cdcl_calls}, "
+            f"unknown treated as unsat: {self.unknown_as_unsat}"
         )
 
 
@@ -1202,6 +1250,7 @@ def _fast_path(
     return None, conj, key
 
 
+@_otrace.traced("smt.batch_check", cat="smt")
 def check_satisfiable_batch(
     constraint_sets: Sequence[Sequence[Term]],
     config: Optional["ProbeConfig"] = None,
@@ -1476,9 +1525,23 @@ def solve_conjunction(
     cache.
     """
     config = config or ProbeConfig()
-    result = _solve_conjunction_impl(
-        conjuncts, config, extra_seeds, use_cache, replay, resolve(device),
-    )
+    device = resolve(device)
+    if not _otrace.get_tracer().enabled:
+        t0 = time.perf_counter()
+        result = _solve_conjunction_impl(
+            conjuncts, config, extra_seeds, use_cache, replay, device,
+        )
+        _metrics_registry().observe("smt.solve_s", time.perf_counter() - t0)
+    else:
+        with _otrace.span(
+            "smt.solve", cat="smt", conjuncts=len(conjuncts)
+        ) as sp:
+            t0 = time.perf_counter()
+            result = _solve_conjunction_impl(
+                conjuncts, config, extra_seeds, use_cache, replay, device,
+            )
+            _metrics_registry().observe("smt.solve_s", time.perf_counter() - t0)
+            sp.set(status=result[0])
     if use_cache:
         _record_query_cache(conjuncts, result, config)
     return result
@@ -1640,10 +1703,11 @@ def _solve_conjunction_impl(
         result: Tuple[str, Optional[Assignment]] = (UNKNOWN, None)
         if bitblast.available():
             stats.inc("cdcl_calls")
-            status, asg = bitblast.solve(
-                conjuncts,
-                max(1.0, t0 + config.timeout_ms / 1000.0 - time.perf_counter()),
-            )
+            with _otrace.span("smt.cdcl", cat="smt", forced=True):
+                status, asg = bitblast.solve(
+                    conjuncts,
+                    max(1.0, t0 + config.timeout_ms / 1000.0 - time.perf_counter()),
+                )
             if status == SAT and asg is not None:
                 vals = evaluate(conjuncts, asg)
                 if all(vals[c] for c in conjuncts):
@@ -1693,7 +1757,8 @@ def _solve_conjunction_impl(
     )
     if compiled is not None:
         # the batched dispatch needs the whole pool upfront
-        candidates.extend(gen.generate(total, deadline))
+        with _otrace.span("smt.candidates", cat="smt", n=total):
+            candidates.extend(gen.generate(total, deadline))
 
     best_asg, best_score = None, -1
     if compiled is not None:
@@ -1701,7 +1766,10 @@ def _solve_conjunction_impl(
         # winner; a kernel error raises (no host fallback)
         import numpy as _np
 
-        truth = _evaluate_candidates_device(compiled, candidates, device)  # [B, C]
+        with _otrace.span(
+            "smt.device_probe", cat="device", batch=len(candidates)
+        ), _otrace.device_annotation("smt.device_probe"):
+            truth = _evaluate_candidates_device(compiled, candidates, device)  # [B, C]
         scores = truth.sum(axis=1)
         for b in _np.argsort(-scores, kind="stable"):
             if scores[b] < len(conjuncts):
@@ -1787,7 +1855,8 @@ def _solve_conjunction_impl(
             # disabling it with a nonpositive timeout.  Other host-only
             # queries keep strict wall-clock discipline.
             budget = max(1.0, budget)
-        status, asg = bitblast.solve(conjuncts, budget)
+        with _otrace.span("smt.cdcl", cat="smt", conjuncts=len(conjuncts)):
+            status, asg = bitblast.solve(conjuncts, budget)
         if status == SAT and asg is not None and check_asg(asg):
             stats.inc("solver_time", time.perf_counter() - t0)
             _model_cache.remember(cache_key, SAT, asg)

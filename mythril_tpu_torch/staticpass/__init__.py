@@ -1,11 +1,5 @@
 """Static bytecode pre-analysis (once per contract, before any execution).
 
-The port's copy of ``mythril_tpu/staticpass`` (numpy only, no device
-program).  What differs: the ``staticpass.*`` counters are module state
-(``COUNTERS``, ``GATE_DISABLED``, ``reset_counters``; see :mod:`summary`);
-``publish_reachability`` feeds the exploration ledger as in the JAX
-package.
-
 Three vectorized passes over the decoded instruction stream — the same
 flat tables ``frontier/code.py`` builds its device dispatch from:
 
@@ -59,6 +53,12 @@ identical with and without the pass (asserted in tests and by
 ``--no-staticpass-interproc`` keeps the base passes but disables the
 interprocedural layer.  Invariants in this package raise typed errors
 from :mod:`errors` (never bare ``assert`` — enforced by ruff S101).
+
+The port's copy of ``mythril_tpu/staticpass`` (numpy only, no device
+program) adds ``COUNTERS`` (a view of the ``staticpass.*`` registry
+counters by name without the prefix), ``GATE_DISABLED`` (a view of the
+``staticpass.gate_disabled{reason}`` labeled counter) and
+``reset_counters``.
 """
 
 from mythril_tpu_torch.staticpass.callgraph import (  # noqa: F401
@@ -93,14 +93,21 @@ from mythril_tpu_torch.staticpass.report import (  # noqa: F401
     staticpass_meta,
 )
 from mythril_tpu_torch.staticpass.summary import (  # noqa: F401
-    COUNTERS,
-    GATE_DISABLED,
     StaticSummary,
     clear_cache,
-    count,
     publish_reachability,
     record_summary_metrics,
-    reset_counters,
     summarize,
     summary_for_code,
 )
+
+from mythril_tpu_torch.observability import views as _views  # noqa: E402
+
+COUNTERS = _views.CounterView("staticpass.")
+GATE_DISABLED = _views.LabeledView("staticpass.gate_disabled")
+
+
+def reset_counters() -> None:
+    from mythril_tpu_torch.observability.metrics import get_registry
+
+    get_registry().reset(prefix="staticpass.")

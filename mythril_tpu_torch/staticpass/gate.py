@@ -18,11 +18,7 @@ executable code is statically unknown — dynloader active, creation-only
 inputs, checkpoint resume — no view is built and nothing is pruned; that
 self-disable is no longer silent: each occurrence increments
 ``staticpass.gate_disabled{reason=…}``, logs a WARN, and surfaces in
-``meta.staticpass``.
-
-A copy of ``mythril_tpu/staticpass/gate.py``: the self-disables count into
-``summary.GATE_DISABLED`` by reason (the JAX package's labeled registry
-counter).
+``meta.staticpass`` and `myth top`.
 """
 
 from __future__ import annotations
@@ -31,7 +27,6 @@ import logging
 from typing import List, Optional, Tuple
 
 from mythril_tpu_torch.staticpass.summary import (
-    GATE_DISABLED,
     StaticSummary,
     publish_reachability,
     record_summary_metrics,
@@ -51,7 +46,11 @@ REASON_EXCEPTION = "exception"
 
 def _gate_disabled(reason: str, contract=None) -> None:
     """Count + WARN one self-disable of the static gate."""
-    GATE_DISABLED[reason] = GATE_DISABLED.get(reason, 0) + 1
+    from mythril_tpu_torch.observability import get_registry
+
+    get_registry().labeled_counter(
+        "staticpass.gate_disabled", label_name="reason"
+    ).inc(reason)
     log.warning(
         "static gate disabled for %s (reason=%s): nothing will be pruned",
         getattr(contract, "name", contract.__class__.__name__

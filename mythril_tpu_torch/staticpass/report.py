@@ -5,10 +5,6 @@ Node/Edge structures the dynamic engine uses, so downstream tooling
 consumes one CFG schema for both.  The interprocedural layer adds the
 recovered function table, the per-JUMPI reachable-edge oracle numbers,
 the ranked interesting points and the cross-contract call graph.
-
-A copy of ``mythril_tpu/staticpass/report.py``: ``staticpass_meta`` reads
-the gate's self-disables from ``summary.GATE_DISABLED`` (the JAX package's
-metrics registry).
 """
 
 from __future__ import annotations
@@ -17,7 +13,7 @@ import json
 from typing import List
 
 from mythril_tpu_torch.core.cfg import Edge, JumpType, Node
-from mythril_tpu_torch.staticpass.summary import GATE_DISABLED, StaticSummary
+from mythril_tpu_torch.staticpass.summary import StaticSummary
 
 # unresolved-jump fans (edges to every JUMPDEST) can be quadratic; the
 # JSON export caps them and says so rather than ballooning the artifact
@@ -149,9 +145,12 @@ def staticpass_meta() -> dict:
     """Compact block for the jsonv2 report ``meta.staticpass``: gate
     state, recovered-function counts, the reachable-edge oracle numbers,
     and the top ranked interesting points."""
+    from mythril_tpu_torch.observability import get_registry
     from mythril_tpu_torch.staticpass.callgraph import get_callgraph
 
-    disabled = dict(GATE_DISABLED)
+    disabled = dict(get_registry().labeled_counter(
+        "staticpass.gate_disabled", label_name="reason"
+    ).snapshot())
 
     edges_live = edges_total = 0
     functions = 0

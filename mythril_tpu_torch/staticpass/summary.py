@@ -1,15 +1,5 @@
 """StaticSummary: one immutable result object per analyzed bytecode.
 
-A copy of ``mythril_tpu/staticpass/summary.py`` (numpy only).  The JAX
-package publishes its ``staticpass.*`` counters to its metrics registry;
-the port keeps them as module state: ``COUNTERS`` (name without the
-prefix -> value; ``count`` adds to it), ``GATE_DISABLED`` (the gate's
-self-disables by reason), both zeroed by ``reset_counters``.
-``publish_reachability`` feeds the exploration ledger
-(``observability/exploration.py``) as in the JAX package; the process-wide
-``staticpass.reachable_edge_pct`` gauge, read by the JAX package's service
-and drift doctor, is not kept.
-
 ``summarize`` runs the static passes (CFG recovery, interprocedural
 value-set refinement, abstract stack height, taint reachability,
 function recovery) once over a decoded instruction stream;
@@ -313,28 +303,19 @@ def publish_reachability(code, summary: Optional[StaticSummary]) -> None:
         log.debug("static reachability not published: %s", e)
 
 
-# the JAX package's ``staticpass.*`` registry counters (the prefix left
-# out) and its ``staticpass.gate_disabled{reason}`` labeled counter
-COUNTERS: Dict[str, float] = {}
-GATE_DISABLED: Dict[str, int] = {}
-
-
-def count(name: str, n=1) -> None:
-    """Add ``n`` to the counter ``staticpass.<name>``."""
-    COUNTERS[name] = COUNTERS.get(name, 0) + n
-
-
 def _count(name: str, n: int = 1) -> None:
-    count(name.split(".", 1)[1], n)
+    from mythril_tpu_torch.observability import get_registry
+
+    get_registry().counter(name).inc(n)
 
 
-def reset_counters() -> None:
-    COUNTERS.clear()
-    GATE_DISABLED.clear()
+# aggregate live/total edge counts across every recorded summary, so the
+# staticpass.reachable_edge_pct gauge reflects the whole process
+_EDGE_TOTALS = {"live": 0, "total": 0}
 
 
 def record_summary_metrics(summary: StaticSummary) -> None:
-    """Count one summary into ``COUNTERS`` (report meta)."""
+    """Publish one summary's counters (report meta / --metrics-out)."""
     _count("staticpass.contracts")
     _count("staticpass.blocks", summary.n_blocks)
     _count("staticpass.unreachable_bytes", summary.unreachable_bytes)
@@ -348,8 +329,18 @@ def record_summary_metrics(summary: StaticSummary) -> None:
     _count("staticpass.edges_live", summary.n_edges_live)
     _count("staticpass.edges_total", summary.n_edges_total)
     _count("staticpass.interesting_points", len(summary.interesting_points))
-    _count("staticpass.wall_time_s", round(summary.wall_s, 6))
+    from mythril_tpu_torch.observability import get_registry
+
+    get_registry().counter("staticpass.wall_time_s").inc(round(summary.wall_s, 6))
+    _EDGE_TOTALS["live"] += summary.n_edges_live
+    _EDGE_TOTALS["total"] += summary.n_edges_total
+    if _EDGE_TOTALS["total"]:
+        get_registry().gauge("staticpass.reachable_edge_pct").set(
+            round(100.0 * _EDGE_TOTALS["live"] / _EDGE_TOTALS["total"], 3)
+        )
 
 
 def clear_cache() -> None:
     _CACHE.clear()
+    _EDGE_TOTALS["live"] = 0
+    _EDGE_TOTALS["total"] = 0

@@ -58,6 +58,8 @@ class Args:
     solver_log: Optional[str] = None
     use_integer_module: bool = True
     enable_iprof: bool = False
+    # write the benchmark plugin's series (JSON + SVG chart) to this path
+    benchmark_path: Optional[str] = None
     # deterministic replay only: GAS pushes the exact remaining gas instead
     # of a fresh symbol (never symbolic runs)
     concrete_gas: bool = False
@@ -95,6 +97,9 @@ class Args:
     # instruction axis exceeds the budget keeps only a resident window
     code_paging: bool = True
     code_page_budget: int = 2048
+    # time the device compute of the first productive segment into
+    # FrontierStatistics().microbench (engine._run_microbench)
+    frontier_microbench: bool = False
     # the pipelined frontier (frontier/pipeline.py): chained segment
     # dispatches overlap the host's harvest, and the harvest's feasibility
     # checks run in a background pool of solver_workers threads; the issue

@@ -7,8 +7,10 @@ copies of them under the same relative paths (it imports nothing of
 ``mythril_tpu``).  ``COPIED`` lists the modules whose copy differs from the
 original only by the package name (``mythril_tpu`` -> ``mythril_tpu_torch``
 in imports, comments and strings), and the C++ sources of ``native/src/``,
-which are copied byte for byte; every other port module of the engine is
-edited by hand.
+which are copied byte for byte.  ``EDITED`` lists copies that differ by
+the package name and by the named top-level functions, which are the
+port's own (the rewrite keeps them; the check compares everything else).
+Every other port module of the engine is edited by hand.
 
     python3 scripts/torch_port_copy.py            # (re)write the copies
     python3 scripts/torch_port_copy.py --check    # exit 1 if a copy drifted
@@ -125,22 +127,53 @@ COPIED = (
     "concolic/concrete_data.py",
     "core/strategy/concolic.py",
     "core/transaction/concolic.py",
+    "plugins/plugins/benchmark.py",
+    "staticpass/summary.py",
+    "staticpass/gate.py",
+    "staticpass/report.py",
+    "analysis/module/loader.py",
+    "frontier/code.py",
 )
+
+# copies whose named top-level functions are the port's own: module ->
+# (function, ...), each one's difference stated in its docstring
+EDITED = {
+    # torch.profiler.record_function in place of jax.profiler.TraceAnnotation
+    "observability/tracer.py": ("device_annotation",),
+}
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")
 
 
 def ported(rel: str) -> str:
     """The port's text of one JAX module: the package name renamed in
-    Python, the C++ sources unchanged."""
+    Python, the C++ sources unchanged, and the functions ``EDITED`` names
+    taken from the port's file."""
     text = (SRC / rel).read_text()
-    return _NAME.sub("mythril_tpu_torch", text) if rel.endswith(".py") else text
+    if not rel.endswith(".py"):
+        return text
+    text = _NAME.sub("mythril_tpu_torch", text)
+    for name in EDITED.get(rel, ()):
+        own = (DST / rel).read_text()
+        text = text.replace(_function(text, name), _function(own, name))
+    return text
+
+
+def _function(text: str, name: str) -> str:
+    """The source of the top-level function ``name``: its ``def`` line up to
+    the next top-level statement, trailing blank lines left out."""
+    match = re.search(rf"^def {name}\(", text, re.M)
+    if match is None:
+        raise SystemExit(f"no top-level function {name}")
+    end = re.compile(r"^[^\s#]", re.M).search(text, match.end())
+    block = text[match.start(): end.start() if end else len(text)]
+    return block.rstrip("\n") + "\n"
 
 
 def main(argv) -> int:
     check = "--check" in argv
     drifted = []
-    for rel in COPIED:
+    for rel in (*COPIED, *EDITED):
         text, dst = ported(rel), DST / rel
         if check:
             if not dst.is_file() or dst.read_text() != text:

@@ -36,10 +36,11 @@ port's CLI replays the small runs (all but the bench contracts of
 its output must equal the JAX CLI's field by field (``differences``), except
 the issues' ``discoveryTime``, the wall-time fields of the execution info and
 of the static pass's reports (``wall_s``), the calibration block (a
-measurement; neither CPU run has one) and the report meta blocks of the
-surfaces the port does not carry yet (``JAX_ONLY_META``) and the seconds of
-the exploration ledger's solver
-hotspots.  ``chip_smoke.py`` replays the bench runs the same way
+measurement; neither CPU run has one), the report meta block of the
+surface the port does not carry yet (``JAX_ONLY_META``), the meta blocks
+of measurements and registry snapshots that both carry (``MEASURED_META``,
+held by ``tests/test_torch_observability.py``) and the seconds of the
+exploration ledger's solver hotspots.  ``chip_smoke.py`` replays the bench runs the same way
 on the card.
 
     JAX_PLATFORMS=cpu python tests/test_torch_cli.py --write [names]
@@ -90,9 +91,12 @@ COVERAGE_PINS = ["--probe-backend", "jax", "--no-mesh"]
 # ... and with its default probe backend, auto (on the JAX package's CPU:
 # the host probe), as well
 AUTO_PINS = ["--probe-backend", "auto", "--no-mesh"]
-# jsonv2 meta blocks of surfaces the port does not carry yet (ROADMAP Known
-# deviations: the port's meta carries the execution info and the static pass)
-JAX_ONLY_META = {"device", "devsolver", "frontier", "health", "observability", "prefilter"}
+# the jsonv2 meta block of a surface the port does not carry yet (ROADMAP
+# Known deviations: the watchtower's health, item 13)
+JAX_ONLY_META = {"health"}
+# meta blocks both carry that hold measurements or the registry's snapshot;
+# tests/test_torch_observability.py compares them
+MEASURED_META = {"device", "devsolver", "frontier", "observability", "prefilter"}
 WALL_FIELDS = ("solver_time_s",)
 FRONTIER_WALL_FIELDS = ("segment_s", "harvest_s")
 # the file argument of --statespace-json and --graph in a recorded argv
@@ -252,18 +256,18 @@ def without_hotspot_seconds(exploration: dict) -> dict:
 def _jsonv2_normalized(report: list, jax: bool) -> list:
     """A jsonv2 report without what may differ: the issues' discovery time,
     the execution info's wall times and calibration, the exploration
-    ledger's hotspot seconds, and (JAX side) the meta blocks in
-    ``JAX_ONLY_META``, which must all be there."""
+    ledger's hotspot seconds, the meta blocks in ``MEASURED_META`` and (JAX
+    side) those in ``JAX_ONLY_META``, which must all be there."""
     report = copy.deepcopy(report)
     for entry in report:
         for issue in entry["issues"]:
             issue["extra"].pop("discoveryTime")
         meta = entry["meta"]
-        if jax:
-            missing = JAX_ONLY_META - set(meta)
-            assert not missing, f"the JAX report lacks meta blocks {missing}"
-            for key in JAX_ONLY_META:
-                meta.pop(key)
+        dropped = MEASURED_META | (JAX_ONLY_META if jax else set())
+        missing = dropped - set(meta)
+        assert not missing, f"the {'JAX' if jax else 'port'} report lacks meta blocks {missing}"
+        for key in dropped:
+            meta.pop(key)
         if "exploration" in meta:
             meta["exploration"] = without_hotspot_seconds(meta["exploration"])
         info = meta.get("mythril_execution_info", {})
@@ -512,8 +516,8 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
 
 
 @pytest.mark.parametrize("argv, item", [
-    (CLEAN + ["--trace-out", "trace.json"], 13),
-    (CLEAN + ["--metrics-out=metrics.json"], 13),
+    (CLEAN + ["--heartbeat-out", "heartbeat.jsonl"], 13),
+    (CLEAN + ["--history-dir=history"], 13),
     # the worker counts are real switches now; the heartbeat period is the
     # option left that the port takes at its JAX default only
     (CLEAN + ["--heartbeat-interval", "2"], 13),

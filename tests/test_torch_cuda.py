@@ -495,3 +495,129 @@ def test_cooperative_batch_on_card_equals_its_record(card):
         got = cooperative("mythril_tpu_torch", CPU_BATCH, adaptive, device=None)
         assert got["issues"] == batch_of(CPU_BATCH, adaptive)["issues"]
         assert (got["adaptive"]["resteered_slots"] > 0) == adaptive
+
+
+# ---------------------------------------------------------------------------
+# the span tracer and the device plane
+# ---------------------------------------------------------------------------
+
+
+def test_traced_segments_record_device_time_without_host_syncs(card, tmp_path, monkeypatch):
+    """The synchronous frontier on the card (kill_simple through the CLI,
+    ``--no-pipeline --harvest-workers 0``), untraced and then traced with
+    ``--trace-out`` and ``--metrics-out``, each under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the traced run makes exactly
+    the untraced run's synchronizing calls (the device plane reads its CUDA
+    events at the pulls, never waits), and every segment launch has its
+    ``frontier.segment`` span and its CUDA-event time in
+    ``frontier.segment_device_s``; then one chained dispatch, traced, under
+    ``set_sync_debug_mode("error")`` publishes its segment's device time."""
+    import warnings
+
+    from mythril_tpu_torch.frontier import step
+    from mythril_tpu_torch.observability import deviceplane, get_registry, get_tracer
+    from tests.test_torch_cli import run_port
+    from tests.test_torch_observability import KILL_SIMPLE, event_counts
+    from tests.test_torch_pipeline import chained_dispatch, recorded_dispatch
+
+    monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path / "mythril"))
+    argv = ["analyze", "-c", KILL_SIMPLE, "--bin-runtime", "-t", "2", "-o", "json",
+            "--frontier", "--frontier-force", "--probe-backend", "device",
+            "--no-pipeline", "--harvest-workers", "0"]
+    run_port(argv, device=None)  # builds the kernels outside the counts
+
+    def synced(extra):
+        before = step.launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rc, out = run_port(argv + extra, device=None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the sync reports alone: the first set_sync_debug_mode of a process
+        # also warns, once, that the mode "does not yet detect all
+        # synchronizing operations"
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        return rc, out, syncs, step.launches - before
+
+    rc0, out0, syncs0, launches0 = synced([])
+    seg = get_registry()._metrics["frontier.segment_device_s"]
+    count0 = seg.count
+    trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.json"
+    rc1, out1, syncs1, launches1 = synced(["--trace-out", str(trace),
+                                           "--metrics-out", str(metrics)])
+    assert rc0 == rc1 == 0 and out0 == out1
+    assert syncs1 == syncs0 > 0 and launches1 == launches0 > 0
+    assert event_counts(json.loads(trace.read_text()))["frontier.segment|X"] == launches1
+    snap = json.loads(metrics.read_text())["metrics"]["frontier.segment_device_s"]
+    assert snap["count"] == launches1 and snap["min"] > 0
+    # the analysis's sweep zeroes the histogram: this run's stamps alone
+    assert seg.count == launches1 and count0 == launches0
+
+    get_tracer().reset()
+    get_tracer().enabled = True
+    try:
+        d = recorded_dispatch("etherstore_like", 0)
+        chained_dispatch(d, card)  # pinned pools outside the check
+        deviceplane.settle()
+        n0 = get_registry()._metrics["frontier.segment_device_s"].count
+        got = chained_dispatch(d, card, sync_debug=True)
+        deviceplane.settle()
+    finally:
+        get_tracer().enabled = False
+    assert got["out"] == got["plain_out"]
+    # the chained segment (the first dispatch is the helper's own call)
+    assert get_registry()._metrics["frontier.segment_device_s"].count - n0 == 1
+    assert any(s["name"] == "frontier.chain_merge" for s in get_tracer().spans())
+    get_tracer().reset()
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_microbench_times_the_card_not_the_host_queueing(card, monkeypatch, pipeline):
+    """The segment microbench on the card with a host that queues each
+    dispatch 50 ms late: ``segment_compute_s`` is the card's time of one
+    dispatch, below the host's delay, because the sleep kernel ahead of the
+    timed dispatches is lengthened until it outlasts their queueing."""
+    import time
+
+    from mythril_tpu_torch.analysis.security import fire_lasers, reset_callback_modules
+    from mythril_tpu_torch.analysis.symbolic import SymExecWrapper
+    from mythril_tpu_torch.frontier.engine import FrontierEngine
+    from mythril_tpu_torch.frontier.stats import FrontierStatistics
+    from mythril_tpu_torch.support.support_args import args
+    from tests._torch_parity import _reset
+    from tests.test_torch_observability import _wide_contract
+
+    delay = 0.05
+    run_microbench = FrontierEngine._run_microbench
+
+    def late_host(segment, micro_args, n_exec, st, reps=4):
+        def late(*a):
+            time.sleep(delay)
+            return segment(*a)
+
+        run_microbench(late, micro_args, n_exec, st, reps)
+
+    monkeypatch.setattr(FrontierEngine, "_run_microbench", staticmethod(late_host))
+    _reset("mythril_tpu_torch")
+    saved = (args.frontier, args.frontier_force, args.frontier_width,
+             args.frontier_microbench, args.pipeline)
+    args.frontier, args.frontier_force, args.frontier_width = True, True, 64
+    args.frontier_microbench, args.pipeline = True, pipeline
+    reset_callback_modules()
+    FrontierStatistics().reset()
+    try:
+        sym = SymExecWrapper(_wide_contract(6), address=0x0901D12E, strategy="bfs",
+                             transaction_count=1, execution_timeout=120,
+                             modules=["AccidentallyKillable"], device=None)
+        fire_lasers(sym, white_list=["AccidentallyKillable"])
+        mb = FrontierStatistics().microbench
+        assert mb, "microbench never recorded"
+        assert mb["dispatch_plus_link_s"] >= delay
+        assert 0 < mb["segment_compute_s"] < delay
+    finally:
+        (args.frontier, args.frontier_force, args.frontier_width,
+         args.frontier_microbench, args.pipeline) = saved
+        FrontierStatistics().reset()
