@@ -9,7 +9,9 @@ their own, delta pulls, the feasibility pool and the replay workers), and
 with the adaptive controller (the exploration ledger, the seed scheduler,
 the park pool, the coverage target) on single analyses and on cooperative
 multi-contract batches, under the default ``auto`` probe backend with its
-link calibration, and in concolic execution.
+link calibration, in concolic execution, traced, and with the health
+surfaces (checkpoint and resume, the heartbeat, the flight recorder, the
+kernel build cache, the metrics history).
 Every phase but 8h and 8i holds the port's probe backend at ``device``
 where the JAX runs it replays forced ``jax`` (``tests/_torch_parity.py``
 ``run_analysis``, ``test_torch_cli.port_argv``) and its link calibration
@@ -163,9 +165,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    default engine on one device (the pipeline, two feasibility workers, four
    replay workers, CDCL, the solver and host tiers; no mesh, no adaptive
    controller), run on the card pipelined and with ``--no-pipeline``
-   (``etherstore_like`` and ``rubixi_like`` at 256, wide and largecode in
-   turns, pipelined, ``--no-pipeline`` twice, pipelined again; the short
-   runs once each), in the same process: the issues equal to the recording's
+   (``etherstore_like`` and ``rubixi_like`` at 256 in turns, pipelined,
+   ``--no-pipeline`` twice, pipelined again; the others once each), in the
+   same process: the issues equal to the recording's
    and to the other runs',
    ``segments_pipelined >
    0`` on every run of two or more segments and, where no path was rolled
@@ -267,7 +269,7 @@ Phases, in order; any failure exits nonzero and prints no result:
    device``; the command line ``etherstore_like/frontier-256/pipeline`` of
    ``torch_cli_runs.json``) with ``--trace-out`` and ``--metrics-out``, in
    turns with the same command line untraced (untraced, traced, traced,
-   untraced, twice): every run's issue keys equal to the JAX CLI's
+   untraced; 8k times the two modes again beside the heartbeat): every run's issue keys equal to the JAX CLI's
    recording; in the first traced run's trace every flow ``s`` has its
    ``f``, the ``frontier.segment`` spans count the segment launches, the
    ``smt.device_probe`` spans count the solver's per-conjunction device
@@ -279,6 +281,26 @@ Phases, in order; any failure exits nonzero and prints no result:
    dispatch_plus_link_s`` (on ``kill_simple/frontier/pipeline``, 64
    paths); the walls of both modes with their spread, the
    traced run's seconds by span name; the phase in under 60 s;
+8k. the health surfaces through ``cli.main`` on 8j's command line:
+   ``-t 1 --checkpoint-file F``, then ``-t 2 --resume-from F`` and ``-t 2``
+   uninterrupted, whose issue keys must equal each other and the JAX CLI's
+   recording, the resumed run launching the segment and the tape VM; the
+   run untraced, traced (``--trace-out``) and with ``--heartbeat-out`` at
+   0.05 s in turns (untraced, traced, heartbeat, heartbeat, traced,
+   untraced), the walls and their spread, at least two heartbeat samples
+   with the JAX runner's queue-depth keys while the runner ran; the
+   synchronising calls by thread under ``set_sync_debug_mode("warn")``: none
+   from the heartbeat's thread on the pipelined run, and on
+   ``kill_simple/frontier/pipeline`` with ``--no-pipeline`` as many with the
+   sampler at 0.01 s as with it off; ``--flight-recorder`` with SIGUSR1 sent
+   at the second harvest: one bundle holding the device plane's block
+   (``backend`` ``cuda``) and the heartbeat's tail, and in the same run
+   ``--history-dir``, read back by ``history query`` and ``drift
+   --history``; ``python -m
+   mythril_tpu_torch analyze --compile-cache-dir D`` in a process of its own
+   with ``D`` a fresh directory holding a copy of the built library:
+   ``compilecache.hits`` 1, ``misses`` 0, no build (phase 2 prints the
+   script's own first build, the miss);
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -303,6 +325,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import logging
 import statistics
@@ -434,6 +457,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_once(fn):
+    """``fn()``'s result and its milliseconds by CUDA events, one call: the
+    plain versions' reference call is also their timing (a second and third
+    call of a plain version at scale cost the script minutes)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 class LaunchTimer:
     """Device time of single kernel launches: a CUDA event pair right around
     each launch, with the stream held busy (``torch.cuda._sleep``) before the
@@ -505,7 +542,10 @@ def build_kernels():
     t0 = phase("build")
     path = _build.build()
     _build.load()
-    print(f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    hits, misses = _build.cache_counters()
+    print(f"built {path} in {time.perf_counter() - t0:.1f} s; the kernel build cache "
+          f"(compilecache): {misses.value} miss, {hits.value} hit (a checkout with no "
+          "library: the first build is the miss, the load a hit)")
     attrs, key, frame = {}, None, {}
     for line in _build.build_log().splitlines():
         if any(k in line for k in ("==", "Function properties", "registers", "spill")):
@@ -1003,7 +1043,7 @@ def time_lowering(torch, calls, reps: int = 10):
         B = inputs[1].shape[0]
         arena = torch.empty((prog.rows, B), dtype=torch.int32, device="cuda")
         got = lowering.run_lowering(compiled, *inputs, arena=arena)
-        want = lowering.run_lowering_reference(compiled, *inputs)
+        want, plain = cuda_once(lambda: lowering.run_lowering_reference(compiled, *inputs))
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         timer, routes = LaunchTimer(torch), []
 
@@ -1016,7 +1056,6 @@ def time_lowering(torch, calls, reps: int = 10):
             lowering.run_kernel(compiled, *inputs, launch=launch)  # as the main path: no arena
         ms = timer.total_ms() / reps
         wrapper = cuda_ms(lambda: lowering.run_lowering(compiled, *inputs), reps)
-        plain = cuda_ms(lambda: lowering.run_lowering_reference(compiled, *inputs), 1)
         flat = [*inputs[0], inputs[1], *(x for tab in inputs[2] for x in tab)]
         n_bytes = (sum(x.numel() * x.element_size() for x in flat) + prog.rec.nbytes
                    + prog.pool.nbytes + B * len(compiled.conjuncts))
@@ -1136,7 +1175,7 @@ def at_scale(torch):
 # ---------------------------------------------------------------------------
 
 LARGECODE = "largecode_contract_2400"
-LARGECODE_COMPARED = 8  # of its 352 dispatches: the first 8 and the paged one
+LARGECODE_COMPARED = 4  # of its 352 dispatches: the first 4 and the paged one
 # 32-bit integer instructions a live path's step costs the kernel (decode
 # and pops about 60, a 256-bit fold up to 100, the handler and the tail
 # about 120, rows and event about 120): an estimate from the source, the
@@ -1796,11 +1835,11 @@ def wrapper_seconds(torch, argv) -> float:
 
 # phase 8f's run under torch.profiler in both modes
 PIPELINE_PROFILED = "etherstore_like/256"
-# phase 8f's runs timed in four turns; the short ones (kill_simple, the
-# storage gate, etherstore_like at 64) run pipelined and with --no-pipeline
-# once each, which keeps the script within the earlier slices' time
-PIPELINE_FOUR_TURNS = ("etherstore_like/256", "rubixi_like/256", "wide_contract_10/1024",
-                       "largecode_contract_2400/256")
+# phase 8f's runs timed in four turns, the two whose pipelined wall is in
+# question (PERF.md); the others (kill_simple, the storage gate,
+# etherstore_like at 64, wide_contract_10 and largecode) run pipelined and
+# with --no-pipeline once each, which keeps the script within its limit
+PIPELINE_FOUR_TURNS = ("etherstore_like/256", "rubixi_like/256")
 # the recorded dispatches phase 8f chains a segment on
 PIPELINE_CHAINED = (("etherstore_like", 0), ("wide_contract_10", 0))
 
@@ -2506,7 +2545,7 @@ def traced_runs(torch, card: str):
     solver._evaluate_candidates_device = counting
     try:
         walls = {"untraced": [], "traced": []}
-        for turn in ("untraced", "traced", "traced", "untraced") * 2:
+        for turn in ("untraced", "traced", "traced", "untraced"):
             wall, out, launches, by_caller, _ = one(turn == "traced")
             walls[turn].append(wall)
             if turn == "traced" and len(walls["traced"]) == 1:
@@ -2580,6 +2619,216 @@ def traced_runs(torch, card: str):
            "device_meta": report["meta"]["device"], "microbench": micro, "card": card,
            "seconds": seconds}
     return traced_launches, row
+
+
+# phase 8k: the queue-depth keys the JAX runner's heartbeat samples
+# (mythril_tpu/frontier/pipeline.py _heartbeat_sample; the CPU tests hold
+# this set against it)
+HEARTBEAT_KEYS = frozenset({
+    "pipeline.pool_queue_depth", "pipeline.ledger_pending_corrections",
+    "pipeline.reinject_queue_depth", "pipeline.seed_queue_depth",
+    "frontier.arena_occupancy", "frontier.live_paths",
+    "pipeline.free_slots_by_shard", "pipeline.live_slots_by_shard",
+})
+
+
+@contextlib.contextmanager
+def syncs_by_thread(torch, into: collections.Counter):
+    """Count the card's synchronising calls by the Python thread that made
+    them (``torch.cuda.set_sync_debug_mode("warn")``; torch raises each as a
+    warning on the calling thread)."""
+    import threading
+    import warnings
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            into[threading.current_thread().name.split("_")[0]] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield into
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def health_runs(torch, card: str):
+    """Phase 8k (see the module docstring) -> (the resumed run's launches,
+    the phase's row)."""
+    import glob
+    import os
+    import shutil
+    import signal
+    import statistics as stats
+    import tempfile
+
+    from mythril_tpu_torch.frontier import engine as fengine
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.observability.heartbeat import HeartbeatSampler
+    from mythril_tpu_torch.ops import _build
+    from tests import test_torch_cli as T
+
+    t_phase = phase("health: checkpoint and resume, the heartbeat, the flight recorder, the "
+                    "kernel build cache and the metrics history through the CLI on the card")
+    run = T.load_runs()[TRACED_RUN]
+    argv = T.port_argv(run)
+    want = jsonv2_issue_keys(run["stdout"])
+    tmp = tempfile.mkdtemp(prefix="health-")
+
+    def one(extra, tx: int = 2, base=argv):
+        zero_launches()
+        cmd = list(base)
+        cmd[base.index("-t") + 1] = str(tx)
+        t0 = time.perf_counter()
+        rc, out = T.run_port(cmd + extra, device=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{TRACED_RUN} -t {tx} {' '.join(extra)}: exit {rc}")
+        return wall, out, read_launches()
+
+    def printed(args) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+        check(rc == 0, f"{' '.join(args)}: exit {rc}")
+        return out.getvalue()
+
+    # checkpoint after the first transaction, resumed for the second
+    ckpt = os.path.join(tmp, "ckpt.json")
+    one(["--checkpoint-file", ckpt], tx=1)
+    with open(ckpt) as f:
+        saved = json.load(f)
+    check(saved["completed_transactions"] == 1 and saved["open_states"],
+          f"the checkpoint holds {saved['completed_transactions']} transactions, "
+          f"{len(saved['open_states'])} open states")
+    wall_r, out_r, resumed = one(["--resume-from", ckpt])
+    wall_u, out_u, whole = one([])
+    keys_r, keys_u = jsonv2_issue_keys(out_r), jsonv2_issue_keys(out_u)
+    print(f"  checkpoint after transaction 1: {len(saved['open_states'])} open states, "
+          f"{os.path.getsize(ckpt)} bytes; resumed -t 2: {len(keys_r)} issues in {wall_r:.3f} s, "
+          f"launches {resumed}; uninterrupted -t 2: {len(keys_u)} issues in {wall_u:.3f} s, "
+          f"launches {whole}")
+    check(keys_r == keys_u == want,
+          "the resumed run's issue keys differ from the uninterrupted run's or the JAX record's")
+    check(resumed["frontier_segment"] > 0 and resumed["tape_vm"] > 0,
+          f"the resumed run launched the segment {resumed['frontier_segment']} and the tape VM "
+          f"{resumed['tape_vm']} times")
+
+    # the heartbeat: walls in turns with the traced and the untraced runs
+    hb_path, trace_path = os.path.join(tmp, "hb.jsonl"), os.path.join(tmp, "trace.json")
+    modes = {"untraced": [], "traced": ["--trace-out", trace_path],
+             "heartbeat": ["--heartbeat-out", hb_path, "--heartbeat-interval", "0.05"]}
+    walls = {m: [] for m in modes}
+    for mode in ("untraced", "traced", "heartbeat", "heartbeat", "traced", "untraced"):
+        wall, out, _ = one(modes[mode])
+        check(jsonv2_issue_keys(out) == want, f"{TRACED_RUN} ({mode}): the issue keys differ "
+              "from the JAX recording")
+        walls[mode].append(wall)
+    with open(hb_path) as f:
+        samples = [json.loads(line) for line in f]
+    during = [s for s in samples if "pipeline.pool_queue_depth" in s]
+    print(f"  heartbeat at 0.05 s: {len(samples)} samples, {len(during)} while the runner ran; "
+          f"the last one during the run: {during[-1] if during else None}")
+    check(len(during) >= 2 and all(HEARTBEAT_KEYS <= set(s) for s in during),
+          f"{len(during)} heartbeat samples with the runner's keys")
+    for mode, ws in walls.items():
+        print(f"  {mode}: walls {[round(w, 4) for w in ws]} s, median {stats.median(ws):.4f} s, "
+              f"spread {min(ws):.4f}-{max(ws):.4f} s ({card})")
+    # synchronising calls: the sampler's thread makes none on the pipelined
+    # run; the synchronous loop (its count does not hang on when the pool's
+    # verdicts land) makes as many with the sampler on as with it off
+    by_thread = collections.Counter()
+    with syncs_by_thread(torch, by_thread):
+        one(modes["heartbeat"])
+    small = T.port_argv(T.load_runs()[MICROBENCH_RUN]) + ["--no-pipeline"]
+    on, off = collections.Counter(), collections.Counter()
+    with syncs_by_thread(torch, on):
+        one(["--heartbeat-out", hb_path, "--heartbeat-interval", "0.01"], base=small)
+    start = HeartbeatSampler.start
+    HeartbeatSampler.start = lambda self, *a, **k: None  # the sampler off
+    try:
+        with syncs_by_thread(torch, off):
+            one([], base=small)
+    finally:
+        HeartbeatSampler.start = start
+    print(f"  synchronising calls by thread, pipelined with the heartbeat at 0.05 s: "
+          f"{dict(by_thread)}; {MICROBENCH_RUN} --no-pipeline with the heartbeat at 0.01 s "
+          f"{sum(on.values())} ({dict(on)}), off {sum(off.values())}")
+    check(by_thread["mythril-heartbeat"] == 0 and sum(by_thread.values()) > 0,
+          f"the heartbeat thread made {by_thread['mythril-heartbeat']} synchronising calls")
+    check(sum(on.values()) == sum(off.values()) > 0,
+          f"{sum(on.values())} synchronising calls with the heartbeat, {sum(off.values())} without")
+
+    # the flight recorder, SIGUSR1 at the second harvest, and the metrics
+    # history in the same run
+    flight, hist, harvests = os.path.join(tmp, "flight"), os.path.join(tmp, "history"), [0]
+    harvest = fengine.FrontierEngine._harvest
+
+    def signalling(self, *a, **k):
+        harvests[0] += 1
+        if harvests[0] == 2:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return harvest(self, *a, **k)
+
+    fengine.FrontierEngine._harvest = signalling
+    try:
+        one(["--flight-recorder", flight, "--history-dir", hist] + modes["heartbeat"])
+    finally:
+        fengine.FrontierEngine._harvest = harvest
+    bundles = sorted(glob.glob(os.path.join(flight, "flight-sigusr1-*.json")))
+    check(len(bundles) == 1, f"{len(bundles)} SIGUSR1 bundles after {harvests[0]} harvests")
+    with open(bundles[0]) as f:
+        bundle = json.load(f)
+    print(f"  SIGUSR1 bundle: {os.path.getsize(bundles[0])} bytes, device {bundle.get('device')}, "
+          f"{len(bundle.get('heartbeat_tail', []))} heartbeat samples, "
+          f"{len(bundle.get('spans_tail', []))} spans, {len(bundle.get('threads', {}))} threads")
+    check(bundle.get("device", {}).get("backend") == "cuda" and bundle.get("heartbeat_tail"),
+          "the bundle lacks the device plane's block or the heartbeat tail")
+
+    # the kernel build cache: a fresh directory holding a copy of the built
+    # library, in a process of its own
+    seeded = os.path.join(tmp, "kernels")
+    os.makedirs(seeded)
+    shutil.copy2(_build.library_path(), seeded)
+    listing = sorted(os.listdir(seeded))
+    metrics_path = os.path.join(tmp, "cache-metrics.json")
+    cmd = T.port_argv(T.load_runs()[MICROBENCH_RUN]) + [
+        "--compile-cache-dir", seeded, "--metrics-out", metrics_path]
+    env = dict(os.environ, MYTHRIL_DIR=os.path.join(tmp, "mythril"),
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mythril_tpu_torch", *cmd], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=tmp)
+    wall_c = time.perf_counter() - t0
+    check(proc.returncode == 0, f"--compile-cache-dir: exit {proc.returncode}: "
+          f"{proc.stderr[-1500:]}")
+    with open(metrics_path) as f:
+        m = json.load(f)["metrics"]
+    cache = {k: m.get(k) for k in ("compilecache.hits", "compilecache.misses",
+                                   "device.cache_hits", "device.cache_misses")}
+    print(f"  --compile-cache-dir with the library copied in: {cache}, "
+          f"the directory {listing} -> {sorted(os.listdir(seeded))}, {wall_c:.1f} s")
+    check(cache["compilecache.hits"] == 1 and cache["compilecache.misses"] == 0
+          and not cache["device.cache_misses"] and sorted(os.listdir(seeded)) == listing,
+          "the seeded build cache was not a hit without a build")
+
+    # the metrics history, read back by history and drift
+    rows = printed(["history", "query", "--dir", hist]).splitlines()
+    drift = json.loads(printed(["drift", "--history", hist, "--window", "1", "-o", "json"]))
+    print(f"  --history-dir: {len(rows)} records read back by history query; drift --history "
+          f"mode {drift.get('mode')}, {len(drift.get('ranked', []))} ranked")
+    check(len(rows) >= 2 and drift.get("mode") == "history",
+          f"history query read {len(rows)} records, drift mode {drift.get('mode')}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 8k took {seconds:.1f} s")
+    row = {"run": TRACED_RUN, "walls": walls, "resumed_launches": resumed,
+           "uninterrupted_launches": whole, "heartbeat_samples": len(during),
+           "syncs": {"pipelined_by_thread": dict(by_thread), "on": sum(on.values()),
+                     "off": sum(off.values())},
+           "build_cache": cache, "card": card, "seconds": seconds}
+    return resumed, row
 
 
 def device_fault(torch) -> None:
@@ -2747,7 +2996,7 @@ def time_known_bits(torch, calls, reps: int = 10):
             timer(lambda: _build.check(lib.mk_known_bits(ctypes.byref(args), stream),
                                        "known_bits"))
         ms = timer.total_ms() / reps
-        want = domains.eval_kb_plain(*inputs, r)
+        want, plain = cuda_once(lambda: domains.eval_kb_plain(*inputs, r))
         err = 0 if all(torch.equal(g, w) for g, w in zip((km, kv, refuted), want)) else 1
         wrapper = cuda_ms(lambda: device.known_bits(*inputs, r, plan=plan), reps)
         device.run_kb(pack, "cuda")
@@ -2755,7 +3004,6 @@ def time_known_bits(torch, calls, reps: int = 10):
         parts = {"inputs_ms": host_ms(lambda: domains.kb_inputs(pack, "cuda"), reps),
                  "plan_ms": host_ms(lambda: device.pack_plan(pack), reps),
                  "download_ms": host_ms(lambda: (km.cpu(), kv.cpu(), refuted.cpu()), reps)}
-        plain = cuda_ms(lambda: domains.eval_kb_plain(*inputs, r), 1)
         n_bytes = sum(x.numel() * 4 for x in inputs) + 2 * km.numel() * 4 + r
         b_ms, b_by = bound(n_bytes, n * r * KB_NODE_OPS)
         rows.append({"ms": ms, "wrapper_ms": wrapper, "run_kb_ms": run_kb, **parts,
@@ -2792,7 +3040,7 @@ def time_dpll(torch, calls, reps: int = 5):
         for _ in range(reps):
             timer(lambda: _build.check(lib.mk_dpll(ctypes.byref(args), stream), "dpll"))
         ms = timer.total_ms() / reps
-        want = kernel.run_plain(lits, dec, n_vars, iters)
+        want, plain = cuda_once(lambda: kernel.run_plain(lits, dec, n_vars, iters))
         err = 0 if all(torch.equal(g, w) for g, w in zip((status, assign, steps), want)) else 1
         wrapper = cuda_ms(lambda: device.dpll(lits, dec, n_vars, iters), reps)
         plane = kernel.Plane(lits.cpu().numpy(), dec.cpu().numpy(), q, n_vars)
@@ -2801,7 +3049,6 @@ def time_dpll(torch, calls, reps: int = 5):
         for _ in range(reps):
             device.run_device(plane, iters, "cuda")
         run_device = (time.perf_counter() - t0) * 1e3 / reps
-        plain = cuda_ms(lambda: kernel.run_plain(lits, dec, n_vars, iters), 1)
         real = (~((lits == 1) | (lits == 2)).any(dim=2)).sum(dim=1)
         n_steps, longest = int(steps.sum()), int(steps.max())
         n_bytes = (lits.numel() + dec.numel()) * 4 + q + q * n_vars + 4 * q
@@ -2920,6 +3167,7 @@ def main() -> int:
         j_launches, j_row = traced_runs(torch, card)
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
             check(j_launches[name] > 0, f"the traced run launched {name} no time")
+        k_launches, k_row = health_runs(torch, card)
         # the auto path: a query above the calibrated threshold reaches a
         # probe kernel on the card (on the recorded traffic the one that
         # crosses it, a batchTransfer flip, is refused by the tape and goes
@@ -3007,7 +3255,8 @@ def main() -> int:
                 "auto": h_launches.get(entry["name"], 0),
                 "concolic": i_launches.get(entry["name"], 0),
                 "concolic_auto": i_auto.get(entry["name"], 0),
-                "traced": j_launches[entry["name"]]}
+                "traced": j_launches[entry["name"]],
+                "resumed": k_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
@@ -3018,6 +3267,7 @@ def main() -> int:
         tape["auto"] = {"runs": h_rows}
         tape["concolic"] = {"runs": i_rows}
         frontier["traced"] = j_row
+        frontier["health"] = k_row
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

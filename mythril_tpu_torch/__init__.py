@@ -13,3 +13,18 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 """
 
 __version__ = "0.1.0"
+
+
+def enable_persistent_compilation_cache(cache_dir=None) -> None:
+    """The port's counterpart of the JAX package's persistent XLA
+    compilation cache: the kernel library is built into, and loaded from,
+    the kernel build cache (``ops/_build.py``).  ``cache_dir`` (the
+    ``--compile-cache-dir`` flag) wins over the ``MYTHRIL_TPU_COMPILATION_CACHE``
+    variable, which wins over ``mythril_tpu_torch/_build/``; the variable
+    at ``0``/``off``/``no``/``false`` gives each process a build directory
+    of its own, so every process builds.  Creates the ``compilecache.hits``
+    and ``compilecache.misses`` counters that each build counts into."""
+    from mythril_tpu_torch.ops import _build
+
+    _build.set_cache_dir(cache_dir)
+    _build.cache_counters()

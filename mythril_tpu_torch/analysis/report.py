@@ -7,9 +7,8 @@ extra.discoveryTime, sourceMap/sourceList fields).  The port's jsonv2 meta
 carries the JAX package's blocks: the execution info, the metrics snapshot
 (``meta.observability``, with the trace summary when tracing was on), the
 prefilter's and the devsolver's rollups, the exploration ledger, the static
-pass's rollup, the device plane (``meta.device``) and the frontier's
-isolation and paging rollup; ``meta.health`` comes with the watchtower
-(ROADMAP Queue A item 13).
+pass's rollup, the watchtower's SLO state (``meta.health``), the device
+plane (``meta.device``) and the frontier's isolation and paging rollup.
 """
 
 from __future__ import annotations
@@ -248,12 +247,14 @@ class Report:
         from mythril_tpu_torch.observability import observability_meta
         from mythril_tpu_torch.observability.deviceplane import device_meta
         from mythril_tpu_torch.observability.exploration import exploration_meta
+        from mythril_tpu_torch.observability.watchtower import health_meta
 
         meta["observability"] = observability_meta()
         meta["prefilter"] = _prefilter_meta()
         meta["devsolver"] = _devsolver_meta()
         meta["exploration"] = exploration_meta()
         meta["staticpass"] = _staticpass_meta()
+        meta["health"] = health_meta()
         meta["device"] = device_meta()
         meta["frontier"] = _frontier_meta()
         result = [

@@ -11,12 +11,14 @@ plain PyTorch kernels), carries it on the ``LaserEVM`` to the frontier
 engine, and sets it as ``args.device`` for the solver calls made during the
 run, restoring the previous value after.  The kernels build at first use;
 a build or launch error raises.  The static pass gates the detection
-modules before their hooks are registered, as in the JAX package (the
-port has no checkpoint resume, so ``resume_from`` is always None).
-``defer_exec`` builds the analysis without running it, for the
-cooperative driver (``analysis/cooperative.py``), which runs the
-transactions and calls ``finalize``.  Not carried yet: checkpoints and the
-benchmark plugin.
+modules before their hooks are registered, as in the JAX package, and
+disables itself on a resumed run (``resume_from``: the checkpoint's open
+states, not the contract, say what code runs).  ``checkpoint_path`` writes
+the open states after every transaction (``support/checkpoint.py``, the
+JAX package's format); ``resume_from`` continues from such a file, whichever
+package wrote it.  ``defer_exec`` builds the analysis without running it,
+for the cooperative driver (``analysis/cooperative.py``), which runs the
+transactions and calls ``finalize``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,8 @@ class SymExecWrapper:
         run_analysis_modules: bool = True,
         enable_coverage_strategy: bool = False,
         custom_modules_directory: str = "",
+        checkpoint_path: Optional[str] = None,
+        resume_from: Optional[str] = None,
         device: DeviceLike = None,
         defer_exec: bool = False,
     ):
@@ -124,6 +128,9 @@ class SymExecWrapper:
                 requires_statespace=requires_statespace,
                 device=self.device,
             )
+
+            self.laser.checkpoint_path = checkpoint_path or args.checkpoint_path
+            self._resume_from = resume_from or args.resume_from
 
             if loop_bound is not None:
                 self.laser.extend_strategy(BoundedLoopsStrategy, loop_bound=loop_bound)
@@ -168,7 +175,7 @@ class SymExecWrapper:
                 from mythril_tpu_torch.staticpass import gate_view_for_contract
 
                 static_view = gate_view_for_contract(
-                    contract, dynloader=dynloader, resume_from=None
+                    contract, dynloader=dynloader, resume_from=self._resume_from
                 )
                 analysis_modules = ModuleLoader().get_detection_modules(
                     EntryPoint.CALLBACK, white_list=modules, static_view=static_view
@@ -201,7 +208,9 @@ class SymExecWrapper:
 
             # execute (creation vs runtime, reference symbolic.py:168-220)
             with _otrace.span("analysis.sym_exec", cat="analysis"):
-                if isinstance(contract, (bytes, bytearray)):
+                if self._resume_from:
+                    self._exec_resumed(address)
+                elif isinstance(contract, (bytes, bytearray)):
                     # raw runtime bytecode
                     from mythril_tpu_torch.frontend.disassembler import Disassembly
 
@@ -250,6 +259,24 @@ class SymExecWrapper:
                 self._benchmark_plugin.write_to_file(args.benchmark_path)
             except OSError as e:
                 log.warning("could not write benchmark series: %s", e)
+
+    def _exec_resumed(self, address: int) -> None:
+        """Continue a checkpointed run: reload the frontier and hand the
+        engine the restored open states (LaserEVM.resume owns the framing)."""
+        from mythril_tpu_torch.support.checkpoint import load_checkpoint
+
+        completed, open_states, saved_address = load_checkpoint(
+            self._resume_from, dynamic_loader=self.laser.dynamic_loader
+        )
+        if saved_address is not None:
+            address = saved_address
+        log.info(
+            "resuming from %s: %d transactions done, %d open states",
+            self._resume_from,
+            completed,
+            len(open_states),
+        )
+        self.laser.resume(open_states, completed, address)
 
     def _exec_creation(self, contract, world_state: WorldState) -> None:
         from mythril_tpu_torch.core.transaction import symbolic as sym_tx

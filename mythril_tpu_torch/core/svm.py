@@ -95,6 +95,11 @@ class LaserEVM:
         self.time: Optional[float] = None
         self.executed_transactions = False
 
+        # frontier checkpointing: snapshot path + number of transactions a
+        # resumed run has already completed
+        self.checkpoint_path: Optional[str] = None
+        self.resume_offset: int = 0
+
         # hook registries
         self._hooks: Dict[str, List[Callable]] = {t: [] for t in LASER_HOOK_TYPES}
         self._pre_hooks: Dict[str, List[Callable]] = defaultdict(list)
@@ -179,12 +184,32 @@ class LaserEVM:
 
         self._fire("stop_sym_exec")
 
+    def resume(
+        self, open_states: List[WorldState], completed_transactions: int, address: int
+    ) -> None:
+        """Continue from a checkpointed frontier: same start/stop framing as
+        ``sym_exec`` but seeded with restored open states and skipping the
+        transactions a previous run already completed."""
+        self._fire("start_sym_exec")
+        time_handler.start_execution(self.execution_timeout)
+        self.time = time.time()
+        self.open_states = open_states
+        self.resume_offset = completed_transactions
+        self._execute_transactions(address)
+        self._fire("stop_sym_exec")
+
     def _execute_transactions(self, address: int) -> None:
-        """Symbolic-tx loop: each round reseeds from surviving open states."""
+        """Symbolic-tx loop: each round reseeds from surviving open states.
+
+        When ``checkpoint_path`` is set, the surviving frontier is written
+        to disk after every completed transaction (``support/checkpoint.py``;
+        a failed write only logs); ``resume_offset`` counts transactions
+        already completed by a resumed run.
+        """
         from mythril_tpu_torch.core.transaction import symbolic as sym_tx
 
         self.executed_transactions = True
-        for i in range(self.transaction_count):
+        for i in range(self.resume_offset, self.transaction_count):
             if not self.open_states:
                 break
             # prune unreachable open states before the next round (batched:
@@ -209,6 +234,18 @@ class LaserEVM:
             self._fire("start_sym_trans")
             sym_tx.execute_message_call(self, address)
             self._fire("stop_sym_trans")
+            if self.checkpoint_path:
+                from mythril_tpu_torch.support.checkpoint import save_checkpoint
+
+                try:
+                    save_checkpoint(
+                        self.checkpoint_path,
+                        i + 1,
+                        self.open_states,
+                        target_address=address,
+                    )
+                except Exception as e:  # snapshots are best-effort
+                    log.warning("checkpoint write failed: %s", e)
 
     # ------------------------------------------------------------------
     # main loop (reference svm.py:261-304)

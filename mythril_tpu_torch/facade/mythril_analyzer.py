@@ -56,6 +56,8 @@ class AnalyzerArgs:
     benchmark_path: Optional[str] = None
     enable_coverage_strategy: bool = False
     custom_modules_directory: str = ""
+    checkpoint_file: Optional[str] = None
+    resume_from: Optional[str] = None
     probe_backend: str = "auto"
     frontier: bool = False
     frontier_width: int = 64
@@ -75,6 +77,17 @@ class AnalyzerArgs:
     harvest_workers: int = 4
     adaptive: bool = True
     coverage_target: Optional[float] = None
+    compile_cache_dir: Optional[str] = None
+    # one directory pinning both persistent caches (querycache/ + kernels/);
+    # explicit query_cache_dir / compile_cache_dir win over the derivation
+    cache_root: Optional[str] = None
+    heartbeat_out: Optional[str] = None
+    heartbeat_interval: float = 0.5
+    flight_recorder: Optional[str] = None
+    watchdog_deadline: Optional[float] = None
+    #: record the metrics registry into a persistent delta-encoded
+    #: history ring under this directory (``history`` reads it)
+    history_dir: Optional[str] = None
 
 
 class MythrilAnalyzer:

@@ -97,6 +97,7 @@ from mythril_tpu_torch.frontier.step import (
 )
 from mythril_tpu_torch.frontier.walker import Walker
 from mythril_tpu_torch.observability import deviceplane as _devplane
+from mythril_tpu_torch.observability import flightrecorder as _frec
 from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.observability.metrics import get_registry as _get_metrics
 from mythril_tpu_torch.support.support_args import args
@@ -1133,6 +1134,7 @@ class FrontierEngine:
                 st_p, arena_len, n_exec_host, seg_ml_host = pull_harvest(
                     out_state, out_len, n_exec, seg_ml
                 )
+            _frec.beat()
             max_live = max(max_live, seg_ml_host)
             arena.pull_from_device(dev_arena, arena_len)
             executed += n_exec_host
@@ -1191,6 +1193,9 @@ class FrontierEngine:
             slow_bailed = runner.slow_bailed
             width_verdict_valid = runner.width_verdict_valid
             skip_loop = True
+        watch = _frec.activity() if not skip_loop else None
+        if watch is not None:
+            watch.__enter__()
         while not skip_loop:
             if time.perf_counter() > deadline or time_handler.time_remaining() <= 0:
                 log.info("frontier: execution timeout; parking live paths")
@@ -1233,6 +1238,7 @@ class FrontierEngine:
                 st, arena_len_new, n_exec_host, seg_ml_host = pull_harvest(
                     out_state, out_len, n_exec, seg_max_live
                 )
+            _frec.beat()
             max_live = max(max_live, seg_ml_host)
             arena.pull_from_device(dev_arena, arena_len_new)
             arena_len = arena_len_new
@@ -1359,6 +1365,8 @@ class FrontierEngine:
                     break
             else:
                 narrow_harvests = 0
+        if watch is not None:
+            watch.__exit__(None, None, None)
 
         if slow_bailed:
             # slow: only codes whose OWN slow-segment count reached the bail

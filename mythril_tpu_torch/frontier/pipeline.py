@@ -74,9 +74,12 @@ The mesh's rebalance and per-shard accounting come with the mesh (ROADMAP
 item 12).  The tracer's spans and flows and the device plane's scope,
 stamps and analysis are the JAX package's; the ``pipeline.*`` metrics
 live in the registry (``COUNTERS`` is a view of the counters by name
-without the prefix).  The queue-depth gauges the JAX package's heartbeat
-samples every 0.5 s are sampled once, when the run ends (the heartbeat and
-the flight recorder are item 13).
+without the prefix).  Every run registers its queue depths with the
+heartbeat (``observability/heartbeat.py``) and starts the sampler when
+nothing else has (every ``args.heartbeat_interval`` seconds, 0.5 by
+default), as in the JAX package; the sampler thread reads host-side
+lengths and masks only, never a CUDA tensor, so it adds no synchronising
+call.  The flight recorder's watchdog is beaten as each segment retires.
 """
 
 from __future__ import annotations
@@ -96,8 +99,10 @@ from mythril_tpu_torch.frontier.records import PathRecord
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
 from mythril_tpu_torch.frontier.stats import FrontierStatistics
 from mythril_tpu_torch.observability import deviceplane as _devplane
+from mythril_tpu_torch.observability import flightrecorder as _frec
 from mythril_tpu_torch.observability import tracer as _otrace
 from mythril_tpu_torch.observability import views
+from mythril_tpu_torch.observability.heartbeat import get_heartbeat
 from mythril_tpu_torch.observability.metrics import get_registry as _get_metrics
 from mythril_tpu_torch.support.support_args import args
 from mythril_tpu_torch.support.time_handler import time_handler
@@ -458,7 +463,10 @@ class PipelinedRunner:
     # -- queue depths --------------------------------------------------
 
     def _heartbeat_sample(self) -> dict:
-        """The queue depths the JAX package's heartbeat samples."""
+        """Queue depths for the heartbeat sampler.  Runs on the sampler
+        thread against concurrently-mutated state: values are snapshots of
+        host-side lengths and masks, and the sampler tolerates a transient
+        race throwing."""
         B = self.caps.B
         live, free = self._slot_masks()
         sample = {
@@ -809,6 +817,16 @@ class PipelinedRunner:
         stop: Optional[str] = None
         micro_pending = bool(args.frontier_microbench and not stats.microbench)
 
+        hb = get_heartbeat()
+        hb.register("pipeline", self._heartbeat_sample)
+        hb_started = False
+        if not hb.running:
+            # CLI runs with --heartbeat-out arm the sampler up front; any
+            # other pipelined run (facade embedding, bench) starts it here
+            # so pool/ledger depth gauges are sampled, not set-on-mutation
+            hb.start(period_s=args.heartbeat_interval, out_path=args.heartbeat_out)
+            hb_started = True
+
         # device plane: tag this thread's dispatches and pulls (and any
         # kernel build they trigger) with the program's bucket shape for
         # the duration of the run; restored in the finally below
@@ -826,6 +844,8 @@ class PipelinedRunner:
         # while any dispatch is in flight the device owns the arena append
         # indices; host encode paths must not race them (arena.freeze)
         self.arena.freeze()
+        watch = _frec.activity()
+        watch.__enter__()
         try:
             while True:
                 deadline_hit = (time.perf_counter() > self.deadline
@@ -915,6 +935,7 @@ class PipelinedRunner:
                 prev_st = new_st
                 if nxt is None:
                     self.ledger.release_owned()
+                _frec.beat()  # a segment retired: push the watchdog out
                 t_har = time.perf_counter()
                 self.apply_verdicts()
                 self.current_sid = inflight_sid
@@ -1058,6 +1079,7 @@ class PipelinedRunner:
                 self.arena.freeze()
         finally:
             _dscope.__exit__(None, None, None)
+            watch.__exit__(None, None, None)
             self.arena.thaw()
             self.walker.park_sink = None
             self._flush_reinject_queue()
@@ -1074,9 +1096,9 @@ class PipelinedRunner:
                                      cat="device", segment=sid):
                         tracer.flow("f", fid, "flow.segment", cat="device")
                 self._seg_flow.clear()
-            # the queue depths, sampled once at the end of the run
-            for key, val in self._heartbeat_sample().items():
-                reg.gauge(key).set(val)
+            hb.unregister("pipeline")
+            if hb_started:
+                hb.stop()
             overlap = reg.counter("pipeline.overlap_s").value
             total_har = overlap + reg.counter("pipeline.bubble_s").value
             if total_har > 0:

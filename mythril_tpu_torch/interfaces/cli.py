@@ -4,7 +4,8 @@ Reference parity: mythril/interfaces/cli.py:236-935, by way of the JAX
 package's ``interfaces/cli.py``, whose option names, defaults and choices
 the port keeps for every option it has.  Subcommands: analyze (a),
 disassemble (d), concolic (c), static, safe-functions, list-detectors,
-read-storage, function-to-hash, hash-to-address, version, help.
+read-storage, function-to-hash, hash-to-address, history, drift, version,
+help.
 
 What differs from the JAX command line:
 
@@ -30,13 +31,20 @@ What differs from the JAX command line:
   ``--trace-out FILE`` enables the span tracer and writes a
   Chrome-trace/Perfetto JSON (and ``FILE.jsonl``) after the run,
   ``--metrics-out FILE`` the metrics-registry snapshot, ``--benchmark
-  FILE`` the benchmark plugin's instructions-over-time series.  The
-  other switch that turns a default-on JAX tier off (``--no-mesh``) is
-  accepted: the port runs without the mesh until it is ported, and
-  ``analyze`` names it on one stderr line.
-* Every other JAX option or subcommand the port lacks is refused with exit
-  code 2 and the ROADMAP item that ports it (``NOT_YET_PORTED``).  The
-  heartbeat period is accepted at its JAX default only.
+  FILE`` the benchmark plugin's instructions-over-time series.
+  ``--checkpoint-file FILE`` writes the open states after every
+  transaction and ``--resume-from FILE`` continues from such a file;
+  ``--compile-cache-dir DIR`` and ``--cache-root DIR`` relocate the kernel
+  build cache (``DIR/kernels`` under the root, beside ``DIR/querycache``);
+  ``--heartbeat-out``, ``--heartbeat-interval``, ``--flight-recorder``,
+  ``--watchdog-deadline`` and ``--history-dir`` are the health surfaces,
+  and ``history`` and ``drift`` read what they record.  The other switch
+  that turns a default-on JAX tier off (``--no-mesh``) is accepted: the
+  port runs without the mesh until it is ported, and ``analyze`` names it
+  on one stderr line.
+* The subcommands of the analysis service (``serve``, ``submit``, ``top``
+  and ``health``, which reads the service) are refused with exit code 2
+  and the ROADMAP item that ports them (``NOT_YET_PORTED``).
 * With ``--frontier`` on the card, a ``--frontier-width`` wider than the
   card's resident cooperative grid is refused before the analysis starts.
 
@@ -50,7 +58,10 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
+import time
+import traceback
 from typing import List, Optional, Sequence
 
 from mythril_tpu_torch import __version__
@@ -64,29 +75,14 @@ PROG = "myth-tpu-torch"
 COMMAND_ALIASES = {"a": "analyze", "d": "disassemble", "c": "concolic"}
 ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
 
-# What the JAX command line has and the port does not yet: option or
-# subcommand -> the ROADMAP Queue A item that ports it.
+# What the JAX command line has and the port does not yet: subcommand ->
+# the ROADMAP Queue A item that ports it (the analysis service; ``health``
+# reads the service's watchtower through its client).
 NOT_YET_PORTED = {
-    "--checkpoint-file": 13,
-    "--resume-from": 13,
-    "--compile-cache-dir": 13,
-    "--cache-root": 13,
-    "--heartbeat-out": 13,
-    "--heartbeat-interval": 13,
-    "--flight-recorder": 13,
-    "--watchdog-deadline": 13,
-    "--history-dir": 13,
     "serve": 13,
     "submit": 13,
     "top": 13,
     "health": 13,
-    "history": 13,
-    "drift": 13,
-}
-# refused options that the port accepts at their JAX default, and runs as
-# that default: option -> (type, default)
-AT_DEFAULT_ONLY = {
-    "--heartbeat-interval": (float, 0.5),
 }
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
 RUNS_WITHOUT = {
@@ -95,8 +91,8 @@ RUNS_WITHOUT = {
 
 
 class Refused(Exception):
-    """An option or subcommand the port does not have yet, or a frontier
-    width the card cannot hold; the CLI exits with code 2."""
+    """A subcommand the port does not have yet, or a frontier width the
+    card cannot hold; the CLI exits with code 2."""
 
 
 def refusal(what: str, item: int) -> Refused:
@@ -211,6 +207,14 @@ def _add_analysis_options(parser) -> None:
     )
     group.add_argument(
         "--custom-modules-directory", default="", help="directory with additional detection modules"
+    )
+    group.add_argument(
+        "--checkpoint-file",
+        help="snapshot the open-state frontier to this file after every transaction",
+    )
+    group.add_argument(
+        "--resume-from",
+        help="resume an interrupted analysis from a frontier checkpoint file",
     )
     group.add_argument(
         "--probe-backend",
@@ -358,6 +362,23 @@ def _add_analysis_options(parser) -> None:
         "0 runs the serial harvest",
     )
     group.add_argument(
+        "--compile-cache-dir",
+        metavar="DIR",
+        help="build the CUDA kernel library into DIR and load it from there "
+        "across processes (no nvcc run on a warm start); default "
+        "mythril_tpu_torch/_build — set the MYTHRIL_TPU_COMPILATION_CACHE "
+        "env var to 0/off to build in every process, or to a path to "
+        "relocate",
+    )
+    group.add_argument(
+        "--cache-root",
+        metavar="DIR",
+        help="pin BOTH persistent caches under one directory: SMT query "
+        "cache in DIR/querycache, kernel build cache in DIR/kernels; "
+        "explicit --query-cache-dir / --compile-cache-dir win over the "
+        "derived paths",
+    )
+    group.add_argument(
         "--no-staticpass",
         action="store_true",
         help="disable the static bytecode pre-analysis pass (CFG + abstract-"
@@ -399,6 +420,44 @@ def _add_analysis_options(parser) -> None:
         help="write the exploration ledger (per-contract instruction and "
         "JUMPI branch-edge coverage bitmaps, termination-class breakdown, "
         "solver hotspots by program point) to FILE as JSON after the run",
+    )
+    group.add_argument(
+        "--heartbeat-out",
+        metavar="FILE",
+        help="sample pipeline queue depths (feasibility in-flight, ledger "
+        "pending corrections, free slots, arena occupancy) at a fixed "
+        "period into FILE as JSON lines — live progress for multi-minute "
+        "runs (tail -f)",
+    )
+    group.add_argument(
+        "--heartbeat-interval",
+        type=float,
+        default=0.5,
+        metavar="SECONDS",
+        help="heartbeat sampling period (default 0.5s)",
+    )
+    group.add_argument(
+        "--flight-recorder",
+        metavar="DIR",
+        help="arm the flight recorder: on an unhandled exception, SIGUSR1, "
+        "or a watchdog timeout, dump a bundle (recent spans, metrics "
+        "snapshot, device plane, heartbeat tail, all-thread stacks) into "
+        "DIR; implies span tracing",
+    )
+    group.add_argument(
+        "--watchdog-deadline",
+        type=float,
+        metavar="SECONDS",
+        help="with --flight-recorder: dump a hang bundle when no frontier "
+        "segment completes within SECONDS while a run is active "
+        "(default: watchdog off)",
+    )
+    group.add_argument(
+        "--history-dir",
+        metavar="DIR",
+        help="record the metrics registry into a persistent delta-encoded "
+        "history ring under DIR at the heartbeat cadence (readable with "
+        "'history query')",
     )
     _add_device(group)
 
@@ -499,6 +558,62 @@ def create_parser() -> argparse.ArgumentParser:
     h2a = subparsers.add_parser("hash-to-address", help="look up signatures for a selector")
     h2a.add_argument("hash", help="e.g. 0xa9059cbb")
 
+    history = subparsers.add_parser(
+        "history", help="query the persistent metrics history ring "
+        "written by the watchtower (post-hoc plotting/diagnosis)",
+    )
+    history.add_argument(
+        "action", choices=["query", "segments"],
+        help="query: emit (t, value) samples as JSON lines; "
+        "segments: list on-disk ring segments",
+    )
+    history.add_argument(
+        "--dir", dest="history_dir", metavar="DIR",
+        help="history directory (exclusive with --cache-root)",
+    )
+    history.add_argument(
+        "--cache-root", metavar="DIR",
+        help="cache root; reads DIR/history",
+    )
+    history.add_argument(
+        "--metric", action="append", metavar="NAME",
+        help="metric name(s) to emit (repeatable; default: all)",
+    )
+    history.add_argument(
+        "--since", type=float, default=None, metavar="SECONDS",
+        help="only samples from the last SECONDS",
+    )
+    _add_verbosity(history)
+
+    drift = subparsers.add_parser(
+        "drift", help="rank perf movement between two bench artifacts "
+        "(or two history-ring windows) and name the most-moved "
+        "phase/counter",
+    )
+    drift.add_argument(
+        "artifacts", nargs="*", metavar="BENCH.json",
+        help="two bench artifacts: PRIOR CURRENT (any bench-readable "
+        "format; omit when using --history)",
+    )
+    drift.add_argument(
+        "--history", dest="drift_history", metavar="DIR",
+        help="compare the last --window seconds of a metrics history "
+        "ring against the window before it",
+    )
+    drift.add_argument(
+        "--window", type=float, default=300.0, metavar="SECONDS",
+        help="history window length in seconds (default: 300)",
+    )
+    drift.add_argument(
+        "--limit", type=int, default=15, metavar="N",
+        help="ranked findings to print (default: 15)",
+    )
+    drift.add_argument(
+        "-o", "--outform", choices=["text", "json"], default="text",
+        help="output format",
+    )
+    _add_verbosity(drift)
+
     subparsers.add_parser("version", help="print version")
     subparsers.add_parser("help", help="print help")
     return parser
@@ -516,34 +631,11 @@ def _command_of(argv: Sequence[str]) -> Optional[str]:
 
 
 def screen(argv: Sequence[str]) -> List[str]:
-    """``argv`` with what the port accepts only at its JAX default taken out;
-    raises ``Refused`` for an unported subcommand or option."""
+    """``argv``; raises ``Refused`` for an unported subcommand."""
     command = _command_of(argv)
     if command in NOT_YET_PORTED:
         raise refusal(f"the subcommand {command!r}", NOT_YET_PORTED[command])
-    if command not in ANALYSIS_COMMANDS:
-        return list(argv)
-    out, i = [], 0
-    while i < len(argv):
-        opt, eq, value = argv[i].partition("=")
-        if opt not in NOT_YET_PORTED:
-            out.append(argv[i])
-            i += 1
-            continue
-        if opt not in AT_DEFAULT_ONLY:
-            raise refusal(opt, NOT_YET_PORTED[opt])
-        if not eq:
-            i += 1
-            value = argv[i] if i < len(argv) else ""
-        type_, default = AT_DEFAULT_ONLY[opt]
-        try:
-            at_default = type_(value) == default
-        except ValueError:
-            at_default = False
-        if not at_default:
-            raise refusal(f"{opt} {value} (other than its default {default})", NOT_YET_PORTED[opt])
-        i += 1
-    return out
+    return list(argv)
 
 
 def check_frontier_width(parsed) -> None:
@@ -655,6 +747,8 @@ def _build_analyzer(parsed):
         benchmark_path=parsed.benchmark,
         enable_coverage_strategy=parsed.enable_coverage_strategy,
         custom_modules_directory=parsed.custom_modules_directory,
+        checkpoint_file=parsed.checkpoint_file,
+        resume_from=parsed.resume_from,
         probe_backend=parsed.probe_backend,
         frontier=parsed.frontier,
         frontier_width=parsed.frontier_width,
@@ -674,6 +768,13 @@ def _build_analyzer(parsed):
         harvest_workers=parsed.harvest_workers,
         adaptive=parsed.adaptive,
         coverage_target=parsed.coverage_target,
+        compile_cache_dir=parsed.compile_cache_dir,
+        cache_root=parsed.cache_root,
+        heartbeat_out=parsed.heartbeat_out,
+        heartbeat_interval=parsed.heartbeat_interval,
+        flight_recorder=parsed.flight_recorder,
+        watchdog_deadline=parsed.watchdog_deadline,
+        history_dir=parsed.history_dir,
     )
     print(runs_without_line(parsed), file=sys.stderr)
     return MythrilAnalyzer(
@@ -767,21 +868,71 @@ def _execute_static(parsed) -> None:
 
 
 def _arm_observability(parsed) -> None:
-    """``--trace-out``: the tracer on, emptied, before the analyzer is
-    built (one trace per command line when ``main`` runs several in one
-    process)."""
-    if parsed.trace_out:
-        from mythril_tpu_torch.observability import get_tracer
+    """Before the analyzer is built: ``--trace-out`` and
+    ``--flight-recorder`` switch the tracer on, emptied (one trace per
+    command line when ``main`` runs several in one process);
+    ``--heartbeat-out`` starts the heartbeat, ``--flight-recorder`` arms
+    the recorder (with ``--watchdog-deadline``'s watchdog) and
+    ``--history-dir`` starts a recording-only watchtower at the heartbeat
+    cadence."""
+    from mythril_tpu_torch import observability as obs
 
-        get_tracer().reset()
-        get_tracer().enabled = True
+    if parsed.trace_out or parsed.flight_recorder:
+        obs.get_tracer().reset()
+        obs.get_tracer().enabled = True
+    if parsed.heartbeat_out:
+        obs.get_heartbeat().start(
+            period_s=parsed.heartbeat_interval, out_path=parsed.heartbeat_out)
+    if parsed.flight_recorder:
+        obs.arm_flight_recorder(
+            parsed.flight_recorder, watchdog_deadline_s=parsed.watchdog_deadline)
+    if parsed.history_dir:
+        # a recording-only watchtower (no objectives): snapshots the
+        # registry into the history ring at the heartbeat cadence
+        wt = obs.Watchtower(parsed.history_dir, objectives=[],
+                            interval_s=parsed.heartbeat_interval)
+        wt.start()
+        obs.set_watchtower(wt)
+
+
+def _disarm_observability(parsed) -> None:
+    """What ``_arm_observability`` started, stopped whatever way the command
+    ended: ``main`` runs several command lines in one process, and the JAX
+    CLI's process ends with its one."""
+    from mythril_tpu_torch import observability as obs
+
+    if getattr(parsed, "heartbeat_out", None):
+        obs.get_heartbeat().stop()
+    if getattr(parsed, "flight_recorder", None):
+        obs.disarm_flight_recorder()
+    if getattr(parsed, "history_dir", None) and obs.get_watchtower() is not None:
+        obs.get_watchtower().stop()
+        obs.set_watchtower(None)
 
 
 def _export_reports(parsed) -> None:
-    """After a run: ``--trace-out FILE`` (the Chrome trace and
-    ``FILE.jsonl``), ``--metrics-out FILE`` (the registry snapshot),
-    ``--coverage-out FILE`` (the exploration ledger) and
+    """After a run: the heartbeat's last sample (``--heartbeat-out``), the
+    history's last record (``--history-dir``), ``--trace-out FILE`` (the
+    Chrome trace and ``FILE.jsonl``), ``--metrics-out FILE`` (the registry
+    snapshot), ``--coverage-out FILE`` (the exploration ledger) and
     ``--staticpass-report FILE`` (the static pass's JSON)."""
+    if parsed.heartbeat_out:
+        from mythril_tpu_torch.observability import get_heartbeat
+
+        hb = get_heartbeat()
+        hb.sample_now()  # final depths before export
+        hb.stop()
+        log.info("wrote %d heartbeat samples to %s", hb.ticks, parsed.heartbeat_out)
+    if parsed.history_dir:
+        from mythril_tpu_torch.observability import get_watchtower, set_watchtower
+
+        wt = get_watchtower()
+        if wt is not None:
+            wt.tick()  # final snapshot so the ring ends at run end
+            wt.stop()
+            set_watchtower(None)
+            log.info("wrote %d history records to %s", wt.history.records,
+                     parsed.history_dir)
     if parsed.trace_out:
         from mythril_tpu_torch.observability import get_tracer
 
@@ -814,6 +965,66 @@ def _export_reports(parsed) -> None:
 
         export_report(parsed.staticpass_report)
         log.info("wrote static pre-analysis report to %s", parsed.staticpass_report)
+
+
+def _execute_history(parsed) -> None:
+    """``history``: the metrics history ring's samples as JSON lines
+    (``query``) or its on-disk segments (``segments``)."""
+    from mythril_tpu_torch.observability.history import HistoryReader
+
+    hist_dir = parsed.history_dir
+    if not hist_dir:
+        if not parsed.cache_root:
+            raise CriticalError("history needs --dir or --cache-root")
+        hist_dir = os.path.join(parsed.cache_root, "history")
+    reader = HistoryReader(hist_dir)
+    if parsed.action == "segments":
+        for row in reader.segments():
+            print(json.dumps(row), flush=True)
+        return
+    since = None
+    if parsed.since is not None:
+        since = time.time() - parsed.since
+    names = parsed.metric or None
+    for t, values in reader.samples(since=since, names=names):
+        if names and not values:
+            continue
+        print(json.dumps({"t": t, **values}), flush=True)
+
+
+def _execute_drift(parsed) -> None:
+    """``drift``: the ranked movement between two bench artifacts, or
+    between the last two ``--window`` windows of a history ring."""
+    from mythril_tpu_torch.observability.drift import (
+        diff_history_windows,
+        diff_tables,
+        format_drift,
+        load_bench_table,
+    )
+
+    if parsed.drift_history:
+        from mythril_tpu_torch.observability.history import HistoryReader
+
+        reader = HistoryReader(parsed.drift_history)
+        samples = list(reader.samples())
+        report = diff_history_windows(samples, parsed.window, bounds=reader.bucket_bounds)
+    else:
+        if len(parsed.artifacts) != 2:
+            raise CriticalError(
+                "drift needs two bench artifacts (PRIOR CURRENT) or --history DIR")
+        prior_path, current_path = parsed.artifacts
+        prior = load_bench_table(prior_path)
+        current = load_bench_table(current_path)
+        if not prior or not current:
+            raise CriticalError(
+                "no workload table recoverable from "
+                + (prior_path if not prior else current_path))
+        report = diff_tables(prior, current, prior_name=prior_path,
+                             current_name=current_path)
+    if parsed.outform == "json":
+        print(json.dumps(report, indent=2, sort_keys=True), flush=True)
+    else:
+        print(format_drift(report, limit=parsed.limit), flush=True)
 
 
 def execute_command(parsed) -> None:
@@ -903,6 +1114,14 @@ def execute_command(parsed) -> None:
 
     if command == "static":
         _execute_static(parsed)
+        return
+
+    if command == "history":
+        _execute_history(parsed)
+        return
+
+    if command == "drift":
+        _execute_drift(parsed)
         return
 
     if command == "safe-functions":
@@ -996,13 +1215,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return exit_with_error(getattr(parsed, "outform", "text"), str(e))
     except DeviceError as e:
         return exit_with_error(getattr(parsed, "outform", "text"), f"{type(e).__name__}: {e}")
+    except Exception:
+        # the excepthook's bundle, written before the recorder is disarmed
+        from mythril_tpu_torch.observability import get_flight_recorder
+
+        recorder = get_flight_recorder()
+        if recorder is not None:
+            recorder.dump("exception", extra={"exception": traceback.format_exc()[-8000:]})
+        raise
     finally:
+        _disarm_observability(parsed)
         for field in dataclasses.fields(args):
             setattr(args, field.name, getattr(saved, field.name))
         # the tracer as it was (``--trace-out`` switched it on)
         get_tracer().enabled = tracing
-        # the query cache singleton's switch and disk store, as they were
+        # the query cache singleton's switch and disk store, and the kernel
+        # build cache's directory, as they were
+        from mythril_tpu_torch.ops import _build
         from mythril_tpu_torch.querycache import configure
 
         configure(enabled=args.query_cache, cache_dir=args.query_cache_dir)
+        _build.set_cache_dir(args.compile_cache_dir)
     return 0

@@ -15,9 +15,15 @@ The port's counterpart of ``mythril_tpu/observability``:
   device time of segments and pulls, the allocator's peak per bucket.
 * :mod:`.exploration` — the exploration ledger: coverage bitmaps, the
   termination taxonomy and solver hotspots.
+* The health surfaces, copies of the JAX modules: :mod:`.heartbeat` (the
+  queue-depth sampler), :mod:`.flightrecorder` (bundles on an exception,
+  SIGUSR1 or the watchdog; the bundle also carries ``device_meta()``),
+  :mod:`.history` (the persistent metrics ring), :mod:`.watchtower` (SLO
+  objectives over the history, ``meta.health``) and :mod:`.drift` (the
+  ranked differ of two bench tables or two history windows).
 
-The fleet fabric, the flight recorder, the heartbeat, history, drift and
-the watchtower wait for ROADMAP Queue A item 13.
+The fleet fabric waits for the analysis service (ROADMAP Queue A item 13.4),
+its only caller.
 
     from mythril_tpu_torch.observability import get_tracer, get_registry, span
 
@@ -31,11 +37,35 @@ from mythril_tpu_torch.observability.deviceplane import (  # noqa: F401
     dispatch_scope,
     install_deviceplane,
 )
+from mythril_tpu_torch.observability.drift import (  # noqa: F401
+    diff_history_windows,
+    diff_tables,
+    format_drift,
+)
 from mythril_tpu_torch.observability.exploration import (  # noqa: F401
     TERM_CLASSES,
     ExplorationLedger,
     exploration_meta,
     get_exploration_ledger,
+)
+from mythril_tpu_torch.observability.flightrecorder import (  # noqa: F401
+    FlightRecorder,
+    arm_flight_recorder,
+    build_bundle,
+    disarm_flight_recorder,
+    get_flight_recorder,
+    register_dump_listener,
+    register_flight_context,
+    unregister_dump_listener,
+    unregister_flight_context,
+)
+from mythril_tpu_torch.observability.heartbeat import (  # noqa: F401
+    HeartbeatSampler,
+    get_heartbeat,
+)
+from mythril_tpu_torch.observability.history import (  # noqa: F401
+    HistoryReader,
+    MetricsHistory,
 )
 from mythril_tpu_torch.observability.metrics import (  # noqa: F401
     Counter,
@@ -52,6 +82,15 @@ from mythril_tpu_torch.observability.tracer import (  # noqa: F401
     get_tracer,
     span,
     traced,
+)
+from mythril_tpu_torch.observability.watchtower import (  # noqa: F401
+    Objective,
+    Watchtower,
+    default_objectives,
+    get_watchtower,
+    health_meta,
+    load_slo_file,
+    set_watchtower,
 )
 
 

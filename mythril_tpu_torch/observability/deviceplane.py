@@ -165,14 +165,19 @@ def on_cache(hit: bool) -> None:
 
 
 def install() -> bool:
-    """Switch the plane on (idempotent).  Returns True when it is active;
-    ``MYTHRIL_DEVICEPLANE=0`` keeps it off."""
+    """Switch the plane on and register its heartbeat source (idempotent).
+    Returns True when it is active; ``MYTHRIL_DEVICEPLANE=0`` keeps it off."""
     global _installed
     if _installed:
         return True
     if os.environ.get("MYTHRIL_DEVICEPLANE", "1") in ("0", "false", "off"):
         return False
     with _install_lock:
+        if _installed:
+            return True
+        from mythril_tpu_torch.observability.heartbeat import get_heartbeat
+
+        get_heartbeat().register("device", heartbeat_source)
         _installed = True
     return True
 

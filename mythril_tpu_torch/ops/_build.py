@@ -2,11 +2,22 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 process per source, all started together, and linked into one shared
-library with a plain C interface that ``ctypes`` loads.  The library goes
-to ``mythril_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of the sources and flags: it is built at first use and rebuilt whenever a
-source changes.  Nothing here runs at import time.  ``build`` also takes
-other sources (a measurement script's kernel) into a library of their own.
+library with a plain C interface that ``ctypes`` loads.  The library is
+named by a hash of the sources and flags: it is built at first use and
+rebuilt whenever a source changes.  Nothing here runs at import time.
+``build`` also takes other sources (a measurement script's kernel) into a
+library of their own.
+
+The build directory is the kernel build cache, the port's counterpart of
+the JAX package's persistent XLA compilation cache: a library found there
+is loaded without a build.  ``build_dir()`` is, in this order, the
+directory ``set_cache_dir`` was given (``--compile-cache-dir``, or
+``DIR/kernels`` under ``--cache-root``), the ``MYTHRIL_TPU_COMPILATION_CACHE``
+variable (``0``/``off``/``no``/``false`` or empty: a directory of the
+process's own, removed at exit, so every process builds), and
+``mythril_tpu_torch/_build/`` (``BUILD_DIR``, listed in ``.gitignore``).
+Every ``build`` counts ``compilecache.hits`` (the library was there) or
+``compilecache.misses`` (nvcc ran) in the metrics registry.
 
 Pointers and the CUDA stream are passed as ``c_void_p``; each C entry
 returns ``cudaGetLastError()`` of its launch and the Python wrapper raises
@@ -20,6 +31,7 @@ calling thread's dispatch scope.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -39,8 +51,14 @@ BUILD_DIR = PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+ENV_CACHE = "MYTHRIL_TPU_COMPILATION_CACHE"
+_OFF = ("", "0", "off", "no", "false")
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_cache_dir: Optional[Path] = None  # set_cache_dir's directory
+_own_dir: Optional[Path] = None  # the cache switched off: this process's own
+_own_lock = threading.Lock()
 
 
 class KernelBuildError(DeviceError):
@@ -50,6 +68,41 @@ class KernelBuildError(DeviceError):
 class KernelLaunchError(DeviceError):
     """A kernel's C entry reported a CUDA error, or the card cannot hold the
     launch shape."""
+
+
+def cache_counters():
+    """The ``compilecache.hits`` and ``compilecache.misses`` counters,
+    created at 0 (persistent: the sweep between contracts keeps them, as
+    the JAX package's)."""
+    from mythril_tpu_torch.observability.metrics import get_registry
+
+    reg = get_registry()
+    return (reg.counter("compilecache.hits", persistent=True),
+            reg.counter("compilecache.misses", persistent=True))
+
+
+def set_cache_dir(cache_dir) -> None:
+    """Build into and load from ``cache_dir`` (None: the variable, else the
+    default); the library already loaded in this process stays loaded."""
+    global _cache_dir
+    _cache_dir = None if cache_dir is None else Path(cache_dir).expanduser().resolve()
+
+
+def build_dir() -> Path:
+    """The kernel build cache's directory (see the module docstring)."""
+    global _own_dir
+    if _cache_dir is not None:
+        return _cache_dir
+    env = os.environ.get(ENV_CACHE)
+    if env is None:
+        return BUILD_DIR
+    if env.strip().lower() not in _OFF:
+        return Path(env).expanduser().resolve()
+    with _own_lock:
+        if _own_dir is None:
+            _own_dir = Path(tempfile.mkdtemp(prefix="mythril-kernels-"))
+            atexit.register(shutil.rmtree, str(_own_dir), True)
+    return _own_dir
 
 
 def sources() -> List[Path]:
@@ -77,7 +130,7 @@ def nvcc() -> str:
 
 def library_path(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> Path:
     srcs = sources() if srcs is None else srcs
-    return BUILD_DIR / f"lib{name}_{_digest(srcs)}.so"
+    return build_dir() / f"lib{name}_{_digest(srcs)}.so"
 
 
 def build_log() -> str:
@@ -94,15 +147,18 @@ def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> P
 
     srcs = sources() if srcs is None else srcs
     lib = library_path(srcs, name)
+    found = lib.exists()
     plane = deviceplane.installed()
     if plane:
-        deviceplane.on_cache(lib.exists())
-    if lib.exists():
+        deviceplane.on_cache(found)
+    hits, misses = cache_counters()
+    (hits if found else misses).inc()
+    if found:
         return lib
     t0 = time.perf_counter()
     compiler = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs, procs = [], []
         for src in srcs:
             obj = Path(tmp) / (src.stem + ".o")

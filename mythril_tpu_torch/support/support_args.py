@@ -30,6 +30,14 @@ and the harvest's replay pool; ``adaptive`` the adaptive controller
 All on by default (no disk store, no coverage bar), with the JAX package's
 worker counts.
 
+``checkpoint_path`` and ``resume_from`` are the frontier checkpoint
+(``support/checkpoint.py``) written after every transaction and the one a
+run resumes from; ``compile_cache_dir`` and ``cache_root`` relocate the
+kernel build cache (``ops/_build.py``; ``cache_root`` also derives the
+query cache's directory, ``facade/warm.py``); ``heartbeat_out``,
+``heartbeat_interval``, ``flight_recorder``, ``watchdog_deadline`` and
+``history_dir`` are the health surfaces' settings (``observability/``).
+
 ``device`` is the analysis-scoped device: ``SymExecWrapper`` resolves it
 once and sets it for the run (restoring it after), and the solver calls
 that have no laser at hand (path-condition checks, the pruner plugins,
@@ -60,6 +68,9 @@ class Args:
     enable_iprof: bool = False
     # write the benchmark plugin's series (JSON + SVG chart) to this path
     benchmark_path: Optional[str] = None
+    # frontier checkpointing
+    checkpoint_path: Optional[str] = None
+    resume_from: Optional[str] = None
     # deterministic replay only: GAS pushes the exact remaining gas instead
     # of a fresh symbol (never symbolic runs)
     concrete_gas: bool = False
@@ -118,6 +129,22 @@ class Args:
     # percent (or every explored code plateaus below it); None explores
     # to the transaction and time budget
     coverage_target: Optional[float] = None
+    # the kernel build cache's directory (ops/_build.py build_dir); None:
+    # MYTHRIL_TPU_COMPILATION_CACHE, else mythril_tpu_torch/_build
+    compile_cache_dir: Optional[str] = None
+    # one directory for both persistent caches: the query cache under
+    # <root>/querycache, the kernel build cache under <root>/kernels
+    # (facade/warm.resolve_cache_root); explicit per-cache flags win
+    cache_root: Optional[str] = None
+    # the health surfaces (observability/): heartbeat JSONL of sampled
+    # queue depths, sampler period, flight-recorder bundle directory, the
+    # watchdog deadline (seconds without a completed segment before a hang
+    # bundle is dumped; None disables the watchdog) and the metrics history
+    heartbeat_out: Optional[str] = None
+    heartbeat_interval: float = 0.5
+    flight_recorder: Optional[str] = None
+    watchdog_deadline: Optional[float] = None
+    history_dir: Optional[str] = None
     device: Optional[torch.device] = None
 
 

@@ -133,6 +133,11 @@ COPIED = (
     "staticpass/report.py",
     "analysis/module/loader.py",
     "frontier/code.py",
+    "support/checkpoint.py",
+    "observability/heartbeat.py",
+    "observability/history.py",
+    "observability/watchtower.py",
+    "observability/drift.py",
 )
 
 # copies whose named top-level functions are the port's own: module ->
@@ -140,6 +145,8 @@ COPIED = (
 EDITED = {
     # torch.profiler.record_function in place of jax.profiler.TraceAnnotation
     "observability/tracer.py": ("device_annotation",),
+    # the bundle carries the device plane's device_meta() beside the metrics
+    "observability/flightrecorder.py": ("build_bundle",),
 }
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

@@ -25,6 +25,23 @@ from __future__ import annotations
 import contextlib
 from typing import List, Sequence
 
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for each test, the old count restored after.
+    Tier-1 runs six xdist workers, and each worker's intra-op pool would
+    wait on the others' over the CPU's many small ops (a whole analysis took
+    up to 50 times its time alone).  Every ``tests/test_torch_*.py`` imports
+    this fixture, which makes it autouse there."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 def to_port(jax_terms: Sequence) -> List:
     from mythril_tpu.smt.serialize import dump_terms

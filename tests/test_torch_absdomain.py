@@ -25,6 +25,7 @@ from mythril_tpu.smt import terms as jt
 from mythril_tpu_torch import absdomain as P
 from mythril_tpu_torch.absdomain import domains as pd
 from mythril_tpu_torch.absdomain import tape as ptape
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_tier_cases as cases
 from tests._torch_parity import to_port
 from tests.absdomain import test_fuzz_differential as fuzz

@@ -16,6 +16,7 @@ import torch
 from mythril_tpu.ops import bitvec as jbv
 from mythril_tpu_torch.ops import bitvec as tbv
 from mythril_tpu_torch.smt.terms import mask, to_signed
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 
 WIDTHS = [8, 16, 24, 64, 160, 256]
 

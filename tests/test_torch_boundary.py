@@ -62,6 +62,7 @@ if not torch.cuda.is_available():
 
 from mythril_tpu_torch.frontier import arena, code, interop, ops, state, step
 from mythril_tpu_torch.support import opcodes
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_frontier_cases as cases
 
 case = cases.family_case(ops.F_JUMPI, False)

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests.test_torch_adaptive import port_cases
 
 REPO = Path(__file__).resolve().parent.parent

@@ -36,8 +36,9 @@ port's CLI replays the small runs (all but the bench contracts of
 its output must equal the JAX CLI's field by field (``differences``), except
 the issues' ``discoveryTime``, the wall-time fields of the execution info and
 of the static pass's reports (``wall_s``), the calibration block (a
-measurement; neither CPU run has one), the report meta block of the
-surface the port does not carry yet (``JAX_ONLY_META``), the meta blocks
+measurement; neither CPU run has one), the report meta blocks of a
+surface the port does not carry yet (``JAX_ONLY_META``, none since the
+watchtower's ``health`` was ported), the meta blocks
 of measurements and registry snapshots that both carry (``MEASURED_META``,
 held by ``tests/test_torch_observability.py``) and the seconds of the
 exploration ledger's solver hotspots.  ``chip_smoke.py`` replays the bench runs the same way
@@ -70,6 +71,9 @@ from typing import Optional
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:  # run as a script (--write)
+    sys.path.insert(0, str(REPO))
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 FIXTURE = REPO / "tests" / "testdata" / "torch_cli_runs.json"
 KILL_SIMPLE = REPO / "tests" / "testdata" / "inputs" / "kill_simple.bin-runtime"
 
@@ -91,9 +95,9 @@ COVERAGE_PINS = ["--probe-backend", "jax", "--no-mesh"]
 # ... and with its default probe backend, auto (on the JAX package's CPU:
 # the host probe), as well
 AUTO_PINS = ["--probe-backend", "auto", "--no-mesh"]
-# the jsonv2 meta block of a surface the port does not carry yet (ROADMAP
-# Known deviations: the watchtower's health, item 13)
-JAX_ONLY_META = {"health"}
+# the jsonv2 meta blocks of a surface the port does not carry yet (none:
+# the watchtower's health is compared since it was ported)
+JAX_ONLY_META = set()
 # meta blocks both carry that hold measurements or the registry's snapshot;
 # tests/test_torch_observability.py compares them
 MEASURED_META = {"device", "devsolver", "frontier", "observability", "prefilter"}
@@ -428,9 +432,9 @@ def test_fixture_holds_the_runs_it_names():
 def test_differences_sees_a_changed_field():
     run = load_runs()["selfdestruct/host"]
     port = _last_json_line(run["stdout"])
-    assert differences("jsonv2", run["stdout"], json.dumps(port)) != []  # JAX-only meta
-    for key in JAX_ONLY_META:
-        port[0]["meta"].pop(key)
+    health = port[0]["meta"].pop("health")
+    assert differences("jsonv2", run["stdout"], json.dumps(port)) != []  # a meta block missing
+    port[0]["meta"]["health"] = health
     port[0]["issues"][0]["extra"]["discoveryTime"] += 1
     port[0]["meta"]["mythril_execution_info"]["solver_time_s"] += 1
     assert differences("jsonv2", run["stdout"], json.dumps(port)) == []
@@ -479,10 +483,6 @@ def test_parser_keeps_the_jax_options_and_lists_what_it_lacks():
     table = set(cli.NOT_YET_PORTED)
     assert {k for k in table if k.startswith("-") and " " not in k} == missing_opts
     assert {k for k in table if not k.startswith("-")} == missing_subs
-    for opt, (type_, default) in cli.AT_DEFAULT_ONLY.items():
-        assert opt in table
-        j = _options(jax_subs["analyze"])[opt]
-        assert (j.type, j.default) == (type_, default)
 
 
 def test_runs_without_switches_are_accepted_and_named():
@@ -516,11 +516,10 @@ CLEAN = ["analyze", "-c", "0x60006000f3", "--bin-runtime", "-t", "1", "-o", "jso
 
 
 @pytest.mark.parametrize("argv, item", [
-    (CLEAN + ["--heartbeat-out", "heartbeat.jsonl"], 13),
-    (CLEAN + ["--history-dir=history"], 13),
-    # the worker counts are real switches now; the heartbeat period is the
-    # option left that the port takes at its JAX default only
-    (CLEAN + ["--heartbeat-interval", "2"], 13),
+    # every option of analyze is ported; the service's subcommands are not
+    (["submit", "-c", "0x60006000f3", "--port", "7396"], 13),
+    (["health", "--port=7396"], 13),
+    (["top", "--interval", "2"], 13),
     (["serve", "--port", "7396"], 13),
 ], ids=["value-option", "value-option-eq", "non-default-workers", "subcommand"])
 def test_refused(argv, item, capsys):
@@ -561,7 +560,7 @@ def test_default_only_options_run_at_their_default():
 
     workers = ["--harvest-workers", "4", "--solver-workers=2"]
     argv = CLEAN + workers + ["--heartbeat-interval", "0.50"]
-    assert cli.screen(argv) == CLEAN + workers  # the worker counts are real
+    assert cli.screen(argv) == argv  # the worker counts and the period are real
     rc, out = run_port(argv)
     assert rc == 0 and json.loads(out)["issues"] == []
 

@@ -20,6 +20,7 @@ import torch
 
 from mythril_tpu_torch.ops import keccak_cuda, keccak_torch, lowering, tape_vm
 from mythril_tpu_torch.smt import concrete_eval, terms
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_lowering_cases as lcases
 from tests import _torch_tape_cases as cases
 from tests import _torch_tier_cases as tier_cases
@@ -621,3 +622,35 @@ def test_microbench_times_the_card_not_the_host_queueing(card, monkeypatch, pipe
         (args.frontier, args.frontier_force, args.frontier_width,
          args.frontier_microbench, args.pipeline) = saved
         FrontierStatistics().reset()
+
+
+def test_a_resumed_analysis_on_the_card_equals_its_records(card, tmp_path, monkeypatch):
+    """The JAX package's checkpoint of ``etherstore_like`` after transaction
+    1 (``tests/testdata/torch_checkpoint_runs.json``, its host engine)
+    resumed on the card on ``chip_smoke.py`` phase 8k's command line (the
+    pipelined frontier forced at 256 paths, the device probe): the JAX CLI's
+    issue keys for that command line uninterrupted (the frontier words the
+    timestamp issue's head by the block value, the host engine by its
+    comparison), the segment and the solver's kernels launched (which of
+    them depends on the tier that decides each query: from this file the
+    prefilter and CDCL leave the tape VM nothing)."""
+    from mythril_tpu_torch.absdomain import device as kb_device
+    from mythril_tpu_torch.devsolver import device as dpll_device
+    from mythril_tpu_torch.frontier import step
+    from tests.test_torch_checkpoint import issue_keys, load_runs
+    from tests.test_torch_cli import load_runs as cli_runs
+    from tests.test_torch_cli import port_argv, run_port
+
+    monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path / "mythril"))
+    record = cli_runs()["etherstore_like/frontier-256/pipeline"]
+    path = tmp_path / "ckpt.json"
+    path.write_text(load_runs()["etherstore_like/t1-checkpoint"]["file"])
+    def solver_launches():
+        return (tape_vm.launches + lowering.launches + kb_device.launches
+                + dpll_device.launches)
+
+    seg0, solver0 = step.launches, solver_launches()
+    rc, out = run_port(port_argv(record) + ["--resume-from", str(path)], device=None)
+    assert rc == 0
+    assert issue_keys(out) == issue_keys(record["stdout"])
+    assert step.launches > seg0 and solver_launches() > solver0

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from mythril_tpu_torch.device import DeviceError, is_device_fault
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests.test_torch_harvest import _FakeEngine, _finished, _Laser
 
 FAULTS = {

@@ -36,6 +36,7 @@ from mythril_tpu_torch.devsolver import kernel as pkernel
 from mythril_tpu_torch.native.bitblast import Unsupported as PUnsupported
 from mythril_tpu_torch.smt import solver as PS
 from mythril_tpu_torch.support.support_args import args as P_ARGS
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_tier_cases as cases
 from tests._torch_parity import jax_solver_tiers, port_device_backend, to_port
 from tests.devsolver import test_fuzz_differential as fuzz

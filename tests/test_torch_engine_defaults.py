@@ -37,6 +37,7 @@ REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import test_torch_engine_fixture as F  # noqa: E402
 from tests import test_torch_engine_tiers as T  # noqa: E402
 

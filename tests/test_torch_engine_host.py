@@ -13,6 +13,7 @@ same selector on the last step.
 
 import pytest
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import engine_contracts, jax_engine_config, run_analysis
 
 CONTRACTS = engine_contracts()

@@ -25,6 +25,7 @@ REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests.test_torch_adaptive import port_cases  # noqa: E402
 
 # the service's per-worker accounting seam (facade/warm.py WorkerContext)

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import pytest
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import (
     engine_contracts,
     issue_key,

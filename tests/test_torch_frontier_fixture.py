@@ -39,6 +39,9 @@ import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:  # run as a script (--write)
+    sys.path.insert(0, str(REPO))
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 FIXTURE = REPO / "tests" / "testdata" / "torch_frontier_dispatches.npz"
 
 # (name, width, transactions)

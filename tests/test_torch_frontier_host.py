@@ -31,6 +31,7 @@ from mythril_tpu_torch.frontier import interop
 from mythril_tpu_torch.frontier import ops as PO
 from mythril_tpu_torch.frontier import step as PS
 from mythril_tpu_torch.ops import _build
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_frontier_cases as cases
 from tests._torch_frontier_cases import assert_same
 

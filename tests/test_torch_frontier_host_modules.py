@@ -26,6 +26,7 @@ from mythril_tpu_torch.frontier import state as PST
 from mythril_tpu_torch.frontier import step as PS
 from mythril_tpu_torch.frontier.arena import HostArena as PArena
 from mythril_tpu_torch.support.support_args import args as pargs
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_frontier_cases as cases
 from tests.test_torch_frontier_fixture import RUNS, _code
 

@@ -22,6 +22,7 @@ import threading
 
 import numpy as np
 import pytest
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 
 BASES = ("mythril_tpu", "mythril_tpu_torch")
 

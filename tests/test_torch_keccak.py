@@ -18,6 +18,7 @@ from mythril_tpu.ops.bitvec import from_ints
 from mythril_tpu.ops.keccak import keccak256_py as jax_host_keccak256
 from mythril_tpu_torch.ops import keccak_torch
 from mythril_tpu_torch.ops.keccak import keccak256_int, keccak256_py
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 
 
 def _states(batch: int) -> np.ndarray:

@@ -26,6 +26,7 @@ from mythril_tpu.absdomain import tape as jtape
 from mythril_tpu_torch.absdomain import device as kb_device
 from mythril_tpu_torch.absdomain import domains as kb_domains
 from mythril_tpu_torch.absdomain import tape as kb_tape
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_tier_cases as tier_cases
 from tests import test_torch_engine_tiers as tiers
 from tests.test_torch_csrc_host import _host_known_bits, host_lib  # noqa: F401  (fixture)

@@ -42,6 +42,9 @@ import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:  # run as a script (--write)
+    sys.path.insert(0, str(REPO))
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 MAX_CANDIDATES = 256  # candidates stored per recorded dispatch
 
 

@@ -23,6 +23,7 @@ from mythril_tpu.smt import terms as T
 from mythril_tpu_torch.native import bitblast as PB
 from mythril_tpu_torch.native import keccak as PK
 from mythril_tpu_torch.ops import keccak as port_keccak
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import port_device_backend, to_port, to_port_assignment
 
 TIMEOUT = 20.0

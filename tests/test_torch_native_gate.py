@@ -13,6 +13,7 @@ closed when the sweep ends.
 
 import pytest
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import jax_engine_config_cdcl, run_analysis
 
 CODE = bytes.fromhex(

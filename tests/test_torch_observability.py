@@ -48,6 +48,7 @@ REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "testdata" / "torch_trace_runs.json"
 if str(REPO) not in sys.path:  # run as a script (--write)
     sys.path.insert(0, str(REPO))
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 
 KILL_SIMPLE = "60003560e01c6341c0e1b51460145760006000fd5b33ff"
 KILLBILLY = ("60003560e01c80630a11ce0014601e576341c0e1b51460255760006000fd5b6001600055"
@@ -65,12 +66,10 @@ PORT_PINS = ["--probe-backend", "device", "--no-pipeline", "--harvest-workers", 
 JAX_PINS = ["--probe-backend", "jax", "--no-pipeline", "--harvest-workers", "0", "--no-mesh"]
 
 # metrics the JAX CLI writes on its CPU that the port has no counterpart for
-# (ROADMAP Known deviations): the compile cache (item 13.2); XLA's trace,
-# lower and compile events and its cost analysis (the port's kernels are
-# built by nvcc, once, and only on the card); the allocator's peak, which
-# the CPU has no caching allocator for
+# (ROADMAP Known deviations): XLA's trace, lower and compile events and its
+# cost analysis (the port's kernels are built by nvcc, once, and only on the
+# card); the allocator's peak, which the CPU has no caching allocator for
 JAX_ONLY_METRICS = {
-    "compilecache.hits", "compilecache.misses",
     "device.trace_wall_s", "device.trace_wall_s_total",
     "device.lower_wall_s", "device.lower_wall_s_total",
     "device.compile_wall_s", "device.compile_wall_s_total", "device.compile_wall_s_by_bucket",
@@ -89,21 +88,9 @@ PORT_ONLY_METRICS = {
 # meta.device keys the JAX CLI's CPU run has and the port's cannot
 JAX_ONLY_DEVICE_META = {"flops_per_segment", "hbm_bytes"}
 PORT_ONLY_DEVICE_META = {"analysis_unavailable"}
-# the report meta block that waits for the watchtower (item 13)
-JAX_ONLY_REPORT_META = {"health"}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the plain segment's many small ops: the
-    driver runs six workers, and each op's thread pool would wait on the
-    others' (a whole analysis here took 50 times its time alone)."""
-    import torch
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+# the report meta blocks the port does not carry (none since the
+# watchtower's health was ported)
+JAX_ONLY_REPORT_META = set()
 
 
 def port_cases(path: Path, name: str, subs=(), extra=None) -> types.ModuleType:
@@ -591,8 +578,6 @@ def _refused_argv():
     for opt in sorted(cli.NOT_YET_PORTED):
         if not opt.startswith("-"):
             yield pytest.param([opt], id=opt)
-        elif opt in cli.AT_DEFAULT_ONLY:
-            yield pytest.param(clean + [opt, "2"], id=opt)
         else:
             yield pytest.param(clean + [opt, "x"], id=opt)
 

@@ -13,6 +13,7 @@ from mythril_tpu.smt import solver as J
 from mythril_tpu.smt import terms as jt
 from mythril_tpu_torch.smt import solver as P
 from mythril_tpu_torch.smt.concrete_eval import evaluate
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import jax_same_tiers, port_device_backend, to_port
 
 

@@ -38,6 +38,7 @@ REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests._torch_parity import (  # noqa: E402
     dead_code_contract,
     reset_host_tier_counters,

@@ -26,6 +26,7 @@ from mythril_tpu_torch.ops import keccak_torch
 from mythril_tpu_torch.ops import tape_vm as ptape
 from mythril_tpu_torch.smt import concrete_eval as pce
 from mythril_tpu_torch.smt import terms
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_tape_cases as cases
 
 L = ptape.L

@@ -23,6 +23,7 @@ from mythril_tpu.smt import concrete_eval as jce
 from mythril_tpu.smt import terms as jterms
 from mythril_tpu_torch.ops import tape_vm as ptape
 from mythril_tpu_torch.smt import concrete_eval as pce
+from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
 from tests import _torch_tape_cases as cases
 from tests._torch_parity import to_port, to_port_assignment
 
