@@ -9,19 +9,20 @@ their own, delta pulls, the feasibility pool and the replay workers), and
 with the adaptive controller (the exploration ledger, the seed scheduler,
 the park pool, the coverage target) on single analyses and on cooperative
 multi-contract batches, under the default ``auto`` probe backend with its
-link calibration, in concolic execution, traced, and with the health
+link calibration, in concolic execution, traced, with the health
 surfaces (checkpoint and resume, the heartbeat, the flight recorder, the
-kernel build cache, the metrics history).
-Every phase but 8h and 8i holds the port's probe backend at ``device``
+kernel build cache, the metrics history), and as the analysis service
+(inline and pooled, over TCP, with a killed worker and a device fault).
+Every phase but 8h, 8i and 8l holds the port's probe backend at ``device``
 where the JAX runs it replays forced ``jax`` (``tests/_torch_parity.py``
 ``run_analysis``, ``test_torch_cli.port_argv``) and its link calibration
 as a CPU recording had it (``port_uncalibrated``: nothing measured, the
 break-evens at their defaults).  Every phase before 8e holds the port with the static pass, its
 interprocedural layer and the query cache off
 (``tests/_torch_parity.port_no_host_tiers``, ``test_torch_cli.port_argv``),
-every phase but 8f, 8g and 8c's ``python -m`` run with the synchronous
+every phase but 8f, 8g, 8l and 8c's ``python -m`` run with the synchronous
 frontier loop and a serial harvest (``port_no_pipeline``, ``--no-pipeline
---harvest-workers 0``), and every phase but 8g and 8c's ``python -m``
+--harvest-workers 0``), and every phase but 8g, 8l and 8c's ``python -m``
 without the adaptive controller (``port_no_adaptive``, ``--no-adaptive``),
 as the JAX package ran when those runs were recorded.
 
@@ -164,10 +165,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    (1024) and largecode (256) contracts), recorded from the JAX package's
    default engine on one device (the pipeline, two feasibility workers, four
    replay workers, CDCL, the solver and host tiers; no mesh, no adaptive
-   controller), run on the card pipelined and with ``--no-pipeline``
-   (``etherstore_like`` and ``rubixi_like`` at 256 in turns, pipelined,
-   ``--no-pipeline`` twice, pipelined again; the others once each), in the
-   same process: the issues equal to the recording's
+   controller), run on the card pipelined and with ``--no-pipeline`` (once
+   each, in that order; the four-turn timing of ``etherstore_like`` and
+   ``rubixi_like`` at 256 went to keep the script inside its limit with
+   phase 8l), in the same process: the issues equal to the recording's
    and to the other runs',
    ``segments_pipelined >
    0`` on every run of two or more segments and, where no path was rolled
@@ -189,12 +190,12 @@ Phases, in order; any failure exits nonzero and prints no result:
    the storage-gated contract at 64, ``etherstore_like`` and
    ``rubixi_like`` at 256, each pipelined and with ``--no-pipeline``),
    recorded from the JAX package's default engine with the controller on,
-   run on the card in turns, adaptive, ``--no-adaptive`` twice, adaptive:
-   the issues equal to the recording's in all four runs, on
+   run on the card adaptive, then ``--no-adaptive``: the issues equal to
+   the recording's in both runs, on
    ``--no-pipeline`` the exploration ledger's bitmaps, coverage and
    termination classes equal to the recording's (the segment kernel's three
    coverage planes end to end), ``partition_ok``, one segment launch per
-   segment, no plan with ``--no-adaptive``; per run the four walls, the
+   segment, no plan with ``--no-adaptive``; per run the two walls, the
    segments, the ``adaptive.*`` counters, the park pool's size and the
    ``dpll`` and ``known_bits`` launches beside the recording's tier
    counters; then the three cooperative batches of ``bench.py``
@@ -223,8 +224,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    or lowering evaluation on the card per solver device dispatch; per run
    the CLI's
    wall beside ``SymExecWrapper`` + ``fire_lasers`` alone on the same
-   contract and parameters, in turns (CLI, wrapper, wrapper, CLI), and
-   beside the engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
+   contract and parameters (once each, the CLI first), and beside the
+   engine phase's run of the contract.  Then ``python -m mythril_tpu_torch analyze ... --frontier``
    on ``kill_simple`` in a process of its own, which must exit 0 with the
    ``kill()`` exploit, and a ``--frontier-width`` one block over the card's
    limit, which must be refused before any launch (phases 8d, 8e and 8f
@@ -301,6 +302,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    with ``D`` a fresh directory holding a copy of the built library:
    ``compilecache.hits`` 1, ``misses`` 0, no build (phase 2 prints the
    script's own first build, the miss);
+8l. the analysis service on the card: ``etherstore_like``, ``rubixi_like``
+   and ``kill_simple`` (``-t 2``) solo through ``cli.main`` ``analyze``;
+   then ``AnalysisService`` in this process at its defaults (inline worker,
+   the frontier, the interactive probe, warm-up, every default tier, the
+   calibrated ``auto`` backend) answering the recorded submissions of
+   ``tests/testdata/torch_service_runs.json`` (the three contracts from two
+   tenants, ``etherstore_like`` first as interactive, then again as a
+   duplicate, which must be deduplicated): each request's issue digests
+   equal to the solo run's and the JAX service record's, the launches of
+   every kernel across the batch (segment, known bits and DPLL above 0) and
+   ``stats()["phases"]`` p50 and p95; then ``python -m mythril_tpu_torch
+   serve --workers 2 --batch-width 1 --cache-root D`` in a process of its
+   own, ``D/kernels`` holding a copy of the built library: ``health`` of the
+   fresh service exits 0, the same submissions over TCP from four threads
+   give the same digests, two worker pids, the fleet rollup's
+   ``frontier.segment_device_s`` count above 0, each worker's
+   ``compilecache.hits`` 1 with no miss and no file built; ``top --once``
+   exits 0 and ``health`` exits 1 exactly when an objective breaches; a
+   SIGKILL of the worker busy on a longer request (``-t 3``) errors that
+   request alone with "died mid-batch", ``service.worker_restarts`` reaches
+   1 and the next request is answered; SIGTERM drains ``serve`` to exit 0;
+   last, a real ``torch.OutOfMemoryError`` from the card (phase 8i's
+   allocation) at the frontier of an inline batch errors both of its
+   requests naming it, stops the service (``fault``, submissions refused)
+   and no further batch runs;
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -1175,7 +1201,7 @@ def at_scale(torch):
 # ---------------------------------------------------------------------------
 
 LARGECODE = "largecode_contract_2400"
-LARGECODE_COMPARED = 4  # of its 352 dispatches: the first 4 and the paged one
+LARGECODE_COMPARED = 2  # of its 352 dispatches: the first 2 and the paged one
 # 32-bit integer instructions a live path's step costs the kernel (decode
 # and pops about 60, a 256-bit fold up to 100, the handler and the tail
 # about 120, rows and event about 120): an estimate from the source, the
@@ -1835,11 +1861,6 @@ def wrapper_seconds(torch, argv) -> float:
 
 # phase 8f's run under torch.profiler in both modes
 PIPELINE_PROFILED = "etherstore_like/256"
-# phase 8f's runs timed in four turns, the two whose pipelined wall is in
-# question (PERF.md); the others (kill_simple, the storage gate,
-# etherstore_like at 64, wide_contract_10 and largecode) run pipelined and
-# with --no-pipeline once each, which keeps the script within its limit
-PIPELINE_FOUR_TURNS = ("etherstore_like/256", "rubixi_like/256")
 # the recorded dispatches phase 8f chains a segment on
 PIPELINE_CHAINED = (("etherstore_like", 0), ("wide_contract_10", 0))
 
@@ -1930,18 +1951,9 @@ def pipeline_runs(torch, card: str):
         off = P.run_port(run, None, pipeline=False)
         torch.cuda.synchronize()
         off_launches = read_launches()
-        # the modes in turns (pipelined, --no-pipeline, --no-pipeline,
-        # pipelined), so that neither wall pair favours the mode run second
-        again = []
-        if label in PIPELINE_FOUR_TURNS:
-            off2 = P.run_port(run, None, pipeline=False)
-            got2 = P.run_port(run, None)
-            again = [(off2, "--no-pipeline, again"), (got2, "pipelined, again")]
-        walls = [got["seconds"]] + [g["seconds"] for g, m in again if "--no" not in m]
-        off_walls = [off["seconds"]] + [g["seconds"] for g, m in again if "--no" in m]
         pc, f = got["pipeline"], got["frontier"]
         bad = P.check_run(run, got)
-        row = {"run": label, "wall_s": walls, "no_pipeline_wall_s": off_walls,
+        row = {"run": label, "wall_s": got["seconds"], "no_pipeline_wall_s": off["seconds"],
                "issues": len(got["summary"]), "segments": f["segments"],
                "no_pipeline_segments": off["frontier"]["segments"],
                "segment_launches": launches["frontier_segment"],
@@ -1949,9 +1961,8 @@ def pipeline_runs(torch, card: str):
                "launches": launches, "pipeline": pc, "pulls": dict(pulls),
                "jax_pipeline": run["pipeline"], "held_exactly": not bad, "card": card}
         rows.append(row)
-        print(f"  {label}: in turns pipelined {walls[0]:.3f} s, --no-pipeline "
-              f"{' and '.join(f'{w:.3f}' for w in off_walls)} s"
-              + (f", pipelined {walls[1]:.3f} s" if len(walls) > 1 else "") + f" ({card}); "
+        print(f"  {label}: pipelined {got['seconds']:.3f} s, then --no-pipeline "
+              f"{off['seconds']:.3f} s ({card}); "
               f"{len(got['summary'])} issues (recorded {len(run['summary'])}, "
               f"--no-pipeline {len(off['summary'])}); segments {f['segments']} (launches "
               f"{launches['frontier_segment']}), --no-pipeline {off['frontier']['segments']}")
@@ -1965,9 +1976,8 @@ def pipeline_runs(torch, card: str):
               f"{pc['pool_unsat_rollbacks']} UNSAT / {pc['orphan_rollbacks']} orphan; launches "
               f"{launches}")
         check(not bad, f"{label}: differs from the recorded JAX pipeline: {bad[:3]}")
-        for other, mode in [(off, "--no-pipeline"), *again]:
-            check(not P.summary_differences(other["summary"], got["summary"]),
-                  f"{label}: the issues differ ({mode})")
+        check(not P.summary_differences(off["summary"], got["summary"]),
+              f"{label}: the issues differ (--no-pipeline)")
         check(launches["frontier_segment"] == f["segments"] > 0,
               f"{label}: {launches['frontier_segment']} segment launches for {f['segments']} "
               "segments")
@@ -2040,9 +2050,7 @@ def adaptive_runs(torch, card: str):
     for run in A.load_fixture()["runs"]:
         label = A.label(run["name"], run["width"], run["pipelined"])
         turns = []
-        # the modes in turns (adaptive, --no-adaptive twice, adaptive), so
-        # that neither wall pair favours the mode run second
-        for adaptive in (True, False, False, True):
+        for adaptive in (True, False):
             zero_launches()
             got = A.run_port(run, None, adaptive=adaptive)  # no device: the card
             torch.cuda.synchronize()
@@ -2051,8 +2059,7 @@ def adaptive_runs(torch, card: str):
         total.update(launches)
         walls = [g["seconds"] for _a, g, _l in turns]
         ex, f = got["exploration"], got["frontier"]
-        row = {"run": label, "walls_s": walls, "modes": ["adaptive", "no-adaptive",
-                                                         "no-adaptive", "adaptive"],
+        row = {"run": label, "walls_s": walls, "modes": ["adaptive", "no-adaptive"],
                "issues": len(got["summary"]), "segments": [g["frontier"]["segments"]
                                                            for _a, g, _l in turns],
                "adaptive": [g["adaptive"] for _a, g, _l in turns],
@@ -2061,8 +2068,8 @@ def adaptive_runs(torch, card: str):
                "coverage_pct": ex["coverage_pct"], "jax_adaptive": run["adaptive"],
                "jax_tiers": run["tiers"], "card": card}
         rows.append(row)
-        print(f"  {label}: in turns adaptive {walls[0]:.3f} s, --no-adaptive {walls[1]:.3f} and "
-              f"{walls[2]:.3f} s, adaptive {walls[3]:.3f} s ({card}); {row['issues']} issues "
+        print(f"  {label}: adaptive {walls[0]:.3f} s, then --no-adaptive {walls[1]:.3f} s "
+              f"({card}); {row['issues']} issues "
               f"(recorded {len(run['summary'])}); segments {row['segments']} (recorded "
               f"{run['frontier_stats']['segments']}); park pool {row['adaptive_parked']}")
         print(f"    adaptive {got['adaptive']} (recorded {run['adaptive']}); terminated "
@@ -2207,26 +2214,20 @@ def cli_runs(torch, card: str, engine_rows: list, tier_rows: list, default_rows:
         if tiers_on:
             diffs = T.tier_counter_differences(run)
             check(not diffs, f"{name}: the tier counters differ from the JAX report's: {diffs}")
-        # the same analysis with and without the CLI and facade, in turns
+        # the same analysis without the CLI and the facade
         w1 = wrapper_seconds(torch, argv)
-        w2 = wrapper_seconds(torch, argv)
-        t0 = time.perf_counter()
-        T.run_port(argv, device=None)
-        torch.cuda.synchronize()
-        cli2 = time.perf_counter() - t0
         host_tiers_on = "--no-staticpass" not in argv
         engine = (default_walls if host_tiers_on else tier_walls if tiers_on else walls).get(
             f"{name.split('/')[0]} (frontier)")
-        row = {"run": name, "cli_wall_s": [wall, cli2], "wrapper_wall_s": [w1, w2],
-               "overhead_s": (wall + cli2 - w1 - w2) / 2, "engine_phase_wall_s": engine,
+        row = {"run": name, "cli_wall_s": wall, "wrapper_wall_s": w1,
+               "overhead_s": wall - w1, "engine_phase_wall_s": engine,
                "jax_cli_cpu_s": run["jax_cpu_seconds"], "launches": launches,
                "segments": segments, "tape_calls": split.tape_calls,
                "lowering_calls": split.lowering_calls, "device_dispatches": dispatches,
                "kernel_ms": split.kernel_ms(), "card": card}
         rows.append(row)
-        print(f"  {name}: CLI {wall:.3f} s (checked) and {cli2:.3f} s, SymExecWrapper + "
-              f"fire_lasers alone {w1:.3f} and {w2:.3f} s (in turns: CLI, wrapper, wrapper, "
-              f"CLI), overhead {row['overhead_s']:+.4f} s; engine phase's run of the contract "
+        print(f"  {name}: CLI {wall:.3f} s (checked), then SymExecWrapper + fire_lasers alone "
+              f"{w1:.3f} s, overhead {row['overhead_s']:+.4f} s; engine phase's run of the contract "
               + (f"{engine:.3f} s" if engine is not None else "none") + f" ({card}); JAX CLI "
               f"on the CPU {run['jax_cpu_seconds']:.1f} s; launches {launches}, {segments} "
               f"segments, tape calls {split.tape_calls} and lowering calls "
@@ -2811,7 +2812,8 @@ def health_runs(torch, card: str):
     print(f"  --compile-cache-dir with the library copied in: {cache}, "
           f"the directory {listing} -> {sorted(os.listdir(seeded))}, {wall_c:.1f} s")
     check(cache["compilecache.hits"] == 1 and cache["compilecache.misses"] == 0
-          and not cache["device.cache_misses"] and sorted(os.listdir(seeded)) == listing,
+          and not cache["device.cache_misses"]
+          and sorted(f for f in os.listdir(seeded) if not f.endswith(".lock")) == listing,
           "the seeded build cache was not a hit without a build")
 
     # the metrics history, read back by history and drift
@@ -2829,6 +2831,308 @@ def health_runs(torch, card: str):
                      "off": sum(off.values())},
            "build_cache": cache, "card": card, "seconds": seconds}
     return resumed, row
+
+
+# phase 8l: the recorded service submissions (tests/test_torch_service.py
+# SUBMISSIONS: contract, tenant, tier) and their JAX service record
+SERVICE_FIXTURE = ROOT / "tests" / "testdata" / "torch_service_runs.json"
+SERVICE_SUBMISSIONS = (
+    ("etherstore_like", "t1", "interactive"),
+    ("rubixi_like", "t2", "batch"),
+    ("kill_simple", "t1", "batch"),
+    ("etherstore_like", "t2", "batch"),
+)
+CLEAN_HEX = "60006000f3"  # PUSH1 0; PUSH1 0; RETURN
+
+
+def service_contract(name: str) -> str:
+    if name == "kill_simple":
+        return (ROOT / "tests" / "testdata" / "inputs" / "kill_simple.bin-runtime").read_text().strip()
+    import bench_contracts
+
+    return getattr(bench_contracts, name)().hex()
+
+
+@contextlib.contextmanager
+def engine_flags():
+    """The engine's flags, the query cache and the kernel build cache's
+    directory as they were, after a service in this process armed them."""
+    import dataclasses
+
+    from mythril_tpu_torch.ops import _build
+    from mythril_tpu_torch.querycache import configure
+    from mythril_tpu_torch.support.support_args import args
+
+    saved = dataclasses.replace(args)
+    try:
+        yield
+    finally:
+        for f in dataclasses.fields(args):
+            setattr(args, f.name, getattr(saved, f.name))
+        configure(enabled=args.query_cache, cache_dir=args.query_cache_dir)
+        _build.set_cache_dir(args.compile_cache_dir)
+
+
+def fleet_series(text: str, name: str) -> dict:
+    """A fleet metric's samples in the ``metrics`` verb's exposition: label
+    string ("" for the rollup) -> value."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, value = line.rsplit(" ", 1)
+            out[key[len(name):].strip("{}")] = float(value)
+    return out
+
+
+def service_runs(torch, card: str):
+    """Phase 8l (see the module docstring) -> (the inline batch's launches,
+    the phase's row)."""
+    import os
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from mythril_tpu_torch.frontier import engine as fengine
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.observability import get_registry
+    from mythril_tpu_torch.ops import _build
+    from mythril_tpu_torch.service import (
+        AnalysisOptions,
+        AnalysisService,
+        ServiceConfig,
+        canonical_codehash,
+        issue_digest,
+    )
+    from mythril_tpu_torch.service.client import ServiceClient
+    from mythril_tpu_torch.service.server import wait_for_server
+    from tests import test_torch_cli as T
+
+    t_phase = phase("the analysis service on the card: inline and pooled, submit over TCP, top, "
+                    "health, a killed worker, SIGTERM, a device fault")
+    with open(SERVICE_FIXTURE) as f:
+        recorded = {r["contract"]: r["digests"] for r in json.load(f)["runs"]}
+    opts = AnalysisOptions(transaction_count=2, execution_timeout=60)
+    names = list(dict.fromkeys(n for n, _t, _r in SERVICE_SUBMISSIONS))
+
+    # solo: the command line's analyze of each contract on the card
+    solo, solo_walls = {}, {}
+    for name in names:
+        code = service_contract(name)
+        t0 = time.perf_counter()
+        rc, out = T.run_port(["analyze", "-c", code, "--bin-runtime", "-t", "2",
+                              "--execution-timeout", "60", "-o", "json"],
+                             device=None, calibrated=True)
+        solo_walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"solo analyze of {name}: exit {rc}")
+        codehash = canonical_codehash(code)
+        solo[name] = sorted([i["swc-id"], i["address"], codehash, i["title"], i["function"]]
+                            for i in T._last_json_line(out)["issues"])
+        check(solo[name] == recorded[name],
+              f"solo analyze of {name}: digests differ from the JAX service record")
+    print(f"  solo analyze on the card: {[(n, len(solo[n]), round(solo_walls[n], 3)) for n in names]}"
+          " (issues, wall s)")
+
+    # inline: the service in this process, at its defaults on the card
+    with engine_flags():
+        service = AnalysisService(ServiceConfig(default_options=opts, max_batch_width=8,
+                                                batch_window_s=0.3)).start()
+        try:
+            check(service.wait_warm(timeout=300), "the inline service did not warm up")
+            zero_launches()
+            t0 = time.perf_counter()
+            subs = [service.submit(service_contract(n), name=n, tier=tier, tenant=tenant)
+                    for n, tenant, tier in SERVICE_SUBMISSIONS]
+            answers = [list(stream.events(timeout=600)) for _r, stream, _d in subs]
+            torch.cuda.synchronize()
+            wall_inline = time.perf_counter() - t0
+            inline = read_launches()
+            stats = service.stats()
+        finally:
+            check(service.stop(drain=True, timeout=120), "the inline service did not drain")
+    for (name, tenant, _tier), events in zip(SERVICE_SUBMISSIONS, answers):
+        kind, payload = events[-1]
+        got = sorted(list(issue_digest(i)) for i in payload["issues"]) if kind == "done" else None
+        check(got == solo[name] == recorded[name],
+              f"inline {name} ({tenant}): {events[-1][0]}, digests differ from the solo run or "
+              "the JAX record")
+    deduped = [d for _r, _s, d in subs]
+    phases = {p: {k: s.get(k) for k in ("count", "p50", "p95")}
+              for p, s in stats["phases"].items()}
+    print(f"  inline: {len(subs)} requests in {wall_inline:.3f} s, {stats['service.batches']} "
+          f"batches, deduped {deduped}; launches {inline}")
+    print(f"  inline phases (s, bucketed percentiles): {phases} ({card})")
+    check(deduped == [False, False, False, True], f"dedup flags {deduped}")
+    for name in ("frontier_segment", "known_bits", "dpll"):
+        check(inline[name] > 0, f"the inline service's batch launched {name} no time")
+
+    # pooled: serve --workers 2 in a process of its own, over TCP, with the
+    # built library in its cache root
+    tmp = tempfile.mkdtemp(prefix="service-")
+    kernels = os.path.join(tmp, "cache", "kernels")
+    os.makedirs(kernels)
+    shutil.copy2(_build.library_path(), kernels)
+    listing = sorted(os.listdir(kernels))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MYTHRIL_DIR=os.path.join(tmp, "mythril"),
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mythril_tpu_torch", "serve", "--workers", "2",
+         "--batch-width", "1", "--cache-root", os.path.join(tmp, "cache"), "--port", str(port)],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    pooled_row = {}
+    try:
+        check(wait_for_server("127.0.0.1", port, timeout=240), "serve --workers 2 did not listen")
+        client = ServiceClient("127.0.0.1", port, timeout=600)
+
+        def cli_json(argv):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--port", str(port)])
+            return rc, out.getvalue()
+
+        rc, out = cli_json(["health", "-o", "json"])
+        print(f"  health of the fresh service: exit {rc}, ok {json.loads(out).get('ok')}")
+        check(rc == 0, f"health of the fresh service: exit {rc}")
+        results = {}
+
+        def submit(i, name, tenant, tier, **kw):
+            events = list(ServiceClient("127.0.0.1", port, timeout=600).submit_stream(
+                service_contract(name), name=name, tier=tier, tenant=tenant, **kw))
+            results[i] = events
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(i, *s)) for i, s in
+                   enumerate(SERVICE_SUBMISSIONS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall_pooled = time.perf_counter() - t1
+        for i, (name, tenant, _tier) in enumerate(SERVICE_SUBMISSIONS):
+            events = results.get(i, [])
+            check(events and events[-1]["event"] == "done",
+                  f"pooled {name} ({tenant}): {events[-1] if events else 'no answer'}")
+            got = sorted(list(issue_digest(x)) for x in events[-1]["issues"])
+            check(got == solo[name] == recorded[name],
+                  f"pooled {name} ({tenant}): digests differ from the solo run or the JAX record")
+        dedups = [results[i][0].get("deduped") for i in range(len(SERVICE_SUBMISSIONS))]
+        check(dedups.count(True) == 1 and not any(dedups[1:3]),
+              f"pooled dedup flags {dedups}: one of the two etherstore_like submissions")
+        pstats = client.stats()
+        pids = sorted({w["pid"] for w in pstats["workers"]})
+        metrics = client.metrics()
+        seg = fleet_series(metrics, "fleet_frontier_segment_device_s_count")
+        hits = fleet_series(metrics, "fleet_compilecache_hits")
+        misses = fleet_series(metrics, "fleet_compilecache_misses")
+        print(f"  pooled: {len(results)} requests in {wall_pooled:.3f} s (serve up "
+              f"{t1 - t0:.1f} s after its start), workers {pids}, dedup {dedups}; fleet "
+              f"segment dispatches {seg}, compilecache hits {hits}, misses {misses}")
+        check(pstats["scope"] == "fleet" and len(pids) == 2, f"worker pids {pids}")
+        check(seg.get("", 0) > 0, "no worker's segment dispatch reached the fleet rollup")
+        check(hits.get('worker="0"') == 1 and hits.get('worker="1"') == 1
+              and not any(misses.values()),
+              f"compilecache hits {hits}, misses {misses}: each worker should load the seeded "
+              "library once")
+        check(sorted(f for f in os.listdir(kernels) if not f.endswith(".lock")) == listing,
+              "a worker built into the seeded cache")
+        rc, out = cli_json(["top", "--once"])
+        print(f"  top --once: exit {rc}, {len(out.splitlines())} lines")
+        check(rc == 0, f"top --once: exit {rc}")
+        # health gates on the SLO verdict: exit 1 exactly when an objective breaches
+        rc, out = cli_json(["health", "-o", "json"])
+        health = json.loads(out)
+        print(f"  health after the requests: exit {rc}, ok {health.get('ok')}, breaching "
+              f"{health.get('breaching')}")
+        check(rc == (1 if health.get("enabled") and not health.get("ok") else 0),
+              f"health: exit {rc} against its verdict {health.get('ok')}")
+        # a busy worker killed: its request errors, the pool respawns it
+        th = threading.Thread(target=submit, args=("long", "etherstore_like", "t1", "batch"),
+                              kwargs={"transaction_count": 3})
+        th.start()
+        victim, deadline = None, time.time() + 120
+        while victim is None and time.time() < deadline:
+            busy = [w for w in client.stats()["workers"] if w.get("job") is not None]
+            victim = busy[0]["pid"] if busy else None
+            time.sleep(0.02)
+        check(victim is not None, "no worker went busy on the long request")
+        os.kill(victim, signal.SIGKILL)
+        th.join(timeout=300)
+        last = results.get("long", [{}])[-1]
+        print(f"  SIGKILL of busy worker pid {victim}: {last}")
+        check(last.get("event") == "error" and "died mid-batch" in last.get("error", ""),
+              f"the killed worker's request: {last}")
+        deadline = time.time() + 120
+        while time.time() < deadline and not client.stats().get("service.worker_restarts"):
+            time.sleep(0.1)
+        restarts = client.stats().get("service.worker_restarts")
+        submit("after", "kill_simple", "t2", "batch", transaction_count=1)
+        after = results["after"][-1]
+        print(f"  worker_restarts {restarts}; the next request: {after.get('event')}, "
+              f"{len(after.get('issues', []))} issues")
+        check(restarts and restarts >= 1 and after.get("event") == "done"
+              and [i["swc_id"] for i in after["issues"]] == ["106"],
+              "no respawn, or the next request failed")
+        pooled_row = {"wall_s": wall_pooled, "startup_s": t1 - t0, "pids": pids,
+                      "segment_dispatches": seg.get(""), "compilecache_hits": hits,
+                      "restarts": restarts}
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc_serve = proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc_serve = None
+        err = proc.stderr.read()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  SIGTERM: serve exit {rc_serve}")
+    check(rc_serve == 0, f"serve --workers 2 exit {rc_serve} after SIGTERM: {err[-1500:]}")
+
+    # a device fault: the card's OutOfMemoryError inside an inline batch
+    drain = fengine.drain_lasers
+
+    def oom_drain(*a, **kw):
+        torch.empty(1 << 50, dtype=torch.uint8, device="cuda")  # a petabyte
+        return drain(*a, **kw)
+
+    batches = get_registry().counter("service.batches", persistent=True)
+    with engine_flags():
+        fengine.drain_lasers = oom_drain
+        try:
+            service = AnalysisService(ServiceConfig(
+                default_options=AnalysisOptions(transaction_count=1, execution_timeout=30),
+                max_batch_width=4, batch_window_s=0.3, probe=False, warmup=False)).start()
+            before = batches.snapshot() or 0
+            subs = [service.submit(service_contract("kill_simple"), name="kill"),
+                    service.submit(CLEAN_HEX, name="clean")]
+            answers = [list(stream.events(timeout=300))[-1] for _r, stream, _d in subs]
+            fault = service.fault
+            try:
+                service.submit(service_contract("kill_simple"), name="late")
+                refused = False
+            except RuntimeError:
+                refused = True
+            check(service.stop(drain=True, timeout=60), "the faulted service did not stop")
+            ran = batches.snapshot() - before
+        finally:
+            fengine.drain_lasers = drain
+    print(f"  the card's OutOfMemoryError in an inline batch: {[a[0] for a in answers]}, "
+          f"{answers[0][1][:90]}; service fault {type(fault).__name__}, new submission "
+          f"{'refused' if refused else 'accepted'}, {ran} batch")
+    check(all(k == "error" and "OutOfMemoryError" in str(p) for k, p in answers),
+          f"the batch's requests: {answers}")
+    check(isinstance(fault, torch.OutOfMemoryError) and refused and ran == 1,
+          "the device fault did not stop the inline service")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 8l took {seconds:.1f} s")
+    row = {"solo_walls": solo_walls, "inline_wall_s": wall_inline, "inline_launches": inline,
+           "inline_phases": phases, "pooled": pooled_row, "card": card, "seconds": seconds}
+    return inline, row
 
 
 def device_fault(torch) -> None:
@@ -3168,6 +3472,7 @@ def main() -> int:
         for name in ("tape_vm", "frontier_segment", "known_bits", "dpll"):
             check(j_launches[name] > 0, f"the traced run launched {name} no time")
         k_launches, k_row = health_runs(torch, card)
+        l_launches, l_row = service_runs(torch, card)
         # the auto path: a query above the calibrated threshold reaches a
         # probe kernel on the card (on the recorded traffic the one that
         # crosses it, a batchTransfer flip, is refused by the tape and goes
@@ -3256,7 +3561,8 @@ def main() -> int:
                 "concolic": i_launches.get(entry["name"], 0),
                 "concolic_auto": i_auto.get(entry["name"], 0),
                 "traced": j_launches[entry["name"]],
-                "resumed": k_launches[entry["name"]]}
+                "resumed": k_launches[entry["name"]],
+                "service": l_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
@@ -3268,6 +3574,7 @@ def main() -> int:
         tape["concolic"] = {"runs": i_rows}
         frontier["traced"] = j_row
         frontier["health"] = k_row
+        frontier["service"] = l_row
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

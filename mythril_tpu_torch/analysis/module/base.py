@@ -9,6 +9,7 @@ flagged program points.
 from __future__ import annotations
 
 import logging
+from contextlib import contextmanager
 from enum import Enum
 from types import MappingProxyType
 from typing import List, Mapping, Optional, Set, Tuple
@@ -18,6 +19,37 @@ from mythril_tpu_torch.core.state.global_state import GlobalState
 from mythril_tpu_torch.observability import tracer as _otrace
 
 log = logging.getLogger(__name__)
+
+# Optional process-wide issue sink: called with each freshly confirmed issue
+# list the moment a module's execute() accepts it, BEFORE end-of-run
+# collection.  The service daemon installs one to stream issues per request
+# as they confirm; one-shot runs leave it None (a single global load + None
+# check on the hot path).  Installed/removed only between runs from the
+# thread that owns the analysis, so no lock is needed.
+_ISSUE_SINK = None
+
+
+def set_issue_sink(sink):
+    """Install ``sink(issues: List[Issue]) -> None`` as the confirmation
+    tap; returns the previous sink so callers can restore it.  Sink errors
+    are swallowed (streaming must never fail an analysis)."""
+    global _ISSUE_SINK
+    prev = _ISSUE_SINK
+    _ISSUE_SINK = sink
+    return prev
+
+
+@contextmanager
+def issue_sink_scope(sink):
+    """Scoped form of ``set_issue_sink``: install ``sink`` for the body
+    and restore the previous sink on exit.  The explicit-context entry
+    point (``facade.warm.WorkerContext``) uses this so the sink's
+    lifetime is structurally tied to the analysis that owns it."""
+    prev = set_issue_sink(sink)
+    try:
+        yield sink
+    finally:
+        set_issue_sink(prev)
 
 
 class EntryPoint(Enum):
@@ -115,6 +147,11 @@ class DetectionModule:
         if result:
             self.issues.extend(result)
             self.update_cache(result)
+            if _ISSUE_SINK is not None:
+                try:
+                    _ISSUE_SINK(result)
+                except Exception:
+                    log.exception("issue sink failed; analysis continues")
         return result
 
     def _execute(self, target) -> Optional[List[Issue]]:

@@ -46,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -407,6 +407,8 @@ def drain_lasers(
     lasers: List,
     caps: Optional[Caps] = None,
     bucket_floor: Optional[tuple] = None,
+    tags: Optional[Sequence[str]] = None,
+    flow_cb: Optional[Callable[[], None]] = None,
 ) -> int:
     """Run eligible seeds from EVERY laser's work list as one multi-code
     frontier batch.  Parked paths land back on their own laser's work list.
@@ -416,7 +418,14 @@ def drain_lasers(
     and device; heterogeneous groups run as separate batches.
     ``bucket_floor`` pins a minimum (code_cap, instr_cap, addr_cap,
     loops_cap) — or a list of per-class floors — so every round of a sweep
-    keeps one bucket shape as the live code set shrinks."""
+    keeps one bucket shape as the live code set shrinks.  ``tags`` (service
+    request ids riding this batch) annotate every ``frontier.segment`` span
+    so a shared wide device segment is attributable to the requests it
+    serves.  ``flow_cb`` is invoked once, inside the first
+    ``frontier.segment`` span actually dispatched — the service records its
+    per-request trace-flow endpoints there, so request span trees join the
+    segment that served them (and no arrow dangles when a batch never
+    reaches the device)."""
     groups: Dict[tuple, List[Tuple]] = {}
     for laser in lasers:
         if _is_concolic(laser):
@@ -434,6 +443,9 @@ def drain_lasers(
     executed = 0
     for pairs in groups.values():
         engine = FrontierEngine(pairs[0][0], caps)
+        if tags:
+            engine.request_tags = tuple(tags)
+        engine.request_flow_cb = flow_cb
         executed += engine._drain_pairs(pairs, bucket_floor=bucket_floor)
     return executed
 
@@ -443,6 +455,22 @@ class FrontierEngine:
         self.laser = laser
         self.device = laser.device
         self.caps = caps or Caps(B=args.frontier_width)
+        # service request ids riding this engine's segments (set by
+        # drain_lasers(tags=...)); stamped onto frontier.segment spans
+        self.request_tags: Optional[tuple] = None
+        # one-shot callback fired inside the first segment span actually
+        # dispatched (drain_lasers(flow_cb=...)): the service records its
+        # per-request trace-flow endpoints there
+        self.request_flow_cb: Optional[Callable[[], None]] = None
+
+    def _fire_request_flows(self) -> None:
+        """Invoke the service's flow callback once, inside a segment span."""
+        cb, self.request_flow_cb = self.request_flow_cb, None
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # telemetry must never break a dispatch
+                log.debug("request flow callback failed", exc_info=True)
 
     # ------------------------------------------------------------------
 
@@ -1118,11 +1146,16 @@ class FrontierEngine:
                 "frontier.segment", cat="device", segment=-1,
                 warm=(caps, natural_bucket, visit_cap) in _WARM_PROGRAMS,
                 opening=True,
+                **(
+                    {"requests": ",".join(self.request_tags)}
+                    if self.request_tags else {}
+                ),
             ), _otrace.device_annotation("frontier.segment"), \
                     _devplane.dispatch_scope(natural_bucket):
                 if _fid0 is not None:
                     _otrace.get_tracer().flow("s", _fid0, "flow.segment",
                                               cat="device")
+                self._fire_request_flows()
                 st_dev = push_state(st_nat, device=self.device)
                 with _devplane.harvest_analysis(self.device, nat_tag):
                     stamp = _devplane.stamp_begin(self.device)
@@ -1220,11 +1253,16 @@ class FrontierEngine:
             with _otrace.span(
                 "frontier.segment", cat="device",
                 segment=run_segments, warm=program_warm,
+                **(
+                    {"requests": ",".join(self.request_tags)}
+                    if self.request_tags else {}
+                ),
             ), _otrace.device_annotation("frontier.segment"), \
                     _devplane.dispatch_scope(bucket):
                 if _fid is not None:
                     _otrace.get_tracer().flow("s", _fid, "flow.segment",
                                               cat="device")
+                self._fire_request_flows()
                 with _devplane.harvest_analysis(self.device,
                                                 _devplane.bucket_tag(bucket)):
                     stamp = _devplane.stamp_begin(self.device)

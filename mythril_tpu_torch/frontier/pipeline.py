@@ -878,16 +878,20 @@ class PipelinedRunner:
                 (out_state, out_arena, out_len, n_exec, seg_ml,
                  out_visited) = inflight
                 t_pull = time.perf_counter()
+                _req_tags = getattr(self.engine, "request_tags", None)
                 with self.streams.pulling(inflight_event):
                     with _otrace.span(
                         "frontier.segment", cat="device", segment=inflight_sid,
                         warm=self.program_warm, pipelined=True,
+                        **({"requests": ",".join(_req_tags)}
+                           if _req_tags else {}),
                     ), _otrace.device_annotation("frontier.segment"):
                         _fid = self._seg_flow.get(inflight_sid)
                         if _fid is not None:
                             _otrace.get_tracer().flow(
                                 "t", _fid, "flow.segment", cat="device"
                             )
+                        self.engine._fire_request_flows()
                         # steady state (next dispatch chained): delta pull
                         # — the [B] scalar plane + dirty rows/events only; a
                         # sync point follows otherwise and _dispatch_full

@@ -4,15 +4,16 @@ Reference parity: mythril/interfaces/cli.py:236-935, by way of the JAX
 package's ``interfaces/cli.py``, whose option names, defaults and choices
 the port keeps for every option it has.  Subcommands: analyze (a),
 disassemble (d), concolic (c), static, safe-functions, list-detectors,
-read-storage, function-to-hash, hash-to-address, history, drift, version,
-help.
+read-storage, function-to-hash, hash-to-address, serve, submit, top,
+health, history, drift, version, help.
 
 What differs from the JAX command line:
 
 * ``--device {cuda,cpu}`` (default ``cuda``) picks the analysis' device,
-  the port's counterpart of ``JAX_PLATFORMS``.  Without a card ``analyze``
-  and ``concolic`` fail with ``NoCudaDevice`` unless ``--device cpu`` is
-  given; nothing moves to the CPU on its own.
+  the port's counterpart of ``JAX_PLATFORMS``.  Without a card ``analyze``,
+  ``concolic`` and ``serve`` fail with ``NoCudaDevice`` unless ``--device
+  cpu`` is given; nothing moves to the CPU on its own.  ``serve`` passes
+  it to every worker, inline or pooled (``ServiceConfig.device``).
 * ``--probe-backend`` has the port's backends: ``auto`` (the default, as in
   the JAX package: the card for queries above the calibrated break-even,
   the host below it and on the CPU), ``device`` (the role of the JAX
@@ -42,9 +43,10 @@ What differs from the JAX command line:
   that turns a default-on JAX tier off (``--no-mesh``) is accepted: the
   port runs without the mesh until it is ported, and ``analyze`` names it
   on one stderr line.
-* The subcommands of the analysis service (``serve``, ``submit``, ``top``
-  and ``health``, which reads the service) are refused with exit code 2
-  and the ROADMAP item that ports them (``NOT_YET_PORTED``).
+* ``serve`` exits with code 1 when a device fault stopped the service (a
+  fault never lets the inline worker take another batch), and, like
+  ``top`` and ``health``, returns its code from ``main`` instead of
+  leaving the process.
 * With ``--frontier`` on the card, a ``--frontier-width`` wider than the
   card's resident cooperative grid is refused before the analysis starts.
 
@@ -75,15 +77,10 @@ PROG = "myth-tpu-torch"
 COMMAND_ALIASES = {"a": "analyze", "d": "disassemble", "c": "concolic"}
 ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
 
-# What the JAX command line has and the port does not yet: subcommand ->
-# the ROADMAP Queue A item that ports it (the analysis service; ``health``
-# reads the service's watchtower through its client).
-NOT_YET_PORTED = {
-    "serve": 13,
-    "submit": 13,
-    "top": 13,
-    "health": 13,
-}
+# What the JAX command line has and the port does not yet: subcommand or
+# option -> the ROADMAP Queue A item that ports it (none left since the
+# analysis service was ported).
+NOT_YET_PORTED = {}
 # the JAX switches that turn a default-on tier off: dest -> (the tier, item)
 RUNS_WITHOUT = {
     "frontier_mesh": ("the device mesh", 12),
@@ -558,6 +555,8 @@ def create_parser() -> argparse.ArgumentParser:
     h2a = subparsers.add_parser("hash-to-address", help="look up signatures for a selector")
     h2a.add_argument("hash", help="e.g. 0xa9059cbb")
 
+    _add_service_parsers(subparsers)
+
     history = subparsers.add_parser(
         "history", help="query the persistent metrics history ring "
         "written by the watchtower (post-hoc plotting/diagnosis)",
@@ -617,6 +616,221 @@ def create_parser() -> argparse.ArgumentParser:
     subparsers.add_parser("version", help="print version")
     subparsers.add_parser("help", help="print help")
     return parser
+
+
+def _add_service_parsers(subparsers) -> None:
+    """``serve``, ``submit``, ``top`` and ``health``: the JAX command line's
+    options, and ``--device`` on ``serve``."""
+    serve = subparsers.add_parser(
+        "serve",
+        help="run the persistent analysis service (multi-tenant daemon: "
+        "shared-batch admission, codehash dedup, streamed results)",
+    )
+    serve.add_argument("--host", default="127.0.0.1", help="bind address")
+    serve.add_argument("--port", type=int, default=7344, help="TCP port")
+    serve.add_argument(
+        "--batch-width", type=int, default=8, metavar="N",
+        help="max compatible requests admitted into one shared device batch",
+    )
+    serve.add_argument(
+        "--batch-window", type=float, default=0.05, metavar="SECONDS",
+        help="admission window held open for more arrivals (interactive "
+        "requests cut it short)",
+    )
+    serve.add_argument(
+        "--no-probe", action="store_false", dest="probe", default=True,
+        help="disable the host-first hybrid probe for interactive-tier "
+        "requests (default on: first evidence never waits on a cold "
+        "kernel build)",
+    )
+    serve.add_argument(
+        "--no-frontier", action="store_false", dest="frontier", default=True,
+        help="run service batches on host engines only (no device frontier)",
+    )
+    serve.add_argument(
+        "--no-warmup", action="store_false", dest="warmup", default=True,
+        help="skip the startup warmup analysis",
+    )
+    serve.add_argument(
+        "--cache-root", metavar="DIR",
+        help="pin the SMT query cache (DIR/querycache), the kernel build "
+        "cache (DIR/kernels) and cross-process completed-result LRU "
+        "(DIR/results) under one directory",
+    )
+    serve.add_argument(
+        "--workers", type=int, default=1, metavar="N",
+        help="analysis worker processes behind the admission plane "
+        "(default 1: classic in-process worker thread; N>1 spawns N "
+        "isolated engine processes sharing the --cache-root caches)",
+    )
+    serve.add_argument(
+        "--tenant-quota", type=int, default=0, metavar="N",
+        help="max pending flights one tenant may hold (0 = unlimited); "
+        "excess submissions are rejected immediately, not queued",
+    )
+    serve.add_argument(
+        "--shed-depth", type=int, default=0, metavar="N",
+        help="pending-queue depth at which batch-tier submissions are "
+        "shed (0 = never; interactive submissions always queue)",
+    )
+    serve.add_argument(
+        "--age-priority", type=float, default=30.0, metavar="SECONDS",
+        help="batch flights waiting this long are promoted to "
+        "interactive-class priority so a continuous interactive stream "
+        "cannot starve batch work (default 30s; <=0 disables aging)",
+    )
+    serve.add_argument(
+        "-t", "--transaction-count", type=int, default=2,
+        help="default transaction count for submissions",
+    )
+    serve.add_argument(
+        "-m", "--modules", metavar="MODULES",
+        help="comma-separated default detection modules",
+    )
+    serve.add_argument(
+        "--strategy", default="bfs",
+        choices=["dfs", "bfs", "naive-random", "weighted-random",
+                 "beam-search"],
+        help="default search strategy",
+    )
+    serve.add_argument(
+        "--execution-timeout", type=int, default=60,
+        help="default per-request execution timeout (seconds)",
+    )
+    serve.add_argument(
+        "--coverage-target", type=float, default=None, metavar="PCT",
+        help="default coverage-target contract for submissions: stop "
+        "exploring a request once reachable-edge coverage reaches PCT "
+        "percent (or every explored code plateaus); the done event "
+        "carries coverage_target_met",
+    )
+    serve.add_argument(
+        "--heartbeat-out", metavar="FILE",
+        help="sample service queue depths into FILE as JSON lines",
+    )
+    serve.add_argument(
+        "--heartbeat-interval", type=float, default=0.5, metavar="SECONDS",
+        help="heartbeat sampling period (default 0.5s)",
+    )
+    serve.add_argument(
+        "--request-log", metavar="FILE",
+        help="append one JSON line per terminal request event (ids, "
+        "tenant, phase decomposition, issue digests)",
+    )
+    serve.add_argument(
+        "--trace-out", metavar="FILE",
+        help="enable tracing for the daemon's lifetime and write a "
+        "Chrome-trace JSON on exit (request span trees flow-joined to "
+        "frontier segments; with --workers N the trace carries one "
+        "process track per worker, request flows crossing the seam)",
+    )
+    serve.add_argument(
+        "--flight-recorder", metavar="DIR",
+        help="arm the flight recorder for the daemon: an unhandled "
+        "exception, SIGUSR1 or the watchdog dumps a bundle into DIR, "
+        "and with --workers N every live worker contributes a linked "
+        "bundle (stacks + metrics + heartbeat tail) alongside it",
+    )
+    serve.add_argument(
+        "--slo", metavar="FILE", dest="slo_file",
+        help="declarative SLO objectives (YAML/JSON) for the watchtower; "
+        "default: built-in objectives (TTFE/phase p95 budgets, "
+        "error/shed rates, worker liveness, coverage and prefilter "
+        "floors)",
+    )
+    serve.add_argument(
+        "--no-watchtower", action="store_false", dest="watchtower",
+        default=True,
+        help="disable the watchtower (SLO evaluation, breach "
+        "auto-capture and the persistent metrics history under "
+        "<cache-root>/history)",
+    )
+    serve.add_argument(
+        "--watchtower-interval", type=float, default=5.0, metavar="SECONDS",
+        help="watchtower snapshot/evaluation cadence (default 5s)",
+    )
+    serve.add_argument(
+        "--request-log-max-mb", type=float, default=64.0, metavar="MIB",
+        help="rotate --request-log at this size (FILE -> FILE.1 ...; "
+        "0 disables rotation)",
+    )
+    _add_device(serve)
+    _add_verbosity(serve)
+
+    submit = subparsers.add_parser(
+        "submit", help="submit a contract to a running analysis service"
+    )
+    submit.add_argument("--host", default="127.0.0.1", help="service host")
+    submit.add_argument("--port", type=int, default=7344, help="service port")
+    submit.add_argument(
+        "-c", "--code", metavar="BYTECODE",
+        help="hex-encoded runtime bytecode",
+    )
+    submit.add_argument(
+        "-f", "--codefile", metavar="BYTECODEFILE",
+        help="file containing hex-encoded runtime bytecode",
+    )
+    submit.add_argument("--name", help="request label")
+    submit.add_argument(
+        "--tenant", metavar="LABEL",
+        help="tenant label for per-tenant accounting in the daemon",
+    )
+    submit.add_argument(
+        "--tier", choices=["batch", "interactive"], default="batch",
+        help="interactive jumps the admission queue and gets the "
+        "host-first probe (TTFE budget)",
+    )
+    submit.add_argument(
+        "-t", "--transaction-count", type=int, default=None,
+        help="override the service's default transaction count",
+    )
+    submit.add_argument(
+        "-m", "--modules", metavar="MODULES",
+        help="comma-separated detection modules",
+    )
+    submit.add_argument(
+        "--execution-timeout", type=int, default=None,
+        help="override the service's default execution timeout (seconds)",
+    )
+    submit.add_argument(
+        "--coverage-target", type=float, default=None, metavar="PCT",
+        help="per-request coverage-target contract: terminate once "
+        "reachable-edge coverage reaches PCT percent (or exploration "
+        "plateaus); the done event carries coverage_target_met",
+    )
+    submit.add_argument(
+        "-o", "--outform", choices=["text", "json"], default="text",
+        help="output format",
+    )
+    _add_verbosity(submit)
+
+    top = subparsers.add_parser(
+        "top", help="live view of a running analysis service (in-flight "
+        "requests, phase latency percentiles, tenant totals)",
+    )
+    top.add_argument("--host", default="127.0.0.1", help="service host")
+    top.add_argument("--port", type=int, default=7344, help="service port")
+    top.add_argument(
+        "--interval", type=float, default=2.0, metavar="SECONDS",
+        help="refresh period (default 2s)",
+    )
+    top.add_argument(
+        "--once", action="store_true",
+        help="render one snapshot and exit (no screen clearing)",
+    )
+    _add_verbosity(top)
+
+    health = subparsers.add_parser(
+        "health", help="watchtower SLO state of a running analysis "
+        "service (per-objective burn-rate verdicts, breach captures)",
+    )
+    health.add_argument("--host", default="127.0.0.1", help="service host")
+    health.add_argument("--port", type=int, default=7344, help="service port")
+    health.add_argument(
+        "-o", "--outform", choices=["text", "json"], default="text",
+        help="output format",
+    )
+    _add_verbosity(health)
 
 
 # ---------------------------------------------------------------------------
@@ -1027,7 +1241,147 @@ def _execute_drift(parsed) -> None:
         print(format_drift(report, limit=parsed.limit), flush=True)
 
 
-def execute_command(parsed) -> None:
+def _execute_serve(parsed) -> int:
+    """``serve``: the analysis service on ``--device``, until SIGTERM or
+    SIGINT drains it (or a device fault stops it: exit code 1)."""
+    from mythril_tpu_torch import observability as obs
+    from mythril_tpu_torch.device import resolve
+    from mythril_tpu_torch.service import server
+    from mythril_tpu_torch.service.daemon import ServiceConfig
+    from mythril_tpu_torch.service.request import AnalysisOptions
+
+    resolve(parsed.device)  # no card: NoCudaDevice before anything binds or spawns
+    modules = tuple(parsed.modules.split(",")) if parsed.modules else None
+    config = ServiceConfig(
+        default_options=AnalysisOptions(
+            transaction_count=parsed.transaction_count,
+            modules=modules,
+            strategy=parsed.strategy,
+            execution_timeout=parsed.execution_timeout,
+            coverage_target=parsed.coverage_target,
+        ),
+        max_batch_width=parsed.batch_width,
+        batch_window_s=parsed.batch_window,
+        frontier=parsed.frontier,
+        probe=parsed.probe,
+        cache_root=parsed.cache_root,
+        warmup=parsed.warmup,
+        heartbeat=True,
+        heartbeat_interval_s=parsed.heartbeat_interval,
+        request_log=parsed.request_log,
+        workers=parsed.workers,
+        tenant_quota=parsed.tenant_quota,
+        shed_queue_depth=parsed.shed_depth,
+        age_priority_s=parsed.age_priority,
+        trace=bool(parsed.trace_out),
+        request_log_max_mb=parsed.request_log_max_mb,
+        watchtower=parsed.watchtower,
+        watchtower_interval_s=parsed.watchtower_interval,
+        slo_file=parsed.slo_file,
+        device=parsed.device,
+    )
+    if parsed.heartbeat_out:
+        obs.get_heartbeat().start(
+            period_s=parsed.heartbeat_interval, out_path=parsed.heartbeat_out)
+    if parsed.trace_out:
+        obs.get_tracer().reset()
+        obs.get_tracer().enabled = True
+    if parsed.flight_recorder:
+        # armed on the main thread before run_server so the SIGUSR1
+        # handler lands here, not in a worker
+        obs.arm_flight_recorder(parsed.flight_recorder)
+    rc = server.run_server(config, host=parsed.host, port=parsed.port)
+    if parsed.trace_out:
+        obs.get_tracer().export_chrome_trace(parsed.trace_out)
+        print(f"trace written to {parsed.trace_out}", flush=True)
+    return rc
+
+
+def _execute_submit(parsed) -> None:
+    """``submit``: one contract to a running service; its events as they
+    arrive (``-o json``: one JSON object a line)."""
+    from mythril_tpu_torch.service.client import ServiceClient
+
+    if parsed.code:
+        code = parsed.code
+    elif parsed.codefile:
+        with open(parsed.codefile) as f:
+            code = f.read().strip()
+    else:
+        raise CriticalError("submit needs -c/--code or -f/--codefile")
+    client = ServiceClient(parsed.host, parsed.port)
+    modules = parsed.modules.split(",") if parsed.modules else None
+    as_json = parsed.outform == "json"
+    try:
+        for event in client.submit_stream(
+            code,
+            name=parsed.name,
+            tier=parsed.tier,
+            transaction_count=parsed.transaction_count,
+            modules=modules,
+            execution_timeout=parsed.execution_timeout,
+            tenant=parsed.tenant,
+            coverage_target=parsed.coverage_target,
+        ):
+            if as_json:
+                print(json.dumps(event), flush=True)
+                continue
+            kind = event.get("event")
+            if kind == "accepted":
+                dd = " (deduplicated)" if event.get("deduped") else ""
+                print(f"accepted {event['request_id']}{dd}", flush=True)
+            elif kind == "issue":
+                prov = " [provisional]" if event.get("provisional") else ""
+                print(
+                    f"issue SWC-{event.get('swc_id')} "
+                    f"{event.get('title')} @ {event.get('function')}"
+                    f"{prov}",
+                    flush=True,
+                )
+            elif kind == "error":
+                raise CriticalError(f"analysis failed: {event.get('error')}")
+            else:
+                target_note = ""
+                if "coverage_target_met" in event:
+                    target_note = (
+                        " [coverage target met]"
+                        if event["coverage_target_met"]
+                        else " [coverage target not met]"
+                    )
+                print(
+                    f"done: {len(event.get('issues', []))} issues in "
+                    f"{event.get('elapsed_s')}s{target_note}",
+                    flush=True,
+                )
+    except (ConnectionError, OSError) as e:
+        raise CriticalError(f"cannot reach analysis service: {e}") from e
+
+
+def _execute_health(parsed) -> int:
+    """``health``: the service's watchtower state; 1 on an active breach."""
+    from mythril_tpu_torch.service.client import ServiceClient
+    from mythril_tpu_torch.service.top import format_health
+
+    client = ServiceClient(parsed.host, parsed.port, timeout=10.0)
+    try:
+        health = client.health()
+    except OSError as e:
+        raise CriticalError(
+            f"cannot reach analysis service at "
+            f"{parsed.host}:{parsed.port}: {e}"
+        ) from e
+    if parsed.outform == "json":
+        print(json.dumps(health, indent=2, sort_keys=True), flush=True)
+    else:
+        print(format_health(
+            health, address=f"{parsed.host}:{parsed.port}"), flush=True)
+    # exit 1 on an active breach so scripts can gate on health
+    return 1 if health.get("enabled") and not health.get("ok") else 0
+
+
+def execute_command(parsed) -> Optional[int]:
+    """Run the parsed command; its exit code where it has one of its own
+    (``serve``, ``top``, ``health``), else None."""
     command = COMMAND_ALIASES.get(parsed.command, parsed.command)
 
     if command == "version":
@@ -1115,6 +1469,22 @@ def execute_command(parsed) -> None:
     if command == "static":
         _execute_static(parsed)
         return
+
+    if command == "serve":
+        return _execute_serve(parsed)
+
+    if command == "submit":
+        _execute_submit(parsed)
+        return
+
+    if command == "top":
+        from mythril_tpu_torch.service.top import run_top
+
+        return run_top(host=parsed.host, port=parsed.port,
+                       interval=parsed.interval, once=parsed.once)
+
+    if command == "health":
+        return _execute_health(parsed)
 
     if command == "history":
         _execute_history(parsed)
@@ -1207,7 +1577,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     tracing = get_tracer().enabled
     try:
-        execute_command(parsed)
+        rc = execute_command(parsed)
     except Refused as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
@@ -1236,4 +1606,4 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         configure(enabled=args.query_cache, cache_dir=args.query_cache_dir)
         _build.set_cache_dir(args.compile_cache_dir)
-    return 0
+    return rc or 0

@@ -22,8 +22,10 @@ The port's counterpart of ``mythril_tpu/observability``:
   objectives over the history, ``meta.health``) and :mod:`.drift` (the
   ranked differ of two bench tables or two history windows).
 
-The fleet fabric waits for the analysis service (ROADMAP Queue A item 13.4),
-its only caller.
+* :mod:`.fleet` — the fleet fabric (a copy): a pool worker's
+  ``FleetPublisher`` ships metric deltas and span batches to the analysis
+  service's ``FleetAggregator``, which keeps the per-worker series and the
+  rollup.
 
     from mythril_tpu_torch.observability import get_tracer, get_registry, span
 
@@ -47,6 +49,11 @@ from mythril_tpu_torch.observability.exploration import (  # noqa: F401
     ExplorationLedger,
     exploration_meta,
     get_exploration_ledger,
+)
+from mythril_tpu_torch.observability.fleet import (  # noqa: F401
+    WIRE_VERSION,
+    FleetAggregator,
+    FleetPublisher,
 )
 from mythril_tpu_torch.observability.flightrecorder import (  # noqa: F401
     FlightRecorder,

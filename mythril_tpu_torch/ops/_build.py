@@ -17,7 +17,11 @@ variable (``0``/``off``/``no``/``false`` or empty: a directory of the
 process's own, removed at exit, so every process builds), and
 ``mythril_tpu_torch/_build/`` (``BUILD_DIR``, listed in ``.gitignore``).
 Every ``build`` counts ``compilecache.hits`` (the library was there) or
-``compilecache.misses`` (nvcc ran) in the metrics registry.
+``compilecache.misses`` (nvcc ran) in the metrics registry.  It holds an
+exclusive ``fcntl.flock`` on ``<library>.lock`` around its check and the
+build, so processes that share a cache (the analysis service's pool
+workers) build a library once: the one that builds counts the miss, one
+that finds the library after waiting counts a hit.
 
 Pointers and the CUDA stream are passed as ``c_void_p``; each C entry
 returns ``cudaGetLastError()`` of its launch and the Python wrapper raises
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import atexit
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -142,11 +147,18 @@ def build_log() -> str:
 
 def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> Path:
     """Compile every source (default: the package's) in parallel and link;
-    a no-op when up to date."""
-    from mythril_tpu_torch.observability import deviceplane
-
+    a no-op when up to date.  One process at a time builds a library."""
     srcs = sources() if srcs is None else srcs
     lib = library_path(srcs, name)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(srcs, lib)
+
+
+def _build_locked(srcs: List[Path], lib: Path) -> Path:
+    from mythril_tpu_torch.observability import deviceplane
+
     found = lib.exists()
     plane = deviceplane.installed()
     if plane:
@@ -157,7 +169,6 @@ def build(srcs: Optional[List[Path]] = None, name: str = "mythril_kernels") -> P
         return lib
     t0 = time.perf_counter()
     compiler = nvcc()
-    lib.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs, procs = [], []
         for src in srcs:

@@ -8,9 +8,12 @@ copies of them under the same relative paths (it imports nothing of
 original only by the package name (``mythril_tpu`` -> ``mythril_tpu_torch``
 in imports, comments and strings), and the C++ sources of ``native/src/``,
 which are copied byte for byte.  ``EDITED`` lists copies that differ by
-the package name and by the named top-level functions, which are the
-port's own (the rewrite keeps them; the check compares everything else).
-Every other port module of the engine is edited by hand.
+the package name and by the named top-level functions, classes or methods
+(``Class.method``), which are the port's own (the rewrite keeps them; the
+check compares everything else).  ``SUBSTITUTED`` lists literal rewrites of
+a copy's prose (docstrings and comments that name the JAX package's
+runtime), applied before the check.  Every other port module of the engine
+is edited by hand.
 
     python3 scripts/torch_port_copy.py            # (re)write the copies
     python3 scripts/torch_port_copy.py --check    # exit 1 if a copy drifted
@@ -138,6 +141,18 @@ COPIED = (
     "observability/history.py",
     "observability/watchtower.py",
     "observability/drift.py",
+    "analysis/module/base.py",
+    "service/codehash.py",
+    "service/request.py",
+    "service/scheduling.py",
+    "service/admission.py",
+    "service/resultstore.py",
+    "service/telemetry.py",
+    "service/pool.py",
+    "service/client.py",
+    "service/top.py",
+    "service/__init__.py",
+    "observability/fleet.py",
 )
 
 # copies whose named top-level functions are the port's own: module ->
@@ -147,6 +162,50 @@ EDITED = {
     "observability/tracer.py": ("device_annotation",),
     # the bundle carries the device plane's device_meta() beside the metrics
     "observability/flightrecorder.py": ("build_bundle",),
+    # the batch's device on each batch and probe; a device fault is never
+    # isolated, and a worker that hit one answers its batch and exits
+    "service/worker.py": ("worker_config", "_make_context", "_run_job",
+                          "_run_profile", "worker_main"),
+    # ServiceConfig.device; a device fault errors the inline batch and
+    # stops the service; a pool worker's fault errors its batch
+    "service/daemon.py": ("ServiceConfig", "AnalysisService.__init__",
+                          "AnalysisService._configure_process",
+                          "AnalysisService._warmup",
+                          "AnalysisService._worker_loop",
+                          "AnalysisService._run_batch",
+                          "AnalysisService._probe",
+                          "AnalysisService._on_worker_event"),
+    # serve returns non-zero when a device fault stopped the service
+    "service/server.py": ("run_server",),
+}
+
+# literal rewrites of a copy's prose: module -> ((JAX text, port text), ...)
+_PROFILER = ("``jax.profiler``", "``torch.profiler``")
+SUBSTITUTED = {
+    "service/__init__.py": (("re-pays XLA compilation", "re-pays its kernel builds"),),
+    "service/client.py": (_PROFILER,),
+    "service/server.py": (_PROFILER,),
+    "service/resultstore.py": (("XLA compile cache", "kernel build cache"),),
+    "service/worker.py": (
+        ("hold a live JAX runtime", "hold a live CUDA context"),
+        ("the XLA compile cache", "the kernel build cache"),
+        ("# windowed jax.profiler", "# windowed torch.profiler"),
+        ("""    ("profiled", worker_id, profile_id, result_dict)
+""", """    ("profiled", worker_id, profile_id, result_dict)
+    ("device_fault", worker_id, job_id, payload)   # the done keys; exits
+"""),
+    ),
+    "service/daemon.py": (
+        ("XLA compile cache", "kernel build cache"),
+        ("compiled XLA programs", "built kernel libraries"),
+        ("a cold XLA bucket compile", "a cold kernel build"),
+        _PROFILER,
+    ),
+    "observability/fleet.py": (
+        ("PR 12 moved analysis", "The worker pool moved analysis"),
+        ("XLA-facing totals", "device-facing totals"),
+    ),
+    "service/scheduling.py": (("PR 9's tenant accounting", "The tenant accounting"),),
 }
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")
@@ -160,6 +219,10 @@ def ported(rel: str) -> str:
     if not rel.endswith(".py"):
         return text
     text = _NAME.sub("mythril_tpu_torch", text)
+    for old, new in SUBSTITUTED.get(rel, ()):
+        if old not in text:
+            raise SystemExit(f"{rel}: no {old!r} to rewrite")
+        text = text.replace(old, new)
     for name in EDITED.get(rel, ()):
         own = (DST / rel).read_text()
         text = text.replace(_function(text, name), _function(own, name))
@@ -167,14 +230,33 @@ def ported(rel: str) -> str:
 
 
 def _function(text: str, name: str) -> str:
-    """The source of the top-level function ``name``: its ``def`` line up to
-    the next top-level statement, trailing blank lines left out."""
-    match = re.search(rf"^def {name}\(", text, re.M)
+    """The source of the top-level function or class ``name``, or of the
+    method ``Class.method``: its ``def``/``class`` line (and decorators) up
+    to the next statement at its own indentation or less, trailing blank
+    and comment lines left out."""
+    indent = ""
+    if "." in name:
+        cls, name = name.split(".")
+        start = re.search(rf"^class {cls}\b", text, re.M)
+        if start is None:
+            raise SystemExit(f"no top-level class {cls}")
+        indent, pos = "    ", start.end()
+    else:
+        pos = 0
+    match = re.compile(
+        rf"^((?:{indent}@.*\n)*){indent}(?:def|class) {name}\b", re.M
+    ).search(text, pos)
     if match is None:
-        raise SystemExit(f"no top-level function {name}")
-    end = re.compile(r"^[^\s#]", re.M).search(text, match.end())
-    block = text[match.start(): end.start() if end else len(text)]
-    return block.rstrip("\n") + "\n"
+        raise SystemExit(f"no definition of {name}")
+    # the body starts after the signature's closing colon
+    body = re.compile(r":[ \t]*(?:#.*)?\n").search(text, match.end())
+    end = re.compile(rf"^(?:{indent})?(?=[^\s#])", re.M).search(
+        text, body.end())
+    lines = text[match.start(): end.start() if end else len(text)].split("\n")
+    # the comments and blank lines before the next statement are not its
+    while lines and (not lines[-1].strip() or lines[-1].lstrip().startswith("#")):
+        lines.pop()
+    return "\n".join(lines) + "\n"
 
 
 def main(argv) -> int:

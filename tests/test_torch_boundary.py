@@ -257,7 +257,10 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
     assert got["concolic"] == [5]
     assert got["calibration"] == [{}, None, {}]
     for mod in ("concolic.concolic_execution", "concolic.find_trace", "concolic.concrete_data",
-                "core.strategy.concolic", "core.transaction.concolic", "support.calibration"):
+                "core.strategy.concolic", "core.transaction.concolic", "support.calibration",
+                # the analysis service and the fleet fabric, with jax blocked
+                "service.daemon", "service.worker", "service.pool", "service.server",
+                "observability.fleet"):
         assert f"mythril_tpu_torch.{mod}" in got["modules"]
     # the native CDCL builds from the port's own sources wherever g++ is
     if shutil.which("g++") or shutil.which("c++"):

@@ -120,6 +120,52 @@ def test_a_missing_library_is_a_miss_and_one_build(build, tmp_path, monkeypatch)
     assert _counts() == (hits + 1, misses + 1) and runs.read_text().count("run") == 2
 
 
+_BUILDER = r"""
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from mythril_tpu_torch.ops import _build
+_build.nvcc = lambda: sys.argv[2]
+_build.set_cache_dir(sys.argv[3])
+go = Path(sys.argv[3]).parent / "go"
+print("ready", flush=True)
+while not go.exists():
+    time.sleep(0.01)
+_build.build([Path(sys.argv[4])], name="probe")
+hits, misses = _build.cache_counters()
+print(json.dumps([hits.value, misses.value]), flush=True)
+"""
+
+
+def test_two_processes_build_a_library_once(tmp_path):
+    """Two processes build the same library into one cache at once, with a
+    stand-in nvcc that takes a second a run: the lock lets one build (one
+    compile and one link, its miss) and the other find the library after
+    waiting (its hit)."""
+    import subprocess
+    import sys
+
+    runs = tmp_path / "runs.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho run >> "%s"\nsleep 1\n'
+                    'while [ $# -gt 1 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n' % runs)
+    fake.chmod(0o755)
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel\n")
+    repo = Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILDER, str(repo), str(fake), str(tmp_path / "cache"), str(src)],
+        stdout=subprocess.PIPE, text=True) for _ in range(2)]
+    for proc in procs:
+        assert proc.stdout.readline().strip() == "ready"
+    (tmp_path / "go").touch()
+    counts = sorted(tuple(__import__("json").loads(proc.communicate(timeout=120)[0]))
+                    for proc in procs)
+    assert [proc.returncode for proc in procs] == [0, 0]
+    assert counts == [(0, 1), (1, 0)]
+    assert runs.read_text().count("run") == 2
+
+
 def test_the_cache_root_derives_both_directories(build, tmp_path):
     from mythril_tpu_torch.facade.mythril_analyzer import AnalyzerArgs
     from mythril_tpu_torch.facade.warm import apply_analyzer_args, resolve_cache_root

@@ -654,3 +654,65 @@ def test_a_resumed_analysis_on_the_card_equals_its_records(card, tmp_path, monke
     assert rc == 0
     assert issue_keys(out) == issue_keys(record["stdout"])
     assert step.launches > seg0 and solver_launches() > solver0
+
+
+def test_an_inline_service_on_the_card_answers_with_the_solo_digests(card, tmp_path,
+                                                                     monkeypatch):
+    """``chip_smoke.py`` phase 8l in small: an inline service on the card at
+    its defaults (the frontier, the interactive probe, the ``auto`` backend)
+    answers ``etherstore_like`` and ``kill_simple`` (``-t 2``, two tenants)
+    with the issue digests of their solo ``analyze`` runs on the card, which
+    are the JAX service record's (``tests/testdata/torch_service_runs.json``),
+    and its batch launches the segment kernel."""
+    import dataclasses
+    from pathlib import Path
+
+    import bench_contracts
+    from mythril_tpu_torch.frontier import step
+    from mythril_tpu_torch.querycache import configure
+    from mythril_tpu_torch.service import (
+        AnalysisOptions,
+        AnalysisService,
+        ServiceConfig,
+        canonical_codehash,
+        issue_digest,
+    )
+    from mythril_tpu_torch.support.support_args import args
+    from tests.test_torch_cli import _last_json_line, run_port
+
+    monkeypatch.setenv("MYTHRIL_DIR", str(tmp_path / "mythril"))
+    repo = Path(__file__).resolve().parent.parent
+    record = json.loads((repo / "tests" / "testdata" / "torch_service_runs.json").read_text())
+    recorded = {r["contract"]: r["digests"] for r in record["runs"]}
+    codes = {"etherstore_like": bench_contracts.etherstore_like().hex(),
+             "kill_simple": (repo / "tests" / "testdata" / "inputs"
+                             / "kill_simple.bin-runtime").read_text().strip()}
+    solo = {}
+    for name, code in codes.items():
+        rc, out = run_port(["analyze", "-c", code, "--bin-runtime", "-t", "2",
+                            "--execution-timeout", "60", "-o", "json"], device=None,
+                           calibrated=True)
+        assert rc == 0
+        solo[name] = sorted([i["swc-id"], i["address"], canonical_codehash(code), i["title"],
+                             i["function"]] for i in _last_json_line(out)["issues"])
+    saved = dataclasses.replace(args)
+    service = AnalysisService(ServiceConfig(
+        default_options=AnalysisOptions(transaction_count=2, execution_timeout=60),
+        batch_window_s=0.3, warmup=False)).start()
+    try:
+        seg0 = step.launches
+        subs = [service.submit(codes[name], name=name, tenant=tenant)
+                for name, tenant in (("etherstore_like", "t1"), ("kill_simple", "t2"))]
+        answers = {name: list(stream.events(timeout=600))[-1]
+                   for name, (_r, stream, _d) in zip(codes, subs)}
+        launched = step.launches - seg0
+    finally:
+        assert service.stop(drain=True, timeout=120)
+        for f in dataclasses.fields(args):
+            setattr(args, f.name, getattr(saved, f.name))
+        configure(enabled=args.query_cache, cache_dir=args.query_cache_dir)
+    for name, (kind, payload) in answers.items():
+        assert kind == "done", payload
+        assert sorted(list(issue_digest(i)) for i in payload["issues"]) == solo[name] \
+            == recorded[name]
+    assert launched > 0
