@@ -12,7 +12,8 @@ multi-contract batches, under the default ``auto`` probe backend with its
 link calibration, in concolic execution, traced, with the health
 surfaces (checkpoint and resume, the heartbeat, the flight recorder, the
 kernel build cache, the metrics history), and as the analysis service
-(inline and pooled, over TCP, with a killed worker and a device fault).
+(inline and pooled, over TCP, with a killed worker and a device fault),
+and on a device mesh of logical shards of the card (phase 8m).
 Every phase but 8h, 8i and 8l holds the port's probe backend at ``device``
 where the JAX runs it replays forced ``jax`` (``tests/_torch_parity.py``
 ``run_analysis``, ``test_torch_cli.port_argv``) and its link calibration
@@ -327,6 +328,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    allocation) at the frontier of an inline batch errors both of its
    requests naming it, stops the service (``fault``, submissions refused)
    and no further batch runs;
+8m. the device mesh (``parallel/``) on a mesh of 4 logical shards of the
+   card (``parallel.mesh.logical_shards``): first the pod contract of
+   ``tests/test_torch_pod.py`` at the defaults, which on one card builds no
+   mesh (``mesh_devices`` 0); then ``evaluate_batch_sharded`` of 37 seeded
+   candidates on two conjunctions (one with a keccak node) equal to the
+   single launch and to ``run_lowering_reference`` with one ``lowering``
+   launch per shard; ``frontier_step`` on the (2, 2) mesh over a ragged
+   seeded frontier equal to the plain reductions, one launch per block; the
+   segment example (``frontier_example``, the port's own
+   ``__graft_entry__._frontier_example``) on the mesh bit-identical to the
+   unsharded dispatch and to ``segment_torch``; the pod contract pipelined
+   on the mesh at widths 64 and 62: the issue keys of
+   ``tests/testdata/torch_pod_runs.json``, ``mesh_devices`` and
+   ``pipeline.mesh_shards`` 4, four per-shard pull keys, padded slots at
+   62 alone, ``segments_pipelined`` above 0; then the mesh and
+   ``--no-mesh``, each run timed (one pair on logical shards, in turns
+   mesh, off, off, mesh over several cards), on the pod contract and
+   ``bench.py``'s wide contract of 7 branches at 64: the recorded keys of
+   each mode, and on the mesh the wide contract's rebalance
+   (``rebalance_syncs`` and ``rebalanced_slots`` above 0);
+   the same over every card when ``torch.cuda.device_count() > 1``, else a
+   line saying they were not run; each part's time;
 9. times with CUDA events: each kernel's launches alone (``ms``), the whole
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
@@ -860,6 +883,7 @@ def zero_launches() -> None:
     from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
 
     keccak_cuda.launches = tape_vm.launches = fstep.launches = lowering.launches = 0
+    lowering.launches_by_device.clear()
     kb_device.launches = dpll_device.launches = 0
     keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
 
@@ -3134,6 +3158,283 @@ def service_runs(torch, card: str):
            "inline_phases": phases, "pooled": pooled_row, "card": card, "seconds": seconds}
     return inline, row
 
+MESH_SHARDS = 4
+POD_FIXTURE = ROOT / "tests" / "testdata" / "torch_pod_runs.json"
+# the pod run's widths on the mesh: the recording's 64, and 62, which 4
+# shards do not divide (2 padded slots a frontier run)
+MESH_WIDTHS = (64, 62)
+
+
+def frontier_example(n_paths: int, device):
+    """The port's own ``__graft_entry__._frontier_example``: ``n_paths``
+    slots, the first half each at a symbolic JUMPI over a minimal program
+    (each forks a child into the free half).  -> (segment, (state on the
+    host, arena, arena_len, visited, code, cfg) with the tensors on
+    ``device``)."""
+    import numpy as np
+    import torch
+
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import ops as O
+    from mythril_tpu_torch.frontier.arena import HostArena
+    from mythril_tpu_torch.frontier.code import CodeTables, stacked_device_tables
+    from mythril_tpu_torch.frontier.state import Caps, empty_state
+    from mythril_tpu_torch.frontier.step import CfgScalars, cached_segment
+    from mythril_tpu_torch.smt import terms as T
+
+    Ins = collections.namedtuple("Ins", "opcode address arg_int")
+    program = [Ins("JUMPI", 0, None), Ins("PUSH1", 1, 1), Ins("PUSH1", 3, 2), Ins("ADD", 5, None),
+               Ins("POP", 6, None), Ins("STOP", 7, None), Ins("JUMPDEST", 8, None),
+               Ins("STOP", 9, None)]
+    caps = Caps(B=n_paths)
+    arena = HostArena(caps.ARENA)
+    row_zero, row_one = arena.const_row(0, 256), arena.const_row(1, 256)
+    dest_row = arena.const_row(8, 256)
+    conds = [arena.var_row(T.var(f"mesh_c{i}", 256)) for i in range(n_paths // 2)]
+    tables = CodeTables(program, arena)
+    icap, acap, lcap = tables.size_bucket()
+    segment = cached_segment(caps, 1, icap, acap, lcap, device=device)
+    code = interop.code_to_torch(stacked_device_tables([tables], (1, icap, acap, lcap)), device)
+    st = empty_state(caps, lcap)
+    for slot in range(n_paths // 2):
+        st.seed[slot], st.halt[slot] = 0, O.H_RUNNING
+        st.stack[slot, 0], st.stack[slot, 1], st.stack_len[slot] = conds[slot], dest_row, 2
+    dev_arena = interop.arena_to_torch(arena.device_arrays(), device)
+    visited = torch.zeros((3, 1, icap), dtype=torch.bool, device=device)
+    cfg = CfgScalars(max_depth=128, loop_bound=0, row_zero=int(row_zero), row_one=int(row_one),
+                     sel_mode=0)
+    return segment, (st, dev_arena, arena.length, visited, code, cfg)
+
+
+def _mesh_problem(n: int, seed: int):
+    """Two conjunctions (a sum and a bound; a keccak of a 64-byte preimage
+    under a bound) and ``n`` numpy-seeded candidates, every other one with
+    x + y = 100."""
+    import numpy as np
+
+    from mythril_tpu_torch.smt import terms as T
+    from mythril_tpu_torch.smt.concrete_eval import Assignment
+
+    x, y = T.var("mesh_x", 256), T.var("mesh_y", 256)
+    pre = T.concat(*[T.extract(255 - 8 * i, 248 - 8 * i, x) for i in range(32)],
+                   *[T.extract(255 - 8 * i, 248 - 8 * i, y) for i in range(32)])
+    conjs = ([T.eq(T.add(x, y), T.const(100, 256)), T.ult(x, T.const(60, 256))],
+             [T.ult(T.keccak(pre), T.const(1 << 255, 256)), T.ult(y, T.const(90, 256))])
+    rng = np.random.default_rng(seed)
+    asgs = []
+    for i, (a, b) in enumerate(rng.integers(0, 100, size=(n, 2))):
+        asg = Assignment()
+        # every other candidate on the sum's line, so some rows satisfy it
+        asg.scalars[x], asg.scalars[y] = int(a), int(100 - a if i % 2 else b)
+        asgs.append(asg)
+    return conjs, asgs
+
+
+def mesh_checks(torch, shards: Optional[int], card: str) -> dict:
+    """Phase 8m's checks on the mesh ``make_frontier_mesh()`` gives inside
+    ``logical_shards(shards)`` (None: every visible card).  -> the row."""
+    import numpy as np
+
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier.step import segment_torch
+    from mythril_tpu_torch.ops import lowering
+    from mythril_tpu_torch.parallel import (
+        evaluate_batch_sharded,
+        frontier_step,
+        make_frontier_mesh,
+        pack_frontier,
+        shard_frontier_inputs,
+        shard_probe_args,
+    )
+    from mythril_tpu_torch.parallel.mesh import logical_shards
+    from tests.test_torch_pod import WIDE, _analyze
+
+    def scope():
+        return logical_shards(shards) if shards else contextlib.nullcontext()
+
+    with scope():
+        mesh = make_frontier_mesh()
+        mesh_2d = make_frontier_mesh(path_size=2) if mesh.size % 2 == 0 else mesh
+    n = mesh.size
+    devices = [str(d) for d in mesh.devices.flat]
+    label = f"{n} logical shards of {devices[0]}" if shards else f"{n} cards"
+    row = {"mesh": label, "devices": devices, "card": card}
+    # the sharded probe: 37 candidates (padded to a multiple of n) over the
+    # mesh, one lowering launch per block on its device
+    for ci, conj in enumerate(_mesh_problem(0, 0)[0]):
+        asgs = _mesh_problem(37, 20 + ci)[1]
+        compiled = lowering.compile_conjunction(conj)
+        zero_launches()
+        truth_mesh = evaluate_batch_sharded(compiled, asgs, mesh)
+        per_device = dict(lowering.launches_by_device)
+        want = collections.Counter(str(d) for d in mesh.devices.flat)
+        check(lowering.launches == n and per_device == dict(want),
+              f"8m {label}: the sharded eval launched the lowering {per_device}, not once per "
+              f"shard {dict(want)}")
+        truth_single = compiled.evaluate_batch(asgs)
+        # the whole calls (packing, the blocks' copies, the gathers), warm
+        mesh_ms = cuda_ms(lambda: evaluate_batch_sharded(compiled, asgs, mesh), 10)
+        single_ms = cuda_ms(lambda: compiled.evaluate_batch(asgs), 10)
+        packed = lowering.pack_assignments(compiled, asgs, torch.device(devices[0]))
+        truth_plain, plain_ms = cuda_once(
+            lambda: lowering.run_lowering_reference(compiled, *packed).cpu().numpy())
+        check(np.array_equal(truth_mesh, truth_single) and np.array_equal(truth_mesh, truth_plain),
+              f"8m {label}: the sharded truth differs from the single launch or the plain version")
+        row[f"probe_{ci}"] = {"B": len(asgs), "C": len(conj), "launches": per_device,
+                              "sharded_ms": mesh_ms, "single_ms": single_ms, "plain_ms": plain_ms,
+                              "sat_rows": int(truth_mesh.all(axis=1).sum())}
+        print(f"  {label}: evaluate_batch_sharded B=37 C={len(conj)}: lowering launches "
+              f"{per_device}, {mesh_ms:.4f} ms a call (evaluate_batch, one launch, "
+              f"{single_ms:.4f} ms; plain {plain_ms:.3f} ms once); truth equal, "
+              f"{row[f'probe_{ci}']['sat_rows']} rows sat")
+    # frontier_step over (path, cand): 4 paths x up to 8 candidates, ragged
+    conj = _mesh_problem(1, 0)[0][0]
+    compiled = lowering.compile_conjunction(conj)
+    rng = np.random.default_rng(7)
+    frontier = [_mesh_problem(int(k), 30 + p)[1] for p, k in
+                enumerate([8, *rng.integers(1, 9, size=3)])]
+    args, valid = pack_frontier(compiled, frontier)
+    zero_launches()
+    step = frontier_step(compiled)
+    sharded_args = shard_probe_args(args, mesh_2d, batch_dims=2)
+    got = [v.cpu().numpy() for v in step(*sharded_args, valid)]
+    step_launches = lowering.launches
+    step_ms = cuda_ms(lambda: step(*sharded_args, valid), 10)  # the blocks already placed
+    flat = tuple(x.reshape((-1,) + tuple(x.shape[2:])).to(devices[0]) for x in args[0])
+    truth = lowering.run_lowering_reference(
+        compiled, flat, args[1].reshape(-1, args[1].shape[-1]).to(devices[0]),
+        [tuple(x.reshape((-1,) + tuple(x.shape[2:])).to(devices[0]) for x in t) for t in args[2]]
+    ).cpu().numpy().reshape(valid.shape + (len(conj),))
+    scores = np.where(valid, truth.sum(-1), -1)
+    plain = [scores, scores.max(-1), scores.argmax(-1), (scores == len(conj)).sum()]
+    check(step_launches == mesh_2d.size and all(np.array_equal(a, b) for a, b in zip(got, plain)),
+          f"8m {label}: frontier_step on {mesh_2d.shape} differs from the plain reductions or "
+          f"launched the lowering {step_launches} times")
+    row["frontier_step"] = {"mesh": mesh_2d.shape, "P_B": list(valid.shape), "ms": step_ms,
+                            "launches": step_launches, "n_sat": int(got[3])}
+    print(f"  {label}: frontier_step on {mesh_2d.shape}, P x B = {valid.shape}: "
+          f"{step_launches} lowering launches, {step_ms:.4f} ms a call, n_sat {int(got[3])}, best "
+          f"{got[1].tolist()} at {got[2].tolist()}: equal to the plain reductions")
+    # the segment example: the mesh dispatch against the unsharded one and
+    # the plain version, bit for bit
+    segment, (st, arena, arena_len, visited, code, cfg) = frontier_example(2 * n, devices[0])
+    inputs = (interop.state_to_torch(st, devices[0]), arena, arena_len, visited, code, cfg)
+    zero_launches()
+    single = interop.outputs_to_numpy(segment(*inputs))
+    mst, marena, mvis, mcode = shard_frontier_inputs(st, arena, visited, code, make_frontier_mesh(
+        list(mesh.devices.flat), path_size=n))
+    sharded = interop.outputs_to_numpy(segment(mst, marena, arena_len, mvis, mcode, cfg))
+    seg_launches = read_launches()["frontier_segment"]
+    single_ms = cuda_ms(lambda: segment(*inputs), 10)
+    sharded_ms = cuda_ms(lambda: segment(mst, marena, arena_len, mvis, mcode, cfg), 10)
+    from mythril_tpu_torch.frontier.state import Caps
+
+    plain_out = interop.outputs_to_numpy(segment_torch(*inputs, Caps(B=2 * n)))
+    same = all(
+        (a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a))
+        if isinstance(a, dict) else np.array_equal(a, b)
+        for out in (single, plain_out) for a, b in zip(sharded, out))
+    check(same and seg_launches == 2 and sharded[3] > 0,
+          f"8m {label}: the mesh segment differs from the unsharded dispatch or the plain "
+          f"version ({seg_launches} launches)")
+    row["segment"] = {"B": 2 * n, "n_exec": sharded[3], "arena_len": sharded[2],
+                      "mesh_ms": sharded_ms, "unsharded_ms": single_ms}
+    print(f"  {label}: the segment example at B = {2 * n} on the mesh: bit-identical to the "
+          f"unsharded dispatch and segment_torch ({sharded[3]} steps; {sharded_ms:.4f} ms a "
+          f"dispatch, unsharded {single_ms:.4f} ms)")
+    # the pod parity contract, pipelined on the mesh, and once with --no-mesh
+    rec = json.loads(POD_FIXTURE.read_text())["runs"]["storage_gate/64"]
+    pods = {}
+    for width in MESH_WIDTHS:
+        zero_launches()
+        t0 = time.perf_counter()
+        with scope():
+            got = _analyze("mythril_tpu_torch", width, mesh=True, device=None)
+        wall = time.perf_counter() - t0
+        launched = read_launches()
+        check(got["summary"] == rec["mesh"]["summary"], f"8m {label} pod run at {width}: issue "
+              f"keys {got['summary']} differ from the recording's {rec['mesh']['summary']}")
+        check(got["mesh_devices"] == got["mesh_shards"] == n
+              and got["pull_shards"] == [f"shard{k}" for k in range(n)]
+              and got["segments_pipelined"] > 0
+              and (got["mesh_pad_slots"] > 0) == (width % n > 0)
+              and launched["frontier_segment"] > 0,
+              f"8m {label} pod run at {width}: mesh counters {got}, launches {launched}")
+        pods[width] = {**{k: got[k] for k in ("mesh_devices", "mesh_shards", "mesh_pad_slots",
+                                              "segments_pipelined")},
+                       "wall_s": wall, "launches": launched}
+        print(f"  {label}: pod run at width {width}: keys as recorded, mesh_devices "
+              f"{got['mesh_devices']}, mesh_shards {got['mesh_shards']}, {len(got['pull_shards'])} "
+              f"per-shard pull keys, mesh_pad_slots {got['mesh_pad_slots']}, segments_pipelined "
+              f"{got['segments_pipelined']}, {wall:.3f} s, launches {launched}")
+    # mesh against --no-mesh on the pod contract and on bench.py's wide
+    # contract of 7 branches, both at 64; the wide one's spills are
+    # re-injected at sync points (the rebalance).  Over several cards in
+    # turns (mesh, --no-mesh, --no-mesh, mesh); on logical shards one pair,
+    # which keeps the script's wall on one card.  Every run holds the
+    # recording's keys for its mode
+    order = (True, False) if shards else (True, False, False, True)
+    for name in ("storage_gate", WIDE):
+        want = json.loads(POD_FIXTURE.read_text())["runs"][f"{name}/64"]
+        turns = {"mesh": [], "no_mesh": []}
+        for on in order:
+            mode = "mesh" if on else "no_mesh"
+            zero_launches()
+            t0 = time.perf_counter()
+            with scope():
+                got = _analyze("mythril_tpu_torch", 64, mesh=on, device=None, name=name)
+            wall = time.perf_counter() - t0
+            check(got["summary"] == want[mode]["summary"]
+                  and got["mesh_devices"] == (n if on else 0)
+                  and (not on or name != WIDE
+                       or got["rebalance_syncs"] > 0 and got["rebalanced_slots"] > 0),
+                  f"8m {label}: the {name} run at 64 ({mode}) {got} against the recording's "
+                  f"keys {want[mode]['summary']}, or no rebalance")
+            turns[mode].append({"wall_s": wall, "segments_pipelined": got["segments_pipelined"],
+                                "rebalance_syncs": got["rebalance_syncs"],
+                                "rebalanced_slots": got["rebalanced_slots"],
+                                "launches": read_launches()})
+        pods[f"{name}_turns"] = turns
+        mesh_s = [t["wall_s"] for t in turns["mesh"]]
+        off_s = [t["wall_s"] for t in turns["no_mesh"]]
+        print(f"  {label}: {name} at 64: keys as recorded; mesh "
+              f"{', '.join(f'{w:.4f}' for w in mesh_s)} s (rebalance_syncs "
+              f"{turns['mesh'][0]['rebalance_syncs']}, "
+              f"rebalanced_slots {turns['mesh'][0]['rebalanced_slots']}; the JAX package on "
+              f"its {want['jax_devices']} devices: {want['mesh']['rebalance_syncs']}, "
+              f"{want['mesh']['rebalanced_slots']}), --no-mesh "
+              f"{', '.join(f'{w:.4f}' for w in off_s)} s; "
+              f"mesh/--no-mesh {sum(mesh_s) / sum(off_s):.3f}")
+    row["pod"] = pods
+    return row
+
+
+def mesh_runs(torch, card: str):
+    """Phase 8m: the device mesh on a mesh of ``MESH_SHARDS`` logical shards
+    of the card, then over every card when there are several; first, the
+    pod contract at the defaults, where one card means no mesh.  -> (the
+    launches of the logical mesh's pod run at 64, the row)."""
+    from tests.test_torch_pod import _analyze
+
+    t_phase = phase("the device mesh: the sharded probe, frontier_step, the segment and the pod "
+                    f"run on {MESH_SHARDS} logical shards of the card")
+    zero_launches()
+    default = _analyze("mythril_tpu_torch", 64, mesh=True, device=None)
+    check(default["mesh_devices"] == 0 if torch.cuda.device_count() == 1
+          else default["mesh_devices"] == torch.cuda.device_count(),
+          f"8m: the default pod run's mesh_devices {default['mesh_devices']} on "
+          f"{torch.cuda.device_count()} cards")
+    print(f"  the pod contract at the defaults on {torch.cuda.device_count()} card(s): "
+          f"mesh_devices {default['mesh_devices']}")
+    row = {"logical": mesh_checks(torch, MESH_SHARDS, card)}
+    if torch.cuda.device_count() > 1:
+        row["cards"] = mesh_checks(torch, None, card)
+    else:
+        print("  the checks over several cards were not run: torch.cuda.device_count() is 1")
+    row["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 8m took {row['seconds']:.1f} s")
+    return row["logical"]["pod"][64]["launches"], row
+
 
 def device_fault(torch) -> None:
     """A real ``torch.OutOfMemoryError`` from the card, raised inside a
@@ -3473,6 +3774,9 @@ def main() -> int:
             check(j_launches[name] > 0, f"the traced run launched {name} no time")
         k_launches, k_row = health_runs(torch, card)
         l_launches, l_row = service_runs(torch, card)
+        m_launches, m_row = mesh_runs(torch, card)
+        for name in ("frontier_segment",):
+            check(m_launches[name] > 0, f"the mesh's pod run launched {name} no time")
         # the auto path: a query above the calibrated threshold reaches a
         # probe kernel on the card (on the recorded traffic the one that
         # crosses it, a batchTransfer flip, is refused by the tape and goes
@@ -3562,7 +3866,8 @@ def main() -> int:
                 "concolic_auto": i_auto.get(entry["name"], 0),
                 "traced": j_launches[entry["name"]],
                 "resumed": k_launches[entry["name"]],
-                "service": l_launches[entry["name"]]}
+                "service": l_launches[entry["name"]],
+                "mesh": m_launches[entry["name"]]}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}
@@ -3575,6 +3880,7 @@ def main() -> int:
         frontier["traced"] = j_row
         frontier["health"] = k_row
         frontier["service"] = l_row
+        frontier["mesh"] = m_row
         phase("keccak layouts by N (CUDA events, launches alone)")
         keccak["by_n"] = keccak_crossover(torch)
         phase("kernel times at scale (CUDA events)")

@@ -72,6 +72,7 @@ class AnalyzerArgs:
     devsolver: bool = True
     devsolver_bit_budget: int = 64
     devsolver_iters: int = 2048
+    frontier_mesh: bool = True
     pipeline: bool = True
     solver_workers: int = 2
     harvest_workers: int = 4

@@ -91,6 +91,7 @@ def apply_analyzer_args(cmd_args) -> None:
     args.frontier = cmd_args.frontier
     args.frontier_width = cmd_args.frontier_width
     args.frontier_force = cmd_args.frontier_force
+    args.frontier_mesh = cmd_args.frontier_mesh
     args.query_cache = cmd_args.query_cache
     args.staticpass = cmd_args.staticpass
     args.staticpass_interproc = cmd_args.staticpass_interproc

@@ -38,12 +38,24 @@ parks the live paths, as in the JAX package.  The admission gate's
 constants (``_MIN_STATIC_JUMPIS``, ``_MIN_SEED_WIDTH``) are rescaled to the
 card's measured round trip (``support/calibration.py``) at the first gate
 decision for the card; a concolic run never reaches the frontier
-(``_is_concolic``).  Not carried yet: the mesh (ROADMAP item 12).
+(``_is_concolic``).
+
+The device mesh (``parallel/``, ``args.frontier_mesh``): where a mesh on the
+laser's device spans more than one device (``parallel.mesh.mesh_devices``:
+every visible card), the run pads the slot batch to a multiple of the
+device count (``frontier.mesh_pad_slots``), builds a ``(path, cand)`` mesh
+with the whole count on the path axis and hands it to the pipelined
+runner, which injects, rebalances, pulls and replays per slot block; the
+segment itself runs once a dispatch on the mesh's first device over the
+whole padded batch, so its outputs are the unsharded ones.  A mesh run
+skips the natural-bucket opening dispatch and the microbench, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -844,6 +856,21 @@ class FrontierEngine:
         caps = self.caps
         t_start = time.perf_counter()
 
+        # mesh precondition: pad the slot batch up to a multiple of the
+        # mesh's device count so the path axis always shards evenly.  The
+        # extra slots are ordinary dead slots (seed -1, never injected into
+        # unless paths need them) and cost only their share of the packed
+        # transfers
+        from mythril_tpu_torch.parallel import mesh as _mesh
+
+        devices = _mesh.mesh_devices(self.device) if args.frontier_mesh else [self.device]
+        n_dev = len(devices)
+        if n_dev > 1 and caps.B % n_dev:
+            pad = -caps.B % n_dev
+            caps = dataclasses.replace(caps, B=caps.B + pad)
+            self.caps = caps
+            _get_metrics().counter("frontier.mesh_pad_slots").inc(pad)
+
         seed_lasers = [laser for laser, _ in pairs]
         seeds = [gs for _, gs in pairs]
         lasers: List = []
@@ -1014,6 +1041,14 @@ class FrontierEngine:
         _latch_resident_pct(
             round(100.0 * self._page_resident / max(paged_rows, 1), 1)
         )
+        # path-sharded over a mesh where it spans more than one device (the
+        # padding above made the width divide): the runner works on slot
+        # blocks; the segment runs on the mesh's first device, which is the
+        # run's own (``mesh_devices``), over the whole padded batch
+        mesh = None
+        if n_dev > 1:
+            mesh = _mesh.make_frontier_mesh(devices, path_size=n_dev)
+            FrontierStatistics().mesh_devices = n_dev
         program_key = (caps, bucket, visit_cap)
         program_warm = program_key in _WARM_PROGRAMS
         _devplane.install()
@@ -1127,7 +1162,7 @@ class FrontierEngine:
         # first dispatch runs at the program's natural bucket, is
         # harvested, and only then does the floored loop start (the order
         # decides what each dispatch holds)
-        if bucket != natural_bucket and not program_warm:
+        if mesh is None and bucket != natural_bucket and not program_warm:
             nat_cc, _nat_ic, _nat_ac, nat_lc = natural_bucket
             stats = FrontierStatistics()
             nat_segment = cached_segment(caps, *natural_bucket, device=self.device)
@@ -1201,8 +1236,8 @@ class FrontierEngine:
                 skip_loop = True  # nothing left for the floored program
 
         if not skip_loop and args.pipeline:
-            # one device: the pipelined runner drives the loop (the mesh,
-            # with which the JAX package composes it, is not ported)
+            # pipeline and mesh compose: with a mesh the runner works on
+            # slot blocks
             from mythril_tpu_torch.frontier.pipeline import PipelinedRunner
 
             runner = PipelinedRunner(
@@ -1215,7 +1250,7 @@ class FrontierEngine:
                 cfg=cfg, dev_arena=dev_arena, arena_len=arena_len,
                 visited=visited, deadline=deadline,
                 program_key=program_key, program_warm=program_warm,
-                repack_fn=self._maybe_repack,
+                mesh=mesh, repack_fn=self._maybe_repack,
             )
             runner.run()
             st = runner.st
@@ -1243,7 +1278,7 @@ class FrontierEngine:
             # the analysis-wide segment counter, not a per-drain counter
             cfg = cfg._replace(k_limit=min(caps.K, 96 << min(stats.segments, 4)))
             st_dev = push_state(st, device=self.device)
-            micro = args.frontier_microbench and not stats.microbench
+            micro = args.frontier_microbench and not stats.microbench and mesh is None
             if micro:
                 micro_args = (
                     st_dev, dev_arena, arena_len, visited, code_dev, cfg

@@ -11,10 +11,12 @@ package's ``HarvestExecutor`` runs it:
 2. **Seed-affinity replay workers** (``HarvestExecutor``).  Terminal
    replays shard across a persistent thread pool (``args.harvest_workers``,
    4 by default; 0 replays inline, the serial escape hatch).  The shard key
-   is the laser owning ``rec.seed_idx``: a laser's records replay on one
-   worker, in slot order, so no two workers touch the same LaserEVM or
-   plugin state.  Cross-laser shared state is guarded elsewhere: the solver
-   memos (``smt/solver.py`` ``_cache_lock``), the term intern table
+   is (the slot's device shard, the laser owning ``rec.seed_idx``): a
+   laser's subgroups replay on one worker, back to back in device order
+   (``_replay_subgroups``), which is slot order, so no two workers touch
+   the same LaserEVM or plugin state.  Without a mesh the device shard is
+   0 for every slot.  Cross-laser shared state is guarded elsewhere: the
+   solver memos (``smt/solver.py`` ``_cache_lock``), the term intern table
    (``smt/terms.py``), the frontier's counters; the walker's row bindings
    are per laser.  A replay that raises is dropped, as in the JAX package,
    and counted in ``FrontierStatistics.replay_errors``; a device fault
@@ -181,16 +183,26 @@ def _replay_group(walker, recs: List[PathRecord]) -> None:
             rec._replay_err = e
 
 
-def _replay_traced(walker, recs: List[PathRecord], sid: int = -1,
-                   fid: Optional[int] = None) -> None:
-    """``_replay_group`` in a ``frontier.replay`` span on the worker's
-    thread: the span carries the segment id and finishes the flow arrow the
-    harvest thread started when it submitted this laser's work."""
+def _replay_subgroups(walker, subgroups: List[List[PathRecord]],
+                      sid: int = -1, fid: Optional[int] = None) -> None:
+    """Replay one laser's per-device subgroups sequentially, device order.
+
+    Under a path-sharded mesh the replay shard key is (device, laser); a
+    laser's state is still single-threaded, so all of its device subgroups
+    run on ONE worker, back to back.  Shards are contiguous slot blocks, so
+    device order within a laser is exactly slot order — bit-identical to
+    the unsharded per-laser replay.  A device fault stops the laser's
+    replays and reaches the calling thread.
+
+    ``sid``/``fid`` are trace correlation handles: the worker span carries
+    the segment id and finishes the flow arrow the harvest thread started
+    when it submitted this laser's work."""
     with _otrace.span("frontier.replay", cat="frontier", segment=sid,
-                      paths=len(recs)):
+                      paths=sum(len(r) for r in subgroups)):
         if fid is not None:
             _otrace.get_tracer().flow("f", fid, "flow.replay", cat="frontier")
-        _replay_group(walker, recs)
+        for recs in subgroups:
+            _replay_group(walker, recs)
 
 
 # The replay pool is process-wide and persistent (spawning threads per
@@ -316,34 +328,42 @@ class HarvestExecutor:
             finishing.append(slot)
             free_cnt += 1
 
-        # replay: shard by owning laser, slot order within each shard (one
-        # device: the JAX package's (device, laser) shard is the laser's)
+        # replay: shard by (device, owning laser) — slot order within each
+        # shard.  The device component is the slot's owning path-shard
+        # (identity when there is no mesh), so per-shard pull attribution
+        # and replay accounting line up; per-laser serialization is kept by
+        # merging a laser's device subgroups onto one worker
         t3 = time.perf_counter()
         pool = _shared_pool(self.workers)
         if pool is not None and finishing:
-            by_laser: Dict[int, List[PathRecord]] = {}
+            n_sh = max(1, getattr(pipe, "n_shards", 1)) if pipe else 1
+            groups: Dict[tuple, List[PathRecord]] = {}
             for slot in finishing:
                 rec = records[slot]
-                by_laser.setdefault(id(walker.laser_for(rec)), []).append(rec)
+                key = (slot * n_sh // caps.B, id(walker.laser_for(rec)))
+                groups.setdefault(key, []).append(rec)
+            by_laser: Dict[int, List[List[PathRecord]]] = {}
+            for shard, lid in sorted(groups):
+                by_laser.setdefault(lid, []).append(groups[(shard, lid)])
             tracer = _otrace.get_tracer()
             futs = []
-            for recs in by_laser.values():
+            for subs in by_laser.values():
                 fid = None
                 if tracer.enabled:
                     # flow arrow: this harvest slice -> the worker's replay
                     # span (emitted before submit so "s" precedes "f")
                     fid = tracer.new_flow_id()
                     tracer.flow("s", fid, "flow.replay", cat="frontier")
-                futs.append(pool.submit(_replay_traced, walker, recs, sid, fid))
+                futs.append(pool.submit(_replay_subgroups, walker, subs, sid, fid))
             # every shard finishes before a device fault unwinds the harvest
             wait(futs)
             for f in futs:
                 f.result()
             reg.counter("frontier.harvest.replay_shards").inc(len(by_laser))
-            reg.counter("frontier.harvest.device_laser_shards").inc(len(by_laser))
+            reg.counter("frontier.harvest.device_laser_shards").inc(len(groups))
             reg.counter("frontier.harvest.sharded_paths").inc(len(finishing))
         else:
-            _replay_traced(walker, [records[slot] for slot in finishing], sid)
+            _replay_subgroups(walker, [[records[slot] for slot in finishing]], sid)
         t4 = time.perf_counter()
         reg.observe("frontier.harvest.replay_s", t4 - t3)
 

@@ -43,9 +43,9 @@ Correction protocol (the part that makes chaining sound):
 
 Sync points (the only places the pipeline intentionally drains): host
 arena appends for spill re-injection (an in-flight segment appends device
-rows at the same indices), reclaiming
-device-owned free slots for a backed-up seed queue, and the final drain —
-an in-flight segment is always pulled and harvested before the loop exits,
+rows at the same indices), reclaiming device-owned free slots for a
+backed-up seed queue, a mesh's rebalance, and the final drain — an
+in-flight segment is always pulled and harvested before the loop exits,
 never discarded.
 
 On the card (the port's own part).  The runner queues every segment and
@@ -70,11 +70,16 @@ path (a pooled carrier is never also on a work list or in a slot), and the
 ``--coverage-target`` verdict ends the run.  Killed and retired paths are
 stamped with their termination class in the exploration ledger, and the
 feasibility pool attributes each solve's wall time to its program point.
-The mesh's rebalance and per-shard accounting come with the mesh (ROADMAP
-item 12).  The tracer's spans and flows and the device plane's scope,
-stamps and analysis are the JAX package's; the ``pipeline.*`` metrics
-live in the registry (``COUNTERS`` is a view of the counters by name
-without the prefix).  Every run registers its queue depths with the
+On a mesh (``mesh=``, ``parallel/mesh.py``) the slot batch is path-sharded:
+shard k is slot block k, injections go to the least-loaded shard
+(``choose_free_slot``), an imbalance forces a sync point where
+``_rebalance`` spills the hottest shard's youngest paths for re-injection
+(``plan_rebalance``, with a backoff), the delta pulls' bytes and the
+heartbeat's slot counts are kept per shard, and every dispatch runs on the
+mesh's first device, the run's own.  The tracer's spans and flows and the
+device plane's scope, stamps and analysis are the JAX package's; the
+``pipeline.*`` metrics live in the registry (``COUNTERS`` is a view of the
+counters by name without the prefix).  Every run registers its queue depths with the
 heartbeat (``observability/heartbeat.py``) and starts the sampler when
 nothing else has (every ``args.heartbeat_interval`` seconds, 0.5 by
 default), as in the JAX package; the sampler thread reads host-side
@@ -94,6 +99,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from mythril_tpu_torch.device import is_device_fault
 from mythril_tpu_torch.frontier import ops as O
 from mythril_tpu_torch.frontier.records import PathRecord
 from mythril_tpu_torch.frontier.state import FrontierState, clear_slot
@@ -115,7 +121,7 @@ _COUNTER_NAMES = (
     "segments_pipelined", "overlap_segments", "overlap_s", "bubble_s", "carried_slots",
     "corrected_slots", "delta_pulls", "delta_pull_bytes", "pool_submitted",
     "pool_inflight_dedup", "pool_prefilter_kills", "pool_unsat_rollbacks", "orphan_rollbacks",
-    "reinject_queued", "reinjected", "adaptive_parked",
+    "reinject_queued", "reinjected", "adaptive_parked", "rebalance_syncs", "rebalanced_slots",
 )
 COUNTERS = views.CounterView("pipeline.", _COUNTER_NAMES)
 
@@ -126,6 +132,67 @@ def count(name: str, n=1) -> None:
 
 def reset_counters() -> None:
     _get_metrics().reset(prefix="pipeline.")
+
+
+def plan_rebalance(live: np.ndarray, free: np.ndarray, n_shards: int,
+                   max_moves: int = 4) -> List[int]:
+    """Slots to SPILL so live paths spread across path-shards.
+
+    ``live``/``free`` are [B] bool masks (running record present / host-
+    reclaimable).  Returns source slots, hottest shard first — the spill/
+    re-inject machinery parks them and re-injects into the coolest shards'
+    free slots (``choose_free_slot``).  A move is planned only while the
+    hottest shard holds at least 2 more live paths than the coolest AND the
+    coolest shards have free slots to receive them, so a balanced (or
+    fully packed) pod plans nothing.  Pure numpy, unit-testable."""
+    B = live.shape[0]
+    if n_shards <= 1 or B % n_shards:
+        return []
+    sz = B // n_shards
+    live_by = live.reshape(n_shards, sz).sum(axis=1)
+    free_by = free.reshape(n_shards, sz).sum(axis=1).astype(np.int64)
+    moves: List[int] = []
+    spilled = np.zeros(B, bool)
+    while len(moves) < max_moves:
+        hot = int(np.argmax(live_by))
+        order = np.argsort(live_by, kind="stable")
+        cold = next((int(s) for s in order if free_by[s] > 0), None)
+        if cold is None or live_by[hot] - live_by[cold] < 2:
+            break
+        # spill the hot shard's LAST live slot (latest-injected first, so
+        # long-running early paths keep their device residency)
+        block = np.flatnonzero(live[hot * sz:(hot + 1) * sz]
+                               & ~spilled[hot * sz:(hot + 1) * sz])
+        if block.size == 0:
+            break
+        src = hot * sz + int(block[-1])
+        spilled[src] = True
+        moves.append(src)
+        live_by[hot] -= 1
+        live_by[cold] += 1
+        free_by[cold] -= 1
+    return moves
+
+
+def choose_free_slot(free: np.ndarray, live: np.ndarray,
+                     n_shards: int) -> Optional[int]:
+    """First free slot on the least-loaded shard (ties to the lowest shard
+    index; slot order within a shard).  With one shard this is exactly the
+    pre-pod first-free scan, so single-device injection order — and hence
+    the parity baseline — is unchanged."""
+    idx = np.flatnonzero(free)
+    if idx.size == 0:
+        return None
+    B = free.shape[0]
+    if n_shards <= 1 or B % n_shards:
+        return int(idx[0])
+    sz = B // n_shards
+    live_by = live.reshape(n_shards, sz).sum(axis=1)
+    for shard in np.argsort(live_by, kind="stable"):
+        block = np.flatnonzero(free[shard * sz:(shard + 1) * sz])
+        if block.size:
+            return int(shard) * sz + int(block[0])
+    return None
 
 
 class CorrectionLedger:
@@ -386,7 +453,8 @@ class PipelinedRunner:
                  seeds, lasers, ctxs, seed_code_idx, mid_enc,
                  seed_queue, statics, beam, tables, table_code, table_idx,
                  table_hash, segment, code_dev, cfg, dev_arena, arena_len, visited,
-                 deadline, program_key, program_warm, repack_fn=None):
+                 deadline, program_key, program_warm, mesh=None,
+                 repack_fn=None):
         self.engine = engine
         self.caps = engine.caps
         self.device = engine.device
@@ -422,6 +490,18 @@ class PipelinedRunner:
         # race a chained dispatch that already captured the old tables.
         self.repack_fn = repack_fn
 
+        # pod composition: with a mesh the slot batch is path-sharded (shard
+        # k is slot block k) and every dispatch runs on the mesh's first
+        # device, the run's own.
+        self.mesh = mesh
+        self.n_shards = 1
+        if mesh is not None:
+            from mythril_tpu_torch.parallel.mesh import PATH_AXIS
+
+            self.n_shards = int(mesh.shape[PATH_AXIS])
+            _get_metrics().gauge("pipeline.mesh_shards").set(self.n_shards)
+        self._rebalance_backoff = 0
+
         self.ledger = CorrectionLedger(self.caps.B)
         self.pool = FeasibilityPool(args.solver_workers, self.device)
         self.streams = _Streams(self.device)
@@ -437,8 +517,6 @@ class PipelinedRunner:
         self.max_live = 0
         self.slow_bailed = False
         self.width_verdict_valid = True
-        # one device: the path axis is one shard (the mesh is item 12)
-        self.n_shards = 1
 
         # trace correlation: every dispatch (full or chained) gets a
         # monotonic segment id that its pull, harvest, replay and
@@ -587,11 +665,13 @@ class PipelinedRunner:
         return live, free
 
     def _free_slot(self) -> Optional[int]:
-        """Next injection target: the first host-reclaimable slot (no
-        record, not device-owned, no seed on the device)."""
-        _live, free = self._slot_masks()
-        free = np.flatnonzero(free)
-        return int(free[0]) if free.size else None
+        """Next injection target among the host-reclaimable slots (no
+        record, not device-owned, no seed on the device).  Single-device:
+        the first (the pre-pod scan).  Mesh: a free slot on the least-loaded
+        shard, so injections spread over the pod instead of packing shard
+        0."""
+        live, free = self._slot_masks()
+        return choose_free_slot(free, live, self.n_shards)
 
     def refill(self) -> None:
         """Queued seeds into host-reclaimable free slots.  Unlike the
@@ -744,6 +824,48 @@ class PipelinedRunner:
             laser.work_list.append(carrier)
         self.adaptive_parked = []
 
+    def _rebalance(self) -> bool:
+        """Sync-point live-slot rebalance across path-shards.
+
+        Spills the hottest shard's youngest live paths through the ordinary
+        batch-full park flow — snapshot, forced ``H_PARK``, walker replay +
+        commit — so they land in ``reinject_q`` via the park sink and are
+        re-injected (same sync point) into the coolest shards' free slots.
+        Every spill and re-injection goes through ``ledger.touch``, so the
+        exactly-once correction protocol is preserved.  A replay or commit
+        that raises costs only its path (logged), as in the JAX package; a
+        device fault (``is_device_fault``) reaches the caller.  Returns True
+        when any slot moved."""
+        from mythril_tpu_torch.frontier.records import snapshot_slot
+
+        live, free = self._slot_masks()
+        moves = plan_rebalance(live, free, self.n_shards)
+        if not moves:
+            return False
+        stats = FrontierStatistics()
+        for src in moves:
+            rec = self.records[src]
+            rec.final = snapshot_slot(self.st, src)
+            rec.final["halt"] = O.H_PARK
+            stats.count("device_paths")
+            stats.record_bulk_park("rebalance")
+            try:
+                self.walker.replay(rec)
+                self.walker.commit(rec)
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                log.warning(
+                    "frontier rebalance failed on a path: %s", e,
+                    exc_info=True,
+                )
+            self.records[src] = None
+            clear_slot(self.st, src)
+            self.ev_seen[src] = 0
+            self.ledger.touch(src)
+            count("rebalanced_slots")
+        return True
+
     # -- the loop -------------------------------------------------------
 
     def _ramped_cfg(self):
@@ -753,10 +875,11 @@ class PipelinedRunner:
         )
 
     def _dispatch_full(self):
-        """Full push of the host mirror (dispatch 0 and sync points), on
-        the segment stream.  -> (outputs, the event behind the segment).
-        The segment's device time is stamped on the segment stream; the
-        bucket's first dispatch harvests the allocator's peak."""
+        """Full push of the host mirror (dispatch 0 and sync points), on the
+        segment stream.  -> (outputs, the
+        event behind the segment).  The segment's device time is stamped on
+        the segment stream; the bucket's first dispatch harvests the
+        allocator's peak."""
         from mythril_tpu_torch.frontier.step import push_state
 
         sid = self._begin_dispatch()
@@ -794,7 +917,8 @@ class PipelinedRunner:
             with self.streams.dispatching():
                 mask = self.ledger.consume(self.st.seed)
                 out = chain_dispatch(self.segment, inflight, self.st, mask,
-                                     self.code_dev, cfg, segment_id=sid)
+                                     self.code_dev, cfg,
+                                     segment_id=sid)
                 event = self.streams.mark()
         count("segments_pipelined")
         return out, event
@@ -815,7 +939,10 @@ class PipelinedRunner:
         narrow_harvests = 0
         run_segments = 0
         stop: Optional[str] = None
-        micro_pending = bool(args.frontier_microbench and not stats.microbench)
+        # microbench timings are single-device figures; skip it on a mesh
+        # (the synchronous loop applies the same gate)
+        micro_pending = bool(args.frontier_microbench and not stats.microbench
+                             and self.mesh is None)
 
         hb = get_heartbeat()
         hb.register("pipeline", self._heartbeat_sample)
@@ -863,6 +990,18 @@ class PipelinedRunner:
                     or (self.seed_queue and free_owned)
                     or (self.adaptive_parked and free_owned)
                 )
+                if (not want_sync and self.n_shards > 1
+                        and stop is None and not deadline_hit):
+                    # pod imbalance: force a sync point so _rebalance can
+                    # spill/re-inject; backoff avoids syncing every segment
+                    # when the imbalance is not fixable (e.g. no free slots)
+                    if self._rebalance_backoff > 0:
+                        self._rebalance_backoff -= 1
+                    else:
+                        live_m, free_m = self._slot_masks()
+                        if plan_rebalance(live_m, free_m, self.n_shards):
+                            want_sync = True
+                            count("rebalance_syncs")
                 nxt = None
                 nxt_event = None
                 nxt_sid = -1
@@ -900,6 +1039,7 @@ class PipelinedRunner:
                             pull_harvest(
                                 out_state, out_len, n_exec, seg_ml,
                                 prev=prev_st if nxt is not None else None,
+                                shards=self.n_shards,
                             )
                         )
                     bubble = time.perf_counter() - t_pull
@@ -1056,6 +1196,9 @@ class PipelinedRunner:
                     break
                 self.ledger.release_owned()
                 self.arena.thaw()
+                if self.n_shards > 1:
+                    moved = self._rebalance()
+                    self._rebalance_backoff = 0 if moved else 2
                 self._adaptive_requeue()
                 if (self.adaptive_parked and not self.reinject_q
                         and not self.seed_queue):

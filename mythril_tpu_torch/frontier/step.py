@@ -1084,7 +1084,7 @@ def push_state(state: FrontierState, device=None) -> FrontierState:
     return FrontierState(**fields)
 
 
-def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None):
+def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None, shards: int = 1):
     """Device -> host harvest.  -> (numpy FrontierState, arena_len, n_exec,
     max_live).  Reads on the current stream, and waits for it.
 
@@ -1103,7 +1103,11 @@ def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None):
     every other row is ``prev``'s.  Row and slot counts are padded to
     ``_SLOT_BUCKETS`` as in the JAX package, so the bytes counted in
     ``pipeline.COUNTERS`` (``delta_pulls``, ``delta_pull_bytes``) are its
-    bytes.
+    bytes.  ``shards > 1`` (a pipelined mesh run): the pulled bytes are also
+    attributed per path-shard (slot blocks of B/shards) into the
+    ``pipeline.delta_pull_bytes_by_shard`` labeled counter, as in the JAX
+    package; gather-pad rows carry no slot and are left out, so the
+    per-shard figures sum to slightly less than the total.
 
     This is the frontier's blocking device->host point: the pull's device
     time is stamped into the device plane's ``frontier.pull_device_s``
@@ -1111,7 +1115,7 @@ def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None):
     attributed to the caller's dispatch scope), and the stamps whose work
     has completed are published here."""
     stamp = _devplane.stamp_begin(state.pc.device)
-    out = _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev)
+    out = _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev, shards=shards)
     _devplane.stamp_end(stamp, "frontier.pull_device_s")
     _devplane.settle()
     return out
@@ -1148,7 +1152,7 @@ def _gather_events_rows(state: FrontierState, idx: torch.Tensor, cap: int) -> to
     return state.events[idx, :cap, :].reshape(-1)
 
 
-def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev):
+def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev, shards: int = 1):
     from mythril_tpu_torch.frontier import pipeline
 
     dev = state.pc.device
@@ -1162,6 +1166,10 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev):
         off += B
     scalars = (int(buf[off]), int(buf[off + 1]), int(buf[off + 2]))
     pulled_bytes = buf.nbytes
+    n_sh = max(1, int(shards))
+    # [B] planes split evenly over the contiguous slot blocks; row and event
+    # gathers attribute by the pulled slot's owning shard
+    shard_bytes = np.full(n_sh, buf.nbytes // n_sh, np.int64)
 
     halt, seed = fields["halt"], fields["seed"]
     ev_len = np.minimum(fields["ev_len"], EVT)
@@ -1176,6 +1184,7 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev):
         pad[: idx.size] = idx
         rows = _gather_rows(state, torch.from_numpy(pad).to(dev)).cpu().numpy()
         pulled_bytes += rows.nbytes
+        np.add.at(shard_bytes, idx * n_sh // B, rows.nbytes // cap_n)
         off2 = 0
         for n in names_2d:
             w = fields[n].shape[1]
@@ -1193,17 +1202,25 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev):
         pulled = pulled.reshape(cap_m, cap, EVW)
         events[ev_idx, :cap, :] = pulled[: ev_idx.size]
         pulled_bytes += pulled.nbytes
+        np.add.at(shard_bytes, ev_idx * n_sh // B, pulled.nbytes // cap_m)
     fields["events"] = events
     pipeline.count("delta_pulls")
     pipeline.count("delta_pull_bytes", pulled_bytes)
+    if n_sh > 1:
+        from mythril_tpu_torch.observability.metrics import get_registry
+
+        by_shard = get_registry().labeled_counter("pipeline.delta_pull_bytes_by_shard")
+        for k in range(n_sh):
+            by_shard[f"shard{k}"] += int(shard_bytes[k])
     return (FrontierState(**fields), *scalars)
 
 
-def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None):
+def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None,
+                       shards: int = 1):
     if any(f.dtype != I32 for f in state):
         raise ValueError("packed state transfer assumes uniform int32 fields")
     if prev is not None:
-        return _pull_delta(state, arena_len, n_exec, max_live, prev)
+        return _pull_delta(state, arena_len, n_exec, max_live, prev, shards)
     scalars = _scalars(state, arena_len, n_exec, max_live)
     buf = torch.cat([getattr(state, n).reshape(-1) for n in _NON_EVENT] + [scalars]).cpu().numpy()
     fields, off = {}, 0

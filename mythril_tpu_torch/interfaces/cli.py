@@ -39,10 +39,9 @@ What differs from the JAX command line:
   build cache (``DIR/kernels`` under the root, beside ``DIR/querycache``);
   ``--heartbeat-out``, ``--heartbeat-interval``, ``--flight-recorder``,
   ``--watchdog-deadline`` and ``--history-dir`` are the health surfaces,
-  and ``history`` and ``drift`` read what they record.  The other switch
-  that turns a default-on JAX tier off (``--no-mesh``) is accepted: the
-  port runs without the mesh until it is ported, and ``analyze`` names it
-  on one stderr line.
+  and ``history`` and ``drift`` read what they record.  ``--no-mesh`` runs
+  the frontier and the probe on the analysis device alone where a mesh
+  would span every visible card (``parallel/``).
 * ``serve`` exits with code 1 when a device fault stopped the service (a
   fault never lets the inline worker take another batch), and, like
   ``top`` and ``health``, returns its code from ``main`` instead of
@@ -81,10 +80,9 @@ ANALYSIS_COMMANDS = ("analyze", "a", "safe-functions")
 # option -> the ROADMAP Queue A item that ports it (none left since the
 # analysis service was ported).
 NOT_YET_PORTED = {}
-# the JAX switches that turn a default-on tier off: dest -> (the tier, item)
-RUNS_WITHOUT = {
-    "frontier_mesh": ("the device mesh", 12),
-}
+# the JAX switches that turn off a default-on tier the port does not have:
+# dest -> (the tier, item) (none left since the device mesh was ported)
+RUNS_WITHOUT = {}
 
 
 class Refused(Exception):
@@ -144,16 +142,6 @@ def _add_input_options(parser) -> None:
     parser.add_argument("--bin-runtime", action="store_true", help="input is runtime (deployed) code")
     parser.add_argument("--solc-json", help="solc standard-json settings file")
     parser.add_argument("--solv", metavar="SOLC_VERSION", help="solc version to use")
-
-
-def _runs_without(parser, flag: str, dest: str) -> None:
-    """A JAX switch that turns a default-on tier off; the port runs without
-    the tier either way."""
-    tier, item = RUNS_WITHOUT[dest]
-    parser.add_argument(
-        flag, action="store_false", dest=dest, default=True,
-        help=f"accepted for the JAX command line: the port runs without {tier} "
-        f"until it is ported (ROADMAP Queue A item {item})")
 
 
 def _add_analysis_options(parser) -> None:
@@ -320,7 +308,16 @@ def _add_analysis_options(parser) -> None:
         help="device SAT tier search-kernel iteration budget per query "
         "(budget lapse falls through as UNKNOWN)",
     )
-    _runs_without(group, "--no-mesh", "frontier_mesh")
+    group.add_argument(
+        "--no-mesh",
+        action="store_false",
+        dest="frontier_mesh",
+        default=True,
+        help="run the frontier and the probe on the analysis device alone, "
+        "where the device mesh would path-shard the frontier's slot batch and "
+        "spread the probe's lowering batches over every visible card; composes "
+        "with --no-pipeline (all four combinations yield the same issue set)",
+    )
     group.add_argument(
         "--no-adaptive",
         action="store_false",
@@ -867,17 +864,6 @@ def check_frontier_width(parsed) -> None:
             "in one frontier segment (its resident cooperative grid); use a smaller width")
 
 
-def runs_without_line(parsed) -> str:
-    """The stderr line naming the JAX default tiers this build runs without,
-    and which of them the command line switched off itself."""
-    tiers = [tier for tier, _item in RUNS_WITHOUT.values()]
-    asked = [tier for dest, (tier, _item) in RUNS_WITHOUT.items()
-             if not getattr(parsed, dest)]
-    line = (f"{PROG}: this build runs without these default tiers of the JAX package "
-            f"(ROADMAP Queue A): {', '.join(tiers)}")
-    return line + (f"; switched off on the command line: {', '.join(asked)}" if asked else "")
-
-
 # ---------------------------------------------------------------------------
 # command execution
 # ---------------------------------------------------------------------------
@@ -967,6 +953,7 @@ def _build_analyzer(parsed):
         frontier=parsed.frontier,
         frontier_width=parsed.frontier_width,
         frontier_force=parsed.frontier_force,
+        frontier_mesh=parsed.frontier_mesh,
         query_cache=not parsed.no_query_cache,
         query_cache_dir=parsed.query_cache_dir,
         staticpass=not parsed.no_staticpass,
@@ -990,7 +977,6 @@ def _build_analyzer(parsed):
         watchdog_deadline=parsed.watchdog_deadline,
         history_dir=parsed.history_dir,
     )
-    print(runs_without_line(parsed), file=sys.stderr)
     return MythrilAnalyzer(
         disassembler, cmd_args, strategy=parsed.strategy, address=address,
         device=parsed.device,

@@ -478,7 +478,9 @@ class LoweringProgram:
 
     def device_arrays(self, device) -> Tuple[torch.Tensor, int, int, int]:
         """``rec``, ``levels``, ``pool`` and ``roots`` in one int32 tensor on
-        ``device``, uploaded once, with the int32 offsets of the last three."""
+        ``device``, uploaded once per device that launches the program (the
+        sharded probe launches it on each device of a mesh), with the int32
+        offsets of the last three."""
         key = str(torch.device(device))
         if key not in self._device:
             host = np.concatenate([self.rec.ravel(), self.levels, self.pool, self.roots])
@@ -491,8 +493,10 @@ class LoweringProgram:
 # The kernel launch
 # ---------------------------------------------------------------------------
 
-# kernel launches of csrc/lowering.cu (one per call)
+# kernel launches of csrc/lowering.cu (one per call), in all and by device
+# ("cuda:0": n; the sharded probe launches once per mesh block)
 launches = 0
+launches_by_device: Dict[str, int] = {}
 
 
 class LowerArgs(ctypes.Structure):
@@ -593,6 +597,7 @@ def _run_lowering_cuda(compiled: CompiledConjunction, scalars, bools, array_tabs
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.mk_lowering(ctypes.byref(largs), stream), "lowering")
         launches += 1
+        launches_by_device[str(dev)] = launches_by_device.get(str(dev), 0) + 1
 
     with torch.cuda.device(dev):
         return run_kernel(compiled, scalars, bools, array_tabs, launch=launch, arena=arena)

@@ -1187,8 +1187,28 @@ def _try_compile_device(conjuncts: Sequence[Term], lower: bool = True):
 
 
 def _evaluate_candidates_device(compiled, candidates, device):
-    """One dispatch over all candidates -> truth [len(candidates), C] bool."""
+    """One dispatch over all candidates -> truth [len(candidates), C] bool;
+    mesh-sharded when devices allow.
+
+    Where a mesh on ``device`` spans more than one device
+    (``parallel.mesh.mesh_devices``) and ``args.frontier_mesh`` is on (no
+    ``--no-mesh``), a per-conjunction lowering of at least 16 candidates
+    spreads them over the mesh (``evaluate_batch_sharded``: one lowering
+    launch per block, each on its device), as the JAX package's gate does;
+    the tape VM ships fixed-bucket shapes, so its single launch stays the
+    path on any mesh."""
+    from mythril_tpu_torch.ops.tape_vm import TapeCompiled
+
     SolverStatistics().inc("device_dispatches")
+    if (global_args.frontier_mesh and not isinstance(compiled, TapeCompiled)
+            and len(candidates) >= 16):
+        from mythril_tpu_torch.parallel.mesh import make_frontier_mesh, mesh_devices
+
+        devices = mesh_devices(resolve(device))
+        if len(devices) > 1:
+            from mythril_tpu_torch.parallel import evaluate_batch_sharded
+
+            return evaluate_batch_sharded(compiled, candidates, make_frontier_mesh(devices))
     return compiled.evaluate_batch(candidates, device)
 
 

@@ -104,6 +104,13 @@ class Args:
     frontier_width: int = 64
     # bypass the a-priori narrow gate (engine._device_worthwhile)
     frontier_force: bool = False
+    # the device mesh (parallel/): where a mesh on the analysis device spans
+    # more than one device (every visible card), the frontier's slot batch
+    # is padded to a multiple of the device count and path-sharded (the
+    # runner's injection, rebalance, pulls and replays per slot block) and
+    # the probe's lowering batches spread over the devices; --no-mesh is the
+    # single-device escape hatch.  One card: no mesh either way
+    frontier_mesh: bool = True
     # packed-code paging (frontier/code.py page_budget): a code whose
     # instruction axis exceeds the budget keeps only a resident window
     code_paging: bool = True

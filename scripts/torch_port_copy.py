@@ -177,6 +177,9 @@ EDITED = {
                           "AnalysisService._on_worker_event"),
     # serve returns non-zero when a device fault stopped the service
     "service/server.py": ("run_server",),
+    # the shard identity from torch.distributed's rank and world size; a
+    # device fault stops the sweep
+    "parallel/corpus.py": ("shard_identity", "run_corpus"),
 }
 
 # literal rewrites of a copy's prose: module -> ((JAX text, port text), ...)
@@ -206,6 +209,18 @@ SUBSTITUTED = {
         ("XLA-facing totals", "device-facing totals"),
     ),
     "service/scheduling.py": (("PR 9's tenant accounting", "The tenant accounting"),),
+    "parallel/corpus.py": (
+        ("ICI carries", "the mesh carries"),
+        ("""shard identity comes from the JAX
+distributed runtime when initialized, or from""", """shard identity comes from
+``torch.distributed`` (rank and world size) once its process group is
+initialised, or from"""),
+        ("""from typing import Callable, List, Optional, Sequence, Tuple
+""", """from typing import Callable, List, Optional, Sequence, Tuple
+
+from mythril_tpu_torch.device import is_device_fault
+"""),
+    ),
 }
 
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")

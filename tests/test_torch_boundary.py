@@ -5,7 +5,8 @@ A fresh interpreter with ``sys.modules["jax"] = None`` (so any ``import
 jax`` raises) imports the port, replays one batch group and one single
 query of the probe fixture on the CPU, imports the frontier modules
 (``frontier/{ops,arena,code,state,step}``, ``support/opcodes``) and runs one
-small plain segment on the CPU, builds and loads the port's native library
+small plain segment on the CPU, evaluates a lowering batch sharded over a
+mesh of 2 logical shards of the CPU (``parallel``), builds and loads the port's native library
 (``native/bitblast``, g++ into ``mythril_tpu_torch/_build/``) and has its
 CDCL refute one formula, runs the prefilter's ``prefilter_batch`` and the
 devsolver's ``decide_batch`` on the CPU, imports the pipelined frontier
@@ -105,6 +106,12 @@ if not torch.cuda.is_available():
         low["raised"] = True
     else:
         low["raised"] = False
+from mythril_tpu_torch.parallel import evaluate_batch_sharded, make_frontier_mesh
+from mythril_tpu_torch.parallel.mesh import logical_shards, mesh_devices
+with logical_shards(2):
+    par_mesh = make_frontier_mesh(mesh_devices("cpu"))
+par = {"truth": evaluate_batch_sharded(compiled, low_asgs, par_mesh).tolist(),
+       "shape": par_mesh.shape}
 from mythril_tpu_torch import absdomain, devsolver
 y = terms.var("boundary_y", 8)
 tier_rows = [[terms.ult(y, terms.const(5, 8)), terms.ult(terms.const(10, 8), y)],
@@ -193,7 +200,7 @@ print(json.dumps({"cli": [cli_rc, cli_issues], "concolic": concolic, "calibratio
                   "keep": keep, "status": status,
                   "raised": raised, "n_exec": n_exec, "seg_raised": seg_raised,
                   "opcodes": len(opcodes.OPCODES), "found": found, "sym_raised": sym_raised, "native": native, "tiers": tiers,
-                  "ledger": ledger, "lowering": low, "coop": coop, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
+                  "ledger": ledger, "lowering": low, "coop": coop, "parallel": par, "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
 """
 
 
@@ -221,6 +228,11 @@ def test_port_runs_with_jax_blocked_and_imports_no_jax_package():
              < 1 << 255, v < 9] for v in (0, 5, 12)]
     assert got["lowering"] == {"truth": want, "raised": got["lowering"]["raised"]}
     assert got["lowering"]["raised"] in (True, None)
+    # the device mesh: the same candidates sharded over 2 logical shards of
+    # the CPU (3 candidates padded to 4)
+    assert got["parallel"] == {"truth": want, "shape": {"path": 1, "cand": 2}}
+    for mod in ("parallel", "parallel.mesh", "parallel.probe", "parallel.corpus"):
+        assert f"mythril_tpu_torch.{mod}" in got["modules"]
     for mod in ("frontier.ops", "frontier.arena", "frontier.code", "frontier.state",
                 "frontier.step", "support.opcodes", "frontier.engine", "frontier.walker",
                 "frontier.harvest", "frontier.pipeline", "core.svm", "analysis.symbolic", "analysis.security",

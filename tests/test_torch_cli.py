@@ -485,27 +485,37 @@ def test_parser_keeps_the_jax_options_and_lists_what_it_lacks():
     assert {k for k in table if not k.startswith("-")} == missing_subs
 
 
-def test_runs_without_switches_are_accepted_and_named():
+def test_runs_without_switches_are_accepted_and_named(capsys, monkeypatch):
+    """Every JAX switch that turns a default-on tier off is a real switch of
+    the port since the device mesh was ported: ``--no-mesh`` parses into
+    ``frontier_mesh = False`` (``--no-pipeline`` and ``--no-adaptive`` as
+    before) and reaches ``args.frontier_mesh`` for the run, which ``main``
+    restores; none is left to name, and ``analyze`` prints no line naming
+    tiers it runs without."""
+    from mythril_tpu_torch.facade import warm
     from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+
+    seen, apply = [], warm.apply_analyzer_args
+
+    def recording(cmd_args):
+        apply(cmd_args)
+        seen.append(args.frontier_mesh)
+
+    monkeypatch.setattr(warm, "apply_analyzer_args", recording)
 
     parsed = cli.create_parser().parse_args(
-        ["analyze", "-c", "0x00", "--no-pipeline", "--no-adaptive"])
-    line = cli.runs_without_line(parsed)
-    for tier, _item in cli.RUNS_WITHOUT.values():
-        assert tier in line
-    # the pipeline and the adaptive controller are ported: their switches
-    # are real and no longer named; the line names the mesh alone
-    assert "pipeline" not in line and not parsed.pipeline
-    assert "adaptive" not in line and not parsed.adaptive
-    assert set(cli.RUNS_WITHOUT) == {"frontier_mesh"}
-    assert line.endswith("(ROADMAP Queue A): the device mesh")
-    parsed = cli.create_parser().parse_args(["analyze", "-c", "0x00", "--no-mesh"])
-    assert cli.runs_without_line(parsed).endswith(
-        "switched off on the command line: the device mesh")
-    for action in _subcommands(cli.create_parser())["analyze"]._actions:
-        if action.dest in cli.RUNS_WITHOUT:
-            item = cli.RUNS_WITHOUT[action.dest][1]
-            assert f"the port runs without" in action.help and f"item {item})" in action.help
+        ["analyze", "-c", "0x00", "--no-pipeline", "--no-adaptive", "--no-mesh"])
+    assert (parsed.pipeline, parsed.adaptive, parsed.frontier_mesh) == (False, False, False)
+    assert cli.create_parser().parse_args(["analyze", "-c", "0x00"]).frontier_mesh
+    assert cli.RUNS_WITHOUT == {}
+    capsys.readouterr()
+    for extra in ([], ["--no-mesh"]):
+        rc, out = run_port(CLEAN + extra)
+        assert rc == 0 and json.loads(out)["success"]
+        err = capsys.readouterr().err
+        assert "runs without" not in err and "default tiers" not in err
+    assert seen == [True, False] and args.frontier_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -657,8 +667,7 @@ def test_prefilter_and_devsolver_switches_are_real(monkeypatch):
     real = ["--no-prefilter", "--no-devsolver", "--devsolver-bit-budget", "32",
             "--devsolver-iters=100"]
     assert cli.screen(CLEAN + real) == CLEAN + real
-    line = cli.runs_without_line(cli.create_parser().parse_args(CLEAN + real))
-    assert "prefilter" not in line and "devsolver" not in line
+    assert not {"prefilter", "devsolver"} & set(cli.RUNS_WITHOUT)
     seen, apply = [], warm.apply_analyzer_args
 
     def recording(cmd_args):

@@ -716,3 +716,33 @@ def test_an_inline_service_on_the_card_answers_with_the_solo_digests(card, tmp_p
         assert sorted(list(issue_digest(i)) for i in payload["issues"]) == solo[name] \
             == recorded[name]
     assert launched > 0
+
+
+def test_mesh_probe_and_pod_run_on_logical_shards_of_the_card(card):
+    """The sharded probe on 4 logical shards of the card: one lowering
+    launch per shard, the truth of the single launch; the pod contract
+    pipelined on that mesh: the recorded issue keys, 4 mesh devices and
+    runner shards, a chained dispatch."""
+    from mythril_tpu_torch.parallel import evaluate_batch_sharded, make_frontier_mesh
+    from mythril_tpu_torch.parallel.mesh import logical_shards
+    from tests.test_torch_pod import RECORD, _analyze
+
+    x, y = terms.var("mesh_x", 256), terms.var("mesh_y", 256)
+    compiled = lowering.compile_conjunction(
+        [terms.eq(terms.add(x, y), terms.const(100, 256)), terms.ult(x, terms.const(60, 256))])
+    asgs = []
+    for a in range(21):
+        asg = concrete_eval.Assignment()
+        asg.scalars[x], asg.scalars[y] = 3 * a, 100 - 3 * a
+        asgs.append(asg)
+    with logical_shards(4):
+        mesh = make_frontier_mesh()
+        before = lowering.launches
+        got = evaluate_batch_sharded(compiled, asgs, mesh)
+        assert lowering.launches == before + 4
+        np.testing.assert_array_equal(got, compiled.evaluate_batch(asgs))
+        assert got[:, 0].all() and got[:, 1].sum() == 20
+        run = _analyze("mythril_tpu_torch", 64, mesh=True, device=None)
+    want = json.loads(RECORD.read_text())["runs"]["storage_gate/64"]["mesh"]
+    assert run["summary"] == want["summary"]
+    assert run["mesh_devices"] == run["mesh_shards"] == 4 and run["segments_pipelined"] > 0
