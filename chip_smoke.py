@@ -337,12 +337,19 @@ Phases, in order; any failure exits nonzero and prints no result:
    launch per shard; ``frontier_step`` on the (2, 2) mesh over a ragged
    seeded frontier equal to the plain reductions, one launch per block; the
    segment example (``frontier_example``, the port's own
-   ``__graft_entry__._frontier_example``) on the mesh bit-identical to the
-   unsharded dispatch and to ``segment_torch``; the pod contract pipelined
-   on the mesh at widths 64 and 62: the issue keys of
+   ``__graft_entry__._frontier_example``) through the partitioned segment
+   (``frontier_segment_partitioned``: one launch holding the 4 logical
+   shards' blocks; over several cards one launch per card) bit-identical to
+   the unsharded launch, ``segment_torch`` and ``segment_partitioned_torch``,
+   the two launches timed in turns; the pod contract pipelined
+   on the mesh at widths 64 and 62 (every segment partitioned, none
+   unsharded): the issue keys of
    ``tests/testdata/torch_pod_runs.json``, ``mesh_devices`` and
    ``pipeline.mesh_shards`` 4, four per-shard pull keys, padded slots at
-   62 alone, ``segments_pipelined`` above 0; then the mesh and
+   62 alone, ``segments_pipelined`` above 0; over several cards also a
+   batch of twice one card's widest launch, which one card refuses, run
+   partitioned and equal to ``segment_torch``, and the command line's width
+   check taking it with the mesh and refusing it with ``--no-mesh``; then the mesh and
    ``--no-mesh``, each run timed (one pair on logical shards, in turns
    mesh, off, off, mesh over several cards), on the pod contract and
    ``bench.py``'s wide contract of 7 branches at 64: the recorded keys of
@@ -354,7 +361,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    wrapper call (``wrapper_ms``) and its plain version, beside the call's
    bound, at the main paths' shapes; keccak in both layouts at every N of
    phase 3; the frontier segment per dispatch with path-steps per second and
-   the ``push_state`` and ``pull_harvest`` times; ``known_bits`` and
+   the ``push_state`` and ``pull_harvest`` times; the partitioned segment
+   on 4 logical shards on two of those dispatches (the median, the most
+   path-steps), in turns with the single launch, against both;
+   ``known_bits`` and
    ``dpll`` on the recorded packs and planes of 8d's main path and on the
    seeded ones, ``known_bits`` also through the prefilter's whole pass
    ``run_kb`` (the uploads, the level plan, the launch, the downloads) with
@@ -883,6 +893,7 @@ def zero_launches() -> None:
     from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
 
     keccak_cuda.launches = tape_vm.launches = fstep.launches = lowering.launches = 0
+    fstep.partitioned_launches = 0
     lowering.launches_by_device.clear()
     kb_device.launches = dpll_device.launches = 0
     keccak_cuda.variant_launches = dict.fromkeys(keccak_cuda.VARIANTS, 0)
@@ -895,8 +906,10 @@ def read_launches() -> dict:
     from mythril_tpu_torch.ops import keccak_cuda, lowering, tape_vm
 
     return {"tape_vm": tape_vm.launches, "keccak_f1600": keccak_cuda.launches,
-            "frontier_segment": fstep.launches, "known_bits": kb_device.launches,
-            "dpll": dpll_device.launches, "lowering": lowering.launches}
+            "frontier_segment": fstep.launches,
+            "frontier_segment_partitioned": fstep.partitioned_launches,
+            "known_bits": kb_device.launches, "dpll": dpll_device.launches,
+            "lowering": lowering.launches}
 
 
 def idle_share(torch):
@@ -1438,6 +1451,105 @@ def time_frontier(torch, kept, reps: int = 5):
         print(f"  {rows[-1]['shape']}: kernel {ms:.4f} ms ({rows[-1]['path_steps_per_s']:.3g} "
               f"path-steps/s), wrapper {wrapper:.4f} ms, plain {plain_ms:.1f} ms, bound "
               f"{b_ms:.6f} ms by {b_by}, pull_harvest {pull:.3f} ms, {forks} forks")
+    return rows
+
+
+def time_partitioned(torch, kept, single_rows, devices, reps: int = 5, pick=None):
+    """The partitioned segment with one block per entry of ``devices`` (the
+    card repeated: logical shards, one launch holding every block; several
+    cards: one launch per card) on kept dispatches: by default two, the
+    median one of ``single_rows`` (``time_frontier``'s) and the one with the
+    most path-steps; ``pick`` names others by their row's shape.  Per
+    dispatch: bit-equality with the single launch and with
+    ``segment_partitioned_torch`` (one call, its time ``plain_ms``), and
+    each form timed in turns (single, partitioned, partitioned, single;
+    ``ms`` the partitioned mean): on logical shards each launch alone by
+    CUDA events, over cards the whole call up to every card's completion by
+    the host clock.  The bound is the single launch's, the same function's
+    bytes."""
+    import ctypes
+
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier import step as fstep
+    from mythril_tpu_torch.frontier.state import FrontierState
+    from mythril_tpu_torch.ops import _build
+
+    lib = _build.load()
+    n = len(devices)
+    cards = len(set(devices)) > 1
+    by_shape = {r["shape"]: r for r in single_rows}
+    if pick is None:
+        order = sorted(single_rows, key=lambda r: r["ms"])
+        pick = [order[len(order) // 2]["shape"],
+                max(single_rows, key=lambda r: r["n_exec"])["shape"]]
+    pick = list(dict.fromkeys(pick))
+
+    def whole(fn):
+        """ms of fn() by the host clock, every card synchronised around it."""
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    rows = []
+    for name, i, d in kept:
+        caps = d["caps"]
+        shape = next((s for s in pick if s.startswith(f"{name}#{i} ")), None)
+        if shape is None or caps.B % n:
+            continue
+        pick.remove(shape)
+        inputs = interop.inputs_from_numpy(d["state"], d["arena"], d["arena_len"], d["visited"],
+                                           d["code"], d["cfg"], devices[0])
+        bs = caps.B // n
+        blocks = fstep.ShardedState([FrontierState(*[f[k * bs:(k + 1) * bs].to(dev, copy=True)
+                                                     for f in inputs[0]])
+                                     for k, dev in enumerate(devices)])
+        got = interop.outputs_to_numpy(fstep.segment_partitioned(blocks, *inputs[1:], caps))
+        single = interop.outputs_to_numpy(fstep.segment_cuda(*inputs, caps))
+        plain, plain_ms = cuda_once(lambda: interop.outputs_to_numpy(
+            fstep.segment_partitioned_torch(blocks, *inputs[1:], caps)))
+        err = max(frontier_err(got, single), frontier_err(got, plain))
+        stream = torch.cuda.current_stream(devices[0]).cuda_stream
+        turns = {"single": [], "partitioned": []}
+        for which in ("single", "partitioned", "partitioned", "single"):
+            if cards:
+                turns[which].append(whole(
+                    (lambda: fstep.segment_cuda(*inputs, caps)) if which == "single"
+                    else (lambda: fstep.segment_partitioned(blocks, *inputs[1:], caps))))
+                continue
+            timer = LaunchTimer(torch)
+            for _ in range(reps):
+                if which == "single":
+                    args, _outs, _keep = fstep.kernel_args(*inputs, caps)
+                    timer(lambda: _build.check(lib.mk_frontier_segment(ctypes.byref(args), stream),
+                                               "frontier_segment"))
+                else:
+                    launches, _outs, _keep = fstep.shard_args(blocks, *inputs[1:], caps)
+                    args = launches[0][1]
+                    timer(lambda: _build.check(
+                        lib.mk_frontier_segment_shards(ctypes.byref(args), stream),
+                        "frontier_segment_shards"))
+            turns[which].append(timer.total_ms() / reps)
+        ms = statistics.mean(turns["partitioned"])
+        wrapper = (ms if cards else
+                   cuda_ms(lambda: fstep.segment_partitioned(blocks, *inputs[1:], caps), reps))
+        s = by_shape[shape]
+        where = f"{n} cards" if cards else f"{n} shards of {bs}"
+        rows.append({"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain_ms,
+                     "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "err": err,
+                     "n_exec": got[3], "turns_ms": turns,
+                     "timed_by": "host clock, whole call" if cards else "CUDA events, launch",
+                     "shape": f"{name}#{i} B={caps.B} as {where}"})
+        print(f"  {rows[-1]['shape']}: partitioned {ms:.4f} ms ({rows[-1]['timed_by']}; in "
+              f"turns: single {turns['single'][0]:.4f}, partitioned {turns['partitioned'][0]:.4f}, "
+              f"{turns['partitioned'][1]:.4f}, single {turns['single'][1]:.4f}), wrapper "
+              f"{wrapper:.4f} ms, plain {plain_ms:.1f} ms once, bound {s['bound_ms']:.6f} ms by "
+              f"{s['bound_by']}; equal to the single launch and the plain version: {err == 0}")
+    check(rows, "no kept dispatch was timed partitioned")
     return rows
 
 
@@ -2872,9 +2984,9 @@ CLEAN_HEX = "60006000f3"  # PUSH1 0; PUSH1 0; RETURN
 def service_contract(name: str) -> str:
     if name == "kill_simple":
         return (ROOT / "tests" / "testdata" / "inputs" / "kill_simple.bin-runtime").read_text().strip()
-    import bench_contracts
+    from tests import _torch_contracts
 
-    return getattr(bench_contracts, name)().hex()
+    return getattr(_torch_contracts, name)().hex()
 
 
 @contextlib.contextmanager
@@ -3165,12 +3277,12 @@ POD_FIXTURE = ROOT / "tests" / "testdata" / "torch_pod_runs.json"
 MESH_WIDTHS = (64, 62)
 
 
-def frontier_example(n_paths: int, device):
+def frontier_example(n_paths: int, device, arena_rows: Optional[int] = None):
     """The port's own ``__graft_entry__._frontier_example``: ``n_paths``
     slots, the first half each at a symbolic JUMPI over a minimal program
-    (each forks a child into the free half).  -> (segment, (state on the
-    host, arena, arena_len, visited, code, cfg) with the tensors on
-    ``device``)."""
+    (each forks a child into the free half); an arena of ``arena_rows``
+    (default ``Caps.ARENA``).  -> (segment, (state on the host, arena,
+    arena_len, visited, code, cfg) with the tensors on ``device``)."""
     import numpy as np
     import torch
 
@@ -3186,7 +3298,7 @@ def frontier_example(n_paths: int, device):
     program = [Ins("JUMPI", 0, None), Ins("PUSH1", 1, 1), Ins("PUSH1", 3, 2), Ins("ADD", 5, None),
                Ins("POP", 6, None), Ins("STOP", 7, None), Ins("JUMPDEST", 8, None),
                Ins("STOP", 9, None)]
-    caps = Caps(B=n_paths)
+    caps = Caps(B=n_paths, ARENA=arena_rows or Caps.ARENA)
     arena = HostArena(caps.ARENA)
     row_zero, row_one = arena.const_row(0, 256), arena.const_row(1, 256)
     dest_row = arena.const_row(8, 256)
@@ -3315,8 +3427,14 @@ def mesh_checks(torch, shards: Optional[int], card: str) -> dict:
     print(f"  {label}: frontier_step on {mesh_2d.shape}, P x B = {valid.shape}: "
           f"{step_launches} lowering launches, {step_ms:.4f} ms a call, n_sat {int(got[3])}, best "
           f"{got[1].tolist()} at {got[2].tolist()}: equal to the plain reductions")
-    # the segment example: the mesh dispatch against the unsharded one and
-    # the plain version, bit for bit
+    # the segment example: the partitioned dispatch (one launch holding
+    # every logical shard, or one launch per card) against the unsharded
+    # launch and both plain versions, bit for bit; the two launches timed in
+    # turns (unsharded, partitioned, partitioned, unsharded)
+    from mythril_tpu_torch.frontier.state import Caps
+    from mythril_tpu_torch.frontier.step import segment_partitioned_torch
+
+    per_dispatch = 1 if shards else n
     segment, (st, arena, arena_len, visited, code, cfg) = frontier_example(2 * n, devices[0])
     inputs = (interop.state_to_torch(st, devices[0]), arena, arena_len, visited, code, cfg)
     zero_launches()
@@ -3324,24 +3442,31 @@ def mesh_checks(torch, shards: Optional[int], card: str) -> dict:
     mst, marena, mvis, mcode = shard_frontier_inputs(st, arena, visited, code, make_frontier_mesh(
         list(mesh.devices.flat), path_size=n))
     sharded = interop.outputs_to_numpy(segment(mst, marena, arena_len, mvis, mcode, cfg))
-    seg_launches = read_launches()["frontier_segment"]
-    single_ms = cuda_ms(lambda: segment(*inputs), 10)
-    sharded_ms = cuda_ms(lambda: segment(mst, marena, arena_len, mvis, mcode, cfg), 10)
-    from mythril_tpu_torch.frontier.state import Caps
-
+    seg_launches = read_launches()
+    turns = {"unsharded": [], "partitioned": []}
+    for which in ("unsharded", "partitioned", "partitioned", "unsharded"):
+        turns[which].append(cuda_ms(
+            (lambda: segment(*inputs)) if which == "unsharded"
+            else (lambda: segment(mst, marena, arena_len, mvis, mcode, cfg)), 10))
     plain_out = interop.outputs_to_numpy(segment_torch(*inputs, Caps(B=2 * n)))
-    same = all(
-        (a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a))
-        if isinstance(a, dict) else np.array_equal(a, b)
-        for out in (single, plain_out) for a, b in zip(sharded, out))
-    check(same and seg_launches == 2 and sharded[3] > 0,
-          f"8m {label}: the mesh segment differs from the unsharded dispatch or the plain "
-          f"version ({seg_launches} launches)")
+    plain_part = interop.outputs_to_numpy(segment_partitioned_torch(
+        mst, marena, arena_len, mvis, mcode, cfg, Caps(B=2 * n)))
+    same = all(frontier_err(sharded, out) == 0 for out in (single, plain_out, plain_part))
+    check(same and seg_launches["frontier_segment"] == 1
+          and seg_launches["frontier_segment_partitioned"] == per_dispatch and sharded[3] > 0,
+          f"8m {label}: the partitioned segment differs from the unsharded launch or the plain "
+          f"versions, or launched {seg_launches} (one unsharded, {per_dispatch} partitioned)")
     row["segment"] = {"B": 2 * n, "n_exec": sharded[3], "arena_len": sharded[2],
-                      "mesh_ms": sharded_ms, "unsharded_ms": single_ms}
-    print(f"  {label}: the segment example at B = {2 * n} on the mesh: bit-identical to the "
-          f"unsharded dispatch and segment_torch ({sharded[3]} steps; {sharded_ms:.4f} ms a "
-          f"dispatch, unsharded {single_ms:.4f} ms)")
+                      "launches": seg_launches, "turns_ms": turns}
+    print(f"  {label}: the segment example at B = {2 * n}: the partitioned form "
+          f"({per_dispatch} launch{'es' if per_dispatch > 1 else ''} a dispatch) bit-identical to "
+          f"the unsharded launch, segment_torch and segment_partitioned_torch "
+          f"({sharded[3]} steps); "
+          f"ms a dispatch in turns: unsharded {turns['unsharded'][0]:.4f}, partitioned "
+          f"{turns['partitioned'][0]:.4f}, {turns['partitioned'][1]:.4f}, unsharded "
+          f"{turns['unsharded'][1]:.4f}")
+    if not shards:
+        row["wide"] = partitioned_beyond_one_card(torch, mesh, label)
     # the pod parity contract, pipelined on the mesh, and once with --no-mesh
     rec = json.loads(POD_FIXTURE.read_text())["runs"]["storage_gate/64"]
     pods = {}
@@ -3358,7 +3483,8 @@ def mesh_checks(torch, shards: Optional[int], card: str) -> dict:
               and got["pull_shards"] == [f"shard{k}" for k in range(n)]
               and got["segments_pipelined"] > 0
               and (got["mesh_pad_slots"] > 0) == (width % n > 0)
-              and launched["frontier_segment"] > 0,
+              and launched["frontier_segment_partitioned"] > 0
+              and launched["frontier_segment"] == 0,
               f"8m {label} pod run at {width}: mesh counters {got}, launches {launched}")
         pods[width] = {**{k: got[k] for k in ("mesh_devices", "mesh_shards", "mesh_pad_slots",
                                               "segments_pipelined")},
@@ -3407,6 +3533,63 @@ def mesh_checks(torch, shards: Optional[int], card: str) -> dict:
               f"mesh/--no-mesh {sum(mesh_s) / sum(off_s):.3f}")
     row["pod"] = pods
     return row
+
+
+def partitioned_beyond_one_card(torch, mesh, label: str) -> dict:
+    """Over several cards: a batch of twice one card's widest launch
+    (``step.max_paths``), which one card refuses, runs partitioned, one
+    launch per card, bit-identical to ``segment_torch``; the command line's
+    width check takes it with the mesh and refuses it with ``--no-mesh``."""
+    import types
+
+    from mythril_tpu_torch.frontier import interop
+    from mythril_tpu_torch.frontier.state import Caps
+    from mythril_tpu_torch.frontier.step import max_paths, segment_cuda, segment_torch
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.ops import _build
+    from mythril_tpu_torch.parallel import shard_frontier_inputs
+
+    devices = list(mesh.devices.flat)
+    one = max_paths(devices[0])
+    wide = 2 * one
+    limit = max_paths(devices[0], devices=devices)
+    rows = 1 << 20
+    segment, (st, arena, arena_len, visited, code, cfg) = frontier_example(wide, devices[0], rows)
+    caps = Caps(B=wide, ARENA=rows)
+    inputs = (interop.state_to_torch(st, devices[0]), arena, arena_len, visited, code, cfg)
+    refused = None
+    try:
+        segment_cuda(*inputs, caps)
+        torch.cuda.synchronize()
+    except _build.KernelLaunchError as e:
+        refused = str(e)
+    mst, marena, mvis, mcode = shard_frontier_inputs(st, arena, visited, code, mesh)
+    zero_launches()
+    got, part_ms = cuda_once(lambda: interop.outputs_to_numpy(
+        segment(mst, marena, arena_len, mvis, mcode, cfg)))
+    launched = read_launches()["frontier_segment_partitioned"]
+    want, plain_ms = cuda_once(lambda: interop.outputs_to_numpy(segment_torch(*inputs, caps)))
+    width_ok = {}
+    for on in (True, False):
+        parsed = types.SimpleNamespace(frontier=True, device=None, frontier_mesh=on,
+                                       frontier_width=wide)
+        try:
+            cli.check_frontier_width(parsed)
+            width_ok[on] = True
+        except cli.Refused:
+            width_ok[on] = False
+    check(refused is not None and launched == len(devices) and frontier_err(got, want) == 0
+          and got[3] > 0 and limit >= wide and width_ok == {True: True, False: False},
+          f"8m {label}: a batch of {wide} paths (one card's limit {one}): refused by one card "
+          f"{refused is not None}, {launched} partitioned launches, equal to segment_torch "
+          f"{frontier_err(got, want) == 0}, the mesh's limit {limit}, the width check {width_ok}")
+    print(f"  {label}: B = {wide} paths (twice one card's {one}): one card refuses it, the "
+          f"partitioned segment runs it in {launched} launches ({got[3]} steps, {part_ms:.3f} ms "
+          f"with its input copies, once), bit-identical to segment_torch ({plain_ms:.1f} ms "
+          f"once); the mesh's limit {limit}; --frontier-width {wide} passes the width check with "
+          f"the mesh and is refused with --no-mesh")
+    return {"B": wide, "one_card_limit": one, "mesh_limit": limit, "launches": launched,
+            "n_exec": got[3], "partitioned_ms_once": part_ms, "plain_ms": plain_ms}
 
 
 def mesh_runs(torch, card: str):
@@ -3775,7 +3958,7 @@ def main() -> int:
         k_launches, k_row = health_runs(torch, card)
         l_launches, l_row = service_runs(torch, card)
         m_launches, m_row = mesh_runs(torch, card)
-        for name in ("frontier_segment",):
+        for name in ("frontier_segment_partitioned",):
             check(m_launches[name] > 0, f"the mesh's pod run launched {name} no time")
         # the auto path: a query above the calibrated threshold reaches a
         # probe kernel on the card (on the recorded traffic the one that
@@ -3811,6 +3994,15 @@ def main() -> int:
                                                          "bound_ms", "bound_by", "pull_harvest_ms",
                                                          "path_steps_per_s", "forks")}
                                       for r in f_rows])
+        phase(f"the partitioned segment on {MESH_SHARDS} logical shards, per dispatch, in turns "
+              "with the single launch (CUDA events)")
+        partitioned = summarize(
+            "frontier_segment_partitioned",
+            time_partitioned(torch, f_kept, f_rows, [torch.device("cuda", 0)] * MESH_SHARDS),
+            m_launches["frontier_segment_partitioned"], card, route="cuda",
+            source="mythril_tpu_torch/csrc/frontier_segment.cu",
+            replaces="mythril_tpu/frontier/step.py:141 (sharded over the mesh's path axis, "
+                     "mythril_tpu/parallel/mesh.py:88)")
         phase("lowering times at the main path's shapes (CUDA events)")
         timed, tiled = lowering_timed_calls(torch, lowering_calls)
         lower = summarize("lowering", time_lowering(torch, timed), launches["lowering"], card,
@@ -3852,22 +4044,16 @@ def main() -> int:
               f"{dpll['total_run_device_ms']:.3f} ms in all; ptxas by block "
               f"{dpll['ptxas_by_block']}; shared memory at C = V = 512 and 4096: "
               f"{dpll['smem_bytes_at_c_v']} B")
-        kernels = [keccak, tape, frontier, known_bits, dpll, lower]
+        kernels = [keccak, tape, frontier, partitioned, known_bits, dpll, lower]
+        by_path = {"probe": launches, "frontier": f_launches, "engine": e_launches,
+                   "engine_cdcl": c_launches, "engine_tiers": t_launches,
+                   "engine_defaults": d_launches, "engine_pipeline": p_launches,
+                   "engine_adaptive": a_launches, "cli": cli_launches, "auto": h_launches,
+                   "concolic": i_launches, "concolic_auto": i_auto, "traced": j_launches,
+                   "resumed": k_launches, "service": l_launches, "mesh": m_launches}
         for entry in kernels:
-            entry["launches_by_path"] = {
-                "probe": launches[entry["name"]], "frontier": f_launches[entry["name"]],
-                "engine": e_launches[entry["name"]], "engine_cdcl": c_launches[entry["name"]],
-                "engine_tiers": t_launches[entry["name"]],
-                "engine_defaults": d_launches[entry["name"]],
-                "engine_pipeline": p_launches[entry["name"]],
-                "engine_adaptive": a_launches[entry["name"]], "cli": cli_launches[entry["name"]],
-                "auto": h_launches.get(entry["name"], 0),
-                "concolic": i_launches.get(entry["name"], 0),
-                "concolic_auto": i_auto.get(entry["name"], 0),
-                "traced": j_launches[entry["name"]],
-                "resumed": k_launches[entry["name"]],
-                "service": l_launches[entry["name"]],
-                "mesh": m_launches[entry["name"]]}
+            entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
+                                         for path, counts in by_path.items()}
         frontier["engine"] = {"runs": e_rows, "idle_share": e_idle}
         frontier["engine_cdcl"] = {"runs": c_rows, "idle_share": c_idle}
         frontier["cli"] = {"runs": cli_rows}

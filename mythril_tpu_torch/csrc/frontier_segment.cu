@@ -23,6 +23,27 @@
 // A shape that cannot be resident is refused, never replaced by another:
 // the wrapper raises.
 //
+// The segment partitioned over shards (frontier_segment_shards, the cuh's
+// "segment partitioned over shards"), which replaces GSPMD's partition of
+// the same jitted segment over the JAX mesh's path axis
+// (mythril_tpu/parallel/mesh.py shard_frontier_inputs): a cooperative grid
+// per launch, the shards' state blocks in allocations of their own.  (Not a
+// block or a cluster for a small block, as the single launch has: the other
+// cards' stores must reach the counts and lists, which therefore live in
+// global memory, and the barrier spans launches anyway.)  Over several cards
+// each card runs one launch over its own block; the launches meet, at every
+// barrier, at a counter in the leader's memory (card_barrier: system-scope
+// release and acquire over NVLink, one thread per card, between two grid
+// syncs), and the counts, the grant list, the free list and a child's row
+// are peer stores made before it.  Logical shards of one card run as ONE
+// launch that holds every shard's blocks, its barrier grid.sync() alone.
+// The barrier's wait is bounded (ShardArgs.timeout_ns): a card that never
+// arrives ends the others in __trap(), a launch failure, never a hang.
+// Bound: the same function, so the same bytes as the single launch; what
+// sets its time is latency, a grid sync a barrier (where the single launch
+// of up to 1024 paths has a block or cluster barrier) and, over cards, a
+// round trip over NVLink at every barrier.
+//
 // Per step: one barrier when no path wants a fork (each lane publishes its
 // post-step flags in the step, in count words double-buffered by step
 // parity), five when one does (key, grant, child copy, parent).  Within a
@@ -285,7 +306,249 @@ cudaError_t fit_of(Fit** out) {
 
 int blocks_of(const SegArgs& s) { return (s.B + kBlock - 1) / kBlock; }
 
+// ---- the segment partitioned over shards ------------------------------------
+
+__device__ __forceinline__ uint32_t ld_acquire_sys(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The barrier of n launches, one thread of each: a count and a generation
+// in the leader's memory.  The last to arrive resets the count, then
+// releases the next generation; the others wait for it, at most timeout_ns.
+__device__ void card_barrier(uint32_t* bar, uint32_t n, long long timeout_ns) {
+  const uint32_t gen = ld_acquire_sys(bar + 1);
+  __threadfence_system();
+  if (atomicAdd_system(bar, 1u) == n - 1) {
+    atomicExch_system(bar, 0u);
+    __threadfence_system();
+    atomicAdd_system(bar + 1, 1u);
+  } else {
+    const uint64_t t0 = global_ns();
+    while (ld_acquire_sys(bar + 1) == gen) {
+      if ((long long)(global_ns() - t0) > timeout_ns) __trap();
+      __nanosleep(128);
+    }
+  }
+  __threadfence_system();
+}
+
+using mk::ShardArgs;
+
+// run_segment's executor for a block of one shard.  The shards' views and
+// row maps live in shared memory (views[j] indexes shard j's block by the
+// global slot); the counts, the grant list, the free list and the records
+// are read from this shard's own copies, as the grid's are.
+struct ShardDev {
+  const ShardArgs& a;
+  const SegArgs* views;
+  const mk::RowMap* maps;
+  const SegArgs& s;  // this block's shard's view
+  Lane l;
+  I2* list_s;
+  mk::Tally* tally_s;
+  int k, lblock, gblock, blocks, lane, warp;
+
+  __device__ __forceinline__ void sync() {
+    if (a.n_launches > 1) __threadfence_system();
+    cg::this_grid().sync();
+    if (a.n_launches > 1) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) card_barrier(a.bar, a.n_launches, a.timeout_ns);
+      cg::this_grid().sync();
+    }
+  }
+  __device__ __forceinline__ void begin() {
+    sync();  // every launch has started: what its stream queued before it is done
+    mk::lane_begin(s, l);
+  }
+  __device__ __forceinline__ void step(int32_t arena_len, const mk::Window& w) {
+    mk::step(s, l, arena_len, w);
+  }
+  __device__ __forceinline__ void keys() {
+    if (l.fwant) {
+      const I2 e = mk::fork_key(s, l);
+      for (int j = 0; j < a.n_shards; ++j) mk::shard_key(a, j, l.fwant_rank, e);
+    }
+    for (int j = 0; j < a.n_shards; ++j) mk::shard_free(a, j, l);
+  }
+  __device__ __forceinline__ void parent() { mk::fork_parent(s, l); }
+  __device__ __forceinline__ const Lane& lane0() const { return l; }
+
+  __device__ __forceinline__ void publish(int par) {
+    const uint32_t ml = __ballot_sync(0xFFFFFFFFu, l.run), mf = __ballot_sync(0xFFFFFFFFu, l.free);
+    const uint32_t mw = __ballot_sync(0xFFFFFFFFu, l.fwant);
+    mk::warp_ranks(l, lane, ml, mf, mw);
+    const int32_t word = mk::pack_counts(ml, mf, mw);
+    if (lane < a.n_shards) mk::shard_word(a, lane, par, blocks, gblock, warp, word);  // lane j to shard j
+  }
+
+  __device__ __forceinline__ void counts(int par) {
+    const int4* w = reinterpret_cast<const int4*>(s.cnt) + par * blocks;
+    if (warp == 0) {
+      mk::Tally t = mk::tally([&](int i) {
+        const int4 q = __ldcg(w + i);
+        return I4{q.x, q.y, q.z, q.w};
+      }, blocks, gblock, lane, mk::kWarp);
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          t.n[f] += __shfl_xor_sync(0xFFFFFFFFu, t.n[f], d);
+          t.before[f] += __shfl_xor_sync(0xFFFFFFFFu, t.before[f], d);
+        }
+      if (lane == 0) *tally_s = t;
+    }
+    __syncthreads();
+    const int4 q = __ldcg(w + gblock);
+    mk::lane_counts(l, *tally_s, I4{q.x, q.y, q.z, q.w}, warp);
+  }
+
+  __device__ __forceinline__ void grant() {
+    const int32_t n = l.n_fwant;
+    const bool counting = l.fwant && l.want;
+    int32_t lt = 0, wb = 0;
+    for (int32_t base = 0; base < n; base += mk::kTile) {
+      const int32_t m = n - base < mk::kTile ? n - base : mk::kTile;
+      for (int32_t i = threadIdx.x; i < m; i += kBlock) list_s[i] = mk::ld_cg2(s.fkeys + 2 * (base + i));
+      __syncthreads();
+      if (counting) mk::grant_count(list_s, m, l, lt, wb);
+      __syncthreads();
+    }
+    if (counting) mk::grant_take(s, l, lt, wb);
+  }
+
+  // This shard's records (its own parents'), the units over its warps; a
+  // child's row goes to its slot's shard.
+  __device__ __forceinline__ void child_items(int32_t n) {
+    I4* rec = reinterpret_cast<I4*>(list_s);
+    const int32_t per = mk::child_units(maps[k]);
+    const int32_t nw = a.bps * kWarpsPerBlock, first = lblock * kWarpsPerBlock + warp;
+    for (int32_t g0 = 0; g0 < n; g0 += mk::kRecTile) {
+      const int32_t m = n - g0 < mk::kRecTile ? n - g0 : mk::kRecTile;
+      for (int32_t i = threadIdx.x; i < 2 * m; i += kBlock)
+        rec[i] = mk::ld_cg4(s.grants + (int64_t)mk::GRANT_W * g0 + 4 * i);
+      __syncthreads();
+      for (int32_t it = first; it < m * per; it += nw) {
+        const I4* r = rec + 2 * (it / per);
+        const int j = r[0].x < 0 ? k : mk::shard_of(a, r[0].y);
+        mk::child_unit(s, views[j], maps[k], maps[j], r, it % per, lane);
+      }
+      __syncthreads();
+    }
+  }
+
+  __device__ __forceinline__ void finish(int32_t arena_len, int32_t n_exec, int32_t max_live) {
+    if (k == 0 && lblock == 0 && threadIdx.x == 0) s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+  }
+};
+
+__global__ void __launch_bounds__(kBlock, 1) frontier_segment_shards(const __grid_constant__ ShardArgs a) {
+  __shared__ SegArgs views[mk::kMaxShards];
+  __shared__ mk::RowMap maps[mk::kMaxShards];
+  __shared__ __align__(16) I2 list_s[mk::kTile];
+  __shared__ mk::Tally tally_s;
+  if ((int)threadIdx.x < a.n_shards) {
+    mk::shard_view(a, threadIdx.x, views[threadIdx.x]);
+    mk::row_map(views[threadIdx.x], maps[threadIdx.x]);
+  }
+  __syncthreads();
+  const int k = a.first + blockIdx.x / a.bps, lblock = blockIdx.x % a.bps;
+  ShardDev x{a, views, maps, views[k], Lane{}, list_s, &tally_s, k, lblock, k * a.bps + lblock,
+             a.n_shards * a.bps, (int)(threadIdx.x & 31), (int)(threadIdx.x >> 5)};
+  x.l.b = mk::shard_slot(a, k, lblock * kBlock + threadIdx.x);
+  mk::run_segment(x, views[k]);
+}
+
+// blocks of the shard kernel resident at once on each device
+int g_shard_grid[kMaxDevices];
+
+cudaError_t shard_grid(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_shard_grid[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, frontier_segment_shards, kBlock, 0);
+    if (e != cudaSuccess) return e;
+    g_shard_grid[dev] = per_sm * sms;
+  }
+  *out = g_shard_grid[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// One launch of a partitioned segment on the current device: the shards
+// [first, first + n_here), bps blocks each, as one cooperative grid.
+// Returns the launch's CUDA error; cudaErrorCooperativeLaunchTooLarge when
+// the grid does not fit resident.
+extern "C" int mk_frontier_segment_shards(const ShardArgs* args, void* stream) {
+  const ShardArgs& a = *args;
+  if (a.n_shards < 1 || a.n_shards > mk::kMaxShards || a.first < 0 || a.n_here < 1 ||
+      a.first + a.n_here > a.n_shards || a.bps * kBlock < a.Bs || a.Bs * a.n_shards != a.s.B)
+    return (int)cudaErrorInvalidValue;
+  int fit = 0;
+  cudaError_t e = shard_grid(&fit);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = a.n_here * a.bps;
+  if (blocks > fit) return (int)cudaErrorCooperativeLaunchTooLarge;
+  ShardArgs copy = a;
+  void* params[] = {&copy};
+  e = cudaLaunchCooperativeKernel((const void*)frontier_segment_shards, blocks, kBlock, params, 0,
+                                  (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The widest block of paths one launch of the shard kernel holds on the
+// current device: its cooperative grid's resident blocks times kBlock.
+extern "C" int mk_frontier_shard_max_paths(int* paths) {
+  int fit = 0;
+  const cudaError_t e = shard_grid(&fit);
+  if (e != cudaSuccess) return (int)e;
+  *paths = fit * kBlock;
+  return 0;
+}
+
+// Peer access between every pair of the n devices, which a partitioned
+// segment over them needs (peer stores, the barrier's atomics, the
+// leader's arena).  Returns 0, a CUDA error, or -2 when a pair cannot
+// reach each other's memory (*bad_a, *bad_b: that pair).  Restores the
+// current device.
+extern "C" int mk_frontier_enable_peers(const int* devs, int n, int* bad_a, int* bad_b) {
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return (int)e;
+  int rc = 0;
+  for (int i = 0; i < n && rc == 0; ++i)
+    for (int j = 0; j < n && rc == 0; ++j) {
+      if (devs[i] == devs[j]) continue;
+      int ok = 0;
+      e = cudaDeviceCanAccessPeer(&ok, devs[i], devs[j]);
+      if (e != cudaSuccess) {
+        rc = (int)e;
+      } else if (!ok) {
+        *bad_a = devs[i], *bad_b = devs[j], rc = -2;
+      } else if ((e = cudaSetDevice(devs[i])) != cudaSuccess) {
+        rc = (int)e;
+      } else {
+        e = cudaDeviceEnablePeerAccess(devs[j], 0);
+        if (e == cudaErrorPeerAccessAlreadyEnabled) (void)cudaGetLastError();
+        else if (e != cudaSuccess) rc = (int)e;
+      }
+    }
+  cudaSetDevice(cur);
+  return rc;
+}
 
 // One segment.  Returns the launch's CUDA error; cudaErrorCooperativeLaunchTooLarge
 // when B > 1024 paths do not fit resident, kClusterRefused (-1) when the

@@ -1055,39 +1055,48 @@ __host__ __device__ __forceinline__ int32_t child_units(const RowMap& m) {
   return 1 + (m.pre[8] + kChunk - 1) / kChunk;
 }
 
-__host__ __device__ __forceinline__ void child_scalars(const SegArgs& s, const I4& g0,
-                                                      const I4& g1) {
+// The parent's row is read through `s`, the child's written through `d`
+// (the same but where a partitioned segment's child lies in another
+// shard's block); the coverage planes are `s`'s.
+__host__ __device__ __forceinline__ void child_scalars(const SegArgs& s, const SegArgs& d,
+                                                      const I4& g0, const I4& g1) {
   const int32_t p = g0.x, c = g0.y;
   int32_t* const f[] = {s.pc, s.halt, s.seed, s.code_id, s.steps, s.score, s.stack_len,
                         s.mem_len, s.mem_size, s.sto_len, s.cons_len, s.gas_min, s.gas_max,
                         s.depth, s.statc};
+  int32_t* const g[] = {d.pc, d.halt, d.seed, d.code_id, d.steps, d.score, d.stack_len,
+                        d.mem_len, d.mem_size, d.sto_len, d.cons_len, d.gas_min, d.gas_max,
+                        d.depth, d.statc};
   int32_t v[15];
 #pragma unroll
   for (int i = 0; i < 15; ++i) v[i] = ld_cg(f[i] + p);
 #pragma unroll
-  for (int i = 0; i < 15; ++i) f[i][c] = v[i];
+  for (int i = 0; i < 15; ++i) g[i][c] = v[i];
   // ev_len, steps and halt start afresh; then the branch: the JUMPI's static
   // gas and the taken edge (the wide units write the branch row)
   mark(s, 1, clampi(v[3], 0, s.C - 1), clampi(g0.z, 0, s.Iv - 1));
-  s.ev_len[c] = 0, s.steps[c] = 0, s.halt[c] = H_RUNNING;
-  s.pc[c] = g0.w;
-  s.depth[c] = wadd(v[13], 1);
-  s.stack_len[c] = wsub(v[6], 2);
-  s.gas_min[c] = wadd(v[11], g1.y);
-  s.gas_max[c] = wadd(v[12], g1.z);
-  s.cons_len[c] = wadd(v[10], 1);
+  d.ev_len[c] = 0, d.steps[c] = 0, d.halt[c] = H_RUNNING;
+  d.pc[c] = g0.w;
+  d.depth[c] = wadd(v[13], 1);
+  d.stack_len[c] = wsub(v[6], 2);
+  d.gas_min[c] = wadd(v[11], g1.y);
+  d.gas_max[c] = wadd(v[12], g1.z);
+  d.cons_len[c] = wadd(v[10], 1);
 }
 
-__host__ __device__ __forceinline__ void child_unit(const SegArgs& s, const RowMap& m,
+// One unit of a child's copy: the parent's row through `s` and `m`, the
+// child's through `d` and `md`.
+__host__ __device__ __forceinline__ void child_unit(const SegArgs& s, const SegArgs& d,
+                                                   const RowMap& m, const RowMap& md,
                                                    const I4* rec, int32_t u, int lane) {
   const I4 g0 = rec[0], g1 = rec[1];
   if (g0.x < 0) return;
   const int64_t p = g0.x, c = g0.y;
   if (u == 0) {
-    if (lane == 0) child_scalars(s, g0, g1);
+    if (lane == 0) child_scalars(s, d, g0, g1);
     // the event buffer, reset: the words before its first 16-byte boundary,
     // 16-byte stores, then the words after the last whole one
-    int32_t* ev = s.events + c * s.EVT * EV_W;
+    int32_t* ev = d.events + c * s.EVT * EV_W;
     const int64_t n = (int64_t)s.EVT * EV_W;
     const int64_t lead = (int64_t)((0 - (reinterpret_cast<uintptr_t>(ev) >> 2)) & 3);
     const int64_t head = lead < n ? lead : n, quads = (n - head) / 4;
@@ -1112,8 +1121,13 @@ __host__ __device__ __forceinline__ void child_unit(const SegArgs& s, const RowM
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int32_t v = v0 + k * kWarp;
-    if (v < total) m.f[fk[k]][c * m.w[fk[k]] + off[k]] = v == at ? g1.x : val[k];
+    if (v < total) md.f[fk[k]][c * m.w[fk[k]] + off[k]] = v == at ? g1.x : val[k];
   }
+}
+
+__host__ __device__ __forceinline__ void child_unit(const SegArgs& s, const RowMap& m,
+                                                   const I4* rec, int32_t u, int lane) {
+  child_unit(s, s, m, m, rec, u, lane);
 }
 
 // After the copies: a granted parent takes the fall-through and records
@@ -1239,8 +1253,11 @@ __host__ __device__ __forceinline__ void lane_counts(Lane& l, const Tally& t, co
 template <class X>
 __host__ __device__ __forceinline__ void run_segment(X& x, const SegArgs& s) {
   const int32_t k = s.k_limit < s.K ? s.k_limit : s.K;
-  int32_t arena_len = *s.arena_len0, n_exec = 0, max_live = 0;
+  // read once begin() has run: a partitioned segment's first barrier is
+  // there, after which every card's launch (and what its stream queued
+  // before it) has started
   x.begin();
+  int32_t arena_len = ld_cg(s.arena_len0), n_exec = 0, max_live = 0;
   x.publish(0);
   x.sync();
   x.counts(0);
@@ -1272,6 +1289,105 @@ __host__ __device__ __forceinline__ void run_segment(X& x, const SegArgs& s) {
     x.counts(par);
   }
   x.finish(arena_len, n_exec, max_live);
+}
+
+// ---- the segment partitioned over shards ------------------------------------
+//
+// A partitioned segment (step.py segment_partitioned) splits the batch into
+// n_shards slot blocks of Bs slots: shard k holds slots [k * Bs, (k + 1) *
+// Bs), its state in allocations of its own, on its own card (or, for
+// logical shards of one card, beside the others).  The arena, the coverage
+// planes, out and arena_len0 are the leader's (shard 0's card), the code
+// tables each card's copy.  Every lane keeps its global slot, so the ranks,
+// the keys, the free list and the grant records are those of the
+// unsharded batch and the loop (run_segment) takes the same decisions; an
+// executor of the shards (ShardDev on the card, the host check's
+// coroutines) does what crosses blocks:
+//
+//   publish   each warp's count word goes to every shard's count buffer
+//             (indexed by the global block), so counts() reads its own;
+//   keys      each wanting path's (key, slot, want) goes to every shard's
+//             grant list at its rank, and each free slot to every shard's
+//             free list (a step writes its own; a wanting path whose key is
+//             INT32_MAX ranks among the slots that do not want, so any free
+//             rank may be taken);
+//   grant     each shard counts over its own copy of the list, takes the
+//             free slot of its rank from its own copy of the free list (a
+//             slot of any shard) and leaves the grant record in its own
+//             record buffer, where only its own parents' records are set;
+//   child     each shard copies its own parents' rows into the children's
+//             slots, in whichever shard's block they lie;
+//   sync      one barrier over every shard.
+//
+// A shard's view (shard_view) is a SegArgs whose state pointers are its
+// block's moved back by its first slot times the field's width, so the
+// per-path code indexes by the global slot unchanged; a lane past its
+// block's Bs slots gets a slot >= B, which every phase skips.
+
+constexpr int kMaxShards = 8;
+
+// The state fields of a SegArgs in order, with their row widths.
+#define MK_STATE_FIELDS(X)                                                                         \
+  X(pc, 1) X(halt, 1) X(seed, 1) X(code_id, 1) X(steps, 1) X(score, 1) X(stack, s.STK)              \
+  X(stack_len, 1) X(mem_addr, s.MEM) X(mem_val, s.MEM) X(mem_len, 1) X(mem_size, 1)                \
+  X(sto_key, s.STO) X(sto_val, s.STO) X(sto_len, 1) X(ctx, CTX_W) X(cons, s.CON) X(cons_len, 1)    \
+  X(events, (int64_t)s.EVT * EV_W) X(ev_len, 1) X(gas_min, 1) X(gas_max, 1) X(depth, 1)            \
+  X(loops, s.NL) X(statc, 1)
+
+// One shard's allocations: its block's state ([Bs, ...]) and its copies of
+// the batch-wide scratch (free_list [B], fkeys [B, 2], grants [B, GRANT_W]
+// at -1, cnt [2, 4 * blocks of every shard]).
+struct ShardPtrs {
+#define MK_PTR(n, w) int32_t* n;
+  MK_STATE_FIELDS(MK_PTR)
+#undef MK_PTR
+  int32_t *free_list, *fkeys, *grants, *cnt;
+};
+
+// Mirror of ShardArgs in mythril_tpu_torch/frontier/step.py (same order).
+struct ShardArgs {
+  SegArgs s;  // B is the whole batch; its state and scratch pointers are unused
+  ShardPtrs sh[kMaxShards];
+  int32_t n_shards, Bs, bps;  // shards, slots a shard, blocks (of kBlock lanes) a shard
+  int32_t first, n_here;      // the shards this launch runs: [first, first + n_here)
+  int32_t n_launches;         // launches that meet at each barrier (one per card)
+  uint32_t* bar;              // the cross-card barrier's [count, generation] (leader)
+  long long timeout_ns;       // how long a card waits at the barrier before it traps
+};
+
+__host__ __device__ __forceinline__ void shard_view(const ShardArgs& a, int k, SegArgs& v) {
+  const SegArgs& s = a.s;
+  v = s;
+  const int64_t off = (int64_t)k * a.Bs;
+#define MK_VIEW(n, w) v.n = a.sh[k].n - off * (w);
+  MK_STATE_FIELDS(MK_VIEW)
+#undef MK_VIEW
+  v.free_list = a.sh[k].free_list, v.fkeys = a.sh[k].fkeys, v.grants = a.sh[k].grants;
+  v.cnt = a.sh[k].cnt;
+}
+
+// The global slot of lane j of shard k's block (>= B past the block).
+__host__ __device__ __forceinline__ int32_t shard_slot(const ShardArgs& a, int k, int32_t j) {
+  return j < a.Bs ? k * a.Bs + j : a.s.B + j;
+}
+
+__host__ __device__ __forceinline__ int32_t shard_of(const ShardArgs& a, int32_t slot) {
+  return slot / a.Bs;
+}
+
+// A warp's count word into every shard's buffer (of `blocks` blocks).
+__host__ __device__ __forceinline__ void shard_word(const ShardArgs& a, int shard, int par,
+                                                  int blocks, int gblock, int warp, int32_t word) {
+  a.sh[shard].cnt[(par * blocks + gblock) * kWarpsPerBlock + warp] = word;
+}
+
+// A wanting path's key, and a free slot's place in the free list, into
+// shard j's copies.
+__host__ __device__ __forceinline__ void shard_key(const ShardArgs& a, int j, int32_t r, I2 e) {
+  a.sh[j].fkeys[2 * r] = e.x, a.sh[j].fkeys[2 * r + 1] = e.y;
+}
+__host__ __device__ __forceinline__ void shard_free(const ShardArgs& a, int j, const Lane& l) {
+  if (l.free) a.sh[j].free_list[l.free_rank] = l.b;
 }
 
 }  // namespace mk

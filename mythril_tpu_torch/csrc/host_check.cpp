@@ -204,6 +204,180 @@ extern "C" int mk_frontier_segment_host(const mk::SegArgs* args) {
   return 0;
 }
 
+// The segment partitioned over shards (frontier_segment.cuh, "the segment
+// partitioned over shards"): each shard's loop is a ucontext coroutine of
+// the caller's thread with an executor that owns its block's lanes, as
+// HostExec owns the batch's, and makes the same cross-shard stores as the
+// card's ShardDev (the count words, the keys and the free list into every
+// shard's copies, the children's rows into their shards' blocks).  Its
+// barrier switches back to the scheduler, which runs the shards up to their
+// next barrier, the last shard first: a phase that read what another shard
+// writes in the same phase would see the value before the write, so a
+// missing barrier shows.  The shards must arrive at the same barriers and
+// leave the loop together.
+struct ShardFibers {
+  const mk::ShardArgs& a;
+  std::vector<mk::SegArgs> views;
+  std::vector<mk::RowMap> maps;
+  std::vector<ucontext_t> fiber;
+  std::vector<char> stacks;
+  ucontext_t main;
+  int starting = 0;
+  std::vector<int> done, arrived;
+};
+
+static thread_local ShardFibers* shard_fibers;
+static constexpr size_t kShardStack = 1 << 20;
+
+struct HostShard {
+  ShardFibers* h;
+  const mk::ShardArgs& a;
+  const mk::SegArgs& s;
+  int k, blocks, nwarps;
+  std::vector<mk::Lane> lanes;
+  std::vector<mk::I2> tile;
+
+  HostShard(ShardFibers* f, int shard)
+      : h(f), a(f->a), s(f->views[shard]), k(shard), blocks(f->a.n_shards * f->a.bps),
+        nwarps(f->a.bps * mk::kWarpsPerBlock), lanes(f->a.bps * mk::kBlock), tile(mk::kTile) {
+    for (size_t j = 0; j < lanes.size(); ++j) lanes[j].b = mk::shard_slot(a, k, (int32_t)j);
+  }
+
+  void sync() {
+    ++h->arrived[k];
+    swapcontext(&h->fiber[k], &h->main);
+  }
+  void begin() {
+    sync();
+    for (auto& l : lanes) mk::lane_begin(s, l);
+  }
+  void step(int32_t arena_len, const mk::Window& w) {
+    for (auto& l : lanes) mk::step(s, l, arena_len, w);
+  }
+  void keys() {
+    for (auto& l : lanes) {
+      if (l.fwant) {
+        const mk::I2 e = mk::fork_key(s, l);
+        for (int j = 0; j < a.n_shards; ++j) mk::shard_key(a, j, l.fwant_rank, e);
+      }
+      for (int j = 0; j < a.n_shards; ++j) mk::shard_free(a, j, l);
+    }
+  }
+  void parent() {
+    for (auto& l : lanes) mk::fork_parent(s, l);
+  }
+  const mk::Lane& lane0() const { return lanes[0]; }
+
+  void publish(int par) {
+    for (int w = 0; w < nwarps; ++w) {
+      uint32_t ml = 0, mf = 0, mw = 0;
+      for (int i = 0; i < mk::kWarp; ++i) {
+        const mk::Lane& l = lanes[w * mk::kWarp + i];
+        ml |= (uint32_t)l.run << i, mf |= (uint32_t)l.free << i, mw |= (uint32_t)l.fwant << i;
+      }
+      for (int i = 0; i < mk::kWarp; ++i) mk::warp_ranks(lanes[w * mk::kWarp + i], i, ml, mf, mw);
+      const int gblock = k * a.bps + w / mk::kWarpsPerBlock;
+      for (int j = 0; j < a.n_shards; ++j)
+        mk::shard_word(a, j, par, blocks, gblock, w % mk::kWarpsPerBlock, mk::pack_counts(ml, mf, mw));
+    }
+  }
+
+  void counts(int par) {
+    const int32_t* c = s.cnt + par * blocks * mk::kWarpsPerBlock;
+    auto blk = [&](int i) { return mk::I4{c[4 * i], c[4 * i + 1], c[4 * i + 2], c[4 * i + 3]}; };
+    for (int lb = 0; lb < a.bps; ++lb) {
+      const int gb = k * a.bps + lb;
+      const mk::Tally t = mk::tally(blk, blocks, gb);
+      for (int i = lb * mk::kBlock; i < (lb + 1) * mk::kBlock; ++i)
+        mk::lane_counts(lanes[i], t, blk(gb), (i / mk::kWarp) % mk::kWarpsPerBlock);
+    }
+  }
+
+  void grant() {
+    const int32_t n = lanes[0].n_fwant;
+    std::vector<int32_t> lt(lanes.size()), wb(lanes.size());
+    for (int32_t base = 0; base < n; base += mk::kTile) {
+      const int32_t m = n - base < mk::kTile ? n - base : mk::kTile;
+      for (int32_t i = 0; i < m; ++i) tile[i] = mk::I2{s.fkeys[2 * (base + i)], s.fkeys[2 * (base + i) + 1]};
+      for (size_t j = 0; j < lanes.size(); ++j)
+        if (lanes[j].fwant && lanes[j].want) mk::grant_count(tile.data(), m, lanes[j], lt[j], wb[j]);
+    }
+    for (size_t j = 0; j < lanes.size(); ++j)
+      if (lanes[j].fwant && lanes[j].want) mk::grant_take(s, lanes[j], lt[j], wb[j]);
+  }
+
+  void child_items(int32_t n) {
+    const int32_t per = mk::child_units(h->maps[k]);
+    std::vector<mk::I4> rec(2 * mk::kRecTile);
+    for (int32_t g0 = 0; g0 < n; g0 += mk::kRecTile) {
+      const int32_t m = n - g0 < mk::kRecTile ? n - g0 : mk::kRecTile;
+      for (int32_t i = 0; i < 2 * m; ++i) rec[i] = mk::ld_cg4(s.grants + (int64_t)mk::GRANT_W * g0 + 4 * i);
+      for (int w = 0; w < nwarps; ++w)
+        for (int32_t it = w; it < m * per; it += nwarps) {
+          const mk::I4* r = rec.data() + 2 * (it / per);
+          const int j = r[0].x < 0 ? k : mk::shard_of(a, r[0].y);
+          for (int lane = 0; lane < mk::kWarp; ++lane)
+            mk::child_unit(s, h->views[j], h->maps[k], h->maps[j], r, it % per, lane);
+        }
+    }
+  }
+
+  void finish(int32_t arena_len, int32_t n_exec, int32_t max_live) {
+    if (k == 0) s.out[0] = arena_len, s.out[1] = n_exec, s.out[2] = max_live;
+  }
+};
+
+static void shard_fiber() {
+  ShardFibers* h = shard_fibers;
+  const int k = h->starting;
+  {
+    HostShard x(h, k);
+    mk::run_segment(x, h->views[k]);
+  }
+  h->done[k] = 1;
+  swapcontext(&h->fiber[k], &h->main);  // never resumed
+}
+
+// Every shard of a partitioned segment.  Returns 0, or -1 when the shards
+// part ways at a barrier.
+extern "C" int mk_frontier_segment_shards_host(const mk::ShardArgs* args) {
+  const mk::ShardArgs& a = *args;
+  const int n = a.n_shards;
+  ShardFibers h{a};
+  h.views.resize(n), h.maps.resize(n), h.fiber.resize(n), h.done.assign(n, 0), h.arrived.assign(n, 0);
+  h.stacks.resize((size_t)n * kShardStack);
+  for (int k = 0; k < n; ++k) {
+    mk::shard_view(a, k, h.views[k]);
+    mk::row_map(h.views[k], h.maps[k]);
+  }
+  shard_fibers = &h;
+  for (int k = 0; k < n; ++k) {
+    getcontext(&h.fiber[k]);
+    h.fiber[k].uc_stack.ss_sp = h.stacks.data() + (size_t)k * kShardStack;
+    h.fiber[k].uc_stack.ss_size = kShardStack;
+    h.fiber[k].uc_link = nullptr;
+    makecontext(&h.fiber[k], shard_fiber, 0);
+  }
+  int rc = 0;
+  for (;;) {
+    for (int k = n - 1; k >= 0; --k) {
+      h.starting = k;
+      if (!h.done[k]) swapcontext(&h.main, &h.fiber[k]);
+    }
+    int finished = 0;
+    for (int k = 0; k < n; ++k) finished += h.done[k];
+    if (finished == n) break;
+    bool same = finished == 0;
+    for (int k = 1; k < n && same; ++k) same = h.arrived[k] == h.arrived[0];
+    if (!same) {
+      rc = -1;  // the fibers left behind are abandoned with their stacks
+      break;
+    }
+  }
+  shard_fibers = nullptr;
+  return rc;
+}
+
 // The DPLL search with each thread of a block of nt as a ucontext coroutine
 // of the caller's thread: each runs run_query, the kernel's own per-thread
 // program, up to its next barrier; once every thread has arrived, the last

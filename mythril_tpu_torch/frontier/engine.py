@@ -45,9 +45,12 @@ laser's device spans more than one device (``parallel.mesh.mesh_devices``:
 every visible card), the run pads the slot batch to a multiple of the
 device count (``frontier.mesh_pad_slots``), builds a ``(path, cand)`` mesh
 with the whole count on the path axis and hands it to the pipelined
-runner, which injects, rebalances, pulls and replays per slot block; the
-segment itself runs once a dispatch on the mesh's first device over the
-whole padded batch, so its outputs are the unsharded ones.  A mesh run
+runner, which injects, rebalances, pulls and replays per slot block.  The
+state is pushed as blocks, block k on the mesh's k-th device
+(``step.ShardedState``), and every dispatch is the partitioned segment
+over them (one launch per card, or one launch for logical shards of one
+device), with the arena and the coverage planes on the mesh's first
+device, the run's own; its outputs are the unsharded ones.  A mesh run
 skips the natural-bucket opening dispatch and the microbench, as in the
 JAX package.
 """
@@ -1042,12 +1045,15 @@ class FrontierEngine:
             round(100.0 * self._page_resident / max(paged_rows, 1), 1)
         )
         # path-sharded over a mesh where it spans more than one device (the
-        # padding above made the width divide): the runner works on slot
-        # blocks; the segment runs on the mesh's first device, which is the
-        # run's own (``mesh_devices``), over the whole padded batch
+        # padding above made the width divide): the state is pushed as slot
+        # blocks, block k on the mesh's k-th device, and the segment is the
+        # partitioned one; the arena and the planes stay on the mesh's first
+        # device, the run's own (``mesh_devices``)
         mesh = None
+        shard_devices = None
         if n_dev > 1:
             mesh = _mesh.make_frontier_mesh(devices, path_size=n_dev)
+            shard_devices = mesh.path_devices
             FrontierStatistics().mesh_devices = n_dev
         program_key = (caps, bucket, visit_cap)
         program_warm = program_key in _WARM_PROGRAMS
@@ -1277,7 +1283,7 @@ class FrontierEngine:
             # terminals harvest quickly; later segments run long.  Keyed on
             # the analysis-wide segment counter, not a per-drain counter
             cfg = cfg._replace(k_limit=min(caps.K, 96 << min(stats.segments, 4)))
-            st_dev = push_state(st, device=self.device)
+            st_dev = push_state(st, device=self.device, devices=shard_devices)
             micro = args.frontier_microbench and not stats.microbench and mesh is None
             if micro:
                 micro_args = (
@@ -1300,7 +1306,7 @@ class FrontierEngine:
                 self._fire_request_flows()
                 with _devplane.harvest_analysis(self.device,
                                                 _devplane.bucket_tag(bucket)):
-                    stamp = _devplane.stamp_begin(self.device)
+                    stamp = _devplane.stamp_begin(shard_devices or self.device)
                     out_state, dev_arena, out_len, n_exec, seg_max_live, visited = (
                         segment(st_dev, dev_arena, arena_len, visited, code_dev, cfg)
                     )

@@ -59,7 +59,10 @@ host arena's re-injected rows are written into the device arena in place
 (``step.push_arena_rows``) only at a sync point, after the copy stream's
 last pull.  A failed stream, event or launch raises; nothing falls back to
 the synchronous loop.  On the CPU (the plain segment) the same loop runs
-with no streams.
+with no streams.  On a mesh of several cards each card has its pair of
+streams, entered together: a chained dispatch's correction merge runs on
+each card over its own block, the partitioned segment launches once per
+card, and each card's copy stream pulls its own block.
 
 The runner is the JAX package's on one device, with the adaptive
 controller's hooks: spills the re-injection queue cannot hold wait in a
@@ -75,8 +78,11 @@ shard k is slot block k, injections go to the least-loaded shard
 (``choose_free_slot``), an imbalance forces a sync point where
 ``_rebalance`` spills the hottest shard's youngest paths for re-injection
 (``plan_rebalance``, with a backoff), the delta pulls' bytes and the
-heartbeat's slot counts are kept per shard, and every dispatch runs on the
-mesh's first device, the run's own.  The tracer's spans and flows and the
+heartbeat's slot counts are kept per shard, and every dispatch is the
+partitioned segment (``step.segment_partitioned``) over the blocks, which
+live on the mesh's cards (``step.ShardedState``); the arena and the
+coverage planes stay on the mesh's first device, the run's own, where the
+harvest and the coverage read find them.  The tracer's spans and flows and the
 device plane's scope, stamps and analysis are the JAX package's; the
 ``pipeline.*`` metrics live in the registry (``COUNTERS`` is a view of the
 counters by name without the prefix).  Every run registers its queue depths with the
@@ -394,51 +400,67 @@ class FeasibilityPool:
 
 
 class _Streams:
-    """The runner's CUDA streams: segments on one, pulls on another, an
-    event recorded behind every segment.  On the CPU every method is a
-    no-op."""
+    """The runner's CUDA streams, a pair on each card of the run (the run's
+    device, or a mesh's cards): segments on one, pulls on the other, an
+    event recorded behind every segment on each card.  Entering a pair
+    makes it the current stream of its card, so a partitioned segment's
+    per-card launches, merges and pulls each queue on their own card's
+    stream.  On the CPU every method is a no-op."""
 
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+    def __init__(self, devices):
+        devices = [torch.device(d) for d in devices]
+        self.cuda = devices[0].type == "cuda"
         if self.cuda:
-            self.device = torch.device(device)
-            self.segment = torch.cuda.Stream(device=self.device)
-            self.copy = torch.cuda.Stream(device=self.device)
+            # the leader last: entered last, it is the current device inside
+            self.devices = list(dict.fromkeys(devices[1:] + devices[:1]))
+            self.segment = {d: torch.cuda.Stream(device=d) for d in self.devices}
+            self.copy = {d: torch.cuda.Stream(device=d) for d in self.devices}
+
+    def _enter(self, streams):
+        stack = contextlib.ExitStack()
+        for d in self.devices:
+            stack.enter_context(torch.cuda.stream(streams[d]))
+        return stack
 
     def dispatching(self):
-        """Queue on the segment stream, after everything the caller's
-        stream has queued (the tables, the arena, a sync point's arena
-        rows)."""
+        """Queue on the segment streams, after everything each card's
+        current stream has queued (the tables, the arena, a sync point's
+        arena rows)."""
         if not self.cuda:
             return contextlib.nullcontext()
-        self.segment.wait_stream(torch.cuda.current_stream(self.device))
-        return torch.cuda.stream(self.segment)
+        for d in self.devices:
+            self.segment[d].wait_stream(torch.cuda.current_stream(d))
+        return self._enter(self.segment)
 
     def mark(self):
-        """An event right behind the segment just queued."""
+        """Events right behind the segment just queued, one per card."""
         if not self.cuda:
             return None
-        event = torch.cuda.Event()
-        event.record(self.segment)
-        return event
+        events = {}
+        for d in self.devices:
+            events[d] = torch.cuda.Event()
+            events[d].record(self.segment[d])
+        return events
 
-    def pulling(self, event):
-        """Read on the copy stream once the segment behind ``event`` is
-        done (not the one chained after it)."""
+    def pulling(self, events):
+        """Read on the copy streams once the segment behind ``events`` is
+        done on each card (not the one chained after it)."""
         if not self.cuda:
             return contextlib.nullcontext()
-        self.copy.wait_event(event)
-        return torch.cuda.stream(self.copy)
+        for d in self.devices:
+            self.copy[d].wait_event(events[d])
+        return self._enter(self.copy)
 
     def settle(self) -> None:
-        """The caller's stream after the copy stream's last pull and the
-        segment stream's last work: what it queues next (a sync point's
+        """Each card's current stream after its copy stream's last pull and
+        its segment stream's last work: what it queues next (a sync point's
         in-place arena write, the final coverage read) is ordered after
         them."""
         if self.cuda:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_stream(self.copy)
-            current.wait_stream(self.segment)
+            for d in self.devices:
+                current = torch.cuda.current_stream(d)
+                current.wait_stream(self.copy[d])
+                current.wait_stream(self.segment[d])
 
 
 class PipelinedRunner:
@@ -491,8 +513,8 @@ class PipelinedRunner:
         self.repack_fn = repack_fn
 
         # pod composition: with a mesh the slot batch is path-sharded (shard
-        # k is slot block k) and every dispatch runs on the mesh's first
-        # device, the run's own.
+        # k is slot block k, on the mesh's k-th device) and every dispatch is
+        # the partitioned segment over the blocks.
         self.mesh = mesh
         self.n_shards = 1
         if mesh is not None:
@@ -504,7 +526,10 @@ class PipelinedRunner:
 
         self.ledger = CorrectionLedger(self.caps.B)
         self.pool = FeasibilityPool(args.solver_workers, self.device)
-        self.streams = _Streams(self.device)
+        # a partitioned mesh's blocks live on its cards (``mesh_devices``);
+        # logical shards of one device keep theirs beside each other there
+        self.shard_devices = mesh.path_devices if mesh is not None else [self.device]
+        self.streams = _Streams(self.shard_devices)
         self.reinject_q: List[tuple] = []
         # adaptive park pool: re-runnable spills the reinject queue could
         # not hold.  The controller's plan names which to resurrect when
@@ -888,7 +913,9 @@ class PipelinedRunner:
                           full=True, shards=self.n_shards):
             self._emit_dispatch_flow(sid)
             with self.streams.dispatching():
-                st_dev = push_state(self.st, device=self.device)
+                st_dev = push_state(self.st, device=self.device,
+                                    devices=self.shard_devices if self.mesh is not None
+                                    else None)
                 self.ledger.consume_all()
                 # every free slot is exposed to the device again
                 for slot in range(self.caps.B):
@@ -897,7 +924,7 @@ class PipelinedRunner:
                                    self.visited, self.code_dev, cfg)
                 with _devplane.harvest_analysis(self.device,
                                                 _devplane.current_bucket()):
-                    stamp = _devplane.stamp_begin(self.device)
+                    stamp = _devplane.stamp_begin(self.shard_devices)
                     out = self.segment(*self._full_args)
                     _devplane.stamp_end(stamp, "frontier.segment_device_s")
                 event = self.streams.mark()

@@ -25,9 +25,18 @@ Two implementations compute the same outputs bit for bit:
 * ``segment_cuda``, the CUDA kernel ``csrc/frontier_segment.cu``: one
   cooperative launch runs the whole loop on the card (``frontier_segment.cuh``).
 
+On a mesh the state is partitioned over the path axis (``ShardedState``:
+slot block k on the mesh's k-th device) and two more implementations take
+it, again bit for bit the same: ``segment_partitioned``, the kernel's shard
+form (one launch per card over its block, the fork grant's ranks and free
+slots across cards on every step, a barrier in the first card's memory;
+one launch holding every block for logical shards of one card), and
+``segment_partitioned_torch``, its plain version, block by block.
+
 ``cached_segment(..., device=None)`` returns a ``segment`` with the JAX
 signature; it runs the kernel on CUDA tensors and the plain version only on
-CPU tensors, which the caller asks for with ``device="cpu"``.  The synchronous transfers
+CPU tensors, which the caller asks for with ``device="cpu"``, in the
+partitioned form when it is given a ``ShardedState``.  The synchronous transfers
 (``push_state``, ``pull_harvest``, ``pull_arena_rows``, ``push_arena_rows``)
 are plain torch.  Indexing follows XLA's rules, which the code spells out:
 a gather clamps its index into bounds (a negative index wraps once first),
@@ -38,6 +47,7 @@ arithmetic wraps.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -858,6 +868,244 @@ def _check_inputs(state, arena, visited, code, caps: Caps) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the segment partitioned over a mesh's path axis
+# ---------------------------------------------------------------------------
+
+
+class ShardedState:
+    """A frontier state partitioned over a mesh's path axis: ``blocks[k]`` is
+    a ``FrontierState`` of the batch's slot block k (``B / n`` slots), on
+    its own device (shard k's card, or, for logical shards of one device,
+    in allocations of its own beside the others).  A field read as an
+    attribute (``state.pc``) is the whole batch's, gathered on the first
+    block's device; the main path reads the blocks where they live."""
+
+    __slots__ = ("blocks",)
+
+    def __init__(self, blocks):
+        self.blocks = tuple(blocks)
+        if not self.blocks or len({b.pc.shape[0] for b in self.blocks}) != 1:
+            raise ValueError("a sharded state needs blocks of one width")
+
+    @property
+    def devices(self) -> list:
+        return [b.pc.device for b in self.blocks]
+
+    @property
+    def block_width(self) -> int:
+        return int(self.blocks[0].pc.shape[0])
+
+    def __getattr__(self, name):
+        if name in FrontierState._fields:
+            lead = self.blocks[0].pc.device
+            return torch.cat([getattr(b, name).to(lead) for b in self.blocks])
+        raise AttributeError(name)
+
+
+def _partitioned_step(blocks, arena: ArenaDev, arena_len, n_exec, max_live, visited,
+                      codes, cfg: CfgScalars, caps: Caps):
+    """One lockstep step of the batch as the partitioned kernel takes it:
+    each block's paths step on their block (arena rows at their global live
+    rank), the fork grant ranks every block's keys together and takes free
+    slots of any block, and a child's row is copied from its parent's block
+    into its own.  The arena and the planes are the leader's (``arena``'s
+    device); ``codes[k]`` is block k's device's copy of the code tables."""
+    R, CON, EVT, B_s = caps.R, caps.CON, caps.EVT, int(blocks[0].pc.shape[0])
+    n = len(blocks)
+    lead = arena.op.device
+    C, N = codes[0].fam.shape
+    Cv, Iv = visited.shape[1], visited.shape[2]
+    T = arena.op.shape[0]
+    arena_of = [arena if st.pc.device == lead else ArenaDev(*[x.to(st.pc.device) for x in arena])
+                for st in blocks]
+
+    running = [(st.halt == O.H_RUNNING) & (st.seed >= 0) for st in blocks]
+    live = [int(r.sum()) for r in running]
+    n_live = sum(live)
+    n_exec = _wrap32(torch.tensor(n_exec + n_live)).item()
+    max_live = max(max_live, n_live)
+    visited = visited.clone()
+    pre, new, rows_of, fork_of = [], [], [], []
+    before = 0
+    for k, (st, run) in enumerate(zip(blocks, running)):
+        dev, code = st.pc.device, codes[k]
+        st = st._replace(steps=st.steps + run.to(I32))
+        cid_live = st.code_id.clamp(0, Cv - 1).long()
+        pc_or_oob = st.pc.clamp(0, Iv - 1).long()
+        visited[0, cid_live[run].to(lead), pc_or_oob[run].to(lead)] = True
+        live_rank = before + torch.cumsum(run.to(I32), 0).to(I32) - 1
+        before += live[k]
+        bases = _wrap32(arena_len + live_rank.long() * R)
+        ids = torch.where(run[:, None],
+                          _wrap32(bases[:, None].long() + torch.arange(R, device=dev)),
+                          torch.full((B_s, R), caps.ARENA, dtype=I32, device=dev))
+        new_st, rows, fork = _path_step(st, ids, arena_of[k], code, cfg, caps)
+        # edge coverage, inline-resolved JUMPIs
+        cidc = cid_live.clamp(max=C - 1)
+        fam_here = code.fam[cidc, (st.pc - code.pbase[cidc]).clamp(0, N - 1).long()]
+        m = run & (fam_here == O.F_JUMPI) & ~fork.want & (new_st.halt == O.H_RUNNING)
+        nf_plane = torch.where(new_st.pc == st.pc + 1, 2, 1).long()
+        visited[nf_plane[m].to(lead), cid_live[m].to(lead), pc_or_oob[m].to(lead)] = True
+        pre.append(st)
+        new.append(new_st)
+        rows_of.append((ids, rows))
+        fork_of.append(fork)
+    # the arena scatter: every block's fresh rows (the dead slots' rows are
+    # one row of zeros, the same from every block)
+    cols = list(arena)
+    for ids, rows in rows_of:
+        flat, inb = _sidx(ids.reshape(-1).to(lead), T)
+        cols = [x.index_put((flat[inb],), v.to(lead).reshape((-1,) + v.shape[2:])[inb].to(x.dtype))
+                for x, v in zip(cols, rows)]
+    arena = ArenaDev(*cols)
+    arena_len = _wrap32(torch.tensor(arena_len + n_live * R)).item()
+
+    # the fork grant over every block's keys, on the leader
+    want_of, free_of = [], []
+    keys = []
+    for k in range(n):
+        st, new_st, fork = pre[k], new[k], fork_of[k]
+        want = fork.want & (new_st.ev_len < EVT)
+        cid_live = st.code_id.clamp(0, Cv - 1).long()
+        uncovered = ~visited[0, cid_live.to(lead), fork.target.clamp(0, Iv - 1).long().to(lead)]
+        sel = cfg.sel_mode
+        if sel == SEL_DEEP:
+            score = st.depth.to(lead)
+        elif sel == SEL_SHALLOW:
+            score = -st.depth.to(lead)
+        elif sel == SEL_COVERAGE:
+            score = uncovered.to(I32) * (1 << 20) + st.depth.to(lead)
+        elif sel == SEL_BEAM:
+            score = st.score.to(lead)
+        else:
+            score = torch.zeros(B_s, dtype=I32, device=lead)
+        keys.append(torch.where(want.to(lead), -score, torch.full_like(score, INT32_MAX)))
+        want_of.append(want.to(lead))
+        free_of.append((new_st.seed < 0).to(lead))
+    B = n * B_s
+    key = torch.cat(keys)
+    free = torch.cat(free_of)
+    n_free = int(free.sum())
+    order = torch.argsort(key, stable=True)
+    rank = torch.empty(B, dtype=torch.long, device=lead)
+    rank[order] = torch.arange(B, device=lead)
+    granted = torch.cat(want_of) & (rank < n_free)
+    free_list = torch.argsort((~free).to(torch.uint8), stable=True)
+    child = torch.where(granted, free_list[rank.clamp(0, B - 1)], torch.full_like(rank, B))
+    parents = torch.nonzero(granted).flatten()
+    kids = child[parents]
+
+    out = []
+    for j in range(n):
+        st, new_st, fork = pre[j], new[j], fork_of[j]
+        dev, code = st.pc.device, codes[j]
+        ar = torch.arange(B_s, device=dev)
+        i32 = lambda v: torch.full((B_s,), v, dtype=I32, device=dev)  # noqa: E731
+        g = granted[j * B_s:(j + 1) * B_s].to(dev)
+        s2 = dict(new_st._asdict())
+        forked_into = torch.zeros(B_s, dtype=torch.bool, device=dev)
+        jumpi_true = st.pc.clone()
+        taken_pc = torch.zeros(B_s, dtype=I32, device=dev)
+        cond_of_child = torch.zeros(B_s, dtype=I32, device=dev)
+        # the children in this block: each copies its parent's row from the
+        # parent's block
+        mine = (kids >= j * B_s) & (kids < (j + 1) * B_s)
+        for i in range(n):
+            sel = mine & (parents >= i * B_s) & (parents < (i + 1) * B_s)
+            if not bool(sel.any()):
+                continue
+            c = (kids[sel] - j * B_s).to(dev)
+            p = (parents[sel] - i * B_s).to(pre[i].pc.device)
+            for name, v in new[i]._asdict().items():
+                s2[name] = s2[name].clone() if s2[name] is getattr(new_st, name) else s2[name]
+                s2[name][c] = v[p].to(dev)
+            forked_into[c] = True
+            jumpi_true[c] = pre[i].pc[p].to(dev)
+            taken_pc[c] = fork_of[i].target[p].to(dev)
+            cond_of_child[c] = fork_of[i].cond_row[p].to(dev)
+        touched = g | forked_into
+        cid2 = s2["code_id"].clamp(0, C - 1).long()
+        jumpi_pc = jumpi_true.clamp(0, Iv - 1).long()
+        jumpi_rel = (jumpi_true - code.pbase[cid2]).clamp(0, N - 1).long()
+        branch_pc = torch.where(forked_into, taken_pc, jumpi_true + 1)
+        branch_row = torch.where(forked_into, cond_of_child, fork.ncond_row)
+        edge_plane = torch.where(forked_into, 1, 2).long()
+        m = touched & (cid2 < Cv)
+        visited[edge_plane[m].to(lead), cid2[m].to(lead), jumpi_pc[m].to(lead)] = True
+        cl = s2["cons_len"].clamp(0, CON - 1).long()
+        cons_set = s2["cons"].clone()
+        cons_set[ar, cl] = branch_row
+        s2.update(
+            pc=torch.where(touched, branch_pc, s2["pc"]),
+            depth=torch.where(touched, s2["depth"] + 1, s2["depth"]),
+            stack_len=torch.where(touched, s2["stack_len"] - 2, s2["stack_len"]),
+            gas_min=torch.where(touched, s2["gas_min"] + code.gmin[cid2, jumpi_rel], s2["gas_min"]),
+            gas_max=torch.where(touched, s2["gas_max"] + code.gmax[cid2, jumpi_rel], s2["gas_max"]),
+            cons=_sel(touched, cons_set, s2["cons"]),
+            cons_len=torch.where(touched, s2["cons_len"] + 1, s2["cons_len"]),
+            events=_sel(forked_into, torch.full_like(s2["events"], -1), s2["events"]),
+            ev_len=torch.where(forked_into, i32(0), s2["ev_len"]),
+            steps=torch.where(forked_into, i32(0), s2["steps"]),
+            halt=torch.where(forked_into, i32(O.H_RUNNING), s2["halt"]),
+        )
+        want = want_of[j].to(dev)
+        buf_ok = new_st.ev_len < EVT
+        s2["halt"] = torch.where((fork.want & ~buf_ok) | (want & ~g), i32(O.H_PENDING_FORK),
+                                 s2["halt"])
+        child_slot = child[j * B_s:(j + 1) * B_s].to(dev)
+        payload = torch.stack([
+            i32(O.E_FORK), st.pc, st.gas_min, st.gas_max, fork.dest_row, fork.word_row,
+            fork.cond_row, fork.ncond_row, fork.target, i32(-1), i32(-1), i32(-1),
+            torch.where(g, child_slot.to(I32), i32(-1)),
+        ], 1)
+        el = s2["ev_len"].clamp(0, EVT - 1).long()
+        ev_ok = s2["ev_len"] < EVT
+        w = g & ev_ok
+        events = s2["events"].clone()
+        events[ar[w], el[w]] = payload[w]
+        s2.update(events=events, ev_len=torch.where(w, s2["ev_len"] + 1, s2["ev_len"]),
+                  halt=torch.where(g & ~ev_ok, i32(O.H_PARK), s2["halt"]))
+        out.append(FrontierState(**s2))
+    return out, arena, arena_len, n_exec, max_live, visited
+
+
+def segment_partitioned_torch(state: ShardedState, arena: ArenaDev, arena_len, visited,
+                              code: CodeDev, cfg: CfgScalars, caps: Caps):
+    """The plain PyTorch version of the partitioned segment, block by block
+    (``_partitioned_step``); inputs are not modified.  The same outputs as
+    ``segment_torch`` on the gathered batch, the state as a
+    ``ShardedState`` on the blocks' devices, the scalars as 0-d int32
+    tensors on the leader (``arena``'s device)."""
+    _check_partitioned(state, arena, visited, code, caps)
+    lead = arena.op.device
+    blocks = list(state.blocks)
+    codes = [CodeDev(*[x.to(b.pc.device) for x in code]) for b in blocks]
+    arena_len, n_exec, max_live, t = int(arena_len), 0, 0, 0
+    k = min(int(cfg.k_limit), caps.K)
+    while True:
+        n_live = sum(int(((b.halt == O.H_RUNNING) & (b.seed >= 0)).sum()) for b in blocks)
+        room = _wrap32(torch.tensor(arena_len + n_live * caps.R)).item() < caps.ARENA
+        if not (t < k and n_live > 0 and room):
+            break
+        blocks, arena, arena_len, n_exec, max_live, visited = _partitioned_step(
+            blocks, arena, arena_len, n_exec, max_live, visited, codes, cfg, caps)
+        t += 1
+    scalar = lambda v: torch.tensor(v, dtype=I32, device=lead)  # noqa: E731
+    return ShardedState(blocks), arena, scalar(arena_len), scalar(n_exec), scalar(max_live), visited
+
+
+def _check_partitioned(state, arena, visited, code, caps: Caps) -> None:
+    if not isinstance(state, ShardedState):
+        raise ValueError("the partitioned segment takes a ShardedState")
+    n = len(state.blocks)
+    if n > MAX_SHARDS or caps.B != n * state.block_width:
+        raise ValueError(f"{n} blocks of {state.block_width} slots do not make B={caps.B} "
+                         f"(at most {MAX_SHARDS} shards)")
+    for b in state.blocks:
+        _check_inputs(b, arena, visited, code, dataclasses.replace(caps, B=state.block_width))
+
+
+# ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
@@ -989,14 +1237,26 @@ def launch_shape(lib, args) -> dict:
     return dict(zip(("block", "blocks", "cluster", "resident"), (v.value for v in vals)))
 
 
-def max_paths(device) -> int:
+def max_paths(device, devices=None) -> int:
     """The widest segment (paths, B) that ``segment_cuda`` can launch on the
     CUDA ``device``: the card's own limit (``mk_frontier_max_paths``, from the
     cooperative grid's resident blocks), queried once per device by the
-    library.  Builds the kernels if needed."""
+    library.  ``devices``, a mesh's cards (more than one): the widest batch
+    the partitioned segment launches over them, one block each, the sum of
+    their limits (``mk_frontier_shard_max_paths``).  Builds the kernels if
+    needed."""
     from mythril_tpu_torch.ops import _build
 
     lib = _build.load()
+    if devices is not None and len(set(devices)) > 1:
+        total = 0
+        for d in dict.fromkeys(devices):
+            paths = ctypes.c_int()
+            with torch.cuda.device(d):
+                rc = lib.mk_frontier_shard_max_paths(ctypes.byref(paths))
+            _build.check(rc, "frontier_segment_shards (the widest launch)")
+            total += paths.value
+        return total
     paths = ctypes.c_int()
     with torch.cuda.device(device):
         rc = lib.mk_frontier_max_paths(ctypes.byref(paths))
@@ -1006,10 +1266,185 @@ def max_paths(device) -> int:
     return paths.value
 
 
+# ---------------------------------------------------------------------------
+# the partitioned kernel's wrapper
+# ---------------------------------------------------------------------------
+
+MAX_SHARDS = 8  # mk::kMaxShards
+# how long a card waits for the others at the partitioned segment's barrier
+# before it traps (a launch failure, raised at the next blocking read)
+BARRIER_TIMEOUT_S = 10.0
+
+
+class ShardPtrs(ctypes.Structure):
+    """Mirror of ``mk::ShardPtrs``: a block's state, then its copies of the
+    batch-wide scratch."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        *FrontierState._fields, "free_list", "fkeys", "grants", "cnt")]
+
+
+class ShardArgs(ctypes.Structure):
+    """Mirror of ``mk::ShardArgs`` in ``csrc/frontier_segment.cuh``."""
+
+    _fields_ = [("s", FrontierArgs), ("sh", ShardPtrs * MAX_SHARDS)] + [
+        (n, ctypes.c_int) for n in ("n_shards", "Bs", "bps", "first", "n_here", "n_launches")
+    ] + [("bar", ctypes.c_void_p), ("timeout_ns", ctypes.c_longlong)]
+
+
+partitioned_launches = 0  # launches of the partitioned kernel (one per card and segment)
+_BARRIERS: dict = {}  # leader device -> its [count, generation] barrier words
+_PEERS: set = set()  # device sets whose peer access is on
+
+
+def _barrier(lead: torch.device) -> torch.Tensor:
+    """The leader's barrier words, made once per device (zero): a barrier
+    leaves them at a count of 0, so every segment finds them ready."""
+    if lead not in _BARRIERS:
+        _BARRIERS[lead] = torch.zeros(2, dtype=I32, device=lead)
+        # the other cards' launches must not find the words before the fill
+        torch.cuda.synchronize(lead)
+    return _BARRIERS[lead]
+
+
+def enable_peer_access(devices) -> None:
+    """Peer access between every pair of the distinct CUDA ``devices``
+    (once per set).  Raises ``DeviceError`` naming ``--no-mesh`` when two
+    of them cannot reach each other's memory."""
+    from mythril_tpu_torch.ops import _build
+
+    idx = tuple(sorted({torch.device(d).index for d in devices}))
+    if len(idx) < 2 or idx in _PEERS:
+        return
+    lib = _build.load()
+    devs = (ctypes.c_int * len(idx))(*idx)
+    a, b = ctypes.c_int(-1), ctypes.c_int(-1)
+    rc = lib.mk_frontier_enable_peers(devs, len(idx), ctypes.byref(a), ctypes.byref(b))
+    if rc == -2:
+        raise _device.DeviceError(
+            f"cuda:{a.value} cannot reach the memory of cuda:{b.value}: the partitioned "
+            "segment needs peer access between every pair of the mesh's cards; run with "
+            "--no-mesh")
+    _build.check(rc, "frontier_segment_shards (peer access)")
+    _PEERS.add(idx)
+
+
+def shard_args(state: ShardedState, arena: ArenaDev, arena_len, visited, code: CodeDev,
+               cfg: CfgScalars, caps: Caps, fresh_state: bool = False, one_launch=None):
+    """The partitioned kernel's arguments over COPIES of the inputs (but the
+    state's with ``fresh_state``, as ``kernel_args``): each shard's scratch
+    on its block's device, the arena, the planes, ``out`` and the starting
+    arena length on the leader (``arena``'s device), the code tables copied
+    to each device.  ``one_launch``: one launch holds every shard (logical
+    shards of one device; the default when every block is on one device),
+    else one launch per shard, each on its block's device, meeting at the
+    leader's barrier.  -> ([(device, ShardArgs), ...], (state, arena,
+    visited, out), keepalive).  Used by ``segment_partitioned`` and by the
+    host build of the shard executor."""
+    _check_partitioned(state, arena, visited, code, caps)
+    blocks, n, Bs = list(state.blocks), len(state.blocks), state.block_width
+    devices = [b.pc.device for b in blocks]
+    lead = arena.op.device
+    if devices[0] != lead or visited.device != lead:
+        raise ValueError("the arena and the coverage planes must be on block 0's device")
+    if one_launch is None:
+        one_launch = len(set(devices)) == 1
+    if not fresh_state:
+        blocks = [FrontierState(*[f.clone() for f in b]) for b in blocks]
+    arena = ArenaDev(*[x.clone() for x in arena])
+    visited = visited.clone()
+    codes, rows = {}, {}
+    for d in devices:
+        if d not in codes:
+            codes[d] = CodeDev(*[x.to(d).contiguous() for x in code])
+            rows[d] = code_rows(codes[d])
+    bps = -(-Bs // BLOCK)
+    sizes = {"free_list": caps.B, "fkeys": 2 * caps.B, "grants": GRANT_W * caps.B,
+             "cnt": 2 * 4 * n * bps}
+    scratch = []
+    for d in devices:
+        sc = {name: torch.zeros(size, dtype=I32, device=d) for name, size in sizes.items()}
+        sc["grants"].fill_(-1)
+        scratch.append(sc)
+    out = torch.zeros(3, dtype=I32, device=lead)
+    len0 = arena_len_word(arena_len, lead)
+    sh = (ShardPtrs * MAX_SHARDS)()
+    for k, (b, sc) in enumerate(zip(blocks, scratch)):
+        sh[k] = ShardPtrs(*[f.data_ptr() for f in b], *[sc[name].data_ptr() for name in sizes])
+    bar = None if one_launch else _barrier(lead)
+    launches = []
+    for first in ([0] if one_launch else range(n)):
+        d = devices[first]
+        c = codes[d]
+        s = FrontierArgs(
+            *[0] * len(FrontierState._fields), *[x.data_ptr() for x in arena], visited.data_ptr(),
+            *[x.data_ptr() for x in c], rows[d].data_ptr(), 0, 0, 0, 0, out.data_ptr(),
+            len0.data_ptr(),
+            caps.B, caps.STK, caps.MEM, caps.STO, caps.CON, caps.EVT, caps.R, caps.K, caps.ARENA,
+            blocks[0].loops.shape[1], arena.op.shape[0], c.fam.shape[0], c.fam.shape[1],
+            c.jumpmap.shape[1], visited.shape[1], visited.shape[2],
+            cfg.max_depth, cfg.loop_bound, cfg.row_zero, cfg.row_one, cfg.sel_mode,
+            min(int(cfg.k_limit), INT32_MAX),
+        )
+        launches.append((d, ShardArgs(
+            s, sh, n, Bs, bps, first, n if one_launch else 1, 1 if one_launch else n,
+            bar.data_ptr() if bar is not None else None, int(BARRIER_TIMEOUT_S * 1e9))))
+    keep = (codes, rows, scratch, len0, bar)
+    return launches, (ShardedState(blocks), arena, visited, out), keep
+
+
+def segment_partitioned(state: ShardedState, arena: ArenaDev, arena_len, visited,
+                        code: CodeDev, cfg: CfgScalars, caps: Caps, fresh_state: bool = False,
+                        launch=None):
+    """The segment partitioned over the mesh's path axis on CUDA tensors:
+    ``csrc/frontier_segment.cu``'s shard kernel, one cooperative launch per
+    card over its block (each on that card's current stream, its launch
+    error checked per card), or ONE launch holding every block when the
+    blocks are logical shards of one card.  The arena, the planes and the
+    scalars stay on the leader (block 0's card), where the harvest reads
+    them; the outputs equal ``segment_cuda``'s on the gathered batch bit
+    for bit.  Nothing waits: the host reads no device value.  ``launch``
+    (the fault test only) launches those shards alone, one launch each,
+    so the others never reach the barrier."""
+    global partitioned_launches
+    from mythril_tpu_torch.ops import _build
+
+    if not all(d.type == "cuda" for d in state.devices):
+        raise ValueError("segment_partitioned takes CUDA tensors")
+    if len(set(state.devices)) not in (1, len(state.devices)):
+        raise ValueError("the partitioned segment takes logical shards of one card or one "
+                         "shard per card")
+    lib = _build.load()
+    if len(set(state.devices)) > 1:
+        enable_peer_access(state.devices)
+    launches, (st, arena, visited, out), keep = shard_args(
+        state, arena, arena_len, visited, code, cfg, caps, fresh_state,
+        one_launch=None if launch is None else False)
+    if launch is not None:
+        launches = [launches[k] for k in launch]
+    for d, args in launches:
+        with torch.cuda.device(d):
+            rc = lib.mk_frontier_segment_shards(ctypes.byref(args),
+                                                torch.cuda.current_stream(d).cuda_stream)
+        if rc == GRID_TOO_LARGE:
+            raise _build.KernelLaunchError(
+                f"frontier_segment_shards: {d} cannot hold {args.n_here} blocks of "
+                f"{args.Bs} paths resident; use a smaller frontier width")
+        _build.check(rc, f"frontier_segment_shards on {d}")
+        partitioned_launches += 1
+    del keep
+    return st, arena, out[0], out[1], out[2], visited
+
+
 @lru_cache(maxsize=16)
 def _cached(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int, loops_cap: int):
-    def segment(state: FrontierState, arena: ArenaDev, arena_len, visited, code: CodeDev,
+    def segment(state, arena: ArenaDev, arena_len, visited, code: CodeDev,
                 cfg: CfgScalars, fresh_state: bool = False):
+        if isinstance(state, ShardedState):
+            if state.blocks[0].pc.is_cuda:
+                return segment_partitioned(state, arena, arena_len, visited, code, cfg, caps,
+                                           fresh_state)
+            return segment_partitioned_torch(state, arena, arena_len, visited, code, cfg, caps)
         if state.pc.is_cuda:
             return segment_cuda(state, arena, arena_len, visited, code, cfg, caps, fresh_state)
         return segment_torch(state, arena, arena_len, visited, code, cfg, caps)
@@ -1022,9 +1457,12 @@ def cached_segment(caps: Caps, code_cap: int, instr_cap: int, addr_cap: int,
     """The segment for (caps, size bucket), with the JAX signature
     ``segment(state, arena, arena_len, visited, code, cfg) -> (state, arena,
     arena_len, n_exec, max_live, visited)``: the kernel on CUDA tensors, the
-    plain version on CPU tensors.  ``fresh_state=True`` (a chained
-    dispatch's merged state) lets the kernel take the state without a copy.
-    ``device=None`` means the CUDA card and raises ``NoCudaDevice`` without
+    plain version on CPU tensors.  For a mesh (a ``ShardedState``, from
+    ``push_state(..., devices=)`` or ``parallel.mesh.shard_frontier_inputs``)
+    it is the partitioned segment: ``segment_partitioned`` on CUDA blocks,
+    ``segment_partitioned_torch`` on CPU blocks.  ``fresh_state=True`` (a
+    chained dispatch's merged state) lets the kernel take the state without
+    a copy.  ``device=None`` means the CUDA card and raises ``NoCudaDevice`` without
     one; pass ``device="cpu"`` to run the plain version here."""
     _device.resolve(device)
     return _cached(caps, code_cap, instr_cap, addr_cap, loops_cap)
@@ -1065,11 +1503,22 @@ def upload(array: np.ndarray, device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
-def push_state(state: FrontierState, device=None) -> FrontierState:
+def push_state(state: FrontierState, device=None, devices=None):
     """Host numpy state -> tensors on ``device`` (the card unless "cpu"):
     one packed copy of the non-event fields, queued without a host wait
     (``upload``); the event buffers are made empty on the device (the
-    harvest drains them every segment)."""
+    harvest drains them every segment).  ``devices`` (a mesh's path axis,
+    more than one entry): a ``ShardedState``, slot block k pushed to
+    ``devices[k]`` the same way, on that device's current stream."""
+    if devices is not None and len(devices) > 1:
+        n = len(devices)
+        B = int(np.asarray(state.pc).shape[0])
+        if B % n:
+            raise ValueError(f"{B} slots do not split over {n} shards")
+        bs = B // n
+        return ShardedState([
+            push_state(FrontierState(*[np.asarray(f)[k * bs:(k + 1) * bs] for f in state]), d)
+            for k, d in enumerate(devices)])
     dev = _device.resolve(device)
     if any(np.asarray(f).dtype != np.int32 for f in state):
         raise ValueError("packed state transfer assumes uniform int32 fields")
@@ -1113,16 +1562,27 @@ def pull_harvest(state: FrontierState, arena_len, n_exec, max_live, prev=None, s
     time is stamped into the device plane's ``frontier.pull_device_s``
     series (CUDA events on the current stream, host clocks on the CPU;
     attributed to the caller's dispatch scope), and the stamps whose work
-    has completed are published here."""
-    stamp = _devplane.stamp_begin(state.pc.device)
+    has completed are published here.
+
+    A ``ShardedState`` (a partitioned mesh run) is pulled block by block,
+    each from its own device on that device's current stream, into the one
+    host mirror of the whole batch; the bytes counted are the same as for
+    the gathered batch.  A device fault the blocks' work left behind (a
+    partitioned segment whose barrier trapped) is raised here as a
+    ``DeviceError``."""
+    stamp = _devplane.stamp_begin(_state_devices(state))
     out = _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=prev, shards=shards)
     _devplane.stamp_end(stamp, "frontier.pull_device_s")
     _devplane.settle()
     return out
 
 
-def _scalars(state: FrontierState, arena_len, n_exec, max_live) -> torch.Tensor:
-    dev = state.pc.device
+def _state_devices(state) -> list:
+    return state.devices if isinstance(state, ShardedState) else [state.pc.device]
+
+
+def _scalars(state, arena_len, n_exec, max_live) -> torch.Tensor:
+    dev = _state_devices(state)[0]
     return torch.stack([torch.as_tensor(x, dtype=I32, device=dev).reshape(())
                         for x in (arena_len, n_exec, max_live)])
 
@@ -1143,23 +1603,40 @@ def _pack_meta_1d(state: FrontierState, arena_len, n_exec, max_live) -> torch.Te
                      + [_scalars(state, arena_len, n_exec, max_live)])
 
 
-def _gather_rows(state: FrontierState, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` of every 2-D field, concatenated flat (field order)."""
-    return torch.cat([f[idx].reshape(-1) for f in state if f.dim() == 2])
+def _meta_1d_host(state, arena_len, n_exec, max_live) -> np.ndarray:
+    """``_pack_meta_1d`` on the host; a sharded state's [B] fields come from
+    every block (one copy each), the scalars from the leader."""
+    if not isinstance(state, ShardedState):
+        return _pack_meta_1d(state, arena_len, n_exec, max_live).cpu().numpy()
+    parts = [torch.cat([f for f in b if f.dim() == 1]).cpu().numpy() for b in state.blocks]
+    n1 = sum(1 for f in state.blocks[0] if f.dim() == 1)
+    bs = state.block_width
+    fields = [np.concatenate([p[i * bs:(i + 1) * bs] for p in parts]) for i in range(n1)]
+    return np.concatenate(fields + [_scalars(state, arena_len, n_exec, max_live).cpu().numpy()])
 
 
-def _gather_events_rows(state: FrontierState, idx: torch.Tensor, cap: int) -> torch.Tensor:
-    return state.events[idx, :cap, :].reshape(-1)
+def _by_block(state, idx: np.ndarray, gather) -> np.ndarray:
+    """``gather(block, local rows)`` -> numpy, for the slots ``idx`` (sorted)
+    of a sharded state, each from its block's device, in ``idx``'s order;
+    the whole state's for a ``FrontierState``."""
+    if not isinstance(state, ShardedState):
+        return gather(state, torch.from_numpy(idx.astype(np.int64)).to(state.pc.device))
+    bs = state.block_width
+    out = []
+    for k, b in enumerate(state.blocks):
+        mine = idx[(idx >= k * bs) & (idx < (k + 1) * bs)] - k * bs
+        if mine.size:
+            out.append(gather(b, torch.from_numpy(mine.astype(np.int64)).to(b.pc.device)))
+    return np.concatenate(out, axis=0)
 
 
 def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev, shards: int = 1):
     from mythril_tpu_torch.frontier import pipeline
 
-    dev = state.pc.device
     B, EVT, EVW = np.asarray(prev.events).shape
     names_1d = [n for n, f in zip(prev._fields, prev) if np.asarray(f).ndim == 1]
     names_2d = [n for n, f in zip(prev._fields, prev) if np.asarray(f).ndim == 2]
-    buf = _pack_meta_1d(state, arena_len, n_exec, max_live).cpu().numpy()
+    buf = _meta_1d_host(state, arena_len, n_exec, max_live)
     fields, off = {}, 0
     for n in names_1d:
         fields[n] = buf[off: off + B].copy()
@@ -1179,17 +1656,21 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev, shards:
     for n in names_2d:
         fields[n] = np.asarray(getattr(prev, n)).copy()
     if idx.size:
+        # the rows padded to a bucket (the JAX package's gather width, which
+        # the byte counts follow); a sharded state's come from each block
         cap_n = _bucketed(idx.size, B)
+        widths = [fields[n].shape[1] for n in names_2d]
         pad = np.zeros(cap_n, np.int64)
         pad[: idx.size] = idx
-        rows = _gather_rows(state, torch.from_numpy(pad).to(dev)).cpu().numpy()
-        pulled_bytes += rows.nbytes
-        np.add.at(shard_bytes, idx * n_sh // B, rows.nbytes // cap_n)
+        rows = _by_block(state, pad if not isinstance(state, ShardedState) else idx,
+                         lambda b, i: torch.cat([f[i] for f in b if f.dim() == 2], 1).cpu().numpy())
+        row_bytes = cap_n * sum(widths) * 4
+        pulled_bytes += row_bytes
+        np.add.at(shard_bytes, idx * n_sh // B, row_bytes // cap_n)
         off2 = 0
-        for n in names_2d:
-            w = fields[n].shape[1]
-            fields[n][idx] = rows[off2: off2 + cap_n * w].reshape(cap_n, w)[: idx.size]
-            off2 += cap_n * w
+        for n, w in zip(names_2d, widths):
+            fields[n][idx] = rows[: idx.size, off2: off2 + w]
+            off2 += w
 
     events = np.full((B, EVT, EVW), -1, np.int32)
     ev_idx = np.nonzero(ev_len > 0)[0].astype(np.int32)
@@ -1198,11 +1679,12 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev, shards:
         cap_m = _bucketed(ev_idx.size, B)
         pad = np.zeros(cap_m, np.int64)
         pad[: ev_idx.size] = ev_idx
-        pulled = _gather_events_rows(state, torch.from_numpy(pad).to(dev), cap).cpu().numpy()
-        pulled = pulled.reshape(cap_m, cap, EVW)
+        pulled = _by_block(state, pad if not isinstance(state, ShardedState) else ev_idx,
+                           lambda b, i: b.events[i, :cap, :].cpu().numpy())
         events[ev_idx, :cap, :] = pulled[: ev_idx.size]
-        pulled_bytes += pulled.nbytes
-        np.add.at(shard_bytes, ev_idx * n_sh // B, pulled.nbytes // cap_m)
+        ev_bytes = cap_m * cap * EVW * 4
+        pulled_bytes += ev_bytes
+        np.add.at(shard_bytes, ev_idx * n_sh // B, ev_bytes // cap_m)
     fields["events"] = events
     pipeline.count("delta_pulls")
     pipeline.count("delta_pull_bytes", pulled_bytes)
@@ -1215,8 +1697,14 @@ def _pull_delta(state: FrontierState, arena_len, n_exec, max_live, prev, shards:
     return (FrontierState(**fields), *scalars)
 
 
-def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=None,
-                       shards: int = 1):
+def _pull_harvest_impl(state, arena_len, n_exec, max_live, prev=None, shards: int = 1):
+    if isinstance(state, ShardedState):
+        try:
+            if prev is not None:
+                return _pull_delta(state, arena_len, n_exec, max_live, prev, shards)
+            return _pull_full_sharded(state, arena_len, n_exec, max_live)
+        except torch.AcceleratorError as e:
+            raise _device.DeviceError(f"the partitioned segment failed on the card: {e}") from e
     if any(f.dtype != I32 for f in state):
         raise ValueError("packed state transfer assumes uniform int32 fields")
     if prev is not None:
@@ -1237,6 +1725,16 @@ def _pull_harvest_impl(state: FrontierState, arena_len, n_exec, max_live, prev=N
         events[:, :cap, :] = _pack_events(state, cap).cpu().numpy().reshape(B, cap, EVW)
     fields["events"] = events
     return FrontierState(**fields), int(buf[off]), int(buf[off + 1]), int(buf[off + 2])
+
+
+def _pull_full_sharded(state: ShardedState, arena_len, n_exec, max_live):
+    """The full pull of a sharded state: each block's, from its device (its
+    events in its own bucket: a slot's events past its ``ev_len`` are -1
+    either way)."""
+    parts = [_pull_harvest_impl(b, 0, 0, 0)[0] for b in state.blocks]
+    fields = {n: np.concatenate([getattr(p, n) for p in parts]) for n in FrontierState._fields}
+    scalars = _scalars(state, arena_len, n_exec, max_live).cpu().numpy()
+    return FrontierState(**fields), int(scalars[0]), int(scalars[1]), int(scalars[2])
 
 
 def _pack_arena_chunk(arena: ArenaDev, lo: int, chunk: int) -> torch.Tensor:
@@ -1333,15 +1831,29 @@ def chain_dispatch(segment, prev_out, host_state: FrontierState, corr_mask: np.n
     segment runs; everything is queued on the current stream, which must
     be the one the previous segment ran on.  The segment's device time is
     stamped into the device plane; ``segment_id`` (the runner's dispatch
-    id) only annotates the ``frontier.chain_merge`` span."""
+    id) only annotates the ``frontier.chain_merge`` span.  A sharded state
+    (a partitioned mesh run) merges each block on its own device, on that
+    device's current stream."""
     out_state, dev_arena, out_len, _n_exec, _max_live, visited = prev_out
-    dev = out_state.pc.device
     with _otrace.span("frontier.chain_merge", cat="device",
                       segment=segment_id):
-        corr = push_state(host_state, device=dev)
-        mask = upload(np.asarray(corr_mask, dtype=bool), dev)
-        merged = _merge_corrections(out_state, corr, mask)
-        stamp = _devplane.stamp_begin(dev)
+        if isinstance(out_state, ShardedState):
+            # each block's corrections merged on its own device
+            bs = out_state.block_width
+            merged = []
+            for k, b in enumerate(out_state.blocks):
+                rows = slice(k * bs, (k + 1) * bs)
+                corr = push_state(FrontierState(*[np.asarray(f)[rows] for f in host_state]),
+                                  device=b.pc.device)
+                mask = upload(np.asarray(corr_mask, dtype=bool)[rows], b.pc.device)
+                merged.append(_merge_corrections(b, corr, mask))
+            merged = ShardedState(merged)
+        else:
+            dev = out_state.pc.device
+            corr = push_state(host_state, device=dev)
+            mask = upload(np.asarray(corr_mask, dtype=bool), dev)
+            merged = _merge_corrections(out_state, corr, mask)
+        stamp = _devplane.stamp_begin(_state_devices(out_state))
         out = segment(merged, dev_arena, out_len, visited, code_dev, cfg, fresh_state=True)
         _devplane.stamp_end(stamp, "frontier.segment_device_s")
         return out

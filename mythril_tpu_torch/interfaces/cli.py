@@ -851,17 +851,27 @@ def screen(argv: Sequence[str]) -> List[str]:
 
 def check_frontier_width(parsed) -> None:
     """On the card, refuse a ``--frontier-width`` wider than the segment
-    kernel can launch, before anything runs; the CPU has no such limit."""
+    kernel can launch, before anything runs; the CPU has no such limit.
+    With the mesh on (no ``--no-mesh``) and several cards visible, the limit
+    is the mesh's: the partitioned segment's, the sum of the cards'."""
     if not parsed.frontier or parsed.device == "cpu":
         return
     from mythril_tpu_torch.device import resolve
     from mythril_tpu_torch.frontier.step import max_paths
+    from mythril_tpu_torch.parallel.mesh import mesh_devices
 
-    limit = max_paths(resolve(parsed.device))
+    device = resolve(parsed.device)
+    cards = mesh_devices(device) if getattr(parsed, "frontier_mesh", True) else [device]
+    if len(set(cards)) > 1:
+        limit = max_paths(device, devices=cards)
+        where = (f"these {len(set(cards))} cards run at most {limit} paths in one partitioned "
+                 "frontier segment (the sum of their resident cooperative grids)")
+    else:
+        limit = max_paths(device)
+        where = (f"this card runs at most {limit} paths in one frontier segment (its resident "
+                 "cooperative grid)")
     if parsed.frontier_width > limit:
-        raise Refused(
-            f"--frontier-width {parsed.frontier_width}: this card runs at most {limit} paths "
-            "in one frontier segment (its resident cooperative grid); use a smaller width")
+        raise Refused(f"--frontier-width {parsed.frontier_width}: {where}; use a smaller width")
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,10 @@ numbers come from:
   (``Event.query``, which does not wait) is published into
   ``frontier.segment_device_s`` / ``frontier.pull_device_s`` and their
   per-bucket ``_sum`` / ``_count`` series; one still in flight waits for
-  the next blocking point.  The plane adds no synchronisation and reads no
+  the next blocking point.  A partitioned segment over several cards is
+  stamped on every card's stream, and its ``frontier.segment_device_s`` is
+  the longest card's span (the segment ends with its last card); a pull of
+  its blocks likewise.  The plane adds no synchronisation and reads no
   device value on the host.  On the CPU the stamps are host clocks, as the
   JAX plane's are on a CPU backend.
 * **Analysis.**  There is no XLA cost analysis: ``device.flops_per_segment``
@@ -219,35 +222,55 @@ def observe_pull(seconds: float, tag: Optional[str] = None) -> None:
 
 
 class _Stamp:
-    """Two CUDA events (timing on) on one stream, or two host clocks."""
+    """Two CUDA events (timing on) on one stream of each card, or two host
+    clocks."""
 
-    __slots__ = ("base", "tag", "start", "end", "t0", "t1")
+    __slots__ = ("base", "tag", "start", "end", "t0", "t1", "devices")
 
     def __init__(self, device):
         import torch
 
+        devices = list(dict.fromkeys(device)) if isinstance(device, (list, tuple)) else [device]
         self.base = self.tag = None
         self.start = self.end = None
         self.t0 = self.t1 = None
-        if torch.device(device).type == "cuda":
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record()
+        self.devices = [torch.device(d) for d in devices]
+        if self.devices[0].type == "cuda":
+            self.start = []
+            for d in self.devices:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(d))
+                self.start.append(ev)
         else:
             self.t0 = time.perf_counter()
 
+    def record_end(self) -> None:
+        import torch
+
+        if self.start is not None:
+            self.end = []
+            for d in self.devices:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(d))
+                self.end.append(ev)
+        else:
+            self.t1 = time.perf_counter()
+
     def done(self) -> bool:
-        return self.end is None or self.end.query()
+        return self.end is None or all(e.query() for e in self.end)
 
     def seconds(self) -> float:
         if self.end is None:
             return self.t1 - self.t0
-        return self.start.elapsed_time(self.end) / 1000.0
+        return max(s.elapsed_time(e) for s, e in zip(self.start, self.end)) / 1000.0
 
 
 def stamp_begin(device) -> _Stamp:
     """Start timing work queued next on the current stream of ``device``
-    (a CUDA event recorded there), or on the host clock for the CPU."""
+    (a CUDA event recorded there), or on the host clock for the CPU.
+    ``device`` may be a list of cards (a partitioned segment's): an event
+    on each one's current stream, and the stamp is the longest card's
+    span, the segment's device time, which ends with its last card."""
     return _Stamp(device)
 
 
@@ -259,10 +282,7 @@ def stamp_end(stamp: _Stamp, base: str, tag: Optional[str] = None) -> None:
     t0 = time.perf_counter()
     stamp.base = base
     stamp.tag = tag or current_bucket() or _UNTAGGED
-    if stamp.end is not None:
-        stamp.end.record()
-    else:
-        stamp.t1 = time.perf_counter()
+    stamp.record_end()
     with _pending_lock:
         _pending.append(stamp)
     _overhead(t0)

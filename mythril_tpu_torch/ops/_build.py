@@ -239,6 +239,16 @@ def load() -> ctypes.CDLL:
             lib.mk_frontier_segment_shape.restype = ctypes.c_int
             lib.mk_frontier_max_paths.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.mk_frontier_max_paths.restype = ctypes.c_int
+            from mythril_tpu_torch.frontier.step import ShardArgs
+
+            lib.mk_frontier_segment_shards.argtypes = [ctypes.POINTER(ShardArgs), ctypes.c_void_p]
+            lib.mk_frontier_segment_shards.restype = ctypes.c_int
+            lib.mk_frontier_shard_max_paths.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.mk_frontier_shard_max_paths.restype = ctypes.c_int
+            lib.mk_frontier_enable_peers.argtypes = [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int)]
+            lib.mk_frontier_enable_peers.restype = ctypes.c_int
             from mythril_tpu_torch.absdomain.device import KbArgs
             from mythril_tpu_torch.devsolver.device import DpllArgs
 

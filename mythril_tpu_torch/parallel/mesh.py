@@ -17,12 +17,20 @@ process, and the work on it is placed by hand:
   shard's device, where ``parallel/probe.py`` launches the lowering kernel
   once per block; their truth comes back to the mesh's first device (the
   leader), where the small reductions run in plain torch;
-* the frontier segment runs once a dispatch on the leader over the whole
-  padded batch (``shard_frontier_inputs``): shard k is slot block k
-  (``slot_shard``), which the runner's injection, rebalance, pull
-  attribution and replay key work on, so the segment's outputs are the
-  unsharded ones bit for bit.  A segment partitioned across cards is later
-  work (ROADMAP).
+* the frontier state is partitioned over the path axis
+  (``shard_frontier_inputs``): shard k is slot block k (``slot_shard``),
+  a block of the state in allocations of its own on shard k's device (a
+  ``step.ShardedState``), which the runner's injection, rebalance, pull
+  attribution and replay key work on.  The arena, the coverage planes and
+  the code tables stay on the leader (the segment copies the tables to
+  each card).  The segment is the partitioned kernel
+  (``step.segment_partitioned``): one launch per card over its block,
+  the fork grant's ranks and free slots across cards on every step, a
+  child's row copied into another card's block, the cards meeting at a
+  barrier in the leader's memory (which needs peer access between every
+  pair: building the mesh raises and names ``--no-mesh`` without it); or,
+  for logical shards of one device, one launch holding every block.  Its
+  outputs are the unsharded segment's bit for bit, as GSPMD's are.
 
 A mesh may name one device several times: logical shards, the counterpart
 of XLA's forced host device count.  ``mesh_devices`` tells the engine and
@@ -93,7 +101,8 @@ def mesh_devices(device) -> List[torch.device]:
 class FrontierMesh:
     """A 2-D ``(path, cand)`` array of devices (``devices``, numpy object
     array), ``jax.sharding.Mesh``'s fields for the port: ``axis_names``,
-    ``shape`` (axis -> size), ``size``; ``leader`` is the first device."""
+    ``shape`` (axis -> size), ``size``; ``leader`` is the first device,
+    ``path_devices`` the path axis's."""
 
     def __init__(self, devices: np.ndarray):
         self.devices = devices
@@ -111,15 +120,28 @@ class FrontierMesh:
     def leader(self) -> torch.device:
         return self.devices.flat[0]
 
+    @property
+    def path_devices(self) -> List[torch.device]:
+        """The devices along the path axis (the first of each row): where
+        the frontier state's slot blocks live."""
+        return list(self.devices[:, 0])
+
 
 def make_frontier_mesh(devices: Optional[Sequence] = None,
                        path_size: Optional[int] = None) -> FrontierMesh:
     """Build the 2-D (path, cand) mesh over the given devices (default:
     ``mesh_devices`` of the card, every visible CUDA device; raises
-    ``NoCudaDevice`` without one)."""
+    ``NoCudaDevice`` without one).  Over several cards it turns on peer
+    access between every pair, which the partitioned segment needs, and
+    raises a ``DeviceError`` naming ``--no-mesh`` where a pair cannot
+    reach each other's memory."""
     devices = [torch.device(d) for d in (
         devices if devices is not None else mesh_devices(resolve(None)))]
     n = len(devices)
+    if len({d for d in devices if d.type == "cuda"}) > 1:
+        from mythril_tpu_torch.frontier.step import enable_peer_access
+
+        enable_peer_access(devices)
     if path_size is None:
         p, c = _factor_2d(n)
     else:
@@ -159,20 +181,24 @@ def shard_slots(b: int, n_shards: int) -> np.ndarray:
 
 def shard_frontier_inputs(state, arena_dev, visited, code_dev, mesh: FrontierMesh):
     """Place the segment's inputs for ``mesh``: the state (a host numpy
-    mirror, pushed with ``push_state``, or tensors), the arena,
-    the coverage planes and the code tables on the leader, where the one
-    segment launch of each dispatch runs over the whole padded batch (shard
-    k is slot block k).
-    Returns (state, arena_dev, visited, code_dev) re-placed; pass them to
-    the ordinary segment."""
+    mirror, pushed with ``push_state``, or tensors of the whole batch)
+    partitioned over the path axis, slot block k on the mesh's k-th device
+    (a ``ShardedState``); the arena, the coverage planes and the code
+    tables on the leader.  Returns (state, arena_dev, visited, code_dev);
+    pass them to the ordinary segment, which takes a ``ShardedState`` as
+    the partitioned segment."""
     from mythril_tpu_torch.frontier.state import FrontierState
-    from mythril_tpu_torch.frontier.step import push_state
+    from mythril_tpu_torch.frontier.step import ShardedState, push_state
 
     leader = mesh.leader
+    devices = mesh.path_devices
     if isinstance(state.pc, torch.Tensor):
-        state = FrontierState(*[f.to(leader) for f in state])
+        bs = shard_size(int(state.pc.shape[0]), len(devices))
+        state = ShardedState([FrontierState(*[f[k * bs:(k + 1) * bs].to(d, copy=True)
+                                              for f in state])
+                              for k, d in enumerate(devices)])
     else:
-        state = push_state(state, device=leader)
+        state = push_state(state, device=leader, devices=devices)
     arena_dev = type(arena_dev)(*[x.to(leader) for x in arena_dev])
     visited = torch.as_tensor(visited).to(leader)
     code_dev = type(code_dev)(*[x.to(leader) for x in code_dev])

@@ -12,8 +12,10 @@ the package name and by the named top-level functions, classes or methods
 (``Class.method``), which are the port's own (the rewrite keeps them; the
 check compares everything else).  ``SUBSTITUTED`` lists literal rewrites of
 a copy's prose (docstrings and comments that name the JAX package's
-runtime), applied before the check.  Every other port module of the engine
-is edited by hand.
+runtime), applied before the check.  ``OUTSIDE`` lists copies of files
+outside the JAX package (the port's test helpers), compared the same way
+with the package name renamed.  Every other port module of the engine is
+edited by hand.
 
     python3 scripts/torch_port_copy.py            # (re)write the copies
     python3 scripts/torch_port_copy.py --check    # exit 1 if a copy drifted
@@ -223,6 +225,14 @@ from mythril_tpu_torch.device import is_device_fault
     ),
 }
 
+# copies of files outside the JAX package: the port's path -> the original's,
+# both relative to the repo's root
+OUTSIDE = {
+    # bench_contracts.py's assembler and builders, hashing selectors with
+    # the port's keccak (chip_smoke.py loads nothing of the JAX package)
+    "tests/_torch_contracts.py": "bench_contracts.py",
+}
+
 _NAME = re.compile(r"\bmythril_tpu(?!_torch)\b")
 
 
@@ -284,6 +294,13 @@ def main(argv) -> int:
                 drifted.append(rel)
             continue
         dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text(text)
+    for rel, original in OUTSIDE.items():
+        text, dst = _NAME.sub("mythril_tpu_torch", (ROOT / original).read_text()), ROOT / rel
+        if check:
+            if not dst.is_file() or dst.read_text() != text:
+                drifted.append(rel)
+            continue
         dst.write_text(text)
     if drifted:
         print("drifted from the JAX package:", *drifted, sep="\n  ")

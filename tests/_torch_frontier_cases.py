@@ -488,6 +488,54 @@ def special_cases():
     return cases
 
 
+def partition_cases():
+    """name -> case for the segment partitioned over slot blocks (B = 8 as
+    2, 4 or 8 shards): what crosses blocks, one hazard at a time."""
+    out = {}
+    # every fork in the first half, the free slots in the second: each
+    # child lands in another shard's block (and, at 2 shards, the second
+    # shard starts with no live path)
+    case, pool = _jumpi_batch(60, 4, depths=[3, 1, 4, 1])
+    case["cfg"][5] = 3
+    out["child_in_another_block"] = finish(case)
+    # six forks in shards 0-2, two free slots in the last shard: the wanting
+    # paths outnumber the free slots across shards, the ranks decide (deep)
+    case, pool = _jumpi_batch(61, 6, depths=[5, 9, 1, 9, 3, 7], sel=1)
+    case["cfg"][5] = 2
+    out["scarcity_across_shards"] = finish(case)
+    # SEL_COVERAGE: the score reads the coverage planes, marked by every
+    # shard's paths in the same step, before the grant
+    case, pool = _jumpi_batch(62, 5, depths=[2, 2, 2, 2, 2], sel=3)
+    case["visited"][0, 0, CATALOG.index(next(i for i in CATALOG if i.opcode == "JUMPDEST"))] = True
+    case["cfg"][5] = 3
+    out["coverage_across_shards"] = finish(case)
+    # live paths in the last block only: the first shards have none (halted
+    # and free slots), their lanes still take part in every barrier
+    case, pool = base(63)
+    for b in range(4, 8):
+        occupy(case, pool, b, pc_of("JUMPI") if b % 2 else pc_of("ADD"),
+               [pool.sym[b % 6], pool.arena.const_row(pool.dests[b % 4])])
+    occupy(case, pool, 0, pc_of("ADD"), [pool.sym[0], pool.sym[1]])
+    case["state"].halt[0] = O.H_STOP
+    case["cfg"][5] = 4
+    out["shards_with_no_live_path"] = finish(case)
+    # the arena's stop: room for a few steps of every shard's paths, then
+    # the loop ends on the global count
+    case, pool = base(64, forks=True)
+    occupy(case, pool, 0, 0, [])
+    for b in (3, 5, 6):
+        occupy(case, pool, b, pc_of("ADD"), [pool.sym[b], pool.sym[b + 1]] * 3)
+    case["arena_len"] = CAPS.ARENA - 4 * CAPS.R * 5 - 1
+    out["arena_stop"] = finish(case)
+    # forks every fifth step from one path, its children's children in
+    # every shard's block, until the slots of every shard are taken
+    case, pool = base(65, forks=True)
+    occupy(case, pool, 2, 0, [])
+    case["cfg"][5] = CAPS.K
+    out["fork_rounds"] = finish(case)
+    return out
+
+
 def odd_shapes_case():
     """An arena larger than caps.ARENA (dead slots' rows land at row
     caps.ARENA), coverage planes for one code of two (code 1's marks drop)

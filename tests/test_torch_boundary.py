@@ -31,6 +31,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "mythril_tpu_torch"
 
@@ -301,3 +303,57 @@ def test_copied_modules_differ_from_the_jax_package_only_by_name():
     spec.loader.exec_module(copy)
     assert copy.main(["--check"]) == 0
     assert len(copy.COPIED) > 50
+
+
+_SERVICE_CHILD = r"""
+import importlib.abc, json, sys
+sys.modules["jax"] = None
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "mythril_tpu" or name.startswith("mythril_tpu."):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+
+codes = {name: chip_smoke.service_contract(name) for name, _tenant, _tier in
+         chip_smoke.SERVICE_SUBMISSIONS}
+print(json.dumps({"codes": codes,
+                  "modules": sorted(m for m, mod in sys.modules.items() if mod is not None)}))
+"""
+
+
+def test_chip_smoke_service_contracts_load_no_jax_package():
+    """``chip_smoke.py``'s ``service_contract``, which phase 8l calls for
+    every recorded submission, runs with ``jax`` and ``mythril_tpu`` blocked
+    on import and loads no module of the JAX package: the hand-assembled
+    contracts come from the port's copy of ``bench_contracts.py``
+    (``tests/_torch_contracts.py``), whose selectors hash with the port's
+    keccak."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVICE_CHILD, str(REPO)],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO.parent),
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    leaked = [m for m in got["modules"] if re.match(r"(mythril_tpu(?!_torch)|jax)(\.|$)", m)]
+    assert leaked == []
+    assert sorted(got["codes"]) == ["etherstore_like", "kill_simple", "rubixi_like"]
+    assert all(len(bytes.fromhex(code)) > 10 for code in got["codes"].values())
+
+
+@pytest.mark.parametrize("name", ["bectoken_like", "etherstore_like", "rubixi_like"])
+def test_copied_contract_builders_equal_bench_contracts(name):
+    """The port's copy of the three builders assembles the same bytes as
+    ``bench_contracts.py``, selectors included."""
+    import bench_contracts
+
+    from tests import _torch_contracts
+
+    assert getattr(_torch_contracts, name)() == getattr(bench_contracts, name)()
+    assert _torch_contracts.SEL_BATCH_TRANSFER == bench_contracts.SEL_BATCH_TRANSFER

@@ -22,6 +22,12 @@ kernel's own per-thread program with every thread of the block a coroutine
 run up to its next barrier, the last thread first, over poisoned state, so
 that a missing barrier shows; on seeded planes and the hand-built edge
 planes, at the kernel's block sizes and at odd ones.
+The partitioned frontier segment's shard executor runs each shard's loop
+(``run_segment``) as a coroutine up to its next barrier, the last shard
+first, with the cross-shard stores of the card's executor, on the cases of
+``tests/_torch_frontier_cases.py`` ``partition_cases`` at 2, 4 and 8 shards
+and on batches whose shards span several of the kernel's blocks; it must
+give the plain partitioned segment's outputs.
 The launch code in the ``.cu`` files runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -39,12 +45,15 @@ from mythril_tpu_torch.absdomain import domains as kb_domains
 from mythril_tpu_torch.absdomain import tape as kb_tape
 from mythril_tpu_torch.devsolver import device as dpll_device
 from mythril_tpu_torch.devsolver import kernel as dpll_kernel
+from mythril_tpu_torch.frontier import interop as finterop
+from mythril_tpu_torch.frontier import step as fstep
 from mythril_tpu_torch.ops import _build, keccak_torch
 from mythril_tpu_torch.ops import lowering as plow
 from mythril_tpu_torch.ops import tape_vm as ptape
 from mythril_tpu_torch.smt import concrete_eval as pce
 from mythril_tpu_torch.smt import terms
 from tests._torch_parity import _one_torch_thread  # noqa: E402,F401  (autouse fixture)
+from tests import _torch_frontier_cases as fcases
 from tests import _torch_lowering_cases as lcases
 from tests import _torch_tape_cases as cases
 from tests import _torch_tier_cases as tier_cases
@@ -75,6 +84,8 @@ def host_lib(tmp_path_factory):
     lib.mk_dpll_host.restype = ctypes.c_int
     lib.mk_lowering_host.argtypes = [ctypes.POINTER(plow.LowerArgs)]
     lib.mk_lowering_host.restype = ctypes.c_int
+    lib.mk_frontier_segment_shards_host.argtypes = [ctypes.POINTER(fstep.ShardArgs)]
+    lib.mk_frontier_segment_shards_host.restype = ctypes.c_int
     return lib
 
 
@@ -361,3 +372,59 @@ def test_host_lowering_matches_plain_on_recorded_dispatches(host_lib):
         assert bad == [], n
         assert torch.equal(got, want), n
         assert np.array_equal(got.numpy(), arrays[f"{n}_truth"]), n
+
+
+# ---------------------------------------------------------------------------
+# the partitioned frontier segment's shard executor
+# ---------------------------------------------------------------------------
+
+
+def _host_shards(lib, case, n):
+    """``case`` through the shard executor on ``n`` shards: the arguments
+    ``step.shard_args`` packs (one launch holding every shard), each
+    shard's loop a coroutine."""
+    from tests.test_torch_partition import shard
+
+    caps = case.get("caps", fcases.CAPS)
+    inputs = finterop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                        case["visited"], case["code"], case["cfg"], "cpu")
+    launches, (state, arena, visited, out), _keep = fstep.shard_args(
+        shard(inputs[0], n), *inputs[1:], caps)
+    assert len(launches) == 1 and launches[0][1].n_here == n
+    assert lib.mk_frontier_segment_shards_host(ctypes.byref(launches[0][1])) == 0
+    return finterop.outputs_to_numpy((state, arena, out[0], out[1], out[2], visited))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(fcases.partition_cases()))
+def test_host_shard_executor_matches_plain(host_lib, name, n):
+    from tests.test_torch_partition import PARTITION, run_partitioned, run_plain
+
+    case = PARTITION[name]
+    want = run_plain(case)
+    fcases.assert_same(_host_shards(host_lib, case, n), want)
+    if n == 2:
+        fcases.assert_same(run_partitioned(case, n), want)
+
+
+@pytest.mark.parametrize("B,n", [(258, 2), (1032, 4), (264, 8)])
+def test_host_shard_executor_blocks_of_several_kernel_blocks(host_lib, B, n):
+    """Shards of 129 or 258 slots (kernel blocks of 128 lanes, the last
+    partly past the shard) and of 33: the warp words of every shard's
+    blocks, the grant list's tiles and the children copied across shards."""
+    from tests.test_torch_partition import _children, run_plain
+
+    case = fcases.width_case(B, 1)
+    want = run_plain(case)
+    fcases.assert_same(_host_shards(host_lib, case, n), want)
+    assert any(p // (B // n) != c // (B // n) for p, c in _children(case, want))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_host_shard_executor_random_batches(host_lib, seed):
+    from tests.test_torch_partition import run_plain
+
+    case = fcases.random_case(800 + seed)
+    want = run_plain(case)
+    for n in (2, 8):
+        fcases.assert_same(_host_shards(host_lib, case, n), want)

@@ -746,3 +746,151 @@ def test_mesh_probe_and_pod_run_on_logical_shards_of_the_card(card):
     want = json.loads(RECORD.read_text())["runs"]["storage_gate/64"]["mesh"]
     assert run["summary"] == want["summary"]
     assert run["mesh_devices"] == run["mesh_shards"] == 4 and run["segments_pipelined"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the frontier segment partitioned over slot blocks
+# ---------------------------------------------------------------------------
+
+
+def _partition_inputs(case, device):
+    from mythril_tpu_torch.frontier import interop
+
+    return interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                     case["visited"], case["code"], case["cfg"], device)
+
+
+def _blocks(state, devices):
+    """The whole batch's tensors cut into one block per entry of
+    ``devices``, block k on ``devices[k]``."""
+    from mythril_tpu_torch.frontier import step
+    from mythril_tpu_torch.frontier.state import FrontierState
+
+    bs = state.pc.shape[0] // len(devices)
+    return step.ShardedState([FrontierState(*[f[k * bs:(k + 1) * bs].to(d, copy=True)
+                                              for f in state]) for k, d in enumerate(devices)])
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_partition_kernel_matches_plain_on_logical_shards(card, n):
+    """Every partition case on n logical shards of the card: one launch of
+    the shard kernel, bit-identical to the unsharded launch and to the plain
+    partitioned version on the CPU."""
+    from mythril_tpu_torch.frontier import interop, step
+    from tests import _torch_frontier_cases as fcases
+
+    for name, case in sorted(fcases.partition_cases().items()):
+        inputs = _partition_inputs(case, card)
+        before = step.partitioned_launches
+        got = interop.outputs_to_numpy(step.segment_partitioned(
+            _blocks(inputs[0], [card] * n), *inputs[1:], fcases.CAPS))
+        assert step.partitioned_launches == before + 1, name
+        single = interop.outputs_to_numpy(step.segment_cuda(*inputs, fcases.CAPS))
+        cpu = _partition_inputs(case, "cpu")
+        plain = interop.outputs_to_numpy(step.segment_partitioned_torch(
+            _blocks(cpu[0], ["cpu"] * n), *cpu[1:], fcases.CAPS))
+        for want in (single, plain):
+            fcases.assert_same(got, want)
+
+
+def test_partition_kernel_blocks_of_several_kernel_blocks(card):
+    """Two and four shards whose blocks span several blocks of 128 lanes
+    (the last partly past the shard), forks filling every shard."""
+    from mythril_tpu_torch.frontier import interop, step
+    from tests import _torch_frontier_cases as fcases
+
+    for B, n in ((258, 2), (1032, 4), (4104, 8)):
+        case = fcases.width_case(B, 2)
+        inputs = _partition_inputs(case, card)
+        got = interop.outputs_to_numpy(step.segment_partitioned(
+            _blocks(inputs[0], [card] * n), *inputs[1:], case["caps"]))
+        fcases.assert_same(got, interop.outputs_to_numpy(step.segment_cuda(*inputs, case["caps"])))
+
+
+def test_partition_kernel_over_every_card(card):
+    """One launch per card, each over its own block, meeting at the
+    leader's barrier: bit-identical to the plain version."""
+    from mythril_tpu_torch.frontier import interop, step
+    from tests import _torch_frontier_cases as fcases
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs several cards")
+    n = max(k for k in (2, 4, 8) if k <= cards)
+    devices = [torch.device("cuda", k) for k in range(n)]
+    for name, case in sorted(fcases.partition_cases().items()):
+        inputs = _partition_inputs(case, devices[0])
+        before = step.partitioned_launches
+        got = interop.outputs_to_numpy(step.segment_partitioned(
+            _blocks(inputs[0], devices), *inputs[1:], fcases.CAPS))
+        assert step.partitioned_launches == before + n, name
+        cpu = _partition_inputs(case, "cpu")
+        fcases.assert_same(got, interop.outputs_to_numpy(step.segment_partitioned_torch(
+            _blocks(cpu[0], ["cpu"] * n), *cpu[1:], fcases.CAPS)))
+
+
+def test_partition_width_beyond_one_card_runs_on_the_mesh(card):
+    """A --frontier-width one card refuses passes the width check with the
+    mesh of every card, and is refused with --no-mesh."""
+    import types
+
+    from mythril_tpu_torch.frontier import step
+    from mythril_tpu_torch.interfaces import cli
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs several cards")
+    wide = 2 * step.max_paths(card)
+    cli.check_frontier_width(types.SimpleNamespace(
+        frontier=True, device=None, frontier_mesh=True, frontier_width=wide))
+    with pytest.raises(cli.Refused, match="at most"):
+        cli.check_frontier_width(types.SimpleNamespace(
+            frontier=True, device=None, frontier_mesh=False, frontier_width=wide))
+
+
+_PARTITION_TRAP = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from mythril_tpu_torch.device import DeviceError
+from mythril_tpu_torch.frontier import interop, step
+from mythril_tpu_torch.frontier.state import FrontierState
+from tests import _torch_frontier_cases as fcases
+
+step.BARRIER_TIMEOUT_S = float(sys.argv[2])
+case = fcases.partition_cases()["child_in_another_block"]
+inputs = interop.inputs_from_numpy(case["state"], case["arena"], case["arena_len"],
+                                   case["visited"], case["code"], case["cfg"], "cuda")
+bs = fcases.CAPS.B // 2
+blocks = step.ShardedState([FrontierState(*[f[k * bs:(k + 1) * bs].clone() for f in inputs[0]])
+                            for k in range(2)])
+# shard 0 launched alone, as one of two launches: shard 1 never reaches the barrier
+out = step.segment_partitioned(blocks, *inputs[1:], fcases.CAPS, launch=[0])
+try:
+    step.pull_harvest(out[0], out[2], out[3], out[4])
+    print(json.dumps({"raised": None}))
+except DeviceError as e:
+    print(json.dumps({"raised": type(e).__name__, "message": str(e)[:400]}))
+"""
+
+
+def test_partition_barrier_traps_when_a_shard_is_missing(card):
+    """A partitioned segment whose other shard never arrives: the launched
+    shard waits at the barrier for ``BARRIER_TIMEOUT_S``, traps, and the
+    pull raises a ``DeviceError`` naming the failure, instead of hanging
+    (a subprocess: the trap ends the process's CUDA context)."""
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _PARTITION_TRAP, str(repo), "2.0"],
+                         capture_output=True, text=True, timeout=300, cwd=str(repo))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert lines, out.stderr[-3000:]
+    got = json.loads(lines[-1])
+    assert got["raised"] == "DeviceError", got
+    assert "partitioned segment failed" in got["message"]
+    assert wall < 240

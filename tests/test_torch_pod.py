@@ -239,9 +239,10 @@ def test_ledger_exactly_once_spill_reinject():
 def test_frontier_segment_shards_over_path_axis():
     """``__graft_entry__._frontier_example(8)`` (one path per device), the
     JAX package's segment on its 8-device mesh, converted to the port's
-    state: the port's mesh segment (one launch on the mesh's first device
-    over the whole batch), its unsharded segment and the JAX segment agree
-    field by field, and the arena length and step count too."""
+    state: the port's mesh segment (the partitioned segment over the
+    blocks ``shard_frontier_inputs`` places, one per logical shard), its
+    unsharded segment and the JAX segment agree field by field, and the
+    arena length and step count too."""
     import jax
 
     import __graft_entry__ as graft
@@ -272,6 +273,7 @@ def test_frontier_segment_shards_over_path_axis():
         mesh = make_frontier_mesh(mesh_devices("cpu"), path_size=N_DEV)
         pst, parena, pvis, pcode = shard_frontier_inputs(
             st, inputs[1], visited, inputs[4], mesh)
+        assert len(pst.blocks) == N_DEV
         sharded = interop.outputs_to_numpy(
             port_segment(pst, parena, int(arena_len), pvis, pcode, inputs[5]))
     assert mesh.shape == {"path": N_DEV, "cand": 1}
